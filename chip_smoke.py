@@ -8,8 +8,8 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each on its own lines; any failure raises, so the exit code is
 not 0:
   1. device: `nvidia-smi` name and power limit, torch's device name;
-  2. build: nvcc builds the serving path's kernel from tpukit_torch/csrc
-     (seconds and the ptxas register/shared-memory report);
+  2. build: nvcc builds every kernel source of tpukit_torch/csrc, all at
+     once (seconds and the ptxas register/shared-memory report);
   3. kernel vs plain: the paged-attention kernel against its plain PyTorch
      version, element by element, at the shapes phase 4's serving config
      gives it (16 slots, 12 heads x 64, pages of 16, a 320-position
@@ -21,6 +21,23 @@ not 0:
      kernel's launch count must equal layers x decode ticks;
   5. fused vs unfused: the same stream at f32 compute (4 layers) gives the
      same greedy tokens both ways, and int8 pages agree on >= 90% of them;
+  6. training kernels vs plain: flash attention forward and backward at
+     64 x 12 x 512 x 64 (and S = 2048), fused head + CE forward and backward
+     at 32768 tokens x 768 x vocab 50257, bf16 and f32, with and without a
+     pad mask, each against its plain version (the CE backward under O(1)
+     cotangents, each of its two terms alone, with a negative control);
+     device times (CUDA graph), call, plain and SDPA times, and the least
+     time the card could take; then the attention crossover: the eager
+     "xla" path against the flash kernels at S = 128 ... 1024;
+  7. train step at full width: the gpt-small-dim768 rung (batch 64, S 512,
+     bf16), 8 steps; the loss falls on a repeated batch, and each step
+     launches the flash kernels 12 + 12 + 12 times and the CE kernels once
+     each;
+  8. the train step through the kernels equals the step through the plain
+     versions (f32, 2 layers, 4 steps);
+  9. recipe 1 end to end at GPT-2-small width on the fixture corpus
+     (`--sequence_length 512`, so S = 511 in front of the attention):
+     trains, evaluates, samples through the paged kernel, checkpoints;
 then one JSON line of kernel results and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
@@ -31,25 +48,65 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from tpukit_torch import resolve_device
 from tpukit_torch.ops import _cuda
+from tpukit_torch.ops.attention import causal_attention
+from tpukit_torch.ops import flash_attention as fa
+from tpukit_torch.ops import fused_head_ce as fce
 from tpukit_torch.ops import paged_attention as pa
 from tpukit_torch.ops import quant_comm
+from tpukit_torch import checkpoint as ckpt_lib
+from tpukit_torch.recipes import single
+from tpukit_torch.recipes.profile import (
+    BATCH,
+    GPT2_SMALL_TRAIN,
+    SEQ,
+    build_train,
+    synthetic_batch,
+)
 from tpukit_torch.serve.engine import ServeEngine
 from tpukit_torch.serve.profile import build
+from tpukit_torch.model import init_params
+from tpukit_torch.shardings import SingleDevice, leaves, unflatten
+from tpukit_torch.train import create_train_state, to_device, train_step
 
+ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 non-tensor, bf16 dense
-KERNEL = "paged_attention"  # the one csrc source on the serving path
+KERNEL = "paged_attention"  # the serving path's csrc source
+SOURCES = ("paged_attention", "flash_attention", "fused_head_ce")  # every csrc source
 F32_ATOL = 1e-5  # f32 compute: the kernel and the plain version sum in different orders
 DIFF_SHARE = 0.01  # bf16 compute: most outputs must be bit-equal (see check_kernel)
+# Training kernels against their plain versions (phase 6), as (atol, rtol,
+# share of the row's largest |value|). f32: tpukit's CPU bars
+# (tests/test_flash_attention.py:38,70; tests/test_fused_head_ce.py:41,61),
+# except the CE gradients. tpukit's atol 2e-6 there is sized for the mean
+# loss's cotangents (1/count); phase 6 holds them under O(1) cotangents, so
+# gradients thousands of times larger, where f32 sums of 4096 (dW) or
+# 50304 (dH) terms in another order differ by ~sqrt(K) 2^-24 of the row's
+# scale. Their bar is 2^-12 of the row's largest |value|: ~4x over the
+# worst element such a walk gives, and 7x (dW) to 800x (dH) tighter,
+# relative to the gradient, than 2e-6 at the mean loss's scale. bf16: the
+# online softmax rounds each tile's probabilities against the running
+# maximum and the plain version against the row's maximum, and a rounded
+# dS or d may land an ulp apart where the two f32 sums straddle a rounding
+# boundary; each element within 2^-6 (two bf16 ulps at the top of the
+# binade) of the largest |value| of its row.
+FLASH_FWD_TOL = (2e-5, 1e-4, 0.0)
+FLASH_GRAD_TOL = (5e-4, 1e-3, 0.0)
+CE_LSE_TOL = (1e-5, 1e-5, 0.0)
+CE_GRAD_TOL = (0.0, 1e-5, 2.0**-12)
+BF16_ROW_SHARE = 2.0**-6
 
 
 def phase(name: str) -> None:
@@ -223,6 +280,465 @@ def check_kernel(dev, shape: dict) -> dict:
     return main
 
 
+def build_all() -> None:
+    """Build every csrc source at once, one nvcc each, and print each
+    build's time and ptxas register/shared-memory report."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        reports = dict(zip(SOURCES, pool.map(_cuda.build, SOURCES)))
+    for name, rep in reports.items():
+        print(f"{name}: built in {rep['seconds']:.1f} s"
+              f"{' (cached)' if rep['cached'] else ''} -> {rep['path']}")
+        for line in rep["log"].splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print("  " + line.strip())
+    print(f"all sources built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def worst_ratio(got, ref, f32_tol, dtype) -> tuple[float, float]:
+    """(max abs error, worst error/tolerance) of `got` against `ref`,
+    element by element. f32: atol + rtol |ref| + share of the largest |ref|
+    of the element's last-dim row (`f32_tol`). bf16: BF16_ROW_SHARE of
+    that largest |ref|. Past a zero atol no absolute floor is left, so a
+    row that is 0 in the plain version must be 0 in the kernel too."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    top = r.abs().amax(-1, keepdim=True)
+    if dtype == torch.float32:
+        atol, rtol, share = f32_tol
+        tol = atol + rtol * r.abs() + share * top
+    else:
+        tol = BF16_ROW_SHARE * top
+    ratio = torch.where(diff == 0, 0.0, diff / tol)
+    return diff.max().item(), ratio.max().item()
+
+
+def hold(what: str, got, ref, f32_tol, dtype) -> float:
+    """`worst_ratio` within 1; returns the max abs error, raises past the
+    bar."""
+    err, worst = worst_ratio(got, ref, f32_tol, dtype)
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version, max_abs_err "
+                             f"{err:.3e}, worst err/tolerance {worst:.3e}")
+    return err
+
+
+def _bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bounds(b, h, s, d, dtype, masked) -> dict:
+    """Least times of the forward and of the backward on these shapes: each
+    input read once, each output written once (the backward's D = rowsum(dO
+    O) is its input), against the products the causal half needs (forward
+    QK^T and PV; backward QK^T, dO V^T, P^T dO, dS^T Q, dS K), 2 flops a
+    multiply-add, over the dtype's peak."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    t, rows = b * h * s * d * it, b * h * s * 4
+    bias = b * s * 4 if masked else 0
+    pairs = b * h * d * s * (s + 1) / 2
+    return dict(forward=_bound(4 * t + rows + bias, 2 * 2 * pairs, dtype),
+                backward=_bound(7 * t + 2 * rows + bias, 5 * 2 * pairs, dtype))
+
+
+def ce_bounds(n, dim, v_pad, dtype) -> dict:
+    """Least times of the forward kernel (h, W in h's dtype and the targets
+    in; lse, target logit and argmax out; the head product) and of the
+    backward kernels (h, W, the targets, lse and both cotangents in; dH in
+    h's dtype and dW f32 out; the head product again plus the dH and dW
+    products)."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    h_b, w_b, prod = n * dim * it, dim * v_pad * it, 2 * n * dim * v_pad
+    return dict(forward=_bound(h_b + w_b + 4 * n + 12 * n, prod, dtype),
+                backward=_bound(2 * h_b + w_b + dim * v_pad * 4 + 16 * n, 3 * prod, dtype))
+
+
+def flash_inputs(dev, b, h, s, d, dtype, masked, seed):
+    """q, k, v, dO from a seed; with `masked`, trailing padding of seeded
+    length on every row and one row fully padded."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda: torch.randn((b, h, s, d), generator=g, device=dev).to(dtype)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    mask = None
+    if masked:
+        lens = torch.randint(s // 4, s + 1, (b,), generator=g, device=dev)
+        mask = torch.arange(s, device=dev)[None, :] >= lens[:, None]
+        mask[-1] = True
+    return q, k, v, do, mask
+
+
+def check_flash(dev, b, h, s, d, dtype, masked, timed=False) -> dict:
+    """Forward (out, lse) and backward (dq, dk, dv) kernels against the plain
+    version on the same inputs; the backward gets the kernel's out and lse
+    on both sides. With `timed`, device and call times too."""
+    q, k, v, do, mask = flash_inputs(dev, b, h, s, d, dtype, masked, seed=s + b)
+    scale = d**-0.5
+    bias = fa.pad_bias(mask, b, s, dev)
+    out, lse = fa._forward_cuda(q, k, v, bias, scale)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, bias, scale)
+    grads = fa._backward_cuda(q, k, v, bias, out, lse, do, scale)
+    ref_grads = fa.flash_backward_reference(q, k, v, bias, out, lse, do, scale)
+    torch.cuda.synchronize()
+    tag = f"flash B{b} H{h} S{s} D{d} {str(dtype)[6:]}{' mask' if masked else ''}"
+    err = hold(f"{tag} out", out, ref_out, FLASH_FWD_TOL, dtype)
+    hold(f"{tag} lse", lse, ref_lse, FLASH_FWD_TOL, torch.float32)
+    g_err = max(hold(f"{tag} d{n}", gg, rr, FLASH_GRAD_TOL, dtype)
+                for n, gg, rr in zip("qkv", grads, ref_grads))
+    res = dict(fwd_err=err, bwd_err=g_err)
+    top = ", ".join(f"{n} {t.float().abs().max().item():.3e}"
+                    for n, t in zip(("out", "dq", "dk", "dv"), (ref_out, *ref_grads)))
+    line = (f"{tag}: forward max_abs_err {err:.3e}, backward {g_err:.3e} (largest "
+            f"|plain| {top})")
+    if timed:
+        lib = _cuda.load("flash_attention", fa._SIGNATURES)
+        stream = lambda: torch.cuda.current_stream().cuda_stream
+        q_s = fa.prescale(q, scale)
+        dcap = (do.float() * out.float()).sum(-1)
+        o_b, l_b = torch.empty_like(q), torch.empty_like(lse)
+        dq_b, dk_b, dv_b = (torch.empty_like(q) for _ in range(3))
+        res.update(
+            fwd_ms=graph_ms(lambda: fa.launch_forward(lib, q_s, k, v, bias, o_b, l_b,
+                                                      stream()), 20),
+            fwd_call_ms=time_ms(lambda: fa._forward_cuda(q, k, v, bias, scale), 20),
+            fwd_plain_ms=time_ms(lambda: fa.flash_forward_reference(q, k, v, bias, scale), 5),
+            bwd_ms=graph_ms(lambda: fa.launch_backward(lib, q_s, k, v, bias, do, lse, dcap,
+                                                       dq_b, dk_b, dv_b, scale, stream()), 10),
+            bwd_call_ms=time_ms(lambda: fa._backward_cuda(q, k, v, bias, out, lse, do, scale),
+                                10),
+            bwd_plain_ms=time_ms(lambda: fa.flash_backward_reference(q, k, v, bias, out, lse,
+                                                                     do, scale), 5),
+        )
+        # the library yardstick: SDPA causal, no pad mask (it takes is_causal
+        # or a mask, not both); timed here only, never called by the port
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        res["fwd_library_ms"] = time_ms(lambda: sdpa(q, k, v, is_causal=True), 20)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        o_g = sdpa(qg, kg, vg, is_causal=True)
+        res["bwd_library_ms"] = time_ms(
+            lambda: torch.autograd.grad(o_g, (qg, kg, vg), do, retain_graph=True), 10)
+        bounds = flash_bounds(b, h, s, d, dtype, masked)
+        res.update(fwd_bound=bounds["forward"], bwd_bound=bounds["backward"])
+        line += (f"; forward device {res['fwd_ms']:.4f} ms (CUDA graph), call "
+                 f"{res['fwd_call_ms']:.4f}, plain {res['fwd_plain_ms']:.4f}, SDPA "
+                 f"{res['fwd_library_ms']:.4f}, bound {bounds['forward'][0]:.4f} ms "
+                 f"({bounds['forward'][1]}); backward device {res['bwd_ms']:.4f} ms, call "
+                 f"{res['bwd_call_ms']:.4f}, plain {res['bwd_plain_ms']:.4f}, SDPA "
+                 f"{res['bwd_library_ms']:.4f}, bound {bounds['backward'][0]:.4f} ms "
+                 f"({bounds['backward'][1]})")
+    print(line, flush=True)
+    return res
+
+
+def ce_inputs(dev, n, dim, vocab, dtype, seed):
+    """Post-LayerNorm-scale hidden states, a head kernel at tpukit's init
+    scale, seeded targets with every 8th row ignored."""
+    v_pad = -(-vocab // 128) * 128
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((n, dim), generator=g, device=dev).to(dtype)
+    bound = dim**-0.5
+    w = (torch.rand((dim, v_pad), generator=g, device=dev) * 2 - 1) * bound
+    tgt = torch.randint(0, vocab, (n,), generator=g, device=dev, dtype=torch.int32)
+    tgt[::8] = -100
+    return h, w, tgt
+
+
+def ce_cotangents(dev, tgt, seed) -> dict:
+    """Cotangents of (lse, target logit) for holding the CE backward, all
+    O(1) and 0 on ignored rows. d = p * g_lse + onehot * g_tgt is linear in
+    them, so each term is held alone as well as in the loss's mix: beside
+    the target term, which is ~1e3 times larger at this vocab, a dH or dW
+    without the softmax term would sit inside a row-relative bar.
+      softmax: g_lse seeded randn, g_tgt 0;
+      target:  g_lse 0, g_tgt seeded randn;
+      loss:    the mean loss's cotangents times the count (g_lse 1,
+               g_tgt -1)."""
+    valid = (tgt != -100).float()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r1 = torch.randn(valid.shape, generator=g, device=dev) * valid
+    r2 = torch.randn(valid.shape, generator=g, device=dev) * valid
+    zero = torch.zeros_like(valid)
+    return {"softmax": (r1, zero), "target": (zero, r2), "loss": (valid, -valid)}
+
+
+def check_ce(dev, n, dim, vocab, dtype, timed=False) -> dict:
+    """Forward (lse, target logit, argmax) and backward (dH, dW) kernels
+    against the plain version on the same inputs; the backward under each
+    set of `ce_cotangents`. Negative control: under the softmax set, the
+    kernel with g_lse zeroed, which is what a kernel that drops the
+    p * g_lse term computes, must fail the same bar (and likewise the
+    target term under the target set)."""
+    h, w, tgt = ce_inputs(dev, n, dim, vocab, dtype, seed=n)
+    terms = fce._forward_cuda(h, w, tgt, vocab, True)
+    ref = fce.head_terms_reference(h, w, tgt, vocab, True)
+    terms_no_argmax = fce._forward_cuda(h, w, tgt, vocab, False)
+    torch.cuda.synchronize()
+    tag = f"fused_head_ce N{n} dim{dim} vocab{vocab} {str(dtype)[6:]}"
+    err = hold(f"{tag} lse", terms[0], ref[0], CE_LSE_TOL, torch.float32)
+    err = max(err, hold(f"{tag} target logit", terms[1], ref[1], CE_LSE_TOL, torch.float32))
+    if not (torch.equal(terms_no_argmax[0], terms[0]) and torch.equal(terms_no_argmax[1],
+                                                                      terms[1])):
+        raise AssertionError(f"{tag}: the forward without argmax gives other lse/logits")
+    # argmax: equal, or a near tie of the plain version's own logits
+    logits = fce._logits(h, w, vocab)
+    rows = torch.nonzero(terms[2] != ref[2])[:, 0]
+    gap = (logits[rows, ref[2][rows].long()] - logits[rows, terms[2][rows].long()]).abs()
+    if len(rows) and gap.max().item() > 1e-4:
+        raise AssertionError(f"{tag}: argmax differs on {len(rows)} rows beyond near ties")
+    del logits
+    g_err, notes = 0.0, []
+    cotangents = ce_cotangents(dev, tgt, seed=n + 1)
+    for name, (g_lse, g_tgt) in cotangents.items():
+        dh, dw = fce._backward_cuda(h, w, tgt, terms[0], g_lse, g_tgt, vocab)
+        ref_dh, ref_dw = fce.head_terms_backward_reference(h, w, tgt, terms[0], g_lse, g_tgt,
+                                                           vocab)
+        torch.cuda.synchronize()
+        e_dh = hold(f"{tag} dh ({name})", dh, ref_dh, CE_GRAD_TOL, dtype)
+        e_dw = hold(f"{tag} dw ({name})", dw, ref_dw, CE_GRAD_TOL, dtype)
+        g_err = max(g_err, e_dh, e_dw)
+        note = (f"{name}: dh {e_dh:.3e} (largest |plain| {ref_dh.float().abs().max().item():.3e}"
+                f"), dw {e_dw:.3e} ({ref_dw.abs().max().item():.3e})")
+        if name in ("softmax", "target"):
+            dropped = (torch.zeros_like(g_lse), g_tgt) if name == "softmax" else (
+                g_lse, torch.zeros_like(g_tgt))
+            bad_dh, bad_dw = fce._backward_cuda(h, w, tgt, terms[0], *dropped, vocab)
+            seen = [worst_ratio(bad, good, CE_GRAD_TOL, dtype)[1]
+                    for bad, good in ((bad_dh, ref_dh), (bad_dw, ref_dw))]
+            if not min(seen) > 1.0:
+                raise AssertionError(f"{tag}: the bar cannot see a CE backward without its "
+                                     f"{name} term (err/tolerance dh {seen[0]}, dw {seen[1]})")
+            note += f"; without the {name} term err/tolerance dh {seen[0]:.3e}, dw {seen[1]:.3e}"
+        notes.append(note)
+    g_lse, g_tgt = cotangents["loss"]  # the main path's mix, for the timings
+    res = dict(fwd_err=err, bwd_err=g_err)
+    line = (f"{tag}: forward max_abs_err {err:.3e} (argmax equal on {n - len(rows)}/{n} "
+            f"rows, the rest near ties); backward max_abs_err, O(1) cotangents: "
+            + "; ".join(notes))
+    if timed:
+        lib = _cuda.load("fused_head_ce", fce._SIGNATURES)
+        stream = lambda: torch.cuda.current_stream().cuda_stream
+        w_c = w.to(dtype)  # the kernels' W, rounded to h's dtype by the wrapper
+        bufs = [torch.empty_like(terms[0]), torch.empty_like(terms[1]),
+                torch.empty_like(terms[2])]
+        dh_b, dw_b = torch.empty_like(dh), torch.empty_like(dw)
+        res.update(
+            fwd_ms=graph_ms(lambda: fce.launch_forward(lib, h, w_c, tgt, *bufs, vocab, False,
+                                                       stream()), 5, replays=3),
+            fwd_call_ms=time_ms(lambda: fce._forward_cuda(h, w, tgt, vocab, False), 5),
+            fwd_argmax_ms=graph_ms(lambda: fce.launch_forward(lib, h, w_c, tgt, *bufs, vocab,
+                                                              True, stream()), 5, replays=3),
+            fwd_plain_ms=time_ms(lambda: fce.head_terms_reference(h, w, tgt, vocab, False), 3),
+            bwd_ms=graph_ms(lambda: fce.launch_backward(lib, h, w_c, tgt, terms[0], g_lse, g_tgt,
+                                                        dh_b, dw_b, vocab, stream()), 3,
+                            replays=3),
+            bwd_call_ms=time_ms(lambda: fce._backward_cuda(h, w, tgt, terms[0], g_lse, g_tgt,
+                                                           vocab), 5),
+            bwd_plain_ms=time_ms(lambda: fce.head_terms_backward_reference(
+                h, w, tgt, terms[0], g_lse, g_tgt, vocab), 3),
+        )
+        # two PyTorch calls, not one: no single call does head + CE without
+        # logits, so library_ms stays null; this is printed only
+        ce = torch.nn.functional.cross_entropy
+        two = time_ms(lambda: ce(torch.matmul(h, w.to(dtype)).float(), tgt.long(),
+                                 ignore_index=-100), 3)
+        bounds = ce_bounds(n, dim, w.shape[1], dtype)
+        res.update(fwd_bound=bounds["forward"], bwd_bound=bounds["backward"])
+        line += (f"; forward device {res['fwd_ms']:.3f} ms (CUDA graph; "
+                 f"{res['fwd_argmax_ms']:.3f} with argmax), call {res['fwd_call_ms']:.3f}, "
+                 f"plain {res['fwd_plain_ms']:.3f}, bound {bounds['forward'][0]:.4f} ms "
+                 f"({bounds['forward'][1]}); backward device {res['bwd_ms']:.3f} ms, call "
+                 f"{res['bwd_call_ms']:.3f}, plain {res['bwd_plain_ms']:.3f}, bound "
+                 f"{bounds['backward'][0]:.4f} ms ({bounds['backward'][1]}); matmul + "
+                 f"F.cross_entropy (two calls, forward only) {two:.3f} ms")
+    print(line, flush=True)
+    return res
+
+
+def check_training_kernels(dev) -> dict:
+    """Phase 6: every training kernel against its plain version at the
+    slice's shapes, bf16 and f32, with and without a pad mask, the flash
+    kernels also at the recipe's S = 511 (a ragged last tile) and at S = 2048
+    (several key tiles: the long-sequence gradients tpukit's split backward
+    computes), at the gpt-small-dim768 rung's shapes
+    (`recipes/profile.py`). Returns the timed main-path runs."""
+    g = GPT2_SMALL_TRAIN
+    b, s, hh, d = BATCH, SEQ, g["heads"], g["head_dim"]
+    main = {"flash": check_flash(dev, b, hh, s, d, torch.bfloat16, True, timed=True)}
+    check_flash(dev, b, hh, s, d, torch.bfloat16, False)
+    check_flash(dev, 8, hh, s, d, torch.float32, True)
+    check_flash(dev, 8, hh, s, d, torch.float32, False)
+    check_flash(dev, 8, hh, s - 1, d, torch.bfloat16, True)  # the recipe's S (phase 9)
+    check_flash(dev, 2, hh, 2048, d, torch.bfloat16, True)
+    check_flash(dev, 2, hh, 2048, d, torch.float32, True)
+    main["ce"] = check_ce(dev, b * s, g["dim"], g["vocab_size"], torch.bfloat16, timed=True)
+    check_ce(dev, 4096, g["dim"], g["vocab_size"], torch.float32)
+    check_ce(dev, 4000, g["dim"], g["vocab_size"], torch.bfloat16)
+    return main
+
+
+def attention_crossover(dev, seqs=(128, 256, 384, 512, 1024), tokens=BATCH * SEQ) -> dict:
+    """Where `attention_impl="auto"` should switch: one attention call,
+    forward and backward through autograd, by the eager "xla" path and by
+    the flash kernels, at the rung's 32768 tokens per call (batch
+    tokens // S), 12 heads x 64, bf16, with a pad mask of seeded trailing
+    padding; mean eager-call time by CUDA events and the peak memory the
+    call adds. Returns {S: {impl: (ms, peak bytes)}}."""
+    g = GPT2_SMALL_TRAIN
+    hh, d = g["heads"], g["head_dim"]
+    table = {}
+    for s in seqs:
+        b = tokens // s
+        q, k, v, do, mask = flash_inputs(dev, b, hh, s, d, torch.bfloat16, True, seed=s)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        row = {}
+        for impl in ("xla", "flash"):
+            def call():
+                out = causal_attention(qg, kg, vg, scale=d**-0.5, pad_mask=mask, impl=impl)
+                torch.autograd.grad(out, (qg, kg, vg), do)
+            ms = time_ms(call, 10)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            torch.cuda.synchronize()
+            row[impl] = (ms, torch.cuda.max_memory_allocated() - base)
+        table[s] = row
+        print(f"attention B{b} H{hh} S{s} D{d} bf16 mask, forward + backward: xla "
+              f"{row['xla'][0]:.4f} ms (peak +{row['xla'][1]} B), flash {row['flash'][0]:.4f} "
+              f"ms (peak +{row['flash'][1]} B), flash/xla time {row['flash'][0] / row['xla'][0]:.3f}",
+              flush=True)
+    faster = [s for s in seqs if all(table[t]["flash"][0] <= table[t]["xla"][0]
+                                     for t in seqs if t >= s)]
+    print(f"flash is at least as fast as xla from S = {faster[0]} up (of {list(seqs)})"
+          if faster else f"flash is slower than xla at every S of {list(seqs)}", flush=True)
+    return table
+
+
+def reset_counts() -> None:
+    pa.launches = 0
+    for counts in (fa.launches, fce.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    return dict(paged=pa.launches, **{f"flash_{k}": v for k, v in fa.launches.items()},
+                **{f"ce_{k}": v for k, v in fce.launches.items()})
+
+
+def train_full_width(dev) -> dict:
+    """Phase 7: eight train steps of the gpt-small-dim768 rung (batch 64,
+    S 512, bf16) on synthetic batches: three full batches and one with 16
+    padded rows, each twice. Checks the loss (finite; lower on batch A's
+    second visit) and the launch counts; returns them with the step walls."""
+    cfg, state = build_train(dev)
+    rng = np.random.RandomState(0)
+    a, b, c = (to_device(*synthetic_batch(rng, cfg.vocab_size, BATCH, SEQ), dev)
+               for _ in range(3))
+    p = to_device(*synthetic_batch(rng, cfg.vocab_size, BATCH, SEQ, pad_rows=16), dev)
+    strategy = SingleDevice()
+    float(train_step(state, cfg, strategy, *p))  # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for batch in (a, b, c, p, a, b, c, p):
+        t0 = time.perf_counter()
+        losses.append(float(train_step(state, cfg, strategy, *batch)))  # syncs
+        walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    steps, layers = len(losses), cfg.num_layers
+    wall = float(np.mean(walls))
+    print(f"losses {[round(x, 4) for x in losses]}; step walls (s) "
+          f"{[round(w, 4) for w in walls]}; mean {wall:.4f} s, {BATCH * SEQ / wall:.1f} "
+          f"tokens/s; max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    print(f"launches in {steps} steps: {counts}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[4] < losses[0]:
+        raise AssertionError(f"the loss on a repeated batch did not fall: {losses[0]} -> "
+                             f"{losses[4]}")
+    want = dict(paged=0, flash_forward=layers * steps, flash_backward_dkv=layers * steps,
+                flash_backward_dq=layers * steps, ce_forward=steps, ce_backward_dw=steps,
+                ce_backward_dh=steps)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    return dict(counts=counts, wall=wall, losses=losses)
+
+
+def kernel_vs_plain_steps(dev) -> None:
+    """Phase 8: the train step through the kernels (CUDA) against the same
+    step through the plain versions (the CPU), f32, 2 layers at GPT-2-small
+    width, flash attention forced, batch 4 with a padded row, 4 steps from
+    the same parameters on the same batches. Losses within rtol 1e-4: f32 on
+    both sides, summation order only, carried through four AdamW steps."""
+    cpu = torch.device("cpu")
+    cfg, cpu_state = build_train(cpu, num_layers=2, compute_dtype=torch.float32,
+                                 attention_impl="flash", seed=1)
+    params = cpu_state.params
+    dev_state = create_train_state(
+        unflatten(params, [t.detach().to(dev, copy=True) for t in leaves(params)]), 1e-4)
+    rng = np.random.RandomState(1)
+    batches = [synthetic_batch(rng, cfg.vocab_size, 4, SEQ, pad_rows=1) for _ in range(4)]
+    strategy = SingleDevice()
+    reset_counts()
+    ours, plain = [], []
+    for batch in batches:
+        ours.append(float(train_step(dev_state, cfg, strategy, *to_device(*batch, dev))))
+        plain.append(float(train_step(cpu_state, cfg, strategy, *to_device(*batch, cpu))))
+    counts = read_counts()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(ours, plain))
+    print(f"kernels {ours} vs plain {plain}: worst relative difference {worst:.3e} (bar "
+          f"1e-4); launches {counts}", flush=True)
+    if counts["flash_forward"] != 2 * 4 or counts["ce_backward_dh"] != 4:
+        raise AssertionError(f"the CUDA steps did not run the kernels: {counts}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"kernel and plain train steps disagree: {ours} vs {plain}")
+
+
+def recipe_end_to_end(dev) -> dict:
+    """Phase 9: `python -m tpukit_torch.recipes.single` at GPT-2-small width
+    on 576 fixture stories (9 steps of 64), 1 epoch, bf16, in
+    build/chip_smoke/. `--sequence_length 512`: the recipe trains on
+    S - 1 positions (prepare_batch's shift), so S = 511 (a ragged last key
+    tile) is in front of the attention, where "auto" picks the flash
+    kernels. Checks that the
+    flash, CE and paged kernels ran, the eval metrics are finite, three
+    samples came back, and the checkpoint restores."""
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    argv = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layers", "12",
+            "--sequence_length", "512", "--batch_size", "64", "--epochs", "1",
+            "--dataset_slice", "576", "--device", "cuda"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        result = single.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        # the final checkpoint restores into a fresh state, bit for bit
+        other = create_train_state(init_params(result.config, seed=5, device=dev), 1e-4)
+        ckpt_lib.restore(result.checkpoint_path, other)
+        want = dict(zip(ckpt_lib.paths(result.state.params), leaves(result.state.params)))
+        got = dict(zip(ckpt_lib.paths(other.params), leaves(other.params)))
+        restored = other.step == result.state.step and all(
+            torch.equal(got[n], want[n]) for n in want)
+    finally:
+        os.chdir(cwd)
+    print(f"recipe: {wall:.1f} s, eval {result.metrics['eval']}, {len(result.metrics['samples'])} "
+          f"samples, {result.metrics['tokens_per_sec']:.1f} train tokens/s, checkpoint "
+          f"{result.checkpoint_path}; launches {counts}", flush=True)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"a kernel of the recipe's path never ran: {counts}")
+    if not np.isfinite(result.metrics["eval"]["loss"]) or len(result.metrics["samples"]) != 3:
+        raise AssertionError(f"recipe output: {result.metrics}")
+    if not restored:
+        raise AssertionError(f"checkpoint {result.checkpoint_path} did not restore exactly")
+    return counts
+
+
 def serve_run(params, cfg, serve, reqs, dev, eos_id):
     engine = ServeEngine(params, cfg, serve, eos_id=eos_id, device=dev)
     comps = engine.run(list(reqs))
@@ -265,12 +781,7 @@ def main() -> int:
           flush=True)
 
     phase("build")
-    rep = _cuda.build(KERNEL)
-    print(f"{KERNEL}: built in {rep['seconds']:.1f} s{' (cached)' if rep['cached'] else ''}"
-          f" -> {rep['path']}")
-    for line in rep["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print("  " + line.strip())
+    build_all()
 
     # the serving run of phase 4 fixes the kernel's shapes for phase 3
     cfg, params, serve, reqs, eos = build(dev, fused=True)
@@ -327,12 +838,52 @@ def main() -> int:
     if agree < 0.9:
         raise AssertionError(f"int8 token agreement {agree} < 0.9")
 
-    print(json.dumps({"kernels": [{
-        "name": "paged_attend", "route": "cuda",
-        "source": "tpukit_torch/csrc/paged_attention.cu",
-        "replaces": "tpukit/ops/paged_attention.py:105",
-        "launches": launches, "library_ms": None, **main_pair,
-    }]}))
+    phase("training kernels vs plain (the slice's shapes)")
+    trained = check_training_kernels(dev)
+
+    phase("attention crossover: eager xla path against the flash kernels")
+    attention_crossover(dev)
+
+    phase("train step at full width (gpt-small-dim768, batch 64, S 512, bf16)")
+    step = train_full_width(dev)
+
+    phase("train step through kernels == through plain versions (f32, 2 layers)")
+    kernel_vs_plain_steps(dev)
+
+    phase("recipe 1 end to end (GPT-2-small width, fixture corpus)")
+    recipe_end_to_end(dev)
+
+    fl, ce = trained["flash"], trained["ce"]
+
+    def entry(name, source, replaces, launches, res, way, err, library_ms, **extra):
+        bound, bound_by = res[f"{way}_bound"]
+        return {"name": name, "route": "cuda", "source": f"tpukit_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": res[f"{way}_ms"], "call_ms": res[f"{way}_call_ms"],
+                "plain_ms": res[f"{way}_plain_ms"], "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": library_ms, **extra}
+
+    c = step["counts"]
+    print(json.dumps({"kernels": [
+        {"name": "paged_attend", "route": "cuda",
+         "source": "tpukit_torch/csrc/paged_attention.cu",
+         "replaces": "tpukit/ops/paged_attention.py:105",
+         "launches": launches, "library_ms": None, **main_pair},
+        entry("flash_attention_fwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:178",
+              c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"]),
+        entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",
+              c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],
+              also_replaces=["tpukit/ops/pallas_attention.py:346",
+                             "tpukit/ops/pallas_attention.py:389"],
+              kernels_per_call=2, launches_by_kernel={"dkv": c["flash_backward_dkv"],
+                                                      "dq": c["flash_backward_dq"]}),
+        entry("fused_head_ce_fwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:65",
+              c["ce_forward"], ce, "fwd", ce["fwd_err"], None),
+        entry("fused_head_ce_bwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:134",
+              c["ce_backward_dw"], ce, "bwd", ce["bwd_err"], None,
+              kernels_per_call=2, launches_by_kernel={"dw": c["ce_backward_dw"],
+                                                      "dh": c["ce_backward_dh"]}),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -6,9 +6,13 @@ module for module (`model/gpt.py`, `ops/layers.py`, `serve/engine.py`,
 from a tpukit module it keeps as its own copy.
 
 Slice 1 ports the paged, fused-decode serving path
-(`python -m tpukit_torch.serve --page_size P --fused_decode`). Its one
-TPU kernel, the Pallas paged-attention decode, is a hand-written CUDA
-kernel for sm_90a (`csrc/paged_attention.cu`).
+(`python -m tpukit_torch.serve --page_size P --fused_decode`); its TPU
+kernel, the paged-attention decode, is `csrc/paged_attention.cu`. Slice 2
+ports single-device training, recipe 1 (`python -m
+tpukit_torch.recipes.single`); its TPU kernels, causal flash attention and
+the fused LM head + cross-entropy, forward and backward, are
+`csrc/flash_attention.cu` and `csrc/fused_head_ce.cu`. All are hand-written
+CUDA for sm_90a.
 
 Every entry point takes a `device` argument and runs on `cuda` unless the
 caller passes `device="cpu"`. Without a GPU and without that request it

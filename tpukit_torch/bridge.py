@@ -1,9 +1,9 @@
-"""Parameters from tpukit into the port.
+"""Parameters between tpukit and the port.
 
 The port keeps tpukit's parameter tree (stacked `layers` leaves, `[in,
-out]` kernels), so the bridge is a plain copy. The caller turns the JAX
-pytree into numpy first, `jax.tree.map(np.asarray, params)`, which keeps
-this module free of JAX.
+out]` kernels), so the bridge is a plain copy each way. The caller turns
+the JAX pytree into numpy first, `jax.tree.map(np.asarray, params)`, which
+keeps this module free of JAX.
 """
 
 from __future__ import annotations
@@ -26,3 +26,11 @@ def params_from_numpy(tree, device=None):
         return torch.from_numpy(np.array(t, copy=True)).to(device)
 
     return walk(tree)
+
+
+def params_to_numpy(tree):
+    """The port's nested dicts of tensors -> the same nested dicts of numpy
+    arrays on the host (copies, detached from autograd)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()

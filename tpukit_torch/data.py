@@ -1,17 +1,19 @@
-"""The offline fixture corpus and word-level tokenizer (twin of
-`tpukit/data.py:64,112,224,292`).
+"""The offline fixture corpus, word-level tokenizer and dataset pipeline
+(twin of `tpukit/data.py:64-353`).
 
-The serving entry point needs prompts and a tokenizer without network
-access. This is tpukit's offline branch, copied: a deterministic
-TinyStories-style corpus and a word tokenizer over it, with the Python
-encoder (the C++ batch encoder is not ported).
+The port runs without network access, on the card's machine and here.
+This is tpukit's offline branch, copied: a deterministic TinyStories-style
+corpus, a word tokenizer over it (the Python encoder; tpukit's C++ batch
+encoder, byte-identical to it, is not ported), `get_dataset` (the fixture
+corpus, train split sliceable) and `transform_dataset` (pad to
+`max_length`, truncate, dense int32 arrays).
 """
 
 from __future__ import annotations
 
 import functools
 import re
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 
@@ -66,11 +68,10 @@ _UNK, _EOS, _PAD = 0, 1, 2  # pad at 2: every recipe sets pad_token_id = 2
 
 
 class WordTokenizer:
-    """Word-level tokenizer with the GPT2Tokenizer surface the serving path
-    uses: callable batching with truncation, `decode`, `vocab_size`,
+    """Word-level tokenizer with the GPT2Tokenizer surface the recipes use:
+    callable batching with padding and truncation, `decode`, `vocab_size`,
     `eos_token_id`, settable `pad_token_id`. Unknown pieces degrade to
-    per-character tokens, so any text round-trips. Padding to `max_length`
-    (tpukit's training data path) is not ported yet."""
+    per-character tokens, so any text round-trips."""
 
     special_tokens = ["<|unk|>", "<|endoftext|>", "<|pad|>"]
 
@@ -101,15 +102,26 @@ class WordTokenizer:
                 ids.extend(self._token_to_id.get(ch, _UNK) for ch in piece)
         return ids
 
-    def __call__(self, texts, max_length: Optional[int] = None,
-                 truncation: bool = False) -> dict:
+    def __call__(self, texts, padding: Union[bool, str, None] = None,
+                 max_length: Optional[int] = None, truncation: bool = False) -> dict:
+        """Lists of ids and masks; with `padding="max_length"` the int32
+        arrays `[N, max_length]`, padded with `pad_token_id` and mask 0."""
         if isinstance(texts, str):
             texts = [texts]
         max_length = max_length or self.model_max_length
         encoded = [self._encode_one(t) for t in texts]
         if truncation:
             encoded = [ids[:max_length] for ids in encoded]
-        return {"input_ids": encoded, "attention_mask": [[1] * len(ids) for ids in encoded]}
+        if padding != "max_length":
+            return {"input_ids": encoded,
+                    "attention_mask": [[1] * len(ids) for ids in encoded]}
+        pad = max_length - np.asarray([len(ids) for ids in encoded])
+        return {
+            "input_ids": np.asarray([ids + [self.pad_token_id] * p
+                                     for ids, p in zip(encoded, pad)], dtype=np.int32),
+            "attention_mask": np.asarray([[1] * len(ids) + [0] * p
+                                          for ids, p in zip(encoded, pad)], dtype=np.int32),
+        }
 
     def decode(self, ids, skip_special_tokens: bool = False) -> str:
         pieces = []
@@ -142,3 +154,59 @@ def get_tokenizer(max_length: int = 512) -> WordTokenizer:
     for the HF hub."""
     train_texts, validation_texts = _fixture_corpus()
     return WordTokenizer(train_texts + validation_texts, model_max_length=max_length)
+
+
+class ListDataset:
+    """A list of {"text": str} rows (the fixture's stand-in for the HF
+    dataset object)."""
+
+    def __init__(self, texts: list[str]):
+        self.texts = texts
+
+    def __len__(self):
+        return len(self.texts)
+
+    def __getitem__(self, i):
+        return {"text": self.texts[i]}
+
+
+def _parse_slice(n: int, slice_size: Optional[Union[str, int]]) -> int:
+    """The `train[:{slice_size}]` split-string semantics: percent strings
+    ("50%"), count strings ("1000") or ints."""
+    if slice_size is None or slice_size == "":
+        return n
+    if isinstance(slice_size, str) and slice_size.endswith("%"):
+        return int(n * float(slice_size[:-1]) / 100.0)
+    return min(int(slice_size), n)
+
+
+def get_dataset(slice_size: Optional[Union[str, int]] = None):
+    """(train, validation) of the fixture corpus: the train split sliced by
+    `slice_size`, validation always whole. The port has no hub access;
+    TinyStories itself waits until its files are in the repository."""
+    train_texts, validation_texts = _fixture_corpus()
+    n = _parse_slice(len(train_texts), slice_size)
+    return ListDataset(train_texts[:n]), ListDataset(validation_texts)
+
+
+class ArrayDataset:
+    """A tokenized dataset as dense numpy arrays, `transform_dataset`'s
+    output."""
+
+    def __init__(self, input_ids: np.ndarray, attention_mask: np.ndarray):
+        self.input_ids = input_ids
+        self.attention_mask = attention_mask
+
+    def __len__(self):
+        return self.input_ids.shape[0]
+
+    def __getitem__(self, idx):
+        return {"input_ids": self.input_ids[idx], "attention_mask": self.attention_mask[idx]}
+
+
+def transform_dataset(dataset, tokenizer, max_length: int = 512) -> ArrayDataset:
+    """Tokenize with max-length padding and truncation; int32 arrays out."""
+    texts = [dataset[i]["text"] for i in range(len(dataset))]
+    out = tokenizer(texts, padding="max_length", max_length=max_length, truncation=True)
+    return ArrayDataset(np.asarray(out["input_ids"], dtype=np.int32),
+                        np.asarray(out["attention_mask"], dtype=np.int32))

@@ -1,5 +1,6 @@
 """The GPT decoder of the port, as functions on a parameter tree (twin of
-`tpukit/model/gpt.py`): the config, seeded initialisation, and the paged
+`tpukit/model/gpt.py`): the config, seeded initialisation, the full-sequence
+forward training runs (`forward`, `forward_hidden`), and the paged
 KV-cached forward the serving engine runs.
 
 The parameter tree is tpukit's: nested dicts, `layers` leaves stacked on a
@@ -16,9 +17,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tpukit_torch import NotPortedError, resolve_device
 from tpukit_torch.ops import paged_attention
+from tpukit_torch.ops.attention import causal_attention
 from tpukit_torch.ops.layers import layer_norm, linear
 from tpukit_torch.serve import paged as paged_lib
 
@@ -30,8 +33,9 @@ PARAM_DTYPE = torch.float32
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """Model hyper-parameters (twin of `tpukit/model/gpt.py:57-250`, the
-    fields the serving slice reads). Defaults mirror tpukit's: dim 256,
-    head_dim 32, heads 8, num_layers 8, GPT-2 vocab, bf16 compute."""
+    fields the serving and training slices read). Defaults mirror
+    tpukit's: dim 256, head_dim 32, heads 8, num_layers 8, GPT-2 vocab,
+    bf16 compute, fused q/k/v, unrolled layers without remat."""
 
     dim: int = 256
     head_dim: int = 32
@@ -47,8 +51,26 @@ class GPTConfig:
     # kernel instead of the gathered view; prefill chunks stay unfused
     fused_decode: bool = False
     num_experts: int = 0
+    dropout: float = 0.0
+    # "auto": the flash kernels on CUDA from S = 256 up, the eager XLA-twin
+    # path otherwise (ops/attention.py); "xla" or "flash" force one
+    attention_impl: str = "auto"
+    # the trunk is a Python loop either way; scan_layers only mirrors
+    # tpukit's flag (its scan and unrolled paths are numerically identical)
+    scan_layers: bool = False
+    # recompute each decoder layer in the backward (torch.utils.checkpoint)
+    remat_layers: bool = False
+    # q/k/v as one [dim, 3 * inner] product (column blocks of the wider
+    # product are the three narrow ones)
+    fuse_qkv: bool = True
 
     def __post_init__(self):
+        if self.dropout > 0:
+            raise NotPortedError(
+                f"dropout={self.dropout}: tpukit draws its dropout masks from "
+                f"jax.random's threefry, which the port cannot match yet "
+                f"(ROADMAP.md, queue A item 9 'Seeded sampling')"
+            )
         if self.num_experts > 0:
             raise NotPortedError(
                 f"num_experts={self.num_experts}: mixture-of-experts is not in "
@@ -131,9 +153,11 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
 
 def layer_params(params: dict, i: int) -> dict:
     """Layer `i` of the stacked `layers` tree (views, no copies)."""
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) else t[i]
-    return take(params["layers"])
+    return _take(params["layers"], i)
+
+
+def _take(tree: dict, i: int) -> dict:
+    return {k: _take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
 # --------------------------------------------------------------------------
@@ -146,6 +170,67 @@ def apply_embeddings(params: dict, cfg: GPTConfig, input_ids, position_ids):
     emb = params["embeddings"]
     x = emb["token"][input_ids.long()] + emb["position"][position_ids.long()]
     return x.to(cfg.compute_dtype)
+
+
+def _apply_attention(layer, cfg: GPTConfig, x, pad_mask):
+    """Self-attention over a full sequence `x [B, S, dim]` (twin of
+    `tpukit/model/gpt.py:428`): q/k/v projections (one fused product with
+    `cfg.fuse_qkv`), causal attention by `cfg.attention_impl`, output
+    projection."""
+    batch, seq = x.shape[0], x.shape[1]
+    cdt = cfg.compute_dtype
+    if cfg.fuse_qkv:
+        kernel = torch.cat([layer["attn"][n]["kernel"] for n in ("q", "k", "v")], dim=1)
+        q, k, v = linear(x, {"kernel": kernel}, cdt).split(cfg.inner_dim, dim=-1)
+    else:
+        q, k, v = (linear(x, layer["attn"][n], cdt) for n in ("q", "k", "v"))
+    split = lambda t: t.reshape(batch, seq, cfg.heads, cfg.head_dim).transpose(1, 2).contiguous()
+    out = causal_attention(split(q), split(k), split(v), scale=1.0 / cfg.head_dim**0.5,
+                           pad_mask=pad_mask, impl=cfg.attention_impl)
+    out = out.transpose(1, 2).reshape(batch, seq, cfg.inner_dim)
+    return linear(out, layer["attn"]["out"], cdt)
+
+
+def apply_decoder_layer(layer: dict, cfg: GPTConfig, x, pad_mask):
+    """Pre-LN block (twin of `tpukit/model/gpt.py:464`): `x + attn(norm1(x))`,
+    then `x + ffn(norm2(x))`; `pad_mask [B, S]` bool, True = padding."""
+    h = layer_norm(x, layer["norm1"]).to(cfg.compute_dtype)
+    x = x + _apply_attention(layer, cfg, h, pad_mask)
+    h = layer_norm(x, layer["norm2"]).to(cfg.compute_dtype)
+    return x + _apply_feed_forward(layer, cfg, h)
+
+
+def apply_decoder_layers(stacked_layers: dict, cfg: GPTConfig, x, pad_mask):
+    """The layer stack over stacked parameters (twin of
+    `tpukit/model/gpt.py:485`), any leading stack size. With
+    `cfg.remat_layers` each layer is recomputed in the backward."""
+    leaf = stacked_layers
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    for i in range(leaf.shape[0]):
+        layer = _take(stacked_layers, i)
+        if cfg.remat_layers:
+            x = checkpoint(apply_decoder_layer, layer, cfg, x, pad_mask, use_reentrant=False)
+        else:
+            x = apply_decoder_layer(layer, cfg, x, pad_mask)
+    return x
+
+
+def forward_hidden(params: dict, cfg: GPTConfig, input_ids, position_ids, mask=None):
+    """Embeddings, the layer stack and the final LayerNorm: the hidden
+    states the LM head consumes, in the compute dtype (twin of
+    `tpukit/model/gpt.py:781`). `mask [B, S]` bool, True = padding."""
+    x = apply_embeddings(params, cfg, input_ids, position_ids)
+    x = apply_decoder_layers(params["layers"], cfg, x, mask)
+    return layer_norm(x, params["norm_out"]).to(cfg.compute_dtype)
+
+
+def forward(params: dict, cfg: GPTConfig, input_ids, position_ids, mask=None):
+    """Logits `[B, S, padded_vocab]` in the compute dtype, pad columns -1e9
+    (twin of `tpukit/model/gpt.py:819`)."""
+    x = apply_embeddings(params, cfg, input_ids, position_ids)
+    x = apply_decoder_layers(params["layers"], cfg, x, mask)
+    return apply_head(params, cfg, x)
 
 
 def _apply_feed_forward(layer, cfg: GPTConfig, x):

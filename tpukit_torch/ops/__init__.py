@@ -1,2 +1,3 @@
-"""Ops of the port: layers, the block quantizer and the paged-attention
-kernel with its plain PyTorch version."""
+"""Ops of the port: layers and the loss, attention, and the kernels with
+their plain PyTorch versions (flash attention, fused head + cross-entropy,
+paged attention), the block quantizer, and the nvcc/ctypes loader."""
