@@ -38,6 +38,32 @@ not 0:
   9. recipe 1 end to end at GPT-2-small width on the fixture corpus
      (`--sequence_length 512`, so S = 511 in front of the attention):
      trains, evaluates, samples through the paged kernel, checkpoints;
+ 10. MoE kernels vs plain: the grouped-expert FFN forward and backward
+     (768 -> 3072 -> 768, 8 experts), bf16 and f32, against their plain
+     versions on three segment layouts: the recipe's equal capacity
+     segments (20480 rows), the `sort_plan` layout of a real top-1 and
+     top-2 routing at the e8 rung's shapes, and an adversarial one (an
+     empty expert, 1-row segments, segments across tiles, a padding
+     tail); the backward under O(1) seeded cotangents, with negative
+     controls; device times (CUDA graph), call and plain times, bounds;
+ 11. MoE train step at full width: the gpt-small-dim768-e8 rung (batch 32,
+     S 512, bf16, ExpertParallel 1 x 1 with the pallas dispatch), 8 steps;
+     the loss falls on a repeated batch, and each step launches each
+     grouped-expert kernel 12 times, the flash kernels 12 + 12 + 12 and
+     the CE kernels once each;
+ 12. MoE train step through the kernels == through the plain versions (f32,
+     2 layers, top-2, 4 steps), on the ExpertParallel 1 x 1 path and on the
+     meshless dropless path;
+ 13. recipe 8 end to end (`--num_experts 8 --moe_dispatch pallas`) at
+     GPT-2-small width on the fixture corpus: trains, evaluates, samples,
+     checkpoints;
+ 14. MoE serving: `ServeEngine` at GPT-2-small width with 8 experts and the
+     pallas dispatch answers phase 4's 64 requests with fused decoding; the
+     grouped forward launches layers x (prefill dispatches + decode ticks)
+     times;
+ 15. MoE fused vs unfused (f32, 4 layers): the same greedy tokens both ways,
+     and the same as the engine's tokens through the plain versions (on
+     the CPU) for the first 16 requests;
 then one JSON line of kernel results and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
@@ -63,28 +89,33 @@ from tpukit_torch.ops import _cuda
 from tpukit_torch.ops.attention import causal_attention
 from tpukit_torch.ops import flash_attention as fa
 from tpukit_torch.ops import fused_head_ce as fce
+from tpukit_torch.ops import moe_gemm
 from tpukit_torch.ops import paged_attention as pa
 from tpukit_torch.ops import quant_comm
 from tpukit_torch import checkpoint as ckpt_lib
+from tpukit_torch.ops.moe_dispatch import _route_topk
+from tpukit_torch.recipes import moe as moe_recipe
 from tpukit_torch.recipes import single
 from tpukit_torch.recipes.profile import (
     BATCH,
     GPT2_SMALL_TRAIN,
+    RUNGS,
     SEQ,
     build_train,
+    rung_strategy,
     synthetic_batch,
 )
 from tpukit_torch.serve.engine import ServeEngine
 from tpukit_torch.serve.profile import build
-from tpukit_torch.model import init_params
-from tpukit_torch.shardings import SingleDevice, leaves, unflatten
+from tpukit_torch.model import GPTConfig, init_params
+from tpukit_torch.shardings import ExpertParallel, SingleDevice, leaves, unflatten
 from tpukit_torch.train import create_train_state, to_device, train_step
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 non-tensor, bf16 dense
 KERNEL = "paged_attention"  # the serving path's csrc source
-SOURCES = ("paged_attention", "flash_attention", "fused_head_ce")  # every csrc source
+SOURCES = ("paged_attention", "flash_attention", "fused_head_ce", "moe_gemm")  # every csrc source
 F32_ATOL = 1e-5  # f32 compute: the kernel and the plain version sum in different orders
 DIFF_SHARE = 0.01  # bf16 compute: most outputs must be bit-equal (see check_kernel)
 # Training kernels against their plain versions (phase 6), as (atol, rtol,
@@ -107,6 +138,23 @@ FLASH_GRAD_TOL = (5e-4, 1e-3, 0.0)
 CE_LSE_TOL = (1e-5, 1e-5, 0.0)
 CE_GRAD_TOL = (0.0, 1e-5, 2.0**-12)
 BF16_ROW_SHARE = 2.0**-6
+# The grouped-expert kernels against their plain versions (phase 10), both
+# given the same inputs (the backward: the kernel's y and kept h). Outputs
+# that are f32 sums of f32 or identical terms (every output in f32 compute;
+# dWd, dbu, dbd in bf16 compute) differ only in summation order over 768 to
+# 4096 terms (D, F, or an expert's rows), ~sqrt(K) 2^-24 of the row's scale:
+# 2^-12 of the row's largest |value| + rtol 1e-5 (the CE gradients' bar);
+# a dbu summed from the rounded dz1 fails it. Outputs that pass through a
+# bf16 rounding of an f32 sum (bf16 y and dx, and dWu = x^T round(dz1)):
+# where the kernel's and the plain f32 sums straddle a rounding boundary a
+# rounded h or dz1 lands an ulp apart and moves what follows, so
+# BF16_ROW_SHARE, as the flash and CE gradients in bf16.
+MOE_TOL = (0.0, 1e-5, 2.0**-12)
+MOE_ROUNDED = ("y", "dx", "dwu")  # bf16 compute: held at BF16_ROW_SHARE
+MOE_ROUTED = dict(batch=32, seq=SEQ, experts=8)  # the e8 rung's routing (phase 10 b)
+# phase 10 c: an empty expert, 1-row segments, segments across row tiles;
+# 9999 rows, so a 241-row padding tail
+MOE_ADVERSARIAL = (3000, 0, 1, 129, 2047, 130, 1, 4691)
 
 
 def phase(name: str) -> None:
@@ -125,11 +173,19 @@ def _events_ms(run, calls: int) -> float:
 def time_ms(fn, iters: int) -> float:
     """Mean milliseconds per eager call over `iters` back-to-back calls, by
     CUDA events, after a warm-up. Host dispatch is in the span whenever
-    it outlasts the device work."""
+    it outlasts the device work. Each result is dropped before the next
+    call, as on the main path, so its memory goes back to the allocator's
+    cache: results kept alive would send every call's outputs to
+    cudaMalloc and time that instead."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    return _events_ms(lambda: [fn() for _ in range(iters)], iters)
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    return _events_ms(run, iters)
 
 
 def graph_ms(fn, iters: int, replays: int = 5) -> float:
@@ -616,14 +672,15 @@ def attention_crossover(dev, seqs=(128, 256, 384, 512, 1024), tokens=BATCH * SEQ
 
 def reset_counts() -> None:
     pa.launches = 0
-    for counts in (fa.launches, fce.launches):
+    for counts in (fa.launches, fce.launches, moe_gemm.launches):
         for k in counts:
             counts[k] = 0
 
 
 def read_counts() -> dict:
     return dict(paged=pa.launches, **{f"flash_{k}": v for k, v in fa.launches.items()},
-                **{f"ce_{k}": v for k, v in fce.launches.items()})
+                **{f"ce_{k}": v for k, v in fce.launches.items()},
+                **{f"moe_{k}": v for k, v in moe_gemm.launches.items()})
 
 
 def train_full_width(dev) -> dict:
@@ -660,7 +717,7 @@ def train_full_width(dev) -> dict:
                              f"{losses[4]}")
     want = dict(paged=0, flash_forward=layers * steps, flash_backward_dkv=layers * steps,
                 flash_backward_dq=layers * steps, ce_forward=steps, ce_backward_dw=steps,
-                ce_backward_dh=steps)
+                ce_backward_dh=steps, **{f"moe_{k}": 0 for k in moe_gemm.launches})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     return dict(counts=counts, wall=wall, losses=losses)
@@ -718,19 +775,13 @@ def recipe_end_to_end(dev) -> dict:
         result = single.main(argv)
         wall = time.perf_counter() - t0
         counts = read_counts()
-        # the final checkpoint restores into a fresh state, bit for bit
-        other = create_train_state(init_params(result.config, seed=5, device=dev), 1e-4)
-        ckpt_lib.restore(result.checkpoint_path, other)
-        want = dict(zip(ckpt_lib.paths(result.state.params), leaves(result.state.params)))
-        got = dict(zip(ckpt_lib.paths(other.params), leaves(other.params)))
-        restored = other.step == result.state.step and all(
-            torch.equal(got[n], want[n]) for n in want)
+        restored = _restores_exactly(result, dev)
     finally:
         os.chdir(cwd)
     print(f"recipe: {wall:.1f} s, eval {result.metrics['eval']}, {len(result.metrics['samples'])} "
           f"samples, {result.metrics['tokens_per_sec']:.1f} train tokens/s, checkpoint "
           f"{result.checkpoint_path}; launches {counts}", flush=True)
-    if min(counts.values()) == 0:
+    if min(v for k, v in counts.items() if not k.startswith("moe_")) == 0:
         raise AssertionError(f"a kernel of the recipe's path never ran: {counts}")
     if not np.isfinite(result.metrics["eval"]["loss"]) or len(result.metrics["samples"]) != 3:
         raise AssertionError(f"recipe output: {result.metrics}")
@@ -762,6 +813,382 @@ def agreement(a: dict, b: dict) -> float:
     their common length; averaged over requests."""
     return float(np.mean([np.mean(a[r][: min(len(a[r]), len(b[r]))]
                                   == b[r][: min(len(a[r]), len(b[r]))]) for r in a]))
+
+
+def moe_bank(dev, e, d, f, dtype, seed):
+    """An expert bank (Wu, bu, Wd, bd) at tpukit's init scale, U(+-1 /
+    sqrt(fan_in)), from a seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda shape, fan_in: ((torch.rand(shape, generator=g, device=dev) * 2 - 1)
+                               * fan_in**-0.5).to(dtype)
+    return u((e, d, f), d), u((e, f), d), u((e, f, d), f), u((e, d), f)
+
+
+def moe_layouts(dev) -> dict:
+    """name -> (rows f32 [M, 768] on the card, offsets [9] int32, real rows
+    n), rows N(0, 1) from a seed:
+      equal:       recipe 8's capacity buffer on one device: 8 experts x
+                   batch 32 x capacity 80, 2560 rows each (M 20480);
+      top1, top2:  `sort_plan` of the top-k routing of seeded [32, 512, 768]
+                   tokens by a seeded router at init scale (M 16384, 32768);
+      adversarial: segments of 3000, 0, 1, 129, 2047, 130, 1 and 4691 rows
+                   (an empty expert, 1-row segments, segments across row
+                   tiles) and a padding tail of 241 rows in the last one."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    d, e = GPT2_SMALL_TRAIN["dim"], MOE_ROUTED["experts"]
+    rows = lambda m: torch.randn((m, d), generator=g, device=dev)
+    out = {}
+    m = e * MOE_ROUTED["batch"] * 80
+    offs = torch.arange(e + 1, dtype=torch.int32, device=dev) * (m // e)
+    out["equal"] = (rows(m), offs, m)
+    x = torch.randn((MOE_ROUTED["batch"], MOE_ROUTED["seq"], d), generator=g, device=dev)
+    router = (torch.rand((d, e), generator=g, device=dev) * 2 - 1) * d**-0.5
+    for k in (1, 2):
+        cfg = GPTConfig(dim=d, head_dim=64, heads=12, num_layers=1, num_experts=e,
+                        router_top_k=k, max_position_embeddings=MOE_ROUTED["seq"],
+                        moe_dispatch="pallas")
+        _, top_idx, _, _, _ = _route_topk(x, router, cfg)
+        src, _, offs = moe_gemm.sort_plan(cfg, top_idx)
+        out[f"top{k}"] = (x.reshape(-1, d).index_select(0, src), offs, top_idx.numel())
+    sizes = MOE_ADVERSARIAL
+    n = sum(sizes)
+    m = moe_gemm.plan_rows(n)[1]
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    offs[-1] = m
+    out["adversarial"] = (rows(m), torch.from_numpy(offs).to(dev), n)
+    return out
+
+
+def moe_bounds(offsets, m, d, f, dtype) -> dict:
+    """Least times of the forward (rows and the bank of every expert with
+    rows in, y out; 2 products over the M rows) and of the backward (rows,
+    g, y and the kept h in, the bank read; dx out in the compute dtype,
+    dW and db of all E experts out in f32; 4 products)."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    o = offsets.tolist()
+    e = len(o) - 1
+    used = sum(1 for i in range(e) if o[i + 1] > o[i])
+    bank = used * (2 * d * f + f + d) * it
+    prod = 2 * m * d * f
+    fwd = _bound(2 * m * d * it + bank + 4 * (e + 1), 2 * prod, dtype)
+    bwd = _bound(4 * m * d * it + m * f * it + bank + e * (2 * d * f + f + d) * 4 + 4 * (e + 1),
+                 4 * prod, dtype)
+    return dict(forward=fwd, backward=bwd)
+
+
+def check_moe(dev, name, rows, offsets, n, dtype, timed=False) -> dict:
+    """Forward (y) and backward (dx, dWu, dbu, dWd, dbd) kernels against the
+    plain versions on the same inputs: the backward under O(1) seeded
+    cotangents (0 on the padding rows; the mean loss's would be ~1/count)
+    and the kernel's y and kept h on both sides. Padding rows get exactly 0 dx, empty
+    experts exactly 0 gradients. Negative controls: the plain backward
+    without the relu mask on dz1 must fail the bar on dx, dWu and dbu, and
+    (bf16) with dbu summed from the rounded dz1 on dbu. With `timed`, device,
+    call and plain times and the bounds too."""
+    e, d, f = MOE_ROUTED["experts"], GPT2_SMALL_TRAIN["dim"], 4 * GPT2_SMALL_TRAIN["dim"]
+    wu, bu, wd, bd = moe_bank(dev, e, d, f, dtype, seed=len(name))
+    xs = rows.to(dtype)
+    m = xs.shape[0]
+    g = torch.Generator(device=dev).manual_seed(m + len(name))
+    cot = torch.randn((m, d), generator=g, device=dev)
+    cot[n:] = 0.0
+    cot = cot.to(dtype)
+    ys, h = moe_gemm._forward_cuda(xs, wu, bu, wd, bd, offsets)
+    ref_y = moe_gemm.grouped_ffn_reference(xs, wu, bu, wd, bd, offsets)
+    grads = moe_gemm._backward_cuda(xs, cot, ys, h, wu, wd, offsets)
+    # the same inputs as the kernels: y and the kept h (a relu mask on an
+    # f32 h recomputed within summation noise of 0 would flip one side only)
+    refs = moe_gemm.grouped_ffn_backward_reference(xs, cot, ys, wu, bu, wd, offsets, h=h)
+    torch.cuda.synchronize()
+    tag = f"grouped_ffn {name} M{m} {str(dtype)[6:]}"
+    bar = lambda nm: dtype if nm in MOE_ROUNDED else torch.float32  # noqa: E731
+    err = hold(f"{tag} y", ys, ref_y, MOE_TOL, bar("y"))
+    names = ("dx", "dwu", "dbu", "dwd", "dbd")
+    g_err = max(hold(f"{tag} {nm}", got, ref, MOE_TOL, bar(nm))
+                for nm, got, ref in zip(names, grads, refs))
+    if not (grads[0][n:] == 0).all():
+        raise AssertionError(f"{tag}: padding rows got a nonzero dx")
+    o = offsets.tolist()
+    empty = [i for i in range(e) if o[i + 1] == o[i]]
+    if any((t[i] != 0).any() for t in grads[1:] for i in empty):
+        raise AssertionError(f"{tag}: an empty expert got a nonzero gradient")
+    # an h of ones: the plain backward with no relu mask on dz1 (its dWd,
+    # from that h, is not compared)
+    bad = moe_gemm.grouped_ffn_backward_reference(xs, cot, ys, wu, bu, wd, offsets,
+                                                  h=torch.ones_like(h))[:3]
+    seen = [worst_ratio(b, r, MOE_TOL, bar(nm))[1] for nm, b, r in zip(names, bad, refs)]
+    if not min(seen) > 1.0:
+        raise AssertionError(f"{tag}: the bar cannot see a backward without the relu mask on "
+                             f"dz1 (err/tolerance dx, dwu, dbu {seen})")
+    note = (f"without the dz1 relu mask err/tolerance dx {seen[0]:.3e}, dwu {seen[1]:.3e}, "
+            f"dbu {seen[2]:.3e}")
+    if dtype == torch.bfloat16:
+        rounded = torch.zeros_like(refs[2])
+        for i, s, t in moe_gemm._segments(offsets, e):
+            dz2 = torch.where(ys[s:t] > 0, cot[s:t].float(), 0.0).to(dtype).float()
+            dz1 = torch.where(h[s:t] > 0, dz2 @ wd[i].float().t(), 0.0)
+            rounded[i] = dz1.to(dtype).float().sum(0)  # dbu from the rounded dz1
+        seen_r = worst_ratio(rounded, refs[2], MOE_TOL, torch.float32)[1]
+        if not seen_r > 1.0:
+            raise AssertionError(f"{tag}: the bar cannot see a dbu summed from the rounded dz1 "
+                                 f"(err/tolerance {seen_r})")
+        note += f"; dbu from the rounded dz1 {seen_r:.3e}"
+    counts = [o[i + 1] - o[i] for i in range(e)]
+    top = ", ".join(f"{nm} {t.float().abs().max().item():.3e}"
+                    for nm, t in zip(("y",) + names, (ref_y,) + tuple(refs)))
+    line = (f"{tag} (segments {counts}, {m - n} padding rows): forward max_abs_err {err:.3e}, "
+            f"backward {g_err:.3e} (largest |plain| {top}); {note}")
+    res = dict(fwd_err=err, bwd_err=g_err)
+    if timed:
+        lib = _cuda.load("moe_gemm", moe_gemm._SIGNATURES)
+        stream = lambda: torch.cuda.current_stream().cuda_stream
+        y_b, h_b, dz1_b = torch.empty_like(ys), torch.empty_like(h), torch.empty_like(h)
+        part_b = torch.empty((moe_gemm.row_tiles(lib, dtype, m, e), f), device=dev)
+        dx_b = torch.empty_like(xs)
+        dw_b = [torch.empty_like(t) for t in grads[1:]]
+        res.update(
+            fwd_ms=graph_ms(lambda: moe_gemm.launch_forward(lib, xs, wu, bu, wd, bd, offsets, h_b,
+                                                            y_b, stream()), 20),
+            fwd_call_ms=time_ms(lambda: moe_gemm._forward_cuda(xs, wu, bu, wd, bd, offsets), 20),
+            fwd_plain_ms=time_ms(lambda: moe_gemm.grouped_ffn_reference(xs, wu, bu, wd, bd,
+                                                                        offsets), 5),
+            bwd_ms=graph_ms(lambda: moe_gemm.launch_backward(lib, xs, cot, ys, h, wu, wd, offsets,
+                                                             dz1_b, part_b, dx_b, *dw_b,
+                                                             stream()), 10),
+            bwd_call_ms=time_ms(lambda: moe_gemm._backward_cuda(xs, cot, ys, h, wu, wd, offsets),
+                                10),
+            bwd_plain_ms=time_ms(lambda: moe_gemm.grouped_ffn_backward_reference(
+                xs, cot, ys, wu, bu, wd, offsets, h=h), 3),
+        )
+        bounds = moe_bounds(offsets, m, d, f, dtype)
+        res.update(fwd_bound=bounds["forward"], bwd_bound=bounds["backward"])
+        line += (f"; forward device {res['fwd_ms']:.4f} ms (CUDA graph), call "
+                 f"{res['fwd_call_ms']:.4f}, plain {res['fwd_plain_ms']:.4f}, bound "
+                 f"{bounds['forward'][0]:.4f} ms ({bounds['forward'][1]}); backward device "
+                 f"{res['bwd_ms']:.4f} ms, call {res['bwd_call_ms']:.4f}, plain "
+                 f"{res['bwd_plain_ms']:.4f}, bound {bounds['backward'][0]:.4f} ms "
+                 f"({bounds['backward'][1]}); library: none (no one PyTorch call computes "
+                 f"the grouped FFN)")
+    print(line, flush=True)
+    return res
+
+
+def check_moe_kernels(dev) -> dict:
+    """Phase 10: the grouped-expert kernels against their plain versions on
+    every layout of `moe_layouts`, bf16 and f32; times on the recipe's
+    equal segments in bf16 (the main path) and on the top-1 routing's.
+    Returns the timed main-path run."""
+    main = None
+    for name, (rows, offsets, n) in moe_layouts(dev).items():
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = dtype == torch.bfloat16 and name in ("equal", "top1")
+            res = check_moe(dev, name, rows, offsets, n, dtype, timed=timed)
+            if timed and name == "equal":
+                main = res
+    return main
+
+
+def moe_train_full_width(dev) -> dict:
+    """Phase 11: eight train steps of the gpt-small-dim768-e8 rung (batch 32,
+    S 512, bf16, 8 experts top-1, ExpertParallel 1 x 1, pallas dispatch) on
+    synthetic batches: three full ones and one with 8 padded rows, each
+    twice. Checks the loss (finite; lower on batch A's second visit) and the
+    launch counts; returns them with the step walls and peak memory."""
+    rows, moe, kind = RUNGS["gpt-small-dim768-e8"]
+    cfg, state = build_train(dev, **moe)
+    rng = np.random.RandomState(0)
+    a, b, c = (to_device(*synthetic_batch(rng, cfg.vocab_size, rows, SEQ), dev)
+               for _ in range(3))
+    p = to_device(*synthetic_batch(rng, cfg.vocab_size, rows, SEQ, pad_rows=8), dev)
+    strategy = rung_strategy(kind)
+    float(train_step(state, cfg, strategy, *p))  # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for batch in (a, b, c, p, a, b, c, p):
+        t0 = time.perf_counter()
+        losses.append(float(train_step(state, cfg, strategy, *batch)))  # syncs
+        walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    steps, layers = len(losses), cfg.num_layers
+    wall = float(np.mean(walls))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"losses {[round(x, 4) for x in losses]}; step walls (s) "
+          f"{[round(w, 4) for w in walls]}; mean {wall:.4f} s, {rows * SEQ / wall:.1f} "
+          f"tokens/s; max_memory_allocated {peak} B")
+    print(f"launches in {steps} steps: {counts}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[4] < losses[0]:
+        raise AssertionError(f"the loss on a repeated batch did not fall: {losses[0]} -> "
+                             f"{losses[4]}")
+    want = dict(paged=0, flash_forward=layers * steps, flash_backward_dkv=layers * steps,
+                flash_backward_dq=layers * steps, ce_forward=steps, ce_backward_dw=steps,
+                ce_backward_dh=steps, **{f"moe_{k}": layers * steps for k in moe_gemm.launches})
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    return dict(counts=counts, wall=wall, losses=losses, peak=peak)
+
+
+def moe_kernel_vs_plain_steps(dev) -> None:
+    """Phase 12: the MoE train step through the kernels (CUDA) against the
+    same step through the plain versions (the CPU): f32, 2 layers at
+    GPT-2-small width, 8 experts top-2, flash attention forced, batch 2 with
+    a padded row, 4 steps from the same parameters on the same batches; on
+    ExpertParallel 1 x 1 with the pallas dispatch and on the meshless
+    dropless path. First every gradient leaf of the first batch, router
+    and experts included, at the starting parameters: |kernel - plain| /
+    |plain| within 1e-3 over each leaf (Frobenius norms). The bar is on the
+    leaf's norm, not per element: a relu input within f32 summation noise
+    of 0 falls on opposite sides of the mask on the two sides and moves a
+    whole dz1 element, so a few elements of the expert and norm gradients
+    lie far apart, while a mis-wired gradient moves the norm by O(1). Held
+    on the gradients, not on the parameters after the steps: AdamW's first
+    steps move an element by about +-lr whatever the size of its gradient,
+    so one near-zero gradient of another sign would leave 2 lr between the
+    two. Then the losses of the four steps within rtol 1e-4 (f32,
+    summation order, four AdamW steps)."""
+    cpu = torch.device("cpu")
+    for label, strategy, kw in (("ExpertParallel 1x1 pallas", ExpertParallel(dispatch="pallas"),
+                                 {}),
+                                ("dropless pallas", SingleDevice(), dict(moe_dispatch="pallas"))):
+        cfg, cpu_state = build_train(cpu, num_layers=2, compute_dtype=torch.float32,
+                                     attention_impl="flash", seed=2, num_experts=8,
+                                     router_top_k=2, **kw)
+        params = cpu_state.params
+        dev_state = create_train_state(
+            unflatten(params, [t.detach().to(dev, copy=True) for t in leaves(params)]), 1e-4)
+        rng = np.random.RandomState(2)
+        batches = [synthetic_batch(rng, cfg.vocab_size, 2, SEQ, pad_rows=1) for _ in range(4)]
+        grads = [strategy.value_and_grad(state.params, cfg, *to_device(*batches[0], d))[1]
+                 for state, d in ((dev_state, dev), (cpu_state, cpu))]
+        rel = {}
+        for path, got, ref in zip(ckpt_lib.paths(grads[1]), leaves(grads[0]), leaves(grads[1])):
+            diff = (got.cpu() - ref).norm()
+            rel[path] = float(diff / ref.norm()) if diff > 0 else 0.0
+        worst_leaf = max(rel, key=rel.get)
+        print(f"{label}: {len(rel)} gradient leaves at the starting parameters, |kernel - "
+              f"plain| / |plain| at most {rel[worst_leaf]:.3e} ({worst_leaf}; bar 1e-3)",
+              flush=True)
+        if not rel[worst_leaf] <= 1e-3:
+            raise AssertionError(f"{label}: kernel and plain gradients disagree: {rel}")
+        reset_counts()
+        ours, plain = [], []
+        for batch in batches:
+            ours.append(float(train_step(dev_state, cfg, strategy, *to_device(*batch, dev))))
+            plain.append(float(train_step(cpu_state, cfg, strategy, *to_device(*batch, cpu))))
+        counts = read_counts()
+        worst = max(abs(a - b) / abs(b) for a, b in zip(ours, plain))
+        print(f"{label}: kernels {ours} vs plain {plain}: worst relative difference "
+              f"{worst:.3e} (bar 1e-4); launches {counts}", flush=True)
+        if counts["moe_forward_up"] != 2 * 4 or counts["moe_backward_dwd"] != 2 * 4:
+            raise AssertionError(f"{label}: the CUDA steps did not run the MoE kernels: {counts}")
+        if not worst <= 1e-4:
+            raise AssertionError(f"{label}: kernel and plain train steps disagree: {ours} vs "
+                                 f"{plain}")
+
+
+def _restores_exactly(result, dev) -> bool:
+    """The recipe's final checkpoint restores into a fresh state, bit for bit."""
+    other = create_train_state(init_params(result.config, seed=5, device=dev), 1e-4)
+    ckpt_lib.restore(result.checkpoint_path, other)
+    want = dict(zip(ckpt_lib.paths(result.state.params), leaves(result.state.params)))
+    got = dict(zip(ckpt_lib.paths(other.params), leaves(other.params)))
+    return other.step == result.state.step and all(torch.equal(got[n], want[n]) for n in want)
+
+
+def moe_recipe_end_to_end(dev) -> dict:
+    """Phase 13: `python -m tpukit_torch.recipes.moe --num_experts 8
+    --moe_dispatch pallas` at GPT-2-small width on 288 fixture stories (9
+    steps of 32), `--sequence_length 512`, 1 epoch, bf16, in
+    build/chip_smoke_moe/. Checks that the grouped-expert, flash, CE and
+    paged kernels ran, the eval metrics are finite, three samples came
+    back, and the checkpoint restores."""
+    work = ROOT / "build" / "chip_smoke_moe"
+    work.mkdir(parents=True, exist_ok=True)
+    argv = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layers", "12",
+            "--sequence_length", "512", "--batch_size", "32", "--epochs", "1",
+            "--dataset_slice", "288", "--device", "cuda", "--num_experts", "8",
+            "--moe_dispatch", "pallas"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        result = moe_recipe.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        restored = _restores_exactly(result, dev)
+    finally:
+        os.chdir(cwd)
+    print(f"recipe 8: {wall:.1f} s, {result.state.step} steps, windows "
+          f"{result.metrics['train_windows']}, eval {result.metrics['eval']}, "
+          f"{len(result.metrics['samples'])} samples {result.metrics['samples']}, "
+          f"{result.metrics['tokens_per_sec']:.1f} train tokens/s, checkpoint "
+          f"{result.checkpoint_path}; launches {counts}", flush=True)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"a kernel of recipe 8's path never ran: {counts}")
+    if not np.isfinite(result.metrics["eval"]["loss"]) or len(result.metrics["samples"]) != 3:
+        raise AssertionError(f"recipe 8 output: {result.metrics}")
+    if not restored:
+        raise AssertionError(f"checkpoint {result.checkpoint_path} did not restore exactly")
+    return counts
+
+
+def moe_serving(dev) -> dict:
+    """Phase 14: the MoE model at GPT-2-small width (8 experts, top-1, the
+    pallas dispatch, bf16) serves phase 4's 64-request stream with fused
+    decoding. Every forward (one per prefill dispatch and per decode tick)
+    runs each layer's grouped forward once, and each decode tick the paged
+    kernel once per layer."""
+    cfg, params, serve, reqs, eos = build(dev, fused=True, num_experts=8)
+    serve_run(params, cfg, serve, reqs[:4], dev, eos)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    engine, outs = serve_run(params, cfg, serve, reqs, dev, eos)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    s = engine.last_summary
+    print(f"MoE served {s['requests']} requests / {s['generated_tokens']} tokens in "
+          f"{wall:.3f} s ({s['generated_tokens'] / wall:.1f} tokens/s), decode ticks "
+          f"{engine.steps}, prefill dispatches {s['prefill_dispatches']}, prefill "
+          f"{s['prefill_s']:.3f} s / decode {s['decode_s']:.3f} s / sync {s['sync_s']:.3f} s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; launches {counts}",
+          flush=True)
+    check_outputs(outs, reqs, cfg)
+    forwards = s["prefill_dispatches"] + engine.steps
+    if counts["moe_forward_up"] != cfg.num_layers * forwards or forwards == 0:
+        raise AssertionError(f"grouped forward launches {counts['moe_forward_up']} != "
+                             f"{cfg.num_layers} x ({s['prefill_dispatches']} + {engine.steps})")
+    if counts["paged"] != cfg.num_layers * engine.steps or counts["moe_backward_dh"] != 0:
+        raise AssertionError(f"serving launches {counts}")
+    return dict(counts=counts, tokens_per_s=s["generated_tokens"] / wall, wall=wall)
+
+
+def moe_fused_vs_unfused(dev) -> None:
+    """Phase 15: the MoE model at f32 (4 layers, 8 experts, pallas): the
+    64-request stream's greedy tokens equal fused and unfused on the card,
+    and the first 16 requests' tokens equal those of the same engine
+    through the plain versions on the CPU."""
+    cfg, params, serve, reqs, eos = build(dev, fused=True, num_layers=4,
+                                          compute_dtype=torch.float32, num_experts=8)
+    runs = {}
+    for label, kw in (("fused", {}), ("unfused", dict(fused_decode=False))):
+        _, runs[label] = serve_run(params, cfg, dataclasses.replace(serve, **kw), reqs, dev, eos)
+        check_outputs(runs[label], reqs, cfg)
+    cpu = torch.device("cpu")
+    cpu_params = unflatten(params, [t.to(cpu) for t in leaves(params)])
+    _, runs["plain"] = serve_run(cpu_params, cfg, serve, reqs[:16], cpu, eos)
+    for label, rids in (("unfused", [r.rid for r in reqs]), ("plain", [r.rid for r in reqs[:16]])):
+        for rid in rids:
+            if not np.array_equal(runs["fused"][rid], runs[label][rid]):
+                raise AssertionError(f"MoE fused kernel tokens and {label} tokens diverge: rid "
+                                     f"{rid}")
+    print(f"MoE fused == unfused on all {len(reqs)} requests "
+          f"({sum(len(v) for v in runs['fused'].values())} tokens incl. prompts); == the plain "
+          f"versions on the CPU for the first 16", flush=True)
 
 
 def main() -> int:
@@ -853,6 +1280,24 @@ def main() -> int:
     phase("recipe 1 end to end (GPT-2-small width, fixture corpus)")
     recipe_end_to_end(dev)
 
+    phase("MoE kernels vs plain (grouped-expert FFN, 8 x 768 -> 3072 -> 768)")
+    moe_main = check_moe_kernels(dev)
+
+    phase("MoE train step at full width (gpt-small-dim768-e8, batch 32, S 512, bf16)")
+    moe_step = moe_train_full_width(dev)
+
+    phase("MoE train step through kernels == through plain versions (f32, 2 layers, top-2)")
+    moe_kernel_vs_plain_steps(dev)
+
+    phase("recipe 8 end to end (GPT-2-small width, 8 experts, pallas, fixture corpus)")
+    moe_recipe_end_to_end(dev)
+
+    phase("MoE serving (GPT-2 small width, 8 experts, pallas, bf16, fused decode)")
+    moe_served = moe_serving(dev)
+
+    phase("MoE fused vs unfused vs plain (f32 compute, 4 layers)")
+    moe_fused_vs_unfused(dev)
+
     fl, ce = trained["flash"], trained["ce"]
 
     def entry(name, source, replaces, launches, res, way, err, library_ms, **extra):
@@ -863,7 +1308,7 @@ def main() -> int:
                 "plain_ms": res[f"{way}_plain_ms"], "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": library_ms, **extra}
 
-    c = step["counts"]
+    c, mc = step["counts"], moe_step["counts"]
     print(json.dumps({"kernels": [
         {"name": "paged_attend", "route": "cuda",
          "source": "tpukit_torch/csrc/paged_attention.cu",
@@ -883,6 +1328,15 @@ def main() -> int:
               c["ce_backward_dw"], ce, "bwd", ce["bwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"dw": c["ce_backward_dw"],
                                                       "dh": c["ce_backward_dh"]}),
+        entry("moe_grouped_ffn_fwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
+              mc["moe_forward_up"], moe_main, "fwd", moe_main["fwd_err"], None,
+              kernels_per_call=2, launches_by_kernel={"up": mc["moe_forward_up"],
+                                                      "down": mc["moe_forward_down"]},
+              serve_launches=moe_served["counts"]["moe_forward_up"]),
+        entry("moe_grouped_ffn_bwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:145",
+              mc["moe_backward_dh"], moe_main, "bwd", moe_main["bwd_err"], None,
+              kernels_per_call=4, launches_by_kernel={
+                  k: mc[f"moe_backward_{k}"] for k in ("dh", "dx", "dwu", "dwd")}),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

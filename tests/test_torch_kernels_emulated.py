@@ -32,6 +32,7 @@ import torch
 
 from tpukit_torch.ops import flash_attention as fa
 from tpukit_torch.ops import fused_head_ce as fce
+from tpukit_torch.ops import moe_gemm
 
 ROOT = Path(__file__).resolve().parent.parent
 EMU = ROOT / "tpukit_torch" / "csrc" / "host_emu"
@@ -46,7 +47,8 @@ def emulated(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_emu")
     libs = {}
     for name, sigs in (("flash_attention", fa._SIGNATURES),
-                       ("fused_head_ce", fce._SIGNATURES)):
+                       ("fused_head_ce", fce._SIGNATURES),
+                       ("moe_gemm", moe_gemm._SIGNATURES)):
         src = (ROOT / "tpukit_torch" / "csrc" / f"{name}.cu").read_text()
         text, n = _LAUNCH.subn(
             lambda m: f"tk_emu::launch({m.group(1)}, {m.group(2)}, {m.group(3)});", src)
@@ -54,7 +56,7 @@ def emulated(tmp_path_factory):
         cpp, so = out / f"{name}.cpp", out / f"lib{name}.so"
         cpp.write_text(text)
         proc = subprocess.run(
-            ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
+            ["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w",
              "-I", str(EMU), "-o", str(so), str(cpp)],
             capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr
@@ -165,3 +167,71 @@ def test_fused_head_ce_kernels_match_plain_version(emulated, n, dim, vocab, v_pa
         torch.testing.assert_close(dh, ref_dh, atol=2e-5, rtol=1e-4)
     else:
         _bf16_close(dh, ref_dh)
+
+
+def _moe_inputs(sizes, n, d, f, dtype, seed):
+    """Rows sorted into `sizes` segments plus a sort-padding tail folded
+    into the last one; a bank at tpukit's init scale; O(1) cotangents, 0 on
+    the padding rows."""
+    e = len(sizes)
+    m = moe_gemm.plan_rows(n)[1]
+    rng = np.random.RandomState(seed)
+    mk = lambda *shape, s=1.0: torch.from_numpy((rng.randn(*shape) * s).astype(np.float32))
+    xs = mk(m, d).to(dtype)
+    bank = [mk(e, d, f, s=d**-0.5), mk(e, f, s=0.1), mk(e, f, d, s=f**-0.5), mk(e, d, s=0.1)]
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    offs[-1] = m
+    g = mk(m, d)
+    g[n:] = 0.0
+    return xs, [t.to(dtype) for t in bank], torch.from_numpy(offs), g.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_moe_gemm_kernels_match_plain_version(emulated, dtype):
+    """The up/down and dh/dx/dWu/dWd kernels on an adversarial layout: a
+    segment over two row tiles (130 rows), a 1-row segment, an empty expert,
+    a padding tail, D and F that are no multiple of the tiles (40, 160)."""
+    sizes, n, d, f = [130, 1, 0, 137], 268, 40, 160
+    xs, (wu, bu, wd, bd), offs, g = _moe_inputs(sizes, n, d, f, dtype, seed=3)
+    lib = emulated["moe_gemm"]
+    m = xs.shape[0]
+    h, ys = torch.empty((m, f), dtype=dtype), torch.zeros_like(xs)
+    moe_gemm.launch_forward(lib, xs, wu, bu, wd, bd, offs, h, ys, 0)
+    ref_y = moe_gemm.grouped_ffn_reference(xs, wu, bu, wd, bd, offs)
+
+    dz1 = torch.empty((m, f), dtype=dtype)
+    part = torch.empty((moe_gemm.row_tiles(lib, dtype, m, len(sizes)), f))
+    dx = torch.zeros_like(xs)
+    dwu, dbu = torch.empty(wu.shape), torch.empty(bu.shape)
+    dwd, dbd = torch.empty(wd.shape), torch.empty(bd.shape)
+    moe_gemm.launch_backward(lib, xs, g, ys, h, wu, wd, offs, dz1, part, dx, dwu, dbu, dwd, dbd,
+                             0)
+    refs = moe_gemm.grouped_ffn_backward_reference(xs, g, ref_y, wu, bu, wd, offs, h=h)
+
+    ref_h = torch.relu(torch.cat([xs[s:t].float() @ wu[e].float() + bu[e].float()
+                                  for e, s, t in moe_gemm._segments(offs, len(sizes))]))
+    for got, ref in ((h, ref_h.to(dtype)), (ys, ref_y)):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+        else:
+            _bf16_close(got, ref)
+    # dx is rounded to bf16 like y; the weight gradients come out in f32.
+    # The bias gradients sum f32 terms (dz2 exactly, dz1 unrounded) that
+    # differ only in summation order, so they keep the f32 bar in bf16 too:
+    # a dbu summed from the rounded dz1 fails it. dW sums products of
+    # round(dz1), which may land a bf16 ulp apart where the two f32 dh sums
+    # straddle a rounding boundary: 2^-12 of the row's largest |value|.
+    torch.testing.assert_close(dbu, refs[2], atol=5e-5, rtol=1e-4)
+    torch.testing.assert_close(dbd, refs[4], atol=5e-5, rtol=1e-4)
+    if dtype == torch.float32:
+        for got, ref in zip((dx, dwu, dwd), (refs[0], refs[1], refs[3])):
+            torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
+    else:
+        _bf16_close(dx, refs[0])
+        for got, ref in ((dwu, refs[1]), (dwd, refs[3])):
+            top = ref.abs().amax(-1, keepdim=True)
+            assert ((got - ref).abs() <= 2.0**-12 * top + 1e-5 * ref.abs()).all()
+    empty = sizes.index(0)
+    assert all((t[empty] == 0).all() for t in (dwu, dbu, dwd, dbd))
+    assert (dx[n:] == 0).all()
+    assert dwu.abs().max() > 0 and dbu.abs().max() > 0

@@ -29,8 +29,10 @@ from tpukit.serve import synthetic_request_stream as jax_stream
 from tpukit_torch import NotPortedError, bridge
 from tpukit_torch.data import WordTokenizer, synthetic_stories
 from tpukit_torch.model import GPTConfig, gpt
+from tpukit_torch.ops.moe_dispatch import ExpertGrid
 from tpukit_torch.serve import paged
 from tpukit_torch.serve.engine import ServeConfig, ServeEngine, synthetic_request_stream
+from tpukit_torch.shardings import ExpertParallel
 
 MAX_NEW = 10
 
@@ -291,7 +293,7 @@ def test_tokenizer_and_stream_match_tpukit(seed, kw):
 def test_unported_paths_raise_named_errors():
     with pytest.raises(NotPortedError, match="ROADMAP"):
         ServeConfig(page_size=0)
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        GPTConfig(num_experts=4)
+    with pytest.raises(NotPortedError, match="ROADMAP"):  # MoE serves; EP over ranks waits
+        ExpertParallel(ExpertGrid(data=1, expert=2))
     with pytest.raises(ValueError, match="divide every bucket"):
         ServeConfig(page_size=8, buckets=(12,))

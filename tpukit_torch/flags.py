@@ -114,22 +114,24 @@ NOT_CARRIED = {
     "cp_attention": "item 15 'Context parallel'",
     "pipeline_schedule": "item 7 'Pipeline and pipeline x DDP'",
     "virtual_stages": "item 7 'Pipeline and pipeline x DDP'",
-    "num_experts": "item 13 'MoE and EP'",
-    "moe_top_k": "item 13 'MoE and EP'",
-    "moe_dispatch": "item 13 'MoE and EP'",
     "comm_dtype": "item 16 'Quantized collectives and grad buckets'",
     "quant_stochastic": "item 16 'Quantized collectives and grad buckets'",
     "grad_buckets": "item 16 'Quantized collectives and grad buckets'",
 }
 
 
-def build_parser() -> argparse.ArgumentParser:
-    """tpukit's training parser (its recipe-specific groups off) plus
-    `--device`."""
+def build_parser(num_experts: bool = False) -> argparse.ArgumentParser:
+    """tpukit's training parser plus `--device`; of its recipe-specific
+    groups, only the MoE one (`num_experts`, recipe 8) is carried."""
     parser = argparse.ArgumentParser()
     d = TrainFlags()
     for name, typ in _CORE_FLAGS:
         parser.add_argument(f"--{name}", type=typ, default=getattr(d, name))
+    if num_experts:
+        parser.add_argument("--num_experts", type=int, default=8)
+        parser.add_argument("--moe_top_k", type=int, default=d.moe_top_k)
+        parser.add_argument("--moe_dispatch", choices=("a2a", "xla", "pallas"),
+                            default=d.moe_dispatch)
     for name in ("disable_amp", "disable_compile", "async_checkpoint", "no_metrics",
                  "debug_nans", "log_grad_norms", "quant_stochastic", "remat", "scan_layers"):
         parser.add_argument(f"--{name}", action="store_true")
@@ -160,8 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def parse_flags(argv=None) -> TrainFlags:
-    return TrainFlags(**vars(build_parser().parse_args(argv)))
+def parse_flags(argv=None, num_experts: bool = False) -> TrainFlags:
+    return TrainFlags(**vars(build_parser(num_experts).parse_args(argv)))
 
 
 def check_carried(flags: TrainFlags) -> None:

@@ -1,7 +1,8 @@
 """The GPT decoder of the port, as functions on a parameter tree (twin of
 `tpukit/model/gpt.py`): the config, seeded initialisation, the full-sequence
 forward training runs (`forward`, `forward_hidden`), and the paged
-KV-cached forward the serving engine runs.
+KV-cached forward the serving engine runs. With `num_experts > 0` every
+layer's FFN is a routed expert bank (`_apply_moe_ffn`).
 
 The parameter tree is tpukit's: nested dicts, `layers` leaves stacked on a
 leading `num_layers` axis, linear kernels `[in, out]`. A tpukit tree
@@ -15,6 +16,7 @@ compute dtype, logits widened to f32 only where a caller samples them.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -23,6 +25,8 @@ from tpukit_torch import NotPortedError, resolve_device
 from tpukit_torch.ops import paged_attention
 from tpukit_torch.ops.attention import causal_attention
 from tpukit_torch.ops.layers import layer_norm, linear
+from tpukit_torch.ops.moe_dispatch import moe_ffn_a2a, moe_ffn_xla
+from tpukit_torch.ops.moe_gemm import moe_ffn_pallas
 from tpukit_torch.serve import paged as paged_lib
 
 NEG_INF = paged_attention.NEG_INF
@@ -50,7 +54,6 @@ class GPTConfig:
     # decode ticks (T == 1) of the paged forward run the paged-attention
     # kernel instead of the gathered view; prefill chunks stay unfused
     fused_decode: bool = False
-    num_experts: int = 0
     dropout: float = 0.0
     # "auto": the flash kernels on CUDA from S = 256 up, the eager XLA-twin
     # path otherwise (ops/attention.py); "xla" or "flash" force one
@@ -63,6 +66,24 @@ class GPTConfig:
     # q/k/v as one [dim, 3 * inner] product (column blocks of the wider
     # product are the three narrow ones)
     fuse_qkv: bool = True
+    # Mixture of experts (tpukit `gpt.py:108-158`): num_experts > 0 replaces
+    # every layer's FFN with a router and a stacked expert bank; each token
+    # routes to router_top_k experts (1 = Switch, 2 = GShard top-2), the
+    # gates are the raw router probabilities, and the Switch load-balance aux
+    # weighs moe_aux_weight in the training objective (over real tokens only
+    # with moe_aux_mask_pads). moe_dispatch: "xla" (one-hot einsums), "a2a"
+    # (the expert-parallel exchange block) or "pallas" (the grouped-expert
+    # kernels; dropless unless moe_capacity > 0). moe_mesh is the
+    # ExpertGrid ExpertParallel injects at loss time; moe_capacity > 0
+    # overrides the per-row capacity of every dispatch.
+    num_experts: int = 0
+    expert_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_aux_mask_pads: bool = True
+    router_top_k: int = 1
+    moe_dispatch: str = "xla"
+    moe_mesh: Any = None
+    moe_capacity: int = 0
 
     def __post_init__(self):
         if self.dropout > 0:
@@ -71,12 +92,15 @@ class GPTConfig:
                 f"jax.random's threefry, which the port cannot match yet "
                 f"(ROADMAP.md, queue A item 9 'Seeded sampling')"
             )
-        if self.num_experts > 0:
-            raise NotPortedError(
-                f"num_experts={self.num_experts}: mixture-of-experts is not in "
-                f"the port yet (ROADMAP.md, queue A item 'MoE and EP', kernels "
-                f"B6-B7)"
+        if self.num_experts > 0 and not 1 <= self.router_top_k <= self.num_experts:
+            raise ValueError(
+                f"router_top_k={self.router_top_k} must be in [1, num_experts="
+                f"{self.num_experts}] - silently clamping would train a different "
+                f"routing than the one requested"
             )
+        if self.moe_dispatch not in ("xla", "a2a", "pallas"):
+            raise ValueError(f"moe_dispatch={self.moe_dispatch!r} must be 'xla', 'a2a' "
+                             f"or 'pallas'")
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
                 f"compute_dtype must be torch.float32 or torch.bfloat16, got "
@@ -130,13 +154,20 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
     gen.manual_seed(seed)
     dt, lead, dim, inner = PARAM_DTYPE, (cfg.num_layers,), cfg.dim, cfg.inner_dim
     lin = lambda fi, fo, bias: _linear_params(lead, fi, fo, bias, gen, device, dt)
+    if cfg.num_experts > 0:
+        # router without bias; the bank's leaves lead with [layers, experts]
+        bank = lambda fi, fo: _linear_params((*lead, cfg.num_experts), fi, fo, True, gen,
+                                             device, dt)
+        ffn = {"router": lin(dim, cfg.num_experts, False),
+               "experts": {"up": bank(dim, dim * FFN_MULT), "down": bank(dim * FFN_MULT, dim)}}
+    else:
+        ffn = {"up": lin(dim, dim * FFN_MULT, True), "down": lin(dim * FFN_MULT, dim, True)}
     layers = {
         "norm1": _layer_norm_params(lead, dim, device, dt),
         "attn": {"q": lin(dim, inner, False), "k": lin(dim, inner, False),
                  "v": lin(dim, inner, False), "out": lin(inner, dim, True)},
         "norm2": _layer_norm_params(lead, dim, device, dt),
-        "ffn": {"up": lin(dim, dim * FFN_MULT, True),
-                "down": lin(dim * FFN_MULT, dim, True)},
+        "ffn": ffn,
     }
     vp = cfg.padded_vocab_size
     return {
@@ -193,43 +224,60 @@ def _apply_attention(layer, cfg: GPTConfig, x, pad_mask):
 
 def apply_decoder_layer(layer: dict, cfg: GPTConfig, x, pad_mask):
     """Pre-LN block (twin of `tpukit/model/gpt.py:464`): `x + attn(norm1(x))`,
-    then `x + ffn(norm2(x))`; `pad_mask [B, S]` bool, True = padding."""
+    then `x + ffn(norm2(x))`; `pad_mask [B, S]` bool, True = padding. With
+    `cfg.num_experts > 0` the FFN is the expert bank and the block returns
+    `(x, aux)`."""
     h = layer_norm(x, layer["norm1"]).to(cfg.compute_dtype)
     x = x + _apply_attention(layer, cfg, h, pad_mask)
     h = layer_norm(x, layer["norm2"]).to(cfg.compute_dtype)
+    if cfg.num_experts > 0:
+        out, aux = _apply_moe_ffn(layer, cfg, h, pad_mask)
+        return x + out, aux
     return x + _apply_feed_forward(layer, cfg, h)
 
 
-def apply_decoder_layers(stacked_layers: dict, cfg: GPTConfig, x, pad_mask):
+def apply_decoder_layers(stacked_layers: dict, cfg: GPTConfig, x, pad_mask,
+                         aux_out: list | None = None):
     """The layer stack over stacked parameters (twin of
     `tpukit/model/gpt.py:485`), any leading stack size. With
-    `cfg.remat_layers` each layer is recomputed in the backward."""
+    `cfg.remat_layers` each layer is recomputed in the backward. MoE
+    configs append the layers' summed load-balance aux to `aux_out`."""
     leaf = stacked_layers
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
+    moe = cfg.num_experts > 0
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(leaf.shape[0]):
         layer = _take(stacked_layers, i)
         if cfg.remat_layers:
-            x = checkpoint(apply_decoder_layer, layer, cfg, x, pad_mask, use_reentrant=False)
+            y = checkpoint(apply_decoder_layer, layer, cfg, x, pad_mask, use_reentrant=False)
         else:
-            x = apply_decoder_layer(layer, cfg, x, pad_mask)
+            y = apply_decoder_layer(layer, cfg, x, pad_mask)
+        if moe:
+            y, aux = y
+            aux_total = aux_total + aux
+        x = y
+    if moe and aux_out is not None:
+        aux_out.append(aux_total)
     return x
 
 
-def forward_hidden(params: dict, cfg: GPTConfig, input_ids, position_ids, mask=None):
+def forward_hidden(params: dict, cfg: GPTConfig, input_ids, position_ids, mask=None,
+                   aux_out: list | None = None):
     """Embeddings, the layer stack and the final LayerNorm: the hidden
     states the LM head consumes, in the compute dtype (twin of
     `tpukit/model/gpt.py:781`). `mask [B, S]` bool, True = padding."""
     x = apply_embeddings(params, cfg, input_ids, position_ids)
-    x = apply_decoder_layers(params["layers"], cfg, x, mask)
+    x = apply_decoder_layers(params["layers"], cfg, x, mask, aux_out=aux_out)
     return layer_norm(x, params["norm_out"]).to(cfg.compute_dtype)
 
 
-def forward(params: dict, cfg: GPTConfig, input_ids, position_ids, mask=None):
+def forward(params: dict, cfg: GPTConfig, input_ids, position_ids, mask=None,
+            aux_out: list | None = None):
     """Logits `[B, S, padded_vocab]` in the compute dtype, pad columns -1e9
     (twin of `tpukit/model/gpt.py:819`)."""
     x = apply_embeddings(params, cfg, input_ids, position_ids)
-    x = apply_decoder_layers(params["layers"], cfg, x, mask)
+    x = apply_decoder_layers(params["layers"], cfg, x, mask, aux_out=aux_out)
     return apply_head(params, cfg, x)
 
 
@@ -237,6 +285,16 @@ def _apply_feed_forward(layer, cfg: GPTConfig, x):
     """up -> relu -> down -> relu (the reference's double ReLU)."""
     h = torch.relu(linear(x, layer["ffn"]["up"], cfg.compute_dtype))
     return torch.relu(linear(h, layer["ffn"]["down"], cfg.compute_dtype))
+
+
+_MOE_DISPATCH = {"xla": moe_ffn_xla, "a2a": moe_ffn_a2a, "pallas": moe_ffn_pallas}
+
+
+def _apply_moe_ffn(layer, cfg: GPTConfig, x, pad_mask=None):
+    """The routed expert FFN (twin of `tpukit/model/gpt.py:365`) by
+    `cfg.moe_dispatch`; returns `(out, aux)`. `pad_mask` only changes the
+    load-balance statistics: every position routes."""
+    return _MOE_DISPATCH[cfg.moe_dispatch](layer, cfg, x, pad_mask=pad_mask)
 
 
 def _attend_over_cache(layer, cfg: GPTConfig, q, k_cache, v_cache, q_pos):
@@ -329,7 +387,10 @@ def forward_cached(params: dict, cfg: GPTConfig, input_ids, position_ids,
             bt, start, write_mask,
         )
         h = layer_norm(x, layer["norm2"]).to(cfg.compute_dtype)
-        x = x + _apply_feed_forward(layer, cfg, h)
+        if cfg.num_experts > 0:
+            x = x + _apply_moe_ffn(layer, cfg, h)[0]
+        else:
+            x = x + _apply_feed_forward(layer, cfg, h)
     return apply_head(params, cfg, x), cache
 
 

@@ -6,6 +6,7 @@ request stream and prints the throughput line of `main-serve.py`. Runs on
 cuda unless `--device cpu` is given.
 
   python -m tpukit_torch.serve --page_size 16 --fused_decode --requests 64
+  python -m tpukit_torch.serve --num_experts 8 --moe_dispatch pallas --fused_decode
   python -m tpukit_torch.serve --device cpu --num_layers 2 --dim 64 \\
       --head_dim 16 --heads 4 --requests 8 --page_size 8 --fused_decode
 """
@@ -35,6 +36,13 @@ def parse_flags(argv=None):
                     "bucket + max_new_tokens, in whole pages) must fit")
     ap.add_argument("--disable_amp", action="store_true",
                     help="compute in f32 instead of bf16")
+    ap.add_argument("--num_experts", type=int, default=0,
+                    help="routed experts per layer (0: the dense model)")
+    ap.add_argument("--moe_top_k", type=int, default=1)
+    ap.add_argument("--moe_dispatch", choices=("xla", "pallas"), default="xla",
+                    help="meshless decode dataflow of an MoE model; 'pallas' "
+                    "(dropless, the grouped-expert kernels) makes the cached "
+                    "decode exact")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--buckets", type=str, default="16,32,64")
@@ -60,7 +68,6 @@ def parse_flags(argv=None):
     ap.add_argument("--checkpoint", type=str, default="")
     ap.add_argument("--draft", type=str, default="")
     ap.add_argument("--replicas", type=int, default=0)
-    ap.add_argument("--num_experts", type=int, default=0)
     return ap.parse_args(argv)
 
 
@@ -69,7 +76,6 @@ def _reject_unported(flags) -> None:
         (flags.checkpoint, "--checkpoint", "checkpoint restore ('Checkpoints')"),
         (flags.draft, "--draft", "speculative decoding ('Speculative decoding')"),
         (flags.replicas, "--replicas", "the fleet router ('Fleet')"),
-        (flags.num_experts, "--num_experts", "mixture-of-experts ('MoE and EP')"),
         (flags.temperature > 0 or flags.top_k > 0, "--temperature/--top_k",
          "seeded sampling, which needs jax.random's threefry ('Seeded sampling')"),
     ]
@@ -96,6 +102,8 @@ def main(argv=None) -> int:
         num_layers=flags.num_layers, vocab_size=tokenizer.vocab_size,
         max_position_embeddings=flags.sequence_length,
         compute_dtype=torch.float32 if flags.disable_amp else torch.bfloat16,
+        num_experts=flags.num_experts, router_top_k=flags.moe_top_k,
+        moe_dispatch=flags.moe_dispatch if flags.num_experts > 0 else "xla",
     )
     buckets = tuple(sorted({int(b) for b in flags.buckets.split(",") if b}))
     serve = ServeConfig(

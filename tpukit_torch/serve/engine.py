@@ -230,6 +230,7 @@ class ServeEngine:
         self.completions: list[Completion] = []
         self.buckets_used: set[int] = set()
         self.steps = 0
+        self.prefill_dispatches = 0  # batched prefill calls (one forward each)
         self.admitted = 0
         self.max_live = 0
         self.evicted = {"eos": 0, "length": 0}
@@ -331,6 +332,7 @@ class ServeEngine:
             self._tensor(lims),
         )
         self._walls["prefill"] += time.perf_counter() - t0
+        self.prefill_dispatches += 1
         for slot, lane, start, row, is_last in entries:
             lane.next_chunk = start + c
             if is_last:
@@ -423,7 +425,8 @@ class ServeEngine:
         return dict(
             requests=len(comps), slots=self.serve.slots,
             buckets=list(self.serve.buckets), buckets_used=sorted(self.buckets_used),
-            generated_tokens=gen, decode_steps=self.steps, wall_s=wall_s,
+            generated_tokens=gen, decode_steps=self.steps,
+            prefill_dispatches=self.prefill_dispatches, wall_s=wall_s,
             tokens_per_sec=gen / wall_s if wall_s else None,
             mean_occupancy=gen / (self.serve.slots * self.steps) if self.steps else 0.0,
             admitted=self.admitted, evicted_eos=self.evicted["eos"],

@@ -1,5 +1,5 @@
 """Where a serving run's time goes on the GPU:
-`python -m tpukit_torch.serve.profile [--unfused]`.
+`python -m tpukit_torch.serve.profile [--unfused] [--num_experts 8]`.
 
 Serves the GPT-2-small-width stream of `chip_smoke.py` (768 / 12 x 64 /
 12 layers, vocab 50257, bf16 compute, 16 slots, pages of 16, 64 requests)
@@ -9,7 +9,9 @@ wall per decode tick, the engine's prefill/decode/sync split, the
 device's busy time (sum of CUDA kernel times, from the profiled wave), its
 idle share of the profiled wave's wall and of the unprofiled wave's wall
 (the profiler slows the host, not the kernels), and the kernels that took
-the most device time. Needs one CUDA device.
+the most device time. `--num_experts N` serves the MoE model of the same
+width instead (top-1, the dropless pallas dispatch: the grouped-expert
+kernels). Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -28,15 +30,18 @@ REQUESTS = 64
 
 
 def build(device, fused: bool, kv_dtype: str = "f32", num_layers: int = 12,
-          compute_dtype=torch.bfloat16):
+          compute_dtype=torch.bfloat16, num_experts: int = 0):
     """Config, params, serve config and request stream of the GPT-2-small
-    serving run."""
+    serving run; with `num_experts`, its MoE model (top-1, the dropless
+    pallas dispatch, whose cached decode is exact)."""
     from tpukit_torch.data import get_tokenizer
     from tpukit_torch.model import GPTConfig, init_params
     from tpukit_torch.serve.engine import ServeConfig, synthetic_request_stream
 
     tok = get_tokenizer()
-    cfg = GPTConfig(compute_dtype=compute_dtype, **{**GPT2_SMALL, "num_layers": num_layers})
+    cfg = GPTConfig(compute_dtype=compute_dtype, num_experts=num_experts,
+                    moe_dispatch="pallas" if num_experts else "xla",
+                    **{**GPT2_SMALL, "num_layers": num_layers})
     params = init_params(cfg, seed=0, device=device)
     serve = ServeConfig(fused_decode=fused, kv_dtype=kv_dtype, **SERVE_SHAPE)
     reqs = synthetic_request_stream(tok, REQUESTS, seed=0,
@@ -48,12 +53,15 @@ def build(device, fused: bool, kv_dtype: str = "f32", num_layers: int = 12,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--unfused", action="store_true")
+    ap.add_argument("--num_experts", type=int, default=0,
+                    help="serve the MoE model (top-1, pallas) with this many experts")
     flags = ap.parse_args(argv)
     from tpukit_torch import resolve_device
     from tpukit_torch.serve.engine import ServeEngine
 
     device = resolve_device("cuda")
-    cfg, params, serve, reqs, eos = build(device, not flags.unfused)
+    cfg, params, serve, reqs, eos = build(device, not flags.unfused,
+                                          num_experts=flags.num_experts)
     run = lambda rs: ServeEngine(params, cfg, serve, eos, device=device).run(list(rs))
     run(reqs[:4])  # warm-up: cuBLAS handles, allocator, kernel build
     torch.cuda.synchronize()
@@ -65,7 +73,8 @@ def main(argv=None) -> int:
     wall = time.perf_counter() - t0
     s = engine.last_summary
     print(f"{torch.cuda.get_device_name(0)}; fused_decode={serve.fused_decode} "
-          f"kv_dtype={serve.kv_dtype}")
+          f"kv_dtype={serve.kv_dtype} num_experts={cfg.num_experts} "
+          f"moe_dispatch={cfg.moe_dispatch}")
     print(f"wall {wall:.4f} s, {s['generated_tokens']} tokens, "
           f"{s['generated_tokens'] / wall:.1f} tokens/s, {engine.steps} decode ticks, "
           f"{1e3 * s['decode_s'] / engine.steps:.3f} ms decode wall per tick; prefill "

@@ -10,7 +10,10 @@ Loop surface, as tpukit's:
   - three greedy samples of GENERATION_PROMPTS per epoch (20 new tokens,
     clamped to the position table), through the port's paged
     `ServeEngine` (tpukit decodes them with its ring cache, which is not
-    ported, ROADMAP.md item 8: greedy tokens agree at f32);
+    ported, ROADMAP.md item 8: greedy tokens agree at f32). The config has
+    no `moe_dispatch`, so MoE samples run the meshless "xla" dispatch, as
+    tpukit's do, and each prompt prefills in one chunk from position 0, so
+    the capacity windows are tpukit's too;
   - a checkpoint at the end (`checkpoint.save`, the port's own format).
 The step runs eagerly: forward, loss, backward and `torch.optim.AdamW` in
 place. Not carried (ROADMAP.md): the JSONL StepLogger records, the MFU
@@ -111,8 +114,10 @@ def generate_samples(params: dict, cfg: gpt.GPTConfig, tokenizer, device,
     bucket = -(-longest // page) * page
     if -(-(bucket + max_new_tokens) // page) * page > cfg.max_position_embeddings:
         page, bucket = 1, longest
+    # one prefill chunk per prompt, from position 0, as tpukit's generate_batch
+    # prefills: an MoE buffer dispatch routes each chunk in its own capacity window
     serve = ServeConfig(slots=len(prompts), buckets=(bucket,), max_new_tokens=max_new_tokens,
-                        page_size=page, fused_decode=True)
+                        page_size=page, prefill_chunk=bucket, fused_decode=True)
     reqs = [Request(rid=i, ids=tuple(ids), max_new_tokens=max_new_tokens)
             for i, ids in enumerate(encoded)]
     with torch.no_grad():
@@ -138,6 +143,7 @@ def build_config(flags: TrainFlags, vocab_size: int) -> gpt.GPTConfig:
         max_position_embeddings=flags.sequence_length, dropout=flags.dropout,
         compute_dtype=torch.float32 if flags.disable_amp else torch.bfloat16,
         remat_layers=flags.remat, scan_layers=flags.scan_layers,
+        num_experts=flags.num_experts, router_top_k=flags.moe_top_k,
     )
 
 
@@ -156,6 +162,7 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
     tokenizer.pad_token_id = 2  # every recipe pins pad to 2
     pad_id = tokenizer.pad_token_id
     cfg = build_config(flags, tokenizer.vocab_size)
+    strategy.validate_config(cfg)
 
     train_ds, validation_ds = get_dataset(slice_size=flags.dataset_slice)
     train_ds = transform_dataset(train_ds, tokenizer, max_length=flags.sequence_length)
