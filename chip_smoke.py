@@ -22,17 +22,19 @@ not 0:
   5. fused vs unfused: the same stream at f32 compute (4 layers) gives the
      same greedy tokens both ways, and int8 pages agree on >= 90% of them;
   6. training kernels vs plain: flash attention forward and backward at
-     64 x 12 x 512 x 64 (and S = 2048), fused head + CE forward and backward
-     at 32768 tokens x 768 x vocab 50257, bf16 and f32, with and without a
-     pad mask, each against its plain version (the CE backward under O(1)
-     cotangents, each of its two terms alone, with a negative control);
-     device times (CUDA graph), call, plain and SDPA times, and the least
-     time the card could take; then the attention crossover: the eager
-     "xla" path against the flash kernels at S = 128 ... 1024;
+     64 x 12 x 512 x 64 (and S = 511, 2048; every bf16 head dim, 16 to 128,
+     at S = 511, 512, 2048, with and without a pad mask), fused head + CE
+     forward and backward at 32768 tokens x 768 x vocab 50257, bf16 and f32,
+     with and without a pad mask, each against its plain version (the CE
+     backward under O(1) cotangents, each of its two terms alone, with a
+     negative control); device times (CUDA graph), call, plain and SDPA
+     times, the least time the card could take, TFLOP/s and the share of
+     that bound; then the attention crossover: the eager "xla" path against
+     the flash kernels at S = 16 ... 1024;
   7. train step at full width: the gpt-small-dim768 rung (batch 64, S 512,
      bf16), 8 steps; the loss falls on a repeated batch, and each step
-     launches the flash kernels 12 + 12 + 12 times and the CE kernels once
-     each;
+     launches the flash kernels 12 + 12 + 12 + 12 times (forward, D, dK/dV,
+     dQ) and the CE kernels once each;
   8. the train step through the kernels equals the step through the plain
      versions (f32, 2 layers, 4 steps);
   9. recipe 1 end to end at GPT-2-small width on the fixture corpus
@@ -49,7 +51,7 @@ not 0:
  11. MoE train step at full width: the gpt-small-dim768-e8 rung (batch 32,
      S 512, bf16, ExpertParallel 1 x 1 with the pallas dispatch), 8 steps;
      the loss falls on a repeated batch, and each step launches each
-     grouped-expert kernel 12 times, the flash kernels 12 + 12 + 12 and
+     grouped-expert kernel 12 times, the flash kernels 12 + 12 + 12 + 12 and
      the CE kernels once each;
  12. MoE train step through the kernels == through the plain versions (f32,
      2 layers, top-2, 4 steps), on the ExpertParallel 1 x 1 path and on the
@@ -86,7 +88,7 @@ import torch
 
 from tpukit_torch import resolve_device
 from tpukit_torch.ops import _cuda
-from tpukit_torch.ops.attention import causal_attention
+from tpukit_torch.ops.attention import FLASH_MIN_SEQ, causal_attention
 from tpukit_torch.ops import flash_attention as fa
 from tpukit_torch.ops import fused_head_ce as fce
 from tpukit_torch.ops import moe_gemm
@@ -374,8 +376,14 @@ def hold(what: str, got, ref, f32_tol, dtype) -> float:
     bar."""
     err, worst = worst_ratio(got, ref, f32_tol, dtype)
     if not worst <= 1.0:
+        g, r = got.float(), ref.float()
+        at = np.unravel_index(int(((g - r).abs() / (r.abs().amax(-1, keepdim=True) + 1e-30))
+                                  .argmax()), tuple(r.shape))
         raise AssertionError(f"{what}: kernel disagrees with its plain version, max_abs_err "
-                             f"{err:.3e}, worst err/tolerance {worst:.3e}")
+                             f"{err:.3e}, worst err/tolerance {worst:.3e}; worst relative to "
+                             f"its row at {tuple(int(i) for i in at)}: kernel "
+                             f"{g[at].item():.6e}, plain {r[at].item():.6e}, row's largest "
+                             f"|plain| {r[at[:-1]].abs().max().item():.6e}")
     return err
 
 
@@ -396,6 +404,14 @@ def flash_bounds(b, h, s, d, dtype, masked) -> dict:
     pairs = b * h * d * s * (s + 1) / 2
     return dict(forward=_bound(4 * t + rows + bias, 2 * 2 * pairs, dtype),
                 backward=_bound(7 * t + 2 * rows + bias, 5 * 2 * pairs, dtype))
+
+
+def flash_flops(b, h, s, d) -> dict:
+    """The products the causal half needs, 2 flops a multiply-add: forward
+    QK^T and PV, backward QK^T, dO V^T, P^T dO, dS^T Q, dS K (the kernels'
+    second dV product, for P's low bf16 term, is not counted)."""
+    pairs = b * h * d * s * (s + 1) / 2
+    return dict(fwd=2 * 2 * pairs, bwd=5 * 2 * pairs)
 
 
 def ce_bounds(n, dim, v_pad, dtype) -> dict:
@@ -424,41 +440,65 @@ def flash_inputs(dev, b, h, s, d, dtype, masked, seed):
     return q, k, v, do, mask
 
 
+def bf16_ulps(got, ref) -> tuple[float, float]:
+    """Largest |got - ref| in bf16 ulps (a binade's spacing,
+    2^(floor(log2 |x|) - 7)) of the plain element, over elements where
+    ref != 0, and of the largest |plain| of the element's row."""
+    r = ref.float()
+    ulp = lambda x: torch.exp2(torch.floor(torch.log2(x.clamp(min=1e-30))) - 7)
+    diff = (got.float() - r).abs()
+    own = (diff / ulp(r.abs()))[r != 0].max().item()
+    return own, (diff / ulp(r.abs().amax(-1, keepdim=True))).max().item()
+
+
 def check_flash(dev, b, h, s, d, dtype, masked, timed=False) -> dict:
     """Forward (out, lse) and backward (dq, dk, dv) kernels against the plain
     version on the same inputs; the backward gets the kernel's out and lse
-    on both sides. With `timed`, device and call times too."""
+    on both sides, and the plain backward sums in f64 (the same rounding
+    points): where dP - D cancels exactly (query 0 sees key 0 alone, so
+    its dQ row is 0) its f32 sums, taken in two orders, leave a residue that
+    the bf16 bar, relative to the row, cannot hold; the kernels' D is
+    formed as their dP is and cancels to 0. D = rowsum(dO O) from the
+    preprocess kernel is held to the f32 rowsum (FLASH_FWD_TOL). With
+    `timed`, device and call times too."""
     q, k, v, do, mask = flash_inputs(dev, b, h, s, d, dtype, masked, seed=s + b)
     scale = d**-0.5
     bias = fa.pad_bias(mask, b, s, dev)
     out, lse = fa._forward_cuda(q, k, v, bias, scale)
     ref_out, ref_lse = fa.flash_forward_reference(q, k, v, bias, scale)
     grads = fa._backward_cuda(q, k, v, bias, out, lse, do, scale)
-    ref_grads = fa.flash_backward_reference(q, k, v, bias, out, lse, do, scale)
+    ref_grads = fa.flash_backward_reference(q, k, v, bias, out, lse, do, scale,
+                                            acc=torch.float64)
+    lib = _cuda.load("flash_attention", fa._SIGNATURES)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    dcap = torch.empty_like(lse)
+    dq_b, dk_b, dv_b = (torch.empty_like(q) for _ in range(3))
+    fa.launch_backward(lib, q, k, v, bias, do, out, lse, dcap, dq_b, dk_b, dv_b, scale,
+                       stream())
     torch.cuda.synchronize()
     tag = f"flash B{b} H{h} S{s} D{d} {str(dtype)[6:]}{' mask' if masked else ''}"
     err = hold(f"{tag} out", out, ref_out, FLASH_FWD_TOL, dtype)
     hold(f"{tag} lse", lse, ref_lse, FLASH_FWD_TOL, torch.float32)
+    hold(f"{tag} D", dcap, (do.float() * out.float()).sum(-1), FLASH_FWD_TOL, torch.float32)
     g_err = max(hold(f"{tag} d{n}", gg, rr, FLASH_GRAD_TOL, dtype)
                 for n, gg, rr in zip("qkv", grads, ref_grads))
+    if not all(torch.equal(x, y) for x, y in zip(grads, (dq_b, dk_b, dv_b))):
+        raise AssertionError(f"{tag}: two backward runs on the same inputs differ")
     res = dict(fwd_err=err, bwd_err=g_err)
     top = ", ".join(f"{n} {t.float().abs().max().item():.3e}"
                     for n, t in zip(("out", "dq", "dk", "dv"), (ref_out, *ref_grads)))
+    ulps = bf16_ulps(grads[2], ref_grads[2])
     line = (f"{tag}: forward max_abs_err {err:.3e}, backward {g_err:.3e} (largest "
-            f"|plain| {top})")
+            f"|plain| {top}); dV largest error {ulps[0]:.3f} bf16 ulps of the element, "
+            f"{ulps[1]:.3f} of its row's largest; backward bit-identical on a second run")
     if timed:
-        lib = _cuda.load("flash_attention", fa._SIGNATURES)
-        stream = lambda: torch.cuda.current_stream().cuda_stream
-        q_s = fa.prescale(q, scale)
-        dcap = (do.float() * out.float()).sum(-1)
         o_b, l_b = torch.empty_like(q), torch.empty_like(lse)
-        dq_b, dk_b, dv_b = (torch.empty_like(q) for _ in range(3))
         res.update(
-            fwd_ms=graph_ms(lambda: fa.launch_forward(lib, q_s, k, v, bias, o_b, l_b,
+            fwd_ms=graph_ms(lambda: fa.launch_forward(lib, q, k, v, bias, o_b, l_b, scale,
                                                       stream()), 20),
             fwd_call_ms=time_ms(lambda: fa._forward_cuda(q, k, v, bias, scale), 20),
             fwd_plain_ms=time_ms(lambda: fa.flash_forward_reference(q, k, v, bias, scale), 5),
-            bwd_ms=graph_ms(lambda: fa.launch_backward(lib, q_s, k, v, bias, do, lse, dcap,
+            bwd_ms=graph_ms(lambda: fa.launch_backward(lib, q, k, v, bias, do, out, lse, dcap,
                                                        dq_b, dk_b, dv_b, scale, stream()), 10),
             bwd_call_ms=time_ms(lambda: fa._backward_cuda(q, k, v, bias, out, lse, do, scale),
                                 10),
@@ -475,13 +515,19 @@ def check_flash(dev, b, h, s, d, dtype, masked, timed=False) -> dict:
             lambda: torch.autograd.grad(o_g, (qg, kg, vg), do, retain_graph=True), 10)
         bounds = flash_bounds(b, h, s, d, dtype, masked)
         res.update(fwd_bound=bounds["forward"], bwd_bound=bounds["backward"])
+        flops = flash_flops(b, h, s, d)
+        for way in ("fwd", "bwd"):
+            res[f"{way}_tflops"] = flops[way] / res[f"{way}_ms"] / 1e9
+            res[f"{way}_bound_share"] = res[f"{way}_bound"][0] / res[f"{way}_ms"]
         line += (f"; forward device {res['fwd_ms']:.4f} ms (CUDA graph), call "
                  f"{res['fwd_call_ms']:.4f}, plain {res['fwd_plain_ms']:.4f}, SDPA "
                  f"{res['fwd_library_ms']:.4f}, bound {bounds['forward'][0]:.4f} ms "
-                 f"({bounds['forward'][1]}); backward device {res['bwd_ms']:.4f} ms, call "
-                 f"{res['bwd_call_ms']:.4f}, plain {res['bwd_plain_ms']:.4f}, SDPA "
-                 f"{res['bwd_library_ms']:.4f}, bound {bounds['backward'][0]:.4f} ms "
-                 f"({bounds['backward'][1]})")
+                 f"({bounds['forward'][1]}), {res['fwd_tflops']:.1f} TFLOP/s, "
+                 f"{res['fwd_bound_share']:.3f} of the bound; backward (D, dK/dV, dQ) device "
+                 f"{res['bwd_ms']:.4f} ms, call {res['bwd_call_ms']:.4f}, plain "
+                 f"{res['bwd_plain_ms']:.4f}, SDPA {res['bwd_library_ms']:.4f}, bound "
+                 f"{bounds['backward'][0]:.4f} ms ({bounds['backward'][1]}), "
+                 f"{res['bwd_tflops']:.1f} TFLOP/s, {res['bwd_bound_share']:.3f} of the bound")
     print(line, flush=True)
     return res
 
@@ -616,7 +662,9 @@ def check_training_kernels(dev) -> dict:
     kernels also at the recipe's S = 511 (a ragged last tile) and at S = 2048
     (several key tiles: the long-sequence gradients tpukit's split backward
     computes), at the gpt-small-dim768 rung's shapes
-    (`recipes/profile.py`). Returns the timed main-path runs."""
+    (`recipes/profile.py`), and each bf16 flash instance (D = 16, 32, 64,
+    128) at S = 511, 512 and 2048 with and without a pad mask. Returns the
+    timed main-path runs."""
     g = GPT2_SMALL_TRAIN
     b, s, hh, d = BATCH, SEQ, g["heads"], g["head_dim"]
     main = {"flash": check_flash(dev, b, hh, s, d, torch.bfloat16, True, timed=True)}
@@ -626,13 +674,22 @@ def check_training_kernels(dev) -> dict:
     check_flash(dev, 8, hh, s - 1, d, torch.bfloat16, True)  # the recipe's S (phase 9)
     check_flash(dev, 2, hh, 2048, d, torch.bfloat16, True)
     check_flash(dev, 2, hh, 2048, d, torch.float32, True)
+    # every bf16 instance (head dim 16, 32, 64, 128) at S = 511, 512, 2048,
+    # with and without a pad mask, at a small batch
+    done = {(512, True), (512, False), (511, True), (2048, True)}  # D = 64, above
+    for dd in fa.HEAD_DIMS:
+        for ss in (511, 512, 2048):
+            for masked in (True, False):
+                if dd != d or (ss, masked) not in done:
+                    check_flash(dev, 2, 6, ss, dd, torch.bfloat16, masked)
     main["ce"] = check_ce(dev, b * s, g["dim"], g["vocab_size"], torch.bfloat16, timed=True)
     check_ce(dev, 4096, g["dim"], g["vocab_size"], torch.float32)
     check_ce(dev, 4000, g["dim"], g["vocab_size"], torch.bfloat16)
     return main
 
 
-def attention_crossover(dev, seqs=(128, 256, 384, 512, 1024), tokens=BATCH * SEQ) -> dict:
+def attention_crossover(dev, seqs=(16, 32, 64, 128, 256, 384, 512, 1024),
+                        tokens=BATCH * SEQ) -> dict:
     """Where `attention_impl="auto"` should switch: one attention call,
     forward and backward through autograd, by the eager "xla" path and by
     the flash kernels, at the rung's 32768 tokens per call (batch
@@ -665,7 +722,8 @@ def attention_crossover(dev, seqs=(128, 256, 384, 512, 1024), tokens=BATCH * SEQ
               flush=True)
     faster = [s for s in seqs if all(table[t]["flash"][0] <= table[t]["xla"][0]
                                      for t in seqs if t >= s)]
-    print(f"flash is at least as fast as xla from S = {faster[0]} up (of {list(seqs)})"
+    print(f"flash is at least as fast as xla from S = {faster[0]} up (of {list(seqs)}); "
+          f"`auto` picks flash from FLASH_MIN_SEQ = {FLASH_MIN_SEQ}"
           if faster else f"flash is slower than xla at every S of {list(seqs)}", flush=True)
     return table
 
@@ -715,8 +773,9 @@ def train_full_width(dev) -> dict:
     if not losses[4] < losses[0]:
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses[0]} -> "
                              f"{losses[4]}")
-    want = dict(paged=0, flash_forward=layers * steps, flash_backward_dkv=layers * steps,
-                flash_backward_dq=layers * steps, ce_forward=steps, ce_backward_dw=steps,
+    want = dict(paged=0, flash_forward=layers * steps, flash_backward_dcap=layers * steps,
+                flash_backward_dkv=layers * steps, flash_backward_dq=layers * steps,
+                ce_forward=steps, ce_backward_dw=steps,
                 ce_backward_dh=steps, **{f"moe_{k}": 0 for k in moe_gemm.launches})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -1023,8 +1082,9 @@ def moe_train_full_width(dev) -> dict:
     if not losses[4] < losses[0]:
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses[0]} -> "
                              f"{losses[4]}")
-    want = dict(paged=0, flash_forward=layers * steps, flash_backward_dkv=layers * steps,
-                flash_backward_dq=layers * steps, ce_forward=steps, ce_backward_dw=steps,
+    want = dict(paged=0, flash_forward=layers * steps, flash_backward_dcap=layers * steps,
+                flash_backward_dkv=layers * steps, flash_backward_dq=layers * steps,
+                ce_forward=steps, ce_backward_dw=steps,
                 ce_backward_dh=steps, **{f"moe_{k}": layers * steps for k in moe_gemm.launches})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -1320,7 +1380,8 @@ def main() -> int:
               c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],
               also_replaces=["tpukit/ops/pallas_attention.py:346",
                              "tpukit/ops/pallas_attention.py:389"],
-              kernels_per_call=2, launches_by_kernel={"dkv": c["flash_backward_dkv"],
+              kernels_per_call=3, launches_by_kernel={"dcap": c["flash_backward_dcap"],
+                                                      "dkv": c["flash_backward_dkv"],
                                                       "dq": c["flash_backward_dq"]}),
         entry("fused_head_ce_fwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:65",
               c["ce_forward"], ce, "fwd", ce["fwd_err"], None),

@@ -1,5 +1,6 @@
-// Host emulation of cuda_bf16.h: the bf16 type and the two conversions the
-// port's kernels use (round to nearest even, as __float2bfloat16_rn does).
+// Host emulation of cuda_bf16.h: the bf16 type, the two conversions the
+// port's kernels use (round to nearest even, as __float2bfloat16_rn does) and
+// the reinterpretations to and from its 16 bits.
 #pragma once
 
 #include <cmath>
@@ -29,5 +30,13 @@ inline float __bfloat162float(__nv_bfloat16 x) {
   const uint32_t u = static_cast<uint32_t>(x.bits) << 16;
   float out;
   std::memcpy(&out, &u, sizeof(out));
+  return out;
+}
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 x) { return x.bits; }
+
+inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short u) {
+  __nv_bfloat16 out;
+  out.bits = u;
   return out;
 }

@@ -3,8 +3,8 @@
 // the CPU tests. Every thread of a block is a std::thread; blocks run one
 // after another and share one dynamic shared-memory buffer; __syncthreads is
 // a barrier over the block's threads; warp shuffles exchange through a
-// per-block array between two barriers; a per-warp barrier orders the warp
-// matrix functions of mma.h. Launch statements are rewritten by
+// per-block array between two barriers of the warp; a per-warp barrier also
+// orders the warp matrix functions of mma.h and tk_mma.cuh. Launch statements are rewritten by
 // the test (`kernel<<<grid, threads, smem, stream>>>(args)` becomes
 // `tk_emu::launch(kernel, grid, threads, smem, stream, args)`).
 //
@@ -56,6 +56,17 @@ template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) { return cudaSuccess; }
 
 inline int min(int a, int b) { return a < b ? a : b; }
+inline float __expf(float x) { return std::exp(x); }
+inline float __uint_as_float(unsigned int u) {
+  float f;
+  std::memcpy(&f, &u, sizeof(f));
+  return f;
+}
+inline unsigned int __float_as_uint(float f) {
+  unsigned int u;
+  std::memcpy(&u, &f, sizeof(u));
+  return u;
+}
 inline int max(int a, int b) { return a > b ? a : b; }
 
 // The kernels declare `extern __shared__ float smem[];` inside functions of
@@ -81,9 +92,9 @@ T shfl_xor(T v, int o) {
   uint64_t bits = 0;
   std::memcpy(&bits, &v, sizeof(T));
   exchange[tid] = bits;
-  sync();
+  warp_sync();
   bits = exchange[tid ^ static_cast<unsigned>(o)];
-  sync();
+  warp_sync();
   T out;
   std::memcpy(&out, &bits, sizeof(T));
   return out;

@@ -55,7 +55,7 @@ class GPTConfig:
     # kernel instead of the gathered view; prefill chunks stay unfused
     fused_decode: bool = False
     dropout: float = 0.0
-    # "auto": the flash kernels on CUDA from S = 256 up, the eager XLA-twin
+    # "auto": the flash kernels on CUDA from S = 32 up, the eager XLA-twin
     # path otherwise (ops/attention.py); "xla" or "flash" force one
     attention_impl: str = "auto"
     # the trunk is a Python loop either way; scan_layers only mirrors

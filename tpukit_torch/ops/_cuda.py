@@ -3,9 +3,10 @@ library with a plain C interface, loaded with `ctypes`.
 
 Each `tpukit_torch/csrc/<name>.cu` builds into
 `build/tpukit_torch/<hash>/lib<name>.so` at the repository root, keyed by a
-hash of the source and the flags, on first use. `build/` is git-ignored, so
-a fresh checkout builds from its own sources. Nothing here runs when a
-module is imported: the first `load` call builds.
+hash of the source, of every header under `csrc/` it may include (not the
+host emulation's under `csrc/host_emu/`) and of the flags, on first use.
+`build/` is git-ignored, so a fresh checkout builds from its own sources.
+Nothing here runs when a module is imported: the first `load` call builds.
 """
 
 from __future__ import annotations
@@ -45,8 +46,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    headers = sorted(p for p in CSRC.rglob("*") if p.suffix in (".cuh", ".h")
+                     and "host_emu" not in p.relative_to(CSRC).parts)
+    for header in headers:  # an edited header must not load a stale library
+        digest.update(str(header.relative_to(CSRC)).encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"
 
 

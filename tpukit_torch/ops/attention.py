@@ -21,9 +21,11 @@ from tpukit_torch.ops.flash_attention import flash_causal_attention
 NEG_INF = -1e9  # the causal additive term of the reference model
 # The H100's crossover (80GB HBM3 at 700 W; chip_smoke.py's attention
 # crossover, PERF.md): one forward + backward of 32768 tokens, bf16 with a
-# pad mask, is faster by the eager path at S = 128 and by the flash kernels
-# at every S measured from 256 to 1024. tpukit switches at 512, its TPU's.
-FLASH_MIN_SEQ = 256
+# pad mask, is faster by the flash kernels (bf16 on the tensor cores) at
+# every S measured from 32 to 1024, in every run; at S = 16 both paths are
+# host-bound and their order changes from run to run. tpukit switches at
+# 512, its TPU's.
+FLASH_MIN_SEQ = 32
 
 
 def causal_attention(q, k, v, *, scale: float, pad_mask=None, impl: str = "xla"):

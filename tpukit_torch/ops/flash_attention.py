@@ -10,9 +10,12 @@ causal attention output in v's dtype. It is a `torch.autograd.Function`:
   - on a CPU tensor both directions run the plain version
     (`flash_forward_reference`, `flash_backward_reference`);
   - on a CUDA tensor the forward launches `csrc/flash_attention.cu`'s
-    forward kernel and the backward its dK/dV and dQ kernels (built with
-    nvcc for sm_90a on first use), or raises. There is no path from a CUDA
-    tensor to the plain version.
+    forward kernel and the backward its D = rowsum(dO * O), dK/dV and dQ
+    kernels (built with nvcc for sm_90a on first use; bf16 on the tensor
+    cores, f32 on CUDA cores), or raises. There is no path from a CUDA
+    tensor to the plain version. The wrappers allocate the outputs and the
+    D buffer and run no PyTorch op on q, dO or O: the kernels take q
+    unscaled with the scale and compute D themselves.
 
 Semantics (the kernels' and the plain version's): q is prescaled by
 `scale` in its own dtype; scores in f32 plus the f32 pad bias (0 or
@@ -40,17 +43,19 @@ _KIND = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # kind, D, q, k, v, bias, out, lse, BH, H, S, stream
-    "tk_flash_fwd": (_I, [_I, _I] + [_P] * 6 + [_I] * 3 + [_P]),
-    # kind, D, q, k, v, bias, dout, lse, dcap, dk, dv, BH, H, S, stream
-    "tk_flash_bwd_dkv": (_I, [_I, _I] + [_P] * 9 + [_I] * 3 + [_P]),
+    # kind, D, q, k, v, bias, out, lse, BH, H, S, scale, stream
+    "tk_flash_fwd": (_I, [_I, _I] + [_P] * 6 + [_I] * 3 + [ctypes.c_float, _P]),
+    # kind, D, dout, out, dcap, rows, stream
+    "tk_flash_bwd_dcap": (_I, [_I, _I] + [_P] * 3 + [_I, _P]),
+    # kind, D, q, k, v, bias, dout, lse, dcap, dk, dv, BH, H, S, scale, stream
+    "tk_flash_bwd_dkv": (_I, [_I, _I] + [_P] * 9 + [_I] * 3 + [ctypes.c_float, _P]),
     # kind, D, q, k, v, bias, dout, lse, dcap, dq, BH, H, S, scale, stream
     "tk_flash_bwd_dq": (_I, [_I, _I] + [_P] * 8 + [_I] * 3 + [ctypes.c_float, _P]),
     "tk_flash_error_string": (ctypes.c_char_p, [_I]),
 }
 
 # kernel launches since import (or since a caller reset them)
-launches = {"forward": 0, "backward_dkv": 0, "backward_dq": 0}
+launches = {"forward": 0, "backward_dcap": 0, "backward_dkv": 0, "backward_dq": 0}
 
 
 def pad_bias(pad_mask, batch: int, seq: int, device):
@@ -72,11 +77,11 @@ def prescale(q, scale: float):
     return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
 
 
-def _masked_scores(q_s, k, bias):
-    """`[B, H, S, S]` f32 scores of the prescaled q against k, pad bias
+def _masked_scores(q_s, k, bias, acc=torch.float32):
+    """`[B, H, S, S]` scores in `acc` of the prescaled q against k, pad bias
     added, keys after the query set to -inf (left out)."""
     seq = q_s.shape[2]
-    s = torch.matmul(q_s.float(), k.float().transpose(-1, -2))
+    s = torch.matmul(q_s.to(acc), k.to(acc).transpose(-1, -2))
     if bias is not None:
         s = s + bias[:, None, None, :]
     pos = torch.arange(seq, device=q_s.device)
@@ -95,18 +100,24 @@ def flash_forward_reference(q, k, v, bias, scale: float):
     return (acc / l).to(v.dtype), (m + torch.log(l))[..., 0]
 
 
-def flash_backward_reference(q, k, v, bias, out, lse, d_out, scale: float):
+def flash_backward_reference(q, k, v, bias, out, lse, d_out, scale: float,
+                             acc=torch.float32):
     """The plain backward: `(dq, dk, dv)` in the inputs' dtypes, with the
-    kernels' rounding points."""
+    kernels' rounding points. `acc` is the dtype of its sums: f32, the
+    kernels' own; a check may pass f64 for sums without rounding (the same
+    rounding points to the inputs' dtype), against which a kernel's f32
+    sums differ by their own error only: where dP - D cancels exactly (a
+    query that sees one key) f32 sums taken in two orders leave two
+    different residues, exact sums none."""
     q_s = prescale(q, scale)
-    do = d_out.float()
-    dcap = (do * out.float()).sum(-1, keepdim=True)
-    p = torch.exp(_masked_scores(q_s, k, bias) - lse[..., None])
+    do = d_out.to(acc)
+    dcap = (do * out.to(acc)).sum(-1, keepdim=True)
+    p = torch.exp(_masked_scores(q_s, k, bias, acc) - lse[..., None])
     dv = torch.matmul(p.transpose(-1, -2), do)
-    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    dp = torch.matmul(do, v.to(acc).transpose(-1, -2))
     ds = p * (dp - dcap)
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q_s.float())
-    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
+    dk = torch.matmul(ds.to(q.dtype).to(acc).transpose(-1, -2), q_s.to(acc))
+    dq = torch.matmul(ds.to(k.dtype).to(acc), k.to(acc)) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -126,6 +137,8 @@ def _check_cuda(*tensors):
     for t in tensors:
         if t is not None and not t.is_contiguous():
             raise ValueError("flash attention kernels take contiguous tensors")
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("flash attention kernels take 16-byte aligned tensors")
     b, h, s, d = tensors[0].shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash attention kernels take head_dim in {HEAD_DIMS}, got {d}")
@@ -149,36 +162,37 @@ def _raise_on(code: int, lib, what: str) -> None:
     raise RuntimeError(f"flash attention {what} kernel launch failed: {msg} ({code})")
 
 
-def launch_forward(lib, q_s, k, v, bias, out, lse, stream: int) -> None:
-    """The forward kernel on prescaled q: writes `out` and `lse`."""
-    b, h, s, d = q_s.shape
-    code = lib.tk_flash_fwd(_KIND[q_s.dtype], d, _ptr(q_s), _ptr(k), _ptr(v), _ptr(bias),
-                            _ptr(out), _ptr(lse), b * h, h, s, ctypes.c_void_p(stream))
+def launch_forward(lib, q, k, v, bias, out, lse, scale: float, stream: int) -> None:
+    """The forward kernel on unscaled q: writes `out` and `lse`."""
+    b, h, s, d = q.shape
+    code = lib.tk_flash_fwd(_KIND[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out),
+                            _ptr(lse), b * h, h, s, scale, ctypes.c_void_p(stream))
     _raise_on(code, lib, "forward")
 
 
-def launch_backward(lib, q_s, k, v, bias, d_out, lse, dcap, dq, dk, dv, scale: float,
+def launch_backward(lib, q, k, v, bias, d_out, out, lse, dcap, dq, dk, dv, scale: float,
                     stream: int) -> None:
-    """The dK/dV kernel, then the dQ kernel."""
-    b, h, s, d = q_s.shape
-    args = (_ptr(q_s), _ptr(k), _ptr(v), _ptr(bias), _ptr(d_out), _ptr(lse), _ptr(dcap))
-    code = lib.tk_flash_bwd_dkv(_KIND[q_s.dtype], d, *args, _ptr(dk), _ptr(dv), b * h, h, s,
-                                ctypes.c_void_p(stream))
-    _raise_on(code, lib, "dK/dV")
-    code = lib.tk_flash_bwd_dq(_KIND[q_s.dtype], d, *args, _ptr(dq), b * h, h, s, scale,
-                               ctypes.c_void_p(stream))
-    _raise_on(code, lib, "dQ")
+    """The D = rowsum(dO * O) kernel into `dcap` ([B, H, S] f32 scratch),
+    then the dK/dV kernel, then the dQ kernel, on unscaled q."""
+    b, h, s, d = q.shape
+    kind, st = _KIND[q.dtype], ctypes.c_void_p(stream)
+    _raise_on(lib.tk_flash_bwd_dcap(kind, d, _ptr(d_out), _ptr(out), _ptr(dcap), b * h * s, st),
+              lib, "D")
+    args = (_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(d_out), _ptr(lse), _ptr(dcap))
+    _raise_on(lib.tk_flash_bwd_dkv(kind, d, *args, _ptr(dk), _ptr(dv), b * h, h, s, scale, st),
+              lib, "dK/dV")
+    _raise_on(lib.tk_flash_bwd_dq(kind, d, *args, _ptr(dq), b * h, h, s, scale, st), lib, "dQ")
 
 
 def _forward_cuda(q, k, v, bias, scale):
     _check_cuda(q, k, v, bias)
-    q_s = prescale(q, scale)
     b, h, s, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _cuda.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
-        launch_forward(lib, q_s, k, v, bias, out, lse, torch.cuda.current_stream().cuda_stream)
+        launch_forward(lib, q, k, v, bias, out, lse, scale,
+                       torch.cuda.current_stream().cuda_stream)
     launches["forward"] += 1
     return out, lse
 
@@ -186,13 +200,13 @@ def _forward_cuda(q, k, v, bias, scale):
 def _backward_cuda(q, k, v, bias, out, lse, d_out, scale):
     d_out = d_out.contiguous()
     _check_cuda(q, k, v, bias, out, d_out)
-    q_s = prescale(q, scale)
-    dcap = (d_out.float() * out.float()).sum(-1)  # D = rowsum(dO * O), f32
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dcap = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     lib = _cuda.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
-        launch_backward(lib, q_s, k, v, bias, d_out, lse, dcap, dq, dk, dv, scale,
+        launch_backward(lib, q, k, v, bias, d_out, out, lse, dcap, dq, dk, dv, scale,
                         torch.cuda.current_stream().cuda_stream)
+    launches["backward_dcap"] += 1
     launches["backward_dkv"] += 1
     launches["backward_dq"] += 1
     return dq, dk, dv

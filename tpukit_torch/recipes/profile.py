@@ -39,9 +39,9 @@ RUNGS = {
     "gpt-small-dim768": (BATCH, {}, "single"),
     "gpt-small-dim768-e8": (32, dict(num_experts=8, router_top_k=1), "pallas"),
 }
-PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
-                "ce_fwd_kernel", "ce_bwd_dw_kernel", "ce_bwd_dh_kernel", "moe_rows_kernel",
-                "moe_dw_kernel")
+PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dcap_kernel", "flash_bwd_dkv_kernel",
+                "flash_bwd_dq_kernel", "ce_fwd_kernel", "ce_bwd_dw_kernel", "ce_bwd_dh_kernel",
+                "moe_rows_kernel", "moe_dw_kernel")
 
 
 def synthetic_batch(rng, vocab: int, batch: int, seq: int, pad_rows: int = 0):
