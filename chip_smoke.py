@@ -27,14 +27,17 @@ not 0:
      forward and backward at 32768 tokens x 768 x vocab 50257, bf16 and f32,
      with and without a pad mask, each against its plain version (the CE
      backward under O(1) cotangents, each of its two terms alone, with a
-     negative control); device times (CUDA graph), call, plain and SDPA
+     negative control, and the same bits on a second run; bf16 CE also at
+     20000 tokens, two backward chunks, and with W unpadded, 50257
+     columns); device times (CUDA graph), call, plain and SDPA
      times, the least time the card could take, TFLOP/s and the share of
      that bound; then the attention crossover: the eager "xla" path against
      the flash kernels at S = 16 ... 1024;
   7. train step at full width: the gpt-small-dim768 rung (batch 64, S 512,
      bf16), 8 steps; the loss falls on a repeated batch, and each step
      launches the flash kernels 12 + 12 + 12 + 12 times (forward, D, dK/dV,
-     dQ) and the CE kernels once each;
+     dQ), the CE forward and its combine once each and the CE backward's
+     four kernels once per chunk of 8192 tokens;
   8. the train step through the kernels equals the step through the plain
      versions (f32, 2 layers, 4 steps);
   9. recipe 1 end to end at GPT-2-small width on the fixture corpus
@@ -52,7 +55,7 @@ not 0:
      S 512, bf16, ExpertParallel 1 x 1 with the pallas dispatch), 8 steps;
      the loss falls on a repeated batch, and each step launches each
      grouped-expert kernel 12 times, the flash kernels 12 + 12 + 12 + 12 and
-     the CE kernels once each;
+     the CE kernels as in phase 7;
  12. MoE train step through the kernels == through the plain versions (f32,
      2 layers, top-2, 4 steps), on the ExpertParallel 1 x 1 path and on the
      meshless dropless path;
@@ -532,10 +535,11 @@ def check_flash(dev, b, h, s, d, dtype, masked, timed=False) -> dict:
     return res
 
 
-def ce_inputs(dev, n, dim, vocab, dtype, seed):
+def ce_inputs(dev, n, dim, vocab, dtype, seed, v_pad=None):
     """Post-LayerNorm-scale hidden states, a head kernel at tpukit's init
-    scale, seeded targets with every 8th row ignored."""
-    v_pad = -(-vocab // 128) * 128
+    scale (vocab padded to a multiple of 128 as the model pads it, or to
+    `v_pad`), seeded targets with every 8th row ignored."""
+    v_pad = v_pad or -(-vocab // 128) * 128
     g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn((n, dim), generator=g, device=dev).to(dtype)
     bound = dim**-0.5
@@ -563,19 +567,20 @@ def ce_cotangents(dev, tgt, seed) -> dict:
     return {"softmax": (r1, zero), "target": (zero, r2), "loss": (valid, -valid)}
 
 
-def check_ce(dev, n, dim, vocab, dtype, timed=False) -> dict:
+def check_ce(dev, n, dim, vocab, dtype, timed=False, v_pad=None) -> dict:
     """Forward (lse, target logit, argmax) and backward (dH, dW) kernels
     against the plain version on the same inputs; the backward under each
-    set of `ce_cotangents`. Negative control: under the softmax set, the
+    set of `ce_cotangents`, and once more under the loss's set, which must
+    give the same bits. Negative control: under the softmax set, the
     kernel with g_lse zeroed, which is what a kernel that drops the
     p * g_lse term computes, must fail the same bar (and likewise the
     target term under the target set)."""
-    h, w, tgt = ce_inputs(dev, n, dim, vocab, dtype, seed=n)
+    h, w, tgt = ce_inputs(dev, n, dim, vocab, dtype, seed=n, v_pad=v_pad)
     terms = fce._forward_cuda(h, w, tgt, vocab, True)
     ref = fce.head_terms_reference(h, w, tgt, vocab, True)
     terms_no_argmax = fce._forward_cuda(h, w, tgt, vocab, False)
     torch.cuda.synchronize()
-    tag = f"fused_head_ce N{n} dim{dim} vocab{vocab} {str(dtype)[6:]}"
+    tag = f"fused_head_ce N{n} dim{dim} vocab{vocab} V_pad{w.shape[1]} {str(dtype)[6:]}"
     err = hold(f"{tag} lse", terms[0], ref[0], CE_LSE_TOL, torch.float32)
     err = max(err, hold(f"{tag} target logit", terms[1], ref[1], CE_LSE_TOL, torch.float32))
     if not (torch.equal(terms_no_argmax[0], terms[0]) and torch.equal(terms_no_argmax[1],
@@ -612,6 +617,10 @@ def check_ce(dev, n, dim, vocab, dtype, timed=False) -> dict:
             note += f"; without the {name} term err/tolerance dh {seen[0]:.3e}, dw {seen[1]:.3e}"
         notes.append(note)
     g_lse, g_tgt = cotangents["loss"]  # the main path's mix, for the timings
+    again = fce._backward_cuda(h, w, tgt, terms[0], g_lse, g_tgt, vocab)
+    if not (torch.equal(again[0], dh) and torch.equal(again[1], dw)):
+        raise AssertionError(f"{tag}: a second backward gave other bits")
+    del again
     res = dict(fwd_err=err, bwd_err=g_err)
     line = (f"{tag}: forward max_abs_err {err:.3e} (argmax equal on {n - len(rows)}/{n} "
             f"rows, the rest near ties); backward max_abs_err, O(1) cotangents: "
@@ -643,6 +652,12 @@ def check_ce(dev, n, dim, vocab, dtype, timed=False) -> dict:
         ce = torch.nn.functional.cross_entropy
         two = time_ms(lambda: ce(torch.matmul(h, w.to(dtype)).float(), tgt.long(),
                                  ignore_index=-100), 3)
+        # ... and forward + backward through autograd on the bf16 logits
+        hg, wg = h.detach().requires_grad_(), w.to(dtype).detach().requires_grad_()
+        unfused = time_ms(lambda: torch.autograd.grad(
+            ce(torch.matmul(hg, wg), tgt.long(), ignore_index=-100, reduction="sum"),
+            (hg, wg)), 3)
+        res.update(unfused_ms=unfused)
         bounds = ce_bounds(n, dim, w.shape[1], dtype)
         res.update(fwd_bound=bounds["forward"], bwd_bound=bounds["backward"])
         line += (f"; forward device {res['fwd_ms']:.3f} ms (CUDA graph; "
@@ -651,7 +666,8 @@ def check_ce(dev, n, dim, vocab, dtype, timed=False) -> dict:
                  f"({bounds['forward'][1]}); backward device {res['bwd_ms']:.3f} ms, call "
                  f"{res['bwd_call_ms']:.3f}, plain {res['bwd_plain_ms']:.3f}, bound "
                  f"{bounds['backward'][0]:.4f} ms ({bounds['backward'][1]}); matmul + "
-                 f"F.cross_entropy (two calls, forward only) {two:.3f} ms")
+                 f"F.cross_entropy (two calls, forward only) {two:.3f} ms; forward + backward "
+                 f"through autograd, bf16 logits {unfused:.3f} ms")
     print(line, flush=True)
     return res
 
@@ -685,6 +701,10 @@ def check_training_kernels(dev) -> dict:
     main["ce"] = check_ce(dev, b * s, g["dim"], g["vocab_size"], torch.bfloat16, timed=True)
     check_ce(dev, 4096, g["dim"], g["vocab_size"], torch.float32)
     check_ce(dev, 4000, g["dim"], g["vocab_size"], torch.bfloat16)
+    # a ragged last row tile over two backward chunks; a vocab whose W is no
+    # multiple of 8 columns (the wrapper pads it for TMA)
+    check_ce(dev, 20000, g["dim"], g["vocab_size"], torch.bfloat16)
+    check_ce(dev, 4000, g["dim"], g["vocab_size"], torch.bfloat16, v_pad=g["vocab_size"])
     return main
 
 
@@ -741,6 +761,20 @@ def read_counts() -> dict:
                 **{f"moe_{k}": v for k, v in moe_gemm.launches.items()})
 
 
+def ce_want(steps: int, tokens: int, cfg) -> dict:
+    """The CE kernels' launches in `steps` bf16 train steps of `tokens`
+    rows: the forward and its combine once a step, the backward's four
+    kernels once a chunk."""
+    lib = _cuda.load("fused_head_ce", fce._SIGNATURES)
+    v_pad = -(-cfg.vocab_size // 128) * 128
+    chunks = fce.backward_plan(lib, tokens, cfg.dim, -(-v_pad // 8) * 8)[1]
+    want = {f"ce_{k}": 0 for k in fce.launches}
+    want.update(ce_forward=steps, ce_forward_combine=steps,
+                **{f"ce_{k}": steps * chunks for k in ("backward_d", "backward_dh",
+                                                       "backward_dh_combine", "backward_dw")})
+    return want
+
+
 def train_full_width(dev) -> dict:
     """Phase 7: eight train steps of the gpt-small-dim768 rung (batch 64,
     S 512, bf16) on synthetic batches: three full batches and one with 16
@@ -775,8 +809,7 @@ def train_full_width(dev) -> dict:
                              f"{losses[4]}")
     want = dict(paged=0, flash_forward=layers * steps, flash_backward_dcap=layers * steps,
                 flash_backward_dkv=layers * steps, flash_backward_dq=layers * steps,
-                ce_forward=steps, ce_backward_dw=steps,
-                ce_backward_dh=steps, **{f"moe_{k}": 0 for k in moe_gemm.launches})
+                **ce_want(steps, BATCH * SEQ, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     return dict(counts=counts, wall=wall, losses=losses)
@@ -806,7 +839,7 @@ def kernel_vs_plain_steps(dev) -> None:
     worst = max(abs(a - b) / abs(b) for a, b in zip(ours, plain))
     print(f"kernels {ours} vs plain {plain}: worst relative difference {worst:.3e} (bar "
           f"1e-4); launches {counts}", flush=True)
-    if counts["flash_forward"] != 2 * 4 or counts["ce_backward_dh"] != 4:
+    if counts["flash_forward"] != 2 * 4 or counts["ce_backward_dh_f32"] != 4:
         raise AssertionError(f"the CUDA steps did not run the kernels: {counts}")
     if not worst <= 1e-4:
         raise AssertionError(f"kernel and plain train steps disagree: {ours} vs {plain}")
@@ -840,7 +873,8 @@ def recipe_end_to_end(dev) -> dict:
     print(f"recipe: {wall:.1f} s, eval {result.metrics['eval']}, {len(result.metrics['samples'])} "
           f"samples, {result.metrics['tokens_per_sec']:.1f} train tokens/s, checkpoint "
           f"{result.checkpoint_path}; launches {counts}", flush=True)
-    if min(v for k, v in counts.items() if not k.startswith("moe_")) == 0:
+    if min(v for k, v in counts.items() if not k.startswith("moe_") and
+           not k.endswith("_f32")) == 0:
         raise AssertionError(f"a kernel of the recipe's path never ran: {counts}")
     if not np.isfinite(result.metrics["eval"]["loss"]) or len(result.metrics["samples"]) != 3:
         raise AssertionError(f"recipe output: {result.metrics}")
@@ -1084,8 +1118,8 @@ def moe_train_full_width(dev) -> dict:
                              f"{losses[4]}")
     want = dict(paged=0, flash_forward=layers * steps, flash_backward_dcap=layers * steps,
                 flash_backward_dkv=layers * steps, flash_backward_dq=layers * steps,
-                ce_forward=steps, ce_backward_dw=steps,
-                ce_backward_dh=steps, **{f"moe_{k}": layers * steps for k in moe_gemm.launches})
+                **ce_want(steps, rows * SEQ, cfg),
+                **{f"moe_{k}": layers * steps for k in moe_gemm.launches})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     return dict(counts=counts, wall=wall, losses=losses, peak=peak)
@@ -1187,7 +1221,7 @@ def moe_recipe_end_to_end(dev) -> dict:
           f"{len(result.metrics['samples'])} samples {result.metrics['samples']}, "
           f"{result.metrics['tokens_per_sec']:.1f} train tokens/s, checkpoint "
           f"{result.checkpoint_path}; launches {counts}", flush=True)
-    if min(counts.values()) == 0:
+    if min(v for k, v in counts.items() if not k.endswith("_f32")) == 0:
         raise AssertionError(f"a kernel of recipe 8's path never ran: {counts}")
     if not np.isfinite(result.metrics["eval"]["loss"]) or len(result.metrics["samples"]) != 3:
         raise AssertionError(f"recipe 8 output: {result.metrics}")
@@ -1384,11 +1418,15 @@ def main() -> int:
                                                       "dkv": c["flash_backward_dkv"],
                                                       "dq": c["flash_backward_dq"]}),
         entry("fused_head_ce_fwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:65",
-              c["ce_forward"], ce, "fwd", ce["fwd_err"], None),
+              c["ce_forward"], ce, "fwd", ce["fwd_err"], None,
+              kernels_per_call=2, launches_by_kernel={"forward": c["ce_forward"],
+                                                      "combine": c["ce_forward_combine"]}),
         entry("fused_head_ce_bwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:134",
               c["ce_backward_dw"], ce, "bwd", ce["bwd_err"], None,
-              kernels_per_call=2, launches_by_kernel={"dw": c["ce_backward_dw"],
-                                                      "dh": c["ce_backward_dh"]}),
+              kernels_per_call=4 * c["ce_backward_dw"] // c["ce_forward"],
+              launches_by_kernel={k: c[f"ce_backward_{k}"]
+                                  for k in ("d", "dh", "dh_combine", "dw")},
+              unfused_ms=ce["unfused_ms"]),
         entry("moe_grouped_ffn_fwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
               mc["moe_forward_up"], moe_main, "fwd", moe_main["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"up": mc["moe_forward_up"],

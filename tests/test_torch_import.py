@@ -1,6 +1,6 @@
 """The port stands alone: `tpukit_torch` and `chip_smoke.py` import with
-`jax` and `tpukit` unimportable, contain no import of either, default to
-cuda and refuse to fall back to the CPU silently."""
+`jax` and `tpukit` unimportable, contain (with `ce_ablation.py`) no import
+of either, default to cuda and refuse to fall back to the CPU silently."""
 
 import ast
 import os
@@ -16,7 +16,8 @@ import torch
 import tpukit_torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "tpukit_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "tpukit_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                            ROOT / "ce_ablation.py"]
 
 _BLOCKER = """
 import importlib.abc, sys

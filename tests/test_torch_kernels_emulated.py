@@ -5,13 +5,17 @@ shuffles), and held against their plain PyTorch versions at small ragged
 shapes.
 
 This checks each kernel's arithmetic, indexing, masking and
-synchronisation on every CPU run, the WMMA instances through
-`host_emu/mma.h` and the mma.sync / ldmatrix / cp.async instances (the bf16
-flash kernels) through `host_emu/tk_mma.cuh`, which lays fragments out
-lane by lane as the PTX ISA does, so a wrong fragment layout shows here.
-The build puts `-I host_emu` ahead of everything: the sources are copied
-out of `csrc/`, so their `#include "tk_mma.cuh"` finds the emulation and
-not `csrc/tk_mma.cuh`. `test_ptx_primitive_matches_plain` holds each
+synchronisation on every CPU run: the WMMA instances (the bf16 grouped-
+expert kernels) through `host_emu/mma.h`, the mma.sync / ldmatrix /
+cp.async instances (the bf16 flash kernels) through `host_emu/tk_mma.cuh`,
+which lays fragments out lane by lane as the PTX ISA does, and the wgmma /
+TMA / mbarrier instances (the bf16 head + CE kernels) through
+`host_emu/tk_hopper.cuh`, which reads shared memory through the wgmma
+descriptors and writes TMA boxes with the 128B swizzle, so a wrong
+layout, swizzle, descriptor or transpose bit shows here. The build puts
+`-I host_emu` ahead of everything: the sources are copied out of `csrc/`,
+so their `#include "tk_mma.cuh"` finds the emulation and not
+`csrc/tk_mma.cuh`. `test_ptx_primitive_matches_plain` holds each
 emulated primitive against the PTX ISA's layout tables and against
 torch.matmul. `chip_smoke.py` holds the same sources, built by nvcc,
 against the same plain versions on the card. The launch arguments go
@@ -248,6 +252,197 @@ extern "C" int tk_prim(int op, const void* regs, const void* x, const void* y, c
 """
 
 
+
+# One warpgroup (128 threads) around the emulated tk_hopper.cuh functions.
+# Ops 10-12 stage A (64 x 16) and B (16 x 256) by TMA into 128B-swizzled
+# tiles, A and B each K-major or MN-major as the global copy lies (x, y are
+# the global matrices, `ld` their row strides), run one m64n256k16 product
+# onto the accumulators preloaded from fout, and return each thread's 128
+# registers. Op 20 loads one 64 x 16 box at (c0, c1) of x [rows][cols]
+# (row stride ld) and returns the 2 KB of shared memory as they lie. Op 30
+# walks one mbarrier through three phases (arrivals, then arrivals plus a
+# TMA's bytes) and returns what try_wait said at each step.
+_HOPPER_SRC = r"""
+#include <cstdint>
+#include <cstring>
+#include "cuda_runtime.h"
+#include "cuda_bf16.h"
+#include "tk_hopper.cuh"
+
+namespace {
+struct Args {
+  int op, rows_a, cols_a, ld_a, rows_b, cols_b, ld_b, c0, c1, ta, tb;
+};
+
+void hop(Args a, const void* x, const void* y, float* fout, uint32_t* rout) {
+  extern __shared__ float smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + 65536);
+  const int t = threadIdx.x;
+  if (a.op == 30) {
+    if (t == 0) mbar_init(bar, 2);
+    __syncthreads();
+    uint32_t* seen = rout;
+    auto look = [&](int at) {
+      if (t == 0) {
+        seen[at] = mbar_try_wait(bar, 0);
+        seen[at + 1] = mbar_try_wait(bar, 1);
+      }
+      __syncthreads();
+    };
+    look(0);
+    if (t == 0) mbar_arrive(bar);
+    __syncthreads();
+    look(2);
+    if (t == 1) mbar_arrive(bar);
+    __syncthreads();
+    look(4);
+    CUtensorMap map;
+    make_tensor_map(&map, x, a.rows_a, a.cols_a, a.ld_a, 16);
+    if (t == 0) mbar_arrive_expect_tx(bar, 2048);
+    if (t == 1) mbar_arrive(bar);
+    __syncthreads();
+    look(6);
+    if (t == 0) tma_load_2d(base, &map, bar, 0, 0);
+    if (t == 0) mbar_wait(bar, 1);
+    __syncthreads();
+    look(8);
+    return;
+  }
+  if (a.op == 20) {
+    CUtensorMap map;
+    make_tensor_map(&map, x, a.rows_a, a.cols_a, a.ld_a, 16);
+    if (t == 0) mbar_init(bar, 1);
+    __syncthreads();
+    if (t == 0) {
+      mbar_arrive_expect_tx(bar, 2048);
+      tma_load_2d(base, &map, bar, a.c0, a.c1);
+    }
+    mbar_wait(bar, 0);
+    memcpy(rout + 4 * t, base + 16 * t, 16);
+    return;
+  }
+  // A [64 x 16]: K-major as x [64][16], MN-major as x [16][64]; B [16 x 256]:
+  // K-major as y [256][16], MN-major as y [16][256] (four 64-wide boxes of
+  // 16 k rows, 2 KB apart); boxes of 64 rows, or 16 rows MN-major
+  unsigned char* sa = base;
+  unsigned char* sb = base + 8192;
+  CUtensorMap ma, mb;
+  make_tensor_map(&ma, x, a.rows_a, a.cols_a, a.ld_a, a.ta ? 16 : 64);
+  make_tensor_map(&mb, y, a.rows_b, a.cols_b, a.ld_b, a.tb ? 16 : 256);
+  if (t == 0) mbar_init(bar, 1);
+  __syncthreads();
+  if (t == 0) {
+    mbar_arrive_expect_tx(bar, (a.ta ? 2048 : 8192) + (a.tb ? 4 * 2048 : 32768));
+    tma_load_2d(sa, &ma, bar, 0, 0);
+    if (a.tb)
+      for (int i = 0; i < 4; ++i) tma_load_2d(sb + 2048 * i, &mb, bar, 64 * i, 0);
+    else
+      tma_load_2d(sb, &mb, bar, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  float d[128];
+  memcpy(d, fout + 128 * t, sizeof(d));
+  wgmma_fence();
+  const uint64_t da = wgmma_desc(sa, 16, 1024), db = wgmma_desc(sb, a.tb ? 2048 : 16, 1024);
+  if (a.ta == 0 && a.tb == 0) wgmma_m64n256k16<0, 0>(d, da, db, 1);
+  if (a.ta == 1 && a.tb == 1) wgmma_m64n256k16<1, 1>(d, da, db, 1);
+  if (a.ta == 0 && a.tb == 1) wgmma_m64n256k16<0, 1>(d, da, db, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  memcpy(fout + 128 * t, d, sizeof(d));
+}
+}  // namespace
+
+extern "C" int tk_hop(const int* args, const void* x, const void* y, void* fout, void* rout) {
+  Args a;
+  memcpy(&a, args, sizeof(a));
+  tk_emu::launch(hop, dim3(1), 128, 65536 + 1024, nullptr, a, x, y, static_cast<float*>(fout),
+                 static_cast<uint32_t*>(rout));
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def hopper_lib(tmp_path_factory):
+    out = tmp_path_factory.mktemp("hopper_emu")
+    cpp = out / "hopper.cpp"
+    cpp.write_text(_HOPPER_SRC)
+    return _build(cpp, out / "libhopper.so",
+                  {"tk_hop": (ctypes.c_int, [ctypes.c_void_p] * 5)})
+
+
+def _swizzle128(off):
+    """The 128B swizzle of a byte offset: bits [4, 7) ^= bits [7, 10)."""
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+def _hopper_primitive(lib, prim):
+    """tk_hopper.cuh's emulation against the PTX ISA: wgmma's accumulator
+    layout (written out lane by lane) and both operand majors against
+    torch.matmul (exact bf16 products, 16 f32 additions: atol 1e-5), the
+    TMA box's swizzled placement and zero fill byte by byte, and the
+    mbarrier's phase parity step by step."""
+    rng = np.random.RandomState(11)
+    mk = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
+    fout = np.zeros(128 * 128, dtype=np.float32)
+    rout = np.zeros(512, dtype=np.uint32)
+
+    def call(args, x, y):
+        a = np.asarray(args + [0] * (11 - len(args)), dtype=np.int32)
+        lib.tk_hop(_ptr(a), _ptr(x), _ptr(y), _ptr(fout), _ptr(rout))
+
+    if prim.startswith("wgmma"):
+        ta, tb = {"wgmma_k_major": (0, 0), "wgmma_mn_major": (1, 1),
+                  "wgmma_k_mn": (0, 1)}[prim]
+        a, b = mk(64, 16), mk(16, 256)
+        c = rng.randn(64, 256).astype(np.float32)
+        x = (a.t() if ta else a).contiguous()
+        y = (b if tb else b.t()).contiguous()
+        regs = np.zeros((128, 128), dtype=np.float32)
+        place = []
+        for t in range(128):  # row 16 w + g + 8 ((i / 2) % 2), col 8 (i / 4) + 2 q + i % 2
+            w, g, q = t // 32, (t % 32) // 4, t % 4
+            for i in range(128):
+                place.append((t, i, 16 * w + g + 8 * ((i // 2) % 2), 8 * (i // 4) + 2 * q + i % 2))
+        for t, i, r, col in place:
+            regs[t, i] = c[r, col]
+        fout[:] = regs.reshape(-1)
+        call([ta * 10 + tb, x.shape[0], x.shape[1], x.shape[1], y.shape[0], y.shape[1],
+              y.shape[1], 0, 0, ta, tb], x, y)
+        got = np.zeros((64, 256), dtype=np.float32)
+        out = fout.reshape(128, 128)
+        for t, i, r, col in place:
+            got[r, col] = out[t, i]
+        want = torch.matmul(a.float(), b.float()) + torch.from_numpy(c)
+        torch.testing.assert_close(torch.from_numpy(got), want, atol=1e-5, rtol=1e-5)
+    elif prim == "tma_box":
+        rows, cols, ld = 40, 100, 104  # the box (60.., 30..) runs past both edges
+        x = mk(rows, ld)
+        call([20, rows, cols, ld, 0, 0, 0, 60, 30], x, x)
+        got = np.stack([rout & 0xFFFF, rout >> 16], -1).reshape(-1)  # 1024 bf16 = 2 KB
+        xb = _bits(x)
+        want = np.zeros(1024, dtype=np.int64)
+        for r in range(16):
+            for c in range(64):
+                row, col = 30 + r, 60 + c
+                v = xb[row, col] if row < rows and col < cols else 0
+                want[_swizzle128(r * 128 + 2 * c) // 2] = v
+        assert (got == want).all()
+        # column 100 (byte 80 of each box row) is past the edge: zeros
+        edge = _swizzle128(np.arange(16) * 128 + 80) // 2
+        assert (got != 0).sum() > 0 and (got[edge] == 0).all()
+    else:  # mbarrier phases: (try_wait parity 0, parity 1) after each step
+        x = mk(16, 64)
+        call([30, 16, 64, 64], x, x)
+        seen = [int(v) for v in rout[:10]]
+        assert seen == [0, 1,  # phase 0 in progress: parity 1 counts as done
+                        0, 1,  # one of two arrivals
+                        1, 0,  # both: phase 0 done, phase 1 in progress
+                        1, 0,  # both arrived, but the TMA's 2 KB are pending
+                        0, 1], seen  # the bytes landed: phase 1 done
+
 @pytest.fixture(scope="module")
 def prim_lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("ptx_emu")
@@ -279,13 +474,19 @@ def _ptr(a):
 
 @pytest.mark.parametrize("prim", ["mma_fragments", "ldmatrix_x4", "ldmatrix_x4_trans",
                                   "cp_async", "pack_bf16x2", "qk_product", "pv_product",
-                                  "accumulator_as_a"])
-def test_ptx_primitive_matches_plain(prim_lib, prim):
+                                  "accumulator_as_a", "wgmma_k_major", "wgmma_mn_major",
+                                  "wgmma_k_mn", "tma_box", "mbarrier_phases"])
+def test_ptx_primitive_matches_plain(request, prim):
     """Each emulated tk_mma.cuh function against the PTX ISA's layout tables
     (written out here, lane by lane) and against torch.matmul in f32 of the
     same bf16 tiles. Products of bf16 are exact in f32, so only the order of
     16 f32 additions differs: atol 1e-5 at O(1) values, 2^-8 relative where
-    the result is rounded to bf16 on the way (accumulator_as_a)."""
+    the result is rounded to bf16 on the way (accumulator_as_a). The
+    tk_hopper.cuh cases: `_hopper_primitive`."""
+    if prim.startswith(("wgmma", "tma", "mbarrier")):
+        _hopper_primitive(request.getfixturevalue("hopper_lib"), prim)
+        return
+    prim_lib = request.getfixturevalue("prim_lib")
     rng = np.random.RandomState(7)
     mk = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
     x, y = mk(16, 16), mk(16, 16)
@@ -397,15 +598,34 @@ def _ce_inputs(n, dim, vocab, v_pad, dtype, seed):
     return h, w, torch.from_numpy(tgt), g
 
 
-@pytest.mark.parametrize("n,dim,vocab,v_pad,dtype", [
-    (100, 40, 300, 384, torch.float32),
-    (70, 32, 250, 270, torch.float32),
-    (200, 40, 300, 384, torch.bfloat16),
-    (70, 32, 250, 270, torch.bfloat16),
-], ids=["f32", "f32-ragged-vocab", "bf16", "bf16-ragged-vocab"])
-def test_fused_head_ce_kernels_match_plain_version(emulated, n, dim, vocab, v_pad, dtype):
+# bf16 runs the wgmma/TMA kernels on an emulated card of `sms` SMs (the
+# persistent grids then loop over several tiles and wrap the stage ring):
+# 128 x 256 tiles, so N = 70, 200 and 300 end in ragged row tiles; v_pad 270
+# is no multiple of 8 (the wrapper pads W to 272 for TMA); "chunks" runs the
+# backward in three chunks of 128, 128 and 44 rows (dW read, added and
+# written back in chunk order); on 4 SMs, "splits" runs the forward in two
+# vocab splits (the combine's first-index rule across them: columns 3 and
+# 7 tie on every row) and dH in two vocab splits; "splits-uneven" has one
+# row tile and five vocab tiles, where four splits would fill the SMs but
+# two tiles a split leave three, and dH's 20 k-blocks in four splits.
+@pytest.mark.parametrize("n,dim,vocab,v_pad,dtype,sms,chunk_rows,splits", [
+    (100, 40, 300, 384, torch.float32, 3, 0, None),
+    (70, 32, 250, 270, torch.float32, 3, 0, None),
+    (200, 40, 300, 384, torch.bfloat16, 3, 0, None),
+    (70, 32, 250, 270, torch.bfloat16, 3, 0, None),
+    (300, 40, 300, 384, torch.bfloat16, 3, 128, None),
+    (200, 40, 600, 640, torch.bfloat16, 4, 0, (2, 2)),
+    (100, 40, 1200, 1280, torch.bfloat16, 4, 0, (3, 4)),
+], ids=["f32", "f32-ragged-vocab", "bf16", "bf16-ragged-vocab", "bf16-chunks", "bf16-splits",
+        "bf16-splits-uneven"])
+def test_fused_head_ce_kernels_match_plain_version(emulated, monkeypatch, n, dim, vocab, v_pad,
+                                                   dtype, sms, chunk_rows, splits):
+    monkeypatch.setenv("TK_EMU_SMS", str(sms))
     h, w, tgt, g = _ce_inputs(n, dim, vocab, v_pad, dtype, seed=n + dim)
     lib = emulated["fused_head_ce"]
+    if splits is not None:  # (forward, dH) vocab splits launched
+        assert lib.tk_ce_fwd_splits(n, v_pad) == splits[0]
+        assert fce.backward_plan(lib, n, dim, v_pad) == (n, 1, splits[1] * n * dim)
     lse, tl = torch.empty(n), torch.empty(n)
     best = torch.empty(n, dtype=torch.int32)
     w_c = w.to(dtype)  # the kernels take W in h's dtype, as the wrapper hands it over
@@ -415,11 +635,16 @@ def test_fused_head_ce_kernels_match_plain_version(emulated, n, dim, vocab, v_pa
     torch.testing.assert_close(tl, ref_tl, atol=2e-5, rtol=1e-5)
     assert torch.equal(best, ref_best)
     assert (best == 3).any() and not (best == 7).any()
+    lse2, tl2 = torch.empty(n), torch.empty(n)
+    fce.launch_forward(lib, h, w_c, tgt, lse2, tl2, best, vocab, False, 0)
+    assert torch.equal(lse2, lse) and torch.equal(tl2, tl) and (best == 0).all()
 
     valid = (tgt != -100).float()
     g_lse, g_tgt = g * valid, -g * valid
     dh, dw = torch.empty_like(h), torch.empty(w.shape)
-    fce.launch_backward(lib, h, w_c, tgt, lse, g_lse, g_tgt, dh, dw, vocab, 0)
+    chunks = fce.launch_backward(lib, h, w_c, tgt, lse, g_lse, g_tgt, dh, dw, vocab, 0,
+                                 chunk_rows=chunk_rows)
+    assert chunks == (-(-n // chunk_rows) if chunk_rows else 1)
     ref_dh, ref_dw = fce.head_terms_backward_reference(h, w, tgt, lse, g_lse, g_tgt, vocab)
     assert (dw[:, vocab:] == 0).all()
     torch.testing.assert_close(dw, ref_dw, atol=2e-5, rtol=1e-4)
@@ -427,6 +652,10 @@ def test_fused_head_ce_kernels_match_plain_version(emulated, n, dim, vocab, v_pa
         torch.testing.assert_close(dh, ref_dh, atol=2e-5, rtol=1e-4)
     else:
         _bf16_close(dh, ref_dh)
+        dh2, dw2 = torch.empty_like(h), torch.empty(w.shape)
+        fce.launch_backward(lib, h, w_c, tgt, lse, g_lse, g_tgt, dh2, dw2, vocab, 0,
+                            chunk_rows=chunk_rows)
+        assert torch.equal(dh2, dh) and torch.equal(dw2, dw)  # the same bits every run
 
 
 def _moe_inputs(sizes, n, d, f, dtype, seed):

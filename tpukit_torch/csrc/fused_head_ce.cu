@@ -1,70 +1,87 @@
-// Fused LM head + cross-entropy for Hopper (sm_90a): forward, and a backward
-// in two kernels (dW, then dH). No kernel writes the [N, V] logits.
+// Fused LM head + cross-entropy for Hopper (sm_90a). No kernel writes the
+// [N, V] logits in f32; the bf16 backward keeps its d in a bf16 workspace.
 //
 // Replaces the Pallas TPU kernels of tpukit/ops/fused_head_ce.py:
 //   - `_fwd_kernel` (:65) launched by `_fused_fwd_arrays` (:194, call :202);
 //   - `_bwd_kernel` (:134) launched by `_fused_bwd_arrays` (:235, call :245).
 //
-// Inputs: hidden states h [N, dim] and the head kernel W [dim, Vp], both in
-// the compute dtype T (the wrapper rounds the f32 W to T, as `_prep` does
-// with `w.astype(h.dtype)`, :187); targets [N] int32 with -100 for ignored
-// rows; `vocab` <= Vp real columns, the rest pad columns.
-//
-// Forward, per row: logits = h.W in f32 over vocab tiles; pad columns are
-// -1e9 (:95); an online log-sum-exp over the tiles (running max m and sum
-// l); the target's logit; with `with_argmax`, the first column of the row's
-// maximum (smallest column within a tile, and a later tile only on a
-// strictly greater value, :113-122). Writes lse, the target logit and the
-// argmax, f32/f32/int32 [N].
-// Backward, from the cotangents g_lse and g_tgt of those two outputs (the
-// caller's loss gives g_lse = g, g_tgt = -g on valid rows, 0 elsewhere):
+// The function. Inputs: hidden states h [N, dim] and the head kernel W
+// [dim, Vp], both in the compute dtype T (the wrapper rounds the f32 W to T,
+// as `_prep` does with `w.astype(h.dtype)`, :187); targets [N] int32 with
+// -100 for ignored rows; `vocab` <= Vp real columns, the rest pad columns.
+// Forward, per row: logits = h.W in f32; pad columns are -1e9 (:95); the
+// log-sum-exp; the target's logit; with `with_argmax`, the first column of
+// the row's maximum (:113-122). Writes lse, the target logit and the argmax,
+// f32/f32/int32 [N]. Backward, from the cotangents g_lse and g_tgt of those
+// two outputs (the caller's loss gives g_lse = g, g_tgt = -g on valid rows,
+// 0 elsewhere):
 //   d = softmax * g_lse + onehot(target) * g_tgt, rounded to T (:168);
 //   dW = h^T d (f32 out, [dim, Vp]); dH = d W^T (rounded to T once).
-// Blocks run in parallel and in no order here, so the TPU's accumulation in
-// a revisited output block (:146-179) becomes two kernels that each
-// recompute their logits tile: dW with one block per 32 vocab columns,
-// looping over all tokens, and dH with one block per 32 tokens, looping over
-// all vocab tiles, each keeping its f32 accumulator in shared memory. No
-// atomics: the results do not change from run to run. tpukit rounds each
-// vocab tile's dH partial to T before an f32 sum (:263, :270), a layout
-// artefact of its grid; these kernels sum dH over the whole vocab in f32 and
-// round once.
-//
-// Two instances of each kernel:
-//   - bf16 (the training path): every product on the tensor cores (WMMA
-//     16x16x16 bf16 fragments, f32 accumulation; a bf16 x bf16 product is
-//     exact in f32, so only the summation order differs from an f32 sum);
-//     the logits tile goes through shared memory to the same per-thread
-//     epilogue as the f32 instance;
-//   - f32 (`--disable_amp`): CUDA cores in true f32 (not TF32), the tile
-//     held in registers.
+// tpukit rounds each vocab tile's dH partial to T before an f32 sum (:263,
+// :270), a layout artefact of its grid; these kernels sum dH over the whole
+// vocab in f32 and round once.
 //
 // Bound. At the GPT-2-small training shape (N = 64 x 512 tokens, dim 768, Vp
-// 50304, bf16) the forward is 2*N*dim*Vp = 2.53e12 flops, 2.6 ms at the bf16
-// tensor-core peak, against 50 MB of h and 77 MB of W (0.04 ms at
-// 3.35 TB/s): operations bound it, and the backward has three such products
-// (7.7 ms). What the design does about it: logits never reach device memory
-// (6.6 GB in f32 at this shape); h and W tiles are staged in shared memory
-// and each is reused across a 128 x 128 tile (forward) or 128 x 32 and
-// 32 x 64 tiles (backward); the bf16 staging moves 16 bytes a load and
-// fetches the next chunk into registers while the tensor cores work on the
-// current one; the backward recomputes the logits once per kernel. Not done
-// yet: wgmma, TMA or cp.async, and a backward that shares one logits
-// recomputation between dW and dH.
+// 50304, bf16) one head product is 2 N dim Vp = 2.53e12 flops, 2.56 ms at the
+// bf16 tensor-core peak, against 50 MB of h and 77 MB of W (0.04 ms at
+// 3.35 TB/s): operations bound both directions, the forward one product,
+// the backward three (h.W to form d, d W^T, h^T d: 7.68 ms).
+//
+// bf16 design (the training path): every product runs one GEMM mainloop,
+// `gemm_body`, on wgmma with TMA (the primitives of tk_hopper.cuh):
+//   - a persistent grid, one 384-thread block an SM: warpgroup 0 is the
+//     producer (one thread keeps TMA loads in flight into a ring of kStages
+//     stages, each a 128 x 64 A tile and a 64 x 256 B tile of 128B-swizzled
+//     bf16, 48 KB), warpgroups 1 and 2 the consumers (each 64 rows of the
+//     128 x 256 output tile, f32 accumulators in 128 registers a thread,
+//     m64n256k16 products straight from the stages, one k-block's products
+//     in flight while the next is issued); `setmaxnreg` moves registers
+//     from the producer to the consumers;
+//   - every operand read as it lies in memory, K- or MN-major through the
+//     descriptor's transpose bit: h.W (h K-major, W MN-major), d W^T (d
+//     K-major, W K-major), h^T d (h MN-major, d MN-major); no transposed copy;
+//   - the product's epilogue supplied by a policy type, run by the consumers
+//     on the registers while the producer already loads the next tile.
+// Forward: the epilogue folds each tile into the row's running (max, sum of
+// exponentials, target logit, first-index argmax); a block walks the vocab
+// tiles of its split in order. The grid may split the vocab (to fill the
+// card when the row tiles do not): each split writes its partial row terms
+// and `ce_fwd_combine_kernel` folds them in split order (the smallest column
+// within a split, a later split only on a strictly greater value).
+// Backward, per chunk of at most C token rows (C such that the d workspace
+// [C, Vp'] bf16 stays within 1 GiB: 8192 rows at Vp' 50304):
+//   1. `ce_bwd_d_kernel`: h_c.W, whose epilogue forms d (rows past N, and
+//      columns past Vp, give 0) and writes it to the workspace;
+//   2. `ce_bwd_dh_kernel_wgmma`: d W^T, K = the vocab, split over S vocab
+//      ranges where the narrow output leaves SMs idle, each split's f32
+//      partial to its own buffer; `ce_bwd_dh_combine_kernel` adds them in
+//      split order and rounds to bf16 once;
+//   3. `ce_bwd_dw_kernel_wgmma`: dW (+)= h_c^T d in f32; the first chunk
+//      stores, later chunks read, add and write, in chunk order.
+// Three head-sized products, no atomics: every run gives the same bits. The
+// workspace traffic (d written once and read twice, 9.9 GB at the main
+// shape) is this design's own cost beyond the bound.
+//
+// f32 instance (`--disable_amp`): CUDA cores in true f32 (not TF32), the
+// tile held in registers; the backward in two kernels (dW with one block per
+// 32 vocab columns over all tokens, dH with one block per 32 tokens over all
+// vocab tiles), each recomputing its logits tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "tk_hopper.cuh"
+#include "tk_mma.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;        // a 16 x 16 grid: tx = tid % 16, ty = tid / 16
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;        // f32 kernels: a 16 x 16 grid, tx = tid % 16, ty = tid / 16
 constexpr int kKC = 32;              // dim chunk staged in shared memory
 constexpr int kIgnore = -100;
 constexpr float kPadLogit = -1e9f;   // pad columns (apply_head's clamp)
@@ -75,25 +92,6 @@ constexpr int kSmemLimit = 232448;   // bytes of shared memory a block may use
 constexpr int kFT = 64, kFV = 64;
 constexpr int kWT = 64, kWV = 32;
 constexpr int kHT = 32, kHV = 64;
-// bf16 (tensor-core) instance
-constexpr int kFTc = 128, kFVc = 128;
-constexpr int kWTc = 128, kWVc = 32;
-constexpr int kHTc = 32, kHVc = 64;
-constexpr int kKCc = 64;             // dim chunk of the logits products
-constexpr int kDC = 128;             // dim chunk of the dW and dH products
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 // Reductions over the 16 threads that share a tile row (same ty, lanes of
 // one half-warp).
@@ -110,20 +108,10 @@ __device__ __forceinline__ int row_min16(int v) {
   return v;
 }
 
-// Carve shared memory: `n` elements of E at `*cursor`, the cursor moved on
-// by a multiple of 128 bytes (WMMA wants 32-byte aligned tiles).
-template <typename E>
-__device__ __forceinline__ E* carve(unsigned char*& cursor, size_t n) {
-  E* out = reinterpret_cast<E*>(cursor);
-  cursor += (n * sizeof(E) + 127) / 128 * 128;
-  return out;
-}
-
 // ---------------------------------------------------------------------------
-// Shared pieces: the forward's fold of one logits tile into the running row
-// terms, the per-row backward terms, and d of one logit.
+// f32 instance pieces: the forward's fold of one logits tile into the
+// running row terms, the per-row backward terms, and d of one logit.
 // ---------------------------------------------------------------------------
-
 struct RowTerms {
   float m, l, tl, bv;
   int bi, tgt;
@@ -215,31 +203,16 @@ __device__ __forceinline__ void load_row_terms(float* Ls, float* Gl, float* Gt, 
   }
 }
 
-// d of (tile row r, column col) from its logit, rounded to T.
-template <typename T>
+// d of (tile row r, column col) from its logit (f32: no rounding).
 __device__ __forceinline__ float dlogit(float logit, int r, int row, int col, int N, int Vp,
                                         int vocab, const float* Ls, const float* Gl,
                                         const float* Gt, const int* Tg) {
   if (row >= N || col >= Vp) return 0.f;
   const float x = col < vocab ? logit : kPadLogit;
   const float p = expf(x - Ls[r]);  // pad columns: exp(-1e9 - lse) == 0
-  return round_to<T>(p * Gl[r] + (col == Tg[r] ? Gt[r] : 0.f));
+  return p * Gl[r] + (col == Tg[r] ? Gt[r] : 0.f);
 }
 
-// acc[i][j] = C[(ty + 16 i) * ldc + tx + 16 j]: a logits tile from shared
-// memory into the per-thread layout of the epilogues.
-template <int TM, int TN>
-__device__ __forceinline__ void read_tile(float (&acc)[TM][TN], const float* C, int ldc) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = C[(ty + 16 * i) * ldc + tx + 16 * j];
-}
-
-// ---------------------------------------------------------------------------
-// f32 instance: CUDA cores, true f32.
-// ---------------------------------------------------------------------------
 
 // h rows [t0, t0 + rows) x dims [k0, k0 + kKC) -> Hs [rows][kKC + 1], zeros
 // outside [N, dim).
@@ -345,7 +318,7 @@ ce_bwd_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        Ds[r * (kWV + 1) + c] = dlogit<float>(a[i][j], r, t0 + r, v0 + c, N, Vp, vocab, Ls,
+        Ds[r * (kWV + 1) + c] = dlogit(a[i][j], r, t0 + r, v0 + c, N, Vp, vocab, Ls,
                                               Gl, Gt, Tg);
       }
     // acc[kk][c] += sum_r h[r][kk] * d[r][c], one kKC chunk of dim at a time;
@@ -410,7 +383,7 @@ ce_bwd_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        Ds[r * (kHV + 1) + c] = dlogit<float>(a[i][j], r, t0 + r, v0 + c, N, Vp, vocab, Ls,
+        Ds[r * (kHV + 1) + c] = dlogit(a[i][j], r, t0 + r, v0 + c, N, Vp, vocab, Ls,
                                               Gl, Gt, Tg);
       }
     // acc[r][kk] += sum_c d[r][c] * W[kk][c], one kKC chunk of dim at a
@@ -445,302 +418,440 @@ ce_bwd_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// bf16 instance: tensor cores (WMMA), f32 accumulation.
+// bf16 instance: one wgmma/TMA GEMM mainloop, four epilogues.
 // ---------------------------------------------------------------------------
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int kBM = 128, kBN = 256, kBK = 64;  // output tile; k-block
+constexpr int kStages = 4;                      // the ring of shared-memory stages
+constexpr int kGemmThreads = 384;               // producer warpgroup + two consumers
+constexpr int kStageA = kBM * kBK * 2, kStageB = kBK * kBN * 2;
+constexpr int kStageBytes = kStageA + kStageB;  // 48 KB
+constexpr int kBox = 64 * kBK * 2;              // one 64 x 64 MN-major box, 8 KB
+constexpr size_t kGemmSmem = 1024 + kStages * kStageBytes + 2 * kStages * sizeof(uint64_t);
+constexpr int kMaxSplits = 4;
 
-// Eight bf16 of row gr, columns [gc, gc + 8) of a row-major matrix (ld
-// columns; zeros outside [R, Cn)), as raw bits: one 16-byte load where the
-// run is whole and aligned, element by element otherwise.
-__device__ __forceinline__ uint4 load8(const uint16_t* __restrict__ src, int ld, int gr,
-                                       int gc, int R, int Cn) {
-  const uint16_t* p = src + static_cast<size_t>(gr) * ld + gc;
-  if (gr < R && gc + 8 <= Cn && reinterpret_cast<uintptr_t>(p) % 16 == 0)
-    return *reinterpret_cast<const uint4*>(p);
-  uint32_t v[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = (gr < R && gc + k < Cn) ? p[k] : 0u;
-  uint4 out;
-  out.x = v[0] | (v[1] << 16);
-  out.y = v[2] | (v[3] << 16);
-  out.z = v[4] | (v[5] << 16);
-  out.w = v[6] | (v[7] << 16);
-  return out;
+// One output tile: rows [m0, m0 + kBM), columns [n0, n0 + kBN), over the
+// k-blocks [kb0, kb1).
+struct Tile {
+  int m0, n0, kb0, kb1;
+};
+
+// A consumer thread's place in its warpgroup's 64 x 256 part of a tile:
+// register i = 4 j + 2 h + e holds row `row0 + 8 h`, column `col0 + 8 j + e`
+// (tk_hopper.cuh's accumulator layout).
+struct Frag {
+  int row0, col0, q;
+  __device__ __forceinline__ Frag(const Tile& t, int cw) {
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    row0 = t.m0 + 64 * cw + 16 * (tid / 32) + lane / 4;
+    q = lane % 4;
+    col0 = t.n0 + 2 * q;
+  }
+};
+
+// Reductions over the 4 threads (a quad) that share a row of a fragment.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ int quad_min(int v) {
+  v = min(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return min(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// A [ROWS x COLS] block of a row-major bf16 matrix staged into shared memory
-// in two steps, so the next block's global loads are in flight while the
-// tensor cores work on the current one: `fetch` loads it into registers
-// (16 bytes a load), `put` writes it to shared memory (row stride lds).
-template <int ROWS, int COLS>
-struct Stager {
-  static_assert(COLS % 8 == 0, "whole 16-byte runs");
-  static constexpr int kVecs = ROWS * COLS / 8;
-  static constexpr int kPer = (kVecs + kThreads - 1) / kThreads;
-  uint4 r[kPer];
-
-  __device__ __forceinline__ void fetch(const bf16* __restrict__ src, int ld, int r0, int c0,
-                                        int R, int Cn) {
-    const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+// The mainloop. The policy P gives the operand majors (kAMajor, kBMajor: 0
+// K-major, 1 MN-major), the work units and their tiles (`units`, `tiles`,
+// `tile`), and the consumers' epilogue (`begin`, `tile_done`, `end` on a
+// per-thread State). Block b walks units b, b + gridDim.x, ...; the
+// producer and the consumers walk the same sequence of tiles and k-blocks,
+// meeting at the `full` (TMA bytes landed) and `empty` (every consumer
+// thread done with the stage) barriers of each stage.
+template <class P>
+__device__ __forceinline__ void gemm_body(const CUtensorMap* ma, const CUtensorMap* mb,
+                                          const P& p) {
+  extern __shared__ __align__(128) float smem[];
+  unsigned char* raw = reinterpret_cast<unsigned char*>(smem);
+  unsigned char* ring = raw + (1024 - smem_addr(raw) % 1024) % 1024;  // the 128B swizzle's period
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kGemmThreads - 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+      const int n = p.tiles(u);
+      for (int i = 0; i < n; ++i) {
+        const Tile t = p.tile(u, i);
+        for (int kb = t.kb0; kb < t.kb1; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* a = ring + stage * kStageBytes;
+          unsigned char* b = a + kStageA;
+          mbar_arrive_expect_tx(&full[stage], kStageBytes);
+          const int k0 = kb * kBK;
+          if (P::kAMajor == 0) {
+            tma_load_2d(a, ma, &full[stage], k0, t.m0);
+          } else {
+            for (int x = 0; x < kBM / 64; ++x)
+              tma_load_2d(a + x * kBox, ma, &full[stage], t.m0 + 64 * x, k0);
+          }
+          if (P::kBMajor == 0) {
+            tma_load_2d(b, mb, &full[stage], k0, t.n0);
+          } else {
+            for (int x = 0; x < kBN / 64; ++x)
+              tma_load_2d(b + x * kBox, mb, &full[stage], t.n0 + 64 * x, k0);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
+    // k-slice kk of a stage: K-major operands step 32 bytes along the
+    // 128-byte rows, MN-major ones 16 k rows (2048 bytes); the second
+    // consumer's A rows start one 64-row (K-major) or 64-column (MN-major)
+    // block, 8 KB, in
+    constexpr int kStepA = P::kAMajor ? 2048 : 32, kStepB = P::kBMajor ? 2048 : 32;
+    constexpr uint32_t kLboA = P::kAMajor ? kBox : 16, kLboB = P::kBMajor ? kBox : 16;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[128];
+    typename P::State st;
+    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+      p.begin(st, u, cw);
+      const int n = p.tiles(u);
+      for (int i = 0; i < n; ++i) {
+        const Tile t = p.tile(u, i);
+        int held = -1;  // the stage whose products are still in flight
+        for (int kb = t.kb0; kb < t.kb1; ++kb) {
+          mbar_wait(&full[stage], phase);
+          const unsigned char* a = ring + stage * kStageBytes + cw * kBox;
+          const unsigned char* b = ring + stage * kStageBytes + kStageA;
+          wgmma_fence_regs(acc);
+          wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (e < kVecs) {
-        const int rr = e / (COLS / 8), cc = e % (COLS / 8) * 8;
-        r[i] = load8(s16, ld, r0 + rr, c0 + cc, R, Cn);
+          for (int kk = 0; kk < kBK / 16; ++kk)
+            wgmma_m64n256k16<P::kAMajor, P::kBMajor>(
+                acc, wgmma_desc(a + kk * kStepA, kLboA, 1024),
+                wgmma_desc(b + kk * kStepB, kLboB, 1024), (kb > t.kb0 || kk > 0) ? 1 : 0);
+          wgmma_commit();
+          wgmma_fence_regs(acc);
+          wgmma_wait<1>();  // the previous k-block's products are done
+          if (held >= 0) mbar_arrive(&empty[held]);
+          held = stage;
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        wgmma_fence_regs(acc);
+        if (held >= 0) mbar_arrive(&empty[held]);
+        p.tile_done(st, acc, u, t, cw);
+      }
+      p.end(st, u, cw);
+    }
+  }
+}
+
+struct NoState {};
+
+// Forward: logits = h.W (h K-major, W MN-major). Unit u = (row tile
+// u % m_tiles, vocab split u / m_tiles) walks the split's vocab tiles in
+// order, folding each into the running terms of the thread's two rows;
+// `end` writes the split's partial terms, [4][splits][N] (max, sum,
+// target logit, best value) and [splits][N] (best column).
+template <bool kArgmax>
+struct FwdPolicy {
+  static constexpr int kAMajor = 0, kBMajor = 1;
+  const int32_t* targets;
+  float* part;
+  int32_t* part_idx;
+  int N, Vp, vocab, m_tiles, n_tiles, splits, per_split, k_blocks, units;
+
+  struct State {
+    float m[2], l[2], tl[2], bv[2];
+    int bi[2], tgt[2];
+  };
+
+  __device__ __forceinline__ int tiles(int u) const {
+    return min(per_split, n_tiles - (u / m_tiles) * per_split);
+  }
+  __device__ __forceinline__ Tile tile(int u, int i) const {
+    return Tile{(u % m_tiles) * kBM, ((u / m_tiles) * per_split + i) * kBN, 0, k_blocks};
+  }
+  __device__ __forceinline__ void begin(State& st, int u, int cw) const {
+    const Frag f(tile(u, 0), cw);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = f.row0 + 8 * h;
+      st.m[h] = -INFINITY;
+      st.l[h] = st.tl[h] = 0.f;
+      st.bv[h] = -INFINITY;
+      st.bi[h] = 0;
+      st.tgt[h] = row < N ? targets[row] : kIgnore;
+    }
+  }
+  // Columns past Vp are left out; column n0 < Vp is in every tile, so the
+  // tile's maximum is finite.
+  __device__ __forceinline__ void tile_done(State& st, float (&acc)[128], int, const Tile& t,
+                                            int cw) const {
+    const Frag f(t, cw);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = f.col0 + 8 * j + e;
+          float& x = acc[4 * j + 2 * h + e];
+          x = col >= Vp ? -INFINITY : (col < vocab ? x : kPadLogit);
+          tile_max = fmaxf(tile_max, x);
+        }
+      tile_max = quad_max(tile_max);
+      const float m_new = fmaxf(st.m[h], tile_max);
+      float psum = 0.f, hit = 0.f;
+      int idx = 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = f.col0 + 8 * j + e;
+          const float x = acc[4 * j + 2 * h + e];
+          psum += expf(x - m_new);
+          if (col == st.tgt[h]) hit += x;
+          if (kArgmax && x == tile_max && col < idx) idx = col;
+        }
+      st.l[h] = st.l[h] * expf(st.m[h] - m_new) + quad_sum(psum);
+      st.m[h] = m_new;
+      st.tl[h] += quad_sum(hit);
+      if (kArgmax) {
+        idx = quad_min(idx);
+        if (tile_max > st.bv[h]) {
+          st.bv[h] = tile_max;
+          st.bi[h] = idx;
+        }
       }
     }
   }
-
-  __device__ __forceinline__ void put(bf16* S, int lds) const {
+  __device__ __forceinline__ void end(State& st, int u, int cw) const {
+    const Frag f(tile(u, 0), cw);
+    if (f.q != 0) return;
+    const size_t plane = static_cast<size_t>(splits) * N;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (e < kVecs) {
-        const int rr = e / (COLS / 8), cc = e % (COLS / 8) * 8;
-        *reinterpret_cast<uint4*>(S + rr * lds + cc) = r[i];
+    for (int h = 0; h < 2; ++h) {
+      const int row = f.row0 + 8 * h;
+      if (row >= N) continue;
+      const size_t at = static_cast<size_t>(u / m_tiles) * N + row;
+      part[at] = st.m[h];
+      part[plane + at] = st.l[h];
+      part[2 * plane + at] = st.tl[h];
+      part[3 * plane + at] = st.bv[h];
+      part_idx[at] = st.bi[h];
+    }
+  }
+};
+
+// Backward 1: d of chunk rows [c0, c0 + rows) from h_c.W (h K-major, W
+// MN-major), written in bf16 to the workspace [rows][ldd]; columns past Vp
+// are 0. Unit u = tile (u % m_tiles, u / m_tiles): the blocks in flight
+// share W's tiles.
+struct DPolicy {
+  static constexpr int kAMajor = 0, kBMajor = 1;
+  using State = NoState;
+  const float *lse, *g_lse, *g_tgt;
+  const int32_t* targets;
+  bf16* ws;
+  int c0, rows, ldd, Vp, vocab, m_tiles, k_blocks, units;
+
+  __device__ __forceinline__ int tiles(int) const { return 1; }
+  __device__ __forceinline__ Tile tile(int u, int) const {
+    return Tile{(u % m_tiles) * kBM, (u / m_tiles) * kBN, 0, k_blocks};
+  }
+  __device__ __forceinline__ void begin(State&, int, int) const {}
+  __device__ __forceinline__ void end(State&, int, int) const {}
+  __device__ __forceinline__ float dval(float x, int col, float ls, float gl, float gt,
+                                        int tg) const {
+    if (col >= Vp) return 0.f;
+    const float p = expf((col < vocab ? x : kPadLogit) - ls);  // pad columns: exactly 0
+    return p * gl + (col == tg ? gt : 0.f);
+  }
+  __device__ __forceinline__ void tile_done(State&, float (&acc)[128], int, const Tile& t,
+                                            int cw) const {
+    const Frag f(t, cw);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = f.row0 + 8 * h;
+      if (r >= rows) continue;
+      const int row = c0 + r;
+      const float ls = lse[row], gl = g_lse[row], gt = g_tgt[row];
+      const int tg = targets[row];
+      bf16* out = ws + static_cast<size_t>(r) * ldd;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = f.col0 + 8 * j;  // even; ldd is a multiple of 8
+        if (col >= ldd) continue;
+        st_b32(out + col, pack_bf16x2(dval(acc[4 * j + 2 * h], col, ls, gl, gt, tg),
+                                      dval(acc[4 * j + 2 * h + 1], col + 1, ls, gl, gt, tg)));
       }
     }
   }
 };
 
-// The [ROWS x COLS] logits tile h[t0 ..] . W[:, v0 ..] on the tensor cores,
-// stored to C (f32, row stride COLS + 4). The 8 warps tile it WR x WC; each
-// owns a (ROWS / 16 / WR) x (COLS / 16 / WC) block of 16 x 16 fragments.
-// As [ROWS][kKCc + 8] and Bs [kKCc][COLS + 8] hold the current h and W
-// chunks while the next ones load.
-template <int ROWS, int COLS, int WR, int WC>
-__device__ __forceinline__ void logits_tile_tc(float* C, bf16* As, bf16* Bs,
-                                               const bf16* __restrict__ h,
-                                               const bf16* __restrict__ w, int t0, int v0,
-                                               int N, int dim, int Vp) {
-  static_assert(WR * WC == kWarps, "the warps tile the logits");
-  constexpr int PR = ROWS / 16 / WR, PC = COLS / 16 / WC;
-  constexpr int lda = kKCc + 8, ldb = COLS + 8, ldc = COLS + 4;
-  const int warp = threadIdx.x >> 5;
-  const int fr0 = (warp / WC) * PR, fc0 = (warp % WC) * PC;
-  FragC acc[PR][PC];
-#pragma unroll
-  for (int i = 0; i < PR; ++i)
-#pragma unroll
-    for (int j = 0; j < PC; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  Stager<ROWS, kKCc> sa;
-  Stager<kKCc, COLS> sb;
-  sa.fetch(h, dim, t0, 0, N, dim);
-  sb.fetch(w, Vp, 0, v0, dim, Vp);
-  for (int k0 = 0; k0 < dim; k0 += kKCc) {
-    __syncthreads();  // the previous chunk (or the caller's last reads) is done
-    sa.put(As, lda);
-    sb.put(Bs, ldb);
-    __syncthreads();
-    if (k0 + kKCc < dim) {
-      sa.fetch(h, dim, t0, k0 + kKCc, N, dim);
-      sb.fetch(w, Vp, k0 + kKCc, v0, dim, Vp);
-    }
-#pragma unroll
-    for (int ks = 0; ks < kKCc; ks += 16) {
-      FragA a[PR];
-      FragB b[PC];
-#pragma unroll
-      for (int i = 0; i < PR; ++i)
-        wmma::load_matrix_sync(a[i], As + (fr0 + i) * 16 * lda + ks, lda);
-#pragma unroll
-      for (int j = 0; j < PC; ++j)
-        wmma::load_matrix_sync(b[j], Bs + ks * ldb + (fc0 + j) * 16, ldb);
-#pragma unroll
-      for (int i = 0; i < PR; ++i)
-#pragma unroll
-        for (int j = 0; j < PC; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
+// Backward 2: dH partials of the chunk, d W^T (d K-major, W K-major), K =
+// the vocab cut into `splits` ranges of k-blocks; split s writes its f32
+// partial to part [s][rows][dim]. Unit u = (split, row tile, dim tile),
+// the dim tile fastest: the blocks in flight share d's rows.
+struct DhPolicy {
+  static constexpr int kAMajor = 0, kBMajor = 0;
+  using State = NoState;
+  float* part;
+  int rows, dim, m_tiles, n_tiles, per_split, k_blocks, units;
+
+  __device__ __forceinline__ int tiles(int) const { return 1; }
+  __device__ __forceinline__ Tile tile(int u, int) const {
+    const int s = u / (m_tiles * n_tiles), kb0 = s * per_split;
+    return Tile{((u / n_tiles) % m_tiles) * kBM, (u % n_tiles) * kBN, kb0,
+                min(k_blocks, kb0 + per_split)};
   }
+  __device__ __forceinline__ void begin(State&, int, int) const {}
+  __device__ __forceinline__ void end(State&, int, int) const {}
+  __device__ __forceinline__ void tile_done(State&, float (&acc)[128], int u, const Tile& t,
+                                            int cw) const {
+    const Frag f(t, cw);
+    float* out = part + static_cast<size_t>(u / (m_tiles * n_tiles)) * rows * dim;
 #pragma unroll
-  for (int i = 0; i < PR; ++i)
+    for (int h = 0; h < 2; ++h) {
+      const int r = f.row0 + 8 * h;
+      if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < PC; ++j)
-      wmma::store_matrix_sync(C + (fr0 + i) * 16 * ldc + (fc0 + j) * 16, acc[i][j], ldc,
-                              wmma::mem_row_major);
-  __syncthreads();
-}
-
-// Grid (ceil(N / 128)), kThreads threads; loops over 128-column vocab tiles.
-__global__ void __launch_bounds__(kThreads)
-ce_fwd_kernel_tc(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                 const int32_t* __restrict__ targets, float* __restrict__ lse,
-                 float* __restrict__ tgt_logit, int32_t* __restrict__ best, int N, int dim,
-                 int Vp, int vocab, int with_argmax) {
-  extern __shared__ __align__(128) float smem[];
-  constexpr int TM = kFTc / 16, TN = kFVc / 16;
-  unsigned char* cur = reinterpret_cast<unsigned char*>(smem);
-  float* C = carve<float>(cur, kFTc * (kFVc + 4));
-  bf16* As = carve<bf16>(cur, kFTc * (kKCc + 8));
-  bf16* Bs = carve<bf16>(cur, kKCc * (kFVc + 8));
-  const int t0 = blockIdx.x * kFTc;
-  RowTerms rt[TM];
-  init_rows(rt, targets, t0, N);
-  for (int v0 = 0; v0 < Vp; v0 += kFVc) {
-    logits_tile_tc<kFTc, kFVc, 2, 4>(C, As, Bs, h, w, t0, v0, N, dim, Vp);
-    float acc[TM][TN];
-    read_tile(acc, C, kFVc + 4);
-    fold_tile(acc, rt, v0, Vp, vocab, with_argmax);
-  }
-  write_rows(rt, lse, tgt_logit, best, t0, N, with_argmax);
-}
-
-// dW of 32 vocab columns: grid (ceil(Vp / 32)), kThreads threads; loops over
-// all tokens, 128 at a time. The accumulator [dimp][32] f32 (dimp = dim
-// rounded up to kDC) lives in shared memory; each 128-dim chunk of
-// acc += h^T d is two 16 x 16 fragments per warp.
-__global__ void __launch_bounds__(kThreads)
-ce_bwd_dw_kernel_tc(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                    const int32_t* __restrict__ targets, const float* __restrict__ lse,
-                    const float* __restrict__ g_lse, const float* __restrict__ g_tgt,
-                    float* __restrict__ dw, int N, int dim, int Vp, int vocab) {
-  extern __shared__ __align__(128) float smem[];
-  constexpr int TM = kWTc / 16, TN = kWVc / 16;
-  constexpr int ldd = kWVc + 8, ldh = kDC + 8;
-  const int dimp = (dim + kDC - 1) / kDC * kDC;
-  unsigned char* cur = reinterpret_cast<unsigned char*>(smem);
-  float* acc_s = carve<float>(cur, static_cast<size_t>(dimp) * kWVc);
-  float* C = carve<float>(cur, kWTc * (kWVc + 4));
-  bf16* As = carve<bf16>(cur, kWTc * (kKCc + 8));
-  bf16* Bs = carve<bf16>(cur, kKCc * (kWVc + 8));
-  bf16* Ds = carve<bf16>(cur, kWTc * ldd);
-  bf16* Ht = carve<bf16>(cur, kWTc * ldh);
-  float* Ls = carve<float>(cur, kWTc);
-  float* Gl = carve<float>(cur, kWTc);
-  float* Gt = carve<float>(cur, kWTc);
-  int* Tg = carve<int>(cur, kWTc);
-  const int v0 = blockIdx.x * kWVc;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4, warp = threadIdx.x >> 5;
-  // this warp's two fragments of a 128 x 32 chunk: rows fr and fr + 4
-  const int fr = warp / 2, fc = warp % 2;
-  for (int e = threadIdx.x; e < dimp * kWVc; e += kThreads) acc_s[e] = 0.f;
-
-  for (int t0 = 0; t0 < N; t0 += kWTc) {
-    __syncthreads();  // the previous step's row terms and Ds are no longer read
-    load_row_terms(Ls, Gl, Gt, Tg, lse, g_lse, g_tgt, targets, t0, kWTc, N);
-    logits_tile_tc<kWTc, kWVc, 4, 2>(C, As, Bs, h, w, t0, v0, N, dim, Vp);
-    float a[TM][TN];
-    read_tile(a, C, kWVc + 4);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        Ds[r * ldd + c] = __float2bfloat16_rn(
-            dlogit<bf16>(a[i][j], r, t0 + r, v0 + c, N, Vp, vocab, Ls, Gl, Gt, Tg));
+      for (int j = 0; j < 32; ++j) {
+        const int col = f.col0 + 8 * j;  // even; dim is a multiple of 8
+        if (col >= dim) continue;
+        out[static_cast<size_t>(r) * dim + col] = acc[4 * j + 2 * h];
+        out[static_cast<size_t>(r) * dim + col + 1] = acc[4 * j + 2 * h + 1];
       }
-    Stager<kWTc, kDC> sh;
-    sh.fetch(h, dim, t0, 0, N, dim);
-    for (int k0 = 0; k0 < dimp; k0 += kDC) {
-      __syncthreads();  // Ds written; the previous chunk's Ht no longer read
-      sh.put(Ht, ldh);
-      __syncthreads();
-      if (k0 + kDC < dimp) sh.fetch(h, dim, t0, k0 + kDC, N, dim);
+    }
+  }
+};
+
+// Backward 3: dW (+)= h_c^T d (h MN-major, d MN-major), K = the chunk's
+// tokens, into dw [dim][ldw] f32, columns < Vp; `accumulate` 0 stores (the
+// first chunk). Unit u = tile (u % m_tiles, u / m_tiles): the blocks in
+// flight share d's tiles.
+struct DwPolicy {
+  static constexpr int kAMajor = 1, kBMajor = 1;
+  using State = NoState;
+  float* dw;
+  int ldw, dim, Vp, accumulate, m_tiles, k_blocks, units;
+
+  __device__ __forceinline__ int tiles(int) const { return 1; }
+  __device__ __forceinline__ Tile tile(int u, int) const {
+    return Tile{(u % m_tiles) * kBM, (u / m_tiles) * kBN, 0, k_blocks};
+  }
+  __device__ __forceinline__ void begin(State&, int, int) const {}
+  __device__ __forceinline__ void end(State&, int, int) const {}
+  __device__ __forceinline__ void tile_done(State&, float (&acc)[128], int, const Tile& t,
+                                            int cw) const {
+    const Frag f(t, cw);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int f = fr + 4 * half;  // fragment row of the chunk
-        float* out = acc_s + static_cast<size_t>(k0 + f * 16) * kWVc + fc * 16;
-        FragC c;
-        wmma::load_matrix_sync(c, out, kWVc, wmma::mem_row_major);
+    for (int h = 0; h < 2; ++h) {
+      const int r = f.row0 + 8 * h;
+      if (r >= dim) continue;
+      float* out = dw + static_cast<size_t>(r) * ldw;
 #pragma unroll
-        for (int ks = 0; ks < kWTc; ks += 16) {
-          FragAt a_t;  // h^T: element (dim m, token k) at Ht[k * ldh + m]
-          FragB d;
-          wmma::load_matrix_sync(a_t, Ht + ks * ldh + f * 16, ldh);
-          wmma::load_matrix_sync(d, Ds + ks * ldd + fc * 16, ldd);
-          wmma::mma_sync(c, a_t, d, c);
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = f.col0 + 8 * j + e;
+          const float v = acc[4 * j + 2 * h + e];
+          if (col < Vp) out[col] = accumulate ? out[col] + v : v;
         }
-        wmma::store_matrix_sync(out, c, kWVc, wmma::mem_row_major);
-      }
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < dim * kWVc; e += kThreads) {
-    const int kk = e / kWVc, c = e % kWVc, col = v0 + c;
-    if (col < Vp) dw[static_cast<size_t>(kk) * Vp + col] = acc_s[e];
-  }
+};
+
+template <bool kArgmax>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                    const FwdPolicy<kArgmax> p) {
+  gemm_body(&ma, &mb, p);
 }
 
-// dH of 32 tokens: grid (ceil(N / 32)), kThreads threads; loops over all
-// vocab tiles, 64 columns at a time. The accumulator [32][dimp] f32 lives in
-// shared memory; each 128-dim chunk of acc += d W^T is two 16 x 16
-// fragments per warp.
-__global__ void __launch_bounds__(kThreads)
-ce_bwd_dh_kernel_tc(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                    const int32_t* __restrict__ targets, const float* __restrict__ lse,
-                    const float* __restrict__ g_lse, const float* __restrict__ g_tgt,
-                    bf16* __restrict__ dh, int N, int dim, int Vp, int vocab) {
-  extern __shared__ __align__(128) float smem[];
-  constexpr int TM = kHTc / 16, TN = kHVc / 16;
-  constexpr int ldd = kHVc + 8, ldw = kHVc + 8;
-  const int dimp = (dim + kDC - 1) / kDC * kDC;
-  unsigned char* cur = reinterpret_cast<unsigned char*>(smem);
-  float* acc_s = carve<float>(cur, static_cast<size_t>(kHTc) * dimp);
-  float* C = carve<float>(cur, kHTc * (kHVc + 4));
-  bf16* As = carve<bf16>(cur, kHTc * (kKCc + 8));
-  bf16* Bs = carve<bf16>(cur, kKCc * (kHVc + 8));
-  bf16* Ds = carve<bf16>(cur, kHTc * ldd);
-  bf16* Wc = carve<bf16>(cur, kDC * ldw);
-  float* Ls = carve<float>(cur, kHTc);
-  float* Gl = carve<float>(cur, kHTc);
-  float* Gt = carve<float>(cur, kHTc);
-  int* Tg = carve<int>(cur, kHTc);
-  const int t0 = blockIdx.x * kHTc;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4, warp = threadIdx.x >> 5;
-  // this warp's two fragments of a 32 x 128 chunk: columns fc and fc + 4
-  const int fr = warp / 4, fc = warp % 4;
-  for (int e = threadIdx.x; e < kHTc * dimp; e += kThreads) acc_s[e] = 0.f;
-  load_row_terms(Ls, Gl, Gt, Tg, lse, g_lse, g_tgt, targets, t0, kHTc, N);
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ce_bwd_d_wgmma_kernel(const __grid_constant__ CUtensorMap ma,
+                      const __grid_constant__ CUtensorMap mb, const DPolicy p) {
+  gemm_body(&ma, &mb, p);
+}
 
-  for (int v0 = 0; v0 < Vp; v0 += kHVc) {
-    logits_tile_tc<kHTc, kHVc, 2, 4>(C, As, Bs, h, w, t0, v0, N, dim, Vp);
-    float a[TM][TN];
-    read_tile(a, C, kHVc + 4);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        Ds[r * ldd + c] = __float2bfloat16_rn(
-            dlogit<bf16>(a[i][j], r, t0 + r, v0 + c, N, Vp, vocab, Ls, Gl, Gt, Tg));
-      }
-    Stager<kDC, kHVc> sw;
-    sw.fetch(w, Vp, 0, v0, dim, Vp);
-    for (int k0 = 0; k0 < dimp; k0 += kDC) {
-      __syncthreads();  // Ds written; the previous chunk's Wc no longer read
-      sw.put(Wc, ldw);
-      __syncthreads();
-      if (k0 + kDC < dimp) sw.fetch(w, Vp, k0 + kDC, v0, dim, Vp);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int f = fc + 4 * half;  // fragment column of the chunk
-        float* out = acc_s + static_cast<size_t>(fr * 16) * dimp + k0 + f * 16;
-        FragC c;
-        wmma::load_matrix_sync(c, out, dimp, wmma::mem_row_major);
-#pragma unroll
-        for (int ks = 0; ks < kHVc; ks += 16) {
-          FragA d;
-          FragBt w_t;  // W^T: element (column k, dim n) at Wc[n * ldw + k]
-          wmma::load_matrix_sync(d, Ds + fr * 16 * ldd + ks, ldd);
-          wmma::load_matrix_sync(w_t, Wc + f * 16 * ldw + ks, ldw);
-          wmma::mma_sync(c, d, w_t, c);
-        }
-        wmma::store_matrix_sync(out, c, dimp, wmma::mem_row_major);
-      }
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ce_bwd_dh_wgmma_kernel(const __grid_constant__ CUtensorMap ma,
+                       const __grid_constant__ CUtensorMap mb, const DhPolicy p) {
+  gemm_body(&ma, &mb, p);
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ce_bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap ma,
+                       const __grid_constant__ CUtensorMap mb, const DwPolicy p) {
+  gemm_body(&ma, &mb, p);
+}
+
+// Per row: the splits' partial terms folded in split order into lse, the
+// target logit and the argmax (a later split only on a strictly greater
+// value). Grid (ceil(N / kThreads)).
+__global__ void __launch_bounds__(kThreads)
+ce_fwd_combine_kernel(const float* __restrict__ part, const int32_t* __restrict__ part_idx,
+                      float* __restrict__ lse, float* __restrict__ tgt_logit,
+                      int32_t* __restrict__ best, int N, int splits, int with_argmax) {
+  const int row = blockIdx.x * kThreads + threadIdx.x;
+  if (row >= N) return;
+  const size_t plane = static_cast<size_t>(splits) * N;
+  float m = -INFINITY;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, part[static_cast<size_t>(s) * N + row]);
+  float l = 0.f, tl = 0.f, bv = -INFINITY;
+  int bi = 0;
+  for (int s = 0; s < splits; ++s) {
+    const size_t at = static_cast<size_t>(s) * N + row;
+    l += part[plane + at] * expf(part[at] - m);
+    tl += part[2 * plane + at];
+    if (part[3 * plane + at] > bv) {
+      bv = part[3 * plane + at];
+      bi = part_idx[at];
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kHTc * dim; e += kThreads) {
-    const int r = e / dim, kk = e % dim, row = t0 + r;
-    if (row < N)
-      dh[static_cast<size_t>(row) * dim + kk] = __float2bfloat16_rn(acc_s[r * dimp + kk]);
+  lse[row] = m + logf(l);
+  tgt_logit[row] = tl;
+  best[row] = with_argmax ? bi : 0;
+}
+
+// dh[e] = bf16(sum over the splits, in order, of part[s][e]), e < n.
+__global__ void __launch_bounds__(kThreads)
+ce_bwd_dh_combine_kernel(const float* __restrict__ part, bf16* __restrict__ dh, int n,
+                         int splits) {
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < n; e += gridDim.x * kThreads) {
+    float sum = 0.f;
+    for (int s = 0; s < splits; ++s) sum += part[static_cast<size_t>(s) * n + e];
+    dh[e] = __float2bfloat16_rn(sum);
   }
 }
 
@@ -748,32 +859,14 @@ ce_bwd_dh_kernel_tc(const bf16* __restrict__ h, const bf16* __restrict__ w,
 // Launch.
 // ---------------------------------------------------------------------------
 
-size_t round128(size_t bytes) { return (bytes + 127) / 128 * 128; }
-
-size_t fwd_smem(bool tc) {
-  if (!tc) return sizeof(float) * (kFT * (kKC + 1) + kKC * (kFV + 1));
-  return round128(4 * kFTc * (kFVc + 4)) + round128(2 * kFTc * (kKCc + 8)) +
-         round128(2 * kKCc * (kFVc + 8));
+size_t fwd_smem() { return sizeof(float) * (kFT * (kKC + 1) + kKC * (kFV + 1)); }
+size_t dw_smem(int dim) {
+  return sizeof(float) * (static_cast<size_t>(dim) * kWV + kWT * (kKC + 1) + kKC * (kWV + 1) +
+                          kWT * (kWV + 1) + 4 * kWT);
 }
-size_t dw_smem(int dim, bool tc) {
-  if (!tc)
-    return sizeof(float) * (static_cast<size_t>(dim) * kWV + kWT * (kKC + 1) +
-                            kKC * (kWV + 1) + kWT * (kWV + 1) + 4 * kWT);
-  const size_t dimp = (dim + kDC - 1) / kDC * kDC;
-  return round128(4 * dimp * kWVc) + round128(4 * kWTc * (kWVc + 4)) +
-         round128(2 * kWTc * (kKCc + 8)) + round128(2 * kKCc * (kWVc + 8)) +
-         round128(2 * kWTc * (kWVc + 8)) + round128(2 * kWTc * (kDC + 8)) +
-         4 * round128(4 * kWTc);
-}
-size_t dh_smem(int dim, bool tc) {
-  if (!tc)
-    return sizeof(float) * (static_cast<size_t>(kHT) * dim + kHT * (kKC + 1) +
-                            kKC * (kHV + 1) + kHT * (kHV + 1) + 4 * kHT);
-  const size_t dimp = (dim + kDC - 1) / kDC * kDC;
-  return round128(4 * kHTc * dimp) + round128(4 * kHTc * (kHVc + 4)) +
-         round128(2 * kHTc * (kKCc + 8)) + round128(2 * kKCc * (kHVc + 8)) +
-         round128(2 * kHTc * (kHVc + 8)) + round128(2 * kDC * (kHVc + 8)) +
-         4 * round128(4 * kHTc);
+size_t dh_smem(int dim) {
+  return sizeof(float) * (static_cast<size_t>(kHT) * dim + kHT * (kKC + 1) + kKC * (kHV + 1) +
+                          kHT * (kHV + 1) + 4 * kHT);
 }
 
 // Raise the kernel's dynamic shared-memory cap to the most a block may use,
@@ -786,30 +879,166 @@ int allow_smem(Kernel kernel) {
 }
 
 template <typename Kernel, typename... Args>
-int launch(int allowed, Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+int launch(int allowed, Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
            Args... args) {
   if (allowed != 0) return allowed;
   if (smem > static_cast<size_t>(kSmemLimit)) return -2;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 using I32 = int32_t;
 
+int num_sms() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+int cdiv(long a, long b) { return static_cast<int>((a + b - 1) / b); }
+
+// The number of splits (1 .. max_splits) of `tiles` equal work units that
+// fills the SMs' waves best; the fewest at a tie.
+int pick_splits(int tiles, int max_splits) {
+  const int sms = num_sms();
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= max_splits; ++s) {
+    const long units = static_cast<long>(tiles) * s;
+    const double fill = static_cast<double>(units) / (static_cast<double>(cdiv(units, sms)) * sms);
+    if (fill > best_fill + 1e-9) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return best;
+}
+
+// `blocks` cut into `splits` runs of `per_split` blocks: the last run may
+// be short, and runs that would get no block are dropped, so the returned
+// split count is the one launched.
+int cut(int blocks, int splits, int* per_split) {
+  *per_split = cdiv(blocks, splits);
+  return cdiv(blocks, *per_split);
+}
+
+// The forward's vocab splits (their 256-column tiles per split in *per).
+int fwd_splits(int N, int Vp, int* per) {
+  const int n_tiles = cdiv(Vp, kBN);
+  return cut(n_tiles, pick_splits(cdiv(N, kBM), std::min(kMaxSplits, n_tiles)), per);
+}
+
+// dH's vocab splits for a chunk of `rows` rows (their k-blocks per split in
+// *per).
+int dh_splits(int rows, int dim, int ldw, int* per) {
+  const int k_blocks = cdiv(ldw, kBK);
+  return cut(k_blocks, pick_splits(cdiv(rows, kBM) * cdiv(dim, kBN),
+                                   std::min(kMaxSplits, k_blocks)), per);
+}
+
+// Rows per backward chunk: as few chunks as keep the d workspace
+// [C][ldw] bf16 within 1 GiB, of equal size (a multiple of kBM), or the
+// caller's `requested` rows.
+int chunk_rows(int N, int ldw, int requested) {
+  if (requested > 0) return std::min(requested, N);
+  const long cap = std::max<long>(kBM, (1l << 30) / (2l * ldw) / kBM * kBM);
+  const int chunks = cdiv(N, cap);
+  return std::min<long>(N, static_cast<long>(cdiv(cdiv(N, chunks), kBM)) * kBM);
+}
+
+int grid_for(int units) { return std::min(units, num_sms()); }
+
+int fwd_bf16(const void* h, const void* w, int ldw, const void* targets, void* part,
+             void* part_idx, void* lse, void* tgt, void* best, int N, int dim, int Vp, int vocab,
+             int with_argmax, cudaStream_t s) {
+  if (dim % 8 != 0 || ldw % 8 != 0 || ldw < Vp) return -5;
+  static const int allowed_t = allow_smem(ce_fwd_wgmma_kernel<true>);
+  static const int allowed_f = allow_smem(ce_fwd_wgmma_kernel<false>);
+  CUtensorMap ma, mb;
+  int err = make_tensor_map(&ma, h, N, dim, dim, kBM);
+  if (err == 0) err = make_tensor_map(&mb, w, dim, ldw, ldw, kBK);
+  if (err != 0) return err;
+  int per_split;
+  const int m_tiles = cdiv(N, kBM), n_tiles = cdiv(Vp, kBN);
+  const int splits = fwd_splits(N, Vp, &per_split), units = m_tiles * splits;
+  if (with_argmax) {
+    const FwdPolicy<true> p{static_cast<const I32*>(targets), static_cast<float*>(part),
+                            static_cast<I32*>(part_idx), N, Vp, vocab, m_tiles, n_tiles, splits,
+                            per_split, cdiv(dim, kBK), units};
+    err = launch(allowed_t, ce_fwd_wgmma_kernel<true>, dim3(grid_for(units)), kGemmThreads,
+                 kGemmSmem, s, ma, mb, p);
+  } else {
+    const FwdPolicy<false> p{static_cast<const I32*>(targets), static_cast<float*>(part),
+                             static_cast<I32*>(part_idx), N, Vp, vocab, m_tiles, n_tiles, splits,
+                             per_split, cdiv(dim, kBK), units};
+    err = launch(allowed_f, ce_fwd_wgmma_kernel<false>, dim3(grid_for(units)), kGemmThreads,
+                 kGemmSmem, s, ma, mb, p);
+  }
+  if (err != 0) return err;
+  return launch(0, ce_fwd_combine_kernel, dim3(cdiv(N, kThreads)), kThreads, 0, s,
+                static_cast<const float*>(part), static_cast<const I32*>(part_idx),
+                static_cast<float*>(lse), static_cast<float*>(tgt), static_cast<I32*>(best), N,
+                splits, with_argmax);
+}
+
+int bwd_bf16(const void* h, const void* w, int ldw, const void* targets, const void* lse,
+             const void* g_lse, const void* g_tgt, void* ws, void* part, void* dh, void* dw,
+             int N, int dim, int Vp, int vocab, int requested_rows, cudaStream_t s) {
+  if (dim % 8 != 0 || ldw % 8 != 0 || ldw < Vp) return -5;
+  static const int allowed_d = allow_smem(ce_bwd_d_wgmma_kernel);
+  static const int allowed_h = allow_smem(ce_bwd_dh_wgmma_kernel);
+  static const int allowed_w = allow_smem(ce_bwd_dw_wgmma_kernel);
+  const bf16* hb = static_cast<const bf16*>(h);
+  bf16* wsb = static_cast<bf16*>(ws);
+  CUtensorMap w_mn, w_k;
+  int err = make_tensor_map(&w_mn, w, dim, ldw, ldw, kBK);
+  if (err == 0) err = make_tensor_map(&w_k, w, dim, ldw, ldw, kBN);
+  if (err != 0) return err;
+  const int C = chunk_rows(N, ldw, requested_rows);
+  for (int c0 = 0; c0 < N; c0 += C) {
+    const int rows = std::min(C, N - c0);
+    const bf16* hc = hb + static_cast<size_t>(c0) * dim;
+    CUtensorMap h_k, h_mn, d_k, d_mn;
+    err = make_tensor_map(&h_k, hc, rows, dim, dim, kBM);
+    if (err == 0) err = make_tensor_map(&h_mn, hc, rows, dim, dim, kBK);
+    if (err == 0) err = make_tensor_map(&d_k, ws, rows, ldw, ldw, kBM);
+    if (err == 0) err = make_tensor_map(&d_mn, ws, rows, ldw, ldw, kBK);
+    if (err != 0) return err;
+    const int m_tiles = cdiv(rows, kBM);
+    const DPolicy pd{static_cast<const float*>(lse), static_cast<const float*>(g_lse),
+                     static_cast<const float*>(g_tgt), static_cast<const I32*>(targets), wsb,
+                     c0, rows, ldw, Vp, vocab, m_tiles, cdiv(dim, kBK),
+                     m_tiles * cdiv(Vp, kBN)};
+    err = launch(allowed_d, ce_bwd_d_wgmma_kernel, dim3(grid_for(pd.units)), kGemmThreads,
+                     kGemmSmem, s, h_k, w_mn, pd);
+    if (err != 0) return err;
+    int per_split;
+    const int splits = dh_splits(rows, dim, ldw, &per_split);
+    const DhPolicy ph{static_cast<float*>(part), rows, dim, m_tiles, cdiv(dim, kBN), per_split,
+                      cdiv(ldw, kBK), splits * m_tiles * cdiv(dim, kBN)};
+    err = launch(allowed_h, ce_bwd_dh_wgmma_kernel, dim3(grid_for(ph.units)), kGemmThreads,
+                 kGemmSmem, s, d_k, w_k, ph);
+    if (err != 0) return err;
+    const int n = rows * dim;
+    err = launch(0, ce_bwd_dh_combine_kernel, dim3(std::min(cdiv(n, kThreads), 8 * num_sms())),
+                 kThreads, 0, s, static_cast<const float*>(part),
+                 static_cast<bf16*>(dh) + static_cast<size_t>(c0) * dim, n, splits);
+    if (err != 0) return err;
+    const DwPolicy pw{static_cast<float*>(dw), Vp, dim, Vp, c0 > 0 ? 1 : 0, cdiv(dim, kBM),
+                      cdiv(rows, kBK), cdiv(dim, kBM) * cdiv(Vp, kBN)};
+    err = launch(allowed_w, ce_bwd_dw_wgmma_kernel, dim3(grid_for(pw.units)), kGemmThreads,
+                 kGemmSmem, s, h_mn, d_mn, pw);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 int fwd_f32(const void* h, const void* w, const void* t, void* lse, void* tgt, void* best, int N,
             int dim, int Vp, int vocab, int with_argmax, cudaStream_t s) {
   static const int allowed = allow_smem(ce_fwd_kernel);
-  return launch(allowed, ce_fwd_kernel, dim3((N + kFT - 1) / kFT), fwd_smem(false), s,
+  return launch(allowed, ce_fwd_kernel, dim3((N + kFT - 1) / kFT), kThreads, fwd_smem(), s,
                 static_cast<const float*>(h), static_cast<const float*>(w),
-                static_cast<const I32*>(t), static_cast<float*>(lse), static_cast<float*>(tgt),
-                static_cast<I32*>(best), N, dim, Vp, vocab, with_argmax);
-}
-
-int fwd_bf16(const void* h, const void* w, const void* t, void* lse, void* tgt, void* best,
-             int N, int dim, int Vp, int vocab, int with_argmax, cudaStream_t s) {
-  static const int allowed = allow_smem(ce_fwd_kernel_tc);
-  return launch(allowed, ce_fwd_kernel_tc, dim3((N + kFTc - 1) / kFTc), fwd_smem(true), s,
-                static_cast<const bf16*>(h), static_cast<const bf16*>(w),
                 static_cast<const I32*>(t), static_cast<float*>(lse), static_cast<float*>(tgt),
                 static_cast<I32*>(best), N, dim, Vp, vocab, with_argmax);
 }
@@ -817,18 +1046,8 @@ int fwd_bf16(const void* h, const void* w, const void* t, void* lse, void* tgt, 
 int dw_f32(const void* h, const void* w, const void* t, const void* lse, const void* gl,
            const void* gt, void* dw, int N, int dim, int Vp, int vocab, cudaStream_t s) {
   static const int allowed = allow_smem(ce_bwd_dw_kernel);
-  return launch(allowed, ce_bwd_dw_kernel, dim3((Vp + kWV - 1) / kWV), dw_smem(dim, false), s,
+  return launch(allowed, ce_bwd_dw_kernel, dim3((Vp + kWV - 1) / kWV), kThreads, dw_smem(dim), s,
                 static_cast<const float*>(h), static_cast<const float*>(w),
-                static_cast<const I32*>(t), static_cast<const float*>(lse),
-                static_cast<const float*>(gl), static_cast<const float*>(gt),
-                static_cast<float*>(dw), N, dim, Vp, vocab);
-}
-
-int dw_bf16(const void* h, const void* w, const void* t, const void* lse, const void* gl,
-            const void* gt, void* dw, int N, int dim, int Vp, int vocab, cudaStream_t s) {
-  static const int allowed = allow_smem(ce_bwd_dw_kernel_tc);
-  return launch(allowed, ce_bwd_dw_kernel_tc, dim3((Vp + kWVc - 1) / kWVc), dw_smem(dim, true),
-                s, static_cast<const bf16*>(h), static_cast<const bf16*>(w),
                 static_cast<const I32*>(t), static_cast<const float*>(lse),
                 static_cast<const float*>(gl), static_cast<const float*>(gt),
                 static_cast<float*>(dw), N, dim, Vp, vocab);
@@ -837,55 +1056,81 @@ int dw_bf16(const void* h, const void* w, const void* t, const void* lse, const 
 int dh_f32(const void* h, const void* w, const void* t, const void* lse, const void* gl,
            const void* gt, void* dh, int N, int dim, int Vp, int vocab, cudaStream_t s) {
   static const int allowed = allow_smem(ce_bwd_dh_kernel);
-  return launch(allowed, ce_bwd_dh_kernel, dim3((N + kHT - 1) / kHT), dh_smem(dim, false), s,
+  return launch(allowed, ce_bwd_dh_kernel, dim3((N + kHT - 1) / kHT), kThreads, dh_smem(dim), s,
                 static_cast<const float*>(h), static_cast<const float*>(w),
                 static_cast<const I32*>(t), static_cast<const float*>(lse),
                 static_cast<const float*>(gl), static_cast<const float*>(gt),
                 static_cast<float*>(dh), N, dim, Vp, vocab);
 }
 
-int dh_bf16(const void* h, const void* w, const void* t, const void* lse, const void* gl,
-            const void* gt, void* dh, int N, int dim, int Vp, int vocab, cudaStream_t s) {
-  static const int allowed = allow_smem(ce_bwd_dh_kernel_tc);
-  return launch(allowed, ce_bwd_dh_kernel_tc, dim3((N + kHTc - 1) / kHTc), dh_smem(dim, true),
-                s, static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-                static_cast<const I32*>(t), static_cast<const float*>(lse),
-                static_cast<const float*>(gl), static_cast<const float*>(gt),
-                static_cast<bf16*>(dh), N, dim, Vp, vocab);
-}
-
 }  // namespace
 
 extern "C" {
 
-// kind: 0 f32, 1 bf16 (the dtype of h and W). Each returns
-// cudaGetLastError() after its launch, -1 for an unknown kind, -2 for
-// shared memory over the cap (dim too large).
-int tk_ce_fwd(int kind, const void* h, const void* w, const void* targets, void* lse,
-              void* tgt, void* best, int N, int dim, int Vp, int vocab, int with_argmax,
-              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 0) return fwd_f32(h, w, targets, lse, tgt, best, N, dim, Vp, vocab, with_argmax, s);
-  if (kind == 1) return fwd_bf16(h, w, targets, lse, tgt, best, N, dim, Vp, vocab, with_argmax, s);
-  return -1;
+// Each launcher returns cudaGetLastError() after its first failing launch
+// (0 when all launched), -2 for shared memory over the cap (dim too large,
+// f32), -3 when the driver has no cuTensorMapEncodeTiled, -4 when a tensor
+// map cannot be made, -5 when dim or the padded vocab ldw is no multiple
+// of 8 (TMA's 16-byte strides).
+
+// f32: the CUDA-core forward, dW and dH kernels.
+int tk_ce_fwd_f32(const void* h, const void* w, const void* targets, void* lse, void* tgt,
+                  void* best, int N, int dim, int Vp, int vocab, int with_argmax, void* stream) {
+  return fwd_f32(h, w, targets, lse, tgt, best, N, dim, Vp, vocab, with_argmax,
+                 static_cast<cudaStream_t>(stream));
 }
 
-int tk_ce_bwd_dw(int kind, const void* h, const void* w, const void* targets, const void* lse,
-                 const void* g_lse, const void* g_tgt, void* dw, int N, int dim, int Vp,
-                 int vocab, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 0) return dw_f32(h, w, targets, lse, g_lse, g_tgt, dw, N, dim, Vp, vocab, s);
-  if (kind == 1) return dw_bf16(h, w, targets, lse, g_lse, g_tgt, dw, N, dim, Vp, vocab, s);
-  return -1;
+int tk_ce_bwd_dw_f32(const void* h, const void* w, const void* targets, const void* lse,
+                     const void* g_lse, const void* g_tgt, void* dw, int N, int dim, int Vp,
+                     int vocab, void* stream) {
+  return dw_f32(h, w, targets, lse, g_lse, g_tgt, dw, N, dim, Vp, vocab,
+                static_cast<cudaStream_t>(stream));
 }
 
-int tk_ce_bwd_dh(int kind, const void* h, const void* w, const void* targets, const void* lse,
-                 const void* g_lse, const void* g_tgt, void* dh, int N, int dim, int Vp,
-                 int vocab, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 0) return dh_f32(h, w, targets, lse, g_lse, g_tgt, dh, N, dim, Vp, vocab, s);
-  if (kind == 1) return dh_bf16(h, w, targets, lse, g_lse, g_tgt, dh, N, dim, Vp, vocab, s);
-  return -1;
+int tk_ce_bwd_dh_f32(const void* h, const void* w, const void* targets, const void* lse,
+                     const void* g_lse, const void* g_tgt, void* dh, int N, int dim, int Vp,
+                     int vocab, void* stream) {
+  return dh_f32(h, w, targets, lse, g_lse, g_tgt, dh, N, dim, Vp, vocab,
+                static_cast<cudaStream_t>(stream));
+}
+
+// bf16. The forward's vocab splits (its partial buffers are [4][splits][N]
+// f32 and [splits][N] int32).
+int tk_ce_fwd_splits(int N, int Vp) {
+  int per;
+  return fwd_splits(N, Vp, &per);
+}
+
+// The backward's plan for W [dim][ldw]: out = {rows per chunk, chunks, f32
+// elements of the dH partial buffer}; its workspace is [rows per chunk][ldw]
+// bf16.
+int tk_ce_bwd_plan(int N, int dim, int ldw, int requested_rows, int* out) {
+  const int C = chunk_rows(N, ldw, requested_rows);
+  const int last = N - (cdiv(N, C) - 1) * C;
+  int per;
+  out[0] = C;
+  out[1] = cdiv(N, C);
+  out[2] = std::max(dh_splits(C, dim, ldw, &per) * C, dh_splits(last, dim, ldw, &per) * last) *
+           dim;
+  return 0;
+}
+
+// h [N][dim], W [dim][ldw] (columns >= Vp are zeros), `part`/`part_idx` as
+// tk_ce_fwd_splits says.
+int tk_ce_fwd_bf16(const void* h, const void* w, int ldw, const void* targets, void* part,
+                   void* part_idx, void* lse, void* tgt, void* best, int N, int dim, int Vp,
+                   int vocab, int with_argmax, void* stream) {
+  return fwd_bf16(h, w, ldw, targets, part, part_idx, lse, tgt, best, N, dim, Vp, vocab,
+                  with_argmax, static_cast<cudaStream_t>(stream));
+}
+
+// dh [N][dim] bf16, dw [dim][Vp] f32; `ws` and `part` as tk_ce_bwd_plan
+// says for the same `requested_rows` (0: the 1 GiB rule).
+int tk_ce_bwd_bf16(const void* h, const void* w, int ldw, const void* targets, const void* lse,
+                   const void* g_lse, const void* g_tgt, void* ws, void* part, void* dh, void* dw,
+                   int N, int dim, int Vp, int vocab, int requested_rows, void* stream) {
+  return bwd_bf16(h, w, ldw, targets, lse, g_lse, g_tgt, ws, part, dh, dw, N, dim, Vp, vocab,
+                  requested_rows, static_cast<cudaStream_t>(stream));
 }
 
 const char* tk_ce_error_string(int code) {

@@ -8,6 +8,11 @@
 // the test (`kernel<<<grid, threads, smem, stream>>>(args)` becomes
 // `tk_emu::launch(kernel, grid, threads, smem, stream, args)`).
 //
+// The device's SM count (cudaDeviceGetAttribute) is TK_EMU_SMS from the
+// environment, 3 if unset, so that persistent grids loop over several tiles.
+// cudaGetDriverEntryPoint(ByVersion) hands out the emulated
+// cuTensorMapEncodeTiled of cuda.h.
+//
 // It checks the kernels' arithmetic, indexing and synchronisation logic; it
 // says nothing of their speed, and it cannot catch what only nvcc or the
 // card would refuse.
@@ -24,6 +29,8 @@
 #include <thread>
 #include <vector>
 
+#include "cuda.h"
+
 #define __global__
 #define __device__
 #define __host__
@@ -31,6 +38,8 @@
 #define __shared__
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
+#define __grid_constant__
+#define CUDART_VERSION 12080
 
 struct dim3 {
   unsigned x, y, z;
@@ -49,11 +58,32 @@ inline dim3 gridDim;
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0 };
+constexpr unsigned long long cudaEnableDefault = 0;
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) { return cudaSuccess; }
+
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  const char* env = std::getenv("TK_EMU_SMS");
+  *value = env != nullptr ? std::atoi(env) : 3;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDriverEntryPointByVersion(const char* symbol, void** fn, unsigned,
+                                                    unsigned long long,
+                                                    cudaDriverEntryPointQueryResult* found) {
+  if (std::strcmp(symbol, "cuTensorMapEncodeTiled") != 0) return cudaErrorInvalidValue;
+  *fn = reinterpret_cast<void*>(&tk_emu::encode_tensor_map);
+  *found = cudaDriverEntryPointSuccess;
+  return cudaSuccess;
+}
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline float __expf(float x) { return std::exp(x); }
@@ -73,7 +103,7 @@ inline int max(int a, int b) { return a > b ? a : b; }
 // the source's unnamed namespace; this is that namespace's definition.
 namespace {
 constexpr size_t kEmuSmemFloats = 232448 / sizeof(float);
-alignas(128) float smem[kEmuSmemFloats];
+alignas(1024) float smem[kEmuSmemFloats];  // 1024: the 128B swizzle's period
 }  // namespace
 
 namespace tk_emu {

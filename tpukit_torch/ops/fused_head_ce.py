@@ -12,15 +12,24 @@ a `torch.autograd.Function`:
   - on a CPU tensor both directions run the plain version
     (`head_terms_reference`, `head_terms_backward_reference`), which
     materialises the logits;
-  - on a CUDA tensor the forward launches `csrc/fused_head_ce.cu`'s forward
-    kernel and the backward its dW and dH kernels, or raises.
+  - on a CUDA tensor the forward and the backward launch
+    `csrc/fused_head_ce.cu`'s kernels, or raise.
 
-W is rounded to h's dtype before the product, as tpukit's
-`_prep` does (the wrapper hands the kernels that rounded copy); the
-backward's d = softmax * g_lse + onehot * g_tgt is rounded to h's dtype
-before both products; dW comes back in f32 and dH in h's dtype, summed over
-the whole vocab in f32 and rounded once. In bf16 the kernels multiply on
-the tensor cores, in f32 on the CUDA cores in true f32.
+W is rounded to h's dtype before the product, as tpukit's `_prep` does (the
+wrapper hands the kernels that rounded copy); the backward's d = softmax *
+g_lse + onehot * g_tgt is rounded to h's dtype before both products; dW
+comes back in f32 and dH in h's dtype, summed over the whole vocab in f32
+and rounded once.
+
+bf16 runs the wgmma/TMA kernels: the forward's head product with the
+vocab split across the card where the row tiles do not fill it, and a
+combine kernel; the backward per chunk of token rows (at most 1 GiB of d
+workspace): d formed once (`backward_d`), d W^T in vocab splits
+(`backward_dh`) and their ordered sum (`backward_dh_combine`), and
+h^T d (`backward_dw`). TMA wants 16-byte row strides: dim a multiple of 8,
+and W's columns padded with zeros to a multiple of 8 (the pad columns are
+masked by vocab as the model's own pad columns are). f32 runs the
+CUDA-core kernels (`*_f32`).
 
 `launches` counts kernel launches per kernel; nothing else changes it.
 """
@@ -35,20 +44,31 @@ from tpukit_torch.ops import _cuda
 from tpukit_torch.ops.layers import IGNORE_INDEX
 
 NEG_INF = -1e9  # pad columns, as apply_head clamps them
-_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # kind, h, w, targets, lse, tgt, best, N, dim, Vp, vocab, with_argmax, stream
-    "tk_ce_fwd": (_I, [_I] + [_P] * 6 + [_I] * 5 + [_P]),
-    # kind, h, w, targets, lse, g_lse, g_tgt, out, N, dim, Vp, vocab, stream
-    "tk_ce_bwd_dw": (_I, [_I] + [_P] * 7 + [_I] * 4 + [_P]),
-    "tk_ce_bwd_dh": (_I, [_I] + [_P] * 7 + [_I] * 4 + [_P]),
+    # h, w, targets, lse, tgt, best, N, dim, Vp, vocab, with_argmax, stream
+    "tk_ce_fwd_f32": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    # h, w, targets, lse, g_lse, g_tgt, out, N, dim, Vp, vocab, stream
+    "tk_ce_bwd_dw_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    "tk_ce_bwd_dh_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    # N, Vp
+    "tk_ce_fwd_splits": (_I, [_I, _I]),
+    # N, dim, ldw, rows per chunk (0: the 1 GiB rule), out[3]
+    "tk_ce_bwd_plan": (_I, [_I] * 4 + [_P]),
+    # h, w, ldw, targets, part, part_idx, lse, tgt, best, N, dim, Vp, vocab,
+    # with_argmax, stream
+    "tk_ce_fwd_bf16": (_I, [_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_P]),
+    # h, w, ldw, targets, lse, g_lse, g_tgt, ws, part, dh, dw, N, dim, Vp,
+    # vocab, rows per chunk, stream
+    "tk_ce_bwd_bf16": (_I, [_P, _P, _I] + [_P] * 8 + [_I] * 5 + [_P]),
     "tk_ce_error_string": (ctypes.c_char_p, [_I]),
 }
 
 # kernel launches since import (or since a caller reset them)
-launches = {"forward": 0, "backward_dw": 0, "backward_dh": 0}
+launches = {"forward": 0, "forward_combine": 0, "backward_d": 0, "backward_dh": 0,
+            "backward_dh_combine": 0, "backward_dw": 0, "forward_f32": 0,
+            "backward_dw_f32": 0, "backward_dh_f32": 0}
 
 
 def _logits(h, w, vocab_size: int):
@@ -97,7 +117,7 @@ def _check(h, w, targets, vocab_size):
     if not 0 < vocab_size <= w.shape[1]:
         raise ValueError(f"fused_head_ce: vocab_size {vocab_size} outside (0, "
                          f"{w.shape[1]}]")
-    if h.dtype not in _KIND:
+    if h.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_head_ce runs h in f32 or bf16, got {h.dtype}")
     for name, t in (("w", w), ("targets", targets)):
         if t.device != h.device:
@@ -110,6 +130,9 @@ def _check_cuda(h, w, targets):
     for name, t in (("h", h), ("w", w), ("targets", targets)):
         if not t.is_contiguous():
             raise ValueError(f"fused_head_ce kernels take a contiguous {name}")
+    if h.dtype == torch.bfloat16 and h.shape[1] % 8:
+        raise ValueError(f"fused_head_ce's bf16 kernels take dim a multiple of 8 (TMA's "
+                         f"16-byte rows), got {h.shape[1]}")
 
 
 def _ptr(t):
@@ -119,37 +142,76 @@ def _ptr(t):
 def _raise_on(code: int, lib, what: str) -> None:
     if code == 0:
         return
-    if code == -1:
-        msg = "no instance for this dtype"
-    elif code == -2:
-        msg = "shared memory over the 227 KB a block may use (dim too large)"
-    else:
+    msg = {-2: "shared memory over the 227 KB a block may use (dim too large)",
+           -3: "the driver has no cuTensorMapEncodeTiled",
+           -4: "a TMA tensor map could not be made",
+           -5: "dim and the padded vocab must be multiples of 8"}.get(code)
+    if msg is None:
         msg = lib.tk_ce_error_string(code).decode()
     raise RuntimeError(f"fused_head_ce {what} kernel launch failed: {msg} ({code})")
 
 
+def kernel_weight(w, dtype):
+    """The kernels' W: rounded to `dtype`; in bf16 its columns zero-padded
+    to a multiple of 8 (no copy when they are already)."""
+    w = w.to(dtype).contiguous()
+    pad = -w.shape[1] % 8
+    if dtype == torch.bfloat16 and pad:
+        w = torch.nn.functional.pad(w, (0, pad))
+    return w
+
+
 def launch_forward(lib, h, w, targets, lse, tgt, best, vocab_size: int, with_argmax: bool,
                    stream: int) -> None:
-    """The forward kernel; `w` is the head kernel in h's dtype."""
+    """The forward kernels; `w [dim, V_pad]` in h's dtype."""
     n, dim = h.shape
-    code = lib.tk_ce_fwd(_KIND[h.dtype], _ptr(h), _ptr(w), _ptr(targets), _ptr(lse),
-                         _ptr(tgt), _ptr(best), n, dim, w.shape[1], vocab_size,
-                         int(with_argmax), ctypes.c_void_p(stream))
+    v_pad = w.shape[1]
+    s = ctypes.c_void_p(stream)
+    if h.dtype == torch.float32:
+        code = lib.tk_ce_fwd_f32(_ptr(h), _ptr(w), _ptr(targets), _ptr(lse), _ptr(tgt),
+                                 _ptr(best), n, dim, v_pad, vocab_size, int(with_argmax), s)
+        _raise_on(code, lib, "forward")
+        return
+    wk = kernel_weight(w, h.dtype)
+    splits = lib.tk_ce_fwd_splits(n, v_pad)
+    part = torch.empty((4, splits, n), dtype=torch.float32, device=h.device)
+    part_idx = torch.empty((splits, n), dtype=torch.int32, device=h.device)
+    code = lib.tk_ce_fwd_bf16(_ptr(h), _ptr(wk), wk.shape[1], _ptr(targets), _ptr(part),
+                              _ptr(part_idx), _ptr(lse), _ptr(tgt), _ptr(best), n, dim, v_pad,
+                              vocab_size, int(with_argmax), s)
     _raise_on(code, lib, "forward")
 
 
+def backward_plan(lib, n: int, dim: int, ldw: int, chunk_rows: int = 0) -> tuple[int, int, int]:
+    """(rows per chunk, chunks, f32 elements of the dH partials) of the bf16
+    backward."""
+    out = (ctypes.c_int * 3)()
+    lib.tk_ce_bwd_plan(n, dim, ldw, chunk_rows, out)
+    return out[0], out[1], out[2]
+
+
 def launch_backward(lib, h, w, targets, lse, g_lse, g_tgt, dh, dw, vocab_size: int,
-                    stream: int) -> None:
-    """The dW kernel, then the dH kernel; `w` is the head kernel in h's
-    dtype, `dw` f32."""
+                    stream: int, chunk_rows: int = 0) -> int:
+    """The backward kernels; `w [dim, V_pad]` in h's dtype, `dw` f32 of
+    w's shape. bf16: `chunk_rows` token rows per chunk, 0 for the 1 GiB
+    workspace rule. Returns the number of chunks (1 for f32)."""
     n, dim = h.shape
-    args = (_ptr(h), _ptr(w), _ptr(targets), _ptr(lse), _ptr(g_lse), _ptr(g_tgt))
-    code = lib.tk_ce_bwd_dw(_KIND[h.dtype], *args, _ptr(dw), n, dim, w.shape[1], vocab_size,
-                            ctypes.c_void_p(stream))
-    _raise_on(code, lib, "dW")
-    code = lib.tk_ce_bwd_dh(_KIND[h.dtype], *args, _ptr(dh), n, dim, w.shape[1], vocab_size,
-                            ctypes.c_void_p(stream))
-    _raise_on(code, lib, "dH")
+    v_pad = w.shape[1]
+    s = ctypes.c_void_p(stream)
+    if h.dtype == torch.float32:
+        args = (_ptr(h), _ptr(w), _ptr(targets), _ptr(lse), _ptr(g_lse), _ptr(g_tgt))
+        _raise_on(lib.tk_ce_bwd_dw_f32(*args, _ptr(dw), n, dim, v_pad, vocab_size, s), lib, "dW")
+        _raise_on(lib.tk_ce_bwd_dh_f32(*args, _ptr(dh), n, dim, v_pad, vocab_size, s), lib, "dH")
+        return 1
+    wk = kernel_weight(w, h.dtype)
+    rows, chunks, part_elems = backward_plan(lib, n, dim, wk.shape[1], chunk_rows)
+    ws = torch.empty((rows, wk.shape[1]), dtype=h.dtype, device=h.device)
+    part = torch.empty((part_elems,), dtype=torch.float32, device=h.device)
+    code = lib.tk_ce_bwd_bf16(_ptr(h), _ptr(wk), wk.shape[1], _ptr(targets), _ptr(lse),
+                              _ptr(g_lse), _ptr(g_tgt), _ptr(ws), _ptr(part), _ptr(dh), _ptr(dw),
+                              n, dim, v_pad, vocab_size, rows, s)
+    _raise_on(code, lib, "backward")
+    return chunks
 
 
 def _forward_cuda(h, w, targets, vocab_size, with_argmax):
@@ -160,9 +222,13 @@ def _forward_cuda(h, w, targets, vocab_size, with_argmax):
     best = torch.empty((n,), dtype=torch.int32, device=h.device)
     lib = _cuda.load("fused_head_ce", _SIGNATURES)
     with torch.cuda.device(h.device):
-        launch_forward(lib, h, w.to(h.dtype).contiguous(), targets, lse, tgt, best, vocab_size,
-                       with_argmax, torch.cuda.current_stream().cuda_stream)
-    launches["forward"] += 1
+        launch_forward(lib, h, w.to(h.dtype), targets, lse, tgt, best, vocab_size, with_argmax,
+                       torch.cuda.current_stream().cuda_stream)
+    if h.dtype == torch.float32:
+        launches["forward_f32"] += 1
+    else:
+        launches["forward"] += 1
+        launches["forward_combine"] += 1
     return lse, tgt, best
 
 
@@ -172,12 +238,15 @@ def _backward_cuda(h, w, targets, lse, g_lse, g_tgt, vocab_size):
     dw = torch.empty(w.shape, dtype=torch.float32, device=h.device)
     lib = _cuda.load("fused_head_ce", _SIGNATURES)
     with torch.cuda.device(h.device):
-        launch_backward(lib, h, w.to(h.dtype).contiguous(), targets, lse,
-                        g_lse.float().contiguous(),
-                        g_tgt.float().contiguous(), dh, dw, vocab_size,
-                        torch.cuda.current_stream().cuda_stream)
-    launches["backward_dw"] += 1
-    launches["backward_dh"] += 1
+        chunks = launch_backward(lib, h, w.to(h.dtype), targets, lse, g_lse.float().contiguous(),
+                                 g_tgt.float().contiguous(), dh, dw, vocab_size,
+                                 torch.cuda.current_stream().cuda_stream)
+    if h.dtype == torch.float32:
+        launches["backward_dw_f32"] += 1
+        launches["backward_dh_f32"] += 1
+    else:
+        for kernel in ("backward_d", "backward_dh", "backward_dh_combine", "backward_dw"):
+            launches[kernel] += chunks
     return dh, dw
 
 
