@@ -3,9 +3,11 @@
 PERF.md's ablation figures come from it: `python3 ce_ablation.py
 [--rounds N]` from the repository root on one CUDA card.
 
-Each variant patches exact lines of the source, so the script raises once
-those lines change; it is not a standing tool. Builds `csrc/fused_head_ce.cu` as it is and in variants, each a textual
-patch of the source (below), one nvcc each, all at once, into
+Each variant patches exact lines of the sources, so the script raises once
+those lines change; it is not a standing tool. Builds `csrc/fused_head_ce.cu`
+(with its mainloop, `csrc/tk_gemm.cuh`) as it is and in variants, each a
+textual patch of the source or the header (below), one nvcc each, all at
+once, into
 `build/ce_ablation/<variant>/`; then times the forward (without argmax) and
 the backward at the main shape (32768 tokens x 768 x vocab 50304, bf16,
 `recipes/profile.py`'s rung) by `chip_smoke.graph_ms`, the variants in
@@ -30,7 +32,7 @@ from tpukit_torch.ops import _cuda
 from tpukit_torch.ops import fused_head_ce as fce
 
 N, DIM, VOCAB, V_PAD = 32768, 768, 50257, 50304
-# variant -> [(text in fused_head_ce.cu, replacement)]
+# variant -> [(text in fused_head_ce.cu or tk_gemm.cuh, replacement)]
 VARIANTS = {
     "base": [],
     "stages3": [("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
@@ -44,15 +46,19 @@ VARIANTS = {
 
 
 def build_variant(name: str) -> Path:
-    src = (_cuda.CSRC / "fused_head_ce.cu").read_text()
+    # the kernels' source and the mainloop's header, patched where the text
+    # lies; the variant's own copy of the header shadows csrc's
+    files = {f: (_cuda.CSRC / f).read_text() for f in ("fused_head_ce.cu", "tk_gemm.cuh")}
     for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise ValueError(f"variant {name}: {old!r} is not in the source once")
-        src = src.replace(old, new)
+        where = [f for f, text in files.items() if text.count(old) == 1]
+        if len(where) != 1 or sum(text.count(old) for text in files.values()) != 1:
+            raise ValueError(f"variant {name}: {old!r} is not in the sources once")
+        files[where[0]] = files[where[0]].replace(old, new)
     out = _cuda.BUILD_ROOT.parent / "ce_ablation" / name
     out.mkdir(parents=True, exist_ok=True)
+    for f, text in files.items():
+        (out / f).write_text(text)
     cu = out / "fused_head_ce.cu"
-    cu.write_text(src)
     lib = out / "libfused_head_ce.so"
     proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
                            str(lib), str(cu)], capture_output=True, text=True)

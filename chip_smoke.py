@@ -29,10 +29,12 @@ not 0:
      backward under O(1) cotangents, each of its two terms alone, with a
      negative control, and the same bits on a second run; bf16 CE also at
      20000 tokens, two backward chunks, and with W unpadded, 50257
-     columns); device times (CUDA graph), call, plain and SDPA
-     times, the least time the card could take, TFLOP/s and the share of
-     that bound; then the attention crossover: the eager "xla" path against
-     the flash kernels at S = 16 ... 1024;
+     columns); shapes without a kernel instance of their own: flash at
+     head dims 8 and 48 (zero-padded; [1, 1, 32, 8] among them) and at
+     B * H = 65600, bf16 CE at dim 100; device times (CUDA graph), call,
+     plain and SDPA times, the least time the card could take, TFLOP/s and
+     the share of that bound; then the attention crossover: the eager "xla"
+     path against the flash kernels at S = 16 ... 1024;
   7. train step at full width: the gpt-small-dim768 rung (batch 64, S 512,
      bf16), 8 steps; the loss falls on a repeated batch, and each step
      launches the flash kernels 12 + 12 + 12 + 12 times (forward, D, dK/dV,
@@ -45,17 +47,23 @@ not 0:
      trains, evaluates, samples through the paged kernel, checkpoints;
  10. MoE kernels vs plain: the grouped-expert FFN forward and backward
      (768 -> 3072 -> 768, 8 experts), bf16 and f32, against their plain
-     versions on three segment layouts: the recipe's equal capacity
+     versions on these segment layouts: the recipe's equal capacity
      segments (20480 rows), the `sort_plan` layout of a real top-1 and
-     top-2 routing at the e8 rung's shapes, and an adversarial one (an
+     top-2 routing at the e8 rung's shapes, an adversarial one (an
      empty expert, 1-row segments, segments across tiles, a padding
-     tail); the backward under O(1) seeded cotangents, with negative
-     controls; device times (CUDA graph), call and plain times, bounds;
+     tail; also at D 100, F 400, no multiple of 8), and one decode tick
+     (16 rows, top-1), where the forward's
+     decode policy must give every SM a unit in both products; the
+     backward under O(1) seeded cotangents, with negative controls; device
+     times (CUDA graph), call and plain times, bounds, and
+     `torch._grouped_mm`'s time for the same products where this torch has
+     it (a yardstick: no bias, relu or rounding);
  11. MoE train step at full width: the gpt-small-dim768-e8 rung (batch 32,
      S 512, bf16, ExpertParallel 1 x 1 with the pallas dispatch), 8 steps;
      the loss falls on a repeated batch, and each step launches each
-     grouped-expert kernel 12 times, the flash kernels 12 + 12 + 12 + 12 and
-     the CE kernels as in phase 7;
+     grouped-expert kernel of training 12 times (up, down, dz2, dh, dx,
+     dW), the flash kernels 12 + 12 + 12 + 12 and the CE kernels as in
+     phase 7;
  12. MoE train step through the kernels == through the plain versions (f32,
      2 layers, top-2, 4 steps), on the ExpertParallel 1 x 1 path and on the
      meshless dropless path;
@@ -65,7 +73,7 @@ not 0:
  14. MoE serving: `ServeEngine` at GPT-2-small width with 8 experts and the
      pallas dispatch answers phase 4's 64 requests with fused decoding; the
      grouped forward launches layers x (prefill dispatches + decode ticks)
-     times;
+     times, each decode tick under the decode policy (two combines);
  15. MoE fused vs unfused (f32, 4 layers): the same greedy tokens both ways,
      and the same as the engine's tokens through the plain versions (on
      the CPU) for the first 16 requests;
@@ -157,6 +165,10 @@ BF16_ROW_SHARE = 2.0**-6
 MOE_TOL = (0.0, 1e-5, 2.0**-12)
 MOE_ROUNDED = ("y", "dx", "dwu")  # bf16 compute: held at BF16_ROW_SHARE
 MOE_ROUTED = dict(batch=32, seq=SEQ, experts=8)  # the e8 rung's routing (phase 10 b)
+MOE_DECODE_ROWS = 16  # one MoE serving tick: 16 slots, top-1 (phase 10 d)
+# the bf16 grouped kernels of a training step (128-row tiles: no combine)
+MOE_TRAIN_KERNELS = ("forward_up", "forward_down", "backward_dz2", "backward_dh", "backward_dx",
+                     "backward_dw")
 # phase 10 c: an empty expert, 1-row segments, segments across row tiles;
 # 9999 rows, so a 241-row padding tail
 MOE_ADVERSARIAL = (3000, 0, 1, 129, 2047, 130, 1, 4691)
@@ -478,6 +490,11 @@ def check_flash(dev, b, h, s, d, dtype, masked, timed=False) -> dict:
     dq_b, dk_b, dv_b = (torch.empty_like(q) for _ in range(3))
     fa.launch_backward(lib, q, k, v, bias, do, out, lse, dcap, dq_b, dk_b, dv_b, scale,
                        stream())
+    if d not in fa.HEAD_DIMS:  # through zero-padded copies: the public path must agree too
+        pub = fa.flash_causal_attention(q, k, v, scale=scale, pad_mask=mask)
+        via_auto = causal_attention(q, k, v, scale=scale, pad_mask=mask, impl="auto")
+        if not (torch.equal(pub, out) and (s < FLASH_MIN_SEQ or torch.equal(via_auto, out))):
+            raise AssertionError(f"flash at D {d}: the public paths give other outputs")
     torch.cuda.synchronize()
     tag = f"flash B{b} H{h} S{s} D{d} {str(dtype)[6:]}{' mask' if masked else ''}"
     err = hold(f"{tag} out", out, ref_out, FLASH_FWD_TOL, dtype)
@@ -698,6 +715,16 @@ def check_training_kernels(dev) -> dict:
             for masked in (True, False):
                 if dd != d or (ss, masked) not in done:
                     check_flash(dev, 2, 6, ss, dd, torch.bfloat16, masked)
+    # shapes tpukit trains that have no instance of their own (ROADMAP C1):
+    # head dims 8 (the tests' tiny_config) and 48 run zero-padded to 16 and
+    # 64, through the public wrapper and `auto` too; [1, 1, 32, 8] is the
+    # smallest case that raised before; B * H past 65535 runs on grid x
+    check_flash(dev, 1, 1, 32, 8, torch.bfloat16, False)
+    for dd in (8, 48):
+        for dtype in (torch.bfloat16, torch.float32):
+            check_flash(dev, 2, 6, 511, dd, dtype, True)
+    check_flash(dev, 4100, 16, 32, 16, torch.bfloat16, True)
+    check_flash(dev, 4100, 16, 32, 16, torch.float32, False)
     main["ce"] = check_ce(dev, b * s, g["dim"], g["vocab_size"], torch.bfloat16, timed=True)
     check_ce(dev, 4096, g["dim"], g["vocab_size"], torch.float32)
     check_ce(dev, 4000, g["dim"], g["vocab_size"], torch.bfloat16)
@@ -705,6 +732,8 @@ def check_training_kernels(dev) -> dict:
     # multiple of 8 columns (the wrapper pads it for TMA)
     check_ce(dev, 20000, g["dim"], g["vocab_size"], torch.bfloat16)
     check_ce(dev, 4000, g["dim"], g["vocab_size"], torch.bfloat16, v_pad=g["vocab_size"])
+    # a dim that is no multiple of 8 (C1): h's columns and W's rows padded
+    check_ce(dev, 4000, 100, g["vocab_size"], torch.bfloat16)
     return main
 
 
@@ -926,7 +955,10 @@ def moe_layouts(dev) -> dict:
                    tokens by a seeded router at init scale (M 16384, 32768);
       adversarial: segments of 3000, 0, 1, 129, 2047, 130, 1 and 4691 rows
                    (an empty expert, 1-row segments, segments across row
-                   tiles) and a padding tail of 241 rows in the last one."""
+                   tiles) and a padding tail of 241 rows in the last one;
+      decode:      `sort_plan` of the top-1 routing of the first 16 of
+                   those tokens (M 16): one tick of MoE serving's 16 slots,
+                   which the forward runs under its decode policy."""
     g = torch.Generator(device=dev).manual_seed(10)
     d, e = GPT2_SMALL_TRAIN["dim"], MOE_ROUTED["experts"]
     rows = lambda m: torch.randn((m, d), generator=g, device=dev)
@@ -949,6 +981,12 @@ def moe_layouts(dev) -> dict:
     offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
     offs[-1] = m
     out["adversarial"] = (rows(m), torch.from_numpy(offs).to(dev), n)
+    cfg = GPTConfig(dim=d, head_dim=64, heads=12, num_layers=1, num_experts=e, router_top_k=1,
+                    max_position_embeddings=MOE_ROUTED["seq"], moe_dispatch="pallas")
+    tick = x[:1, :MOE_DECODE_ROWS]
+    _, top_idx, _, _, _ = _route_topk(tick, router, cfg)
+    src, _, offs = moe_gemm.sort_plan(cfg, top_idx)
+    out["decode"] = (tick.reshape(-1, d).index_select(0, src), offs, top_idx.numel())
     return out
 
 
@@ -969,7 +1007,44 @@ def moe_bounds(offsets, m, d, f, dtype) -> dict:
     return dict(forward=fwd, backward=bwd)
 
 
-def check_moe(dev, name, rows, offsets, n, dtype, timed=False) -> dict:
+def decode_units(lib, offsets, m, d, f) -> dict:
+    """The work units of each forward product under the plan the wrapper
+    picks for M rows: row tiles of the layout (64 rows under the decode
+    policy, else 128) x 256-column tiles x k splits."""
+    small, split_up, split_down, _ = moe_gemm.forward_plan(lib, torch.bfloat16, m, d, f,
+                                                           len(offsets) - 1)
+    bm = 64 if small else 128
+    o = offsets.tolist()
+    tiles = sum(-(-(o[i + 1] - o[i]) // bm) for i in range(len(o) - 1))
+    return dict(policy="decode" if small else "training", row_tiles=tiles,
+                up=tiles * -(-f // 256) * split_up, down=tiles * -(-d // 256) * split_down,
+                split_up=split_up, split_down=split_down)
+
+
+def grouped_mm_ms(xs, wu, wd, offsets, h, cot) -> dict:
+    """The library yardstick, products only: `torch._grouped_mm` (where this
+    torch has it) for the forward's 2 products (x Wu[e], h Wd[e]) and the
+    backward's 4 (dz2 Wd[e]^T, dz1 Wu[e]^T, x^T dz1, h^T dz2) on the same
+    segments, with no bias, relu, mask or rounding of ours; timed only,
+    never on the port's path. None where the call is missing or refuses
+    these operands."""
+    gmm = getattr(torch, "_grouped_mm", None)
+    if gmm is None:
+        return dict(fwd=None, bwd=None, note="torch._grouped_mm is not in this torch")
+    offs = offsets[1:].contiguous()
+    dz = cot  # stands in for dz2 and (sliced) dz1: the products' time does not read values
+    dz1 = torch.zeros_like(h)
+    try:
+        fwd = time_ms(lambda: (gmm(xs, wu, offs=offs), gmm(h, wd, offs=offs)), 20)
+        bwd = time_ms(lambda: (gmm(dz, wd.transpose(-2, -1), offs=offs),
+                               gmm(dz1, wu.transpose(-2, -1), offs=offs),
+                               gmm(xs.t(), dz1, offs=offs), gmm(h.t(), dz, offs=offs)), 10)
+    except (RuntimeError, TypeError, ValueError) as exc:
+        return dict(fwd=None, bwd=None, note=f"torch._grouped_mm refused: {exc}"[:200])
+    return dict(fwd=fwd, bwd=bwd, note="torch._grouped_mm, products only")
+
+
+def check_moe(dev, name, rows, offsets, n, dtype, timed=False, dims=None) -> dict:
     """Forward (y) and backward (dx, dWu, dbu, dWd, dbd) kernels against the
     plain versions on the same inputs: the backward under O(1) seeded
     cotangents (0 on the padding rows; the mean loss's would be ~1/count)
@@ -977,8 +1052,10 @@ def check_moe(dev, name, rows, offsets, n, dtype, timed=False) -> dict:
     experts exactly 0 gradients. Negative controls: the plain backward
     without the relu mask on dz1 must fail the bar on dx, dWu and dbu, and
     (bf16) with dbu summed from the rounded dz1 on dbu. With `timed`, device,
-    call and plain times and the bounds too."""
-    e, d, f = MOE_ROUTED["experts"], GPT2_SMALL_TRAIN["dim"], 4 * GPT2_SMALL_TRAIN["dim"]
+    call and plain times and the bounds too. `dims`: (D, F) in place of the
+    rung's (768, 3072)."""
+    e = MOE_ROUTED["experts"]
+    d, f = dims or (GPT2_SMALL_TRAIN["dim"], 4 * GPT2_SMALL_TRAIN["dim"])
     wu, bu, wd, bd = moe_bank(dev, e, d, f, dtype, seed=len(name))
     xs = rows.to(dtype)
     m = xs.shape[0]
@@ -993,7 +1070,7 @@ def check_moe(dev, name, rows, offsets, n, dtype, timed=False) -> dict:
     # f32 h recomputed within summation noise of 0 would flip one side only)
     refs = moe_gemm.grouped_ffn_backward_reference(xs, cot, ys, wu, bu, wd, offsets, h=h)
     torch.cuda.synchronize()
-    tag = f"grouped_ffn {name} M{m} {str(dtype)[6:]}"
+    tag = f"grouped_ffn {name} M{m} D{d} F{f} {str(dtype)[6:]}"
     bar = lambda nm: dtype if nm in MOE_ROUNDED else torch.float32  # noqa: E731
     err = hold(f"{tag} y", ys, ref_y, MOE_TOL, bar("y"))
     names = ("dx", "dwu", "dbu", "dwd", "dbd")
@@ -1035,8 +1112,8 @@ def check_moe(dev, name, rows, offsets, n, dtype, timed=False) -> dict:
     if timed:
         lib = _cuda.load("moe_gemm", moe_gemm._SIGNATURES)
         stream = lambda: torch.cuda.current_stream().cuda_stream
-        y_b, h_b, dz1_b = torch.empty_like(ys), torch.empty_like(h), torch.empty_like(h)
-        part_b = torch.empty((moe_gemm.row_tiles(lib, dtype, m, e), f), device=dev)
+        y_b, h_b = torch.empty_like(ys), torch.empty_like(h)
+        scratch = moe_gemm.backward_scratch(lib, xs, f, e)
         dx_b = torch.empty_like(xs)
         dw_b = [torch.empty_like(t) for t in grads[1:]]
         res.update(
@@ -1046,8 +1123,8 @@ def check_moe(dev, name, rows, offsets, n, dtype, timed=False) -> dict:
             fwd_plain_ms=time_ms(lambda: moe_gemm.grouped_ffn_reference(xs, wu, bu, wd, bd,
                                                                         offsets), 5),
             bwd_ms=graph_ms(lambda: moe_gemm.launch_backward(lib, xs, cot, ys, h, wu, wd, offsets,
-                                                             dz1_b, part_b, dx_b, *dw_b,
-                                                             stream()), 10),
+                                                             scratch, dx_b, *dw_b, stream()),
+                            10),
             bwd_call_ms=time_ms(lambda: moe_gemm._backward_cuda(xs, cot, ys, h, wu, wd, offsets),
                                 10),
             bwd_plain_ms=time_ms(lambda: moe_gemm.grouped_ffn_backward_reference(
@@ -1055,13 +1132,21 @@ def check_moe(dev, name, rows, offsets, n, dtype, timed=False) -> dict:
         )
         bounds = moe_bounds(offsets, m, d, f, dtype)
         res.update(fwd_bound=bounds["forward"], bwd_bound=bounds["backward"])
-        line += (f"; forward device {res['fwd_ms']:.4f} ms (CUDA graph), call "
-                 f"{res['fwd_call_ms']:.4f}, plain {res['fwd_plain_ms']:.4f}, bound "
-                 f"{bounds['forward'][0]:.4f} ms ({bounds['forward'][1]}); backward device "
-                 f"{res['bwd_ms']:.4f} ms, call {res['bwd_call_ms']:.4f}, plain "
-                 f"{res['bwd_plain_ms']:.4f}, bound {bounds['backward'][0]:.4f} ms "
-                 f"({bounds['backward'][1]}); library: none (no one PyTorch call computes "
-                 f"the grouped FFN)")
+        units = decode_units(lib, offsets, m, d, f)
+        lib_ms = grouped_mm_ms(xs, wu, wd, offsets, h, cot)
+        res.update(units=units, fwd_library_products_ms=lib_ms["fwd"],
+                   bwd_library_products_ms=lib_ms["bwd"])
+        fmt = lambda t: "n/a" if t is None else f"{t:.4f}"  # noqa: E731
+        line += (f"; forward ({units['policy']} policy: {units['row_tiles']} row tiles, "
+                 f"{units['up']} up and {units['down']} down units, k splits "
+                 f"{units['split_up']}/{units['split_down']}) device {res['fwd_ms']:.4f} ms "
+                 f"(CUDA graph), call {res['fwd_call_ms']:.4f}, plain "
+                 f"{res['fwd_plain_ms']:.4f}, bound {bounds['forward'][0]:.4f} ms "
+                 f"({bounds['forward'][1]}); backward device {res['bwd_ms']:.4f} ms, call "
+                 f"{res['bwd_call_ms']:.4f}, plain {res['bwd_plain_ms']:.4f}, bound "
+                 f"{bounds['backward'][0]:.4f} ms ({bounds['backward'][1]}); library: none "
+                 f"computes the grouped FFN; {lib_ms['note']}: forward "
+                 f"{fmt(lib_ms['fwd'])} ms, backward {fmt(lib_ms['bwd'])} ms")
     print(line, flush=True)
     return res
 
@@ -1069,16 +1154,27 @@ def check_moe(dev, name, rows, offsets, n, dtype, timed=False) -> dict:
 def check_moe_kernels(dev) -> dict:
     """Phase 10: the grouped-expert kernels against their plain versions on
     every layout of `moe_layouts`, bf16 and f32; times on the recipe's
-    equal segments in bf16 (the main path) and on the top-1 routing's.
-    Returns the timed main-path run."""
-    main = None
+    equal segments in bf16 (the main path), on the top-1 routing's and on
+    the decode tick's, where at least one unit an SM must stream the bank
+    in each forward product; the adversarial layout also at D 100, F 400.
+    Returns the timed equal and decode runs."""
+    timed_runs = {}
     for name, (rows, offsets, n) in moe_layouts(dev).items():
         for dtype in (torch.bfloat16, torch.float32):
-            timed = dtype == torch.bfloat16 and name in ("equal", "top1")
+            timed = dtype == torch.bfloat16 and name in ("equal", "top1", "decode")
             res = check_moe(dev, name, rows, offsets, n, dtype, timed=timed)
-            if timed and name == "equal":
-                main = res
-    return main
+            if timed:
+                timed_runs[name] = res
+    # D and F that are no multiple of 8: bf16 runs on zero-padded copies
+    rows, offsets, n = moe_layouts(dev)["adversarial"]
+    for dtype in (torch.bfloat16, torch.float32):
+        check_moe(dev, "adversarial", rows[:, :100].contiguous(), offsets, n, dtype,
+                  dims=(100, 400))
+    units, sms = timed_runs["decode"]["units"], torch.cuda.get_device_properties(0).multi_processor_count
+    if units["policy"] != "decode" or min(units["up"], units["down"]) < sms:
+        raise AssertionError(f"the decode tick's forward does not stream the bank on {sms} SMs: "
+                             f"{units}")
+    return timed_runs
 
 
 def moe_train_full_width(dev) -> dict:
@@ -1118,8 +1214,8 @@ def moe_train_full_width(dev) -> dict:
                              f"{losses[4]}")
     want = dict(paged=0, flash_forward=layers * steps, flash_backward_dcap=layers * steps,
                 flash_backward_dkv=layers * steps, flash_backward_dq=layers * steps,
-                **ce_want(steps, rows * SEQ, cfg),
-                **{f"moe_{k}": layers * steps for k in moe_gemm.launches})
+                **ce_want(steps, rows * SEQ, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
+    want.update({f"moe_{k}": layers * steps for k in MOE_TRAIN_KERNELS})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     return dict(counts=counts, wall=wall, losses=losses, peak=peak)
@@ -1176,7 +1272,7 @@ def moe_kernel_vs_plain_steps(dev) -> None:
         worst = max(abs(a - b) / abs(b) for a, b in zip(ours, plain))
         print(f"{label}: kernels {ours} vs plain {plain}: worst relative difference "
               f"{worst:.3e} (bar 1e-4); launches {counts}", flush=True)
-        if counts["moe_forward_up"] != 2 * 4 or counts["moe_backward_dwd"] != 2 * 4:
+        if counts["moe_forward_up_f32"] != 2 * 4 or counts["moe_backward_dwd_f32"] != 2 * 4:
             raise AssertionError(f"{label}: the CUDA steps did not run the MoE kernels: {counts}")
         if not worst <= 1e-4:
             raise AssertionError(f"{label}: kernel and plain train steps disagree: {ours} vs "
@@ -1221,7 +1317,9 @@ def moe_recipe_end_to_end(dev) -> dict:
           f"{len(result.metrics['samples'])} samples {result.metrics['samples']}, "
           f"{result.metrics['tokens_per_sec']:.1f} train tokens/s, checkpoint "
           f"{result.checkpoint_path}; launches {counts}", flush=True)
-    if min(v for k, v in counts.items() if not k.endswith("_f32")) == 0:
+    # the decode policy's combine runs only where a forward has few rows
+    if min(v for k, v in counts.items()
+           if not k.endswith("_f32") and k != "moe_forward_combine") == 0:
         raise AssertionError(f"a kernel of recipe 8's path never ran: {counts}")
     if not np.isfinite(result.metrics["eval"]["loss"]) or len(result.metrics["samples"]) != 3:
         raise AssertionError(f"recipe 8 output: {result.metrics}")
@@ -1258,6 +1356,9 @@ def moe_serving(dev) -> dict:
                              f"{cfg.num_layers} x ({s['prefill_dispatches']} + {engine.steps})")
     if counts["paged"] != cfg.num_layers * engine.steps or counts["moe_backward_dh"] != 0:
         raise AssertionError(f"serving launches {counts}")
+    # every decode tick (16 slots, top-1: 16 rows) runs the decode policy
+    if counts["moe_forward_combine"] < 2 * cfg.num_layers * engine.steps:
+        raise AssertionError(f"decode ticks did not run the decode policy: {counts}")
     return dict(counts=counts, tokens_per_s=s["generated_tokens"] / wall, wall=wall)
 
 
@@ -1375,7 +1476,8 @@ def main() -> int:
     recipe_end_to_end(dev)
 
     phase("MoE kernels vs plain (grouped-expert FFN, 8 x 768 -> 3072 -> 768)")
-    moe_main = check_moe_kernels(dev)
+    moe_runs = check_moe_kernels(dev)
+    moe_main, moe_decode = moe_runs["equal"], moe_runs["decode"]
 
     phase("MoE train step at full width (gpt-small-dim768-e8, batch 32, S 512, bf16)")
     moe_step = moe_train_full_width(dev)
@@ -1430,12 +1532,21 @@ def main() -> int:
         entry("moe_grouped_ffn_fwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
               mc["moe_forward_up"], moe_main, "fwd", moe_main["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"up": mc["moe_forward_up"],
-                                                      "down": mc["moe_forward_down"]},
-              serve_launches=moe_served["counts"]["moe_forward_up"]),
+                                                      "down": mc["moe_forward_down"],
+                                                      "combine": mc["moe_forward_combine"]},
+              library_products_ms=moe_main["fwd_library_products_ms"],
+              units=moe_main["units"]),
+        entry("moe_grouped_ffn_fwd_decode", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
+              moe_served["counts"]["moe_forward_up"], moe_decode, "fwd", moe_decode["fwd_err"],
+              None, kernels_per_call=4, launches_by_kernel={
+                  k: moe_served["counts"][f"moe_forward_{k}"] for k in ("up", "down", "combine")},
+              library_products_ms=moe_decode["fwd_library_products_ms"],
+              units=moe_decode["units"]),
         entry("moe_grouped_ffn_bwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:145",
               mc["moe_backward_dh"], moe_main, "bwd", moe_main["bwd_err"], None,
               kernels_per_call=4, launches_by_kernel={
-                  k: mc[f"moe_backward_{k}"] for k in ("dh", "dx", "dwu", "dwd")}),
+                  k: mc[f"moe_backward_{k}"] for k in ("dz2", "dh", "dx", "dw")},
+              library_products_ms=moe_main["bwd_library_products_ms"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

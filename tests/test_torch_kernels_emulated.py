@@ -5,17 +5,19 @@ shuffles), and held against their plain PyTorch versions at small ragged
 shapes.
 
 This checks each kernel's arithmetic, indexing, masking and
-synchronisation on every CPU run: the WMMA instances (the bf16 grouped-
-expert kernels) through `host_emu/mma.h`, the mma.sync / ldmatrix /
-cp.async instances (the bf16 flash kernels) through `host_emu/tk_mma.cuh`,
-which lays fragments out lane by lane as the PTX ISA does, and the wgmma /
-TMA / mbarrier instances (the bf16 head + CE kernels) through
-`host_emu/tk_hopper.cuh`, which reads shared memory through the wgmma
-descriptors and writes TMA boxes with the 128B swizzle, so a wrong
-layout, swizzle, descriptor or transpose bit shows here. The build puts
-`-I host_emu` ahead of everything: the sources are copied out of `csrc/`,
-so their `#include "tk_mma.cuh"` finds the emulation and not
-`csrc/tk_mma.cuh`. `test_ptx_primitive_matches_plain` holds each
+synchronisation on every CPU run: the mma.sync / ldmatrix / cp.async
+instances (the bf16 flash kernels) through `host_emu/tk_mma.cuh`, which
+lays fragments out lane by lane as the PTX ISA does, and the wgmma / TMA /
+mbarrier instances (the bf16 head + CE and grouped-expert kernels, on the
+shared mainloop of `csrc/tk_gemm.cuh`) through `host_emu/tk_hopper.cuh`,
+which reads shared memory through the wgmma descriptors, writes TMA boxes
+(rank 2 and 3) with the 128B swizzle and zero fill, and holds generic
+stores back from wgmma until their proxy fence, so a wrong layout,
+swizzle, descriptor, transpose bit, zero fill or missing fence shows here.
+The build puts `-I host_emu` ahead of everything: the sources are copied
+out of `csrc/` (with `tk_gemm.cuh`, which has no PTX of its own), so their
+`#include "tk_mma.cuh"` finds the emulation and not `csrc/tk_mma.cuh`.
+`test_ptx_primitive_matches_plain` holds each
 emulated primitive against the PTX ISA's layout tables and against
 torch.matmul. `chip_smoke.py` holds the same sources, built by nvcc,
 against the same plain versions on the card. The launch arguments go
@@ -57,6 +59,12 @@ def emulated(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.fail("g++ is needed to build the kernel sources for the host")
     out = tmp_path_factory.mktemp("cuda_emu")
+    # a csrc header with no emulated twin (tk_gemm.cuh: no PTX of its own)
+    # goes beside the sources, so its own includes find host_emu's headers
+    csrc = ROOT / "tpukit_torch" / "csrc"
+    for header in csrc.glob("*.cuh"):
+        if not (EMU / header.name).exists():
+            shutil.copy(header, out / header.name)
     libs = {}
     for name, sigs in (("flash_attention", fa._SIGNATURES),
                        ("fused_head_ce", fce._SIGNATURES),
@@ -108,7 +116,8 @@ def _flash_inputs(b, h, s, d, dtype, masked, seed):
 # bf16 runs the tensor-core kernels: 64-row forward and dQ query tiles,
 # 64-key tiles, dK/dV query tiles of 64 (32 at D = 128). s130-d128 spans
 # three query tiles and five dK/dV ones; s300-d16 five query tiles and key
-# tiles; s45 is no multiple of the 16-row fragments.
+# tiles; s45 is no multiple of the 16-row fragments. Head dims 8 and 48 have
+# no instance: the wrappers run the 16 and 64 ones on zero-padded copies.
 @pytest.mark.parametrize("s,d,dtype,masked", [
     (48, 16, torch.float32, False),
     (130, 32, torch.float32, True),
@@ -118,8 +127,12 @@ def _flash_inputs(b, h, s, d, dtype, masked, seed):
     (130, 128, torch.bfloat16, True),
     (45, 32, torch.bfloat16, True),
     (300, 16, torch.bfloat16, False),
+    (70, 8, torch.bfloat16, True),
+    (64, 48, torch.bfloat16, False),
+    (40, 8, torch.float32, True),
 ], ids=["s48-d16-f32", "s130-d32-f32-mask", "s130-d16-bf16-mask", "s64-d32-bf16",
-        "s80-d64-bf16-mask", "s130-d128-bf16-mask", "s45-d32-bf16-mask", "s300-d16-bf16"])
+        "s80-d64-bf16-mask", "s130-d128-bf16-mask", "s45-d32-bf16-mask", "s300-d16-bf16",
+        "s70-d8-bf16-mask", "s64-d48-bf16", "s40-d8-f32-mask"])
 def test_flash_kernels_match_plain_version(emulated, s, d, dtype, masked):
     b, h = 2, 2
     scale = d**-0.5
@@ -259,7 +272,9 @@ extern "C" int tk_prim(int op, const void* regs, const void* x, const void* y, c
 # the global matrices, `ld` their row strides), run one m64n256k16 product
 # onto the accumulators preloaded from fout, and return each thread's 128
 # registers. Op 20 loads one 64 x 16 box at (c0, c1) of x [rows][cols]
-# (row stride ld) and returns the 2 KB of shared memory as they lie. Op 30
+# (row stride ld) and returns the 2 KB of shared memory as they lie; op 21
+# the same from a rank-3 map of `rows_b` such matrices end to end, at (c0,
+# c1, tb). Op 30
 # walks one mbarrier through three phases (arrivals, then arrivals plus a
 # TMA's bytes) and returns what try_wait said at each step.
 _HOPPER_SRC = r"""
@@ -309,14 +324,20 @@ void hop(Args a, const void* x, const void* y, float* fout, uint32_t* rout) {
     look(8);
     return;
   }
-  if (a.op == 20) {
+  if (a.op == 20 || a.op == 21) {
     CUtensorMap map;
-    make_tensor_map(&map, x, a.rows_a, a.cols_a, a.ld_a, 16);
+    if (a.op == 20)
+      make_tensor_map(&map, x, a.rows_a, a.cols_a, a.ld_a, 16);
+    else  // rows_b matrices [rows_a][cols_a] end to end; the box in matrix tb
+      make_tensor_map_3d(&map, x, a.rows_b, a.rows_a, a.cols_a, a.ld_a, 16);
     if (t == 0) mbar_init(bar, 1);
     __syncthreads();
     if (t == 0) {
       mbar_arrive_expect_tx(bar, 2048);
-      tma_load_2d(base, &map, bar, a.c0, a.c1);
+      if (a.op == 20)
+        tma_load_2d(base, &map, bar, a.c0, a.c1);
+      else
+        tma_load_3d(base, &map, bar, a.c0, a.c1, a.tb);
     }
     mbar_wait(bar, 0);
     memcpy(rout + 4 * t, base + 16 * t, 16);
@@ -417,12 +438,17 @@ def _hopper_primitive(lib, prim):
             got[r, col] = out[t, i]
         want = torch.matmul(a.float(), b.float()) + torch.from_numpy(c)
         torch.testing.assert_close(torch.from_numpy(got), want, atol=1e-5, rtol=1e-5)
-    elif prim == "tma_box":
+    elif prim in ("tma_box", "tma_box_3d"):
         rows, cols, ld = 40, 100, 104  # the box (60.., 30..) runs past both edges
-        x = mk(rows, ld)
-        call([20, rows, cols, ld, 0, 0, 0, 60, 30], x, x)
+        if prim == "tma_box":
+            x = mk(rows, ld)
+            call([20, rows, cols, ld, 0, 0, 0, 60, 30], x, x)
+            xb = _bits(x)
+        else:  # matrix 1 of 3: past its edges lie matrix 2's rows, which must not show
+            x = mk(3 * rows, ld)
+            call([21, rows, cols, ld, 3, 0, 0, 60, 30, 0, 1], x, x)
+            xb = _bits(x)[rows:2 * rows]
         got = np.stack([rout & 0xFFFF, rout >> 16], -1).reshape(-1)  # 1024 bf16 = 2 KB
-        xb = _bits(x)
         want = np.zeros(1024, dtype=np.int64)
         for r in range(16):
             for c in range(64):
@@ -475,7 +501,7 @@ def _ptr(a):
 @pytest.mark.parametrize("prim", ["mma_fragments", "ldmatrix_x4", "ldmatrix_x4_trans",
                                   "cp_async", "pack_bf16x2", "qk_product", "pv_product",
                                   "accumulator_as_a", "wgmma_k_major", "wgmma_mn_major",
-                                  "wgmma_k_mn", "tma_box", "mbarrier_phases"])
+                                  "wgmma_k_mn", "tma_box", "tma_box_3d", "mbarrier_phases"])
 def test_ptx_primitive_matches_plain(request, prim):
     """Each emulated tk_mma.cuh function against the PTX ISA's layout tables
     (written out here, lane by lane) and against torch.matmul in f32 of the
@@ -607,7 +633,9 @@ def _ce_inputs(n, dim, vocab, v_pad, dtype, seed):
 # vocab splits (the combine's first-index rule across them: columns 3 and
 # 7 tie on every row) and dH in two vocab splits; "splits-uneven" has one
 # row tile and five vocab tiles, where four splits would fill the SMs but
-# two tiles a split leave three, and dH's 20 k-blocks in four splits.
+# two tiles a split leave three, and dH's 20 k-blocks in four splits;
+# "dim100" runs a dim that is no multiple of 8 (the wrapper pads h's
+# columns and W's rows with zeros to 104).
 @pytest.mark.parametrize("n,dim,vocab,v_pad,dtype,sms,chunk_rows,splits", [
     (100, 40, 300, 384, torch.float32, 3, 0, None),
     (70, 32, 250, 270, torch.float32, 3, 0, None),
@@ -616,8 +644,9 @@ def _ce_inputs(n, dim, vocab, v_pad, dtype, seed):
     (300, 40, 300, 384, torch.bfloat16, 3, 128, None),
     (200, 40, 600, 640, torch.bfloat16, 4, 0, (2, 2)),
     (100, 40, 1200, 1280, torch.bfloat16, 4, 0, (3, 4)),
+    (100, 100, 300, 384, torch.bfloat16, 3, 0, None),
 ], ids=["f32", "f32-ragged-vocab", "bf16", "bf16-ragged-vocab", "bf16-chunks", "bf16-splits",
-        "bf16-splits-uneven"])
+        "bf16-splits-uneven", "bf16-dim100"])
 def test_fused_head_ce_kernels_match_plain_version(emulated, monkeypatch, n, dim, vocab, v_pad,
                                                    dtype, sms, chunk_rows, splits):
     monkeypatch.setenv("TK_EMU_SMS", str(sms))
@@ -675,52 +704,117 @@ def _moe_inputs(sizes, n, d, f, dtype, seed):
     return xs, [t.to(dtype) for t in bank], torch.from_numpy(offs), g.to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_moe_gemm_kernels_match_plain_version(emulated, dtype):
-    """The up/down and dh/dx/dWu/dWd kernels on an adversarial layout: a
-    segment over two row tiles (130 rows), a 1-row segment, an empty expert,
-    a padding tail, D and F that are no multiple of the tiles (40, 160)."""
-    sizes, n, d, f = [130, 1, 0, 137], 268, 40, 160
-    xs, (wu, bu, wd, bd), offs, g = _moe_inputs(sizes, n, d, f, dtype, seed=3)
-    lib = emulated["moe_gemm"]
-    m = xs.shape[0]
-    h, ys = torch.empty((m, f), dtype=dtype), torch.zeros_like(xs)
+def _moe_run(lib, xs, bank, offs, g):
+    """The forward kernels, then the backward kernels on their y and h:
+    (h, y, [dx, dwu, dbu, dwd, dbd])."""
+    wu, bu, wd, bd = bank
+    m, f = xs.shape[0], wu.shape[2]
+    h, ys = torch.empty((m, f), dtype=xs.dtype), torch.zeros_like(xs)
     moe_gemm.launch_forward(lib, xs, wu, bu, wd, bd, offs, h, ys, 0)
-    ref_y = moe_gemm.grouped_ffn_reference(xs, wu, bu, wd, bd, offs)
-
-    dz1 = torch.empty((m, f), dtype=dtype)
-    part = torch.empty((moe_gemm.row_tiles(lib, dtype, m, len(sizes)), f))
+    scratch = moe_gemm.backward_scratch(lib, xs, f, wu.shape[0])
     dx = torch.zeros_like(xs)
-    dwu, dbu = torch.empty(wu.shape), torch.empty(bu.shape)
-    dwd, dbd = torch.empty(wd.shape), torch.empty(bd.shape)
-    moe_gemm.launch_backward(lib, xs, g, ys, h, wu, wd, offs, dz1, part, dx, dwu, dbu, dwd, dbd,
-                             0)
-    refs = moe_gemm.grouped_ffn_backward_reference(xs, g, ref_y, wu, bu, wd, offs, h=h)
+    grads = [torch.empty(t.shape) for t in (wu, bu, wd, bd)]
+    moe_gemm.launch_backward(lib, xs, g, ys, h, wu, wd, offs, scratch, dx, *grads, 0)
+    return h, ys, [dx, *grads]
 
-    ref_h = torch.relu(torch.cat([xs[s:t].float() @ wu[e].float() + bu[e].float()
-                                  for e, s, t in moe_gemm._segments(offs, len(sizes))]))
+
+def _hold_moe(dtype, sizes, n, xs, bank, offs, g, h, ys, grads, keep=None):
+    """The kernels' outputs (`_moe_run`) against the plain versions on the
+    same inputs (the plain backward reads the kernels' h), over the rows
+    and experts of `keep` (every expert by default)."""
+    wu, bu, wd, bd = bank
+    dx, dwu, dbu, dwd, dbd = grads
+    keep = list(range(len(sizes))) if keep is None else keep
+    bounds = offs.tolist()
+    rows = torch.cat([torch.arange(bounds[e], bounds[e + 1]) for e in keep])
+    ref_y = moe_gemm.grouped_ffn_reference(xs, wu, bu, wd, bd, offs)
+    refs = moe_gemm.grouped_ffn_backward_reference(xs, g, ref_y, wu, bu, wd, offs, h=h)
+    ref_h = torch.zeros(h.shape)
+    for e, s, t in moe_gemm._segments(offs, len(sizes)):
+        ref_h[s:t] = torch.relu(xs[s:t].float() @ wu[e].float() + bu[e].float())
     for got, ref in ((h, ref_h.to(dtype)), (ys, ref_y)):
         if dtype == torch.float32:
-            torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+            torch.testing.assert_close(got[rows], ref[rows], atol=2e-5, rtol=1e-4)
         else:
-            _bf16_close(got, ref)
+            _bf16_close(got[rows], ref[rows])
     # dx is rounded to bf16 like y; the weight gradients come out in f32.
     # The bias gradients sum f32 terms (dz2 exactly, dz1 unrounded) that
     # differ only in summation order, so they keep the f32 bar in bf16 too:
     # a dbu summed from the rounded dz1 fails it. dW sums products of
     # round(dz1), which may land a bf16 ulp apart where the two f32 dh sums
     # straddle a rounding boundary: 2^-12 of the row's largest |value|.
-    torch.testing.assert_close(dbu, refs[2], atol=5e-5, rtol=1e-4)
-    torch.testing.assert_close(dbd, refs[4], atol=5e-5, rtol=1e-4)
+    torch.testing.assert_close(dbu[keep], refs[2][keep], atol=5e-5, rtol=1e-4)
+    torch.testing.assert_close(dbd[keep], refs[4][keep], atol=5e-5, rtol=1e-4)
     if dtype == torch.float32:
-        for got, ref in zip((dx, dwu, dwd), (refs[0], refs[1], refs[3])):
-            torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
-    else:
-        _bf16_close(dx, refs[0])
+        torch.testing.assert_close(dx[rows], refs[0][rows], atol=5e-5, rtol=1e-4)
         for got, ref in ((dwu, refs[1]), (dwd, refs[3])):
+            torch.testing.assert_close(got[keep], ref[keep], atol=5e-5, rtol=1e-4)
+    else:
+        _bf16_close(dx[rows], refs[0][rows])
+        for got, ref in ((dwu, refs[1]), (dwd, refs[3])):
+            got, ref = got[keep], ref[keep]
             top = ref.abs().amax(-1, keepdim=True)
             assert ((got - ref).abs() <= 2.0**-12 * top + 1e-5 * ref.abs()).all()
-    empty = sizes.index(0)
-    assert all((t[empty] == 0).all() for t in (dwu, dbu, dwd, dbd))
+    for e in keep:
+        if sizes[e] == 0:
+            assert all((t[e] == 0).all() for t in (dwu, dbu, dwd, dbd))
     assert (dx[n:] == 0).all()
-    assert dwu.abs().max() > 0 and dbu.abs().max() > 0
+    assert dwu[keep].abs().max() > 0 and dbu[keep].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_moe_gemm_kernels_match_plain_version(emulated, dtype):
+    """The forward and backward kernels on an adversarial layout: a segment
+    over two row tiles (130 rows), a 1-row segment, an empty expert, a
+    padding tail, D and F that are no multiple of the tiles (40, 160)."""
+    sizes, n, d, f = [130, 1, 0, 137], 268, 40, 160
+    xs, bank, offs, g = _moe_inputs(sizes, n, d, f, dtype, seed=3)
+    h, ys, grads = _moe_run(emulated["moe_gemm"], xs, bank, offs, g)
+    _hold_moe(dtype, sizes, n, xs, bank, offs, g, h, ys, grads)
+
+
+# The bf16 wgmma/TMA kernels (64-deep k-blocks, 128-row tiles, or 64-row
+# tiles under the decode policy) on layouts that stress the segment walk,
+# each backward run twice for the same bits:
+#   spill:        every segment's last dW k-block holds rows of the next
+#                 expert (70, 90, 100 rows), which the consumers zero;
+#   empty-single: empty experts and 1-row segments between larger ones;
+#   ring-wrap:    D 72 and F 200, no multiple of 64 (the rank-3 maps'
+#                 zero fill past D and F), 4-k-block tiles on 3 SMs, so
+#                 each block's 4-stage ring wraps many times;
+#   decode:       M = 16 over 8 experts (MoE serving's tick), the decode
+#                 policy: 64-row tiles, the down product's 4 k-blocks in
+#                 4 splits and the up product's 2 in 2 (on 64 SMs), each
+#                 finished by the combine kernel;
+#   isolation:    expert 1's first rows of Wu and Wd are +inf; every other
+#                 expert's outputs stay exact (a box past D or F must read
+#                 zeros, not the next expert's weights);
+#   unaligned:    D 36 and F 100, no multiple of 8: the wrapper runs the
+#                 kernels on zero-padded copies (40, 104).
+@pytest.mark.parametrize("sizes,d,f,sms,decode,poison", [
+    ([70, 90, 100], 40, 160, 3, False, False),
+    ([1, 0, 1, 200, 1, 0, 60], 40, 160, 3, False, False),
+    ([130, 1, 0, 137], 72, 200, 3, False, False),
+    ([3, 2, 0, 1, 4, 2, 1, 3], 72, 200, 64, True, False),
+    ([130, 1, 0, 137], 40, 160, 3, False, True),
+    ([130, 0, 137], 36, 100, 3, False, False),
+], ids=["spill", "empty-single", "ring-wrap-sms3", "decode-m16", "isolation", "unaligned"])
+def test_moe_gemm_wgmma_layouts_match_plain_version(emulated, monkeypatch, sizes, d, f, sms,
+                                                    decode, poison):
+    monkeypatch.setenv("TK_EMU_SMS", str(sms))
+    n = sum(sizes)
+    xs, bank, offs, g = _moe_inputs(sizes, n, d, f, torch.bfloat16, seed=n + d)
+    lib = emulated["moe_gemm"]
+    small, split_up, split_down, _ = moe_gemm.forward_plan(lib, xs.dtype, xs.shape[0], d, f,
+                                                           len(sizes))
+    assert (small, split_up, split_down) == ((1, 2, 4) if decode else (0, 1, 1))
+    keep = None
+    if poison:
+        for w in (bank[0], bank[2]):
+            w[1, 0] = float("inf")
+        keep = [e for e in range(len(sizes)) if e != 1]
+    h, ys, grads = _moe_run(lib, xs, bank, offs, g)
+    _hold_moe(torch.bfloat16, sizes, n, xs, bank, offs, g, h, ys, grads, keep)
+    again = _moe_run(lib, xs, bank, offs, g)
+    for got, ref in zip([h, ys, *grads], [again[0], again[1], *again[2]]):
+        assert torch.equal(got, ref) or poison and torch.equal(got.nan_to_num(), ref.nan_to_num())

@@ -128,6 +128,36 @@ def test_loss_and_every_gradient_match_tpukit(tiny_config, tiny_params, variant)
                                    err_msg=jax.tree_util.keystr(path))
 
 
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_stacked_layer_gradients_written_once(tiny_config, tiny_params, remat):
+    """Each stacked leaf reaches the loss through one `torch.unbind`, with
+    or without remat: its gradient is the layers' gradients stacked in one
+    write, where indexing each layer would give each a zero-filled,
+    full-stack gradient and sum them."""
+    cfg = _port_config(tiny_config, remat_layers=remat)
+    params = _bridge(tiny_params)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    rng = np.random.RandomState(3)
+    tb, _ = _tensors(*prepare_batch(_raw_batch(rng, tiny_config.vocab_size), 2))
+    hidden = gpt.forward_hidden(params, cfg, tb["input_ids"], tb["position_ids"], tb["mask"])
+    stacked = {id(p) for p in leaves(params["layers"])}
+    consumers = {}  # stacked leaf -> the autograd nodes that feed its gradient
+    seen, todo = set(), [hidden.sum().grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            var = getattr(nxt, "variable", None)
+            if var is not None and id(var) in stacked:
+                consumers.setdefault(id(var), []).append(type(node).__name__)
+            todo.append(nxt)
+    assert set(consumers) == stacked
+    assert all(names == ["UnbindBackward0"] for names in consumers.values()), consumers
+
+
 def test_unfused_head_path_matches_fused(tiny_config, tiny_params, monkeypatch):
     """`TPUKIT_FUSED_HEAD=0` routes the loss through full logits; same loss."""
     rng = np.random.RandomState(2)

@@ -149,7 +149,7 @@ __device__ __forceinline__ float masked_score(float s, int row, int col, int S,
   return bias_b != nullptr ? s + bias_b[col] : s;
 }
 
-// Grid (ceil(S / 64), B * H), kThreads threads.
+// Grid (B * H, ceil(S / 64)), kThreads threads.
 // Dynamic shared memory: Q, K, V tiles [64][D + 1] and P [64][65], f32.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -163,7 +163,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* Ks = Qs + kTile * LD;
   float* Vs = Ks + kTile * LD;
   float* Ps = Vs + kTile * LD;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t slab = static_cast<size_t>(bh) * S * D;
   const float* bias_b = bias != nullptr ? bias + static_cast<size_t>(bh / H) * S : nullptr;
@@ -322,7 +322,7 @@ __device__ __forceinline__ void load_rows(float* Ls, float* Dc, const float* __r
   }
 }
 
-// dK and dV of one key tile: grid (ceil(S / 64), B * H), kThreads threads;
+// dK and dV of one key tile: grid (B * H, ceil(S / 64)), kThreads threads;
 // loops over the query tiles from the diagonal to the end.
 // Dynamic shared memory: K, V, Q, dO tiles [64][D + 1], P and dS [64][65],
 // lse and D [64], f32.
@@ -343,7 +343,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* dSs = Ps + kTile * kLP;
   float* Ls = dSs + kTile * kLP;
   float* Dc = Ls + kTile;
-  const int bh = blockIdx.y, k0 = blockIdx.x * kTile;
+  const int bh = blockIdx.x, k0 = blockIdx.y * kTile;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t slab = static_cast<size_t>(bh) * S * D;
   const size_t rows = static_cast<size_t>(bh) * S;
@@ -358,7 +358,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   const int num_qt = (S + kTile - 1) / kTile;
-  for (int qt = blockIdx.x; qt < num_qt; ++qt) {
+  for (int qt = blockIdx.y; qt < num_qt; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's Q, dO, P and dS are no longer read
     load_tile<T, D>(Qs, q + slab, q0, S, scale);
@@ -404,7 +404,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-// dQ of one query tile: grid (ceil(S / 64), B * H), kThreads threads; loops
+// dQ of one query tile: grid (B * H, ceil(S / 64)), kThreads threads; loops
 // over the key tiles from 0 to the diagonal. Same shared memory as dK/dV.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -423,7 +423,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* dSs = Ps + kTile * kLP;
   float* Ls = dSs + kTile * kLP;
   float* Dc = Ls + kTile;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t slab = static_cast<size_t>(bh) * S * D;
   const size_t rows = static_cast<size_t>(bh) * S;
@@ -438,7 +438,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
 
-  for (int kt = 0; kt <= static_cast<int>(blockIdx.x); ++kt) {
+  for (int kt = 0; kt <= static_cast<int>(blockIdx.y); ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's K, V, P and dS are no longer read
     load_tile<T, D>(Ks, k + slab, k0, S);
@@ -1157,7 +1157,7 @@ int fwd(const void* q, const void* k, const void* v, const void* bias, void* out
                   tc_fwd_smem(D), stream, q_, k_, v_, b_, o_, l_, H, S, scale);
   } else {
     static const int allowed = allow_smem(flash_fwd_kernel<T, D>);
-    return launch(allowed, flash_fwd_kernel<T, D>, dim3((S + kTile - 1) / kTile, BH), kThreads,
+    return launch(allowed, flash_fwd_kernel<T, D>, dim3(BH, (S + kTile - 1) / kTile), kThreads,
                   fwd_smem(D), stream, q_, k_, v_, b_, o_, l_, H, S, scale);
   }
 }
@@ -1184,7 +1184,7 @@ template <typename T, int D>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* bias, const void* dout,
             const void* lse, const void* dcap, void* dk, void* dv, int BH, int H, int S,
             float scale, cudaStream_t stream) {
-  const dim3 grid((S + kTile - 1) / kTile, BH);  // 64 keys a block; (B * H, tiles) for bf16
+  const dim3 grid(BH, (S + kTile - 1) / kTile);  // 64 keys a block; B * H along x (2^31 - 1)
   const auto* q_ = static_cast<const T*>(q);
   const auto* k_ = static_cast<const T*>(k);
   const auto* v_ = static_cast<const T*>(v);
@@ -1196,7 +1196,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* bias, const
     constexpr int BQ = kDkvBQ<D>;
     const auto kernel = flash_bwd_dkv_kernel_tc<D, BQ, kDkvBlocks<D>>;
     static const int allowed = allow_smem(kernel);
-    return launch(allowed, kernel, dim3(grid.y, grid.x), kThreadsTC, tc_dkv_smem(D, BQ),
+    return launch(allowed, kernel, grid, kThreadsTC, tc_dkv_smem(D, BQ),
                   stream, q_, k_, v_, b_, do_, l_, d_, static_cast<T*>(dk), static_cast<T*>(dv),
                   H, S, scale);
   } else {
@@ -1211,7 +1211,7 @@ template <typename T, int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* bias, const void* dout,
            const void* lse, const void* dcap, void* dq, int BH, int H, int S, float scale,
            cudaStream_t stream) {
-  const dim3 grid((S + kTile - 1) / kTile, BH);  // 64 queries a block; (B * H, tiles) for bf16
+  const dim3 grid(BH, (S + kTile - 1) / kTile);  // 64 queries a block; B * H along x
   const auto* q_ = static_cast<const T*>(q);
   const auto* k_ = static_cast<const T*>(k);
   const auto* v_ = static_cast<const T*>(v);
@@ -1222,7 +1222,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* bias, const 
   if constexpr (kTensorCores<T>) {
     const auto kernel = flash_bwd_dq_kernel_tc<D, kDqBlocks<D>>;
     static const int allowed = allow_smem(kernel);
-    return launch(allowed, kernel, dim3(grid.y, grid.x), kThreadsTC, tc_dq_smem(D), stream,
+    return launch(allowed, kernel, grid, kThreadsTC, tc_dq_smem(D), stream,
                   q_, k_, v_, b_, do_, l_, d_, static_cast<T*>(dq), H, S, scale);
   } else {
     static const int allowed = allow_smem(flash_bwd_dq_kernel<T, D>);

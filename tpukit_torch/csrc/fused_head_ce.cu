@@ -28,7 +28,8 @@
 // the backward three (h.W to form d, d W^T, h^T d: 7.68 ms).
 //
 // bf16 design (the training path): every product runs one GEMM mainloop,
-// `gemm_body`, on wgmma with TMA (the primitives of tk_hopper.cuh):
+// `gemm_body` of tk_gemm.cuh (shared with moe_gemm.cu), on wgmma with TMA
+// (the primitives of tk_hopper.cuh):
 //   - a persistent grid, one 384-thread block an SM: warpgroup 0 is the
 //     producer (one thread keeps TMA loads in flight into a ring of kStages
 //     stages, each a 128 x 64 A tile and a 64 x 256 B tile of 128B-swizzled
@@ -74,6 +75,7 @@
 
 #include <algorithm>
 
+#include "tk_gemm.cuh"
 #include "tk_hopper.cuh"
 #include "tk_mma.cuh"
 
@@ -420,160 +422,13 @@ ce_bwd_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
 
 
 // ---------------------------------------------------------------------------
-// bf16 instance: one wgmma/TMA GEMM mainloop, four epilogues.
+// bf16 instance: the wgmma/TMA GEMM mainloop of tk_gemm.cuh, four epilogues.
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128, kBN = 256, kBK = 64;  // output tile; k-block
-constexpr int kStages = 4;                      // the ring of shared-memory stages
-constexpr int kGemmThreads = 384;               // producer warpgroup + two consumers
-constexpr int kStageA = kBM * kBK * 2, kStageB = kBK * kBN * 2;
-constexpr int kStageBytes = kStageA + kStageB;  // 48 KB
-constexpr int kBox = 64 * kBK * 2;              // one 64 x 64 MN-major box, 8 KB
-constexpr size_t kGemmSmem = 1024 + kStages * kStageBytes + 2 * kStages * sizeof(uint64_t);
 constexpr int kMaxSplits = 4;
 
-// One output tile: rows [m0, m0 + kBM), columns [n0, n0 + kBN), over the
-// k-blocks [kb0, kb1).
-struct Tile {
-  int m0, n0, kb0, kb1;
-};
-
-// A consumer thread's place in its warpgroup's 64 x 256 part of a tile:
-// register i = 4 j + 2 h + e holds row `row0 + 8 h`, column `col0 + 8 j + e`
-// (tk_hopper.cuh's accumulator layout).
-struct Frag {
-  int row0, col0, q;
-  __device__ __forceinline__ Frag(const Tile& t, int cw) {
-    const int tid = threadIdx.x % 128, lane = tid % 32;
-    row0 = t.m0 + 64 * cw + 16 * (tid / 32) + lane / 4;
-    q = lane % 4;
-    col0 = t.n0 + 2 * q;
-  }
-};
-
-// Reductions over the 4 threads (a quad) that share a row of a fragment.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-__device__ __forceinline__ int quad_min(int v) {
-  v = min(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return min(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-// The mainloop. The policy P gives the operand majors (kAMajor, kBMajor: 0
-// K-major, 1 MN-major), the work units and their tiles (`units`, `tiles`,
-// `tile`), and the consumers' epilogue (`begin`, `tile_done`, `end` on a
-// per-thread State). Block b walks units b, b + gridDim.x, ...; the
-// producer and the consumers walk the same sequence of tiles and k-blocks,
-// meeting at the `full` (TMA bytes landed) and `empty` (every consumer
-// thread done with the stage) barriers of each stage.
-template <class P>
-__device__ __forceinline__ void gemm_body(const CUtensorMap* ma, const CUtensorMap* mb,
-                                          const P& p) {
-  extern __shared__ __align__(128) float smem[];
-  unsigned char* raw = reinterpret_cast<unsigned char*>(smem);
-  unsigned char* ring = raw + (1024 - smem_addr(raw) % 1024) % 1024;  // the 128B swizzle's period
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
-  uint64_t* empty = full + kStages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kGemmThreads - 128);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    setmaxnreg_dec<40>();
-    if (threadIdx.x != 0) return;
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-      const int n = p.tiles(u);
-      for (int i = 0; i < n; ++i) {
-        const Tile t = p.tile(u, i);
-        for (int kb = t.kb0; kb < t.kb1; ++kb) {
-          mbar_wait(&empty[stage], phase ^ 1);
-          unsigned char* a = ring + stage * kStageBytes;
-          unsigned char* b = a + kStageA;
-          mbar_arrive_expect_tx(&full[stage], kStageBytes);
-          const int k0 = kb * kBK;
-          if (P::kAMajor == 0) {
-            tma_load_2d(a, ma, &full[stage], k0, t.m0);
-          } else {
-            for (int x = 0; x < kBM / 64; ++x)
-              tma_load_2d(a + x * kBox, ma, &full[stage], t.m0 + 64 * x, k0);
-          }
-          if (P::kBMajor == 0) {
-            tma_load_2d(b, mb, &full[stage], k0, t.n0);
-          } else {
-            for (int x = 0; x < kBN / 64; ++x)
-              tma_load_2d(b + x * kBox, mb, &full[stage], t.n0 + 64 * x, k0);
-          }
-          if (++stage == kStages) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
-  } else {
-    setmaxnreg_inc<232>();
-    const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
-    // k-slice kk of a stage: K-major operands step 32 bytes along the
-    // 128-byte rows, MN-major ones 16 k rows (2048 bytes); the second
-    // consumer's A rows start one 64-row (K-major) or 64-column (MN-major)
-    // block, 8 KB, in
-    constexpr int kStepA = P::kAMajor ? 2048 : 32, kStepB = P::kBMajor ? 2048 : 32;
-    constexpr uint32_t kLboA = P::kAMajor ? kBox : 16, kLboB = P::kBMajor ? kBox : 16;
-    int stage = 0;
-    uint32_t phase = 0;
-    float acc[128];
-    typename P::State st;
-    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-      p.begin(st, u, cw);
-      const int n = p.tiles(u);
-      for (int i = 0; i < n; ++i) {
-        const Tile t = p.tile(u, i);
-        int held = -1;  // the stage whose products are still in flight
-        for (int kb = t.kb0; kb < t.kb1; ++kb) {
-          mbar_wait(&full[stage], phase);
-          const unsigned char* a = ring + stage * kStageBytes + cw * kBox;
-          const unsigned char* b = ring + stage * kStageBytes + kStageA;
-          wgmma_fence_regs(acc);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kBK / 16; ++kk)
-            wgmma_m64n256k16<P::kAMajor, P::kBMajor>(
-                acc, wgmma_desc(a + kk * kStepA, kLboA, 1024),
-                wgmma_desc(b + kk * kStepB, kLboB, 1024), (kb > t.kb0 || kk > 0) ? 1 : 0);
-          wgmma_commit();
-          wgmma_fence_regs(acc);
-          wgmma_wait<1>();  // the previous k-block's products are done
-          if (held >= 0) mbar_arrive(&empty[held]);
-          held = stage;
-          if (++stage == kStages) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-        wgmma_wait<0>();
-        wgmma_fence_regs(acc);
-        if (held >= 0) mbar_arrive(&empty[held]);
-        p.tile_done(st, acc, u, t, cw);
-      }
-      p.end(st, u, cw);
-    }
-  }
-}
-
-struct NoState {};
+// Every policy here runs two consumer warpgroups (128 x 256 tiles) on one
+// matrix B (no bank) and keeps no per-block plan.
 
 // Forward: logits = h.W (h K-major, W MN-major). Unit u = (row tile
 // u % m_tiles, vocab split u / m_tiles) walks the split's vocab tiles in
@@ -583,6 +438,8 @@ struct NoState {};
 template <bool kArgmax>
 struct FwdPolicy {
   static constexpr int kAMajor = 0, kBMajor = 1;
+  static constexpr int kConsumers = 2, kBBank = 0;
+  __device__ __forceinline__ void setup() const {}
   const int32_t* targets;
   float* part;
   int32_t* part_idx;
@@ -678,6 +535,8 @@ struct FwdPolicy {
 // share W's tiles.
 struct DPolicy {
   static constexpr int kAMajor = 0, kBMajor = 1;
+  static constexpr int kConsumers = 2, kBBank = 0;
+  __device__ __forceinline__ void setup() const {}
   using State = NoState;
   const float *lse, *g_lse, *g_tgt;
   const int32_t* targets;
@@ -724,6 +583,8 @@ struct DPolicy {
 // the dim tile fastest: the blocks in flight share d's rows.
 struct DhPolicy {
   static constexpr int kAMajor = 0, kBMajor = 0;
+  static constexpr int kConsumers = 2, kBBank = 0;
+  __device__ __forceinline__ void setup() const {}
   using State = NoState;
   float* part;
   int rows, dim, m_tiles, n_tiles, per_split, k_blocks, units;
@@ -761,6 +622,8 @@ struct DhPolicy {
 // flight share d's tiles.
 struct DwPolicy {
   static constexpr int kAMajor = 1, kBMajor = 1;
+  static constexpr int kConsumers = 2, kBBank = 0;
+  __device__ __forceinline__ void setup() const {}
   using State = NoState;
   float* dw;
   int ldw, dim, Vp, accumulate, m_tiles, k_blocks, units;

@@ -2,7 +2,8 @@
 // port's kernels use: the tensor map of TMA and the enums of
 // cuTensorMapEncodeTiled. The emulated encoder (`tk_emu::encode_tensor_map`,
 // reached through cudaGetDriverEntryPoint in cuda_runtime.h) makes the same
-// checks the driver documents and keeps what `tma_load_2d` needs.
+// checks the driver documents and keeps what `tma_load_2d` and
+// `tma_load_3d` need.
 #pragma once
 
 #include <cstdint>
@@ -27,13 +28,14 @@ enum CUtensorMapL2promotion {
 };
 enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
 
-// What the emulated TMA reads: a 2-D bf16 tensor (dims innermost first,
-// the outer dimension's stride in bytes) and the box.
+// What the emulated TMA reads: a rank-2 or rank-3 bf16 tensor (dims
+// innermost first, the outer dimensions' strides in bytes) and the box.
 struct alignas(64) CUtensorMap {
   const unsigned char* base;
-  uint64_t dims[2];
-  uint64_t stride;
-  uint32_t box[2];
+  uint64_t dims[3];
+  uint64_t stride[2];
+  uint32_t box[3];
+  uint32_t rank;
   int swizzle;
 };
 
@@ -46,18 +48,24 @@ inline CUresult encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, cu
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill) {
   // the driver's rules (cuTensorMapEncodeTiled): a 16-byte aligned base,
   // strides multiples of 16 bytes, box extents 1..256, and with the 128B
-  // swizzle an inner box extent of at most 128 bytes
-  if (type != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || rank != 2 ||
-      reinterpret_cast<uintptr_t>(base) % 16 != 0 || strides[0] % 16 != 0 || box[0] == 0 ||
-      box[1] == 0 || box[0] > 256 || box[1] > 256 || elem_strides[0] != 1 ||
-      elem_strides[1] != 1 || (swizzle == CU_TENSOR_MAP_SWIZZLE_128B && box[0] * 2 > 128))
+  // swizzle an inner box extent of at most 128 bytes; ranks 2 and 3 here
+  if (type != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || rank < 2 || rank > 3 ||
+      reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
+      (swizzle == CU_TENSOR_MAP_SWIZZLE_128B && box[0] * 2 > 128))
     return CUDA_ERROR_INVALID_VALUE;
+  for (cuuint32_t i = 0; i < rank; ++i)
+    if (box[i] == 0 || box[i] > 256 || elem_strides[i] != 1 || dims[i] == 0)
+      return CUDA_ERROR_INVALID_VALUE;
+  for (cuuint32_t i = 0; i + 1 < rank; ++i)
+    if (strides[i] % 16 != 0) return CUDA_ERROR_INVALID_VALUE;
   map->base = static_cast<const unsigned char*>(base);
-  map->dims[0] = dims[0];
-  map->dims[1] = dims[1];
-  map->stride = strides[0];
-  map->box[0] = box[0];
-  map->box[1] = box[1];
+  map->rank = rank;
+  for (cuuint32_t i = 0; i < 3; ++i) {
+    map->dims[i] = i < rank ? dims[i] : 1;
+    map->box[i] = i < rank ? box[i] : 1;
+  }
+  map->stride[0] = strides[0];
+  map->stride[1] = rank == 3 ? strides[1] : 0;
   map->swizzle = swizzle;
   return CUDA_SUCCESS;
 }

@@ -2,9 +2,10 @@
 // port's kernels (tpukit_torch/csrc/*.cu) use, so that g++ can build them for
 // the CPU tests. Every thread of a block is a std::thread; blocks run one
 // after another and share one dynamic shared-memory buffer; __syncthreads is
-// a barrier over the block's threads; warp shuffles exchange through a
+// a barrier over the block's threads, `bar.sync id, count` one per id;
+// warp shuffles exchange through a
 // per-block array between two barriers of the warp; a per-warp barrier also
-// orders the warp matrix functions of mma.h and tk_mma.cuh. Launch statements are rewritten by
+// orders the warp matrix functions of tk_mma.cuh and __syncwarp. Launch statements are rewritten by
 // the test (`kernel<<<grid, threads, smem, stream>>>(args)` becomes
 // `tk_emu::launch(kernel, grid, threads, smem, stream, args)`).
 //
@@ -26,6 +27,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -112,7 +114,25 @@ inline std::barrier<>* block_barrier = nullptr;
 inline std::vector<std::barrier<>*> warp_barriers;
 inline std::vector<uint64_t> exchange;
 
+// named barriers (bar.sync id, count): made by the first thread to reach
+// an id in a block, with that thread's count
+inline std::mutex named_lock;
+inline std::unique_ptr<std::barrier<>> named[16];
+
 inline void sync() { block_barrier->arrive_and_wait(); }
+inline void named_sync(int id, int count) {
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lock(named_lock);
+    if (id <= 0 || id >= 16) {
+      std::fprintf(stderr, "tk_emu: named barrier id %d outside 1..15\n", id);
+      std::abort();
+    }
+    if (!named[id]) named[id] = std::make_unique<std::barrier<>>(count);
+    bar = named[id].get();
+  }
+  bar->arrive_and_wait();
+}
 inline void warp_sync() { warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
 
 template <typename T>
@@ -165,11 +185,13 @@ void launch(Kernel kernel, dim3 grid, int threads, size_t smem_bytes, cudaStream
           });
         for (auto& th : pool) th.join();
         block_barrier = nullptr;
+        for (auto& b : named) b.reset();
       }
 }
 
 }  // namespace tk_emu
 
 inline void __syncthreads() { tk_emu::sync(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { tk_emu::warp_sync(); }
 template <typename T>
 inline T __shfl_xor_sync(unsigned, T v, int o) { return tk_emu::shfl_xor(v, o); }

@@ -5,10 +5,16 @@
 //     and every wait goes through one lock and condition variable, and a
 //     wait that outlasts 60 s aborts (a kernel whose pipeline deadlocks
 //     must fail, not hang);
-//   - TMA: `tma_load_2d` copies the box through the emulated tensor map
-//     (cuda.h) at once, zeros out of bounds, into the 128B-swizzled layout
-//     (address bits [4, 7) ^= bits [7, 10), relative to the 1024-aligned
-//     shared memory), then counts the box's bytes down on the barrier;
+//   - TMA: `tma_load_2d` / `tma_load_3d` copy the box through the emulated
+//     tensor map (cuda.h; its rank must match the load's) at once, zeros
+//     where a coordinate leaves its dimension, into the 128B-swizzled
+//     layout (address bits [4, 7) ^= bits [7, 10), relative to the
+//     1024-aligned shared memory), then count the box's bytes down on the
+//     barrier;
+//   - a generic-proxy store (`st_shared_zero16`) waits in its thread's
+//     queue until that thread's `fence_proxy_async`, so a wgmma that reads
+//     before the fence sees the old bytes; `named_barrier_sync` is a
+//     barrier of `count` threads per id (cuda_runtime.h);
 //   - wgmma: each thread queues its products, `commit` closes a group and
 //     `wait<N>` runs every product of all but the newest N groups, each
 //     thread computing its own accumulator registers (the layout of the
@@ -17,7 +23,7 @@
 //     So shared memory is read as late as the card may read it: a stage
 //     released before its products were waited on gets overwritten first.
 //     Products of two bf16 are exact in f32 and are summed in k order;
-//   - fences and setmaxnreg have nothing to do here.
+//   - the other fences and setmaxnreg have nothing to do here.
 #pragma once
 
 #include <chrono>
@@ -175,25 +181,69 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-inline void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
-  const uint32_t base = tk_emu::smem_offset(dst);
+namespace tk_emu {
+
+// The box of `map` at (c0, c1, c2) into shared memory at dst, swizzled;
+// zeros where a coordinate falls outside its dimension.
+inline void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, uint32_t rank, int c0,
+                     int c1, int c2) {
+  const uint32_t base = smem_offset(dst);
   if (base % 1024 != 0 || map->swizzle != CU_TENSOR_MAP_SWIZZLE_128B || map->box[0] != 64) {
     std::fprintf(stderr, "tk_emu: TMA box not 1024-aligned or not a 128B-swizzled 64-wide box\n");
     std::abort();
   }
-  for (uint32_t r = 0; r < map->box[1]; ++r)
-    for (uint32_t c = 0; c < 64; ++c) {
-      const int64_t row = static_cast<int64_t>(c1) + r, col = static_cast<int64_t>(c0) + c;
-      uint16_t v = 0;
-      if (row >= 0 && col >= 0 && static_cast<uint64_t>(row) < map->dims[1] &&
-          static_cast<uint64_t>(col) < map->dims[0])
-        std::memcpy(&v, map->base + row * map->stride + col * 2, 2);
-      std::memcpy(tk_emu::smem_bytes() + tk_emu::swizzle128(base + r * 128 + c * 2), &v, 2);
-    }
-  std::lock_guard<std::mutex> lock(tk_emu::mbar_lock);
-  tk_emu::mbar_update(bar, 0, -static_cast<int32_t>(128 * map->box[1]));
+  if (map->rank != rank) {
+    std::fprintf(stderr, "tk_emu: a rank-%u tensor map in a %uD TMA load\n", map->rank, rank);
+    std::abort();
+  }
+  const auto in = [](int64_t x, uint64_t n) { return x >= 0 && static_cast<uint64_t>(x) < n; };
+  for (uint32_t z = 0; z < map->box[2]; ++z)
+    for (uint32_t r = 0; r < map->box[1]; ++r)
+      for (uint32_t c = 0; c < 64; ++c) {
+        const int64_t plane = static_cast<int64_t>(c2) + z, row = static_cast<int64_t>(c1) + r,
+                      col = static_cast<int64_t>(c0) + c;
+        uint16_t v = 0;
+        if (in(plane, map->dims[2]) && in(row, map->dims[1]) && in(col, map->dims[0]))
+          std::memcpy(&v, map->base + plane * map->stride[1] + row * map->stride[0] + col * 2, 2);
+        const uint32_t at = base + (z * map->box[1] + r) * 128 + c * 2;
+        std::memcpy(smem_bytes() + swizzle128(at), &v, 2);
+      }
+  std::lock_guard<std::mutex> lock(mbar_lock);
+  mbar_update(bar, 0, -static_cast<int32_t>(128 * map->box[1] * map->box[2]));
 }
 
+// generic-proxy stores not yet made visible to the async proxy, per thread
+inline thread_local std::vector<uint32_t> pending_zero16;
+
+}  // namespace tk_emu
+
+inline void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  tk_emu::tma_load(dst, map, bar, 2, c0, c1, 0);
+}
+
+inline void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                        int c2) {
+  tk_emu::tma_load(dst, map, bar, 3, c0, c1, c2);
+}
+
+// A generic-proxy store waits in the thread's queue until its
+// fence_proxy_async, so an async-proxy read (wgmma) before the fence sees
+// the old bytes, as the card may.
+inline void st_shared_zero16(void* p) {
+  const uint32_t off = tk_emu::smem_offset(p);
+  if (off % 16 != 0) {
+    std::fprintf(stderr, "tk_emu: st_shared_zero16 at an address not 16-byte aligned\n");
+    std::abort();
+  }
+  tk_emu::pending_zero16.push_back(off);
+}
+
+inline void fence_proxy_async() {
+  for (uint32_t off : tk_emu::pending_zero16) std::memset(tk_emu::smem_bytes() + off, 0, 16);
+  tk_emu::pending_zero16.clear();
+}
+
+inline void named_barrier_sync(int id, int count) { tk_emu::named_sync(id, count); }
 
 template <int N>
 inline void setmaxnreg_dec() {}
@@ -257,6 +307,23 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, int rows, int col
   const cuuint32_t box[2] = {64u, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1u, 1u};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+inline int make_tensor_map_3d(CUtensorMap* map, const void* base, int outer, int rows, int cols,
+                              int ld, int box_rows) {
+  const TensorMapEncodeFn encode = tensor_map_encoder();
+  if (encode == nullptr) return -3;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(ld) * 2 * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {64u, static_cast<cuuint32_t>(box_rows), 1u};
+  const cuuint32_t elem[3] = {1u, 1u, 1u};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -96,6 +96,40 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same from a rank-3 tensor map: the box at (c0 innermost, c1, c2). A
+// box that runs past dimension 0 or 1 reads zeros there, whatever lies
+// beyond in memory (the next matrix of a bank, c2 the bank's index).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- generic writes that an asynchronous-proxy read (wgmma) will see -------
+
+// 16 zero bytes at shared address `p` (16-byte aligned), a generic-proxy
+// store: wgmma reads shared memory through the async proxy, so it sees the
+// store only after `fence_proxy_async` (and a barrier, for other threads'
+// products).
+__device__ __forceinline__ void st_shared_zero16(void* p) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_addr(p)), "r"(0u),
+               "r"(0u), "r"(0u), "r"(0u)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of `count` threads (a multiple of 32) on barrier `id` (1..15; 0
+// is __syncthreads').
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- register reallocation between warpgroups --------------------------------
 
 template <int N>
@@ -219,6 +253,28 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, int rows, int col
   const cuuint32_t box[2] = {64u, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1u, 1u};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+// A rank-3 tensor map over `outer` row-major bf16 matrices [rows][cols]
+// laid end to end (row stride `ld` elements, a multiple of 8; matrix stride
+// rows x ld), boxes of 64 columns by `box_rows` rows of one matrix, 128B
+// swizzle, zeros out of bounds in every dimension. Returns as
+// make_tensor_map.
+inline int make_tensor_map_3d(CUtensorMap* map, const void* base, int outer, int rows, int cols,
+                              int ld, int box_rows) {
+  const TensorMapEncodeFn encode = tensor_map_encoder();
+  if (encode == nullptr) return -3;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(ld) * 2 * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {64u, static_cast<cuuint32_t>(box_rows), 1u};
+  const cuuint32_t elem[3] = {1u, 1u, 1u};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

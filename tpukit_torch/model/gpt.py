@@ -191,6 +191,16 @@ def _take(tree: dict, i: int) -> dict:
     return {k: _take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _unbind(tree: dict) -> list[dict]:
+    """Every layer of a stacked tree, each leaf split once by
+    `torch.unbind`: its backward stacks the layers' gradients in one write,
+    where indexing layer by layer would give each index a zero-filled
+    gradient of the whole stack and sum them."""
+    parts = {k: _unbind(v) if isinstance(v, dict) else torch.unbind(v) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 # --------------------------------------------------------------------------
 # Forward pieces.
 # --------------------------------------------------------------------------
@@ -242,13 +252,9 @@ def apply_decoder_layers(stacked_layers: dict, cfg: GPTConfig, x, pad_mask,
     `tpukit/model/gpt.py:485`), any leading stack size. With
     `cfg.remat_layers` each layer is recomputed in the backward. MoE
     configs append the layers' summed load-balance aux to `aux_out`."""
-    leaf = stacked_layers
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
     moe = cfg.num_experts > 0
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(leaf.shape[0]):
-        layer = _take(stacked_layers, i)
+    for layer in _unbind(stacked_layers):
         if cfg.remat_layers:
             y = checkpoint(apply_decoder_layer, layer, cfg, x, pad_mask, use_reentrant=False)
         else:

@@ -7,8 +7,9 @@ tensors, with the `[B, S]` bool pad mask (True = padding) applied to keys:
     compute dtype, scaled in it, plus a -1e9 causal term, finfo.min on
     padded keys, softmax in f32, probabilities cast to v's dtype;
   - "flash": the flash-attention kernels (`ops/flash_attention.py`);
-  - "auto": "flash" exactly when the tensors are on CUDA and
-    S >= FLASH_MIN_SEQ.
+  - "auto": "flash" exactly when the tensors are on CUDA, S >=
+    FLASH_MIN_SEQ and the head dim is at most the kernels' largest
+    instance (smaller head dims run zero-padded to the next one).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from tpukit_torch import NotPortedError
-from tpukit_torch.ops.flash_attention import flash_causal_attention
+from tpukit_torch.ops.flash_attention import HEAD_DIMS, flash_causal_attention
 
 NEG_INF = -1e9  # the causal additive term of the reference model
 # The H100's crossover (80GB HBM3 at 700 W; chip_smoke.py's attention
@@ -34,7 +35,8 @@ def causal_attention(q, k, v, *, scale: float, pad_mask=None, impl: str = "xla")
     if impl == "auto":
         # tpukit's rule, with the accelerator in the TPU's place and the
         # H100's own threshold
-        impl = "flash" if q.device.type == "cuda" and q.shape[2] >= FLASH_MIN_SEQ else "xla"
+        fits = q.shape[2] >= FLASH_MIN_SEQ and q.shape[3] <= HEAD_DIMS[-1]
+        impl = "flash" if q.device.type == "cuda" and fits else "xla"
     if impl == "flash":
         return flash_causal_attention(q, k, v, scale=scale, pad_mask=pad_mask)
     if impl in ("ring", "ulysses"):

@@ -15,7 +15,12 @@ causal attention output in v's dtype. It is a `torch.autograd.Function`:
     cores, f32 on CUDA cores), or raises. There is no path from a CUDA
     tensor to the plain version. The wrappers allocate the outputs and the
     D buffer and run no PyTorch op on q, dO or O: the kernels take q
-    unscaled with the scale and compute D themselves.
+    unscaled with the scale and compute D themselves. A head dim without
+    an instance (HEAD_DIMS) runs the next larger one on q, k, v (and dO,
+    O) zero-padded to it, which adds 0 to every score and to D; the scale
+    stays the caller's and the pad columns of the outputs are cut off.
+    Head dims over 128 have no instance (`ops/attention.py`'s "auto" takes
+    the xla path there).
 
 Semantics (the kernels' and the plain version's): q is prescaled by
 `scale` in its own dtype; scores in f32 plus the f32 pad bias (0 or
@@ -35,6 +40,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from tpukit_torch.ops import _cuda
 
@@ -133,17 +139,27 @@ def _check(q, k, v):
         raise TypeError(f"flash attention runs in f32 or bf16, got {q.dtype}")
 
 
+def instance_dim(d: int) -> int:
+    """The head dim of the kernel instance that runs head dim `d`: the
+    smallest of HEAD_DIMS not below it."""
+    for dd in HEAD_DIMS:
+        if dd >= d:
+            return dd
+    raise ValueError(f"flash attention kernels take head_dim up to {HEAD_DIMS[-1]}, got {d}")
+
+
+def _padded(t, dp: int):
+    """`t [..., D]` zero-padded to `dp` columns (no copy at D = dp)."""
+    return t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
+
+
 def _check_cuda(*tensors):
     for t in tensors:
         if t is not None and not t.is_contiguous():
             raise ValueError("flash attention kernels take contiguous tensors")
         if t is not None and t.data_ptr() % 16:
             raise ValueError("flash attention kernels take 16-byte aligned tensors")
-    b, h, s, d = tensors[0].shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head_dim in {HEAD_DIMS}, got {d}")
-    if b * h > 65535:
-        raise ValueError(f"flash attention kernels take B * H <= 65535, got {b * h}")
+    instance_dim(tensors[0].shape[-1])
 
 
 def _ptr(t):
@@ -163,25 +179,42 @@ def _raise_on(code: int, lib, what: str) -> None:
 
 
 def launch_forward(lib, q, k, v, bias, out, lse, scale: float, stream: int) -> None:
-    """The forward kernel on unscaled q: writes `out` and `lse`."""
+    """The forward kernel on unscaled q: writes `out` and `lse` (through
+    padded copies where the head dim has no instance)."""
     b, h, s, d = q.shape
-    code = lib.tk_flash_fwd(_KIND[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out),
+    dp = instance_dim(d)
+    target = out
+    if dp != d:
+        q, k, v = (_padded(t, dp) for t in (q, k, v))
+        out = torch.empty_like(q)
+    code = lib.tk_flash_fwd(_KIND[q.dtype], dp, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out),
                             _ptr(lse), b * h, h, s, scale, ctypes.c_void_p(stream))
     _raise_on(code, lib, "forward")
+    if dp != d:
+        target.copy_(out[..., :d])
 
 
 def launch_backward(lib, q, k, v, bias, d_out, out, lse, dcap, dq, dk, dv, scale: float,
                     stream: int) -> None:
     """The D = rowsum(dO * O) kernel into `dcap` ([B, H, S] f32 scratch),
-    then the dK/dV kernel, then the dQ kernel, on unscaled q."""
+    then the dK/dV kernel, then the dQ kernel, on unscaled q (through
+    padded copies where the head dim has no instance)."""
     b, h, s, d = q.shape
+    dp = instance_dim(d)
+    targets = (dq, dk, dv)
+    if dp != d:
+        q, k, v, d_out, out = (_padded(t, dp) for t in (q, k, v, d_out, out))
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     kind, st = _KIND[q.dtype], ctypes.c_void_p(stream)
-    _raise_on(lib.tk_flash_bwd_dcap(kind, d, _ptr(d_out), _ptr(out), _ptr(dcap), b * h * s, st),
+    _raise_on(lib.tk_flash_bwd_dcap(kind, dp, _ptr(d_out), _ptr(out), _ptr(dcap), b * h * s, st),
               lib, "D")
     args = (_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(d_out), _ptr(lse), _ptr(dcap))
-    _raise_on(lib.tk_flash_bwd_dkv(kind, d, *args, _ptr(dk), _ptr(dv), b * h, h, s, scale, st),
+    _raise_on(lib.tk_flash_bwd_dkv(kind, dp, *args, _ptr(dk), _ptr(dv), b * h, h, s, scale, st),
               lib, "dK/dV")
-    _raise_on(lib.tk_flash_bwd_dq(kind, d, *args, _ptr(dq), b * h, h, s, scale, st), lib, "dQ")
+    _raise_on(lib.tk_flash_bwd_dq(kind, dp, *args, _ptr(dq), b * h, h, s, scale, st), lib, "dQ")
+    if dp != d:
+        for target, grad in zip(targets, (dq, dk, dv)):
+            target.copy_(grad[..., :d])
 
 
 def _forward_cuda(q, k, v, bias, scale):

@@ -26,9 +26,11 @@ vocab split across the card where the row tiles do not fill it, and a
 combine kernel; the backward per chunk of token rows (at most 1 GiB of d
 workspace): d formed once (`backward_d`), d W^T in vocab splits
 (`backward_dh`) and their ordered sum (`backward_dh_combine`), and
-h^T d (`backward_dw`). TMA wants 16-byte row strides: dim a multiple of 8,
-and W's columns padded with zeros to a multiple of 8 (the pad columns are
-masked by vocab as the model's own pad columns are). f32 runs the
+h^T d (`backward_dw`). TMA wants 16-byte row strides: W's columns are
+padded with zeros to a multiple of 8 (the pad columns are masked by vocab
+as the model's own pad columns are), and a dim that is no multiple of 8
+runs on h with zero columns and W with zero rows added up to one (exact:
+they add 0 to every logit), the pad cut off dH and dW. f32 runs the
 CUDA-core kernels (`*_f32`).
 
 `launches` counts kernel launches per kernel; nothing else changes it.
@@ -130,9 +132,6 @@ def _check_cuda(h, w, targets):
     for name, t in (("h", h), ("w", w), ("targets", targets)):
         if not t.is_contiguous():
             raise ValueError(f"fused_head_ce kernels take a contiguous {name}")
-    if h.dtype == torch.bfloat16 and h.shape[1] % 8:
-        raise ValueError(f"fused_head_ce's bf16 kernels take dim a multiple of 8 (TMA's "
-                         f"16-byte rows), got {h.shape[1]}")
 
 
 def _ptr(t):
@@ -161,6 +160,16 @@ def kernel_weight(w, dtype):
     return w
 
 
+def _dim_padded(h, wk):
+    """bf16: h with zero columns and the kernels' W with zero rows up to a
+    dim that is a multiple of 8 (no copy when it is one)."""
+    pad = -h.shape[1] % 8
+    if not pad:
+        return h, wk
+    return (torch.nn.functional.pad(h, (0, pad)),
+            torch.nn.functional.pad(wk, (0, 0, 0, pad)))
+
+
 def launch_forward(lib, h, w, targets, lse, tgt, best, vocab_size: int, with_argmax: bool,
                    stream: int) -> None:
     """The forward kernels; `w [dim, V_pad]` in h's dtype."""
@@ -172,7 +181,8 @@ def launch_forward(lib, h, w, targets, lse, tgt, best, vocab_size: int, with_arg
                                  _ptr(best), n, dim, v_pad, vocab_size, int(with_argmax), s)
         _raise_on(code, lib, "forward")
         return
-    wk = kernel_weight(w, h.dtype)
+    h, wk = _dim_padded(h, kernel_weight(w, h.dtype))
+    dim = h.shape[1]
     splits = lib.tk_ce_fwd_splits(n, v_pad)
     part = torch.empty((4, splits, n), dtype=torch.float32, device=h.device)
     part_idx = torch.empty((splits, n), dtype=torch.int32, device=h.device)
@@ -203,7 +213,11 @@ def launch_backward(lib, h, w, targets, lse, g_lse, g_tgt, dh, dw, vocab_size: i
         _raise_on(lib.tk_ce_bwd_dw_f32(*args, _ptr(dw), n, dim, v_pad, vocab_size, s), lib, "dW")
         _raise_on(lib.tk_ce_bwd_dh_f32(*args, _ptr(dh), n, dim, v_pad, vocab_size, s), lib, "dH")
         return 1
-    wk = kernel_weight(w, h.dtype)
+    h, wk = _dim_padded(h, kernel_weight(w, h.dtype))
+    out_dh, out_dw = dh, dw
+    if h.shape[1] != dim:  # the kernels write the padded dH and dW; the pad is cut off below
+        dim = h.shape[1]
+        dh, dw = torch.empty_like(h), torch.empty((dim, v_pad), dtype=dw.dtype, device=dw.device)
     rows, chunks, part_elems = backward_plan(lib, n, dim, wk.shape[1], chunk_rows)
     ws = torch.empty((rows, wk.shape[1]), dtype=h.dtype, device=h.device)
     part = torch.empty((part_elems,), dtype=torch.float32, device=h.device)
@@ -211,6 +225,9 @@ def launch_backward(lib, h, w, targets, lse, g_lse, g_tgt, dh, dw, vocab_size: i
                               _ptr(g_lse), _ptr(g_tgt), _ptr(ws), _ptr(part), _ptr(dh), _ptr(dw),
                               n, dim, v_pad, vocab_size, rows, s)
     _raise_on(code, lib, "backward")
+    if dh is not out_dh:
+        out_dh.copy_(dh[:, :out_dh.shape[1]])
+        out_dw.copy_(dw[:out_dw.shape[0]])
     return chunks
 
 

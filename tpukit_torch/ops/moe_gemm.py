@@ -11,9 +11,16 @@ row of segment e, as a `torch.autograd.Function`:
   - on a CPU tensor both directions run the plain version
     (`grouped_ffn_reference`, `grouped_ffn_backward_reference`), a loop of
     torch products over the segments that rounds where tpukit rounds;
-  - on a CUDA tensor the forward launches `csrc/moe_gemm.cu`'s up and down
-    kernels (the rounded h is kept for the backward) and the backward its
-    dh, dx, dWu and dWd kernels, or raises.
+  - on a CUDA tensor the forward launches `csrc/moe_gemm.cu`'s kernels
+    (the rounded h is kept for the backward) and the backward its own, or
+    raises. bf16 runs the wgmma/TMA kernels: the forward's up and down
+    products (`forward_up`, `forward_down`) on 128-row tiles, or, where M
+    is too small to fill the card (decode), on 64-row tiles with the
+    k-blocks split and `forward_combine` finishing each product
+    (`forward_plan`, picked from M on the host); the backward's dz2 pass,
+    dh and dx products and one launch for both weight products
+    (`backward_dz2`, `backward_dh`, `backward_dx`, `backward_dw`). f32 runs
+    the CUDA-core kernels (`*_f32`).
 
 The backward returns dx in the compute dtype and dW/db cast to the bank's
 dtype, as tpukit's `_grouped_ffn_bwd` casts them (:311-324): under bf16
@@ -50,18 +57,22 @@ _KIND = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # kind, xs, wu, bu, wd, bd, offsets, h, y, M, D, F, E, stream
-    "tk_moe_fwd": (_I, [_I] + [_P] * 8 + [_I] * 4 + [_P]),
-    # kind, xs, g, y, h, wu, wd, offsets, dz1, part, dx, dwu, dbu, dwd, dbd,
-    # M, D, F, E, stream
-    "tk_moe_bwd": (_I, [_I] + [_P] * 14 + [_I] * 4 + [_P]),
+    # kind, M, D, F, E, out[4]
+    "tk_moe_fwd_plan": (_I, [_I] * 5 + [_P]),
+    # kind, xs, wu, bu, wd, bd, offsets, h, y, part, M, D, F, E, stream
+    "tk_moe_fwd": (_I, [_I] + [_P] * 9 + [_I] * 4 + [_P]),
+    # kind, xs, g, y, h, wu, wd, offsets, dz2, dz1, part_u, part_d, dx, dwu,
+    # dbu, dwd, dbd, M, D, F, E, stream
+    "tk_moe_bwd": (_I, [_I] + [_P] * 16 + [_I] * 4 + [_P]),
     "tk_moe_row_tile": (_I, [_I]),
     "tk_moe_error_string": (ctypes.c_char_p, [_I]),
 }
 
 # kernel launches since import (or since a caller reset them)
-launches = {"forward_up": 0, "forward_down": 0, "backward_dh": 0, "backward_dx": 0,
-            "backward_dwu": 0, "backward_dwd": 0}
+launches = {"forward_up": 0, "forward_down": 0, "forward_combine": 0, "backward_dz2": 0,
+            "backward_dh": 0, "backward_dx": 0, "backward_dw": 0, "forward_up_f32": 0,
+            "forward_down_f32": 0, "backward_dh_f32": 0, "backward_dx_f32": 0,
+            "backward_dwu_f32": 0, "backward_dwd_f32": 0}
 
 
 def plan_rows(n_rows: int) -> tuple[int, int]:
@@ -179,47 +190,118 @@ def _route(xs) -> bool:
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
 def _raise_on(code: int, lib, what: str) -> None:
     if code == 0:
         return
-    if code == -1:
-        msg = "no instance for this dtype"
-    elif code == -2:
-        msg = f"more than {MAX_EXPERTS} experts"
-    else:
+    msg = {-1: "no instance for this dtype", -2: f"more than {MAX_EXPERTS} experts",
+           -3: "the driver has no cuTensorMapEncodeTiled",
+           -4: "a TMA tensor map could not be made",
+           -5: "D and F must be multiples of 8 (TMA's 16-byte rows)"}.get(code)
+    if msg is None:
         msg = lib.tk_moe_error_string(code).decode()
     raise RuntimeError(f"grouped_ffn {what} kernel launch failed: {msg} ({code})")
 
 
 def row_tiles(lib, dtype, m: int, e: int) -> int:
-    """Upper bound on the one-expert row tiles of M rows over E segments:
-    ceil(M / BM) + E (each segment adds at most one partial tile)."""
+    """Upper bound on the backward's one-expert row tiles of M rows over E
+    segments: ceil(M / BM) + E (each segment adds at most one partial
+    tile)."""
     bm = lib.tk_moe_row_tile(_KIND[dtype])
     return -(-m // bm) + e
 
 
-def launch_forward(lib, xs, wu, bu, wd, bd, offsets, h, ys, stream: int) -> None:
-    """The up kernel (h, rounded) then the down kernel (y)."""
+def forward_plan(lib, dtype, m: int, d: int, f: int, e: int) -> tuple[int, int, int, int]:
+    """(decode policy 0/1, k splits of the up and of the down product, f32
+    elements of the partial buffer) of the forward on M rows."""
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib.tk_moe_fwd_plan(_KIND[dtype], m, d, f, e, out), lib, "forward plan")
+    return out[0], out[1], out[2], out[3]
+
+
+def kernel_dims(dtype, d: int, f: int) -> tuple[int, int]:
+    """The (D, F) the kernels run: bf16 rounds each up to a multiple of 8
+    (TMA's 16-byte rows) and runs on zero-padded copies, which is exact:
+    x's pad columns, the bank's pad rows and columns and the biases' pad
+    entries are 0, so every pad column of h, y and the gradients is 0 and
+    every real one unchanged. f32 takes any D and F."""
+    if dtype != torch.bfloat16:
+        return d, f
+    return -(-d // 8) * 8, -(-f // 8) * 8
+
+
+def _padded(t, *sizes):
+    """`t` zero-padded at the end of its last len(sizes) dimensions to
+    `sizes` (no copy where they already are)."""
+    pad = []
+    for have, want in zip(reversed(t.shape[-len(sizes):]), reversed(sizes)):
+        pad += [0, want - have]
+    return F.pad(t, pad) if any(pad) else t
+
+
+def launch_forward(lib, xs, wu, bu, wd, bd, offsets, h, ys, stream: int) -> int:
+    """The forward kernels: h (rounded), then y (through padded copies
+    where `kernel_dims` pads). Returns the decode policy flag of
+    `forward_plan` (1: each product finished by a combine kernel)."""
     m, d = xs.shape
     e, _, f = wu.shape
+    dp, fp = kernel_dims(xs.dtype, d, f)
+    out_h, out_y = h, ys
+    if (dp, fp) != (d, f):
+        xs, wu, bu = _padded(xs, dp), _padded(wu, dp, fp), _padded(bu, fp)
+        wd, bd = _padded(wd, fp, dp), _padded(bd, dp)
+        h, ys = xs.new_empty((m, fp)), xs.new_empty((m, dp))
+    small, _, _, part_elems = forward_plan(lib, xs.dtype, m, dp, fp, e)
+    part = (torch.empty((part_elems,), dtype=torch.float32, device=xs.device)
+            if part_elems else None)
     code = lib.tk_moe_fwd(_KIND[xs.dtype], _ptr(xs), _ptr(wu), _ptr(bu), _ptr(wd), _ptr(bd),
-                          _ptr(offsets), _ptr(h), _ptr(ys), m, d, f, e,
+                          _ptr(offsets), _ptr(h), _ptr(ys), _ptr(part), m, dp, fp, e,
                           ctypes.c_void_p(stream))
     _raise_on(code, lib, "forward")
+    if h is not out_h:
+        out_h.copy_(h[:, :f])
+        out_y.copy_(ys[:, :d])
+    return small
 
 
-def launch_backward(lib, xs, g, ys, h, wu, wd, offsets, dz1, part, dx, dwu, dbu, dwd, dbd,
+def backward_scratch(lib, xs, f: int, e: int) -> dict:
+    """The backward's scratch at `kernel_dims`: dz1 [M, F] (compute dtype)
+    and part_u [row tiles, F] f32; in bf16 also dz2 [M, D] and part_d
+    [row tiles, D]."""
+    m = xs.shape[0]
+    d, f = kernel_dims(xs.dtype, xs.shape[1], f)
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    tiles = row_tiles(lib, xs.dtype, m, e)
+    bf16 = xs.dtype == torch.bfloat16
+    return dict(dz2=xs.new_empty((m, d)) if bf16 else None,
+                dz1=xs.new_empty((m, f)),
+                part_u=torch.empty((tiles, f), **f32),
+                part_d=torch.empty((tiles, d), **f32) if bf16 else None)
+
+
+def launch_backward(lib, xs, g, ys, h, wu, wd, offsets, scratch, dx, dwu, dbu, dwd, dbd,
                     stream: int) -> None:
-    """The dh, dx, dWu and dWd kernels; `dz1 [M, F]` (compute dtype) and
-    `part [row_tiles, F]` (f32) are scratch."""
+    """The backward kernels (through padded copies where `kernel_dims`
+    pads); `scratch` as `backward_scratch` makes it."""
     m, d = xs.shape
     e, _, f = wu.shape
-    ptrs = [_ptr(t) for t in (xs, g, ys, h, wu, wd, offsets, dz1, part, dx, dwu, dbu, dwd, dbd)]
-    code = lib.tk_moe_bwd(_KIND[xs.dtype], *ptrs, m, d, f, e, ctypes.c_void_p(stream))
+    dp, fp = kernel_dims(xs.dtype, d, f)
+    outs = (dx, dwu, dbu, dwd, dbd)
+    if (dp, fp) != (d, f):
+        xs, g, ys, h = _padded(xs, dp), _padded(g, dp), _padded(ys, dp), _padded(h, fp)
+        wu, wd = _padded(wu, dp, fp), _padded(wd, fp, dp)
+        dx = xs.new_empty((m, dp))
+        dwu, dbu, dwd, dbd = (dw.new_empty(shape) for dw, shape in zip(
+            outs[1:], ((e, dp, fp), (e, fp), (e, fp, dp), (e, dp))))
+    ptrs = [_ptr(t) for t in (xs, g, ys, h, wu, wd, offsets, scratch["dz2"], scratch["dz1"],
+                              scratch["part_u"], scratch["part_d"], dx, dwu, dbu, dwd, dbd)]
+    code = lib.tk_moe_bwd(_KIND[xs.dtype], *ptrs, m, dp, fp, e, ctypes.c_void_p(stream))
     _raise_on(code, lib, "backward")
+    if dx is not outs[0]:
+        for out, got in zip(outs, (dx, dwu, dbu, dwd, dbd)):
+            out.copy_(got[tuple(slice(0, n) for n in out.shape)])
 
 
 def _contiguous(*ts):
@@ -235,10 +317,15 @@ def _forward_cuda(xs, wu, bu, wd, bd, offsets):
     ys = torch.zeros_like(xs)  # rows outside every segment stay 0
     lib = _cuda.load("moe_gemm", _SIGNATURES)
     with torch.cuda.device(xs.device):
-        launch_forward(lib, xs, wu, bu, wd, bd, offsets, h, ys,
-                       torch.cuda.current_stream().cuda_stream)
-    launches["forward_up"] += 1
-    launches["forward_down"] += 1
+        small = launch_forward(lib, xs, wu, bu, wd, bd, offsets, h, ys,
+                               torch.cuda.current_stream().cuda_stream)
+    if xs.dtype == torch.float32:
+        launches["forward_up_f32"] += 1
+        launches["forward_down_f32"] += 1
+    else:
+        launches["forward_up"] += 1
+        launches["forward_down"] += 1
+        launches["forward_combine"] += 2 * small
     return ys, h
 
 
@@ -249,16 +336,17 @@ def _backward_cuda(xs, g, ys, h, wu, wd, offsets):
     e, _, f = wu.shape
     lib = _cuda.load("moe_gemm", _SIGNATURES)
     f32 = dict(dtype=torch.float32, device=xs.device)
-    dz1 = torch.empty((m, f), dtype=xs.dtype, device=xs.device)
-    part = torch.empty((row_tiles(lib, xs.dtype, m, e), f), **f32)
+    scratch = backward_scratch(lib, xs, f, e)
     dx = torch.zeros_like(xs)
     dwu, dbu = torch.empty((e, d, f), **f32), torch.empty((e, f), **f32)
     dwd, dbd = torch.empty((e, f, d), **f32), torch.empty((e, d), **f32)
     with torch.cuda.device(xs.device):
-        launch_backward(lib, xs, g, ys, h, wu, wd, offsets, dz1, part, dx, dwu, dbu, dwd, dbd,
+        launch_backward(lib, xs, g, ys, h, wu, wd, offsets, scratch, dx, dwu, dbu, dwd, dbd,
                         torch.cuda.current_stream().cuda_stream)
-    for k in ("backward_dh", "backward_dx", "backward_dwu", "backward_dwd"):
-        launches[k] += 1
+    kernels = ("dz2", "dh", "dx", "dw") if xs.dtype == torch.bfloat16 else (
+        "dh_f32", "dx_f32", "dwu_f32", "dwd_f32")
+    for k in kernels:
+        launches[f"backward_{k}"] += 1
     return dx, dwu, dbu, dwd, dbd
 
 

@@ -18,8 +18,9 @@ read of its loss), then profiles a short window under `torch.profiler` and
 prints: step wall and tokens/s, peak device memory, the device's busy time
 (sum of CUDA kernel times) and idle share of the profiled and of the
 unprofiled wall, the device time of each of the port's kernels against
-everything else, and the kernels that took the most device time. Needs one
-CUDA device.
+everything else, the calls and device time of PyTorch's float adds and
+fills, and the kernels that took the most device time. Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -42,7 +43,11 @@ RUNGS = {
 PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dcap_kernel", "flash_bwd_dkv_kernel",
                 "flash_bwd_dq_kernel", "ce_fwd_wgmma_kernel", "ce_fwd_combine_kernel",
                 "ce_bwd_d_wgmma_kernel", "ce_bwd_dh_wgmma_kernel", "ce_bwd_dh_combine_kernel",
-                "ce_bwd_dw_wgmma_kernel", "moe_rows_kernel", "moe_dw_kernel")
+                "ce_bwd_dw_wgmma_kernel", "moe_rows_wgmma_kernel", "moe_dz2_kernel",
+                "moe_dw_wgmma_kernel", "moe_combine_kernel", "moe_rows_kernel", "moe_dw_kernel")
+# PyTorch's elementwise kernels counted on their own line: float adds (of
+# gradients, among others) and fills (zero-filled buffers)
+ELEMENTWISE = {"adds": "CUDAFunctor_add", "fills": "FillFunctor"}
 
 
 def synthetic_batch(rng, vocab: int, batch: int, seq: int, pad_rows: int = 0):
@@ -146,6 +151,10 @@ def main(argv=None) -> int:
     print(f"the port's kernels (flash attention, fused head + CE, grouped experts): "
           f"{ours / 1e6 / prof_steps:.4f} s per step, {ours / busy_us:.4f} of device time; "
           + ", ".join(f"{n} {t / 1e3 / prof_steps:.3f} ms" for n, t in per_kernel.items()))
+    print("elementwise: " + ", ".join(
+        f"{label} {sum(r.count for r in kernels if tag in r.key) // prof_steps} calls/step "
+        f"{sum(r.device_time_total for r in kernels if tag in r.key) / 1e3 / prof_steps:.3f} "
+        f"ms/step" for label, tag in ELEMENTWISE.items()))
     for r in sorted(kernels, key=lambda r: -r.device_time_total)[:15]:
         print(f"  {r.device_time_total / 1e3 / prof_steps:10.3f} ms/step "
               f"{r.count // prof_steps:6d} calls/step "
