@@ -10,15 +10,21 @@ not 0:
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: nvcc builds every kernel source of tpukit_torch/csrc, all at
      once (seconds and the ptxas register/shared-memory report);
-  3. kernel vs plain: the paged-attention kernel against its plain PyTorch
-     version, element by element, at the shapes phase 4's serving config
-     gives it (16 slots, 12 heads x 64, pages of 16, a 320-position
-     window), in five pool/compute dtype pairs; the kernel's device time
-     (launches captured in a CUDA graph, timed by CUDA events) beside the
-     plain version's time and the device-memory bound;
+  3. kernel vs plain: the paged-attention kernels (scores, values and
+     the combine of the splits) against their plain PyTorch version,
+     element by element, in five pool/compute dtype pairs, at five shapes:
+     the one phase 4's serving config gives them (16 slots, 12 heads x 64,
+     pages of 16, a 320-position window), GPT-2 small's full context (the
+     same at 1024 positions), one slot at 1024 positions, the recipes'
+     sampling (3 slots, pages of 8, 32 positions: one split) and head dim
+     12 in pages of 64 (bf16 and int8 rows of 24 and 12 bytes: the
+     byte-load path); a second run must give the same bits; the split plan
+     and units per SM; the kernels' device time (launches captured in a
+     CUDA graph, timed by CUDA events) beside the plain version's time and
+     the device-memory bound;
   4. serve: `ServeEngine` at GPT-2-small width (768 / 12 x 64 / 12 layers,
-     vocab 50257, bf16) answers 64 requests with fused decoding; the
-     kernel's launch count must equal layers x decode ticks;
+     vocab 50257, bf16) answers 64 requests with fused decoding; each paged
+     kernel (once a call) must launch layers x decode ticks times;
   5. fused vs unfused: the same stream at f32 compute (4 layers) gives the
      same greedy tokens both ways, and int8 pages agree on >= 90% of them;
   6. training kernels vs plain: flash attention forward and backward at
@@ -73,7 +79,8 @@ not 0:
  14. MoE serving: `ServeEngine` at GPT-2-small width with 8 experts and the
      pallas dispatch answers phase 4's 64 requests with fused decoding; the
      grouped forward launches layers x (prefill dispatches + decode ticks)
-     times, each decode tick under the decode policy (two combines);
+     times, each decode tick under the decode policy (two combines), and
+     the paged kernels as in phase 4;
  15. MoE fused vs unfused (f32, 4 layers): the same greedy tokens both ways,
      and the same as the engine's tokens through the plain versions (on
      the CPU) for the first 16 requests;
@@ -261,11 +268,12 @@ def paged_bound_ms(starts, pool_dtype, cdt, n, h, d, p, mp) -> tuple[float, str]
 
 def kernel_inputs(dev, n, h, d, p, mp, seed=0):
     """Ragged block tables and cursors at 0, mid-page, a page boundary and
-    W - 1 (plus seeded others); pool values and vectors from a seed."""
+    W - 1 (plus seeded others; fewer than four slots take W - 1 first);
+    pool values and vectors from a seed."""
     w = mp * p
     rng = np.random.RandomState(seed)
-    starts = np.concatenate([[0, p // 2 - 1, p, w - 1],
-                             rng.randint(0, w, n - 4)]).astype(np.int32)
+    special = [0, p // 2 - 1, p, w - 1] if n >= 4 else [w - 1, p, p // 2 - 1][:n]
+    starts = np.concatenate([special, rng.randint(0, w, max(n - 4, 0))]).astype(np.int32)
     num_pages = n * mp + 1
     ids = rng.permutation(np.arange(1, num_pages))
     bt = np.zeros((n, mp), np.int32)
@@ -274,7 +282,8 @@ def kernel_inputs(dev, n, h, d, p, mp, seed=0):
         need = min(int(s) // p + 1 + int(rng.randint(3)), mp)
         bt[i, :need] = ids[np.arange(k, k + need) % len(ids)]
         k += need
-    bt[1, 0] = bt[0, 0]  # a page two rows read, as a shared prefix page
+    if n > 1:
+        bt[1, 0] = bt[0, 0]  # a page two rows read, as a shared prefix page
     g = torch.Generator(device=dev).manual_seed(seed)
     rand = lambda *shape: torch.randn(shape, generator=g, device=dev)
     return dict(pool_k=rand(num_pages, h, p, d) * 0.5, pool_v=rand(num_pages, h, p, d) * 0.5,
@@ -282,26 +291,50 @@ def kernel_inputs(dev, n, h, d, p, mp, seed=0):
                 q=rand(n, h, d), k_new=rand(n, h, d), v_new=rand(n, h, d), starts=starts)
 
 
-def check_kernel(dev, shape: dict) -> dict:
-    """Kernel vs plain version in every dtype pair the engine can give it,
-    at `shape` (n slots, h heads, head dim d, pages of p, mp pages per
-    slot); returns the results of the main path's pair (f32 pages, bf16
-    compute).
+# phase 3's shapes: the serving run's (filled in by main from phase 4's
+# config), GPT-2 small's full context at the same batch, one slot there,
+# the recipes' sampling (`train.generate_samples`: 3 prompts, pages of 8;
+# one split), and rows that are no multiple of 16 bytes in bf16 and int8
+# pools (D 12, pages of 64 so that int8 rows tile into scale blocks)
+PAGED_SHAPES = {"full_context": dict(n=16, mp=64), "one_slot": dict(n=1, mp=64),
+                "sampling": dict(n=3, p=8, mp=4), "byte_loads": dict(d=12, p=64, mp=5)}
+PAGED_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.bfloat16), (torch.int8, torch.float32),
+               (torch.int8, torch.bfloat16)]
+
+
+def serving_shape(cfg, serve) -> dict:
+    """The paged kernels' shape in a serving run: slots, heads, head dim,
+    page size, pages a slot."""
+    return dict(n=serve.slots, h=cfg.heads, d=cfg.head_dim, p=serve.page_size,
+                mp=serve.pages_per_slot)
+
+
+def paged_plan(pool_dtype, shape: dict) -> dict:
+    lib = _cuda.load(KERNEL, pa._SIGNATURES)
+    return pa.plan(lib, pool_dtype, shape["n"], shape["h"], shape["p"], shape["d"], shape["mp"])
+
+
+def check_kernel(dev, shape: dict, label: str) -> dict:
+    """Kernels vs plain version in every dtype pair the engine can give
+    them, at `shape` (n slots, h heads, head dim d, pages of p, mp pages
+    per slot); returns the results of the main path's pair (f32 pages,
+    bf16 compute).
 
     Held element by element: f32 compute within F32_ATOL; bf16 compute
     within 2 bf16 ulp of its (slot, head) row's scale (`bf16_tolerance`),
-    and no more than DIFF_SHARE of the elements may differ at all. The kernel rounds where
+    and no more than DIFF_SHARE of the elements may differ at all. The kernels round where
     the plain version rounds, so the two differ only where their f32 sums
     straddle a bf16 rounding boundary; a missed rounding step moves many
-    elements by an ulp and fails the share."""
+    elements by an ulp and fails the share. A second run must give the
+    same bits (no atomics)."""
     n, h, d, p, mp = (shape[k] for k in ("n", "h", "d", "p", "mp"))
     base = kernel_inputs(dev, n, h, d, p, mp)
-    pairs = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-             (torch.bfloat16, torch.bfloat16), (torch.int8, torch.float32),
-             (torch.int8, torch.bfloat16)]
     num_pages = n * mp + 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     main = None
-    for pool_dtype, cdt in pairs:
+    for pool_dtype, cdt in PAGED_PAIRS:
+        pl = paged_plan(pool_dtype, shape)
         if pool_dtype == torch.int8:
             pools, scales = [], []
             for nm in ("pool_k", "pool_v"):
@@ -314,9 +347,11 @@ def check_kernel(dev, shape: dict) -> dict:
         args = (pools[0], pools[1], scales[0], scales[1], base["bt"], base["start"],
                 base["q"].to(cdt), base["k_new"].to(cdt), base["v_new"].to(cdt))
         out = pa.paged_attend(*args)
+        again = pa.paged_attend(*args)
         ref = pa.paged_attend_reference(*args)
         torch.cuda.synchronize()
         assert out.dtype == cdt and out.shape == (n, h, d)
+        same_bits = torch.equal(out, again)
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
         if cdt == torch.float32:
@@ -333,24 +368,40 @@ def check_kernel(dev, shape: dict) -> dict:
         call_ms = time_ms(lambda: pa.paged_attend(*args), 200)
         plain_ms = time_ms(lambda: pa.paged_attend_reference(*args), 100)
         bound, bound_by = paged_bound_ms(base["starts"], pool_dtype, cdt, n, h, d, p, mp)
-        print(f"paged_attend pool={str(pool_dtype)[6:]} compute={str(cdt)[6:]}: "
+        units = n * h * pl["splits"]
+        print(f"paged_attend [{label}: N {n}, H {h}, D {d}, P {p}, MP {mp}] "
+              f"pool={str(pool_dtype)[6:]} compute={str(cdt)[6:]}: plan {pl['pages_per_split']} "
+              f"pages a split, {pl['splits']} splits, {units} units ({units / sms:.2f} an SM "
+              f"of {sms}), {pl['stages']} stages, "
+              f"{'bulk copies' if pl['bulk'] else 'byte loads'}, {pl['smem']} B shared; "
               f"max_abs_err {err:.3e}, worst err/tolerance {worst:.3e}, "
-              f"{share:.5f} of elements not bit-equal ({rule}); kernel device "
+              f"{share:.5f} of elements not bit-equal ({rule}); second run "
+              f"{'bit-equal' if same_bits else 'DIFFERS'}; kernels device "
               f"{ms:.5f} ms (CUDA graph), eager call {call_ms:.5f} ms, plain "
               f"{plain_ms:.5f} ms (eager), bound {bound:.5f} ms ({bound_by}, "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s)", flush=True)
+              f"{HBM_BYTES_PER_S / 1e12} TB/s), {bound / ms:.3f} of the bound", flush=True)
         if not worst <= 1.0:
             raise AssertionError(f"paged_attend disagrees with its plain version: "
                                  f"err/tolerance {worst} > 1 (pool {pool_dtype}, "
-                                 f"compute {cdt}, max_abs_err {err})")
+                                 f"compute {cdt}, max_abs_err {err}, {label})")
         if cdt == torch.bfloat16 and not share <= DIFF_SHARE:
             raise AssertionError(f"paged_attend differs from its plain version on "
                                  f"{share} of elements > {DIFF_SHARE} (pool "
-                                 f"{pool_dtype}, compute {cdt})")
+                                 f"{pool_dtype}, compute {cdt}, {label})")
+        if not same_bits:
+            raise AssertionError(f"paged_attend gave other bits on a second run (pool "
+                                 f"{pool_dtype}, compute {cdt}, {label})")
         if (pool_dtype, cdt) == (torch.float32, torch.bfloat16):
             main = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=bound_by)
+                        bound_ms=bound, bound_by=bound_by, splits=pl["splits"],
+                        units_per_sm=units / sms)
     return main
+
+
+def paged_want(calls: int) -> dict:
+    """Each paged kernel's launches in `calls` calls: every kernel once a
+    call."""
+    return dict(paged_scores=calls, paged_values=calls, paged_combine=calls)
 
 
 def build_all() -> None:
@@ -778,14 +829,14 @@ def attention_crossover(dev, seqs=(16, 32, 64, 128, 256, 384, 512, 1024),
 
 
 def reset_counts() -> None:
-    pa.launches = 0
-    for counts in (fa.launches, fce.launches, moe_gemm.launches):
+    for counts in (pa.launches, fa.launches, fce.launches, moe_gemm.launches):
         for k in counts:
             counts[k] = 0
 
 
 def read_counts() -> dict:
-    return dict(paged=pa.launches, **{f"flash_{k}": v for k, v in fa.launches.items()},
+    return dict(**{f"paged_{k}": v for k, v in pa.launches.items()},
+                **{f"flash_{k}": v for k, v in fa.launches.items()},
                 **{f"ce_{k}": v for k, v in fce.launches.items()},
                 **{f"moe_{k}": v for k, v in moe_gemm.launches.items()})
 
@@ -836,7 +887,8 @@ def train_full_width(dev) -> dict:
     if not losses[4] < losses[0]:
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses[0]} -> "
                              f"{losses[4]}")
-    want = dict(paged=0, flash_forward=layers * steps, flash_backward_dcap=layers * steps,
+    want = dict(**{f"paged_{k}": 0 for k in pa.launches}, flash_forward=layers * steps,
+                flash_backward_dcap=layers * steps,
                 flash_backward_dkv=layers * steps, flash_backward_dq=layers * steps,
                 **ce_want(steps, BATCH * SEQ, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
     if counts != want:
@@ -1212,7 +1264,8 @@ def moe_train_full_width(dev) -> dict:
     if not losses[4] < losses[0]:
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses[0]} -> "
                              f"{losses[4]}")
-    want = dict(paged=0, flash_forward=layers * steps, flash_backward_dcap=layers * steps,
+    want = dict(**{f"paged_{k}": 0 for k in pa.launches}, flash_forward=layers * steps,
+                flash_backward_dcap=layers * steps,
                 flash_backward_dkv=layers * steps, flash_backward_dq=layers * steps,
                 **ce_want(steps, rows * SEQ, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
     want.update({f"moe_{k}": layers * steps for k in MOE_TRAIN_KERNELS})
@@ -1354,8 +1407,9 @@ def moe_serving(dev) -> dict:
     if counts["moe_forward_up"] != cfg.num_layers * forwards or forwards == 0:
         raise AssertionError(f"grouped forward launches {counts['moe_forward_up']} != "
                              f"{cfg.num_layers} x ({s['prefill_dispatches']} + {engine.steps})")
-    if counts["paged"] != cfg.num_layers * engine.steps or counts["moe_backward_dh"] != 0:
-        raise AssertionError(f"serving launches {counts}")
+    paged = paged_want(cfg.num_layers * engine.steps)
+    if any(counts[k] != v for k, v in paged.items()) or counts["moe_backward_dh"] != 0:
+        raise AssertionError(f"serving launches {counts}, paged kernels want {paged}")
     # every decode tick (16 slots, top-1: 16 rows) runs the decode policy
     if counts["moe_forward_combine"] < 2 * cfg.num_layers * engine.steps:
         raise AssertionError(f"decode ticks did not run the decode policy: {counts}")
@@ -1405,25 +1459,23 @@ def main() -> int:
     phase("build")
     build_all()
 
-    # the serving run of phase 4 fixes the kernel's shapes for phase 3
+    # the serving run of phase 4 fixes the kernels' shapes for phase 3
     cfg, params, serve, reqs, eos = build(dev, fused=True)
-    shape = dict(n=serve.slots, h=cfg.heads, d=cfg.head_dim, p=serve.page_size,
-                 mp=serve.pages_per_slot)
-    print(f"{KERNEL} dynamic shared memory per block at the serving shapes: "
-          f"{4 * (shape['d'] + shape['mp'] * shape['p'] + pa.KERNEL_THREADS)} B "
-          f"(query, window scores, reduction scratch)", flush=True)
+    shape = serving_shape(cfg, serve)
 
     phase("kernel vs plain")
-    main_pair = check_kernel(dev, shape)
+    main_pair = check_kernel(dev, shape, "serving")
+    paged_shapes = {label: check_kernel(dev, {**shape, **cut}, label)
+                    for label, cut in PAGED_SHAPES.items()}
 
     phase("serve (GPT-2 small width, bf16, fused decode)")
     serve_run(params, cfg, serve, reqs[:4], dev, eos)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     engine, outs = serve_run(params, cfg, serve, reqs, dev, eos)
     wall = time.perf_counter() - t0
-    launches = pa.launches
+    paged_counts = {k: v for k, v in read_counts().items() if k.startswith("paged_")}
     s = engine.last_summary
     print(f"served {s['requests']} requests / {s['generated_tokens']} tokens in "
           f"{wall:.3f} s ({s['generated_tokens'] / wall:.1f} tokens/s), occupancy "
@@ -1431,11 +1483,12 @@ def main() -> int:
           f"{s['prefill_s']:.3f} s / decode {s['decode_s']:.3f} s / sync {s['sync_s']:.3f} s, "
           f"kv_bytes {s['kv_bytes']}, max_live_slots {s['max_live_slots']}, prefix hits "
           f"{s['prefix_hits']}, max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-    print(f"paged_attend launches {launches} = {cfg.num_layers} layers x "
-          f"{engine.steps} decode ticks", flush=True)
+    paged = paged_want(cfg.num_layers * engine.steps)
+    print(f"paged_attend launches {paged_counts}: 3 kernels a call x "
+          f"{cfg.num_layers} layers x {engine.steps} decode ticks = {paged}", flush=True)
     check_outputs(outs, reqs, cfg)
-    if launches != cfg.num_layers * engine.steps or launches == 0:
-        raise AssertionError(f"kernel launches {launches} != {cfg.num_layers} x {engine.steps}")
+    if paged_counts != paged or engine.steps == 0:
+        raise AssertionError(f"paged kernel launches {paged_counts} != {paged}")
 
     phase("fused vs unfused (f32 compute, 4 layers)")
     cfg32, params32, serve32, _, _ = build(dev, fused=True, num_layers=4,
@@ -1509,7 +1562,10 @@ def main() -> int:
         {"name": "paged_attend", "route": "cuda",
          "source": "tpukit_torch/csrc/paged_attention.cu",
          "replaces": "tpukit/ops/paged_attention.py:105",
-         "launches": launches, "library_ms": None, **main_pair},
+         "launches": paged_counts["paged_scores"], "library_ms": None, **main_pair,
+         "kernels_per_call": 3,
+         "launches_by_kernel": {k[len("paged_"):]: v for k, v in paged_counts.items()},
+         "shapes": paged_shapes},
         entry("flash_attention_fwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:178",
               c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"]),
         entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",

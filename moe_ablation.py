@@ -60,22 +60,28 @@ VARIANTS = {
 }
 
 
-def build_variant(name: str) -> Path:
-    src = (_cuda.CSRC / "moe_gemm.cu").read_text()
-    for old, new in VARIANTS[name]:
+def build_patched(src: str, patches, out: Path, name: str) -> Path:
+    """`src` with each (old, new) of `patches` replaced (each `old` must
+    occur once), built by nvcc into `out/lib<name>.so` with csrc/ on the
+    include path."""
+    for old, new in patches:
         if src.count(old) != 1:
-            raise ValueError(f"variant {name}: {old!r} is not in the source once")
+            raise ValueError(f"variant {out.name}: {old!r} is not in the source once")
         src = src.replace(old, new)
-    out = _cuda.BUILD_ROOT.parent / "moe_ablation" / name
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / "moe_gemm.cu"
+    cu = out / f"{name}.cu"
     cu.write_text(src)
-    lib = out / "libmoe_gemm.so"
+    lib = out / f"lib{name}.so"
     proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
                            str(lib), str(cu)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise _cuda.KernelBuildError(f"{name}: {proc.stdout}{proc.stderr}")
+        raise _cuda.KernelBuildError(f"{out.name}: {proc.stdout}{proc.stderr}")
     return lib
+
+
+def build_variant(name: str) -> Path:
+    return build_patched((_cuda.CSRC / "moe_gemm.cu").read_text(), VARIANTS[name],
+                         _cuda.BUILD_ROOT.parent / "moe_ablation" / name, "moe_gemm")
 
 
 def main(argv=None) -> int:

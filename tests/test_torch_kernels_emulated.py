@@ -13,7 +13,9 @@ shared mainloop of `csrc/tk_gemm.cuh`) through `host_emu/tk_hopper.cuh`,
 which reads shared memory through the wgmma descriptors, writes TMA boxes
 (rank 2 and 3) with the 128B swizzle and zero fill, and holds generic
 stores back from wgmma until their proxy fence, so a wrong layout,
-swizzle, descriptor, transpose bit, zero fill or missing fence shows here.
+swizzle, descriptor, transpose bit, zero fill or missing fence shows here;
+the paged-attention kernels' bulk copies (1-D TMA) land only when their
+mbarrier is waited on, so a read before the wait sees a stale stage.
 The build puts `-I host_emu` ahead of everything: the sources are copied
 out of `csrc/` (with `tk_gemm.cuh`, which has no PTX of its own), so their
 `#include "tk_mma.cuh"` finds the emulation and not `csrc/tk_mma.cuh`.
@@ -47,6 +49,8 @@ from tpukit_torch.ops import _cuda
 from tpukit_torch.ops import flash_attention as fa
 from tpukit_torch.ops import fused_head_ce as fce
 from tpukit_torch.ops import moe_gemm
+from tpukit_torch.ops import paged_attention as pa
+from tpukit_torch.ops import quant_comm
 
 ROOT = Path(__file__).resolve().parent.parent
 EMU = ROOT / "tpukit_torch" / "csrc" / "host_emu"
@@ -68,7 +72,8 @@ def emulated(tmp_path_factory):
     libs = {}
     for name, sigs in (("flash_attention", fa._SIGNATURES),
                        ("fused_head_ce", fce._SIGNATURES),
-                       ("moe_gemm", moe_gemm._SIGNATURES)):
+                       ("moe_gemm", moe_gemm._SIGNATURES),
+                       ("paged_attention", pa._SIGNATURES)):
         src = (ROOT / "tpukit_torch" / "csrc" / f"{name}.cu").read_text()
         text, n = _LAUNCH.subn(
             lambda m: f"tk_emu::launch({m.group(1)}, {m.group(2)}, {m.group(3)});", src)
@@ -276,7 +281,9 @@ extern "C" int tk_prim(int op, const void* regs, const void* x, const void* y, c
 # the same from a rank-3 map of `rows_b` such matrices end to end, at (c0,
 # c1, tb). Op 30
 # walks one mbarrier through three phases (arrivals, then arrivals plus a
-# TMA's bytes) and returns what try_wait said at each step.
+# TMA's bytes) and returns what try_wait said at each step. Op 40 bulk-copies
+# `rows_a` 16-byte chunks of x from chunk c0 into shared memory and returns
+# the first 16 bytes as they were before the barrier's wait, then the copy.
 _HOPPER_SRC = r"""
 #include <cstdint>
 #include <cstring>
@@ -322,6 +329,18 @@ void hop(Args a, const void* x, const void* y, float* fout, uint32_t* rout) {
     if (t == 0) mbar_wait(bar, 1);
     __syncthreads();
     look(8);
+    return;
+  }
+  if (a.op == 40) {
+    if (t == 0) {
+      mbar_init(bar, 1);
+      mbar_arrive_expect_tx(bar, 16 * a.rows_a);
+      bulk_copy_g2s(base, static_cast<const unsigned char*>(x) + 16 * a.c0, 16 * a.rows_a, bar);
+      memcpy(rout, base, 16);  // before the wait
+    }
+    __syncthreads();
+    mbar_wait(bar, 0);
+    for (int i = t; i < 4 * a.rows_a; i += 128) memcpy(rout + 4 + i, base + 4 * i, 4);
     return;
   }
   if (a.op == 20 || a.op == 21) {
@@ -403,8 +422,9 @@ def _hopper_primitive(lib, prim):
     """tk_hopper.cuh's emulation against the PTX ISA: wgmma's accumulator
     layout (written out lane by lane) and both operand majors against
     torch.matmul (exact bf16 products, 16 f32 additions: atol 1e-5), the
-    TMA box's swizzled placement and zero fill byte by byte, and the
-    mbarrier's phase parity step by step."""
+    TMA box's swizzled placement and zero fill byte by byte, the
+    mbarrier's phase parity step by step, and the bulk copy's bytes, landed
+    at the wait."""
     rng = np.random.RandomState(11)
     mk = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
     fout = np.zeros(128 * 128, dtype=np.float32)
@@ -459,6 +479,14 @@ def _hopper_primitive(lib, prim):
         # column 100 (byte 80 of each box row) is past the edge: zeros
         edge = _swizzle128(np.arange(16) * 128 + 80) // 2
         assert (got != 0).sum() > 0 and (got[edge] == 0).all()
+    elif prim == "bulk_copy":  # 40 chunks (640 bytes) from chunk 3 of x
+        x = mk(64, 64)
+        call([40, 40, 0, 0, 0, 0, 0, 3], x, x)
+        xb = x.contiguous().view(torch.uint8).numpy().reshape(-1)
+        got = rout.view(np.uint8)
+        assert (got[16:16 + 640] == xb[48:48 + 640]).all()
+        # the copy lands at the wait, not before: the emulation's stale bytes
+        assert (got[:16] != xb[48:64]).any()
     else:  # mbarrier phases: (try_wait parity 0, parity 1) after each step
         x = mk(16, 64)
         call([30, 16, 64, 64], x, x)
@@ -501,7 +529,8 @@ def _ptr(a):
 @pytest.mark.parametrize("prim", ["mma_fragments", "ldmatrix_x4", "ldmatrix_x4_trans",
                                   "cp_async", "pack_bf16x2", "qk_product", "pv_product",
                                   "accumulator_as_a", "wgmma_k_major", "wgmma_mn_major",
-                                  "wgmma_k_mn", "tma_box", "tma_box_3d", "mbarrier_phases"])
+                                  "wgmma_k_mn", "tma_box", "tma_box_3d", "mbarrier_phases",
+                                  "bulk_copy"])
 def test_ptx_primitive_matches_plain(request, prim):
     """Each emulated tk_mma.cuh function against the PTX ISA's layout tables
     (written out here, lane by lane) and against torch.matmul in f32 of the
@@ -509,7 +538,7 @@ def test_ptx_primitive_matches_plain(request, prim):
     16 f32 additions differs: atol 1e-5 at O(1) values, 2^-8 relative where
     the result is rounded to bf16 on the way (accumulator_as_a). The
     tk_hopper.cuh cases: `_hopper_primitive`."""
-    if prim.startswith(("wgmma", "tma", "mbarrier")):
+    if prim.startswith(("wgmma", "tma", "mbarrier", "bulk")):
         _hopper_primitive(request.getfixturevalue("hopper_lib"), prim)
         return
     prim_lib = request.getfixturevalue("prim_lib")
@@ -818,3 +847,167 @@ def test_moe_gemm_wgmma_layouts_match_plain_version(emulated, monkeypatch, sizes
     again = _moe_run(lib, xs, bank, offs, g)
     for got, ref in zip([h, ys, *grads], [again[0], again[1], *again[2]]):
         assert torch.equal(got, ref) or poison and torch.equal(got.nan_to_num(), ref.nan_to_num())
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention: the scores, values and combine kernels through the
+# wrapper's own `launch`, against `paged_attend_reference` on the same
+# inputs, with the tolerances of tests/test_torch_paged_attention.py (f32
+# compute 1e-6, bf16 compute 1e-2). Five slots with cursors at 0, mid-page,
+# a page boundary, W - 1 and 4 P (with four pages a split, the first
+# position of split 1: a unit that holds only the fresh token); 2 heads;
+# 12 pages a slot. The emulated card's SM count sets the split plan (8
+# units an SM over 10 (slot, head) rows, at least 4 pages a split): 1 SM
+# one split, 2 two, 3 three, so slot 3's window covers 1, 2 or 3 splits.
+# Slot 3's first page is also slot 1's (a page shared by two slots). Head
+# dims whose position row is no multiple of 16 bytes (int8 D 8, bf16 D 12)
+# and an f32 pool 4 bytes off 16-byte alignment run the byte-load path into
+# padded stages; every other case fills its stages by bulk copies. An int8
+# page row of 8 KB (P 32, D 256) leaves each warp one ring stage, so a
+# warp's next page (two splits of 6 pages: warps own 1 or 2 pages each)
+# lands in the stage it has just read. Lanes leave each __syncwarp apart
+# (TK_EMU_WARP_SKEW_US), so a lane that reads a scale another lane stored,
+# with no __syncwarp between, reads the page before's.
+# ---------------------------------------------------------------------------
+
+_PAGED_HEADS, _PAGED_MP = 2, 12
+
+
+def _paged_inputs(pool_dtype, cdt, p, d, seed, misaligned=False):
+    """(args of `paged_attend`, the (page, offset) pairs some slot reads)."""
+    rng = np.random.RandomState(seed)
+    h, mp = _PAGED_HEADS, _PAGED_MP
+    w = mp * p
+    starts = np.asarray([0, p // 2 - 1, p, w - 1, 4 * p], np.int32)
+    n = len(starts)
+    num_pages = n * mp + 1
+    ids = rng.permutation(np.arange(1, num_pages))
+    bt = np.zeros((n, mp), np.int32)
+    k = 0
+    for i, s in enumerate(starts):
+        need = min(int(s) // p + 1, mp)
+        bt[i, :need] = ids[k:k + need]
+        k += need
+    bt[1, 0] = bt[3, 0]  # a page two slots read
+    read = {(int(bt[i, j // p]), j % p) for i, s in enumerate(starts)
+            for j in range(min(int(s), w - 1))}
+    raw = [torch.from_numpy(rng.randn(num_pages, h, p, d).astype(np.float32) * 0.5)
+           for _ in range(2)]
+    if pool_dtype == torch.int8:
+        pools, scales = [], []
+        for x in raw:
+            qv, sv = quant_comm.quantize_blocks(x.reshape(num_pages, h, p * d))
+            pools.append(qv.reshape(num_pages, h, p, d))
+            scales.append(sv)
+    else:
+        pools, scales = [x.to(pool_dtype) for x in raw], [None, None]
+    if misaligned:  # the same values 4 bytes past a 16-byte boundary
+        for i, x in enumerate(pools):
+            flat = torch.empty(x.numel() + 1, dtype=x.dtype)
+            flat[1:] = x.reshape(-1)
+            pools[i] = flat[1:].view(x.shape)
+            assert pools[i].data_ptr() % 16 != 0 and pools[i].is_contiguous()
+    vecs = [torch.from_numpy(rng.randn(n, h, d).astype(np.float32)).to(cdt) for _ in range(3)]
+    args = (pools[0], pools[1], scales[0], scales[1], torch.from_numpy(bt),
+            torch.from_numpy(starts), *vecs)
+    return args, read
+
+
+def _paged_run(lib, args):
+    out = torch.empty_like(args[6])
+    pool_k, bt = args[0], args[4]
+    plan = pa.plan(lib, pool_k.dtype, bt.shape[0], *pool_k.shape[1:], bt.shape[1])
+    pa.launch(lib, plan, *args, out, 0)
+    return out, plan
+
+
+def _paged_close(out, ref):
+    """Within tests/test_torch_paged_attention.py's bars; in bf16 also at
+    most 0.01 of the elements not bit-equal (chip_smoke.py's DIFF_SHARE):
+    the kernels round where the plain version rounds, so a dropped rounding
+    step moves many elements by an ulp while staying within 1e-2."""
+    atol = 1e-6 if out.dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    if out.dtype == torch.bfloat16:
+        assert (out.float() != ref.float()).float().mean().item() <= 0.01
+
+
+# (pool, compute, P, D, emulated SMs -> splits, misaligned pool)
+_F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
+
+
+@pytest.mark.parametrize("pool_dtype,cdt,p,d,sms,splits,misaligned", [
+    (_F32, _F32, 16, 64, 3, 3, False),
+    (_F32, _BF16, 16, 64, 2, 2, False),
+    (_BF16, _BF16, 16, 64, 1, 1, False),
+    (_I8, _F32, 16, 64, 3, 3, False),
+    (_I8, _BF16, 8, 32, 2, 2, False),
+    (_F32, _F32, 8, 8, 1, 1, False),
+    (_F32, _BF16, 8, 32, 3, 3, False),
+    (_BF16, _BF16, 8, 8, 2, 2, False),
+    (_I8, _F32, 8, 64, 1, 1, False),
+    (_I8, _BF16, 16, 32, 3, 3, False),
+    (_BF16, _F32, 16, 32, 2, 2, False),
+    (_F32, _F32, 8, 128, 2, 2, False),
+    (_I8, _BF16, 32, 8, 3, 3, False),
+    (_BF16, _BF16, 8, 12, 3, 3, False),
+    (_F32, _BF16, 16, 32, 3, 3, True),
+    (_I8, _BF16, 32, 256, 2, 2, False),
+], ids=["f32-p16-d64-s3", "f32-bf16-p16-d64-s2", "bf16-p16-d64-s1", "int8-p16-d64-s3",
+        "int8-bf16-p8-d32-s2", "f32-p8-d8-s1", "f32-bf16-p8-d32-s3", "bf16-p8-d8-s2",
+        "int8-p8-d64-s1", "int8-bf16-p16-d32-s3", "bf16-f32-p16-d32-s2", "f32-p8-d128-s2",
+        "int8-bf16-p32-d8-bytes-s3", "bf16-p8-d12-bytes-s3", "f32-bf16-misaligned-s3",
+        "int8-bf16-p32-d256-one-stage-s2"])
+def test_paged_attention_kernels_match_plain_version(emulated, monkeypatch, pool_dtype, cdt, p,
+                                                     d, sms, splits, misaligned):
+    monkeypatch.setenv("TK_EMU_SMS", str(sms))
+    monkeypatch.setenv("TK_EMU_WARP_SKEW_US", "200")
+    args, _ = _paged_inputs(pool_dtype, cdt, p, d, seed=p + d + sms, misaligned=misaligned)
+    out, plan = _paged_run(emulated["paged_attention"], args)
+    assert plan["splits"] == splits
+    if p * d * pool_dtype.itemsize > 4096:
+        assert plan["stages"] == 4  # one stage a warp
+    assert plan["bulk"] == ((d * torch.tensor([], dtype=pool_dtype).element_size()) % 16 == 0)
+    ref = pa.paged_attend_reference(*args)
+    assert out.dtype == cdt and out.shape == ref.shape
+    _paged_close(out, ref)
+    assert torch.equal(out[0], args[8][0])  # cursor 0: the fresh value alone
+
+
+@pytest.mark.parametrize("pool_dtype,cdt", [(_F32, _F32), (_BF16, _BF16), (_I8, _BF16)],
+                         ids=["f32", "bf16", "int8-bf16"])
+def test_paged_attention_kernels_never_read_past_the_cursor(emulated, monkeypatch, pool_dtype,
+                                                            cdt):
+    """NaN in every pool position no slot's window reads (past each cursor,
+    at each cursor, whose value is this tick's fresh k/v, and all of the
+    null page 0); int8 pools get other codes there and NaN block scales
+    where a block holds no read position. The output keeps its bits, so no
+    such value is read; the clean run also matches the plain version, which
+    cannot run on the poisoned pools. Three splits (3 SMs)."""
+    monkeypatch.setenv("TK_EMU_SMS", "3")
+    monkeypatch.setenv("TK_EMU_WARP_SKEW_US", "200")
+    p, d = 16, 32
+    args, read = _paged_inputs(pool_dtype, cdt, p, d, seed=11)
+    lib = emulated["paged_attention"]
+    clean, plan = _paged_run(lib, args)
+    assert plan["splits"] == 3
+    _paged_close(clean, pa.paged_attend_reference(*args))
+    pools = [t.clone() for t in args[:2]]
+    scales = [t.clone() if t is not None else None for t in args[2:4]]
+    num_pages = pools[0].shape[0]
+    unread = torch.ones((num_pages, p), dtype=torch.bool)
+    for page, off in read:
+        unread[page, off] = False
+    assert unread[0].all() and not unread.all()
+    for pool, sc in zip(pools, scales):
+        mask = unread[:, None, :, None].expand(pool.shape)
+        if pool_dtype == torch.int8:
+            pool[mask] = torch.randint(-128, 128, pool.shape, dtype=torch.int8,
+                                       generator=torch.Generator().manual_seed(3))[mask]
+            elem_read = (~unread)[:, :, None].expand(num_pages, p, d).reshape(num_pages, -1)
+            block_read = elem_read.reshape(num_pages, -1, quant_comm.DEFAULT_BLOCK).any(-1)
+            sc[~block_read[:, None, :].expand(sc.shape)] = float("nan")
+        else:
+            pool[mask] = float("nan")
+    poisoned, _ = _paged_run(lib, (*pools, *scales, *args[4:]))
+    assert torch.equal(poisoned, clean)

@@ -110,8 +110,9 @@ def test_paged_attend_cursor_zero_is_the_fresh_value():
 
 def test_paged_attend_cpu_path_does_not_launch():
     """On a CPU tensor the wrapper takes the plain version and counts no
-    kernel launch."""
-    before = pa.launches
+    kernel launch, in any of its kernels."""
+    before = dict(pa.launches)
+    assert set(before) == {"scores", "values", "combine"}
     pk, pv, bt, q, kn, vn = _operands("f32")
     pa.paged_attend(*(torch.from_numpy(x) for x in (pk, pv)), None, None,
                     torch.from_numpy(bt), torch.from_numpy(STARTS),

@@ -14,12 +14,19 @@
 // cudaGetDriverEntryPoint(ByVersion) hands out the emulated
 // cuTensorMapEncodeTiled of cuda.h.
 //
+// TK_EMU_WARP_SKEW_US (read at each launch, 0 if unset): after each
+// __syncwarp, every lane but lane 0 waits this many microseconds, as the
+// lanes of a warp on the card need not leave it together. A lane that reads
+// another lane's shared-memory store with no __syncwarp between then sees
+// the old value.
+//
 // It checks the kernels' arithmetic, indexing and synchronisation logic; it
 // says nothing of their speed, and it cannot catch what only nvcc or the
 // card would refuse.
 #pragma once
 
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -134,6 +141,12 @@ inline void named_sync(int id, int count) {
   bar->arrive_and_wait();
 }
 inline void warp_sync() { warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
+inline int warp_skew_us = 0;
+inline void syncwarp() {
+  warp_sync();
+  if (warp_skew_us > 0 && threadIdx.x % 32 != 0)
+    std::this_thread::sleep_for(std::chrono::microseconds(warp_skew_us));
+}
 
 template <typename T>
 T shfl_xor(T v, int o) {
@@ -160,6 +173,8 @@ void launch(Kernel kernel, dim3 grid, int threads, size_t smem_bytes, cudaStream
   }
   blockDim = dim3(threads);
   gridDim = grid;
+  const char* skew = std::getenv("TK_EMU_WARP_SKEW_US");
+  warp_skew_us = skew != nullptr ? std::atoi(skew) : 0;
   exchange.assign(threads, 0);
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
@@ -191,7 +206,33 @@ void launch(Kernel kernel, dim3 grid, int threads, size_t smem_bytes, cudaStream
 
 }  // namespace tk_emu
 
+// cudaLaunchKernelEx with its configuration: the emulation runs the grid at
+// once, whatever the attributes (programmatic stream serialization asks
+// only that a grid may start early, and emulated grids run in order).
+enum cudaLaunchAttributeID { cudaLaunchAttributeProgrammaticStreamSerialization = 5 };
+union cudaLaunchAttributeValue {
+  int programmaticStreamSerializationAllowed;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <typename... Exp, typename... Act>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config, void (*kernel)(Exp...),
+                                      Act&&... args) {
+  tk_emu::launch(kernel, config->gridDim, static_cast<int>(config->blockDim.x),
+                 config->dynamicSmemBytes, config->stream, static_cast<Exp>(args)...);
+  return cudaSuccess;
+}
+
 inline void __syncthreads() { tk_emu::sync(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { tk_emu::warp_sync(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { tk_emu::syncwarp(); }
 template <typename T>
 inline T __shfl_xor_sync(unsigned, T v, int o) { return tk_emu::shfl_xor(v, o); }

@@ -5,6 +5,11 @@
 //     and every wait goes through one lock and condition variable, and a
 //     wait that outlasts 60 s aborts (a kernel whose pipeline deadlocks
 //     must fail, not hang);
+//   - bulk copies (`bulk_copy_g2s`) wait on their mbarrier and land, all at
+//     once, when a thread first waits on (or tests) that barrier: as late as
+//     the card may land them, so a kernel that reads a stage without waiting
+//     for its barrier reads what was there before (and a copy nobody waited
+//     for aborts when its barrier's shared memory is initialised again);
 //   - TMA: `tma_load_2d` / `tma_load_3d` copy the box through the emulated
 //     tensor map (cuda.h; its rank must match the load's) at once, zeros
 //     where a coordinate leaves its dimension, into the 128B-swizzled
@@ -23,7 +28,8 @@
 //     So shared memory is read as late as the card may read it: a stage
 //     released before its products were waited on gets overwritten first.
 //     Products of two bf16 are exact in f32 and are summed in k order;
-//   - the other fences and setmaxnreg have nothing to do here.
+//   - the other fences, setmaxnreg and the programmatic-launch controls
+//     have nothing to do here (emulated grids run one after another).
 #pragma once
 
 #include <chrono>
@@ -143,12 +149,40 @@ inline void wgmma_run(const WgmmaOp& op) {
   }
 }
 
+// bulk copies issued and not yet landed, under mbar_lock
+struct BulkCopy {
+  uint64_t* bar;
+  unsigned char* dst;
+  const unsigned char* src;
+  uint32_t bytes;
+};
+inline std::vector<BulkCopy> bulk_pending;
+
+// under the lock: land every pending bulk copy of `bar`
+inline void bulk_land(uint64_t* bar) {
+  std::vector<BulkCopy> kept;
+  for (const BulkCopy& c : bulk_pending) {
+    if (c.bar != bar) {
+      kept.push_back(c);
+      continue;
+    }
+    std::memcpy(c.dst, c.src, c.bytes);
+    mbar_update(bar, 0, -static_cast<int32_t>(c.bytes));
+  }
+  bulk_pending.swap(kept);
+}
+
 }  // namespace tk_emu
 
 inline uint32_t smem_addr(const void* p) { return tk_emu::smem_offset(p); }
 
 inline void mbar_init(uint64_t* bar, uint32_t count) {
   std::lock_guard<std::mutex> lock(tk_emu::mbar_lock);
+  for (const tk_emu::BulkCopy& c : tk_emu::bulk_pending)
+    if (c.bar == bar) {  // an earlier block issued it and never waited
+      std::fprintf(stderr, "tk_emu: a bulk copy was never waited on\n");
+      std::abort();
+    }
   tk_emu::mbar_store(bar, tk_emu::MbarState{count, count, 0, 0});
 }
 
@@ -167,12 +201,14 @@ inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 inline bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   std::lock_guard<std::mutex> lock(tk_emu::mbar_lock);
+  tk_emu::bulk_land(bar);
   return tk_emu::mbar_load(bar).phase != (parity & 1);
 }
 
 inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   std::unique_lock<std::mutex> lock(tk_emu::mbar_lock);
   const bool done = tk_emu::mbar_cv.wait_for(lock, std::chrono::seconds(60), [&] {
+    tk_emu::bulk_land(bar);  // copies issued while this thread waits land too
     return tk_emu::mbar_load(bar).phase != (parity & 1);
   });
   if (!done) {
@@ -225,6 +261,25 @@ inline void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0
                         int c2) {
   tk_emu::tma_load(dst, map, bar, 3, c0, c1, c2);
 }
+
+inline void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  const uint32_t off = tk_emu::smem_offset(dst);
+  tk_emu::smem_offset(static_cast<unsigned char*>(dst) + bytes - 1);  // the end in smem too
+  if (off % 16 != 0 || reinterpret_cast<uintptr_t>(src) % 16 != 0 || bytes % 16 != 0 ||
+      bytes == 0) {
+    std::fprintf(stderr, "tk_emu: bulk copy not 16-byte aligned or sized\n");
+    std::abort();
+  }
+  std::lock_guard<std::mutex> lock(tk_emu::mbar_lock);
+  tk_emu::bulk_pending.push_back(tk_emu::BulkCopy{bar, static_cast<unsigned char*>(dst),
+                                                  static_cast<const unsigned char*>(src), bytes});
+  tk_emu::mbar_cv.notify_all();
+}
+
+// Emulated launches run one after another, so a grid's predecessors have
+// always ended.
+inline void grid_dependency_wait() {}
+inline void grid_launch_dependents() {}
 
 // A generic-proxy store waits in the thread's queue until its
 // fence_proxy_async, so an async-proxy read (wgmma) before the fence sees

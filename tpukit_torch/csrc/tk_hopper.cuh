@@ -31,7 +31,7 @@
 //
 // mbarrier: `init` with an arrival count, phase 0; `arrive` counts one
 // arrival, `arrive_expect_tx` adds bytes to the transaction count first; a
-// TMA load's bytes count down on completion; the phase completes (its
+// TMA load's (or bulk copy's) bytes count down on completion; the phase completes (its
 // parity flips) when both reach 0. `wait(parity)` returns once the phase of
 // that parity has completed.
 #pragma once
@@ -106,6 +106,34 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory `src` to shared memory `dst`,
+// both 16-byte aligned, by the bulk copy engine (a 1-D TMA copy: no tensor
+// map, no swizzle); the bytes count down `bar`'s transaction count when
+// they land.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- programmatic dependent launch ------------------------------------------
+
+// In a grid launched with programmatic stream serialization: wait until
+// the grids before it in the stream have completed and their writes are
+// visible (a no-op in a grid launched without it).
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Let the next grid in the stream, if launched with programmatic stream
+// serialization, start once every block of this grid has said so (or
+// exited); it still waits in `grid_dependency_wait` for this grid's end.
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ---- generic writes that an asynchronous-proxy read (wgmma) will see -------

@@ -1,4 +1,4 @@
-"""Paged-attention decode: the CUDA kernel and its plain PyTorch version
+"""Paged-attention decode: the CUDA kernels and their plain PyTorch version
 (twin of `tpukit/ops/paged_attention.py:105,174`).
 
 `paged_attend` takes one query token per slot (the decode tick) and attends
@@ -12,13 +12,17 @@ returns the attention output before the output projection.
     for sm_90a on first use) or raises. There is no path from a CUDA tensor
     to the plain version.
 
-`launches` counts kernel launches; nothing else changes it, so a run can
-show that its decode ticks went through the kernel.
+The kernels split each window into runs of pages (`plan`): a scores kernel
+and a values kernel over (slot, head, split) units, and a combine kernel
+that sums the splits' partial outputs. `launches` counts each kernel's
+launches; nothing else changes it, so a run can show that its decode ticks
+went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,20 +30,21 @@ from tpukit_torch.ops import _cuda, quant_comm
 from tpukit_torch.serve.paged import gather_view
 
 NEG_INF = -1e9  # the causal mask value of the JAX model
-MAX_HEAD_DIM = 256  # one thread per output column in pass 2 of the kernel
-_SMEM_LIMIT = 48 * 1024  # default dynamic shared memory of a block
-KERNEL_THREADS = 256
+MAX_HEAD_DIM = 256  # the values kernel's lanes hold 16 f32 sums each (fits D <= 512)
 
 _POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _COMPUTE_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    # (pool kind, compute kind, 10 pointers, N, H, P, D, MP, nb, scale, stream)
-    "tk_paged_attend": (ctypes.c_int, [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]),
+    # (pool kind, N, H, P, D, MP, int[6] out)
+    "tk_paged_plan": (ctypes.c_int, [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+    # (pool kind, compute kind, 11 pointers, N, H, P, D, MP, nb, pps, scale, stream)
+    "tk_paged_attend": (ctypes.c_int, [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]),
     "tk_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
-launches = 0  # kernel launches since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset them), per kernel
+launches = {"scores": 0, "values": 0, "combine": 0}
 
 
 def attend_core(q, k, v, q_pos):
@@ -109,7 +114,6 @@ def _check(pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new):
             )
     if bt.dtype != torch.int32 or start.dtype != torch.int32 or start.shape != (n,):
         raise ValueError("paged_attend: bt [N, MP] and start [N] must be int32")
-    nb = 0
     if quant:
         if (page * head_dim) % quant_comm.DEFAULT_BLOCK:
             raise ValueError(
@@ -124,13 +128,48 @@ def _check(pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new):
                                  f"{heads}, {nb}] f32")
     if head_dim > MAX_HEAD_DIM:
         raise ValueError(f"paged_attend: head_dim {head_dim} > {MAX_HEAD_DIM}")
-    smem = 4 * (head_dim + mp * page + KERNEL_THREADS)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"paged_attend keeps a slot's {mp * page}-position window of "
-            f"scores in shared memory: {smem} B is over {_SMEM_LIMIT} B"
-        )
-    return nb
+
+
+def plan(lib, pool_dtype, n: int, heads: int, page: int, head_dim: int, mp: int) -> dict:
+    """The kernels' plan at these static shapes on the current card
+    (`tk_paged_plan`): pages a split, splits a window, ring stages, f32
+    scratch elements, bulk copies for an aligned pool (else byte loads),
+    and the larger block's shared memory."""
+    out = (ctypes.c_int * 6)()
+    if lib.tk_paged_plan(_POOL_KIND[pool_dtype], n, heads, page, head_dim, mp, out) != 0:
+        raise ValueError(f"paged_attend: no kernel for {pool_dtype} pools")
+    keys = ("pages_per_split", "splits", "stages", "scratch", "bulk", "smem")
+    return dict(zip(keys, out))
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(lib, pool_dtype, n, heads, page, head_dim, mp, device_index) -> dict:
+    """`plan` once per shape and card: static shapes and the card's SM
+    count fix it. Call with `device_index` current."""
+    return plan(lib, pool_dtype, n, heads, page, head_dim, mp)
+
+
+def launch(lib, pl, pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new, out,
+           stream: int) -> None:
+    """The kernels on checked operands, as `pl` (`plan` at their shapes)
+    lays them out, writing `out`; the f32 scratch comes from `torch.empty`
+    on q's device. Reads nothing back."""
+    heads, page, head_dim = pool_k.shape[1:]
+    n, mp = bt.shape
+    nb = scale_k.shape[-1] if scale_k is not None else 0
+    scratch = torch.empty((pl["scratch"],), dtype=torch.float32, device=q.device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    code = lib.tk_paged_attend(
+        _POOL_KIND[pool_k.dtype], _COMPUTE_KIND[q.dtype], ptr(pool_k), ptr(pool_v),
+        ptr(scale_k), ptr(scale_v), ptr(bt), ptr(start), ptr(q), ptr(k_new), ptr(v_new),
+        ptr(out), ptr(scratch), n, heads, page, head_dim, mp, nb, pl["pages_per_split"],
+        1.0 / head_dim**0.5, ctypes.c_void_p(stream))
+    if code != 0:
+        msg = {-1: "unknown dtype kind or an empty split",
+               -2: f"pages of {page} x {head_dim} need {pl['smem']} B of shared memory a "
+                   f"block, over the limit"}.get(code)
+        raise RuntimeError(f"paged_attention kernel launch failed: "
+                           f"{msg or lib.tk_error_string(code).decode()} ({code})")
 
 
 def paged_attend(pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new):
@@ -140,29 +179,22 @@ def paged_attend(pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new):
     `[NP, H, P*D/256]` f32; None scales for other pools); bt `[N, MP]` int32;
     start `[N]` int32 cursors (>= 0); q/k_new/v_new `[N, H, D]` in the
     compute dtype. Returns `[N, H, D]` in the compute dtype."""
-    global launches
     if q.device.type == "cpu":
         return paged_attend_reference(pool_k, pool_v, scale_k, scale_v, bt,
                                       start, q, k_new, v_new)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attend runs on cpu or cuda, got {q.device}")
-    nb = _check(pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new)
-    num_pages, heads, page, head_dim = pool_k.shape
-    n, mp = bt.shape
+    _check(pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new)
     out = torch.empty_like(q)
-    if n == 0:
+    if bt.shape[0] == 0:
         return out
     lib = _cuda.load("paged_attention", _SIGNATURES)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    heads, page, head_dim = pool_k.shape[1:]
     with torch.cuda.device(q.device):
-        code = lib.tk_paged_attend(
-            _POOL_KIND[pool_k.dtype], _COMPUTE_KIND[q.dtype], ptr(pool_k), ptr(pool_v),
-            ptr(scale_k), ptr(scale_v), ptr(bt), ptr(start), ptr(q), ptr(k_new),
-            ptr(v_new), ptr(out), n, heads, page, head_dim, mp, nb,
-            1.0 / head_dim**0.5, ctypes.c_void_p(stream))
-    if code != 0:
-        msg = lib.tk_error_string(code).decode() if code > 0 else "unknown dtype kind"
-        raise RuntimeError(f"paged_attention kernel launch failed: {msg} ({code})")
-    launches += 1
+        pl = _card_plan(lib, pool_k.dtype, bt.shape[0], heads, page, head_dim, bt.shape[1],
+                        q.device.index)
+        launch(lib, pl, pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new, out,
+               torch.cuda.current_stream(q.device).cuda_stream)
+    for k in launches:
+        launches[k] += 1
     return out

@@ -8,10 +8,11 @@ slots) once without and once under `torch.profiler`, and prints: tokens/s,
 wall per decode tick, the engine's prefill/decode/sync split, the
 device's busy time (sum of CUDA kernel times, from the profiled wave), its
 idle share of the profiled wave's wall and of the unprofiled wave's wall
-(the profiler slows the host, not the kernels), and the kernels that took
-the most device time. `--num_experts N` serves the MoE model of the same
-width instead (top-1, the dropless pallas dispatch: the grouped-expert
-kernels). Needs one CUDA device.
+(the profiler slows the host, not the kernels), the kernels that took
+the most device time, and the paged-attention kernels' share of it.
+`--num_experts N` serves the MoE model of the same width instead (top-1,
+the dropless pallas dispatch: the grouped-expert kernels). Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -112,6 +113,10 @@ def main(argv=None) -> int:
     for r in sorted(kernels, key=lambda r: -r.device_time_total)[:12]:
         print(f"  {r.device_time_total / 1e3:10.3f} ms  {r.count:7d} calls  "
               f"{100 * r.device_time_total / busy_us:5.1f}%  {r.key[:90]}")
+    paged = [r for r in kernels if "paged_" in r.key]
+    paged_us = sum(r.device_time_total for r in paged)
+    print(f"paged-attention kernels: {paged_us / 1e3:.3f} ms in "
+          f"{sum(r.count for r in paged)} launches, {100 * paged_us / busy_us:.1f}% of device time")
     return 0
 
 
