@@ -84,6 +84,21 @@ not 0:
  15. MoE fused vs unfused (f32, 4 layers): the same greedy tokens both ways,
      and the same as the engine's tokens through the plain versions (on
      the CPU) for the first 16 requests;
+ 16. DDP and FSDP at full width, in a world of one over NCCL: phase 7's
+     rung and batches under `DataParallel`, `FSDP` (8 steps each) and
+     `FSDP(cpu_offload=True)` (3 steps); the loss falls on a repeated
+     batch, each step launches the flash and CE kernels as phase 7's do;
+     step wall, tokens/s and peak device memory beside phase 7's; with
+     offload the sharded parameters and the AdamW state are in host memory
+     and the peak device memory is below plain FSDP's;
+ 17. the DP steps equal `SingleDevice`'s: phase 8's f32 2-layer setup, 4
+     AdamW steps from the same parameters under `SingleDevice`,
+     `DataParallel` and `FSDP`; losses within rtol 1e-4 and the parameters
+     bit-equal to `SingleDevice`'s (whether the losses are too is printed);
+ 18. recipes 2 and 3 end to end (`python -m tpukit_torch.recipes.ddp` and
+     `.fsdp`, world of one) as phase 9: train, evaluate, sample through the
+     paged kernels, checkpoint; each checkpoint restores into a
+     `SingleDevice` state bit for bit;
 then one JSON line of kernel results and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
@@ -93,6 +108,7 @@ code 2 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -103,7 +119,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from tpukit_torch import mesh as mesh_lib
 from tpukit_torch import resolve_device
 from tpukit_torch.ops import _cuda
 from tpukit_torch.ops.attention import FLASH_MIN_SEQ, causal_attention
@@ -114,6 +132,8 @@ from tpukit_torch.ops import paged_attention as pa
 from tpukit_torch.ops import quant_comm
 from tpukit_torch import checkpoint as ckpt_lib
 from tpukit_torch.ops.moe_dispatch import _route_topk
+from tpukit_torch.recipes import ddp as ddp_recipe
+from tpukit_torch.recipes import fsdp as fsdp_recipe
 from tpukit_torch.recipes import moe as moe_recipe
 from tpukit_torch.recipes import single
 from tpukit_torch.recipes.profile import (
@@ -128,7 +148,15 @@ from tpukit_torch.recipes.profile import (
 from tpukit_torch.serve.engine import ServeEngine
 from tpukit_torch.serve.profile import build
 from tpukit_torch.model import GPTConfig, init_params
-from tpukit_torch.shardings import ExpertParallel, SingleDevice, leaves, unflatten
+from tpukit_torch.shardings import (
+    FSDP,
+    DataParallel,
+    ExpertParallel,
+    SingleDevice,
+    gather_full,
+    leaves,
+    unflatten,
+)
 from tpukit_torch.train import create_train_state, to_device, train_step
 
 ROOT = Path(__file__).resolve().parent
@@ -855,45 +883,52 @@ def ce_want(steps: int, tokens: int, cfg) -> dict:
     return want
 
 
-def train_full_width(dev) -> dict:
-    """Phase 7: eight train steps of the gpt-small-dim768 rung (batch 64,
-    S 512, bf16) on synthetic batches: three full batches and one with 16
-    padded rows, each twice. Checks the loss (finite; lower on batch A's
-    second visit) and the launch counts; returns them with the step walls."""
-    cfg, state = build_train(dev)
+FULL_ORDER = (0, 1, 2, 3, 0, 1, 2, 3)  # batches a, b, c and the padded p, twice
+
+
+def train_full_width(dev, strategy=None, order=FULL_ORDER) -> dict:
+    """Phase 7 (and 16): train steps of the gpt-small-dim768 rung (batch 64,
+    S 512, bf16) on synthetic batches, by default eight: three full
+    batches and one with 16 padded rows, each twice, under `strategy`
+    (`SingleDevice` by default). Checks the loss (finite; lower on the
+    first batch's second visit) and the launch counts; returns them with
+    the step walls, the peak device memory and the state."""
+    strategy = SingleDevice() if strategy is None else strategy
+    cfg, state = build_train(dev, strategy=strategy)
     rng = np.random.RandomState(0)
     a, b, c = (to_device(*synthetic_batch(rng, cfg.vocab_size, BATCH, SEQ), dev)
                for _ in range(3))
     p = to_device(*synthetic_batch(rng, cfg.vocab_size, BATCH, SEQ, pad_rows=16), dev)
-    strategy = SingleDevice()
     float(train_step(state, cfg, strategy, *p))  # warm-up: cuBLAS, the allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, walls = [], []
-    for batch in (a, b, c, p, a, b, c, p):
+    for batch in ((a, b, c, p)[i] for i in order):
         t0 = time.perf_counter()
         losses.append(float(train_step(state, cfg, strategy, *batch)))  # syncs
         walls.append(time.perf_counter() - t0)
     counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
     steps, layers = len(losses), cfg.num_layers
     wall = float(np.mean(walls))
-    print(f"losses {[round(x, 4) for x in losses]}; step walls (s) "
+    print(f"{strategy.name}: losses {[round(x, 4) for x in losses]}; step walls (s) "
           f"{[round(w, 4) for w in walls]}; mean {wall:.4f} s, {BATCH * SEQ / wall:.1f} "
-          f"tokens/s; max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+          f"tokens/s; max_memory_allocated {peak} B")
     print(f"launches in {steps} steps: {counts}", flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[4] < losses[0]:
+    again = order.index(order[0], 1)
+    if not losses[again] < losses[0]:
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses[0]} -> "
-                             f"{losses[4]}")
+                             f"{losses[again]}")
     want = dict(**{f"paged_{k}": 0 for k in pa.launches}, flash_forward=layers * steps,
                 flash_backward_dcap=layers * steps,
                 flash_backward_dkv=layers * steps, flash_backward_dq=layers * steps,
                 **ce_want(steps, BATCH * SEQ, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    return dict(counts=counts, wall=wall, losses=losses)
+    return dict(counts=counts, wall=wall, losses=losses, peak=peak, state=state)
 
 
 def kernel_vs_plain_steps(dev) -> None:
@@ -926,16 +961,18 @@ def kernel_vs_plain_steps(dev) -> None:
         raise AssertionError(f"kernel and plain train steps disagree: {ours} vs {plain}")
 
 
-def recipe_end_to_end(dev) -> dict:
-    """Phase 9: `python -m tpukit_torch.recipes.single` at GPT-2-small width
-    on 576 fixture stories (9 steps of 64), 1 epoch, bf16, in
-    build/chip_smoke/. `--sequence_length 512`: the recipe trains on
+def recipe_end_to_end(dev, recipe=single, label: str = "recipe") -> dict:
+    """Phase 9 (and 18): `python -m tpukit_torch.recipes.single` (or the
+    `recipe` module given) at GPT-2-small width on 576 fixture stories (9
+    steps of 64), 1 epoch, bf16, in build/chip_smoke/ (another recipe in
+    build/chip_smoke_<module>/). `--sequence_length 512`: the recipe trains on
     S - 1 positions (prepare_batch's shift), so S = 511 (a ragged last key
     tile) is in front of the attention, where "auto" picks the flash
     kernels. Checks that the
     flash, CE and paged kernels ran, the eval metrics are finite, three
     samples came back, and the checkpoint restores."""
-    work = ROOT / "build" / "chip_smoke"
+    name = recipe.__name__.rsplit(".", 1)[1]
+    work = ROOT / "build" / ("chip_smoke" if recipe is single else f"chip_smoke_{name}")
     work.mkdir(parents=True, exist_ok=True)
     argv = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layers", "12",
             "--sequence_length", "512", "--batch_size", "64", "--epochs", "1",
@@ -945,13 +982,14 @@ def recipe_end_to_end(dev) -> dict:
     try:
         reset_counts()
         t0 = time.perf_counter()
-        result = single.main(argv)
+        result = recipe.main(argv)
         wall = time.perf_counter() - t0
         counts = read_counts()
         restored = _restores_exactly(result, dev)
     finally:
         os.chdir(cwd)
-    print(f"recipe: {wall:.1f} s, eval {result.metrics['eval']}, {len(result.metrics['samples'])} "
+    print(f"{label}: {wall:.1f} s, windows {result.metrics['train_windows']}, eval "
+          f"{result.metrics['eval']}, {len(result.metrics['samples'])} "
           f"samples, {result.metrics['tokens_per_sec']:.1f} train tokens/s, checkpoint "
           f"{result.checkpoint_path}; launches {counts}", flush=True)
     if min(v for k, v in counts.items() if not k.startswith("moe_") and
@@ -962,6 +1000,86 @@ def recipe_end_to_end(dev) -> dict:
     if not restored:
         raise AssertionError(f"checkpoint {result.checkpoint_path} did not restore exactly")
     return counts
+
+
+def _free() -> None:
+    """Collect what the caller dropped and return the cached device memory,
+    so that one strategy's state is gone before the next one's peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+OFFLOAD_ORDER = (0, 3, 0)  # batch a, the padded p, a again
+
+
+def dp_full_width(dev, single_run: dict) -> dict:
+    """Phase 16: phase 7's steps under `DataParallel` and `FSDP` (8 steps
+    each) and `FSDP(cpu_offload=True)` (3), in the world of one `main`
+    brought up, each checked as phase 7 checks its own. Offload: every
+    sharded parameter and both AdamW moments must be in host memory, and
+    the peak device memory below plain FSDP's."""
+    runs = {}
+    for label, make, order in (("ddp", DataParallel, FULL_ORDER), ("fsdp", FSDP, FULL_ORDER),
+                               ("fsdp-offload", lambda: FSDP(cpu_offload=True), OFFLOAD_ORDER)):
+        strategy = make()
+        run = train_full_width(dev, strategy, order)
+        state = run.pop("state")
+        if strategy.name == "fsdp-offload":
+            local = lambda t: t.to_local() if isinstance(t, DTensor) else t
+            where = {local(p).device.type for p in leaves(state.params)}
+            where |= {local(st[k]).device.type for st in state.optimizer.state.values()
+                      for k in ("exp_avg", "exp_avg_sq")}
+            print(f"offload: parameters and AdamW moments on {sorted(where)}; "
+                  f"{len(strategy.replicated)} leaves replicated", flush=True)
+            if where != {"cpu"}:
+                raise AssertionError(f"offloaded state is not all in host memory: {where}")
+        runs[label] = run
+        del state, strategy
+        _free()
+    for label, run in runs.items():
+        print(f"{label}: {run['wall']:.4f} s a step ({single_run['wall']:.4f} single, "
+              f"{run['wall'] / single_run['wall']:.4f}x), {BATCH * SEQ / run['wall']:.1f} "
+              f"tokens/s, peak {run['peak']} B ({single_run['peak']} single)", flush=True)
+    if not runs["fsdp-offload"]["peak"] < runs["fsdp"]["peak"]:
+        raise AssertionError(f"offload's peak device memory {runs['fsdp-offload']['peak']} is "
+                             f"not below plain FSDP's {runs['fsdp']['peak']}")
+    return runs
+
+
+def dp_equals_single(dev) -> None:
+    """Phase 17: phase 8's setup (f32, 2 layers at GPT-2-small width,
+    flash forced, batch 4 with a padded row, 4 AdamW steps) from the same
+    parameters under `SingleDevice`, `DataParallel` and `FSDP` in a world
+    of one: losses within phase 8's rtol 1e-4 of `SingleDevice`'s and the
+    parameters after the last step bit-equal to its own (one rank reduces
+    nothing, and the step is the same sequence of kernels); prints whether
+    the losses are bit-equal too."""
+    cfg, base = build_train(dev, num_layers=2, compute_dtype=torch.float32,
+                            attention_impl="flash", seed=1)
+    rng = np.random.RandomState(1)
+    batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, 4, SEQ, pad_rows=1), dev)
+               for _ in range(4)]
+    runs = {}
+    for make in (SingleDevice, DataParallel, FSDP):
+        strategy = make()
+        params = unflatten(base.params, [t.detach().clone() for t in leaves(base.params)])
+        state = create_train_state(params, 1e-4, strategy)
+        losses = [float(train_step(state, cfg, strategy, *b)) for b in batches]
+        runs[strategy.name] = (losses, [gather_full(p).detach() for p in leaves(state.params)])
+        del params, state, strategy
+        _free()
+    ref, ref_params = runs.pop("single")
+    for name, (losses, params) in runs.items():
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        equal = [torch.equal(a, b) for a, b in zip(params, ref_params)]
+        print(f"{name}: losses {losses} vs single {ref}: worst relative difference "
+              f"{worst:.3e} (bar 1e-4); bit-equal losses {losses == ref}, parameters "
+              f"{sum(equal)} of {len(equal)} leaves", flush=True)
+        if not worst <= 1e-4:
+            raise AssertionError(f"{name} and single-device steps disagree: {losses} vs {ref}")
+        if not all(equal):
+            raise AssertionError(f"{name}: {len(equal) - sum(equal)} of {len(equal)} parameter "
+                                 f"leaves differ from the single-device step's")
 
 
 def serve_run(params, cfg, serve, reqs, dev, eos_id):
@@ -1336,7 +1454,8 @@ def _restores_exactly(result, dev) -> bool:
     """The recipe's final checkpoint restores into a fresh state, bit for bit."""
     other = create_train_state(init_params(result.config, seed=5, device=dev), 1e-4)
     ckpt_lib.restore(result.checkpoint_path, other)
-    want = dict(zip(ckpt_lib.paths(result.state.params), leaves(result.state.params)))
+    want = dict(zip(ckpt_lib.paths(result.state.params),
+                    (gather_full(p) for p in leaves(result.state.params))))
     got = dict(zip(ckpt_lib.paths(other.params), leaves(other.params)))
     return other.step == result.state.step and all(torch.equal(got[n], want[n]) for n in want)
 
@@ -1521,6 +1640,7 @@ def main() -> int:
 
     phase("train step at full width (gpt-small-dim768, batch 64, S 512, bf16)")
     step = train_full_width(dev)
+    del step["state"]
 
     phase("train step through kernels == through plain versions (f32, 2 layers)")
     kernel_vs_plain_steps(dev)
@@ -1546,6 +1666,20 @@ def main() -> int:
 
     phase("MoE fused vs unfused vs plain (f32 compute, 4 layers)")
     moe_fused_vs_unfused(dev)
+
+    # recipes 2 and 3 run in a world of one over NCCL, destroyed after them
+    with mesh_lib.scoped_runtime():
+        mesh_lib.initialize_runtime(dev)
+        phase("DDP and FSDP at full width (gpt-small-dim768, batch 64, S 512, bf16, NCCL "
+              "world of one)")
+        dp_full_width(dev, step)
+
+        phase("DDP and FSDP steps == single-device steps (f32, 2 layers)")
+        dp_equals_single(dev)
+
+        phase("recipes 2 and 3 end to end (GPT-2-small width, fixture corpus)")
+        recipe_end_to_end(dev, ddp_recipe, "recipe 2")
+        recipe_end_to_end(dev, fsdp_recipe, "recipe 3")
 
     fl, ce = trained["flash"], trained["ce"]
 

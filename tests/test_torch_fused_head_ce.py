@@ -22,11 +22,7 @@ import torch
 
 import tpukit.ops.fused_head_ce as tk_fce
 from tpukit_torch.ops.fused_head_ce import fused_head_ce
-from tpukit_torch.ops.layers import (
-    cross_entropy_loss,
-    cross_entropy_sum,
-    masked_accuracy,
-)
+from tpukit_torch.ops.layers import cross_entropy_sum, masked_correct
 from tpukit.ops import layers as tk_layers
 
 DIM, VOCAB = 32, 300
@@ -111,7 +107,8 @@ def test_bf16_loss_matches_tpukit():
 
 def test_unfused_loss_and_accuracy_match_tpukit():
     """The full-logits path (`TPUKIT_FUSED_HEAD=0`): cross_entropy_sum with
-    its hand-written backward, cross_entropy_loss and masked_accuracy."""
+    its hand-written backward, and masked_correct (held as tpukit's
+    masked_accuracy: the count over the valid positions x 100)."""
     rng = np.random.RandomState(9)
     logits = rng.randn(4, 10, VOCAB).astype(np.float32)
     logits[0, 0, 3] = logits[0, 0, 8] = 9.0  # a tie: the first index wins
@@ -120,14 +117,15 @@ def test_unfused_loss_and_accuracy_match_tpukit():
     tgt[0, 0] = 3
     jl, jt = jnp.asarray(logits), jnp.asarray(tgt)
     s_ref, c_ref = tk_layers.cross_entropy_sum(jl, jt)
-    g_ref = jax.grad(lambda x: tk_layers.cross_entropy_loss(x, jt))(jl)
+    g_ref = jax.grad(lambda x: tk_layers.cross_entropy_sum(x, jt)[0])(jl)
     acc_ref = tk_layers.masked_accuracy(jl, jt)
 
     tl = torch.from_numpy(logits).requires_grad_()
     tt = torch.from_numpy(tgt)
     s, c = cross_entropy_sum(tl, tt)
-    (g,) = torch.autograd.grad(cross_entropy_loss(tl, tt), (tl,))
+    (g,) = torch.autograd.grad(s, (tl,))
     np.testing.assert_allclose(float(s.detach()), float(s_ref), rtol=1e-6)
     assert float(c) == float(c_ref)
     np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), atol=1e-8, rtol=1e-5)
-    np.testing.assert_allclose(float(masked_accuracy(tl.detach(), tt)), float(acc_ref), rtol=1e-6)
+    acc = masked_correct(tl.detach(), tt) / c * 100.0
+    np.testing.assert_allclose(float(acc), float(acc_ref), rtol=1e-6)

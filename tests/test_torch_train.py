@@ -415,7 +415,7 @@ def test_every_tpukit_flag_parses():
     (["--grad_buckets", "2"], "item 16"),
     (["--metrics_log", "m.jsonl"], "item 18"),
     (["--dropout", "0.1"], "item 9"),
-    (["--checkpoint_format", "sharded"], "item 6"),
+    (["--checkpoint_format", "sharded"], "item 10"),
     (["--resume", "latest"], "item 17"),
 ])
 def test_flags_not_carried_raise_with_their_roadmap_item(argv, item):

@@ -11,8 +11,12 @@ kernel, the paged-attention decode, is `csrc/paged_attention.cu`. Slice 2
 ports single-device training, recipe 1 (`python -m
 tpukit_torch.recipes.single`); its TPU kernels, causal flash attention and
 the fused LM head + cross-entropy, forward and backward, are
-`csrc/flash_attention.cu` and `csrc/fused_head_ce.cu`. All are hand-written
-CUDA for sm_90a.
+`csrc/flash_attention.cu` and `csrc/fused_head_ce.cu`. Slice 3 ports MoE
+training (recipe 8) and serving on one card through the grouped-expert FFN,
+`csrc/moe_gemm.cu`. All are hand-written CUDA for sm_90a. Slice 8 ports
+data-parallel and fully-sharded training, recipes 2 and 3 (`python -m
+tpukit_torch.recipes.ddp` and `.fsdp`): DDP and FSDP2 over a c10d process
+group (`mesh.py`), the same kernels under both.
 
 Every entry point takes a `device` argument and runs on `cuda` unless the
 caller passes `device="cpu"`. Without a GPU and without that request it

@@ -86,9 +86,9 @@ _CORE_FLAGS = [
 # flag -> the ROADMAP.md item that carries it; set to a non-default value,
 # each raises NotPortedError in this slice
 NOT_CARRIED = {
-    "cpu_offload": "item 6 'FSDP'",
     "dropout": "item 9 'Seeded sampling' (dropout parity needs threefry)",
-    "checkpoint_format": "item 6 'FSDP' (sharded checkpoints)",
+    "checkpoint_format": "item 10 'Checkpoints in tpukit's format' (tpukit's sharded "
+                         "layout: npz blocks and a manifest)",
     "async_checkpoint": "item 17 'Resilience'",
     "keep_checkpoints": "item 17 'Resilience'",
     "compilation_cache_dir": "item 18 'Tracing and metrics' (the eager port compiles no "
@@ -120,13 +120,17 @@ NOT_CARRIED = {
 }
 
 
-def build_parser(num_experts: bool = False) -> argparse.ArgumentParser:
+def build_parser(cpu_offload: bool = False, num_experts: bool = False
+                 ) -> argparse.ArgumentParser:
     """tpukit's training parser plus `--device`; of its recipe-specific
-    groups, only the MoE one (`num_experts`, recipe 8) is carried."""
+    groups, `--cpu_offload` (recipe 3) and the MoE one (`num_experts`,
+    recipe 8) are carried."""
     parser = argparse.ArgumentParser()
     d = TrainFlags()
     for name, typ in _CORE_FLAGS:
         parser.add_argument(f"--{name}", type=typ, default=getattr(d, name))
+    if cpu_offload:
+        parser.add_argument("--cpu_offload", action="store_true")
     if num_experts:
         parser.add_argument("--num_experts", type=int, default=8)
         parser.add_argument("--moe_top_k", type=int, default=d.moe_top_k)
@@ -162,8 +166,8 @@ def build_parser(num_experts: bool = False) -> argparse.ArgumentParser:
     return parser
 
 
-def parse_flags(argv=None, num_experts: bool = False) -> TrainFlags:
-    return TrainFlags(**vars(build_parser(num_experts).parse_args(argv)))
+def parse_flags(argv=None, cpu_offload: bool = False, num_experts: bool = False) -> TrainFlags:
+    return TrainFlags(**vars(build_parser(cpu_offload, num_experts).parse_args(argv)))
 
 
 def check_carried(flags: TrainFlags) -> None:

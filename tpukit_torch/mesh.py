@@ -1,0 +1,117 @@
+"""Runtime initialisation and the device mesh (twin of `tpukit/mesh.py`:
+`initialize_runtime` :24, `is_process_zero` :139, `create_mesh` :144,
+`sync_global_devices` :187).
+
+tpukit's runtime owns its devices and builds a `jax.sharding.Mesh`; the port
+brings up a c10d default process group and a `DeviceMesh` over it. The group
+comes from, in this order:
+
+  - an existing default group, reused as it is;
+  - an explicit `(address, world_size, rank)`, e.g. `tcp://localhost:29500`;
+  - a launcher's environment (`torchrun`: `MASTER_ADDR`, `MASTER_PORT`,
+    `WORLD_SIZE`, `RANK`, `LOCAL_RANK`);
+  - otherwise a world of one over an in-process `HashStore`.
+
+The backend is NCCL for `cuda` and gloo for `cpu`. Rank r binds
+`cuda:{LOCAL_RANK}`. Nothing here falls back to gloo on the CPU when a card
+was asked for: the device comes from `tpukit_torch.resolve_device`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from tpukit_torch import resolve_device
+
+
+def backend_for(device: torch.device) -> str:
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+def initialize_runtime(device=None, address: str | None = None,
+                       world_size: int | None = None, rank: int | None = None) -> torch.device:
+    """Bring up (or reuse) the default process group; returns the device
+    this rank computes on (`cuda:{LOCAL_RANK}` or `cpu`)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank())
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        if dist.get_backend() != backend_for(dev):
+            raise RuntimeError(f"the default process group runs {dist.get_backend()}, and "
+                               f"{dev.type} needs {backend_for(dev)}")
+        return dev
+    explicit = (address, world_size, rank)
+    if any(v is not None for v in explicit):
+        if any(v is None for v in explicit):
+            raise ValueError("pass address, world_size and rank together, got "
+                             f"{address!r}, {world_size!r}, {rank!r}")
+        dist.init_process_group(backend_for(dev), init_method=address,
+                                world_size=world_size, rank=rank)
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend_for(dev))  # env://, the launcher's rendezvous
+    else:
+        dist.init_process_group(backend_for(dev), store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return dev
+
+
+def shutdown_runtime() -> None:
+    """Destroy the default group, if there is one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def scoped_runtime():
+    """On exit, destroy a default group brought up inside the block; one
+    that existed before it stays up (a caller's, reused)."""
+    existed = dist.is_initialized()
+    try:
+        yield
+    finally:
+        if not existed:
+            shutdown_runtime()
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_process_zero() -> bool:
+    """Twin of the reference's `rank == 0` gating of prints, samples and
+    the checkpoint write."""
+    return rank() == 0
+
+
+def create_mesh(axes: dict[str, int] | None = None, device_type: str = "cuda") -> DeviceMesh:
+    """A 1-D `data` mesh over the default group's ranks: `{"data": -1}`
+    (or None) takes every rank, `{"data": n}` needs n to be the world."""
+    world = world_size()
+    axes = {"data": -1} if axes is None else axes
+    if set(axes) != {"data"}:
+        raise ValueError(f"the port's mesh has one axis, 'data'; got {axes}")
+    size = world if axes["data"] == -1 else axes["data"]
+    if size != world:
+        raise ValueError(f"mesh {axes} needs {size} ranks, the world has {world}")
+    return init_device_mesh(device_type, (size,), mesh_dim_names=("data",))
+
+
+def sync_global_devices() -> None:
+    """A barrier across the world (twin of `dist.barrier()`); nothing
+    without a process group."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()

@@ -66,15 +66,9 @@ def cross_entropy_sum(logits: torch.Tensor, targets: torch.Tensor):
     return _CrossEntropySum.apply(logits, targets)
 
 
-def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy over non-ignored positions."""
-    loss_sum, count = cross_entropy_sum(logits, targets)
-    return loss_sum / torch.clamp(count, min=1.0)
-
-
-def masked_accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Accuracy over non-ignored positions, x100. `argmax` returns the
-    first index of a tied maximum, as `jnp.argmax` does."""
+def masked_correct(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The count (f32) of non-ignored positions whose logits' argmax is the
+    target. `argmax` returns the first index of a tied maximum, as
+    `jnp.argmax` does."""
     valid = targets != IGNORE_INDEX
-    correct = valid & (logits.argmax(-1) == targets)
-    return correct.sum() / torch.clamp(valid.sum(), min=1) * 100.0
+    return (valid & (logits.argmax(-1) == targets)).sum().float()

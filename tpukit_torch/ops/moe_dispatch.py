@@ -10,8 +10,8 @@ load-balance aux):
     packed into `[E, B, C, D]` capacity buffers, the expert FFN, the
     mirrored combine. The port carries it for an expert axis of size 1,
     where the exchange moves nothing; more ranks raise `NotPortedError`
-    (multi-rank `all_to_all_single` comes with the process groups of
-    ROADMAP.md item 5, 'DDP');
+    (multi-rank `all_to_all_single` is ROADMAP.md item 13, on the process
+    groups of `tpukit_torch/mesh.py`);
   - "pallas": the grouped-expert GEMM of `tpukit_torch/ops/moe_gemm.py`,
     which reuses `_route_topk`, `_kept_mask`, `_aux_stats` and
     `_moe_ffn_exchange` from here.
@@ -193,5 +193,5 @@ def _moe_ffn_exchange(layer, cfg, x, pad_mask, expert_ffn, name):
         raise NotPortedError(
             f"moe_dispatch={name!r} over a {grid.expert}-way expert axis needs "
             f"all_to_all_single between ranks, which is not in the port yet "
-            f"(ROADMAP.md, queue A item 13 'EP over more than one rank', after item 5 'DDP')")
+            f"(ROADMAP.md, queue A item 13 'EP over more than one rank')")
     return _capacity_ffn(layer, cfg, x, pad_mask, expert_ffn)

@@ -1,0 +1,33 @@
+"""Recipe 2: data-parallel training (twin of `main-ddp.py`).
+
+    python -m tpukit_torch.recipes.ddp [main-ddp.py's flags] [--device cuda|cpu]
+    torchrun --nproc_per_node N -m tpukit_torch.recipes.ddp [flags]
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m tpukit_torch.recipes.ddp [flags] --device cpu
+
+Trains the GPT through `tpukit_torch.train.fit` with `DataParallel`: each
+rank holds every parameter and `--batch_size` rows of the global batch,
+and `DistributedDataParallel` averages the gradients. Run as a plain
+module it is a world of one; under a launcher, one rank per process (NCCL
+on `cuda:{LOCAL_RANK}`, gloo with `--device cpu`). Without a card it
+raises `CudaUnavailableError` unless `--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from tpukit_torch.flags import parse_flags
+from tpukit_torch.mesh import scoped_runtime
+from tpukit_torch.shardings import DataParallel
+from tpukit_torch.train import fit
+
+
+def main(argv=None):
+    flags = parse_flags(argv)
+    with scoped_runtime():  # a world brought up here ends here
+        return fit(flags, DataParallel())
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

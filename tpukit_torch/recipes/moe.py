@@ -25,7 +25,7 @@ from tpukit_torch.shardings import ExpertParallel
 from tpukit_torch.train import fit
 
 # devices one run of the port trains on; expert parallelism over more ranks
-# is ROADMAP.md item 13, after item 5's process groups
+# is ROADMAP.md item 13, on tpukit_torch/mesh.py's process groups
 DEVICES = 1
 
 

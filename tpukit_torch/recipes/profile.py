@@ -1,5 +1,6 @@
 """Where a training step's time goes on the GPU:
-`python -m tpukit_torch.recipes.profile [--rung NAME] [--steps N]`.
+`python -m tpukit_torch.recipes.profile [--rung NAME] [--steps N]
+[--strategy single|ddp|fsdp|fsdp-offload]`.
 
 Runs the train step of one rung on synthetic token batches built as the
 repo's ladder builds them, from random weights (seed 0):
@@ -13,14 +14,19 @@ repo's ladder builds them, from random weights (seed 0):
     on a 1 x 1 grid with the pallas dispatch, so the grouped-expert kernels
     run over the capacity buffers (recipe 8 on one device).
 
+`--strategy ddp|fsdp|fsdp-offload` runs the dense rung's step under
+`DataParallel`, `FSDP` or `FSDP(cpu_offload=True)` (recipes 2 and 3) in a
+world of one over NCCL, in place of `SingleDevice`.
+
 It times a steady window of steps by host clock (each step ends in a host
 read of its loss), then profiles a short window under `torch.profiler` and
 prints: step wall and tokens/s, peak device memory, the device's busy time
 (sum of CUDA kernel times) and idle share of the profiled and of the
 unprofiled wall, the device time of each of the port's kernels against
 everything else, the calls and device time of PyTorch's float adds and
-fills, and the kernels that took the most device time. Needs one CUDA
-device.
+fills, the annotated regions (the optimizer step, DDP's forward, FSDP2's
+hooks) with the device and host time under each, and the kernels that
+took the most device time. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -48,6 +54,9 @@ PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dcap_kernel", "flash_bwd_dkv_kern
 # PyTorch's elementwise kernels counted on their own line: float adds (of
 # gradients, among others) and fills (zero-filled buffers)
 ELEMENTWISE = {"adds": "CUDAFunctor_add", "fills": "FillFunctor"}
+# what the data-parallel strategies add: NCCL's kernels (the collectives of
+# DDP and FSDP2) and the copies between host and device (CPU offload)
+TRANSFERS = {"nccl": "nccl", "host to device": "Memcpy HtoD", "device to host": "Memcpy DtoH"}
 
 
 def synthetic_batch(rng, vocab: int, batch: int, seq: int, pad_rows: int = 0):
@@ -74,22 +83,34 @@ def synthetic_batch(rng, vocab: int, batch: int, seq: int, pad_rows: int = 0):
 
 def build_train(device, num_layers: int = 12, compute_dtype=torch.bfloat16,
                 attention_impl: str = "auto", learning_rate: float = 1e-4, seed: int = 0,
-                **moe):
+                strategy=None, **moe):
     """Config and train state of the GPT-2-small-width step; `moe` sets
-    the MoE fields of the config (num_experts, router_top_k, ...)."""
+    the MoE fields of the config (num_experts, router_top_k, ...); a
+    `strategy` sets the state up for itself (`create_train_state`)."""
     from tpukit_torch.model import GPTConfig, init_params
     from tpukit_torch.train import create_train_state
 
     cfg = GPTConfig(compute_dtype=compute_dtype, attention_impl=attention_impl,
                     **{**GPT2_SMALL_TRAIN, "num_layers": num_layers}, **moe)
-    return cfg, create_train_state(init_params(cfg, seed=seed, device=device), learning_rate)
+    if strategy is not None:
+        strategy.validate_config(cfg)
+    return cfg, create_train_state(init_params(cfg, seed=seed, device=device), learning_rate,
+                                   strategy)
 
 
-def rung_strategy(kind: str):
+STRATEGIES = ("single", "ddp", "fsdp", "fsdp-offload")
+
+
+def rung_strategy(kind: str, strategy: str = "single"):
     """The strategy of a rung: `SingleDevice`, or `ExpertParallel` on one
-    device with the named dispatch."""
-    from tpukit_torch.shardings import ExpertParallel, SingleDevice
+    device with the named dispatch; `strategy` names a data-parallel one
+    (`DataParallel`, `FSDP`, `FSDP(cpu_offload=True)`) in place of
+    `SingleDevice`."""
+    from tpukit_torch.shardings import FSDP, DataParallel, ExpertParallel, SingleDevice
 
+    if strategy != "single":
+        return {"ddp": DataParallel, "fsdp": FSDP,
+                "fsdp-offload": lambda: FSDP(cpu_offload=True)}[strategy]()
     return SingleDevice() if kind == "single" else ExpertParallel(dispatch=kind)
 
 
@@ -97,17 +118,26 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rung", choices=tuple(RUNGS), default="gpt-small-dim768")
     ap.add_argument("--steps", type=int, default=6, help="steps in the timed window")
+    ap.add_argument("--strategy", choices=STRATEGIES, default="single")
     flags = ap.parse_args(argv)
-    from tpukit_torch import resolve_device
-    from tpukit_torch.train import to_device, train_step
+    from tpukit_torch import mesh, resolve_device
 
     device = resolve_device("cuda")
+    with mesh.scoped_runtime():
+        if flags.strategy != "single":
+            device = mesh.initialize_runtime(device)
+        return _profile(flags, device)
+
+
+def _profile(flags, device) -> int:
+    from tpukit_torch.train import to_device, train_step
+
     batch, moe, kind = RUNGS[flags.rung]
-    cfg, state = build_train(device, **moe)
+    strategy = rung_strategy(kind, flags.strategy)
+    cfg, state = build_train(device, strategy=strategy, **moe)
     rng = np.random.RandomState(0)
     batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, batch, SEQ), device)
                for _ in range(2)]
-    strategy = rung_strategy(kind)
     step = lambda i: float(train_step(state, cfg, strategy, *batches[i % 2]))
     for i in range(2):  # warm-up: kernel builds, cuBLAS handles, the allocator
         step(i)
@@ -133,9 +163,15 @@ def main(argv=None) -> int:
         for i in range(prof_steps):
             step(i)
         pwall = time.perf_counter() - t0
-    # kernel rows only: a CPU op's row also carries its kernels' device time
-    kernels = [r for r in prof.key_averages()
-               if r.device_type == torch.autograd.DeviceType.CUDA]
+    # kernel (and copy) rows only: a CPU op's row also carries its kernels'
+    # device time, and so does the device row of an annotated region (the
+    # optimizer step, DDP's forward, FSDP2's hooks), which has the name of a
+    # host-side row too
+    rows = prof.key_averages()
+    host = {r.key: r for r in rows if r.device_type == torch.autograd.DeviceType.CPU}
+    device = [r for r in rows if r.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [r for r in device if r.key in host or getattr(r, "is_user_annotation", False)]
+    kernels = [r for r in device if r not in spans]
     busy_us = sum(r.device_time_total for r in kernels)
     if not busy_us:
         print("device time not measured: the profiler recorded no CUDA kernel")
@@ -151,10 +187,19 @@ def main(argv=None) -> int:
     print(f"the port's kernels (flash attention, fused head + CE, grouped experts): "
           f"{ours / 1e6 / prof_steps:.4f} s per step, {ours / busy_us:.4f} of device time; "
           + ", ".join(f"{n} {t / 1e3 / prof_steps:.3f} ms" for n, t in per_kernel.items()))
-    print("elementwise: " + ", ".join(
-        f"{label} {sum(r.count for r in kernels if tag in r.key) // prof_steps} calls/step "
-        f"{sum(r.device_time_total for r in kernels if tag in r.key) / 1e3 / prof_steps:.3f} "
-        f"ms/step" for label, tag in ELEMENTWISE.items()))
+    for title, tags in (("elementwise", ELEMENTWISE), ("collectives and copies", TRANSFERS)):
+        print(f"{title}: " + ", ".join(
+            f"{label} {sum(r.count for r in kernels if tag in r.key) // prof_steps} calls/step "
+            f"{sum(r.device_time_total for r in kernels if tag in r.key) / 1e3 / prof_steps:.3f} "
+            f"ms/step" for label, tag in tags.items()))
+    opt = [r for k, r in host.items() if k.startswith("Optimizer.step")]
+    print("optimizer step, host time: " + ", ".join(
+        f"{r.key} {r.cpu_time_total / 1e3 / prof_steps:.3f} ms/step" for r in opt))
+    print("annotated regions (device time of the kernels under each, not added to busy; "
+          "host time): " + ", ".join(
+              f"{r.key} {r.device_time_total / 1e3 / prof_steps:.3f} ms / "
+              f"{host[r.key].cpu_time_total / 1e3 / prof_steps if r.key in host else 0.0:.3f} ms"
+              for r in sorted(spans, key=lambda r: -r.device_time_total)))
     for r in sorted(kernels, key=lambda r: -r.device_time_total)[:15]:
         print(f"  {r.device_time_total / 1e3 / prof_steps:10.3f} ms/step "
               f"{r.count // prof_steps:6d} calls/step "

@@ -1,4 +1,4 @@
-"""Strategies (twin of `tpukit/shardings.py:261-508` and of
+"""Strategies (twin of `tpukit/shardings.py:261-760` and of
 `ExpertParallel` :1094, on one device).
 
 A strategy owns the loss: `loss_fn` runs the model and the masked
@@ -6,23 +6,37 @@ cross-entropy, `value_and_grad` differentiates it. With `fused_head` (the
 default) the loss goes through `forward_hidden` and the fused head + CE
 kernels, so no `[B, S, V]` logits exist; `TPUKIT_FUSED_HEAD=0` in the
 environment, read at each call, routes back to `forward` +
-`cross_entropy_loss` (tpukit's escape hatch, `shardings.py:55-58`). MoE
+`cross_entropy_sum` (tpukit's escape hatch, `shardings.py:55-58`). MoE
 configs train on CE + moe_aux_weight x the summed load-balance aux and
-report the pure CE. DataParallel, FSDP, the pipeline, tensor and context
-parallelism, and expert parallelism over more than one rank are ROADMAP.md
-items 5-7 and 13-15.
+report the pure CE.
+
+`DataParallel` and `FSDP` run over the default c10d group
+(`tpukit_torch.mesh`): `setup` puts the parameter tree into a `ParamTree`
+module and wraps it in `DistributedDataParallel` or FSDP2's `fully_shard`,
+and the loss runs through that module, which hands the model the
+parameters as they stand at call time. Both train on tpukit's objective, the
+mean CE over the valid tokens of the global batch. The pipeline, tensor and
+context parallelism, and expert parallelism over more than one rank are
+ROADMAP.md items 7 and 13-15.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import warnings
 
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.fsdp import CPUOffloadPolicy, OffloadPolicy, fully_shard
+from torch.distributed.tensor import DTensor, Shard
 
 from tpukit_torch import NotPortedError
+from tpukit_torch import mesh as mesh_lib
 from tpukit_torch.model import gpt
 from tpukit_torch.ops.fused_head_ce import fused_head_ce
-from tpukit_torch.ops.layers import cross_entropy_loss, masked_accuracy
+from tpukit_torch.ops.layers import cross_entropy_sum, masked_correct
 from tpukit_torch.ops.moe_dispatch import ExpertGrid
 
 
@@ -54,31 +68,60 @@ class Strategy:
 
     name = "single"
     fused_head = True
+    distributed = False  # runs over the default process group
+
+    @property
+    def batch_divisor(self) -> int:
+        """The data-parallel world: a global batch is `--batch_size` rows
+        on each of this many ranks (tpukit `shardings.py:411`)."""
+        return 1
 
     def validate_config(self, cfg: gpt.GPTConfig) -> None:
         """Raise before the first step when the config cannot run on this
         strategy."""
 
-    def loss_fn(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
-                with_accuracy: bool = False, aux_out: list | None = None):
-        """(mean masked CE, masked accuracy x 100 or 0) of one batch: `batch`
-        holds `input_ids`, `position_ids` and `mask` (True = padding)
-        tensors, `targets` uses -100 for ignored positions. MoE configs
-        append the summed load-balance aux to `aux_out`."""
+    def setup(self, params: dict) -> dict:
+        """The tree a train state holds, made from `params` (leaves that
+        require grad); the optimizer is built over its leaves afterwards."""
+        return params
+
+    def full_params(self, params: dict) -> dict:
+        """Every leaf as a plain, whole tensor on the compute device, for
+        decoding. Every rank calls it."""
+        return params
+
+    def all_sum(self, values) -> list[float]:
+        """`values` summed over the data-parallel ranks."""
+        return [float(v) for v in values]
+
+    def loss_sums(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
+                  with_accuracy: bool = False, aux_out: list | None = None):
+        """(CE summed over the valid tokens, their count, the correct
+        argmaxes among them or 0) of one batch: `batch` holds `input_ids`,
+        `position_ids` and `mask` (True = padding) tensors, `targets` uses
+        -100 for ignored positions. MoE configs append the summed
+        load-balance aux to `aux_out`."""
         if self.fused_head and not fused_head_disabled():
             h = gpt.forward_hidden(params, cfg, batch["input_ids"], batch["position_ids"],
                                    batch["mask"], aux_out=aux_out)
-            loss_sum, count, correct = fused_head_ce(
-                h.reshape(-1, h.shape[-1]), params["lm_head"]["kernel"],
-                targets.reshape(-1), cfg.vocab_size, with_accuracy=with_accuracy)
-            denom = torch.clamp(count, min=1.0)
-            return loss_sum / denom, correct / denom * 100.0
+            return fused_head_ce(h.reshape(-1, h.shape[-1]), params["lm_head"]["kernel"],
+                                 targets.reshape(-1), cfg.vocab_size,
+                                 with_accuracy=with_accuracy)
         logits = gpt.forward(params, cfg, batch["input_ids"], batch["position_ids"],
                              batch["mask"], aux_out=aux_out)
-        loss = cross_entropy_loss(logits, targets)
-        accuracy = (masked_accuracy(logits, targets) if with_accuracy
-                    else torch.zeros((), device=logits.device))
-        return loss, accuracy
+        loss_sum, count = cross_entropy_sum(logits, targets)
+        correct = (masked_correct(logits, targets) if with_accuracy
+                   else torch.zeros((), dtype=torch.float32, device=logits.device))
+        return loss_sum, count, correct
+
+    def loss_fn(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
+                with_accuracy: bool = False, aux_out: list | None = None):
+        """(mean masked CE, masked accuracy x 100 or 0) of one batch, from
+        `loss_sums`."""
+        loss_sum, count, correct = self.loss_sums(params, cfg, batch, targets,
+                                                  with_accuracy=with_accuracy, aux_out=aux_out)
+        denom = torch.clamp(count, min=1.0)
+        return loss_sum / denom, correct / denom * 100.0
 
     def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets):
         """(loss, grads): the loss of `loss_fn` and the gradient of the
@@ -117,8 +160,8 @@ class ExpertParallel(Strategy):
         if self.grid.size > 1:
             raise NotPortedError(
                 f"ExpertParallel over a {self.grid.data} x {self.grid.expert} (data, expert) "
-                f"grid needs process groups and all_to_all_single, which are not in the "
-                f"port yet (ROADMAP.md, queue A item 13 'EP over more than one rank', after item 5 'DDP')")
+                f"grid needs all_to_all_single between ranks, which is not in the port "
+                f"yet (ROADMAP.md, queue A item 13 'EP over more than one rank')")
         self.dispatch = dispatch
 
     def validate_config(self, cfg: gpt.GPTConfig) -> None:
@@ -140,3 +183,225 @@ class ExpertParallel(Strategy):
                 with_accuracy: bool = False, aux_out: list | None = None):
         return super().loss_fn(params, self._dispatch_cfg(cfg), batch, targets,
                                with_accuracy=with_accuracy, aux_out=aux_out)
+
+
+class ParamTree(nn.Module):
+    """A parameter tree as a module: each dict a submodule, each leaf an
+    `nn.Parameter` under its key. `tree()` reads the leaves as they stand
+    when it is called, so under FSDP2, which swaps sharded and unsharded
+    parameters on the module around each forward, the model sees the
+    unsharded ones; `forward(fn, *args)` is `fn(tree(), *args)`, which lets
+    DDP and FSDP2 hook the call."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, v if isinstance(v, nn.Parameter) else nn.Parameter(v))
+
+    def tree(self) -> dict:
+        return {k: self._modules[k].tree() if k in self._modules else self._parameters[k]
+                for k in self._keys}
+
+    def forward(self, fn, *args, **kwargs):
+        return fn(self.tree(), *args, **kwargs)
+
+
+def _comm_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def gather_full(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a sharded DTensor (a collective: every rank of
+    its mesh calls it), gathered on the mesh's device, wherever its shard
+    lives (host memory under CPU offload); a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    local, comm = t.to_local(), _comm_device(t.device_mesh)
+    if local.device != comm:
+        t = DTensor.from_local(local.to(comm), t.device_mesh, t.placements,
+                               shape=t.shape, stride=t.stride())
+    return t.full_tensor()
+
+
+def local_shard(full: torch.Tensor, like: DTensor) -> torch.Tensor:
+    """This rank's piece of `full` as `like` holds its own: `torch.chunk`
+    along each sharded dimension, as FSDP2 and DTensor split."""
+    mesh, local = like.device_mesh, full
+    for axis, placement in enumerate(like.placements):
+        if isinstance(placement, Shard):
+            parts = torch.chunk(local, mesh.size(axis), dim=placement.dim)
+            local = parts[mesh.get_local_rank(axis)]
+    return local
+
+
+MIN_SHARD_SIZE = 100  # tpukit FSDP's default `min_shard_size`
+
+
+def fsdp_shard_dim(shape, world: int) -> int | None:
+    """tpukit's FSDP placement (`shardings.py:724-738`): the dimension a
+    leaf of `shape` shards over `world` ranks, or None to replicate it. A
+    leaf under `MIN_SHARD_SIZE` elements, or with no dimension divisible
+    by the world, is replicated; otherwise the largest divisible dimension
+    shards (the last of equals)."""
+    if math.prod(shape) < MIN_SHARD_SIZE:
+        return None
+    candidates = [(d, i) for i, d in enumerate(shape) if d % world == 0]
+    return max(candidates)[1] if candidates else None
+
+
+class _DataParallelBase(Strategy):
+    """Rows of the global batch sharded over the `data` mesh, one slice per
+    rank of the default group; the loss and its gradient run through
+    `self.module`, the wrapped `ParamTree`. `setup` builds both."""
+
+    distributed = True
+
+    def __init__(self):
+        self.mesh = None  # the `data` mesh over every rank, once `setup` ran
+        self.module = None  # the wrapped ParamTree, likewise
+        self.params: dict | None = None
+
+    @property
+    def world(self) -> int:
+        """The default group's size, which the `data` mesh spans."""
+        return mesh_lib.world_size()
+
+    @property
+    def batch_divisor(self) -> int:
+        return self.world
+
+    def validate_config(self, cfg: gpt.GPTConfig) -> None:
+        if cfg.num_experts > 0:
+            raise NotPortedError(
+                f"MoE configs under {type(self).__name__} are not in the port yet (ROADMAP.md, "
+                f"queue A item 13 'EP over more than one rank'): tpukit's step takes the "
+                f"router's load-balance statistics and capacity windows over the global batch")
+
+    def _wrap(self, module: ParamTree, device: torch.device):
+        raise NotImplementedError
+
+    def setup(self, params: dict) -> dict:
+        device = leaves(params)[0].device
+        self.mesh = mesh_lib.create_mesh({"data": -1}, device.type)
+        tree = ParamTree(params)
+        self.module = self._wrap(tree, device)
+        self.params = tree.tree()
+        return self.params
+
+    def _check(self, params) -> None:
+        if self.module is None or params is not self.params:
+            raise ValueError(f"{self.name}: pass the tree `setup` returned (the train "
+                             f"state's params)")
+
+    def loss_sums(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
+                  with_accuracy: bool = False, aux_out: list | None = None):
+        """This rank's sums over its rows, through the wrapped module (so
+        `loss_fn` gives this rank's means)."""
+        self._check(params)
+        return self.module(super().loss_sums, cfg, batch, targets, with_accuracy, aux_out)
+
+    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets):
+        """(global loss, grads) by `.backward()`, so that DDP's and FSDP2's
+        gradient hooks run. tpukit's objective is the CE summed over the
+        global batch's valid tokens over their count
+        (`tpukit/shardings.py:456-465`); the count is summed over the ranks
+        before the backward, and each rank differentiates
+        `world x loss_sum_r / count`, which the wrappers' average over
+        ranks turns into that objective's gradient."""
+        loss_sum, count, _ = self.loss_sums(params, cfg, batch, targets)
+        totals = torch.stack([loss_sum.detach(), count])
+        dist.all_reduce(totals, group=self.mesh.get_group())
+        denom = torch.clamp(totals[1], min=1.0)
+        (loss_sum * self.world / denom).backward()
+        self._after_backward()
+        flat = leaves(params)
+        return totals[0] / denom, unflatten(params, [p.grad for p in flat])
+
+    def _after_backward(self) -> None:
+        pass
+
+    def all_sum(self, values) -> list[float]:
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=_comm_device(self.mesh))
+        dist.all_reduce(t, group=self.mesh.get_group())
+        return t.tolist()
+
+
+class DataParallel(_DataParallelBase):
+    """Twin of tpukit's `DataParallel` (`shardings.py:512`) and of the
+    reference's DDP recipe: parameters replicated, rows sharded,
+    `DistributedDataParallel` averaging the gradients in its backward
+    hooks. `--comm_dtype` and `--grad_buckets` are ROADMAP.md item 16."""
+
+    name = "ddp"
+
+    def _wrap(self, module: ParamTree, device: torch.device):
+        ids = [device.index] if device.type == "cuda" else None
+        return nn.parallel.DistributedDataParallel(
+            module, device_ids=ids, process_group=self.mesh.get_group())
+
+
+class FSDP(_DataParallelBase):
+    """Twin of tpukit's `FSDP` (`shardings.py:603`): FSDP2 `fully_shard`
+    on the whole tree (its stacked `layers` leaves make one group),
+    parameters, gradients and AdamW state sharded by `fsdp_shard_dim`.
+    One group gathers the whole tree at once and, as FSDP2's root, keeps
+    it unsharded from the forward to the end of the backward (FSDP2's
+    default for a root), so the step holds a full copy of the parameters
+    beside their shards: FSDP saves memory on gradients and AdamW state.
+    Leaves it replicates are left out of FSDP2 (`ignored_params`) and
+    their gradients averaged here after the backward. Parameters are
+    gathered in f32, as tpukit gathers them; the model casts at use.
+
+    `cpu_offload` (tpukit `state_sharding` :740-760): on `cuda`, FSDP2's
+    `CPUOffloadPolicy` keeps the sharded parameters, their gradients and
+    the AdamW state in host memory, and the optimizer steps there; on any
+    other device it warns and runs plain FSDP, as tpukit degrades off-TPU."""
+
+    name = "fsdp"
+
+    def __init__(self, cpu_offload: bool = False):
+        super().__init__()
+        self.cpu_offload = cpu_offload
+        self.replicated: list = []
+        if cpu_offload:
+            self.name = "fsdp-offload"
+
+    def shard_dim(self, shape) -> int | None:
+        return fsdp_shard_dim(shape, self.world)
+
+    @staticmethod
+    def _offload_supported(device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    def _wrap(self, module: ParamTree, device: torch.device):
+        self.replicated = [p for p in module.parameters() if self.shard_dim(p.shape) is None]
+        policy = OffloadPolicy()
+        if self.cpu_offload:
+            if self._offload_supported(device):
+                policy = CPUOffloadPolicy()
+            else:
+                warnings.warn(f"--cpu_offload needs a CUDA device, got {device.type}; running "
+                              f"plain FSDP instead", stacklevel=3)
+        fully_shard(module, mesh=self.mesh,
+                    shard_placement_fn=lambda p: Shard(self.shard_dim(p.shape)),
+                    offload_policy=policy, ignored_params=set(self.replicated) or None)
+        return module
+
+    def _after_backward(self) -> None:
+        if self.world == 1:
+            return
+        group = self.mesh.get_group()
+        for p in self.replicated:
+            dist.all_reduce(p.grad, group=group)
+            p.grad.div_(self.world)
+
+    def full_params(self, params: dict) -> dict:
+        device = _comm_device(self.mesh)
+        return unflatten(params, [gather_full(p).detach().to(device) for p in leaves(params)])

@@ -15,7 +15,12 @@ Loop surface, as tpukit's:
     tpukit's do, and each prompt prefills in one chunk from position 0, so
     the capacity windows are tpukit's too;
   - a checkpoint at the end (`checkpoint.save`, the port's own format).
-The step runs eagerly: forward, loss, backward and `torch.optim.AdamW` in
+Under `DataParallel` and `FSDP` the loop is rank-aware (tpukit
+`train.py:501-545`): the global batch is `--batch_size` x world rows, each
+rank loading its `DistributedSampler` share; eval sums and the train token
+count are summed over the ranks; rank 0 alone prints, samples and writes
+the checkpoint, after every rank has taken part in gathering what they
+need. The step runs eagerly: forward, loss, backward and `torch.optim.AdamW` in
 place. Not carried (ROADMAP.md): the JSONL StepLogger records, the MFU
 meter, the prefetch thread, and the obs, recovery and metrics planes.
 """
@@ -28,9 +33,11 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from tpukit_torch import resolve_device
 from tpukit_torch import checkpoint as ckpt_lib
+from tpukit_torch import mesh as mesh_lib
 from tpukit_torch.batching import IGNORE_INDEX, prepare_batch
 from tpukit_torch.data import get_dataset, get_tokenizer, transform_dataset
 from tpukit_torch.flags import TrainFlags, check_carried
@@ -57,14 +64,24 @@ def make_optimizer(params: dict, learning_rate: float) -> torch.optim.AdamW:
     """`torch.optim.AdamW` over every leaf with tpukit's hyper-parameters
     (betas 0.9/0.999, eps 1e-8, weight decay 1e-2 on all leaves, as optax's
     adamw applies it). It updates the parameters in place; its rounding
-    order differs from optax's by an ulp here and there."""
-    return torch.optim.AdamW(leaves(params), lr=learning_rate, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=1e-2)
+    order differs from optax's by an ulp here and there. A tree that mixes
+    FSDP's sharded DTensors with plain (replicated) leaves steps one leaf
+    at a time: the multi-tensor kernels refuse the mixture."""
+    flat = leaves(params)
+    mixed = len({isinstance(p, DTensor) for p in flat}) > 1
+    return torch.optim.AdamW(flat, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-2, foreach=False if mixed else None)
 
 
-def create_train_state(params: dict, learning_rate: float) -> TrainState:
+def create_train_state(params: dict, learning_rate: float,
+                       strategy: Strategy | None = None) -> TrainState:
+    """The state of `params`; with a strategy, of the tree its `setup`
+    makes of them (wrapped, and sharded under FSDP), the optimizer built
+    afterwards over that tree."""
     for p in leaves(params):
         p.requires_grad_(True)
+    if strategy is not None:
+        params = strategy.setup(params)
     return TrainState(params=params, optimizer=make_optimizer(params, learning_rate))
 
 
@@ -163,23 +180,34 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
     pad_id = tokenizer.pad_token_id
     cfg = build_config(flags, tokenizer.vocab_size)
     strategy.validate_config(cfg)
+    rank = 0
+    if strategy.distributed:
+        device = mesh_lib.initialize_runtime(device)
+        rank = mesh_lib.rank()
+    world = strategy.batch_divisor
+    p0 = rank == 0
 
     train_ds, validation_ds = get_dataset(slice_size=flags.dataset_slice)
     train_ds = transform_dataset(train_ds, tokenizer, max_length=flags.sequence_length)
     validation_ds = transform_dataset(validation_ds, tokenizer,
                                       max_length=flags.sequence_length)
-    # wrap-padding keeps every train step full-shape; validation pads with
-    # all-ignore rows so its metrics are those of the exact partial batch
+    # the global batch is batch_size rows on each of `world` ranks, each
+    # loading its DistributedSampler share; wrap-padding keeps every train
+    # step full-shape; validation pads with all-ignore rows so its metrics
+    # are those of the exact partial batch
+    shard = dict(num_replicas=world, rank=rank)
     train_loader = DataLoader(train_ds, flags.batch_size, shuffle=True, seed=flags.seed,
-                              pad_to_batch=True)
+                              pad_to_batch=True, **shard)
     validation_loader = DataLoader(validation_ds, flags.batch_size, shuffle=False,
-                                   pad_to_batch=True, pad_mode="empty", pad_fill=pad_id)
+                                   pad_to_batch=True, pad_mode="empty", pad_fill=pad_id,
+                                   **shard)
 
     state = create_train_state(gpt.init_params(cfg, seed=flags.seed, device=device),
-                               flags.learning_rate)
+                               flags.learning_rate, strategy)
     if flags.resume:
         ckpt_lib.restore(flags.resume, state)
-        print(f"resumed from {flags.resume} at step {state.step}")
+        if p0:
+            print(f"resumed from {flags.resume} at step {state.step}")
 
     epochs = flags.epochs if num_epochs is None else num_epochs
     windows, eval_metrics, texts = [], {}, []
@@ -198,14 +226,17 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
             if i > 0 and not i % PRINT_FREQ:
                 avg = float(running) / win_n  # one host sync per window
                 windows.append({"epoch": epoch, "step": state.step, "loss": avg})
-                print(f"[training] Epoch {epoch + 1}/{epochs} | step {state.step} | "
-                      f"loss: {avg:.3f}", flush=True)
+                if p0:
+                    print(f"[training] Epoch {epoch + 1}/{epochs} | step {state.step} | "
+                          f"loss: {avg:.3f}", flush=True)
                 running, win_n = None, 0
             if flags.checkpoint_every and state.step % flags.checkpoint_every == 0:
                 checkpoint_path = ckpt_lib.save(state, flags)
         _sync(device)
         train_s += time.perf_counter() - t0
 
+        # every rank runs every batch (a sharded forward is a collective);
+        # the weighted sums are summed over the ranks before the division
         total_loss = total_acc = total_weight = 0.0
         eval_metrics = {"loss": float("nan"), "accuracy": float("nan")}
         for raw in validation_loader:
@@ -216,22 +247,30 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
                 total_loss += float(loss) * weight
                 total_acc += float(acc) * weight
                 total_weight += weight
+        total_loss, total_acc, total_weight = strategy.all_sum(
+            [total_loss, total_acc, total_weight])
         if total_weight > 0.0:
             eval_metrics = {"loss": total_loss / total_weight,
                             "accuracy": total_acc / total_weight}
-        print(f"[validation] Epoch {epoch + 1}/{epochs} | loss: {eval_metrics['loss']:.3f}, "
-              f"accuracy: {eval_metrics['accuracy']:.2f}", flush=True)
 
         gen_tokens = min(20, cfg.max_position_embeddings - 2)
-        texts = generate_samples(state.params, cfg, tokenizer, device,
-                                 max_new_tokens=gen_tokens)
-        print("Argmax sampling from model")
-        for text in texts:
-            print(text)
+        full = strategy.full_params(state.params)  # every rank gathers
+        if p0:
+            print(f"[validation] Epoch {epoch + 1}/{epochs} | loss: "
+                  f"{eval_metrics['loss']:.3f}, accuracy: {eval_metrics['accuracy']:.2f}",
+                  flush=True)
+            texts = generate_samples(full, cfg, tokenizer, device, max_new_tokens=gen_tokens)
+            print("Argmax sampling from model")
+            for text in texts:
+                print(text)
+        del full
 
     checkpoint_path = ckpt_lib.save(state, flags)
+    train_tokens = int(strategy.all_sum([train_tokens])[0])
     tokens_per_sec = train_tokens / train_s if train_s > 0 else 0.0
-    print(f"throughput: {tokens_per_sec:,.0f} tok/s on {device}; checkpoint {checkpoint_path}")
+    if p0:
+        print(f"throughput: {tokens_per_sec:,.0f} tok/s on {device}; checkpoint "
+              f"{checkpoint_path}")
     metrics = {"eval": eval_metrics, "train_windows": windows, "samples": texts,
                "train_tokens": train_tokens, "tokens_per_sec": tokens_per_sec}
     return FitResult(state=state, tokenizer=tokenizer, config=cfg,
