@@ -15,8 +15,8 @@ not 0:
      element by element, in five pool/compute dtype pairs, at five shapes:
      the one phase 4's serving config gives them (16 slots, 12 heads x 64,
      pages of 16, a 320-position window), GPT-2 small's full context (the
-     same at 1024 positions), one slot at 1024 positions, the recipes'
-     sampling (3 slots, pages of 8, 32 positions: one split) and head dim
+     same at 1024 positions), one slot at 1024 positions, a short window
+     (3 slots, pages of 8, 32 positions: one split) and head dim
      12 in pages of 64 (bf16 and int8 rows of 24 and 12 bytes: the
      byte-load path); a second run must give the same bits; the split plan
      and units per SM; the kernels' device time (launches captured in a
@@ -50,7 +50,8 @@ not 0:
      versions (f32, 2 layers, 4 steps);
   9. recipe 1 end to end at GPT-2-small width on the fixture corpus
      (`--sequence_length 512`, so S = 511 in front of the attention):
-     trains, evaluates, samples through the paged kernel, checkpoints;
+     trains, evaluates, samples (one batched decode on the ring, as
+     tpukit's recipes sample), checkpoints;
  10. MoE kernels vs plain: the grouped-expert FFN forward and backward
      (768 -> 3072 -> 768, 8 experts), bf16 and f32, against their plain
      versions on these segment layouts: the recipe's equal capacity
@@ -74,8 +75,8 @@ not 0:
      2 layers, top-2, 4 steps), on the ExpertParallel 1 x 1 path and on the
      meshless dropless path;
  13. recipe 8 end to end (`--num_experts 8 --moe_dispatch pallas`) at
-     GPT-2-small width on the fixture corpus: trains, evaluates, samples,
-     checkpoints;
+     GPT-2-small width on the fixture corpus: trains, evaluates, samples
+     (on the ring), checkpoints;
  14. MoE serving: `ServeEngine` at GPT-2-small width with 8 experts and the
      pallas dispatch answers phase 4's 64 requests with fused decoding; the
      grouped forward launches layers x (prefill dispatches + decode ticks)
@@ -96,9 +97,33 @@ not 0:
      `DataParallel` and `FSDP`; losses within rtol 1e-4 and the parameters
      bit-equal to `SingleDevice`'s (whether the losses are too is printed);
  18. recipes 2 and 3 end to end (`python -m tpukit_torch.recipes.ddp` and
-     `.fsdp`, world of one) as phase 9: train, evaluate, sample through the
-     paged kernels, checkpoint; each checkpoint restores into a
-     `SingleDevice` state bit for bit;
+     `.fsdp`, world of one) as phase 9: train, evaluate, sample on the
+     ring, checkpoint; each checkpoint restores into a `SingleDevice` state
+     bit for bit;
+ 19. threefry on the card: Random123's known answers; random bits,
+     uniforms, split and fold_in keys and Bernoulli masks bit-equal to the
+     CPU's at a serving tick's [16, 50304] (one key, and a key a row) and
+     at odd shapes, Gumbel noise within 1e-6; the sampler (`_select_next`,
+     t 0.8, top-k 40) gives the CPU's tokens; its time beside argmax's;
+ 20. sampled serving: phase 4's stream at temperature 0.8, top-k 40, fused:
+     each paged kernel launches layers x decode ticks times; tokens/s
+     beside phase 4's; at f32 with 4 layers the seeded stream gives the
+     same tokens fused, unfused, on the ring and on a second run;
+ 21. ring serving (page_size 0, tpukit's default): phase 4's stream,
+     tokens/s and the prefill/decode split beside phase 4's; f32 4-layer
+     greedy ring tokens equal the paged ones; MoE on the ring (8 experts,
+     pallas): the grouped forward launches layers x (prefill dispatches +
+     ticks) times;
+ 22. speculative serving (spec_k 4): n-gram self-speculation on the
+     repetitive stream beside vanilla ring decoding of it, and a fresh
+     seeded draft model (64 / 4 x 16 / 2 layers) on phase 4's stream:
+     acceptance, tokens appended per verify, tokens/s; at f32 with 4
+     layers greedy speculation equals vanilla (first 32 requests) and
+     sampled speculation equals the serial `reference_spec_decode` (first
+     8);
+ 23. dropout training: phase 7's rung at dropout 0.1 (the loss falls, the
+     kernels launch as in phase 7, the step wall beside phase 7's), and
+     phase 8's kernel-vs-plain steps at dropout 0.1 with the same keys;
 then one JSON line of kernel results and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
@@ -122,7 +147,9 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from tpukit_torch import mesh as mesh_lib
+from tpukit_torch import random as tk_random
 from tpukit_torch import resolve_device
+from tpukit_torch.data import get_tokenizer
 from tpukit_torch.ops import _cuda
 from tpukit_torch.ops.attention import FLASH_MIN_SEQ, causal_attention
 from tpukit_torch.ops import flash_attention as fa
@@ -145,7 +172,9 @@ from tpukit_torch.recipes.profile import (
     rung_strategy,
     synthetic_batch,
 )
-from tpukit_torch.serve.engine import ServeEngine
+from tpukit_torch.serve import decode as serve_decode
+from tpukit_torch.serve import spec as spec_lib
+from tpukit_torch.serve.engine import ServeEngine, synthetic_request_stream
 from tpukit_torch.serve.profile import build
 from tpukit_torch.model import GPTConfig, init_params
 from tpukit_torch.shardings import (
@@ -209,7 +238,14 @@ MOE_TRAIN_KERNELS = ("forward_up", "forward_down", "backward_dz2", "backward_dh"
 MOE_ADVERSARIAL = (3000, 0, 1, 129, 2047, 130, 1, 4691)
 
 
+_PHASE_T0 = [time.perf_counter()]
+
+
 def phase(name: str) -> None:
+    """Print the phase's name, after the wall the one before it took."""
+    now = time.perf_counter()
+    print(f"   ({now - _PHASE_T0[0]:.1f} s)", flush=True)
+    _PHASE_T0[0] = now
     print(f"== {name}", flush=True)
 
 
@@ -321,9 +357,10 @@ def kernel_inputs(dev, n, h, d, p, mp, seed=0):
 
 # phase 3's shapes: the serving run's (filled in by main from phase 4's
 # config), GPT-2 small's full context at the same batch, one slot there,
-# the recipes' sampling (`train.generate_samples`: 3 prompts, pages of 8;
-# one split), and rows that are no multiple of 16 bytes in bf16 and int8
-# pools (D 12, pages of 64 so that int8 rows tile into scale blocks)
+# a short window (3 slots, pages of 8: one split; the shape of the
+# recipes' samples before they moved to the ring), and rows that are no
+# multiple of 16 bytes in bf16 and int8 pools (D 12, pages of 64 so that
+# int8 rows tile into scale blocks)
 PAGED_SHAPES = {"full_context": dict(n=16, mp=64), "one_slot": dict(n=1, mp=64),
                 "sampling": dict(n=3, p=8, mp=4), "byte_loads": dict(d=12, p=64, mp=5)}
 PAGED_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
@@ -886,15 +923,16 @@ def ce_want(steps: int, tokens: int, cfg) -> dict:
 FULL_ORDER = (0, 1, 2, 3, 0, 1, 2, 3)  # batches a, b, c and the padded p, twice
 
 
-def train_full_width(dev, strategy=None, order=FULL_ORDER) -> dict:
-    """Phase 7 (and 16): train steps of the gpt-small-dim768 rung (batch 64,
-    S 512, bf16) on synthetic batches, by default eight: three full
+def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0) -> dict:
+    """Phase 7 (and 16, 23): train steps of the gpt-small-dim768 rung (batch
+    64, S 512, bf16) on synthetic batches, by default eight: three full
     batches and one with 16 padded rows, each twice, under `strategy`
-    (`SingleDevice` by default). Checks the loss (finite; lower on the
-    first batch's second visit) and the launch counts; returns them with
-    the step walls, the peak device memory and the state."""
+    (`SingleDevice` by default), with `dropout` after each attention and
+    FFN block (phase 23). Checks the loss (finite; lower on the first
+    batch's second visit) and the launch counts; returns them with the
+    step walls, the peak device memory and the state."""
     strategy = SingleDevice() if strategy is None else strategy
-    cfg, state = build_train(dev, strategy=strategy)
+    cfg, state = build_train(dev, strategy=strategy, dropout=dropout)
     rng = np.random.RandomState(0)
     a, b, c = (to_device(*synthetic_batch(rng, cfg.vocab_size, BATCH, SEQ), dev)
                for _ in range(3))
@@ -931,15 +969,17 @@ def train_full_width(dev, strategy=None, order=FULL_ORDER) -> dict:
     return dict(counts=counts, wall=wall, losses=losses, peak=peak, state=state)
 
 
-def kernel_vs_plain_steps(dev) -> None:
-    """Phase 8: the train step through the kernels (CUDA) against the same
-    step through the plain versions (the CPU), f32, 2 layers at GPT-2-small
-    width, flash attention forced, batch 4 with a padded row, 4 steps from
-    the same parameters on the same batches. Losses within rtol 1e-4: f32 on
-    both sides, summation order only, carried through four AdamW steps."""
+def kernel_vs_plain_steps(dev, dropout: float = 0.0) -> None:
+    """Phase 8 (and 23, with `dropout`): the train step through the kernels
+    (CUDA) against the same step through the plain versions (the CPU), f32,
+    2 layers at GPT-2-small width, flash attention forced, batch 4 with a
+    padded row, 4 steps from the same parameters on the same batches (and
+    the same dropout keys: the masks are threefry bits, the same on both
+    devices). Losses within rtol 1e-4: f32 on both sides, summation order
+    only, carried through four AdamW steps."""
     cpu = torch.device("cpu")
     cfg, cpu_state = build_train(cpu, num_layers=2, compute_dtype=torch.float32,
-                                 attention_impl="flash", seed=1)
+                                 attention_impl="flash", seed=1, dropout=dropout)
     params = cpu_state.params
     dev_state = create_train_state(
         unflatten(params, [t.detach().to(dev, copy=True) for t in leaves(params)]), 1e-4)
@@ -953,8 +993,8 @@ def kernel_vs_plain_steps(dev) -> None:
         plain.append(float(train_step(cpu_state, cfg, strategy, *to_device(*batch, cpu))))
     counts = read_counts()
     worst = max(abs(a - b) / abs(b) for a, b in zip(ours, plain))
-    print(f"kernels {ours} vs plain {plain}: worst relative difference {worst:.3e} (bar "
-          f"1e-4); launches {counts}", flush=True)
+    print(f"dropout {dropout}: kernels {ours} vs plain {plain}: worst relative difference "
+          f"{worst:.3e} (bar 1e-4); launches {counts}", flush=True)
     if counts["flash_forward"] != 2 * 4 or counts["ce_backward_dh_f32"] != 4:
         raise AssertionError(f"the CUDA steps did not run the kernels: {counts}")
     if not worst <= 1e-4:
@@ -968,9 +1008,9 @@ def recipe_end_to_end(dev, recipe=single, label: str = "recipe") -> dict:
     build/chip_smoke_<module>/). `--sequence_length 512`: the recipe trains on
     S - 1 positions (prepare_batch's shift), so S = 511 (a ragged last key
     tile) is in front of the attention, where "auto" picks the flash
-    kernels. Checks that the
-    flash, CE and paged kernels ran, the eval metrics are finite, three
-    samples came back, and the checkpoint restores."""
+    kernels. Checks that the flash and CE kernels ran, the eval metrics
+    are finite, three samples came back (decoded on the ring, as tpukit's
+    recipes decode them), and the checkpoint restores."""
     name = recipe.__name__.rsplit(".", 1)[1]
     work = ROOT / "build" / ("chip_smoke" if recipe is single else f"chip_smoke_{name}")
     work.mkdir(parents=True, exist_ok=True)
@@ -992,7 +1032,9 @@ def recipe_end_to_end(dev, recipe=single, label: str = "recipe") -> dict:
           f"{result.metrics['eval']}, {len(result.metrics['samples'])} "
           f"samples, {result.metrics['tokens_per_sec']:.1f} train tokens/s, checkpoint "
           f"{result.checkpoint_path}; launches {counts}", flush=True)
-    if min(v for k, v in counts.items() if not k.startswith("moe_") and
+    # the samples decode on the ring (`sampling.generate_batch`), as
+    # tpukit's do: the paged kernels run in phases 4 and 20
+    if min(v for k, v in counts.items() if not k.startswith(("moe_", "paged_")) and
            not k.endswith("_f32")) == 0:
         raise AssertionError(f"a kernel of the recipe's path never ran: {counts}")
     if not np.isfinite(result.metrics["eval"]["loss"]) or len(result.metrics["samples"]) != 3:
@@ -1082,8 +1124,8 @@ def dp_equals_single(dev) -> None:
                                  f"leaves differ from the single-device step's")
 
 
-def serve_run(params, cfg, serve, reqs, dev, eos_id):
-    engine = ServeEngine(params, cfg, serve, eos_id=eos_id, device=dev)
+def serve_run(params, cfg, serve, reqs, dev, eos_id, **draft):
+    engine = ServeEngine(params, cfg, serve, eos_id=eos_id, device=dev, **draft)
     comps = engine.run(list(reqs))
     torch.cuda.synchronize()
     return engine, {c.rid: np.asarray(c.ids) for c in comps}
@@ -1464,9 +1506,9 @@ def moe_recipe_end_to_end(dev) -> dict:
     """Phase 13: `python -m tpukit_torch.recipes.moe --num_experts 8
     --moe_dispatch pallas` at GPT-2-small width on 288 fixture stories (9
     steps of 32), `--sequence_length 512`, 1 epoch, bf16, in
-    build/chip_smoke_moe/. Checks that the grouped-expert, flash, CE and
-    paged kernels ran, the eval metrics are finite, three samples came
-    back, and the checkpoint restores."""
+    build/chip_smoke_moe/. Checks that the grouped-expert, flash and CE
+    kernels ran, the eval metrics are finite, three samples came back
+    (decoded on the ring), and the checkpoint restores."""
     work = ROOT / "build" / "chip_smoke_moe"
     work.mkdir(parents=True, exist_ok=True)
     argv = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layers", "12",
@@ -1491,7 +1533,8 @@ def moe_recipe_end_to_end(dev) -> dict:
           f"{result.checkpoint_path}; launches {counts}", flush=True)
     # the decode policy's combine runs only where a forward has few rows
     if min(v for k, v in counts.items()
-           if not k.endswith("_f32") and k != "moe_forward_combine") == 0:
+           if not k.endswith("_f32") and k != "moe_forward_combine"
+           and not k.startswith("paged_")) == 0:
         raise AssertionError(f"a kernel of recipe 8's path never ran: {counts}")
     if not np.isfinite(result.metrics["eval"]["loss"]) or len(result.metrics["samples"]) != 3:
         raise AssertionError(f"recipe 8 output: {result.metrics}")
@@ -1559,6 +1602,269 @@ def moe_fused_vs_unfused(dev) -> None:
           f"versions on the CPU for the first 16", flush=True)
 
 
+THREEFRY_KNOWN = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                  ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                   (0xC4923A9C, 0x483DF7A0))]
+SAMPLE_ROWS, SAMPLE_VOCAB = 16, 50304  # one serving tick's logits (16 slots)
+GUMBEL_ATOL = 1e-6  # torch.log on the card and on the CPU may round an ulp apart
+
+
+def threefry_on_card(dev) -> dict:
+    """Phase 19: the port's threefry on the card. Random123's known answers;
+    random bits, uniforms, split and fold_in keys and Bernoulli masks
+    bit-equal to the CPU's (integer arithmetic and an exact mantissa fill),
+    Gumbel noise within 1e-6, at a serving tick's [16, 50304] (one key and
+    a key per row) and at odd shapes; `_select_next` at temperature 0.8 and
+    top-k 40 over [16, 50304] giving the CPU's tokens, and its time (CUDA
+    events, eager) beside greedy argmax's."""
+    cpu = torch.device("cpu")
+    for key, ctr, want in THREEFRY_KNOWN:
+        t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
+        got = tuple(int(v) for v in tk_random.threefry2x32(t(key[0]), t(key[1]), t(ctr[0]),
+                                                            t(ctr[1])))
+        if got != want:
+            raise AssertionError(f"threefry2x32{key, ctr} = {got} on the card, want {want}")
+    key = tk_random.PRNGKey(1234)
+    rows = tk_random.split(key, SAMPLE_ROWS)
+    worst = 0.0
+    for k, shape in ((key, (SAMPLE_ROWS, SAMPLE_VOCAB)), (rows, (SAMPLE_VOCAB,)),
+                     (key, (7,)), (key, (3, 5, 11)), (rows, (1, 50257))):
+        kd = k.to(dev)
+        for name, fn in (("random_bits", tk_random.random_bits), ("uniform", tk_random.uniform),
+                         ("bernoulli", lambda kk, sh: tk_random.bernoulli(kk, 0.9, sh))):
+            if not torch.equal(fn(kd, shape).cpu(), fn(k, shape)):
+                raise AssertionError(f"{name} {tuple(k.shape)} x {shape}: card != CPU")
+        err = float((tk_random.gumbel(kd, shape).cpu() - tk_random.gumbel(k, shape)).abs().max())
+        worst = max(worst, err)
+        if not err <= GUMBEL_ATOL:
+            raise AssertionError(f"gumbel {shape}: card vs CPU {err} > {GUMBEL_ATOL}")
+    cursors = torch.arange(SAMPLE_ROWS, dtype=torch.int32) * 37 + 5
+    for name, got, want in (
+            ("split", tk_random.split(key.to(dev), 64).cpu(), tk_random.split(key, 64)),
+            ("fold_in", tk_random.fold_in(rows.to(dev), cursors.to(dev)).cpu(),
+             tk_random.fold_in(rows, cursors))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: card != CPU")
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn((SAMPLE_ROWS, SAMPLE_VOCAB), generator=gen) * 3
+    ld, cd, kd = logits.to(dev), cursors.to(dev), rows.to(dev)
+    sample = lambda: serve_decode._select_next(ld, cd, kd, 0.8, 40)
+    tokens = sample().cpu()
+    want = serve_decode._select_next(logits, cursors, rows, 0.8, 40)
+    if not torch.equal(tokens, want):
+        raise AssertionError(f"_select_next on the card {tokens} != CPU {want}")
+    ms = time_ms(sample, 20)
+    greedy_ms = time_ms(lambda: serve_decode._select_next(ld, cd, kd, 0.0, 0), 20)
+    print(f"threefry: known answers, bits/uniform/bernoulli/split/fold_in bit-equal to the "
+          f"CPU, gumbel within {worst:.3e}; _select_next [16, 50304] t 0.8 top-k 40: "
+          f"{ms:.4f} ms a call (greedy argmax {greedy_ms:.4f} ms), tokens equal the CPU's",
+          flush=True)
+    return dict(select_ms=ms, greedy_ms=greedy_ms, gumbel_err=worst)
+
+
+def _tokens_per_s(engine, wall) -> float:
+    return engine.last_summary["generated_tokens"] / wall
+
+
+def _timed_serve(params, cfg, serve, reqs, dev, eos, **kw):
+    """A warm-up on 4 requests, then `reqs` with launch counts from zero;
+    returns the engine, its tokens, the wall and the counts."""
+    serve_run(params, cfg, serve, reqs[:4], dev, eos, **kw)
+    reset_counts()
+    t0 = time.perf_counter()
+    engine, outs = serve_run(params, cfg, serve, reqs, dev, eos, **kw)
+    wall = time.perf_counter() - t0
+    return engine, outs, wall, read_counts()
+
+
+def _split(engine, wall) -> str:
+    s = engine.last_summary
+    return (f"{s['requests']} requests / {s['generated_tokens']} tokens in {wall:.3f} s "
+            f"({s['generated_tokens'] / wall:.1f} tokens/s), {engine.steps} decode steps, "
+            f"prefill {s['prefill_s']:.3f} s / decode {s['decode_s']:.3f} s / sync "
+            f"{s['sync_s']:.3f} s")
+
+
+def _same_tokens(runs: dict, base: str, rids, what: str) -> None:
+    for label, outs in runs.items():
+        for rid in rids:
+            if not np.array_equal(outs[rid], runs[base][rid]):
+                raise AssertionError(f"{what}: {label} tokens != {base} tokens, rid {rid}")
+
+
+SAMPLED = dict(temperature=0.8, top_k=40)
+
+
+def sampled_serving(dev, greedy: dict) -> dict:
+    """Phase 20: phase 4's config and 64-request stream, sampled
+    (temperature 0.8, top-k 40, each request's key from its seed), fused
+    decode: each paged kernel launches layers x decode ticks times; tokens/s
+    beside phase 4's greedy run. Then at f32 with 4 layers the same seeded
+    stream gives the same tokens fused, unfused, on the ring, and fused
+    again (tpukit's same-seed guarantee)."""
+    cfg, params, serve, reqs, eos = build(dev, fused=True)
+    engine, outs, wall, counts = _timed_serve(params, cfg,
+                                              dataclasses.replace(serve, **SAMPLED), reqs,
+                                              dev, eos)
+    check_outputs(outs, reqs, cfg)
+    paged = paged_want(cfg.num_layers * engine.steps)
+    print(f"sampled (t 0.8, top-k 40) fused: {_split(engine, wall)}; greedy (phase 4) "
+          f"{greedy['tokens_per_s']:.1f} tokens/s; paged launches "
+          f"{ {k: counts[k] for k in paged} }", flush=True)
+    if any(counts[k] != v for k, v in paged.items()) or engine.steps == 0:
+        raise AssertionError(f"sampled serving: paged launches {counts} != {paged}")
+    cfg32, params32, serve32, _, _ = build(dev, fused=True, num_layers=4,
+                                            compute_dtype=torch.float32)
+    serve32 = dataclasses.replace(serve32, **SAMPLED)
+    ring = dataclasses.replace(serve32, page_size=0, prefill_chunk=0, fused_decode=False)
+    runs = {}
+    for label, sc in (("fused", serve32), ("unfused", dataclasses.replace(serve32,
+                                                                          fused_decode=False)),
+                      ("ring", ring), ("fused again", serve32)):
+        _, runs[label] = serve_run(params32, cfg32, sc, reqs, dev, eos)
+        check_outputs(runs[label], reqs, cfg32)
+    _same_tokens(runs, "fused", [r.rid for r in reqs], "sampled f32")
+    print(f"sampled f32: fused == unfused == ring == fused again on all {len(reqs)} requests "
+          f"({sum(len(v) for v in runs['fused'].values())} tokens incl. prompts)", flush=True)
+    return dict(tokens_per_s=_tokens_per_s(engine, wall), wall=wall, steps=engine.steps,
+                counts={k: counts[k] for k in paged}, summary=engine.last_summary)
+
+
+def ring_serving(dev, greedy: dict) -> dict:
+    """Phase 21: tpukit's default ring cache (page_size 0, bf16, phase 4's
+    64 requests): tokens/s and the prefill/decode split beside phase 4's;
+    the paged kernels do not run. At f32 with 4 layers the ring's greedy
+    tokens equal the paged (fused) engine's. MoE on the ring (8 experts,
+    pallas): the grouped forward launches layers x (prefill dispatches +
+    ticks) times."""
+    cfg, params, serve, reqs, eos = build(dev, fused=True)
+    ring = dataclasses.replace(serve, page_size=0, prefill_chunk=0, fused_decode=False)
+    engine, outs, wall, counts = _timed_serve(params, cfg, ring, reqs, dev, eos)
+    check_outputs(outs, reqs, cfg)
+    print(f"ring bf16: {_split(engine, wall)}; phase 4 (paged, fused) "
+          f"{greedy['tokens_per_s']:.1f} tokens/s, prefill {greedy['prefill_s']:.3f} s / "
+          f"decode {greedy['decode_s']:.3f} s / sync {greedy['sync_s']:.3f} s; kv_bytes "
+          f"{engine.kv_bytes}", flush=True)
+    if any(counts[k] for k in paged_want(0)):
+        raise AssertionError(f"the ring ran the paged kernels: {counts}")
+    cfg32, params32, serve32, _, _ = build(dev, fused=True, num_layers=4,
+                                            compute_dtype=torch.float32)
+    runs = {"paged": serve_run(params32, cfg32, serve32, reqs, dev, eos)[1],
+            "ring": serve_run(params32, cfg32, dataclasses.replace(
+                serve32, page_size=0, prefill_chunk=0, fused_decode=False), reqs, dev, eos)[1]}
+    _same_tokens(runs, "paged", [r.rid for r in reqs], "greedy f32")
+    print(f"greedy f32: ring == paged (fused) on all {len(reqs)} requests", flush=True)
+    mcfg, mparams, mserve, _, _ = build(dev, fused=True, num_experts=8)
+    mring = dataclasses.replace(mserve, page_size=0, prefill_chunk=0, fused_decode=False)
+    meng, mouts, mwall, mcounts = _timed_serve(mparams, mcfg, mring, reqs, dev, eos)
+    check_outputs(mouts, reqs, mcfg)
+    s = meng.last_summary
+    forwards = s["prefill_dispatches"] + meng.steps
+    print(f"MoE ring (8 experts, pallas): {_split(meng, mwall)}; grouped forward launches "
+          f"{mcounts['moe_forward_up']} = {mcfg.num_layers} x ({s['prefill_dispatches']} "
+          f"prefill dispatches + {meng.steps} ticks)", flush=True)
+    if mcounts["moe_forward_up"] != mcfg.num_layers * forwards or forwards == 0:
+        raise AssertionError(f"MoE ring: grouped forward launches {mcounts['moe_forward_up']} "
+                             f"!= {mcfg.num_layers} x {forwards}")
+    return dict(tokens_per_s=_tokens_per_s(engine, wall), wall=wall, summary=engine.last_summary,
+                moe_tokens_per_s=_tokens_per_s(meng, mwall), moe_counts=mcounts)
+
+
+DRAFT_SHAPE = dict(dim=64, head_dim=16, heads=4, num_layers=2)  # main-serve.py's --draft_*
+
+
+def _draft(cfg, dev, seed: int = 1):
+    dcfg = GPTConfig(vocab_size=cfg.vocab_size, max_position_embeddings=cfg.max_position_embeddings,
+                     compute_dtype=cfg.compute_dtype, **DRAFT_SHAPE)
+    return dict(draft_params=init_params(dcfg, seed=seed, device=dev), draft_cfg=dcfg)
+
+
+def _spec_line(engine) -> str:
+    sp = engine.last_summary["spec"]
+    hist = sp["accepted_hist"]
+    mean = sum(i * h for i, h in enumerate(hist)) / max(sum(hist), 1)
+    rate = sp["accept_rate"]
+    return (f"accepted {sp['accepted']}/{sp['proposed']} draft tokens "
+            f"({'n/a' if rate is None else f'{rate:.4f}'}), {mean:.3f} tokens appended per "
+            f"verify, histogram {hist}")
+
+
+def speculative_serving(dev, ring: dict) -> dict:
+    """Phase 22: speculation on the ring, spec_k 4, 64 requests at full
+    width (bf16): `draft="ngram"` on the `repetitive` stream beside vanilla
+    ring decoding of that stream, and `draft="model"` (tpukit's draft shape,
+    fresh seeded) on phase 4's stream beside phase 21's ring run:
+    acceptance, mean tokens appended per verify, tokens/s. At f32 with 4
+    layers: greedy speculation (both proposers) gives vanilla's tokens on
+    the first 32 requests, and sampled (t 0.8, top-k 40) the engine's
+    tokens for the first 8 equal the serial `reference_spec_decode`'s (a
+    request's tokens do not depend on its batch)."""
+    cfg, params, serve, reqs, eos = build(dev, fused=True)
+    ring_cfg = dataclasses.replace(serve, page_size=0, prefill_chunk=0, fused_decode=False)
+    spec = dataclasses.replace(ring_cfg, spec_k=4)
+    rep = synthetic_request_stream(get_tokenizer(), len(reqs), seed=0,
+                                   max_new_tokens=serve.max_new_tokens, buckets=serve.buckets,
+                                   stream_profile="repetitive")
+    veng, vouts, vwall, _ = _timed_serve(params, cfg, ring_cfg, rep, dev, eos)
+    neng, nouts, nwall, _ = _timed_serve(params, cfg, dataclasses.replace(spec, draft="ngram"),
+                                         rep, dev, eos)
+    for outs in (vouts, nouts):
+        check_outputs(outs, rep, cfg)
+    print(f"repetitive stream, vanilla ring: {_split(veng, vwall)}", flush=True)
+    print(f"repetitive stream, ngram spec_k 4: {_split(neng, nwall)}; {_spec_line(neng)}",
+          flush=True)
+    draft = _draft(cfg, dev)
+    meng, mouts, mwall, _ = _timed_serve(params, cfg, dataclasses.replace(spec, draft="model"),
+                                         reqs, dev, eos, **draft)
+    check_outputs(mouts, reqs, cfg)
+    print(f"phase 4 stream, model draft (64 / 4 x 16 / 2 layers) spec_k 4: "
+          f"{_split(meng, mwall)}; {_spec_line(meng)}; vanilla ring (phase 21) "
+          f"{ring['tokens_per_s']:.1f} tokens/s", flush=True)
+
+    cfg32, params32, serve32, _, _ = build(dev, fused=True, num_layers=4,
+                                            compute_dtype=torch.float32)
+    ring32 = dataclasses.replace(serve32, page_size=0, prefill_chunk=0, fused_decode=False,
+                                 spec_k=4)
+    draft32 = _draft(cfg32, dev)
+    head = reqs[:32]
+    runs = {"vanilla": serve_run(params32, cfg32, ring32, head, dev, eos)[1],
+            "ngram": serve_run(params32, cfg32, dataclasses.replace(ring32, draft="ngram"),
+                               head, dev, eos)[1],
+            "model": serve_run(params32, cfg32, dataclasses.replace(ring32, draft="model"),
+                               head, dev, eos, **draft32)[1]}
+    _same_tokens(runs, "vanilla", [r.rid for r in head], "greedy speculation")
+    sampled = dataclasses.replace(ring32, draft="model", **SAMPLED)
+    _, souts = serve_run(params32, cfg32, sampled, reqs[:8], dev, eos, **draft32)
+    check_outputs(souts, reqs[:8], cfg32)
+    for r in reqs[:8]:
+        ref = spec_lib.reference_spec_decode(
+            params32, cfg32, r.ids, r.max_new_tokens, eos, k=4, draft="model",
+            temperature=0.8, top_k=40, seed=r.seed, **draft32)
+        if not np.array_equal(ref, souts[r.rid]):
+            raise AssertionError(f"sampled speculation: engine tokens != reference_spec_decode, "
+                                 f"rid {r.rid}")
+    print(f"f32: greedy ngram == model == vanilla on the first {len(head)} requests; sampled "
+          f"model speculation == reference_spec_decode on the first 8", flush=True)
+    return dict(ngram=neng.last_summary, model=meng.last_summary,
+                ngram_tokens_per_s=_tokens_per_s(neng, nwall),
+                vanilla_rep_tokens_per_s=_tokens_per_s(veng, vwall),
+                model_tokens_per_s=_tokens_per_s(meng, mwall))
+
+
+def dropout_training(dev, plain_step: dict) -> dict:
+    """Phase 23: phase 7's rung with dropout 0.1, 8 steps (the loss falls on
+    a repeated batch, the flash and CE kernels launch as in phase 7), step
+    wall beside phase 7's; then phase 8's kernel-vs-plain steps at dropout
+    0.1 (f32, 2 layers, 4 steps, the same keys), within rtol 1e-4."""
+    run = train_full_width(dev, dropout=0.1)
+    del run["state"]
+    print(f"dropout 0.1: step wall {run['wall']:.4f} s against phase 7's "
+          f"{plain_step['wall']:.4f} s ({run['wall'] / plain_step['wall']:.3f}x)", flush=True)
+    _free()
+    kernel_vs_plain_steps(dev, dropout=0.1)
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; it needs one CUDA GPU",
@@ -1608,6 +1914,8 @@ def main() -> int:
     check_outputs(outs, reqs, cfg)
     if paged_counts != paged or engine.steps == 0:
         raise AssertionError(f"paged kernel launches {paged_counts} != {paged}")
+    greedy = dict(tokens_per_s=s["generated_tokens"] / wall, prefill_s=s["prefill_s"],
+                  decode_s=s["decode_s"], sync_s=s["sync_s"])
 
     phase("fused vs unfused (f32 compute, 4 layers)")
     cfg32, params32, serve32, _, _ = build(dev, fused=True, num_layers=4,
@@ -1681,6 +1989,21 @@ def main() -> int:
         recipe_end_to_end(dev, ddp_recipe, "recipe 2")
         recipe_end_to_end(dev, fsdp_recipe, "recipe 3")
 
+    phase("threefry on the card (random bits, uniforms, keys, Gumbel noise, the sampler)")
+    threefry_on_card(dev)
+
+    phase("sampled serving (GPT-2 small width, bf16, t 0.8, top-k 40, fused decode)")
+    sampled_serving(dev, greedy)
+
+    phase("ring serving (GPT-2 small width, bf16, page_size 0; MoE on the ring)")
+    ring = ring_serving(dev, greedy)
+
+    phase("speculative serving (ngram on the repetitive stream, draft model; spec_k 4)")
+    speculative_serving(dev, ring)
+
+    phase("dropout training (gpt-small-dim768, batch 64, S 512, bf16, dropout 0.1)")
+    dropout_training(dev, step)
+
     fl, ce = trained["flash"], trained["ce"]
 
     def entry(name, source, replaces, launches, res, way, err, library_ms, **extra):
@@ -1692,6 +2015,7 @@ def main() -> int:
                 "library_ms": library_ms, **extra}
 
     c, mc = step["counts"], moe_step["counts"]
+    phase("kernel results")
     print(json.dumps({"kernels": [
         {"name": "paged_attend", "route": "cuda",
          "source": "tpukit_torch/csrc/paged_attention.cu",

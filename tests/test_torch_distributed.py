@@ -48,7 +48,7 @@ from tpukit_torch.flags import build_parser, parse_flags
 from tpukit_torch.model import gpt
 from tpukit_torch.recipes import ddp, fsdp, single
 from tpukit_torch.shardings import FSDP, DataParallel, SingleDevice, fsdp_shard_dim, leaves
-from tpukit_torch.train import create_train_state, fit, train_step
+from tpukit_torch.train import create_train_state, dropout_key, fit, train_step
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = ROOT / "tests" / "torch_dist_worker.py"
@@ -148,8 +148,19 @@ def world_run(request, tmp_path_factory, tk_cfg, global_batch, init_params):
         create_train_state(params_from_numpy(init_params, "cpu"), 1e-3).params, cfg,
         {k: torch.from_numpy(v) for k, v in model_batch.items()}, torch.from_numpy(targets))
     grads = {k: v.numpy() for k, v in _flat(grads).items()}
+    # dropout 0.1, step 0's key of seed 0: tpukit's DataParallel step draws
+    # the masks over the global batch; so does the port's SingleDevice step
+    dcfg = cfg.replace(dropout=0.1)
+    drop_ref = _tk_one_step(TkDataParallel(tk_create_mesh({"data": world}, devices)),
+                            tk_cfg.replace(dropout=0.1), model_batch, targets)[1]
+    drop_loss, drop_grads = SingleDevice().value_and_grad(
+        create_train_state(params_from_numpy(init_params, "cpu"), 1e-3).params, dcfg,
+        {k: torch.from_numpy(v) for k, v in model_batch.items()}, torch.from_numpy(targets),
+        rng=dropout_key(0, 0, "cpu"))
+    dropout = dict(tk_loss=drop_ref, loss=float(drop_loss),
+                   grads={k: v.numpy() for k, v in _flat(drop_grads).items()})
     return dict(world=world, work=work, got=dict(np.load(work / "result.npz")), refs=refs,
-                grads=grads, single=single_state, single_ckpt=single_ckpt)
+                grads=grads, single=single_state, single_ckpt=single_ckpt, dropout=dropout)
 
 
 def _tree(got: dict, prefix: str) -> dict:
@@ -193,6 +204,24 @@ def test_step_matches_tpukit(world_run, label):
         flipped += int((~agree).sum())
         np.testing.assert_allclose(params[name][agree], ref[agree], **PARAM_TOL, err_msg=name)
     assert flipped <= 1
+
+
+@pytest.mark.parametrize("label", ["ddp", "fsdp"])
+def test_dropout_step_matches_tpukit(world_run, label):
+    """At dropout 0.1 each rank draws its rows of the global batch's masks,
+    as tpukit draws them over the global batch and shards them: the loss
+    within 1e-5 of tpukit's DataParallel step with the same seed (and of
+    the port's single-device step), the gradients within GRAD_TOL of the
+    port's single-device step on the global batch."""
+    got, ref = world_run["got"], world_run["dropout"]
+    loss = float(got[f"dropout/{label}/loss"])
+    assert abs(loss - ref["tk_loss"]) < 1e-5
+    assert abs(loss - ref["loss"]) < 1e-5
+    assert abs(ref["loss"] - float(got[f"{label}/loss"])) > 1e-4  # the masks matter
+    grads = _tree(got, f"dropout/{label}/grad")
+    assert grads.keys() == ref["grads"].keys()
+    for name, want in ref["grads"].items():
+        np.testing.assert_allclose(grads[name], want, **GRAD_TOL, err_msg=name)
 
 
 def test_averaged_rank_means_fail_the_bar(world_run):

@@ -94,8 +94,8 @@ def test_serve_cli_runs_on_cpu_when_asked():
     assert proc.returncode == 0, proc.stderr
     assert "served 4 requests / " in proc.stdout
     bad = _run([sys.executable, "-m", "tpukit_torch.serve", "--device", "cpu",
-                "--temperature", "0.7"])
-    assert bad.returncode != 0 and "NotPortedError" in bad.stderr
+                "--checkpoint", "ckpt.pt"])
+    assert bad.returncode != 0 and "NotPortedError" in bad.stderr and "item 10" in bad.stderr
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

@@ -170,8 +170,8 @@ def test_decode_loop_window_matches_tpukit(models, stop_when_freed):
         eos_id=1)
     t = lambda a: torch.from_numpy(a.copy())
     out_t = decode.decode_loop_window(
-        tp, tcfg, t(buf), tc, t(cursors), t(active), t(limits), t(held), 8,
-        stop_when_freed, eos_id=1)
+        tp, tcfg, t(buf), tc, t(cursors), t(active), t(limits),
+        torch.zeros((4, 2), dtype=torch.int64), t(held), 8, stop_when_freed, eos_id=1)
     ticks, freed = int(out_j[4]), int(out_j[5])
     assert (out_t[4], out_t[5]) == (ticks, freed)
     assert ticks == (3 if stop_when_freed == 3 else 5)
@@ -249,6 +249,47 @@ def test_engine_tokens_match_tpukit(tok, models, fused):
     assert st["max_live_slots"] == sj["max_live_slots"]
 
 
+@pytest.mark.parametrize("kind,temperature", [
+    ("ring", 0.0), ("ring", 0.8), ("paged_unfused", 0.8), ("paged_fused", 0.8),
+], ids=["ring-greedy", "ring-sampled", "paged-unfused-sampled", "paged-fused-sampled"])
+def test_engine_ring_and_sampled_tokens_match_tpukit(tok, models, kind, temperature):
+    """tpukit's default ring engine (8 requests, 3 slots: admit batches
+    padded with repeats, slots reused) and sampled decoding (temperature
+    0.8, top-k 5, each request's key from its seed) on the ring and on
+    pages, fused and unfused: tokens identical to tpukit's engine."""
+    jcfg, tcfg, jp, tp = models
+    reqs = jax_stream(tok, 8, seed=3, max_new_tokens=MAX_NEW, buckets=(8, 16))
+    kw = dict(slots=3, buckets=(8, 16), max_new_tokens=MAX_NEW, decode_quantum=3,
+              temperature=temperature, top_k=5 if temperature else 0)
+    if kind != "ring":
+        kw.update(page_size=8, fused_decode=kind == "paged_fused")
+    jeng, teng, outs_j, outs_t = _run_both(tok, jcfg, tcfg, jp, tp, reqs, **kw)
+    assert outs_t.keys() == outs_j.keys() == set(range(8))
+    for rid in outs_j:
+        np.testing.assert_array_equal(outs_t[rid], outs_j[rid], err_msg=f"rid {rid}")
+    assert teng.last_summary["kv_bytes"] == jeng.last_summary["kv_bytes"]
+    assert teng.steps == jeng.steps
+
+
+@pytest.mark.parametrize("argv", [
+    ["--temperature", "0.8", "--top_k", "5"],
+    ["--page_size", "8", "--fused_decode", "--temperature", "0.8"],
+    ["--draft", "ngram", "--stream_profile", "repetitive"],
+    ["--draft", "model", "--draft_dim", "16", "--draft_head_dim", "8", "--draft_heads", "2",
+     "--draft_num_layers", "1", "--temperature", "0.8"],
+], ids=["ring-sampled", "paged-sampled", "ngram", "model"])
+def test_serve_entry_point_runs_the_new_paths(argv, capsys):
+    from tpukit_torch.serve import __main__ as serve_main
+
+    assert serve_main.main([
+        "--device", "cpu", "--num_layers", "1", "--dim", "32", "--head_dim", "8",
+        "--heads", "4", "--sequence_length", "48", "--requests", "3", "--slots", "2",
+        "--buckets", "8,16", "--max_new_tokens", "6"] + argv) == 0
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out
+    assert ("speculative decoding" in out) == ("--draft" in argv)
+
+
 def test_engine_int8_pages_agree_with_tpukit(tok):
     """int8 pages (page 8 x head_dim 32 = one quant block per row), fused:
     the port's tokens agree with tpukit's int8 engine and with its own f32
@@ -291,9 +332,22 @@ def test_tokenizer_and_stream_match_tpukit(seed, kw):
 
 
 def test_unported_paths_raise_named_errors():
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        ServeConfig(page_size=0)
+    """What the port still lacks raises, naming its ROADMAP item: checkpoint
+    restore for serving (item 10), the fleet (item 19) and EP over more
+    than one rank (item 13). `ServeConfig()` is tpukit's ring default."""
+    from tpukit_torch.serve import __main__ as serve_main
+
+    for argv, item in ((["--checkpoint", "c.pt"], "item 10"),
+                       (["--draft", "model", "--draft_checkpoint", "d.pt"], "item 10"),
+                       (["--replicas", "2"], "item 19")):
+        with pytest.raises(NotPortedError, match=item):
+            serve_main.main(argv + ["--device", "cpu"])
     with pytest.raises(NotPortedError, match="ROADMAP"):  # MoE serves; EP over ranks waits
         ExpertParallel(ExpertGrid(data=1, expert=2))
     with pytest.raises(ValueError, match="divide every bucket"):
         ServeConfig(page_size=8, buckets=(12,))
+    assert ServeConfig().page_size == JaxServeConfig().page_size == 0
+    with pytest.raises(ValueError, match="ring cache"):
+        ServeConfig(page_size=8, draft="ngram")
+    with pytest.raises(ValueError, match="paged cache"):
+        ServeConfig(fused_decode=True)

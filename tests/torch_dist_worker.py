@@ -11,9 +11,10 @@ splits them. For `DataParallel` and `FSDP` each it takes one AdamW step
 (lr 1e-3) and records the global loss, the gradients, the bf16 eval loss
 and accuracy after the step and the parameters, all gathered whole; then
 the averaged-per-rank-mean objective of plain DDP (the negative control),
-an FSDP checkpoint of the stepped state (`<out>/fsdp_ckpt`), and the
-single-device checkpoint restored into a fresh FSDP state. Rank 0 writes
-everything to `<out>/result.npz`.
+an FSDP checkpoint of the stepped state (`<out>/fsdp_ckpt`), the
+single-device checkpoint restored into a fresh FSDP state, and each
+strategy's loss and gradients at dropout 0.1 with step 0's key of seed 0
+(`dropout/...`). Rank 0 writes everything to `<out>/result.npz`.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from tpukit_torch import checkpoint, mesh  # noqa: E402
 from tpukit_torch.bridge import params_from_numpy  # noqa: E402
 from tpukit_torch.model import GPTConfig  # noqa: E402
 from tpukit_torch.shardings import DataParallel, FSDP, gather_full, leaves  # noqa: E402
-from tpukit_torch.train import create_train_state, eval_step  # noqa: E402
+from tpukit_torch.train import create_train_state, dropout_key, eval_step  # noqa: E402
 
 LR = 1e-3
 
@@ -105,6 +106,15 @@ def main() -> None:
             checkpoint.restore(str(data["single_ckpt"]), restored)
             result.update(_gathered("restored/param", restored.params))
             result.update(_opt_state("restored/opt", restored))
+
+    # dropout: each rank draws its rows of the global batch's masks
+    for label, make in (("ddp", DataParallel), ("fsdp", FSDP)):
+        strategy = make()
+        state = create_train_state(params_from_numpy(init, "cpu"), LR, strategy)
+        loss, grads = strategy.value_and_grad(state.params, cfg.replace(dropout=0.1), batch,
+                                              targets, rng=dropout_key(0, 0, "cpu"))
+        result[f"dropout/{label}/loss"] = np.float64(loss)
+        result.update(_gathered(f"dropout/{label}/grad", grads))
 
     # plain DDP's objective: each rank's own mean, averaged over the ranks
     strategy = DataParallel()

@@ -16,7 +16,10 @@ training (recipe 8) and serving on one card through the grouped-expert FFN,
 `csrc/moe_gemm.cu`. All are hand-written CUDA for sm_90a. Slice 8 ports
 data-parallel and fully-sharded training, recipes 2 and 3 (`python -m
 tpukit_torch.recipes.ddp` and `.fsdp`): DDP and FSDP2 over a c10d process
-group (`mesh.py`), the same kernels under both.
+group (`mesh.py`), the same kernels under both. Slice 9 ports seeded
+sampling (`random.py`, a copy of `jax.random`'s threefry; `sampling.py`),
+the ring KV cache that is tpukit's default serving engine, speculative
+decoding (`serve/spec.py`) and dropout, around the same kernels.
 
 Every entry point takes a `device` argument and runs on `cuda` unless the
 caller passes `device="cpu"`. Without a GPU and without that request it

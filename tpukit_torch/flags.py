@@ -86,7 +86,6 @@ _CORE_FLAGS = [
 # flag -> the ROADMAP.md item that carries it; set to a non-default value,
 # each raises NotPortedError in this slice
 NOT_CARRIED = {
-    "dropout": "item 9 'Seeded sampling' (dropout parity needs threefry)",
     "checkpoint_format": "item 10 'Checkpoints in tpukit's format' (tpukit's sharded "
                          "layout: npz blocks and a manifest)",
     "async_checkpoint": "item 17 'Resilience'",

@@ -1,8 +1,10 @@
 """The GPT decoder of the port, as functions on a parameter tree (twin of
 `tpukit/model/gpt.py`): the config, seeded initialisation, the full-sequence
-forward training runs (`forward`, `forward_hidden`), and the paged
-KV-cached forward the serving engine runs. With `num_experts > 0` every
-layer's FFN is a routed expert bank (`_apply_moe_ffn`).
+forward training runs (`forward`, `forward_hidden`, with dropout when a
+key is given), and the KV-cached forward the serving engine and the
+samplers run, over the ring cache (`init_kv_cache`) or the paged one. With
+`num_experts > 0` every layer's FFN is a routed expert bank
+(`_apply_moe_ffn`).
 
 The parameter tree is tpukit's: nested dicts, `layers` leaves stacked on a
 leading `num_layers` axis, linear kernels `[in, out]`. A tpukit tree
@@ -21,10 +23,11 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from tpukit_torch import NotPortedError, resolve_device
+from tpukit_torch import random as tk_random
+from tpukit_torch import resolve_device
 from tpukit_torch.ops import paged_attention
 from tpukit_torch.ops.attention import causal_attention
-from tpukit_torch.ops.layers import layer_norm, linear
+from tpukit_torch.ops.layers import dropout, layer_norm, linear
 from tpukit_torch.ops.moe_dispatch import moe_ffn_a2a, moe_ffn_xla
 from tpukit_torch.ops.moe_gemm import moe_ffn_pallas
 from tpukit_torch.serve import paged as paged_lib
@@ -54,6 +57,9 @@ class GPTConfig:
     # decode ticks (T == 1) of the paged forward run the paged-attention
     # kernel instead of the gathered view; prefill chunks stay unfused
     fused_decode: bool = False
+    # inverted dropout after the attention output projection and after the
+    # FFN, in training steps that pass a key (`forward(..., rng=)`); masks
+    # are threefry draws, the same bits as tpukit's (`tpukit_torch.random`)
     dropout: float = 0.0
     # "auto": the flash kernels on CUDA from S = 32 up, the eager XLA-twin
     # path otherwise (ops/attention.py); "xla" or "flash" force one
@@ -86,12 +92,8 @@ class GPTConfig:
     moe_capacity: int = 0
 
     def __post_init__(self):
-        if self.dropout > 0:
-            raise NotPortedError(
-                f"dropout={self.dropout}: tpukit draws its dropout masks from "
-                f"jax.random's threefry, which the port cannot match yet "
-                f"(ROADMAP.md, queue A item 9 'Seeded sampling')"
-            )
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout={self.dropout} must be in [0, 1)")
         if self.num_experts > 0 and not 1 <= self.router_top_k <= self.num_experts:
             raise ValueError(
                 f"router_top_k={self.router_top_k} must be in [1, num_experts="
@@ -213,11 +215,11 @@ def apply_embeddings(params: dict, cfg: GPTConfig, input_ids, position_ids):
     return x.to(cfg.compute_dtype)
 
 
-def _apply_attention(layer, cfg: GPTConfig, x, pad_mask):
+def _apply_attention(layer, cfg: GPTConfig, x, pad_mask, rng=None, rng_row0: int = 0):
     """Self-attention over a full sequence `x [B, S, dim]` (twin of
     `tpukit/model/gpt.py:428`): q/k/v projections (one fused product with
     `cfg.fuse_qkv`), causal attention by `cfg.attention_impl`, output
-    projection."""
+    projection, then dropout under `rng` (never inside the attention)."""
     batch, seq = x.shape[0], x.shape[1]
     cdt = cfg.compute_dtype
     if cfg.fuse_qkv:
@@ -229,36 +231,49 @@ def _apply_attention(layer, cfg: GPTConfig, x, pad_mask):
     out = causal_attention(split(q), split(k), split(v), scale=1.0 / cfg.head_dim**0.5,
                            pad_mask=pad_mask, impl=cfg.attention_impl)
     out = out.transpose(1, 2).reshape(batch, seq, cfg.inner_dim)
-    return linear(out, layer["attn"]["out"], cdt)
+    out = linear(out, layer["attn"]["out"], cdt)
+    return dropout(out, cfg.dropout, rng, rng_row0)
 
 
-def apply_decoder_layer(layer: dict, cfg: GPTConfig, x, pad_mask):
+def apply_decoder_layer(layer: dict, cfg: GPTConfig, x, pad_mask, rng=None,
+                        rng_row0: int = 0):
     """Pre-LN block (twin of `tpukit/model/gpt.py:464`): `x + attn(norm1(x))`,
     then `x + ffn(norm2(x))`; `pad_mask [B, S]` bool, True = padding. With
     `cfg.num_experts > 0` the FFN is the expert bank and the block returns
-    `(x, aux)`."""
+    `(x, aux)`. A key `rng [2]` splits into the attention's and the FFN's
+    dropout keys; `rng_row0` is the first row of `x` within the batch the
+    masks are drawn over (a data-parallel rank's share of the global
+    batch)."""
+    attn_rng = ffn_rng = None
+    if rng is not None:
+        attn_rng, ffn_rng = tk_random.split(rng)
     h = layer_norm(x, layer["norm1"]).to(cfg.compute_dtype)
-    x = x + _apply_attention(layer, cfg, h, pad_mask)
+    x = x + _apply_attention(layer, cfg, h, pad_mask, attn_rng, rng_row0)
     h = layer_norm(x, layer["norm2"]).to(cfg.compute_dtype)
     if cfg.num_experts > 0:
         out, aux = _apply_moe_ffn(layer, cfg, h, pad_mask)
-        return x + out, aux
-    return x + _apply_feed_forward(layer, cfg, h)
+        return x + dropout(out, cfg.dropout, ffn_rng, rng_row0), aux
+    return x + dropout(_apply_feed_forward(layer, cfg, h), cfg.dropout, ffn_rng, rng_row0)
 
 
 def apply_decoder_layers(stacked_layers: dict, cfg: GPTConfig, x, pad_mask,
-                         aux_out: list | None = None):
+                         aux_out: list | None = None, rng=None, rng_row0: int = 0):
     """The layer stack over stacked parameters (twin of
     `tpukit/model/gpt.py:485`), any leading stack size. With
-    `cfg.remat_layers` each layer is recomputed in the backward. MoE
-    configs append the layers' summed load-balance aux to `aux_out`."""
+    `cfg.remat_layers` each layer is recomputed in the backward (its
+    dropout masks drawn again from the same key). MoE configs append the
+    layers' summed load-balance aux to `aux_out`. A dropout key `rng`
+    splits into one key a layer."""
     moe = cfg.num_experts > 0
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in _unbind(stacked_layers):
+    layers = _unbind(stacked_layers)
+    rngs = tk_random.split(rng, len(layers)) if rng is not None else [None] * len(layers)
+    for layer, layer_rng in zip(layers, rngs):
         if cfg.remat_layers:
-            y = checkpoint(apply_decoder_layer, layer, cfg, x, pad_mask, use_reentrant=False)
+            y = checkpoint(apply_decoder_layer, layer, cfg, x, pad_mask, layer_rng, rng_row0,
+                           use_reentrant=False)
         else:
-            y = apply_decoder_layer(layer, cfg, x, pad_mask)
+            y = apply_decoder_layer(layer, cfg, x, pad_mask, layer_rng, rng_row0)
         if moe:
             y, aux = y
             aux_total = aux_total + aux
@@ -269,21 +284,25 @@ def apply_decoder_layers(stacked_layers: dict, cfg: GPTConfig, x, pad_mask,
 
 
 def forward_hidden(params: dict, cfg: GPTConfig, input_ids, position_ids, mask=None,
-                   aux_out: list | None = None):
+                   aux_out: list | None = None, rng=None, rng_row0: int = 0):
     """Embeddings, the layer stack and the final LayerNorm: the hidden
     states the LM head consumes, in the compute dtype (twin of
-    `tpukit/model/gpt.py:781`). `mask [B, S]` bool, True = padding."""
+    `tpukit/model/gpt.py:781`). `mask [B, S]` bool, True = padding. `rng`
+    (a `[2]` key, or None for no dropout) is the training step's dropout
+    key."""
     x = apply_embeddings(params, cfg, input_ids, position_ids)
-    x = apply_decoder_layers(params["layers"], cfg, x, mask, aux_out=aux_out)
+    x = apply_decoder_layers(params["layers"], cfg, x, mask, aux_out=aux_out, rng=rng,
+                             rng_row0=rng_row0)
     return layer_norm(x, params["norm_out"]).to(cfg.compute_dtype)
 
 
 def forward(params: dict, cfg: GPTConfig, input_ids, position_ids, mask=None,
-            aux_out: list | None = None):
+            aux_out: list | None = None, rng=None, rng_row0: int = 0):
     """Logits `[B, S, padded_vocab]` in the compute dtype, pad columns -1e9
-    (twin of `tpukit/model/gpt.py:819`)."""
+    (twin of `tpukit/model/gpt.py:819`); `rng` as in `forward_hidden`."""
     x = apply_embeddings(params, cfg, input_ids, position_ids)
-    x = apply_decoder_layers(params["layers"], cfg, x, mask, aux_out=aux_out)
+    x = apply_decoder_layers(params["layers"], cfg, x, mask, aux_out=aux_out, rng=rng,
+                             rng_row0=rng_row0)
     return apply_head(params, cfg, x)
 
 
@@ -301,6 +320,49 @@ def _apply_moe_ffn(layer, cfg: GPTConfig, x, pad_mask=None):
     `cfg.moe_dispatch`; returns `(out, aux)`. `pad_mask` only changes the
     load-balance statistics: every position routes."""
     return _MOE_DISPATCH[cfg.moe_dispatch](layer, cfg, x, pad_mask=pad_mask)
+
+
+def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None) -> dict:
+    """The ring KV cache (twin of `tpukit/model/gpt.py:574`): per-layer
+    stacked K/V buffers `[num_layers, B, heads, max_len, head_dim]` in the
+    compute dtype, zeroed."""
+    shape = (cfg.num_layers, batch, cfg.heads, max_len, cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+
+
+def _apply_attention_cached(layer, cfg: GPTConfig, x, k_cache, v_cache, start):
+    """Attention over the ring cache for a chunk `x [B, T, dim]` (twin of
+    `tpukit/model/gpt.py:583`): the chunk's K/V are written into the
+    caches `[B, H, W, D]` (in place) at `start`, then every position up to
+    each query's own is attended. `start` is an int (every row at the same
+    offset: a serial decode, a full-width prefill) or a `[B]` tensor of
+    per-row offsets (each slot at its own cursor). The write position
+    clamps to `[0, W - T]` as `lax.dynamic_update_slice` clamps it; the
+    query positions do not."""
+    batch, t = x.shape[0], x.shape[1]
+    cdt, h, d = cfg.compute_dtype, cfg.heads, cfg.head_dim
+    split = lambda z: z.view(batch, t, h, d).permute(0, 2, 1, 3)
+    q = split(linear(x, layer["attn"]["q"], cdt))
+    k = split(linear(x, layer["attn"]["k"], cdt))
+    v = split(linear(x, layer["attn"]["v"], cdt))
+    w = k_cache.shape[2]
+    steps = torch.arange(t, device=x.device)
+    if isinstance(start, torch.Tensor) and start.dim() == 1:
+        first = start.long().clamp(0, w - t)
+        cols = first[:, None] + steps
+        rows = torch.arange(batch, device=x.device)[:, None]
+        k_cache[rows, :, cols] = k.permute(0, 2, 1, 3)
+        v_cache[rows, :, cols] = v.permute(0, 2, 1, 3)
+        q_pos = (start.long()[:, None] + steps)[:, None, :, None]
+    else:
+        s0 = int(start)
+        first = min(max(s0, 0), w - t)
+        k_cache[:, :, first:first + t] = k
+        v_cache[:, :, first:first + t] = v
+        q_pos = (s0 + steps)[None, None, :, None]
+    return _attend_over_cache(layer, cfg, q, k_cache, v_cache, q_pos)
 
 
 def _attend_over_cache(layer, cfg: GPTConfig, q, k_cache, v_cache, q_pos):
@@ -360,38 +422,40 @@ def _apply_attention_paged(layer, cfg: GPTConfig, x, pool_k, pool_v, scale_k,
 
 def forward_cached(params: dict, cfg: GPTConfig, input_ids, position_ids,
                    cache: dict, start, write_mask=None):
-    """Forward a chunk `input_ids [B, T]` against the paged cache: writes
-    K/V for positions `[start[b], start[b] + T)` into the pools (in place)
-    and returns `(logits [B, T, padded_vocab], cache)`.
+    """Forward a chunk `input_ids [B, T]` against the KV cache (twin of
+    `tpukit/model/gpt.py:712`): writes K/V for positions `[start, start +
+    T)` (in place) and returns `(logits [B, T, padded_vocab], cache)`.
 
-    `cache` is the paged dict of `serve.paged.init_paged_cache`; `start` is
-    a `[B]` int32 vector of per-row offsets; `write_mask [B]` (default all
-    True) gates which rows' K/V reach the pool. The ring cache is not in
-    the port yet."""
-    if not (isinstance(cache, dict) and "bt" in cache):
-        raise NotPortedError(
-            "forward_cached on the ring KV cache is not in the port yet "
-            "(ROADMAP.md, queue A item 'Ring-cache serving'); pass the paged "
-            "cache of serve.paged.init_paged_cache"
-        )
-    if start.dim() != 1:
-        raise ValueError(
-            "paged forward_cached requires a [B] vector `start` (each row "
-            "sits at its own cursor through its block table)"
-        )
-    bt = cache["bt"]
-    if write_mask is None:
-        write_mask = torch.ones((bt.shape[0],), dtype=torch.bool, device=bt.device)
-    quant = "ks" in cache
+    `cache` is the ring of `init_kv_cache` or the paged dict of
+    `serve.paged.init_paged_cache` (told apart by its block tables, "bt").
+    On the ring `start` is an int or a `[B]` vector of per-row offsets and
+    `write_mask` is ignored (each slot owns its ring rows). The paged cache
+    needs a `[B]` vector; `write_mask [B]` (default all True) gates which
+    rows' K/V reach the pool."""
+    paged = "bt" in cache
+    if paged:
+        if not (isinstance(start, torch.Tensor) and start.dim() == 1):
+            raise ValueError(
+                "paged forward_cached requires a [B] vector `start` (each row "
+                "sits at its own cursor through its block table)"
+            )
+        bt = cache["bt"]
+        if write_mask is None:
+            write_mask = torch.ones((bt.shape[0],), dtype=torch.bool, device=bt.device)
+        quant = "ks" in cache
     x = apply_embeddings(params, cfg, input_ids, position_ids)
     for i in range(cfg.num_layers):
         layer = layer_params(params, i)
         h = layer_norm(x, layer["norm1"]).to(cfg.compute_dtype)
-        x = x + _apply_attention_paged(
-            layer, cfg, h, cache["k"][i], cache["v"][i],
-            cache["ks"][i] if quant else None, cache["vs"][i] if quant else None,
-            bt, start, write_mask,
-        )
+        if paged:
+            x = x + _apply_attention_paged(
+                layer, cfg, h, cache["k"][i], cache["v"][i],
+                cache["ks"][i] if quant else None, cache["vs"][i] if quant else None,
+                bt, start, write_mask,
+            )
+        else:
+            x = x + _apply_attention_cached(layer, cfg, h, cache["k"][i], cache["v"][i],
+                                            start)
         h = layer_norm(x, layer["norm2"]).to(cfg.compute_dtype)
         if cfg.num_experts > 0:
             x = x + _apply_moe_ffn(layer, cfg, h)[0]

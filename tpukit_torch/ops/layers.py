@@ -8,7 +8,11 @@ masked accuracy work on full logits: the unfused loss path
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from tpukit_torch import random as tk_random
 
 IGNORE_INDEX = -100  # the F.cross_entropy ignore index every loss path uses
 
@@ -31,6 +35,23 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor
     var = (xf - mean).square().mean(-1, keepdim=True)
     normed = (xf - mean) * torch.rsqrt(var + eps)
     return normed * params["scale"].float() + params["bias"].float()
+
+
+def dropout(x: torch.Tensor, rate: float, rng, row0: int = 0) -> torch.Tensor:
+    """Inverted dropout (twin of `tpukit/ops/layers.py:44`): keep each
+    element with probability `1 - rate`, drawn as `bernoulli(rng, keep)`
+    over `x.shape`, and scale the kept ones by `1 / keep`. The identity
+    when `rng` is None or `rate` is 0. `row0` is the first row of `x`
+    within the batch the mask is drawn over: rows `[row0, row0 + B)` of
+    that mask, bit for bit (a data-parallel rank's share)."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = tk_random.bernoulli(rng, keep, x.shape, offset=row0 * math.prod(x.shape[1:]))
+    # divide by a tensor in x's dtype, as jnp converts the weak-typed
+    # `keep`: a Python scalar divisor may run as a multiply by its
+    # reciprocal on cuda, an ulp away from the quotient
+    return torch.where(mask, x / torch.full_like(x, keep), torch.zeros_like(x))
 
 
 class _CrossEntropySum(torch.autograd.Function):

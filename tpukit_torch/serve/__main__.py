@@ -1,12 +1,21 @@
 """`python -m tpukit_torch.serve`: continuous-batching serving on one GPU
-(the port of `main-serve.py`, its paged greedy path).
+(the port of `main-serve.py`).
 
 Serves fresh seeded parameters (no checkpoint) over a seeded synthetic
 request stream and prints the throughput line of `main-serve.py`. Runs on
-cuda unless `--device cpu` is given.
+cuda unless `--device cpu` is given. `--page_size 0` (the default) serves
+from the ring KV cache, `--page_size P` from pages of P positions;
+`--temperature`/`--top_k` sample with each request's seeded key; `--draft
+ngram|model` decodes speculatively on the ring (the draft model is fresh
+seeded, shaped by the `--draft_*` flags).
 
+  python -m tpukit_torch.serve --requests 64                  # ring, greedy
+  python -m tpukit_torch.serve --temperature 0.8 --top_k 40   # sampled
   python -m tpukit_torch.serve --page_size 16 --fused_decode --requests 64
-  python -m tpukit_torch.serve --num_experts 8 --moe_dispatch pallas --fused_decode
+  python -m tpukit_torch.serve --draft ngram --stream_profile repetitive
+  python -m tpukit_torch.serve --draft model --draft_dim 64 --draft_num_layers 2
+  python -m tpukit_torch.serve --num_experts 8 --moe_dispatch pallas --fused_decode \\
+      --page_size 16
   python -m tpukit_torch.serve --device cpu --num_layers 2 --dim 64 \\
       --head_dim 16 --heads 4 --requests 8 --page_size 8 --fused_decode
 """
@@ -32,8 +41,9 @@ def parse_flags(argv=None):
     ap.add_argument("--heads", type=int, default=8)
     ap.add_argument("--num_layers", type=int, default=8)
     ap.add_argument("--sequence_length", type=int, default=256,
-                    help="position table size; the paged slot width (max "
-                    "bucket + max_new_tokens, in whole pages) must fit")
+                    help="position table size; the slot width (max bucket + "
+                    "max_new_tokens, in whole pages when paged, + spec_k "
+                    "under --draft) must fit")
     ap.add_argument("--disable_amp", action="store_true",
                     help="compute in f32 instead of bf16")
     ap.add_argument("--num_experts", type=int, default=0,
@@ -48,9 +58,14 @@ def parse_flags(argv=None):
     ap.add_argument("--buckets", type=str, default="16,32,64")
     ap.add_argument("--max_new_tokens", type=int, default=20)
     ap.add_argument("--decode_quantum", type=int, default=4)
-    ap.add_argument("--page_size", type=int, default=16,
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 decodes greedily; above 0 samples with each "
+                    "request's seeded key")
+    ap.add_argument("--top_k", type=int, default=0,
+                    help="sample among the k largest logits (0: all)")
+    ap.add_argument("--page_size", type=int, default=0,
                     help="token positions per KV page (must divide every "
-                    "bucket); 0 selects the ring cache, not ported yet")
+                    "bucket); 0 (the default) selects the ring cache")
     ap.add_argument("--num_pages", type=int, default=0)
     ap.add_argument("--kv_dtype", choices=("f32", "bf16", "int8"), default="f32")
     ap.add_argument("--prefill_chunk", type=int, default=0)
@@ -62,28 +77,37 @@ def parse_flags(argv=None):
     ap.add_argument("--shared_prefix", type=int, default=0)
     ap.add_argument("--stream_profile", default="uniform",
                     choices=("uniform", "repetitive", "shared_prefix"))
-    # main-serve.py flags this slice does not carry: named errors
-    ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--top_k", type=int, default=0)
+    ap.add_argument("--draft", choices=("", "ngram", "model"), default="",
+                    help="speculative decoding on the ring: 'ngram' "
+                    "self-speculation or a fresh seeded draft 'model'")
+    ap.add_argument("--spec_k", type=int, default=4,
+                    help="draft tokens proposed per slot per verify")
+    ap.add_argument("--ngram_max", type=int, default=3,
+                    help="longest n-gram the self-speculation proposer matches")
+    ap.add_argument("--draft_dim", type=int, default=64)
+    ap.add_argument("--draft_head_dim", type=int, default=16)
+    ap.add_argument("--draft_heads", type=int, default=4)
+    ap.add_argument("--draft_num_layers", type=int, default=2)
+    # main-serve.py flags the port does not carry yet: named errors
     ap.add_argument("--checkpoint", type=str, default="")
-    ap.add_argument("--draft", type=str, default="")
+    ap.add_argument("--draft_checkpoint", type=str, default="")
     ap.add_argument("--replicas", type=int, default=0)
     return ap.parse_args(argv)
 
 
 def _reject_unported(flags) -> None:
     unported = [
-        (flags.checkpoint, "--checkpoint", "checkpoint restore ('Checkpoints')"),
-        (flags.draft, "--draft", "speculative decoding ('Speculative decoding')"),
-        (flags.replicas, "--replicas", "the fleet router ('Fleet')"),
-        (flags.temperature > 0 or flags.top_k > 0, "--temperature/--top_k",
-         "seeded sampling, which needs jax.random's threefry ('Seeded sampling')"),
+        (flags.checkpoint, "--checkpoint",
+         "checkpoint restore (item 10 'Checkpoints in tpukit's format')"),
+        (flags.draft_checkpoint, "--draft_checkpoint",
+         "draft checkpoint restore (item 10 'Checkpoints in tpukit's format')"),
+        (flags.replicas, "--replicas", "the fleet router (item 19 'Fleet')"),
     ]
     for value, flag, what in unported:
         if value:
             raise NotPortedError(
                 f"{flag}: {what} is not in the port yet (ROADMAP.md, queue A); "
-                f"this slice serves fresh seeded params greedily"
+                f"the port serves fresh seeded params"
             )
 
 
@@ -108,14 +132,25 @@ def main(argv=None) -> int:
     buckets = tuple(sorted({int(b) for b in flags.buckets.split(",") if b}))
     serve = ServeConfig(
         slots=flags.slots, buckets=buckets, max_new_tokens=flags.max_new_tokens,
+        temperature=flags.temperature, top_k=flags.top_k,
         decode_quantum=flags.decode_quantum, page_size=flags.page_size,
         num_pages=flags.num_pages, kv_dtype=flags.kv_dtype,
         prefill_chunk=flags.prefill_chunk, fused_decode=flags.fused_decode,
+        draft=flags.draft, spec_k=flags.spec_k, ngram_max=flags.ngram_max,
     )
     params = init_params(cfg, seed=flags.seed, device=device)
     print(f"serving fresh seeded params (no --checkpoint) on {device}")
+    draft_params = draft_cfg = None
+    if flags.draft == "model":
+        draft_cfg = GPTConfig(
+            dim=flags.draft_dim, head_dim=flags.draft_head_dim, heads=flags.draft_heads,
+            num_layers=flags.draft_num_layers, vocab_size=tokenizer.vocab_size,
+            max_position_embeddings=flags.sequence_length, compute_dtype=cfg.compute_dtype,
+        )
+        draft_params = init_params(draft_cfg, seed=flags.seed, device=device)
+        print("draft model: fresh seeded params (no --draft_checkpoint)")
     engine = ServeEngine(params, cfg, serve, eos_id=int(tokenizer.eos_token_id),
-                         device=device)
+                         device=device, draft_params=draft_params, draft_cfg=draft_cfg)
     requests = synthetic_request_stream(
         tokenizer, flags.requests, seed=flags.seed,
         max_new_tokens=flags.max_new_tokens, buckets=buckets, qps=flags.qps,
@@ -129,9 +164,20 @@ def main(argv=None) -> int:
     print(f"served {len(completions)} requests / {gen} tokens in "
           f"{wall:.2f}s ({gen / wall:.1f} tokens/s, occupancy "
           f"{100 * s['mean_occupancy']:.0f}%)")
-    print(f"paged KV: {s['num_pages']} pages x {s['page_size']} tokens "
-          f"({s['kv_dtype']}), prefix hits {s['prefix_hits']}/{s['admitted']} "
-          f"admissions, {s['prefix_pages_reused']} pages of prefill skipped")
+    if serve.paged:
+        print(f"paged KV: {s['num_pages']} pages x {s['page_size']} tokens "
+              f"({s['kv_dtype']}), prefix hits {s['prefix_hits']}/{s['admitted']} "
+              f"admissions, {s['prefix_pages_reused']} pages of prefill skipped")
+    else:
+        print(f"ring KV: {serve.slots} slots x {serve.kv_width} positions "
+              f"({s['kv_bytes']} bytes)")
+    if serve.draft:
+        sp = s["spec"]
+        rate = sp["accept_rate"]
+        print(f"speculative decoding ({serve.draft}, k={serve.spec_k}): accepted "
+              f"{sp['accepted']}/{sp['proposed']} draft tokens"
+              + (f" ({100 * rate:.0f}%)" if rate is not None else "")
+              + f", appended/verify histogram {sp['accepted_hist']}")
     e2e = sorted(c.e2e_s for c in completions)
     if e2e:
         print(f"e2e latency p50 {1e3 * e2e[len(e2e) // 2]:.1f} ms  "

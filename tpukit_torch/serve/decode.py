@@ -1,21 +1,34 @@
-"""Batched decode over the paged KV cache (twin of `tpukit/serve/decode.py`,
-its paged, greedy programs).
+"""Batched KV-cached decode for the serving engine and the samplers (twin
+of `tpukit/serve/decode.py`), over the ring cache (`gpt.init_kv_cache`)
+or the paged one.
 
-  - `prefill_chunk_paged`: forward the next chunk of every prefilling lane
-    in one batched call, writing whole pages; lanes on their last chunk arm
-    their decode state.
-  - `decode_step`: `steps` greedy ticks for every slot; a slot that
-    finishes mid-quantum stays frozen for the rest of it.
+  - `prefill_slots` (ring): write an admit batch of bucket-padded prompts
+    into their slots' buffer rows and ring rows, one batched forward;
+  - `prefill_chunk_paged` (paged): forward the next chunk of every
+    prefilling lane in one batched call, writing whole pages; lanes on
+    their last chunk arm their decode state;
+  - `decode_step`: `steps` ticks for every slot; a slot that finishes
+    mid-quantum stays frozen for the rest of it;
   - `decode_loop_window`: up to `max_ticks` ticks that stop early when
     every lane is done or finished lanes have freed `stop_when_freed`
     pages. tpukit runs the loop on the device; here the host checks the
-    condition after each tick. Token streams do not depend on the schedule.
+    condition after each tick;
+  - `decode_loop`: a whole batch known up front (`sampling.generate_batch`):
+    one full-width prefill of the `[N, W]` buffer, then ticks until every
+    row is done.
 
 State lives in tensors on the engine's device: `buf [N, W]` int32 token
-buffer, `cursors`/`limits [N]` int32, `active [N]` bool. The functions
-update them in place and return them. Sampling is greedy (argmax, first
-index on ties, as `jnp.argmax`); seeded sampling waits for a port of
-`jax.random` (ROADMAP.md).
+buffer, `cursors`/`limits [N]` int32, `active [N]` bool, `keys [N, 2]`
+(each slot's request key, int64 words). The functions update them in
+place and return them. Each tick samples through `sampling._sample_next`
+with the slot's key folded with its cursor, so token streams depend on
+neither the schedule nor the neighbouring slots; greedy ticks take the
+argmax (first index on ties, as `jnp.argmax`).
+
+Stale ring positions are never read: a slot writes its K/V at `cursor - 1`
+before it attends, and attention reads only `key_pos <= q_pos`, so what a
+longer evicted request (or a rejected speculative window) left above the
+cursor is rewritten before anything attends to it.
 """
 
 from __future__ import annotations
@@ -23,21 +36,33 @@ from __future__ import annotations
 import torch
 
 from tpukit_torch.model import gpt
+from tpukit_torch.sampling import _sample_next
 
 
-def _advance(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits,
-             eos_id: int):
-    """One greedy decode tick for every slot. Inactive slots re-forward
-    their last token with `write_mask` False (their K/V go to the null
-    page) and are masked out of every state update. Returns the new
-    `active`; `buf`, `cursors` and the cache change in place."""
+def _select_next(last, cursors, keys, temperature: float, top_k: int):
+    """Next token per slot from f32 logits `last [N, V]` (twin of
+    `tpukit/serve/decode.py:75`): `_sample_next` with each slot's key and
+    cursor."""
+    return _sample_next(last, cursors, keys, temperature, top_k)
+
+
+def _advance(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits, keys,
+             eos_id: int, temperature: float = 0.0, top_k: int = 0):
+    """One decode tick for every slot (twin of `tpukit/serve/decode.py:91`).
+    Inactive slots re-forward their last token: on the ring into the same
+    position (a write of the same values), on the paged cache with
+    `write_mask` False (their K/V go to the null page, since a freed lane's
+    block-table row may alias re-issued pages). Inactive slots are masked
+    out of every state update. Returns the new `active`; `buf`, `cursors`
+    and the cache change in place."""
     n, total = buf.shape
     read = (cursors - 1).clamp(0, total - 1)
     tok = buf.gather(1, read[:, None].long())
+    mask = active if "bt" in cache else None
     logits, _ = gpt.forward_cached(params, cfg, tok, read[:, None], cache, read,
-                                   write_mask=active)
+                                   write_mask=mask)
     last = logits[:, -1].float()
-    next_token = torch.argmax(last, -1).to(buf.dtype)
+    next_token = _select_next(last, cursors, keys, temperature, top_k).to(buf.dtype)
     fits = cursors < limits
     live = fits & (next_token != eos_id)
     append = active & live  # stop BEFORE appending on EOS
@@ -48,26 +73,56 @@ def _advance(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits,
     return active & live & (cursors < limits)
 
 
-def decode_step(params, cfg: gpt.GPTConfig, buf, cache, cursors, active,
-                limits, eos_id: int, steps: int = 1):
-    """`steps` greedy tokens for every slot (the decode quantum), with no
-    host sync. Returns `(buf, cache, cursors, active)`."""
+def decode_step(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits, keys,
+                eos_id: int, temperature: float = 0.0, top_k: int = 0, steps: int = 1):
+    """`steps` tokens for every slot (the decode quantum), with no host
+    sync. Returns `(buf, cache, cursors, active)`."""
     for _ in range(steps):
-        active = _advance(params, cfg, buf, cache, cursors, active, limits, eos_id)
+        active = _advance(params, cfg, buf, cache, cursors, active, limits, keys, eos_id,
+                          temperature, top_k)
     return buf, cache, cursors, active
 
 
-def prefill_chunk_paged(params, cfg: gpt.GPTConfig, buf, cache, cursors,
-                        active, limits, slots, rows, starts, is_last,
-                        prompt_lens, new_limits):
-    """One chunked-prefill dispatch: forward `rows [A, C]`, each lane's next
-    C prompt tokens at positions `[starts[i], starts[i] + C)`, through the
-    lanes' block-table rows, writing whole pages (`starts` page-aligned, C
-    a page multiple). The chunk attends to everything the lane's block
-    table already holds, shared prefix pages included. Lanes with
-    `is_last` arm cursor, limit and `active`. Repeated entries (the
-    power-of-two padding) rewrite the same values, so they are harmless.
-    Returns `(buf, cache, cursors, active, limits)`."""
+def prefill_slots(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits, keys,
+                  slots, rows, prompt_lens, new_limits, new_keys):
+    """Admit `A` requests in one batched forward (twin of
+    `tpukit/serve/decode.py:198`): their bucket-padded prompts `rows [A,
+    bucket]` go into the buffer at `slots [A]`, and their K/V for positions
+    `[0, bucket)` into the ring rows of those slots. The forward runs over
+    exactly these A rows, repeats of the power-of-two padding included:
+    under a capacity MoE dispatch the rows a forward sees set its capacity
+    windows, so tpukit's tokens need tpukit's rows. A repeated entry
+    rewrites the same slot with the same values. Pad positions write K/V
+    the causal window never reads. Returns `(buf, cache, cursors, active,
+    limits, keys)`."""
+    a, bucket = rows.shape
+    dev = buf.device
+    pos = torch.arange(bucket, dtype=torch.int32, device=dev).expand(a, bucket)
+    scratch = gpt.init_kv_cache(cfg, a, bucket, device=dev)
+    gpt.forward_cached(params, cfg, rows, pos, scratch, 0)
+    idx = slots.long()
+    buf[idx, :bucket] = rows.to(buf.dtype)
+    for name, ring in cache.items():
+        ring[:, idx, :, :bucket] = scratch[name]
+    cursors[idx] = prompt_lens.to(cursors.dtype)
+    active[idx] = True
+    limits[idx] = new_limits.to(limits.dtype)
+    keys[idx] = new_keys.to(keys.dtype)
+    return buf, cache, cursors, active, limits, keys
+
+
+def prefill_chunk_paged(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits,
+                        keys, slots, rows, starts, is_last, prompt_lens, new_limits,
+                        new_keys):
+    """One chunked-prefill dispatch (twin of `tpukit/serve/decode.py:243`):
+    forward `rows [A, C]`, each lane's next C prompt tokens at positions
+    `[starts[i], starts[i] + C)`, through the lanes' block-table rows,
+    writing whole pages (`starts` page-aligned, C a page multiple). The
+    chunk attends to everything the lane's block table already holds,
+    shared prefix pages included. Lanes with `is_last` arm cursor, limit,
+    key and `active`. Repeated entries (the power-of-two padding) rewrite
+    the same values, so they are harmless. Returns `(buf, cache, cursors,
+    active, limits, keys)`."""
     a, c = rows.shape
     dev = buf.device
     sub = dict(cache, bt=cache["bt"][slots.long()])  # pools shared: writes land in cache
@@ -80,12 +135,13 @@ def prefill_chunk_paged(params, cfg: gpt.GPTConfig, buf, cache, cursors,
     cursors[arm] = prompt_lens[is_last].to(cursors.dtype)
     active[arm] = True
     limits[arm] = new_limits[is_last].to(limits.dtype)
-    return buf, cache, cursors, active, limits
+    keys[arm] = new_keys[is_last].to(keys.dtype)
+    return buf, cache, cursors, active, limits, keys
 
 
-def decode_loop_window(params, cfg: gpt.GPTConfig, buf, cache, cursors,
-                       active, limits, pages_held, max_ticks: int,
-                       stop_when_freed: int, eos_id: int):
+def decode_loop_window(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits,
+                       keys, pages_held, max_ticks: int, stop_when_freed: int, eos_id: int,
+                       temperature: float = 0.0, top_k: int = 0):
     """Run decode ticks until `max_ticks` have run, every lane is done, or
     lanes that finished in this window hold `>= stop_when_freed` pages
     (`pages_held [N]` int32, each lane's page count). The condition is
@@ -94,7 +150,8 @@ def decode_loop_window(params, cfg: gpt.GPTConfig, buf, cache, cursors,
     ticks = freed = 0
     more = bool(active.any())
     while more and ticks < max_ticks and freed < stop_when_freed:
-        new_active = _advance(params, cfg, buf, cache, cursors, active, limits, eos_id)
+        new_active = _advance(params, cfg, buf, cache, cursors, active, limits, keys, eos_id,
+                              temperature, top_k)
         just_done = active & ~new_active
         freed_now = torch.where(just_done, pages_held, torch.zeros_like(pages_held)).sum()
         any_left, freed_now = torch.stack([new_active.any().to(freed_now.dtype),
@@ -102,3 +159,28 @@ def decode_loop_window(params, cfg: gpt.GPTConfig, buf, cache, cursors,
         more, freed, active = bool(any_left), freed + freed_now, new_active
         ticks += 1
     return buf, cache, cursors, active, ticks, freed
+
+
+@torch.no_grad()
+def decode_loop(params, cfg: gpt.GPTConfig, buf, prompt_lens, max_new_tokens: int,
+                eos_id: int, temperature: float = 0.0, top_k: int = 0, rng=None):
+    """The whole batch at once (twin of `tpukit/serve/decode.py:311`):
+    prefill the full `[N, W]` buffer into a ring of width W in one forward
+    (per-row prompt lengths; the pad positions' K/V are never read), then
+    tick until every row is done, with one host read of `active` a tick.
+    Every row shares `rng` and folds its own cursor. Returns `(buf,
+    lengths)`."""
+    n, total = buf.shape
+    dev = buf.device
+    cache = gpt.init_kv_cache(cfg, n, total, device=dev)
+    pos = torch.arange(total, dtype=torch.int32, device=dev).expand(n, total)
+    gpt.forward_cached(params, cfg, buf, pos, cache, 0)
+    cursors = prompt_lens.to(device=dev, dtype=torch.int32).clone()
+    limits = torch.clamp(cursors + max_new_tokens, max=total)
+    active = cursors < limits
+    keys = (rng.expand(n, 2) if rng is not None
+            else torch.zeros((n, 2), dtype=torch.int64, device=dev))
+    while bool(active.any()):
+        active = _advance(params, cfg, buf, cache, cursors, active, limits, keys, eos_id,
+                          temperature, top_k)
+    return buf, cursors

@@ -1,17 +1,31 @@
-"""Continuous-batching serving engine over the paged KV cache (twin of
-`tpukit/serve/engine.py`, its paged path).
+"""Continuous-batching serving engine (twin of `tpukit/serve/engine.py`).
 
-The host scheduler: a free list of decode lanes (`slots`), page-aware
-admission (a request holds `ceil(min(prompt + budget, width) / P)` pages
-from admission to eviction), shared-prefix reuse through the page
-registry, chunked prefill between decode quanta, and eviction on EOS or
-length. With `fused_decode` every decode tick runs the paged-attention
-kernel once per layer and each quantum is a `decode_loop_window` that can
-stop early; without it, a quantum is `decode_step` over the gathered view.
-Token streams are the same either way.
+The host scheduler: a free list of decode lanes (`slots`) and eviction on
+EOS or length, over one of two KV caches.
 
-Not in this slice (ROADMAP.md): the ring cache (`page_size == 0`),
-seeded sampling, speculative decoding, request tracing, the metrics plane,
+  - The ring (`page_size` 0, tpukit's default): each slot owns a row of
+    `gpt.init_kv_cache(cfg, slots, kv_width)`. Arrivals are admitted
+    between decode quanta, grouped by bucket, each group prefilled by one
+    `prefill_slots` forward padded to a power of two with repeats of its
+    last entry.
+  - Pages (`page_size` P > 0): page-aware admission (a request holds
+    `ceil(min(prompt + budget, width) / P)` pages from admission to
+    eviction), shared-prefix reuse through the page registry, chunked
+    prefill between decode quanta. With `fused_decode` every decode tick
+    runs the paged-attention kernel once per layer and each quantum is a
+    `decode_loop_window` that can stop early; without it, a quantum is
+    `decode_step` over the gathered view.
+
+Decoding is greedy at `temperature` 0 and otherwise samples with each
+request's key, `PRNGKey(req.seed)`, folded with the cursor, so a request's
+tokens depend neither on its neighbours nor on the schedule: fused,
+unfused and ring engines give the same tokens, and so does tpukit's.
+With `draft` set, each quantum is speculative on the ring: a proposer
+(`ngram` self-speculation, or a small draft `model`) guesses `spec_k`
+tokens a slot and the target verifies them in one forward
+(`serve/spec.py`); the output is the vanilla output, greedy or sampled.
+
+Not in the port yet (ROADMAP.md): request tracing, the metrics plane,
 deadlines and the fleet hooks.
 """
 
@@ -24,7 +38,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from tpukit_torch import NotPortedError, resolve_device
+from tpukit_torch import random as tk_random
+from tpukit_torch import resolve_device
 from tpukit_torch.data import synthetic_stories
 from tpukit_torch.model import gpt
 from tpukit_torch.serve import decode as serve_decode
@@ -34,8 +49,8 @@ from tpukit_torch.serve import paged as paged_lib
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One request: a tokenized prompt, its decode budget, the seed of its
-    sampling key (unused by greedy decoding) and its arrival offset in
-    seconds from the start of the stream."""
+    sampling key (`PRNGKey(seed)`; unused by greedy decoding) and its
+    arrival offset in seconds from the start of the stream."""
 
     rid: int
     ids: tuple[int, ...]
@@ -48,8 +63,8 @@ class Request:
 class Completion:
     """A finished request. `ids` holds prompt + generated tokens; times are
     run-relative seconds. `pages` is the request's page footprint,
-    `prefix_pages` how many of them were shared-prefix hits, `active_s`
-    when its prefill finished and decoding began."""
+    `prefix_pages` how many of them were shared-prefix hits (both 0 on the
+    ring), `active_s` when its prefill finished and decoding began."""
 
     rid: int
     ids: np.ndarray
@@ -76,35 +91,53 @@ class Completion:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Engine shape. `buckets` is the declared prompt-length set; prompts
-    longer than `max(buckets)` are rejected at admission. The logical slot
-    width is `max(buckets) + max_new_tokens`.
+    """Engine shape (twin of tpukit's, `tpukit/serve/engine.py:158-360`).
+    `buckets` is the declared prompt-length set; prompts longer than
+    `max(buckets)` are rejected at admission. The slot width is
+    `max(buckets) + max_new_tokens` unless `max_len` pins it.
     `decode_quantum` is the number of ticks per dispatch (the window size
-    with `fused_decode`). `page_size` must divide every bucket; `num_pages`
-    0 sizes the pool like a ring (slots x pages-per-slot + the null page);
-    `prefill_chunk` 0 is one page. Decoding is greedy: seeded sampling
-    waits for a token-exact port of jax.random's threefry (ROADMAP.md,
-    queue A item 'Seeded sampling')."""
+    with `fused_decode`). `temperature` 0 decodes greedily; above 0 each
+    request samples, `top_k` > 0 truncating to the k largest logits.
+    `page_size` 0 (the default) is the ring cache; above 0 it must divide
+    every bucket, `num_pages` 0 sizes the pool like a ring (slots x
+    pages-per-slot + the null page) and `prefill_chunk` 0 is one page.
+    `draft` "ngram" or "model" (ring only) makes each quantum speculative:
+    `spec_k` proposed tokens a slot, n-grams of up to `ngram_max`
+    tokens."""
 
     slots: int = 8
     buckets: tuple[int, ...] = (16, 32, 64)
     max_new_tokens: int = 20
+    temperature: float = 0.0
+    top_k: int = 0
+    max_len: int = 0
     decode_quantum: int = 4
-    page_size: int = 16
+    page_size: int = 0
     num_pages: int = 0
     kv_dtype: str = "f32"
     prefill_chunk: int = 0
+    draft: str = ""  # "" | "ngram" | "model"
+    spec_k: int = 4
+    ngram_max: int = 3
     fused_decode: bool = False
 
     def __post_init__(self):
-        if self.page_size < 0:
-            raise ValueError(f"page_size={self.page_size} must be >= 0")
-        if self.page_size == 0:
-            raise NotPortedError(
-                "page_size=0 selects tpukit's ring KV cache, which is not in "
-                "the port yet (ROADMAP.md, queue A item 'Ring-cache serving'); "
-                "serve with --page_size > 0"
-            )
+        if self.draft not in ("", "ngram", "model"):
+            raise ValueError(f"draft={self.draft!r} must be '', 'ngram' or 'model'")
+        if self.draft:
+            if self.spec_k < 1:
+                raise ValueError(
+                    f"spec_k={self.spec_k} must be >= 1 with draft={self.draft!r} — a "
+                    f"0-token draft is vanilla decode"
+                )
+            if self.ngram_max < 1:
+                raise ValueError(f"ngram_max={self.ngram_max} must be >= 1")
+            if self.page_size:
+                raise ValueError(
+                    f"draft={self.draft!r} requires the ring cache (page_size=0, got "
+                    f"{self.page_size}): the k+1-token verify write-back is not "
+                    f"page-aligned, and the paged write contract only covers whole pages"
+                )
         if self.slots < 1:
             raise ValueError(f"slots={self.slots} must be >= 1")
         if self.decode_quantum < 1:
@@ -116,10 +149,35 @@ class ServeConfig:
             )
         if self.max_new_tokens < 1:
             raise ValueError(f"max_new_tokens={self.max_new_tokens} must be >= 1")
+        if self.max_len and self.max_len < max(b):
+            raise ValueError(
+                f"max_len={self.max_len} is smaller than the largest bucket ({max(b)}) "
+                f"— a prompt admitted at that bucket could not fit the KV ring"
+            )
         if self.kv_dtype not in paged_lib.KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be one of {paged_lib.KV_DTYPES}, got {self.kv_dtype!r}"
             )
+        if self.page_size < 0:
+            raise ValueError(f"page_size={self.page_size} must be >= 0")
+        if self.page_size == 0:
+            if self.fused_decode:
+                raise ValueError(
+                    "fused_decode=True requires the paged cache (page_size > 0) — the "
+                    "fused kernel walks block tables"
+                )
+            if self.kv_dtype != "f32":
+                raise ValueError(
+                    f"kv_dtype={self.kv_dtype!r} requires the paged cache (page_size "
+                    f"> 0) — the ring stores the compute dtype"
+                )
+            for name in ("num_pages", "prefill_chunk"):
+                if getattr(self, name):
+                    raise ValueError(
+                        f"{name}={getattr(self, name)} requires the paged cache "
+                        f"(page_size > 0)"
+                    )
+            return
         bad = [x for x in b if x % self.page_size]
         if bad:
             raise ValueError(
@@ -149,7 +207,11 @@ class ServeConfig:
 
     @property
     def width(self) -> int:
-        return max(self.buckets) + self.max_new_tokens
+        return self.max_len or (max(self.buckets) + self.max_new_tokens)
+
+    @property
+    def paged(self) -> bool:
+        return self.page_size > 0
 
     @property
     def pages_per_slot(self) -> int:
@@ -158,13 +220,23 @@ class ServeConfig:
 
     @property
     def padded_width(self) -> int:
-        """Per-slot width of the paged view (width rounded up to pages)."""
-        return self.pages_per_slot * self.page_size
+        """Per-slot width of the token buffer: `width`, rounded up to whole
+        pages when paged."""
+        return self.pages_per_slot * self.page_size if self.paged else self.width
 
     @property
     def chunk(self) -> int:
-        """Chunked-prefill chunk actually used."""
+        """Chunked-prefill chunk actually used (paged only)."""
         return self.prefill_chunk or self.page_size
+
+    @property
+    def kv_width(self) -> int:
+        """Positions of a slot's ring row: `padded_width` plus, under
+        speculation, `spec_k` scratch positions, so a verify window near
+        the end still writes all its k + 1 positions without the write
+        clamping down over valid history. The scratch lies above every
+        limit: never appended, never attended by an accepted query."""
+        return self.padded_width + (self.spec_k if self.draft else 0)
 
 
 @dataclasses.dataclass
@@ -180,8 +252,10 @@ class _Lane:
     shared: int = 0
     next_chunk: int = 0
     prefill_end: int = 0
-    phase: str = "prefill"  # "decode" once the last chunk is dispatched
+    phase: str = "decode"  # paged: "prefill" until the last chunk is dispatched
     active_s: float = 0.0
+    # the request's key words, made once at admission
+    key: np.ndarray | None = None
 
 
 def _pct(vals, q) -> float | None:
@@ -191,39 +265,77 @@ def _pct(vals, q) -> float | None:
 class ServeEngine:
     """Host-side continuous-batching loop over the `decode` programs, on
     one device. `params` is the model tree (`gpt.init_params`, or tpukit's
-    through `bridge.params_from_numpy`) on `device`."""
+    through `bridge.params_from_numpy`) on `device`; `draft_params` and
+    `draft_cfg` are the draft model of `draft="model"`."""
 
     def __init__(self, params, cfg: gpt.GPTConfig, serve: ServeConfig,
-                 eos_id: int, device=None):
+                 eos_id: int, device=None, draft_params=None, draft_cfg=None):
         self.device = resolve_device(device)
-        if serve.padded_width > cfg.max_position_embeddings:
+        if serve.kv_width > cfg.max_position_embeddings:
             raise ValueError(
-                f"paged slot width {serve.padded_width} (max bucket "
-                f"{max(serve.buckets)} + max_new_tokens {serve.max_new_tokens}, "
-                f"in whole pages) exceeds the position table "
-                f"({cfg.max_position_embeddings})"
+                f"slot width {serve.kv_width} (max bucket {max(serve.buckets)} + "
+                f"max_new_tokens {serve.max_new_tokens}"
+                + (", in whole pages" if serve.paged else "")
+                + (f", + spec_k {serve.spec_k} verify scratch" if serve.draft else "")
+                + f") exceeds the position table ({cfg.max_position_embeddings})"
             )
-        paged_lib.validate_kv_layout(cfg, serve.page_size, serve.kv_dtype)
+        if serve.draft == "model":
+            if draft_params is None or draft_cfg is None:
+                raise ValueError("draft='model' requires draft_params and draft_cfg")
+            # the acceptance test compares p and q token id by token id
+            if (draft_cfg.vocab_size != cfg.vocab_size
+                    or draft_cfg.padded_vocab_size != cfg.padded_vocab_size):
+                raise ValueError(
+                    f"draft model vocab (vocab_size {draft_cfg.vocab_size}, padded "
+                    f"{draft_cfg.padded_vocab_size}) does not match the target "
+                    f"({cfg.vocab_size}, padded {cfg.padded_vocab_size}) — draft and "
+                    f"target must share one tokenizer"
+                )
+            if serve.kv_width > draft_cfg.max_position_embeddings:
+                raise ValueError(
+                    f"draft model position table ({draft_cfg.max_position_embeddings}) "
+                    f"is smaller than the KV ring width {serve.kv_width}"
+                )
+        elif draft_params is not None or draft_cfg is not None:
+            raise ValueError(
+                f"draft_params/draft_cfg passed but ServeConfig.draft={serve.draft!r} — "
+                f"set draft='model' to use them"
+            )
+        if serve.paged:
+            paged_lib.validate_kv_layout(cfg, serve.page_size, serve.kv_dtype)
         self.params = params
         self.cfg = cfg.replace(fused_decode=True) if serve.fused_decode else cfg
         self.serve = serve
         self.eos_id = int(eos_id)
+        self.draft_params, self.draft_cfg = draft_params, draft_cfg
+        # top_k beyond the logits width is clamped, as tpukit clamps it
+        self._top_k = min(int(serve.top_k), cfg.padded_vocab_size)
+        self._temperature = float(serve.temperature)
         n, w = serve.slots, serve.padded_width
         dev = self.device
-        self.num_pages = serve.num_pages or n * serve.pages_per_slot + 1
-        self.cache = paged_lib.init_paged_cache(
-            cfg, self.num_pages, serve.page_size, serve.pages_per_slot, n,
-            serve.kv_dtype, device=dev,
-        )
-        self.allocator = paged_lib.PageAllocator(self.num_pages, serve.page_size)
-        self.kv_bytes = paged_lib.pool_bytes(cfg, self.num_pages, serve.page_size,
-                                             serve.kv_dtype)
-        self._bt = np.zeros((n, serve.pages_per_slot), np.int32)
-        self._bt_dirty = False
+        if serve.paged:
+            self.num_pages = serve.num_pages or n * serve.pages_per_slot + 1
+            self.cache = paged_lib.init_paged_cache(
+                cfg, self.num_pages, serve.page_size, serve.pages_per_slot, n,
+                serve.kv_dtype, device=dev,
+            )
+            self.allocator = paged_lib.PageAllocator(self.num_pages, serve.page_size)
+            self.kv_bytes = paged_lib.pool_bytes(cfg, self.num_pages, serve.page_size,
+                                                 serve.kv_dtype)
+            self._bt = np.zeros((n, serve.pages_per_slot), np.int32)
+            self._bt_dirty = False
+        else:
+            self.num_pages = 0
+            self.allocator = None
+            self.cache = gpt.init_kv_cache(cfg, n, serve.kv_width, device=dev)
+            self.kv_bytes = sum(c.numel() * c.element_size() for c in self.cache.values())
+        self.draft_cache = (gpt.init_kv_cache(draft_cfg, n, serve.kv_width, device=dev)
+                            if serve.draft == "model" else None)
         self.buf = torch.zeros((n, w), dtype=torch.int32, device=dev)
         self.cursors = torch.zeros((n,), dtype=torch.int32, device=dev)
         self.active = torch.zeros((n,), dtype=torch.bool, device=dev)
         self.limits = torch.zeros((n,), dtype=torch.int32, device=dev)
+        self.keys = torch.zeros((n, 2), dtype=torch.int64, device=dev)
         self._free = deque(range(n))
         self._lanes: dict[int, _Lane] = {}
         self._pending: deque[Request] = deque()
@@ -234,6 +346,12 @@ class ServeEngine:
         self.admitted = 0
         self.max_live = 0
         self.evicted = {"eos": 0, "length": 0}
+        # speculation (tpukit engine.py:253-259): draft tokens proposed and
+        # accepted, and how many verifies appended 0 .. spec_k + 1 tokens
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_hist = [0] * (serve.spec_k + 2) if serve.draft else []
+        self._pending_spec = None
         self._gen_total = 0
         self._walls = {"prefill": 0.0, "decode": 0.0, "sync": 0.0}
         self.last_summary: dict | None = None
@@ -253,6 +371,53 @@ class ServeEngine:
             f"bucket ({max(self.serve.buckets)}) — truncate upstream or "
             f"declare a larger bucket"
         )
+
+    def _admit_batch(self, reqs: list[Request], now: float) -> None:
+        """Ring admission (twin of `tpukit/serve/engine.py:302`): group the
+        requests by bucket and prefill each group in one `prefill_slots`
+        forward, padded to the next power of two by repeating its last
+        entry (the same rows tpukit's forward sees). Every request is
+        validated before a slot is taken."""
+        validated = []
+        for req in reqs:
+            plen = len(req.ids)
+            if plen < 1:
+                raise ValueError(f"request {req.rid}: empty prompt")
+            validated.append((req, plen, self.bucket_for(plen)))
+        groups: dict[int, list] = {}
+        for req, plen, bucket in validated:
+            groups.setdefault(bucket, []).append((self._free.popleft(), req, plen))
+        for bucket, entries in sorted(groups.items()):
+            a = 1 << (len(entries) - 1).bit_length()
+            rows = np.zeros((a, bucket), np.int32)
+            slots = np.zeros((a,), np.int32)
+            plens = np.zeros((a,), np.int32)
+            lims = np.zeros((a,), np.int32)
+            keys = np.zeros((a, 2), np.int64)
+            for i in range(a):
+                slot, req, plen = entries[min(i, len(entries) - 1)]
+                rows[i, :plen] = req.ids
+                slots[i], plens[i] = slot, plen
+                lims[i] = min(plen + req.max_new_tokens, self.serve.width)
+                keys[i] = tk_random.PRNGKey(req.seed).numpy()
+            args = [self._tensor(x) for x in (slots, rows, plens, lims, keys)]
+            t0 = time.perf_counter()
+            serve_decode.prefill_slots(self.params, self.cfg, self.buf, self.cache,
+                                       self.cursors, self.active, self.limits, self.keys,
+                                       *args)
+            if self.serve.draft == "model":
+                # the draft's ring takes the same admit batch; the lane state
+                # it writes again is the same values
+                serve_decode.prefill_slots(self.draft_params, self.draft_cfg, self.buf,
+                                           self.draft_cache, self.cursors, self.active,
+                                           self.limits, self.keys, *args)
+            self._walls["prefill"] += time.perf_counter() - t0
+            self.prefill_dispatches += 1
+            self.buckets_used.add(bucket)
+            for slot, req, plen in entries:
+                self._lanes[slot] = _Lane(req, now, plen, bucket, active_s=now)
+                self.admitted += 1
+        self.max_live = max(self.max_live, len(self._lanes))
 
     def _admit_paged_one(self, req: Request, now: float) -> bool:
         """Admit one request, or return False when the pool cannot cover
@@ -284,7 +449,8 @@ class ServeEngine:
         # only chunks that hold prompt tokens are prefilled
         self._lanes[slot] = _Lane(
             req, now, plen, bucket, pages=pages, shared=len(shared),
-            next_chunk=s_tokens, prefill_end=-(-plen // c) * c,
+            next_chunk=s_tokens, prefill_end=-(-plen // c) * c, phase="prefill",
+            key=tk_random.PRNGKey(req.seed).numpy(),
         )
         self.admitted += 1
         self.max_live = max(self.max_live, len(self._lanes))
@@ -318,18 +484,20 @@ class ServeEngine:
         last = np.zeros((a,), bool)
         plens = np.zeros((a,), np.int32)
         lims = np.zeros((a,), np.int32)
+        keys = np.zeros((a, 2), np.int64)
         for i in range(a):
             slot, lane, start, row, is_last = entries[min(i, len(entries) - 1)]
             rows[i], slots[i], starts[i], last[i] = row, slot, start, is_last
             plens[i] = lane.prompt_len
             lims[i] = min(lane.prompt_len + lane.req.max_new_tokens, self.serve.width)
+            keys[i] = lane.key
         self._refresh_bt()
         t0 = time.perf_counter()
         serve_decode.prefill_chunk_paged(
             self.params, self.cfg, self.buf, self.cache, self.cursors,
-            self.active, self.limits, self._tensor(slots), self._tensor(rows),
+            self.active, self.limits, self.keys, self._tensor(slots), self._tensor(rows),
             self._tensor(starts), self._tensor(last), self._tensor(plens),
-            self._tensor(lims),
+            self._tensor(lims), self._tensor(keys),
         )
         self._walls["prefill"] += time.perf_counter() - t0
         self.prefill_dispatches += 1
@@ -351,10 +519,12 @@ class ServeEngine:
         """One decode quantum. Fused: a `decode_loop_window` of up to
         `decode_quantum` ticks that stops early once finished lanes free
         the pages the head of the queue needs (1 << 30 when nothing
-        waits). Unfused: `decode_step` of exactly `decode_quantum` ticks."""
-        self._refresh_bt()
+        waits). Otherwise (unfused, or the ring): `decode_step` of exactly
+        `decode_quantum` ticks."""
         t0 = time.perf_counter()
+        sample = (self._temperature, self._top_k)
         if self.serve.fused_decode:
+            self._refresh_bt()
             ph = np.zeros((self.serve.slots,), np.int32)
             for s, lane in self._lanes.items():
                 if lane.phase == "decode":
@@ -368,25 +538,86 @@ class ServeEngine:
             (self.buf, self.cache, self.cursors, self.active, ticks,
              _) = serve_decode.decode_loop_window(
                 self.params, self.cfg, self.buf, self.cache, self.cursors,
-                self.active, self.limits, self._tensor(ph),
-                self.serve.decode_quantum, need, self.eos_id,
+                self.active, self.limits, self.keys, self._tensor(ph),
+                self.serve.decode_quantum, need, self.eos_id, *sample,
             )
         else:
+            if self.serve.paged:
+                self._refresh_bt()
             self.buf, self.cache, self.cursors, self.active = serve_decode.decode_step(
                 self.params, self.cfg, self.buf, self.cache, self.cursors,
-                self.active, self.limits, self.eos_id,
+                self.active, self.limits, self.keys, self.eos_id, *sample,
                 steps=self.serve.decode_quantum,
             )
             ticks = self.serve.decode_quantum
         self._walls["decode"] += time.perf_counter() - t0
         self.steps += ticks
 
-    def _sync_evict(self, now: float) -> None:
-        """Fetch cursors and flags, retire finished lanes (release their
-        pages, zero their block-table row), and count generated tokens."""
+    # ---- speculative decoding (serve/spec.py) ----------------------------
+
+    def _spec_step(self) -> None:
+        """One draft-and-verify quantum (twin of `tpukit/serve/engine.py:584`):
+        propose up to `spec_k` tokens a slot (the draft model's ticks, or
+        the n-gram match fused into the verify), then score all spec_k + 1
+        positions in one batched target forward and accept a per-slot
+        prefix. Counts as one step; a verify appends up to spec_k + 1
+        tokens a slot."""
+        from tpukit_torch.serve import spec as spec_lib
+
+        k, n = self.serve.spec_k, self.serve.slots
+        live = np.zeros((n,), bool)
+        for s, lane in self._lanes.items():
+            if lane.phase == "decode":
+                live[s] = True
+        sample = dict(temperature=self._temperature, top_k=self._top_k)
         t0 = time.perf_counter()
-        cur = self.cursors.cpu().numpy()
-        act = self.active.cpu().numpy()
+        if self.serve.draft == "model":
+            draft_toks, draft_q, _ = spec_lib.draft_propose(
+                self.draft_params, self.draft_cfg, self.buf, self.draft_cache,
+                self.cursors, self.keys, k=k, **sample)
+            dlen = np.where(live, k, 0).astype(np.int32)
+            draft_len = torch.full((n,), k, dtype=torch.int32, device=self.device)
+            (self.buf, self.cache, self.cursors, self.active, acc,
+             napp) = spec_lib.verify_step(
+                self.params, self.cfg, self.buf, self.cache, self.cursors, self.active,
+                self.limits, self.keys, draft_toks, draft_q, draft_len, self.eos_id,
+                k=k, **sample)
+        else:
+            (self.buf, self.cache, self.cursors, self.active, acc, napp,
+             dlen) = spec_lib.spec_ngram_step(
+                self.params, self.cfg, self.buf, self.cache, self.cursors, self.active,
+                self.limits, self.keys, self.eos_id, k=k, max_ngram=self.serve.ngram_max,
+                **sample)
+        self._walls["decode"] += time.perf_counter() - t0
+        self._pending_spec = (live, dlen, acc, napp)
+        self.steps += 1
+
+    def _drain_spec(self, dlen, acc, napp) -> None:
+        """Fold the last verify's counters into the spec telemetry (twin of
+        `tpukit/serve/engine.py:648`)."""
+        live = self._pending_spec[0]
+        self._pending_spec = None
+        for s in np.flatnonzero(live):
+            self.spec_proposed += int(dlen[s])
+            self.spec_accepted += int(min(acc[s], dlen[s]))
+            self.spec_hist[int(napp[s])] += 1
+
+    def _sync_evict(self, now: float) -> None:
+        """Fetch cursors and flags (and a verify's counters, in the same
+        copy), retire finished lanes (paged: release their pages, zero
+        their block-table row), and count generated tokens."""
+        t0 = time.perf_counter()
+        if self._pending_spec is not None:
+            _, dlen, acc, napp = self._pending_spec
+            if isinstance(dlen, np.ndarray):
+                dlen = torch.from_numpy(dlen).to(self.device)
+            host = torch.stack([self.cursors.long(), self.active.long(), dlen.long(),
+                                acc.long(), napp.long()]).cpu().numpy()
+            cur, act = host[0], host[1].astype(bool)
+            self._drain_spec(host[2], host[3], host[4])
+        else:
+            host = torch.stack([self.cursors.long(), self.active.long()]).cpu().numpy()
+            cur, act = host[0], host[1].astype(bool)
         finished = [s for s, lane in self._lanes.items()
                     if lane.phase == "decode" and not act[s]]
         gen_live = sum(int(cur[s]) - lane.prompt_len
@@ -398,9 +629,11 @@ class ServeEngine:
                 lane = self._lanes.pop(s)
                 length = int(cur[s])
                 ids = host_buf[s, :length].copy()
-                # a prefix hit skipped its shared chunks, so the buffer row
-                # never held those prompt tokens: take them from the request
-                ids[: lane.prompt_len] = lane.req.ids
+                if self.serve.paged:
+                    # a prefix hit skipped its shared chunks, so the buffer
+                    # row never held those prompt tokens: take them from the
+                    # request
+                    ids[: lane.prompt_len] = lane.req.ids
                 limit = min(lane.prompt_len + lane.req.max_new_tokens, self.serve.width)
                 reason = "length" if length >= limit else "eos"
                 self.evicted[reason] += 1
@@ -411,9 +644,10 @@ class ServeEngine:
                     done_s=now, pages=len(lane.pages), prefix_pages=lane.shared,
                     active_s=lane.active_s or lane.admit_s,
                 ))
-                self.allocator.release(lane.pages)
-                self._bt[s] = 0
-                self._bt_dirty = True
+                if self.serve.paged:
+                    self.allocator.release(lane.pages)
+                    self._bt[s] = 0
+                    self._bt_dirty = True
                 self._free.append(s)
         self._gen_total = sum(c.generated for c in self.completions) + gen_live
         self._walls["sync"] += time.perf_counter() - t0
@@ -421,14 +655,16 @@ class ServeEngine:
     def summary(self, wall_s: float) -> dict:
         comps = self.completions
         gen = sum(c.generated for c in comps)
-        st = self.allocator.stats
-        return dict(
+        # under speculation a step is one verify, spec_k + 1 tokens a slot
+        cap = (self.serve.spec_k + 1) if self.serve.draft else 1
+        rec = dict(
             requests=len(comps), slots=self.serve.slots,
             buckets=list(self.serve.buckets), buckets_used=sorted(self.buckets_used),
             generated_tokens=gen, decode_steps=self.steps,
             prefill_dispatches=self.prefill_dispatches, wall_s=wall_s,
             tokens_per_sec=gen / wall_s if wall_s else None,
-            mean_occupancy=gen / (self.serve.slots * self.steps) if self.steps else 0.0,
+            mean_occupancy=(gen / (self.serve.slots * self.steps * cap)
+                            if self.steps else 0.0),
             admitted=self.admitted, evicted_eos=self.evicted["eos"],
             evicted_length=self.evicted["length"],
             p50_e2e_s=_pct([c.e2e_s for c in comps], 50),
@@ -438,21 +674,41 @@ class ServeEngine:
             prefill_s=self._walls["prefill"], decode_s=self._walls["decode"],
             sync_s=self._walls["sync"],
             max_live_slots=self.max_live, kv_bytes=self.kv_bytes,
-            page_size=self.serve.page_size, num_pages=self.num_pages,
-            kv_dtype=self.serve.kv_dtype, prefix_hits=st.prefix_hits,
-            prefix_hit_rate=st.prefix_hits / max(self.admitted, 1),
-            prefix_pages_reused=st.prefix_pages_reused,
-            reclaimed_pages=st.reclaimed,
-            page_occupancy=self.allocator.occupancy,
-            pages_per_request=float(np.mean([c.pages for c in comps])) if comps else None,
         )
+        if self.serve.draft:
+            rec["spec"] = dict(
+                draft=self.serve.draft, k=self.serve.spec_k,
+                proposed=self.spec_proposed, accepted=self.spec_accepted,
+                accept_rate=(self.spec_accepted / self.spec_proposed
+                             if self.spec_proposed else None),
+                accepted_hist=list(self.spec_hist),
+            )
+        if self.serve.paged:
+            st = self.allocator.stats
+            rec.update(
+                page_size=self.serve.page_size, num_pages=self.num_pages,
+                kv_dtype=self.serve.kv_dtype, prefix_hits=st.prefix_hits,
+                prefix_hit_rate=st.prefix_hits / max(self.admitted, 1),
+                prefix_pages_reused=st.prefix_pages_reused,
+                reclaimed_pages=st.reclaimed,
+                page_occupancy=self.allocator.occupancy,
+                pages_per_request=(float(np.mean([c.pages for c in comps]))
+                                   if comps else None),
+            )
+        return rec
 
     # ---- step primitives -------------------------------------------------
 
     def admit(self, reqs: list[Request], now: float) -> list[Request]:
-        """Admit as many of `reqs` (in order) as lanes and pages allow;
-        stops at the first request the pool cannot cover (FIFO). Returns
-        the un-admitted tail."""
+        """Admit as many of `reqs` (in order) as capacity allows; returns the
+        un-admitted tail. Ring: up to the free-slot count, in one batched
+        bucket-grouped prefill. Paged: stops at the first request the pool
+        cannot cover (FIFO)."""
+        if not self.serve.paged:
+            take = reqs[: len(self._free)]
+            if take:
+                self._admit_batch(take, now)
+            return list(reqs[len(take):])
         left = list(reqs)
         while left and self._free:
             if not self._admit_paged_one(left[0], now):
@@ -461,15 +717,20 @@ class ServeEngine:
         return left
 
     def poll_prefill(self, now: float) -> None:
-        """Advance every prefilling lane one chunk."""
-        self._dispatch_prefill_chunks(now)
+        """Advance every prefilling paged lane one chunk (the ring prefills
+        at admission)."""
+        if self.serve.paged:
+            self._dispatch_prefill_chunks(now)
 
     def dispatch_decode(self) -> bool:
-        """Run one decode quantum if any lane is decoding; returns whether
-        it did."""
+        """Run one decode quantum (or speculative quantum) if any lane is
+        decoding; returns whether it did."""
         if not any(l.phase == "decode" for l in self._lanes.values()):
             return False
-        self._step()
+        if self.serve.draft:
+            self._spec_step()
+        else:
+            self._step()
         return True
 
     def sync(self, now: float) -> None:
@@ -482,6 +743,7 @@ class ServeEngine:
         self.last_summary = self.summary(wall_s)
         return self.completions
 
+    @torch.no_grad()
     def run(self, requests, max_wall_s: float | None = None) -> list[Completion]:
         """Serve `requests` (each admitted no earlier than its `arrival_s`)
         to completion; returns the completions in finish order."""

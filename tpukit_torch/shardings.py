@@ -95,42 +95,47 @@ class Strategy:
         return [float(v) for v in values]
 
     def loss_sums(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
-                  with_accuracy: bool = False, aux_out: list | None = None):
+                  with_accuracy: bool = False, aux_out: list | None = None, rng=None,
+                  rng_row0: int = 0):
         """(CE summed over the valid tokens, their count, the correct
         argmaxes among them or 0) of one batch: `batch` holds `input_ids`,
         `position_ids` and `mask` (True = padding) tensors, `targets` uses
         -100 for ignored positions. MoE configs append the summed
-        load-balance aux to `aux_out`."""
+        load-balance aux to `aux_out`. `rng` is the step's dropout key (None
+        in eval), `rng_row0` the batch's first row within the global batch
+        the masks are drawn over."""
         if self.fused_head and not fused_head_disabled():
             h = gpt.forward_hidden(params, cfg, batch["input_ids"], batch["position_ids"],
-                                   batch["mask"], aux_out=aux_out)
+                                   batch["mask"], aux_out=aux_out, rng=rng, rng_row0=rng_row0)
             return fused_head_ce(h.reshape(-1, h.shape[-1]), params["lm_head"]["kernel"],
                                  targets.reshape(-1), cfg.vocab_size,
                                  with_accuracy=with_accuracy)
         logits = gpt.forward(params, cfg, batch["input_ids"], batch["position_ids"],
-                             batch["mask"], aux_out=aux_out)
+                             batch["mask"], aux_out=aux_out, rng=rng, rng_row0=rng_row0)
         loss_sum, count = cross_entropy_sum(logits, targets)
         correct = (masked_correct(logits, targets) if with_accuracy
                    else torch.zeros((), dtype=torch.float32, device=logits.device))
         return loss_sum, count, correct
 
     def loss_fn(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
-                with_accuracy: bool = False, aux_out: list | None = None):
+                with_accuracy: bool = False, aux_out: list | None = None, rng=None):
         """(mean masked CE, masked accuracy x 100 or 0) of one batch, from
         `loss_sums`."""
         loss_sum, count, correct = self.loss_sums(params, cfg, batch, targets,
-                                                  with_accuracy=with_accuracy, aux_out=aux_out)
+                                                  with_accuracy=with_accuracy, aux_out=aux_out,
+                                                  rng=rng)
         denom = torch.clamp(count, min=1.0)
         return loss_sum / denom, correct / denom * 100.0
 
-    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets):
+    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng=None):
         """(loss, grads): the loss of `loss_fn` and the gradient of the
         training objective with respect to every parameter, as a tree shaped
         like `params`. The objective is the loss itself, plus, for MoE
         configs, moe_aux_weight x the summed load-balance aux (the Switch
-        objective); the returned loss is the pure CE either way."""
+        objective); the returned loss is the pure CE either way. `rng` is
+        the step's dropout key."""
         aux_list: list = []
-        loss, _ = self.loss_fn(params, cfg, batch, targets, aux_out=aux_list)
+        loss, _ = self.loss_fn(params, cfg, batch, targets, aux_out=aux_list, rng=rng)
         total = loss
         for aux in aux_list:
             total = total + cfg.moe_aux_weight * aux
@@ -180,9 +185,9 @@ class ExpertParallel(Strategy):
         return cfg.replace(moe_dispatch=self.dispatch, moe_mesh=self.grid)
 
     def loss_fn(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
-                with_accuracy: bool = False, aux_out: list | None = None):
+                with_accuracy: bool = False, aux_out: list | None = None, rng=None):
         return super().loss_fn(params, self._dispatch_cfg(cfg), batch, targets,
-                               with_accuracy=with_accuracy, aux_out=aux_out)
+                               with_accuracy=with_accuracy, aux_out=aux_out, rng=rng)
 
 
 class ParamTree(nn.Module):
@@ -300,13 +305,19 @@ class _DataParallelBase(Strategy):
                              f"state's params)")
 
     def loss_sums(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
-                  with_accuracy: bool = False, aux_out: list | None = None):
+                  with_accuracy: bool = False, aux_out: list | None = None, rng=None,
+                  rng_row0: int | None = None):
         """This rank's sums over its rows, through the wrapped module (so
-        `loss_fn` gives this rank's means)."""
+        `loss_fn` gives this rank's means). Dropout masks are this rank's
+        rows of the global batch's (tpukit draws them over the global batch
+        and shards them): rows `[rank * B, (rank + 1) * B)`."""
         self._check(params)
-        return self.module(super().loss_sums, cfg, batch, targets, with_accuracy, aux_out)
+        if rng_row0 is None:
+            rng_row0 = dist.get_rank(self.mesh.get_group()) * batch["input_ids"].shape[0]
+        return self.module(super().loss_sums, cfg, batch, targets, with_accuracy, aux_out,
+                           rng, rng_row0)
 
-    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets):
+    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng=None):
         """(global loss, grads) by `.backward()`, so that DDP's and FSDP2's
         gradient hooks run. tpukit's objective is the CE summed over the
         global batch's valid tokens over their count
@@ -314,7 +325,7 @@ class _DataParallelBase(Strategy):
         before the backward, and each rank differentiates
         `world x loss_sum_r / count`, which the wrappers' average over
         ranks turns into that objective's gradient."""
-        loss_sum, count, _ = self.loss_sums(params, cfg, batch, targets)
+        loss_sum, count, _ = self.loss_sums(params, cfg, batch, targets, rng=rng)
         totals = torch.stack([loss_sum.detach(), count])
         dist.all_reduce(totals, group=self.mesh.get_group())
         denom = torch.clamp(totals[1], min=1.0)

@@ -8,12 +8,10 @@ Loop surface, as tpukit's:
   - per-epoch validation loss and masked accuracy, weighted by each
     batch's valid-token count, in bf16 whatever `--disable_amp` says;
   - three greedy samples of GENERATION_PROMPTS per epoch (20 new tokens,
-    clamped to the position table), through the port's paged
-    `ServeEngine` (tpukit decodes them with its ring cache, which is not
-    ported, ROADMAP.md item 8: greedy tokens agree at f32). The config has
-    no `moe_dispatch`, so MoE samples run the meshless "xla" dispatch, as
-    tpukit's do, and each prompt prefills in one chunk from position 0, so
-    the capacity windows are tpukit's too;
+    clamped to the position table), through `sampling.generate_batch`:
+    one full-width prefill of the batch and ring-cached steps, as tpukit's
+    `generate_samples` decodes them. The config has no `moe_dispatch`, so
+    MoE samples run the meshless "xla" dispatch, as tpukit's do;
   - a checkpoint at the end (`checkpoint.save`, the port's own format).
 Under `DataParallel` and `FSDP` the loop is rank-aware (tpukit
 `train.py:501-545`): the global batch is `--batch_size` x world rows, each
@@ -35,6 +33,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from tpukit_torch import random as tk_random
 from tpukit_torch import resolve_device
 from tpukit_torch import checkpoint as ckpt_lib
 from tpukit_torch import mesh as mesh_lib
@@ -43,7 +42,7 @@ from tpukit_torch.data import get_dataset, get_tokenizer, transform_dataset
 from tpukit_torch.flags import TrainFlags, check_carried
 from tpukit_torch.loader import DataLoader
 from tpukit_torch.model import gpt
-from tpukit_torch.serve.engine import Request, ServeConfig, ServeEngine
+from tpukit_torch.sampling import generate_batch
 from tpukit_torch.shardings import Strategy, leaves
 
 PRINT_FREQ = 8
@@ -92,11 +91,19 @@ def to_device(model_batch: dict, targets: np.ndarray, device) -> tuple[dict, tor
     return batch, torch.from_numpy(targets).to(device)
 
 
+def dropout_key(seed: int, step: int, device) -> torch.Tensor:
+    """The dropout key of training step `step` (tpukit `train.py:145-167`):
+    `fold_in(PRNGKey(seed ^ 0x5EED), step)`."""
+    return tk_random.fold_in(tk_random.PRNGKey(seed ^ 0x5EED, device=device), step)
+
+
 def train_step(state: TrainState, cfg: gpt.GPTConfig, strategy: Strategy, batch: dict,
-               targets) -> torch.Tensor:
+               targets, seed: int = 0) -> torch.Tensor:
     """One step: loss and gradients by the strategy, then AdamW in place.
-    Returns the loss (a detached device scalar)."""
-    loss, grads = strategy.value_and_grad(state.params, cfg, batch, targets)
+    With `cfg.dropout > 0` the step draws its masks from `dropout_key(seed,
+    step)`. Returns the loss (a detached device scalar)."""
+    rng = dropout_key(seed, state.step, targets.device) if cfg.dropout > 0 else None
+    loss, grads = strategy.value_and_grad(state.params, cfg, batch, targets, rng=rng)
     for p, g in zip(leaves(state.params), leaves(grads)):
         p.grad = g
     state.optimizer.step()
@@ -114,33 +121,16 @@ def eval_step(state: TrainState, cfg: gpt.GPTConfig, strategy: Strategy, batch: 
                                 batch, targets, with_accuracy=True)
 
 
-def generate_samples(params: dict, cfg: gpt.GPTConfig, tokenizer, device,
-                     prompts=GENERATION_PROMPTS, max_new_tokens: int = 20) -> list[str]:
-    """Greedy continuations of `prompts` through the paged, fused-decode
-    `ServeEngine`, decoded with special tokens skipped. Prompts are cut to
-    `min(256, positions - max_new_tokens)` tokens, as tpukit's
-    `generate_batch` cuts them."""
-    max_prompt = min(256, cfg.max_position_embeddings - max_new_tokens)
-    if max_prompt < 1:
-        raise ValueError(f"max_new_tokens={max_new_tokens} leaves no room for a prompt "
-                         f"within max_position_embeddings={cfg.max_position_embeddings}")
-    encoded = tokenizer(list(prompts), truncation=True, max_length=max_prompt)["input_ids"]
-    longest = max(len(ids) for ids in encoded)
-    # one bucket of whole pages; pages of 1 where 8-token pages would not fit
-    page = 8
-    bucket = -(-longest // page) * page
-    if -(-(bucket + max_new_tokens) // page) * page > cfg.max_position_embeddings:
-        page, bucket = 1, longest
-    # one prefill chunk per prompt, from position 0, as tpukit's generate_batch
-    # prefills: an MoE buffer dispatch routes each chunk in its own capacity window
-    serve = ServeConfig(slots=len(prompts), buckets=(bucket,), max_new_tokens=max_new_tokens,
-                        page_size=page, prefill_chunk=bucket, fused_decode=True)
-    reqs = [Request(rid=i, ids=tuple(ids), max_new_tokens=max_new_tokens)
-            for i, ids in enumerate(encoded)]
+def generate_samples(params: dict, cfg: gpt.GPTConfig, tokenizer,
+                     prompts=GENERATION_PROMPTS, max_new_tokens: int = 20,
+                     temperature: float = 0.0, top_k: int = 0, seed: int = 0) -> list[str]:
+    """Continuations of `prompts` in one batched ring-cached decode (twin of
+    `tpukit/train.py:302`), greedy unless `temperature > 0`, decoded with
+    special tokens skipped, on the device the parameters are on."""
     with torch.no_grad():
-        engine = ServeEngine(params, cfg, serve, eos_id=tokenizer.eos_token_id, device=device)
-        done = {c.rid: c.ids for c in engine.run(reqs)}
-    return [tokenizer.decode(done[i], skip_special_tokens=True) for i in range(len(reqs))]
+        return generate_batch(params, cfg, list(prompts), tokenizer,
+                              max_new_tokens=max_new_tokens, temperature=temperature,
+                              top_k=top_k, seed=seed)
 
 
 @dataclasses.dataclass
@@ -219,7 +209,7 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
         t0 = time.perf_counter()
         for i, raw in enumerate(train_loader):
             batch, targets = to_device(*prepare_batch(raw, pad_id), device)
-            loss = train_step(state, cfg, strategy, batch, targets)
+            loss = train_step(state, cfg, strategy, batch, targets, seed=flags.seed)
             running = loss if running is None else running + loss
             win_n += 1
             train_tokens += raw["real_rows"] * targets.shape[1]
@@ -259,7 +249,7 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
             print(f"[validation] Epoch {epoch + 1}/{epochs} | loss: "
                   f"{eval_metrics['loss']:.3f}, accuracy: {eval_metrics['accuracy']:.2f}",
                   flush=True)
-            texts = generate_samples(full, cfg, tokenizer, device, max_new_tokens=gen_tokens)
+            texts = generate_samples(full, cfg, tokenizer, max_new_tokens=gen_tokens)
             print("Argmax sampling from model")
             for text in texts:
                 print(text)
