@@ -124,6 +124,22 @@ not 0:
  23. dropout training: phase 7's rung at dropout 0.1 (the loss falls, the
      kernels launch as in phase 7, the step wall beside phase 7's), and
      phase 8's kernel-vs-plain steps at dropout 0.1 with the same keys;
+ 24. the pipeline at full width, in a world of one over NCCL (one stage):
+     phase 7's rung and batches under `Pipeline` (GPipe) and
+     `Pipeline1F1B`, M = 4, 8 steps each; the loss falls on a repeated
+     batch, each step launches the flash kernels 12 x M times each
+     (forward, D, dK/dV, dQ) and the CE kernels not at all (the head is the
+     vocab-parallel CE, tpukit's jnp head); step wall, tokens/s and peak
+     device memory beside phase 7's;
+ 25. the pipeline steps equal `SingleDevice`'s: phase 8's f32 2-layer
+     setup, 4 AdamW steps under `SingleDevice`, `Pipeline` and
+     `Pipeline1F1B` (M = 4) on the card, the pipelines' losses within rtol
+     1e-4 of the card's single-device losses and of the plain versions'
+     on the CPU;
+ 26. recipes 4 and 5 end to end (`python -m tpukit_torch.recipes.pipe` and
+     `.pipe_ddp`, world of one, M = "4x" = 4) as phase 9: train, evaluate,
+     sample on the ring, checkpoint; each checkpoint restores into a
+     `SingleDevice` state bit for bit;
 then one JSON line of kernel results and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
@@ -162,10 +178,13 @@ from tpukit_torch.ops.moe_dispatch import _route_topk
 from tpukit_torch.recipes import ddp as ddp_recipe
 from tpukit_torch.recipes import fsdp as fsdp_recipe
 from tpukit_torch.recipes import moe as moe_recipe
+from tpukit_torch.recipes import pipe as pipe_recipe
+from tpukit_torch.recipes import pipe_ddp as pipe_ddp_recipe
 from tpukit_torch.recipes import single
 from tpukit_torch.recipes.profile import (
     BATCH,
     GPT2_SMALL_TRAIN,
+    PIPE_MICRO,
     RUNGS,
     SEQ,
     build_train,
@@ -177,6 +196,7 @@ from tpukit_torch.serve import spec as spec_lib
 from tpukit_torch.serve.engine import ServeEngine, synthetic_request_stream
 from tpukit_torch.serve.profile import build
 from tpukit_torch.model import GPTConfig, init_params
+from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
 from tpukit_torch.shardings import (
     FSDP,
     DataParallel,
@@ -924,7 +944,7 @@ FULL_ORDER = (0, 1, 2, 3, 0, 1, 2, 3)  # batches a, b, c and the padded p, twice
 
 
 def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0) -> dict:
-    """Phase 7 (and 16, 23): train steps of the gpt-small-dim768 rung (batch
+    """Phase 7 (and 16, 23, 24): train steps of the gpt-small-dim768 rung (batch
     64, S 512, bf16) on synthetic batches, by default eight: three full
     batches and one with 16 padded rows, each twice, under `strategy`
     (`SingleDevice` by default), with `dropout` after each attention and
@@ -960,10 +980,14 @@ def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0)
     if not losses[again] < losses[0]:
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses[0]} -> "
                              f"{losses[again]}")
-    want = dict(**{f"paged_{k}": 0 for k in pa.launches}, flash_forward=layers * steps,
-                flash_backward_dcap=layers * steps,
-                flash_backward_dkv=layers * steps, flash_backward_dq=layers * steps,
-                **ce_want(steps, BATCH * SEQ, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
+    # the pipeline runs each layer once a micro-batch, and its head is the
+    # vocab-parallel CE (tpukit's jnp head), so no CE kernel
+    calls = layers * steps * (strategy.num_microbatches if isinstance(strategy, Pipeline) else 1)
+    ce = (ce_want(steps, BATCH * SEQ, cfg) if strategy.fused_head
+          else {f"ce_{k}": 0 for k in fce.launches})
+    want = dict(**{f"paged_{k}": 0 for k in pa.launches}, flash_forward=calls,
+                flash_backward_dcap=calls, flash_backward_dkv=calls, flash_backward_dq=calls,
+                **ce, **{f"moe_{k}": 0 for k in moe_gemm.launches})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     return dict(counts=counts, wall=wall, losses=losses, peak=peak, state=state)
@@ -1001,9 +1025,11 @@ def kernel_vs_plain_steps(dev, dropout: float = 0.0) -> None:
         raise AssertionError(f"kernel and plain train steps disagree: {ours} vs {plain}")
 
 
-def recipe_end_to_end(dev, recipe=single, label: str = "recipe") -> dict:
-    """Phase 9 (and 18): `python -m tpukit_torch.recipes.single` (or the
-    `recipe` module given) at GPT-2-small width on 576 fixture stories (9
+def recipe_end_to_end(dev, recipe=single, label: str = "recipe",
+                      kernels=("flash_", "ce_")) -> dict:
+    """Phase 9 (and 18, 26): `python -m tpukit_torch.recipes.single` (or
+    the `recipe` module given; `kernels` the launch counters that must have
+    moved) at GPT-2-small width on 576 fixture stories (9
     steps of 64), 1 epoch, bf16, in build/chip_smoke/ (another recipe in
     build/chip_smoke_<module>/). `--sequence_length 512`: the recipe trains on
     S - 1 positions (prepare_batch's shift), so S = 511 (a ragged last key
@@ -1034,7 +1060,7 @@ def recipe_end_to_end(dev, recipe=single, label: str = "recipe") -> dict:
           f"{result.checkpoint_path}; launches {counts}", flush=True)
     # the samples decode on the ring (`sampling.generate_batch`), as
     # tpukit's do: the paged kernels run in phases 4 and 20
-    if min(v for k, v in counts.items() if not k.startswith(("moe_", "paged_")) and
+    if min(v for k, v in counts.items() if k.startswith(kernels) and
            not k.endswith("_f32")) == 0:
         raise AssertionError(f"a kernel of the recipe's path never ran: {counts}")
     if not np.isfinite(result.metrics["eval"]["loss"]) or len(result.metrics["samples"]) != 3:
@@ -1122,6 +1148,75 @@ def dp_equals_single(dev) -> None:
         if not all(equal):
             raise AssertionError(f"{name}: {len(equal) - sum(equal)} of {len(equal)} parameter "
                                  f"leaves differ from the single-device step's")
+
+
+def pipeline_full_width(dev, single_run: dict) -> dict:
+    """Phase 24: phase 7's steps under `Pipeline` (GPipe) and
+    `Pipeline1F1B`, M = 4, in the world of one `main` brought up (one
+    stage: the whole stack and vocab on this card, the head the
+    vocab-parallel CE over a group of one), 8 steps each, each checked as
+    phase 7 checks its own (the loss falls on a repeated batch; the flash
+    kernels launch 12 x M times a step each, the CE kernels not at all);
+    step wall, tokens/s and peak device memory beside phase 7's."""
+    runs = {}
+    for make in (Pipeline, Pipeline1F1B):
+        strategy = make(num_microbatches=PIPE_MICRO)
+        run = train_full_width(dev, strategy)
+        del run["state"]
+        runs[strategy.name] = run
+        del strategy
+        _free()
+    for label, run in runs.items():
+        steps = len(run["losses"])
+        print(f"{label}: {run['wall']:.4f} s a step ({single_run['wall']:.4f} single, "
+              f"{run['wall'] / single_run['wall']:.4f}x), {BATCH * SEQ / run['wall']:.1f} "
+              f"tokens/s, peak {run['peak']} B ({single_run['peak']} single, "
+              f"{run['peak'] / single_run['peak']:.4f}x); flash launches a step: forward "
+              f"{run['counts']['flash_forward'] // steps}, dcap "
+              f"{run['counts']['flash_backward_dcap'] // steps}, dkv "
+              f"{run['counts']['flash_backward_dkv'] // steps}, dq "
+              f"{run['counts']['flash_backward_dq'] // steps}", flush=True)
+    return runs
+
+
+def pipeline_equals_single(dev) -> None:
+    """Phase 25: phase 8's setup (f32, 2 layers at GPT-2-small width,
+    flash forced, batch 4 with a padded row, 4 AdamW steps) from the same
+    parameters under `SingleDevice`, `Pipeline` and `Pipeline1F1B` (M = 4:
+    one row a micro-batch) on the card, and under `SingleDevice` through
+    the plain versions on the CPU (phase 8's plain step): each pipeline's
+    losses within rtol 1e-4 of the card's `SingleDevice` losses and of the
+    plain ones, and its steps through the flash kernels."""
+    cpu = torch.device("cpu")
+    cfg, plain_state = build_train(cpu, num_layers=2, compute_dtype=torch.float32,
+                                   attention_impl="flash", seed=1)
+    base = [t.detach().clone() for t in leaves(plain_state.params)]
+    rng = np.random.RandomState(1)
+    batches = [synthetic_batch(rng, cfg.vocab_size, 4, SEQ, pad_rows=1) for _ in range(4)]
+    plain = [float(train_step(plain_state, cfg, SingleDevice(), *to_device(*b, cpu)))
+             for b in batches]
+    runs = {}
+    for make in (SingleDevice, lambda: Pipeline(num_microbatches=PIPE_MICRO),
+                 lambda: Pipeline1F1B(num_microbatches=PIPE_MICRO)):
+        strategy = make()
+        params = unflatten(plain_state.params, [t.to(dev, copy=True) for t in base])
+        state = create_train_state(params, 1e-4, strategy, cfg)
+        reset_counts()
+        runs[strategy.name] = ([float(train_step(state, cfg, strategy, *to_device(*b, dev)))
+                                for b in batches], read_counts()["flash_forward"])
+        del params, state, strategy
+        _free()
+    ref, _ = runs.pop("single")
+    for name, (losses, flash) in runs.items():
+        worst = max(max(abs(a - b) / abs(b) for a, b in zip(losses, ref)),
+                    max(abs(a - b) / abs(b) for a, b in zip(losses, plain)))
+        print(f"{name}: losses {losses} vs single {ref} vs plain {plain}: worst relative "
+              f"difference {worst:.3e} (bar 1e-4); bit-equal to single {losses == ref}; "
+              f"flash forward launches {flash}", flush=True)
+        if not worst <= 1e-4:
+            raise AssertionError(f"{name} and single-device steps disagree: {losses} vs {ref}")
+        if flash != 2 * PIPE_MICRO * len(batches):
+            raise AssertionError(f"{name}: the flash forward launched {flash} times")
 
 
 def serve_run(params, cfg, serve, reqs, dev, eos_id, **draft):
@@ -2004,6 +2099,20 @@ def main() -> int:
     phase("dropout training (gpt-small-dim768, batch 64, S 512, bf16, dropout 0.1)")
     dropout_training(dev, step)
 
+    # recipes 4 and 5 run in a world of one over NCCL (one stage), destroyed after them
+    with mesh_lib.scoped_runtime():
+        mesh_lib.initialize_runtime(dev)
+        phase("pipeline: GPipe and 1F1B at full width (gpt-small-dim768, batch 64, S 512, "
+              "bf16, M 4, NCCL world of one)")
+        piped = pipeline_full_width(dev, step)
+
+        phase("pipeline steps == single-device steps (f32, 2 layers, M 4)")
+        pipeline_equals_single(dev)
+
+        phase("recipes 4 and 5 end to end (GPT-2-small width, fixture corpus)")
+        recipe_end_to_end(dev, pipe_recipe, "recipe 4", kernels=("flash_",))
+        recipe_end_to_end(dev, pipe_ddp_recipe, "recipe 5", kernels=("flash_",))
+
     fl, ce = trained["flash"], trained["ce"]
 
     def entry(name, source, replaces, launches, res, way, err, library_ms, **extra):
@@ -2025,14 +2134,18 @@ def main() -> int:
          "launches_by_kernel": {k[len("paged_"):]: v for k, v in paged_counts.items()},
          "shapes": paged_shapes},
         entry("flash_attention_fwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:178",
-              c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"]),
+              c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"],
+              launches_under_pipeline={k: r["counts"]["flash_forward"]
+                                       for k, r in piped.items()}),
         entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",
               c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],
               also_replaces=["tpukit/ops/pallas_attention.py:346",
                              "tpukit/ops/pallas_attention.py:389"],
               kernels_per_call=3, launches_by_kernel={"dcap": c["flash_backward_dcap"],
                                                       "dkv": c["flash_backward_dkv"],
-                                                      "dq": c["flash_backward_dq"]}),
+                                                      "dq": c["flash_backward_dq"]},
+              launches_under_pipeline={k: r["counts"]["flash_backward_dkv"]
+                                       for k, r in piped.items()}),
         entry("fused_head_ce_fwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:65",
               c["ce_forward"], ce, "fwd", ce["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"forward": c["ce_forward"],

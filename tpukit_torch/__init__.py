@@ -19,7 +19,11 @@ tpukit_torch.recipes.ddp` and `.fsdp`): DDP and FSDP2 over a c10d process
 group (`mesh.py`), the same kernels under both. Slice 9 ports seeded
 sampling (`random.py`, a copy of `jax.random`'s threefry; `sampling.py`),
 the ring KV cache that is tpukit's default serving engine, speculative
-decoding (`serve/spec.py`) and dropout, around the same kernels.
+decoding (`serve/spec.py`) and dropout, around the same kernels. Slice 10
+ports pipeline parallelism, recipes 4 and 5 (`python -m
+tpukit_torch.recipes.pipe` and `.pipe_ddp`): GPipe and 1F1B, flat and
+interleaved, over c10d stage ranks (`pipeline.py`), the flash kernels
+inside every stage.
 
 Every entry point takes a `device` argument and runs on `cuda` unless the
 caller passes `device="cpu"`. Without a GPU and without that request it

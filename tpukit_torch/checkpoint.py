@@ -11,11 +11,15 @@ loads one into a live train state, in place, matching parameters by path,
 so a tree whose dicts hold the same keys in another order (tpukit's,
 bridged, has them sorted) restores too.
 
-Under FSDP the file is still whole (tpukit's consolidated default,
-`main-fsdp.py`): `save` gathers the full parameters and AdamW state on
-every rank and rank 0 writes them; `restore` reads the full tensors on
-every rank and puts each rank's shard in place. So a checkpoint moves
-between `SingleDevice`, `DataParallel` and `FSDP` at any world, either way.
+Under FSDP and the pipeline the file is still whole (tpukit's consolidated
+default, `main-fsdp.py`): `save` gathers the full parameters and AdamW state
+on every rank (through the train state's strategy, `Strategy.gather_leaf`)
+and rank 0 writes them; `restore` reads the full tensors on every rank and
+puts each rank's piece in place (`Strategy.local_leaf`). So a checkpoint
+moves between `SingleDevice`, `DataParallel` and `FSDP` at any world, either
+way. A pipeline's is in tpukit's layout: the layer stack identity-padded
+and, at V > 1, chunk-permuted; an evenly split V = 1 one restores into any
+of the others.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from tpukit_torch import mesh as mesh_lib
-from tpukit_torch.shardings import gather_full, leaves, local_shard, unflatten
+from tpukit_torch.shardings import Strategy, leaves, paths, unflatten
 
 
 CHECKPOINT_DIR = "checkpoints"
@@ -41,17 +45,9 @@ def _write_atomic(path: Path, write) -> None:
     os.replace(tmp, path)
 
 
-def paths(tree: dict, prefix: str = "") -> list[str]:
-    """The "/"-joined key path of every leaf, in `leaves` order."""
-    out = []
-    for k, v in tree.items():
-        out.extend(paths(v, f"{prefix}{k}/") if isinstance(v, dict) else [prefix + k])
-    return out
-
-
-def _full_cpu(t):
-    """A whole tensor on the host (a collective for a sharded DTensor)."""
-    return gather_full(t).detach().cpu() if isinstance(t, torch.Tensor) else t
+def _full_cpu(strategy: Strategy, name: str, t):
+    """A whole tensor on the host (a collective for a sharded leaf)."""
+    return strategy.gather_leaf(name, t).detach().cpu() if isinstance(t, torch.Tensor) else t
 
 
 def save(state, flags=None, directory=CHECKPOINT_DIR) -> Path:
@@ -60,13 +56,15 @@ def save(state, flags=None, directory=CHECKPOINT_DIR) -> Path:
     the file is there."""
     out = Path(directory)
     path = out / f"checkpoint-{state.step}.pt"
+    strategy = state.strategy or Strategy()
     opt = state.optimizer.state_dict()
     names = paths(state.params)
-    opt_state = {"state": {names[i]: {k: _full_cpu(v) for k, v in st.items()}
+    opt_state = {"state": {names[i]: {k: _full_cpu(strategy, names[i], v) for k, v in st.items()}
                            for i, st in opt["state"].items()},
                  "param_groups": [{**g, "params": [names[i] for i in g["params"]]}
                                   for g in opt["param_groups"]]}
-    params = unflatten(state.params, [_full_cpu(p) for p in leaves(state.params)])
+    params = unflatten(state.params, [_full_cpu(strategy, n, p)
+                                      for n, p in zip(names, leaves(state.params))])
     if mesh_lib.is_process_zero():
         out.mkdir(parents=True, exist_ok=True)
         payload = {"params": params, "opt_state": opt_state, "step": int(state.step)}
@@ -76,16 +74,6 @@ def save(state, flags=None, directory=CHECKPOINT_DIR) -> Path:
             _write_atomic(path.with_suffix(".json"), lambda p: p.write_text(text))
     mesh_lib.sync_global_devices()
     return path
-
-
-def _like(full, live):
-    """`full` as `live` holds it: this rank's shard, as a DTensor, where
-    `live` is one; `full` otherwise."""
-    if not isinstance(live, DTensor):
-        return full
-    shard = local_shard(full, live).to(live.to_local().device)
-    return DTensor.from_local(shard, live.device_mesh, live.placements, shape=live.shape,
-                              stride=live.stride())
 
 
 def load(path) -> dict:
@@ -102,22 +90,24 @@ def restore(path, state) -> None:
     if not path.exists():
         raise FileNotFoundError(f"--resume {path}: no checkpoint found")
     payload = load(path)
+    strategy = state.strategy or Strategy()
     saved = dict(zip(paths(payload["params"]), leaves(payload["params"])))
     names, live = paths(state.params), leaves(state.params)
-    if set(saved) != set(names) or any(saved[n].shape != p.shape for n, p in zip(names, live)):
+    local = {n: strategy.local_leaf(n, saved[n], p) for n, p in zip(names, live) if n in saved}
+    if set(saved) != set(names) or any(local[n].shape != p.shape for n, p in zip(names, live)):
         raise ValueError(f"checkpoint {path} holds another parameter tree than this model")
     with torch.no_grad():
         for n, dst in zip(names, live):
             if isinstance(dst, DTensor):
-                dst.to_local().copy_(local_shard(saved[n], dst))
+                dst.to_local().copy_(local[n].to_local())
             else:
-                dst.copy_(saved[n])
+                dst.copy_(local[n])
     # torch pairs a group's saved ids with its live parameters by position,
     # so each group lists its live indices in live order
     index = {n: i for i, n in enumerate(names)}
     opt = payload["opt_state"]
     state.optimizer.load_state_dict({
-        "state": {index[n]: {k: _like(v, live[index[n]]) if k != "step" else v
+        "state": {index[n]: {k: strategy.local_leaf(n, v, live[index[n]]) if k != "step" else v
                              for k, v in st.items()}
                   for n, st in opt["state"].items()},
         "param_groups": [{**g, "params": sorted(index[n] for n in g["params"])}

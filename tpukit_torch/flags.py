@@ -109,29 +109,33 @@ NOT_CARRIED = {
     "max_rollbacks": "item 17 'Resilience'",
     "io_retries": "item 17 'Resilience'",
     "chaos_spec": "item 17 'Resilience'",
-    "microbatches": "item 7 'Pipeline and pipeline x DDP'",
     "cp_attention": "item 15 'Context parallel'",
-    "pipeline_schedule": "item 7 'Pipeline and pipeline x DDP'",
-    "virtual_stages": "item 7 'Pipeline and pipeline x DDP'",
     "comm_dtype": "item 16 'Quantized collectives and grad buckets'",
     "quant_stochastic": "item 16 'Quantized collectives and grad buckets'",
     "grad_buckets": "item 16 'Quantized collectives and grad buckets'",
 }
 
 
-def build_parser(cpu_offload: bool = False, num_experts: bool = False
+def build_parser(cpu_offload: bool = False, num_experts: bool = False,
+                 pipeline_schedule: bool = False, default_experts: int = 8
                  ) -> argparse.ArgumentParser:
     """tpukit's training parser plus `--device`; of its recipe-specific
-    groups, `--cpu_offload` (recipe 3) and the MoE one (`num_experts`,
-    recipe 8) are carried."""
+    groups, `--cpu_offload` (recipe 3), the pipeline's (`--schedule`, also
+    spelled `--pipeline_schedule`, and `--virtual_stages`; recipes 4 and 5)
+    and the MoE one (`num_experts`, recipe 8; the pipeline recipes default
+    it to 0) are carried."""
     parser = argparse.ArgumentParser()
     d = TrainFlags()
     for name, typ in _CORE_FLAGS:
         parser.add_argument(f"--{name}", type=typ, default=getattr(d, name))
     if cpu_offload:
         parser.add_argument("--cpu_offload", action="store_true")
+    if pipeline_schedule:
+        parser.add_argument("--schedule", "--pipeline_schedule", dest="pipeline_schedule",
+                            choices=("gpipe", "1f1b"), default=d.pipeline_schedule)
+        parser.add_argument("--virtual_stages", type=int, default=d.virtual_stages)
     if num_experts:
-        parser.add_argument("--num_experts", type=int, default=8)
+        parser.add_argument("--num_experts", type=int, default=default_experts)
         parser.add_argument("--moe_top_k", type=int, default=d.moe_top_k)
         parser.add_argument("--moe_dispatch", choices=("a2a", "xla", "pallas"),
                             default=d.moe_dispatch)
@@ -165,8 +169,10 @@ def build_parser(cpu_offload: bool = False, num_experts: bool = False
     return parser
 
 
-def parse_flags(argv=None, cpu_offload: bool = False, num_experts: bool = False) -> TrainFlags:
-    return TrainFlags(**vars(build_parser(cpu_offload, num_experts).parse_args(argv)))
+def parse_flags(argv=None, cpu_offload: bool = False, num_experts: bool = False,
+                pipeline_schedule: bool = False, default_experts: int = 8) -> TrainFlags:
+    return TrainFlags(**vars(build_parser(cpu_offload, num_experts, pipeline_schedule,
+                                          default_experts).parse_args(argv)))
 
 
 def check_carried(flags: TrainFlags) -> None:

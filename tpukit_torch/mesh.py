@@ -1,6 +1,7 @@
-"""Runtime initialisation and the device mesh (twin of `tpukit/mesh.py`:
+"""Runtime initialisation and the device meshes (twin of `tpukit/mesh.py`:
 `initialize_runtime` :24, `is_process_zero` :139, `create_mesh` :144,
-`sync_global_devices` :187).
+`sync_global_devices` :187): a 1-D `data` mesh for DDP and FSDP, a 2-D
+`(data, stage)` one for the pipeline.
 
 tpukit's runtime owns its devices and builds a `jax.sharding.Mesh`; the port
 brings up a c10d default process group and a `DeviceMesh` over it. The group
@@ -108,6 +109,29 @@ def create_mesh(axes: dict[str, int] | None = None, device_type: str = "cuda") -
     if size != world:
         raise ValueError(f"mesh {axes} needs {size} ranks, the world has {world}")
     return init_device_mesh(device_type, (size,), mesh_dim_names=("data",))
+
+
+def create_pipeline_mesh(data: int = 1, stage: int | None = None,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """A 2-D `(data, stage)` mesh over the default group's ranks, stages
+    innermost (tpukit `main-pipe-ddp.py` `pick_grid`): rank r sits at data
+    index r // stage and stage r % stage. `stage` defaults to world / data;
+    `data * stage` must be the world."""
+    world = world_size()
+    stage = world // data if stage is None else stage
+    if data < 1 or stage < 1 or data * stage != world:
+        raise ValueError(f"a (data {data}, stage {stage}) pipeline grid needs {data * stage} "
+                         f"ranks, the world has {world}")
+    return init_device_mesh(device_type, (data, stage), mesh_dim_names=("data", "stage"))
+
+
+def stage_neighbours(mesh: DeviceMesh) -> tuple[int, int]:
+    """The global ranks of this rank's previous and next stage in its data
+    replica's stage ring (`(s - 1) % S`, `(s + 1) % S`), the peers of its
+    point-to-point sends."""
+    ranks = dist.get_process_group_ranks(mesh.get_group("stage"))
+    s = mesh.get_local_rank("stage")
+    return ranks[(s - 1) % len(ranks)], ranks[(s + 1) % len(ranks)]
 
 
 def sync_global_devices() -> None:

@@ -90,8 +90,14 @@ class GPTConfig:
     moe_dispatch: str = "xla"
     moe_mesh: Any = None
     moe_capacity: int = 0
+    # interleaved pipeline stages (tpukit `gpt.py:198`): each stage rank of
+    # `Pipeline1F1B` runs V non-contiguous chunks of the layer stack
+    virtual_stages: int = 1
 
     def __post_init__(self):
+        if self.virtual_stages < 1:
+            raise ValueError(f"virtual_stages={self.virtual_stages} must be >= 1 (1 = "
+                             f"one contiguous layer block per pipeline stage)")
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout={self.dropout} must be in [0, 1)")
         if self.num_experts > 0 and not 1 <= self.router_top_k <= self.num_experts:
@@ -257,18 +263,24 @@ def apply_decoder_layer(layer: dict, cfg: GPTConfig, x, pad_mask, rng=None,
 
 
 def apply_decoder_layers(stacked_layers: dict, cfg: GPTConfig, x, pad_mask,
-                         aux_out: list | None = None, rng=None, rng_row0: int = 0):
+                         aux_out: list | None = None, rng=None, rng_row0: int = 0,
+                         active=None):
     """The layer stack over stacked parameters (twin of
     `tpukit/model/gpt.py:485`), any leading stack size. With
     `cfg.remat_layers` each layer is recomputed in the backward (its
     dropout masks drawn again from the same key). MoE configs append the
     layers' summed load-balance aux to `aux_out`. A dropout key `rng`
-    splits into one key a layer."""
+    splits into one key a layer. `active` (a sequence of bools, one a
+    slot) gates the identity-padded slots of an uneven pipeline layout: an
+    inactive slot passes `x` through, adds no aux and gets a zero
+    gradient."""
     moe = cfg.num_experts > 0
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = _unbind(stacked_layers)
     rngs = tk_random.split(rng, len(layers)) if rng is not None else [None] * len(layers)
-    for layer, layer_rng in zip(layers, rngs):
+    for i, (layer, layer_rng) in enumerate(zip(layers, rngs)):
+        if active is not None and not active[i]:
+            continue
         if cfg.remat_layers:
             y = checkpoint(apply_decoder_layer, layer, cfg, x, pad_mask, layer_rng, rng_row0,
                            use_reentrant=False)

@@ -1,9 +1,11 @@
-"""Primitive layers and the loss (twin of `tpukit/ops/layers.py:19-122,234`).
+"""Primitive layers and the loss (twin of `tpukit/ops/layers.py:19-234`).
 
 Matmuls run in the compute dtype; LayerNorm runs in f32 and returns f32,
 and callers cast back where the JAX model does. The cross-entropy and the
 masked accuracy work on full logits: the unfused loss path
-(`TPUKIT_FUSED_HEAD=0`) and the reference the fused head is held to.
+(`TPUKIT_FUSED_HEAD=0`) and the reference the fused head is held to. The
+pipeline's vocab-parallel primitives (`psum_bcast`, `vocab_parallel_ce`)
+work on a stage's slice of the vocab over a c10d group.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from tpukit_torch import random as tk_random
 
@@ -93,3 +96,94 @@ def masked_correct(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     `jnp.argmax` does."""
     valid = targets != IGNORE_INDEX
     return (valid & (logits.argmax(-1) == targets)).sum().float()
+
+
+# --------------------------------------------------------------------------
+# Vocab-parallel primitives of the pipeline's sharded embedding and head
+# (twin of `tpukit/ops/layers.py:136-231`): each stage of a c10d `group`
+# holds `[..., V / S]` columns of the token table and the LM head.
+# --------------------------------------------------------------------------
+
+
+def _group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+class _PsumBcast(torch.autograd.Function):
+    """An all-reduce (sum) whose backward is also an all-reduce of the
+    cotangent: the sum is consumed divergently (one stage uses it), so the
+    input's cotangent is the sum of every stage's output cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = ct.contiguous().clone()
+        dist.all_reduce(ct, group=ctx.group)
+        return ct, None
+
+
+def psum_bcast(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`x` summed over the ranks of `group`, with an all-reduce of the
+    cotangent as its backward (twin of `psum_bcast`, tpukit
+    `ops/layers.py:142`). The identity at a group of one."""
+    if _group_size(group) == 1:
+        return x
+    return _PsumBcast.apply(x, group)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """(loss_sum, count) of the cross-entropy over vocab-sharded logits;
+    the backward is local, `(softmax - onehot) * g` from the saved global
+    log-sum-exp, with `g` summed over the group first (tpukit's `_vp_bwd`):
+    callers may hand each stage a share of the loss's cotangent."""
+
+    @staticmethod
+    def forward(ctx, local_logits, targets, offset, group):
+        lf = local_logits.float()
+        v_local = lf.shape[-1]
+        valid = targets != IGNORE_INDEX
+        rel = torch.where(valid, targets, 0).long() - offset
+        own = valid & (rel >= 0) & (rel < v_local)
+        safe = torch.where(own, rel, 0)
+        gmax = lf.amax(-1)
+        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+        sumexp = torch.exp(lf - gmax[..., None]).sum(-1)
+        dist.all_reduce(sumexp, group=group)
+        lse = gmax + torch.log(sumexp)
+        target_logit = torch.where(own, lf.gather(-1, safe[..., None])[..., 0], 0.0)
+        dist.all_reduce(target_logit, group=group)
+        loss_sum = torch.where(valid, lse - target_logit, 0.0).sum()
+        count = valid.sum().float()
+        ctx.save_for_backward(local_logits, lse, own, safe, valid)
+        ctx.group = group
+        ctx.mark_non_differentiable(count)
+        return loss_sum, count
+
+    @staticmethod
+    def backward(ctx, g_sum, _g_count):
+        local_logits, lse, own, safe, valid = ctx.saved_tensors
+        g = g_sum.detach().float().reshape(1).clone()
+        dist.all_reduce(g, group=ctx.group)
+        probs = torch.exp(local_logits.float() - lse[..., None])
+        col = torch.arange(local_logits.shape[-1], device=local_logits.device)
+        onehot = (col == torch.where(own, safe, -1)[..., None]).float()
+        scale = torch.where(valid, g[0], 0.0)[..., None]
+        return ((probs - onehot) * scale).to(local_logits.dtype), None, None, None
+
+
+def vocab_parallel_ce(local_logits: torch.Tensor, targets: torch.Tensor, offset: int,
+                      group=None):
+    """(loss_sum, valid_count) of the global cross-entropy from this rank's
+    `[..., V / S]` logit columns starting at `offset` (twin of tpukit
+    `ops/layers.py:182`): all-reduces of the row max, then of the sum of
+    exponentials, then of the target logit over `group`, so every rank of
+    it returns the same values. At a group of one it is `cross_entropy_sum`."""
+    if _group_size(group) == 1:
+        return cross_entropy_sum(local_logits, targets)
+    return _VocabParallelCE.apply(local_logits, targets, offset, group)

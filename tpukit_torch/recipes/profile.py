@@ -1,6 +1,6 @@
 """Where a training step's time goes on the GPU:
 `python -m tpukit_torch.recipes.profile [--rung NAME] [--steps N]
-[--strategy single|ddp|fsdp|fsdp-offload]`.
+[--strategy single|ddp|fsdp|fsdp-offload|pipe|pipe-1f1b]`.
 
 Runs the train step of one rung on synthetic token batches built as the
 repo's ladder builds them, from random weights (seed 0):
@@ -16,7 +16,10 @@ repo's ladder builds them, from random weights (seed 0):
 
 `--strategy ddp|fsdp|fsdp-offload` runs the dense rung's step under
 `DataParallel`, `FSDP` or `FSDP(cpu_offload=True)` (recipes 2 and 3) in a
-world of one over NCCL, in place of `SingleDevice`.
+world of one over NCCL, in place of `SingleDevice`; `--strategy
+pipe|pipe-1f1b` under `Pipeline` (GPipe) or `Pipeline1F1B` with 4
+micro-batches (recipes 4 and 5: one stage, the head the vocab-parallel
+CE).
 
 It times a steady window of steps by host clock (each step ends in a host
 read of its loss), then profiles a short window under `torch.profiler` and
@@ -95,22 +98,26 @@ def build_train(device, num_layers: int = 12, compute_dtype=torch.bfloat16,
     if strategy is not None:
         strategy.validate_config(cfg)
     return cfg, create_train_state(init_params(cfg, seed=seed, device=device), learning_rate,
-                                   strategy)
+                                   strategy, cfg)
 
 
-STRATEGIES = ("single", "ddp", "fsdp", "fsdp-offload")
+STRATEGIES = ("single", "ddp", "fsdp", "fsdp-offload", "pipe", "pipe-1f1b")
+PIPE_MICRO = 4  # the pipeline's micro-batches (recipe 4's "4x" at one stage)
 
 
 def rung_strategy(kind: str, strategy: str = "single"):
     """The strategy of a rung: `SingleDevice`, or `ExpertParallel` on one
-    device with the named dispatch; `strategy` names a data-parallel one
-    (`DataParallel`, `FSDP`, `FSDP(cpu_offload=True)`) in place of
-    `SingleDevice`."""
+    device with the named dispatch; `strategy` names a data-parallel or
+    pipeline one (`DataParallel`, `FSDP`, `FSDP(cpu_offload=True)`,
+    `Pipeline`, `Pipeline1F1B`) in place of `SingleDevice`."""
+    from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
     from tpukit_torch.shardings import FSDP, DataParallel, ExpertParallel, SingleDevice
 
     if strategy != "single":
         return {"ddp": DataParallel, "fsdp": FSDP,
-                "fsdp-offload": lambda: FSDP(cpu_offload=True)}[strategy]()
+                "fsdp-offload": lambda: FSDP(cpu_offload=True),
+                "pipe": lambda: Pipeline(num_microbatches=PIPE_MICRO),
+                "pipe-1f1b": lambda: Pipeline1F1B(num_microbatches=PIPE_MICRO)}[strategy]()
     return SingleDevice() if kind == "single" else ExpertParallel(dispatch=kind)
 
 
@@ -179,6 +186,8 @@ def _profile(flags, device) -> int:
     busy = busy_us / 1e6 / prof_steps
     per_kernel = {name: sum(r.device_time_total for r in kernels if name in r.key)
                   for name in PORT_KERNELS}
+    per_calls = {name: sum(r.count for r in kernels if name in r.key) // prof_steps
+                 for name in PORT_KERNELS}
     ours = sum(per_kernel.values())
     print(f"profiled {prof_steps} steps: wall {pwall / prof_steps:.4f} s per step; device "
           f"busy {busy:.4f} s per step (sum of kernel times), idle share "
@@ -186,7 +195,8 @@ def _profile(flags, device) -> int:
           f"{1 - busy / wall:.4f} of the unprofiled wall")
     print(f"the port's kernels (flash attention, fused head + CE, grouped experts): "
           f"{ours / 1e6 / prof_steps:.4f} s per step, {ours / busy_us:.4f} of device time; "
-          + ", ".join(f"{n} {t / 1e3 / prof_steps:.3f} ms" for n, t in per_kernel.items()))
+          + ", ".join(f"{n} {t / 1e3 / prof_steps:.3f} ms ({per_calls[n]} calls)"
+                      for n, t in per_kernel.items()))
     for title, tags in (("elementwise", ELEMENTWISE), ("collectives and copies", TRANSFERS)):
         print(f"{title}: " + ", ".join(
             f"{label} {sum(r.count for r in kernels if tag in r.key) // prof_steps} calls/step "

@@ -15,9 +15,10 @@ report the pure CE.
 module and wraps it in `DistributedDataParallel` or FSDP2's `fully_shard`,
 and the loss runs through that module, which hands the model the
 parameters as they stand at call time. Both train on tpukit's objective, the
-mean CE over the valid tokens of the global batch. The pipeline, tensor and
+mean CE over the valid tokens of the global batch. The pipeline strategies
+(`Pipeline`, `Pipeline1F1B`) are in `tpukit_torch/pipeline.py`; tensor and
 context parallelism, and expert parallelism over more than one rank are
-ROADMAP.md items 7 and 13-15.
+ROADMAP.md items 13-15.
 """
 
 from __future__ import annotations
@@ -52,6 +53,14 @@ def leaves(tree: dict) -> list:
     return out
 
 
+def paths(tree: dict, prefix: str = "") -> list[str]:
+    """The "/"-joined key path of every leaf, in `leaves` order."""
+    out = []
+    for k, v in tree.items():
+        out.extend(paths(v, f"{prefix}{k}/") if isinstance(v, dict) else [prefix + k])
+    return out
+
+
 def unflatten(tree: dict, flat) -> dict:
     """A nested dict shaped like `tree` holding the values of `flat`, in
     `leaves` order."""
@@ -72,13 +81,35 @@ class Strategy:
 
     @property
     def batch_divisor(self) -> int:
-        """The data-parallel world: a global batch is `--batch_size` rows
-        on each of this many ranks (tpukit `shardings.py:411`)."""
+        """What the global batch must divide into (tpukit
+        `shardings.py:411`): the data-parallel world, or under the pipeline
+        micro-batches x data replicas."""
         return 1
+
+    @property
+    def data_replicas(self) -> int:
+        """The data-parallel replicas: a global batch is `--batch_size` rows
+        on each of them, each loading its own share. Every rank of one
+        replica loads the same rows."""
+        return 1
+
+    def data_rank(self) -> int:
+        """This rank's replica index, `[0, data_replicas)`."""
+        return 0
 
     def validate_config(self, cfg: gpt.GPTConfig) -> None:
         """Raise before the first step when the config cannot run on this
         strategy."""
+
+    def prepare_params(self, params: dict, cfg: gpt.GPTConfig) -> dict:
+        """The tree in this strategy's layout, before `setup` (tpukit
+        `shardings.py:316`; the pipeline pads and permutes the layer stack)."""
+        return params
+
+    def inference_params(self, params: dict, cfg: gpt.GPTConfig) -> dict:
+        """`full_params`' tree in the plain sequential forward's layout, for
+        decoding (tpukit `shardings.py:401`)."""
+        return params
 
     def setup(self, params: dict) -> dict:
         """The tree a train state holds, made from `params` (leaves that
@@ -89,6 +120,22 @@ class Strategy:
         """Every leaf as a plain, whole tensor on the compute device, for
         decoding. Every rank calls it."""
         return params
+
+    def gather_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of the train state's leaf `name` (or of an
+        optimizer state tensor shaped like it), for a checkpoint. A
+        collective where the leaf is sharded."""
+        return gather_full(t)
+
+    def local_leaf(self, name: str, full: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+        """`full` (a whole tensor from a checkpoint) as the live tensor
+        `live` of leaf `name` holds it: this rank's shard, as a DTensor,
+        where `live` is one."""
+        if not isinstance(live, DTensor):
+            return full
+        shard = local_shard(full, live).to(live.to_local().device)
+        return DTensor.from_local(shard, live.device_mesh, live.placements, shape=live.shape,
+                                  stride=live.stride())
 
     def all_sum(self, values) -> list[float]:
         """`values` summed over the data-parallel ranks."""
@@ -215,7 +262,7 @@ class ParamTree(nn.Module):
         return fn(self.tree(), *args, **kwargs)
 
 
-def _comm_device(mesh) -> torch.device:
+def comm_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
@@ -227,7 +274,7 @@ def gather_full(t: torch.Tensor) -> torch.Tensor:
     lives (host memory under CPU offload); a plain tensor as it is."""
     if not isinstance(t, DTensor):
         return t
-    local, comm = t.to_local(), _comm_device(t.device_mesh)
+    local, comm = t.to_local(), comm_device(t.device_mesh)
     if local.device != comm:
         t = DTensor.from_local(local.to(comm), t.device_mesh, t.placements,
                                shape=t.shape, stride=t.stride())
@@ -280,6 +327,13 @@ class _DataParallelBase(Strategy):
     @property
     def batch_divisor(self) -> int:
         return self.world
+
+    @property
+    def data_replicas(self) -> int:
+        return self.world
+
+    def data_rank(self) -> int:
+        return mesh_lib.rank()
 
     def validate_config(self, cfg: gpt.GPTConfig) -> None:
         if cfg.num_experts > 0:
@@ -339,7 +393,7 @@ class _DataParallelBase(Strategy):
 
     def all_sum(self, values) -> list[float]:
         t = torch.tensor([float(v) for v in values], dtype=torch.float64,
-                         device=_comm_device(self.mesh))
+                         device=comm_device(self.mesh))
         dist.all_reduce(t, group=self.mesh.get_group())
         return t.tolist()
 
@@ -414,5 +468,5 @@ class FSDP(_DataParallelBase):
             p.grad.div_(self.world)
 
     def full_params(self, params: dict) -> dict:
-        device = _comm_device(self.mesh)
+        device = comm_device(self.mesh)
         return unflatten(params, [gather_full(p).detach().to(device) for p in leaves(params)])

@@ -13,12 +13,13 @@ Loop surface, as tpukit's:
     `generate_samples` decodes them. The config has no `moe_dispatch`, so
     MoE samples run the meshless "xla" dispatch, as tpukit's do;
   - a checkpoint at the end (`checkpoint.save`, the port's own format).
-Under `DataParallel` and `FSDP` the loop is rank-aware (tpukit
-`train.py:501-545`): the global batch is `--batch_size` x world rows, each
-rank loading its `DistributedSampler` share; eval sums and the train token
-count are summed over the ranks; rank 0 alone prints, samples and writes
-the checkpoint, after every rank has taken part in gathering what they
-need. The step runs eagerly: forward, loss, backward and `torch.optim.AdamW` in
+Under `DataParallel`, `FSDP` and the pipeline the loop is rank-aware
+(tpukit `train.py:501-545`): the global batch is `--batch_size` x data
+replicas rows, each replica loading its `DistributedSampler` share (every
+stage rank of a pipeline replica the same rows); eval sums and the train
+token count are summed over the replicas; rank 0 alone prints, samples and
+writes the checkpoint, after every rank has taken part in gathering what
+they need. The step runs eagerly: forward, loss, backward and `torch.optim.AdamW` in
 place. Not carried (ROADMAP.md): the JSONL StepLogger records, the MFU
 meter, the prefetch thread, and the obs, recovery and metrics planes.
 """
@@ -51,12 +52,14 @@ GENERATION_PROMPTS = ["The big brown cat ", "One day, ", "She said "]
 
 @dataclasses.dataclass
 class TrainState:
-    """Parameters (leaf tensors that require grad), their optimizer, and the
-    number of steps taken."""
+    """Parameters (leaf tensors that require grad), their optimizer, the
+    number of steps taken, and the strategy that set the tree up (None for
+    a plain tree), which checkpoints gather and place leaves through."""
 
     params: dict
     optimizer: torch.optim.Optimizer
     step: int = 0
+    strategy: Strategy | None = None
 
 
 def make_optimizer(params: dict, learning_rate: float) -> torch.optim.AdamW:
@@ -72,16 +75,24 @@ def make_optimizer(params: dict, learning_rate: float) -> torch.optim.AdamW:
                              weight_decay=1e-2, foreach=False if mixed else None)
 
 
-def create_train_state(params: dict, learning_rate: float,
-                       strategy: Strategy | None = None) -> TrainState:
+def create_train_state(params: dict, learning_rate: float, strategy: Strategy | None = None,
+                       cfg: gpt.GPTConfig | None = None) -> TrainState:
     """The state of `params`; with a strategy, of the tree its `setup`
-    makes of them (wrapped, and sharded under FSDP), the optimizer built
-    afterwards over that tree."""
+    makes of them (wrapped, sharded under FSDP, this stage's block under
+    the pipeline), after its `prepare_params` when `cfg` is given (tpukit
+    `train.py:112`: the pipeline's padded, permuted stack), the optimizer
+    built afterwards over that tree: each rank's AdamW covers its own
+    leaves."""
     for p in leaves(params):
         p.requires_grad_(True)
     if strategy is not None:
+        if cfg is not None:
+            params = strategy.prepare_params(params, cfg)
+            for p in leaves(params):
+                p.requires_grad_(True)
         params = strategy.setup(params)
-    return TrainState(params=params, optimizer=make_optimizer(params, learning_rate))
+    return TrainState(params=params, optimizer=make_optimizer(params, learning_rate),
+                      strategy=strategy)
 
 
 def to_device(model_batch: dict, targets: np.ndarray, device) -> tuple[dict, torch.Tensor]:
@@ -151,6 +162,7 @@ def build_config(flags: TrainFlags, vocab_size: int) -> gpt.GPTConfig:
         compute_dtype=torch.float32 if flags.disable_amp else torch.bfloat16,
         remat_layers=flags.remat, scan_layers=flags.scan_layers,
         num_experts=flags.num_experts, router_top_k=flags.moe_top_k,
+        virtual_stages=flags.virtual_stages,
     )
 
 
@@ -170,22 +182,28 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
     pad_id = tokenizer.pad_token_id
     cfg = build_config(flags, tokenizer.vocab_size)
     strategy.validate_config(cfg)
-    rank = 0
+    rank = replica = 0
     if strategy.distributed:
         device = mesh_lib.initialize_runtime(device)
-        rank = mesh_lib.rank()
-    world = strategy.batch_divisor
+        rank, replica = mesh_lib.rank(), strategy.data_rank()
+    replicas = strategy.data_replicas
     p0 = rank == 0
+    if flags.batch_size * replicas % strategy.batch_divisor:
+        raise ValueError(
+            f"global batch {flags.batch_size * replicas} (batch_size {flags.batch_size} x "
+            f"{replicas} data shards) must be a multiple of {strategy.batch_divisor} for the "
+            f"{strategy.name} strategy")
 
     train_ds, validation_ds = get_dataset(slice_size=flags.dataset_slice)
     train_ds = transform_dataset(train_ds, tokenizer, max_length=flags.sequence_length)
     validation_ds = transform_dataset(validation_ds, tokenizer,
                                       max_length=flags.sequence_length)
-    # the global batch is batch_size rows on each of `world` ranks, each
-    # loading its DistributedSampler share; wrap-padding keeps every train
-    # step full-shape; validation pads with all-ignore rows so its metrics
-    # are those of the exact partial batch
-    shard = dict(num_replicas=world, rank=rank)
+    # the global batch is batch_size rows on each of the data replicas,
+    # each loading its DistributedSampler share (every stage rank of a
+    # pipeline replica the same rows); wrap-padding keeps every train step
+    # full-shape; validation pads with all-ignore rows so its metrics are
+    # those of the exact partial batch
+    shard = dict(num_replicas=replicas, rank=replica)
     train_loader = DataLoader(train_ds, flags.batch_size, shuffle=True, seed=flags.seed,
                               pad_to_batch=True, **shard)
     validation_loader = DataLoader(validation_ds, flags.batch_size, shuffle=False,
@@ -193,7 +211,7 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
                                    **shard)
 
     state = create_train_state(gpt.init_params(cfg, seed=flags.seed, device=device),
-                               flags.learning_rate, strategy)
+                               flags.learning_rate, strategy, cfg)
     if flags.resume:
         ckpt_lib.restore(flags.resume, state)
         if p0:
@@ -244,7 +262,8 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
                             "accuracy": total_acc / total_weight}
 
         gen_tokens = min(20, cfg.max_position_embeddings - 2)
-        full = strategy.full_params(state.params)  # every rank gathers
+        # every rank gathers; then the natural layer order for decoding
+        full = strategy.inference_params(strategy.full_params(state.params), cfg)
         if p0:
             print(f"[validation] Epoch {epoch + 1}/{epochs} | loss: "
                   f"{eval_metrics['loss']:.3f}, accuracy: {eval_metrics['accuracy']:.2f}",
