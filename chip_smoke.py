@@ -74,9 +74,10 @@ not 0:
  12. MoE train step through the kernels == through the plain versions (f32,
      2 layers, top-2, 4 steps), on the ExpertParallel 1 x 1 path and on the
      meshless dropless path;
- 13. recipe 8 end to end (`--num_experts 8 --moe_dispatch pallas`) at
-     GPT-2-small width on the fixture corpus: trains, evaluates, samples
-     (on the ring), checkpoints;
+ 13. recipe 8 end to end (`--num_experts 8 --moe_dispatch pallas
+     --checkpoint_format sharded`) at GPT-2-small width on the fixture
+     corpus: trains, evaluates, samples (on the ring), checkpoints in
+     tpukit's sharded layout, which restores bit for bit;
  14. MoE serving: `ServeEngine` at GPT-2-small width with 8 experts and the
      pallas dispatch answers phase 4's 64 requests with fused decoding; the
      grouped forward launches layers x (prefill dispatches + decode ticks)
@@ -140,6 +141,26 @@ not 0:
      `.pipe_ddp`, world of one, M = "4x" = 4) as phase 9: train, evaluate,
      sample on the ring, checkpoint; each checkpoint restores into a
      `SingleDevice` state bit for bit;
+ 27. checkpoints in tpukit's formats: recipe 1 as phase 9, once with
+     `--checkpoint_format consolidated` and once with `sharded`; each
+     checkpoint verifies, `restore_params` gives the trained parameters bit
+     for bit and a full restore the parameters, AdamW moments and step;
+     the sharded params-only read skips 2x what it reads (the moments);
+     bytes on disk, the I/O ledger and the restore walls;
+ 28. serving the recipe's checkpoint: `python -m tpukit_torch.serve
+     --checkpoint latest --page_size 16 --fused_decode` at the recipe's
+     width on phase 4's stream (the restore line; each paged kernel
+     layers x decode ticks times); through the engine, the restored
+     parameters of the `.pt`, consolidated and sharded checkpoints give the
+     in-memory parameters' tokens; the trained weights' tokens/s beside
+     phase 4's; at f32 the paged fused engine's greedy continuations of
+     `GENERATION_PROMPTS` equal `generate_samples`';
+ 29. serving recipe 8's sharded checkpoint (`--num_experts 8
+     --moe_dispatch pallas --page_size 16 --fused_decode`: the grouped and
+     paged kernels launch; restored tokens == in-memory tokens), and phase
+     22's seeded draft saved consolidated and restored: phase 22's draft
+     run's tokens and acceptance, sampled speculation's tokens equal to the
+     in-memory draft's, and the CLI's `--draft model --draft_checkpoint`;
 then one JSON line of kernel results and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
@@ -148,10 +169,14 @@ code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -193,8 +218,10 @@ from tpukit_torch.recipes.profile import (
 )
 from tpukit_torch.serve import decode as serve_decode
 from tpukit_torch.serve import spec as spec_lib
-from tpukit_torch.serve.engine import ServeEngine, synthetic_request_stream
-from tpukit_torch.serve.profile import build
+from tpukit_torch.serve import __main__ as serve_main
+from tpukit_torch.serve.engine import (Request, ServeConfig, ServeEngine,
+                                       synthetic_request_stream)
+from tpukit_torch.serve.profile import REQUESTS, SERVE_SHAPE, build
 from tpukit_torch.model import GPTConfig, init_params
 from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
 from tpukit_torch.shardings import (
@@ -206,7 +233,8 @@ from tpukit_torch.shardings import (
     leaves,
     unflatten,
 )
-from tpukit_torch.train import create_train_state, to_device, train_step
+from tpukit_torch.train import (GENERATION_PROMPTS, create_train_state, generate_samples,
+                                to_device, train_step)
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -1025,6 +1053,11 @@ def kernel_vs_plain_steps(dev, dropout: float = 0.0) -> None:
         raise AssertionError(f"kernel and plain train steps disagree: {ours} vs {plain}")
 
 
+RECIPE_ARGV = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layers", "12",
+               "--sequence_length", "512", "--batch_size", "64", "--epochs", "1",
+               "--dataset_slice", "576", "--device", "cuda"]  # phase 9's recipe 1
+
+
 def recipe_end_to_end(dev, recipe=single, label: str = "recipe",
                       kernels=("flash_", "ce_")) -> dict:
     """Phase 9 (and 18, 26): `python -m tpukit_torch.recipes.single` (or
@@ -1040,15 +1073,12 @@ def recipe_end_to_end(dev, recipe=single, label: str = "recipe",
     name = recipe.__name__.rsplit(".", 1)[1]
     work = ROOT / "build" / ("chip_smoke" if recipe is single else f"chip_smoke_{name}")
     work.mkdir(parents=True, exist_ok=True)
-    argv = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layers", "12",
-            "--sequence_length", "512", "--batch_size", "64", "--epochs", "1",
-            "--dataset_slice", "576", "--device", "cuda"]
     cwd = os.getcwd()
     os.chdir(work)
     try:
         reset_counts()
         t0 = time.perf_counter()
-        result = recipe.main(argv)
+        result = recipe.main(RECIPE_ARGV)
         wall = time.perf_counter() - t0
         counts = read_counts()
         restored = _restores_exactly(result, dev)
@@ -1590,7 +1620,7 @@ def moe_kernel_vs_plain_steps(dev) -> None:
 def _restores_exactly(result, dev) -> bool:
     """The recipe's final checkpoint restores into a fresh state, bit for bit."""
     other = create_train_state(init_params(result.config, seed=5, device=dev), 1e-4)
-    ckpt_lib.restore(result.checkpoint_path, other)
+    ckpt_lib.restore_any(result.checkpoint_path, other)
     want = dict(zip(ckpt_lib.paths(result.state.params),
                     (gather_full(p) for p in leaves(result.state.params))))
     got = dict(zip(ckpt_lib.paths(other.params), leaves(other.params)))
@@ -1599,17 +1629,20 @@ def _restores_exactly(result, dev) -> bool:
 
 def moe_recipe_end_to_end(dev) -> dict:
     """Phase 13: `python -m tpukit_torch.recipes.moe --num_experts 8
-    --moe_dispatch pallas` at GPT-2-small width on 288 fixture stories (9
-    steps of 32), `--sequence_length 512`, 1 epoch, bf16, in
-    build/chip_smoke_moe/. Checks that the grouped-expert, flash and CE
-    kernels ran, the eval metrics are finite, three samples came back
-    (decoded on the ring), and the checkpoint restores."""
+    --moe_dispatch pallas --checkpoint_format sharded` at GPT-2-small width
+    on 288 fixture stories (9 steps of 32), `--sequence_length 512`, 1
+    epoch, bf16, in build/chip_smoke_moe/. Checks that the grouped-expert,
+    flash and CE kernels ran, the eval metrics are finite, three samples
+    came back (decoded on the ring), and the checkpoint (tpukit's sharded
+    layout) restores. Returns the counts, the checkpoint, the config and
+    the trained parameters on the host (phase 29 serves them)."""
     work = ROOT / "build" / "chip_smoke_moe"
-    work.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
     argv = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layers", "12",
             "--sequence_length", "512", "--batch_size", "32", "--epochs", "1",
             "--dataset_slice", "288", "--device", "cuda", "--num_experts", "8",
-            "--moe_dispatch", "pallas"]
+            "--moe_dispatch", "pallas", "--checkpoint_format", "sharded"]
     cwd = os.getcwd()
     os.chdir(work)
     try:
@@ -1635,7 +1668,8 @@ def moe_recipe_end_to_end(dev) -> dict:
         raise AssertionError(f"recipe 8 output: {result.metrics}")
     if not restored:
         raise AssertionError(f"checkpoint {result.checkpoint_path} did not restore exactly")
-    return counts
+    host = unflatten(result.state.params, [p.detach().cpu() for p in leaves(result.state.params)])
+    return dict(counts=counts, path=result.checkpoint_path, config=result.config, params=host)
 
 
 def moe_serving(dev) -> dict:
@@ -1940,8 +1974,8 @@ def speculative_serving(dev, ring: dict) -> dict:
                                  f"rid {r.rid}")
     print(f"f32: greedy ngram == model == vanilla on the first {len(head)} requests; sampled "
           f"model speculation == reference_spec_decode on the first 8", flush=True)
-    return dict(ngram=neng.last_summary, model=meng.last_summary,
-                ngram_tokens_per_s=_tokens_per_s(neng, nwall),
+    return dict(ngram=neng.last_summary, model_outs=mouts, draft=draft, reqs=reqs,
+                model=meng.last_summary, ngram_tokens_per_s=_tokens_per_s(neng, nwall),
                 vanilla_rep_tokens_per_s=_tokens_per_s(veng, vwall),
                 model_tokens_per_s=_tokens_per_s(meng, mwall))
 
@@ -1958,6 +1992,262 @@ def dropout_training(dev, plain_step: dict) -> dict:
     _free()
     kernel_vs_plain_steps(dev, dropout=0.1)
     return run
+
+
+def _named(tree) -> dict:
+    return dict(zip(ckpt_lib.paths(tree), leaves(tree)))
+
+
+def _same_tree(got: dict, want: dict, what: str) -> None:
+    """`got` holds `want`'s tensors (gathered whole) bit for bit."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: leaves {sorted(got)} != {sorted(want)}")
+    for n, t in want.items():
+        if not torch.equal(got[n].to(t.device), gather_full(t).detach()):
+            raise AssertionError(f"{what}: {n} differs")
+
+
+def _disk_bytes(path: Path) -> int:
+    if path.is_dir():
+        return sum(f.stat().st_size for f in path.iterdir())
+    side = ckpt_lib.checksum_sidecar(path)
+    return path.stat().st_size + (side.stat().st_size if side.exists() else 0)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def checkpoint_formats(dev) -> dict:
+    """Phase 27: recipe 1 as phase 9 runs it, once with `--checkpoint_format
+    consolidated` and once with `sharded`, each in its own
+    build/chip_smoke_ckpt_<format>/. Each final checkpoint passes
+    `verify_checkpoint`; `restore_params` gives `FitResult.state`'s
+    parameters bit for bit, and a full `restore_any` into a fresh state its
+    parameters, AdamW moments and step; the sharded params-only read skips
+    the optimizer's blocks (bytes skipped = 2 x bytes read, within 1e-3:
+    the two moments, plus the count and step). Bytes on disk, the I/O
+    ledger and the restore walls are printed; the consolidated run's state
+    is also written as the port's `.pt`, the third format phase 28 serves."""
+    runs = {}
+    for fmt in ("consolidated", "sharded"):
+        work = ROOT / "build" / f"chip_smoke_ckpt_{fmt}"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            result, wall = _timed(lambda: single.main(RECIPE_ARGV + ["--checkpoint_format",
+                                                                     fmt]))
+        finally:
+            os.chdir(cwd)
+        runs[fmt] = dict(result=result, path=result.checkpoint_path, work=work)
+    runs["pt"] = dict(result=runs["consolidated"]["result"], work=runs["consolidated"]["work"],
+                      path=ckpt_lib.save(runs["consolidated"]["result"].state,
+                                         directory=runs["consolidated"]["work"] / "pt"))
+    for fmt, run in runs.items():
+        result, path = run["result"], run["path"]
+        verdict = ckpt_lib.verify_checkpoint(path)
+        if verdict[0] is not True or (fmt != "pt" and verdict[1] != "verified"):
+            raise AssertionError(f"{fmt} checkpoint {path}: {verdict}")
+        (params, info), params_s = _timed(lambda: ckpt_lib.restore_params(
+            path, init_params(result.config, device="meta"), dev))
+        _same_tree(_named(params), _named(result.state.params), f"{fmt} params-only restore")
+        other = create_train_state(init_params(result.config, seed=5, device=dev), 1e-4)
+        _, full_s = _timed(lambda: ckpt_lib.restore_any(path, other))
+        _same_tree(_named(other.params), _named(result.state.params), f"{fmt} full restore")
+        for key in ("exp_avg", "exp_avg_sq"):
+            _same_tree({n: other.optimizer.state[p][key] for n, p in _named(other.params).items()},
+                       {n: result.state.optimizer.state[p][key]
+                        for n, p in _named(result.state.params).items()}, f"{fmt} {key}")
+        if other.step != result.state.step:
+            raise AssertionError(f"{fmt}: step {other.step} != {result.state.step}")
+        ratio = info["bytes_skipped"] / info["bytes_read"]
+        if fmt == "sharded" and not abs(ratio - 2.0) < 1e-3:
+            raise AssertionError(f"sharded params-only read skipped {ratio} x what it read")
+        del other
+        _free()
+        n_params = sum(p.numel() for p in leaves(result.state.params))
+        run.update(params=params, info=info, params_s=params_s, full_s=full_s,
+                   disk=_disk_bytes(path))
+        print(f"{fmt}: {path.name}, {run['disk']} B on disk ({n_params} parameters, "
+              f"{4 * n_params} B in f32); verify {verdict[1]}; params-only restore "
+              f"{params_s:.3f} s, {info}, skipped/read {ratio:.6f}; full restore {full_s:.3f} "
+              f"s; params, exp_avg, exp_avg_sq and step bit-equal; recipe train tokens/s "
+              f"{result.metrics['tokens_per_sec']:.1f}", flush=True)
+    return runs
+
+
+COMPARED = 16  # requests run twice to compare restored and in-memory parameters
+WIDTH_FLAGS = ["--device", "cuda", "--dim", "768", "--head_dim", "64", "--heads", "12",
+               "--num_layers", "12", "--sequence_length", "512"]  # the recipes' width
+STREAM_FLAGS = ["--slots", str(SERVE_SHAPE["slots"]),
+                "--buckets", ",".join(map(str, SERVE_SHAPE["buckets"])),
+                "--max_new_tokens", str(SERVE_SHAPE["max_new_tokens"]),
+                "--requests", str(REQUESTS)]  # phase 4's stream
+PAGED_FLAGS = ["--page_size", str(SERVE_SHAPE["page_size"]),
+               "--prefill_chunk", str(SERVE_SHAPE["prefill_chunk"]), "--fused_decode"]
+
+
+def serve_cli(argv, cwd: Path) -> tuple[str, dict, int]:
+    """`python -m tpukit_torch.serve argv` in `cwd` (its `main`, in this
+    process): the printed text (echoed), the launch counts of the run and
+    its decode ticks."""
+    text = io.StringIO()
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        reset_counts()
+        with contextlib.redirect_stdout(text):
+            code = serve_main.main(argv)
+        counts = read_counts()
+    finally:
+        os.chdir(old)
+    print(text.getvalue(), end="", flush=True)
+    if code != 0:
+        raise AssertionError(f"serve {argv} exited {code}")
+    return text.getvalue(), counts, int(re.search(r"(\d+) decode ticks", text.getvalue())[1])
+
+
+def _stream(tok):
+    return synthetic_request_stream(tok, REQUESTS, seed=0,
+                                    max_new_tokens=SERVE_SHAPE["max_new_tokens"],
+                                    buckets=SERVE_SHAPE["buckets"])
+
+
+def serve_checkpoints(dev, runs: dict, greedy: dict) -> None:
+    """Phase 28: `python -m tpukit_torch.serve --checkpoint latest
+    --page_size 16 --fused_decode` at the recipe's width, in phase 27's
+    consolidated directory, on phase 4's stream: the restore line, and each
+    paged kernel launching layers x decode ticks times. Through the engine
+    on the same requests (the first 16), each format's restored parameters
+    give the tokens of the in-memory `FitResult.state` parameters (bf16,
+    paged, fused); the trained weights' tokens/s on all 64 beside phase 4's
+    random weights (a baseline).
+    At f32 compute the paged fused engine's greedy continuations of
+    `GENERATION_PROMPTS` equal `generate_samples`' (the ring)."""
+    out, counts, ticks = serve_cli(WIDTH_FLAGS + STREAM_FLAGS + PAGED_FLAGS +
+                                   ["--checkpoint", "latest"], runs["consolidated"]["work"])
+    layers = runs["consolidated"]["result"].config.num_layers
+    paged = paged_want(layers * ticks)
+    if "serving checkpoint " not in out or any(counts[k] != v for k, v in paged.items()):
+        raise AssertionError(f"served checkpoint: launches {counts} != {paged}, or no restore "
+                             f"line")
+    tok = get_tokenizer()
+    eos, reqs = int(tok.eos_token_id), _stream(tok)
+    serve = ServeConfig(fused_decode=True, **SERVE_SHAPE)
+    cfg = runs["consolidated"]["result"].config
+    engine, _, wall, _ = _timed_serve(runs["consolidated"]["params"], cfg, serve, reqs, dev, eos)
+    print(f"trained weights (restored, consolidated): {_split(engine, wall)}; phase 4 (random "
+          f"weights, vocab 50257) {greedy['tokens_per_s']:.1f} tokens/s", flush=True)
+    head, memory = reqs[:COMPARED], {}
+    for fmt in ("pt", "consolidated", "sharded"):
+        result = runs[fmt]["result"]
+        if id(result) not in memory:
+            live = result.state.params
+            memory[id(result)] = serve_run(unflatten(live, [p.detach() for p in leaves(live)]),
+                                           result.config, serve, head, dev, eos)[1]
+        restored = serve_run(runs[fmt]["params"], result.config, serve, head, dev, eos)[1]
+        check_outputs(restored, head, result.config)
+        _same_tokens({"restored": restored, "in-memory": memory[id(result)]}, "in-memory",
+                     [r.rid for r in head], f"{fmt} checkpoint")
+    print(f"bf16 paged fused: restored == in-memory tokens on the first {len(head)} requests "
+          f"for the .pt, consolidated and sharded checkpoints", flush=True)
+    cfg32 = runs["consolidated"]["result"].config.replace(compute_dtype=torch.float32)
+    params = runs["consolidated"]["params"]
+    texts = generate_samples(params, cfg32, tok)
+    prompts = [Request(rid=i, ids=tuple(tok([p])["input_ids"][0]), max_new_tokens=20)
+               for i, p in enumerate(GENERATION_PROMPTS)]
+    serve32 = ServeConfig(slots=4, buckets=(16,), max_new_tokens=20, page_size=16,
+                          fused_decode=True)
+    outs = serve_run(params, cfg32, serve32, prompts, dev, eos)[1]
+    got = [tok.decode(outs[r.rid], skip_special_tokens=True) for r in prompts]
+    if got != texts:
+        raise AssertionError(f"f32 paged fused samples {got} != generate_samples' {texts}")
+    print(f"f32: paged fused == generate_samples on {len(texts)} prompts: {texts}", flush=True)
+
+
+def serve_moe_and_draft(dev, moe_run: dict, spec: dict, runs: dict) -> None:
+    """Phase 29: recipe 8's sharded checkpoint (phase 13) served by `python
+    -m tpukit_torch.serve --num_experts 8 --moe_dispatch pallas --page_size
+    16 --fused_decode --checkpoint PATH`: the grouped forward and the paged
+    kernels launch; through the engine the restored parameters give the
+    in-memory ones' tokens (bf16, first 16 requests; the CLI serves 16).
+    Then phase 22's seeded draft (64, 4 x 16, 2 layers) saved consolidated
+    and restored: phase 22's draft run's tokens (bf16 greedy, ring, spec_k
+    4) on its first 16 requests, and sampled (t 0.8, top-k 40, whose tokens
+    and acceptance depend on the draft) the in-memory draft's tokens and
+    acceptance histogram; and the CLI's `--draft model --draft_checkpoint
+    PATH` on the ring (16 requests), a draft of that shape at the recipe's
+    vocab beside phase 27's trained target."""
+    path = moe_run["path"]
+    few = ["--requests", str(COMPARED)]
+    out, counts, ticks = serve_cli(WIDTH_FLAGS + STREAM_FLAGS + PAGED_FLAGS + few + [
+        "--num_experts", "8", "--moe_dispatch", "pallas", "--checkpoint", str(path)], ROOT)
+    cfg = moe_run["config"].replace(moe_dispatch="pallas")
+    paged = paged_want(cfg.num_layers * ticks)
+    if "serving checkpoint " not in out or counts["moe_forward_up"] == 0 or \
+            any(counts[k] != v for k, v in paged.items()):
+        raise AssertionError(f"served MoE checkpoint: launches {counts}, paged want {paged}")
+    tok = get_tokenizer()
+    eos, reqs = int(tok.eos_token_id), _stream(tok)[:COMPARED]
+    serve = ServeConfig(fused_decode=True, **SERVE_SHAPE)
+    restored, _ = ckpt_lib.restore_params(path, init_params(cfg, device="meta"), dev)
+    memory = unflatten(moe_run["params"], [p.to(dev) for p in leaves(moe_run["params"])])
+    _same_tree(_named(restored), _named(memory), "MoE params-only restore")
+    _same_tokens({"restored": serve_run(restored, cfg, serve, reqs, dev, eos)[1],
+                  "in-memory": serve_run(memory, cfg, serve, reqs, dev, eos)[1]},
+                 "in-memory", [r.rid for r in reqs], "MoE checkpoint")
+    print(f"MoE: {path.name} served, grouped forward launches {counts['moe_forward_up']}; "
+          f"restored == in-memory tokens on {len(reqs)} requests", flush=True)
+    del restored, memory
+    _free()
+
+    tcfg, tparams, tserve, _, _ = build(dev, fused=True)
+    ring = dataclasses.replace(tserve, page_size=0, prefill_chunk=0, fused_decode=False,
+                               spec_k=4, draft="model")
+    dparams, dcfg = spec["draft"]["draft_params"], spec["draft"]["draft_cfg"]
+    dstate = create_train_state(unflatten(dparams, [p.detach().clone() for p in leaves(dparams)]),
+                                1e-4)
+    dpath = ckpt_lib.save_consolidated(dstate, ROOT / "build" / "chip_smoke_draft")
+    drestored, dinfo = ckpt_lib.restore_params(dpath, init_params(dcfg, device="meta"), dev)
+    _same_tree(_named(drestored), _named(dparams), "draft params-only restore")
+    head = spec["reqs"][:COMPARED]  # a request's tokens do not depend on its batch
+    outs = serve_run(tparams, tcfg, ring, head, dev, eos, draft_params=drestored,
+                     draft_cfg=dcfg)[1]
+    _same_tokens({"restored": outs, "phase 22": spec["model_outs"]}, "phase 22",
+                 [r.rid for r in head], "draft checkpoint")
+    sampled, runs_ = dataclasses.replace(ring, **SAMPLED), {}
+    for label, d in (("restored", drestored), ("in-memory", dparams)):
+        engine, runs_[label] = serve_run(tparams, tcfg, sampled, head, dev, eos, draft_params=d,
+                                         draft_cfg=dcfg)
+        runs_[label + " acceptance"] = engine.last_summary["spec"]["accepted_hist"]
+    _same_tokens({k: runs_[k] for k in ("restored", "in-memory")}, "in-memory",
+                 [r.rid for r in head], "sampled speculation, draft checkpoint")
+    if runs_["restored acceptance"] != runs_["in-memory acceptance"]:
+        raise AssertionError(f"restored draft acceptance {runs_['restored acceptance']} != "
+                             f"{runs_['in-memory acceptance']}")
+    print(f"draft {dpath.name} ({dinfo['bytes_read']} B): phase 22's draft run's tokens on the "
+          f"first {len(head)} requests; sampled t 0.8 top-k 40: restored == in-memory draft "
+          f"tokens and acceptance histogram {runs_['restored acceptance']}", flush=True)
+    del tparams
+    _free()
+
+    target = runs["consolidated"]["result"].config
+    fcfg = GPTConfig(vocab_size=target.vocab_size,
+                     max_position_embeddings=target.max_position_embeddings, **DRAFT_SHAPE)
+    fstate = create_train_state(init_params(fcfg, seed=1, device=dev), 1e-4)
+    fpath = ckpt_lib.save_consolidated(fstate, ROOT / "build" / "chip_smoke_draft" / "fixture")
+    draft_flags = ["--draft", "model", "--draft_checkpoint", str(fpath), "--spec_k", "4"] + [
+        a for k, v in DRAFT_SHAPE.items() for a in (f"--draft_{k}", str(v))]
+    out, _, _ = serve_cli(WIDTH_FLAGS + STREAM_FLAGS + few + ["--checkpoint", "latest"] +
+                          draft_flags, runs["consolidated"]["work"])
+    if f"draft model {fpath} (params-only restore" not in out or "speculative decoding" not in out:
+        raise AssertionError("the CLI did not serve the draft checkpoint")
 
 
 def main() -> int:
@@ -2062,7 +2352,7 @@ def main() -> int:
     moe_kernel_vs_plain_steps(dev)
 
     phase("recipe 8 end to end (GPT-2-small width, 8 experts, pallas, fixture corpus)")
-    moe_recipe_end_to_end(dev)
+    moe_run = moe_recipe_end_to_end(dev)
 
     phase("MoE serving (GPT-2 small width, 8 experts, pallas, bf16, fused decode)")
     moe_served = moe_serving(dev)
@@ -2094,7 +2384,7 @@ def main() -> int:
     ring = ring_serving(dev, greedy)
 
     phase("speculative serving (ngram on the repetitive stream, draft model; spec_k 4)")
-    speculative_serving(dev, ring)
+    spec = speculative_serving(dev, ring)
 
     phase("dropout training (gpt-small-dim768, batch 64, S 512, bf16, dropout 0.1)")
     dropout_training(dev, step)
@@ -2112,6 +2402,17 @@ def main() -> int:
         phase("recipes 4 and 5 end to end (GPT-2-small width, fixture corpus)")
         recipe_end_to_end(dev, pipe_recipe, "recipe 4", kernels=("flash_",))
         recipe_end_to_end(dev, pipe_ddp_recipe, "recipe 5", kernels=("flash_",))
+
+    phase("checkpoints in tpukit's formats (recipe 1, GPT-2-small width)")
+    ckpt_runs = checkpoint_formats(dev)
+
+    phase("serve the recipe's checkpoint (GPT-2-small width, bf16, fused decode)")
+    serve_checkpoints(dev, ckpt_runs, greedy)
+
+    phase("serve an MoE checkpoint and a draft checkpoint")
+    serve_moe_and_draft(dev, moe_run, spec, ckpt_runs)
+    del ckpt_runs, moe_run, spec
+    _free()
 
     fl, ce = trained["flash"], trained["ce"]
 

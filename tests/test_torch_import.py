@@ -1,6 +1,7 @@
 """The port stands alone: `tpukit_torch` and `chip_smoke.py` import with
-`jax` and `tpukit` unimportable, contain (with `ce_ablation.py`) no import
-of either, default to cuda and refuse to fall back to the CPU silently."""
+`jax`, `tpukit`, `flax` and `msgpack` unimportable, contain (with
+`ce_ablation.py`) no import of any of them, default to cuda and refuse to
+fall back to the CPU silently."""
 
 import ast
 import os
@@ -16,6 +17,7 @@ import torch
 import tpukit_torch
 
 ROOT = Path(__file__).resolve().parent.parent
+REFUSED = ("jax", "jaxlib", "tpukit", "flax", "msgpack")  # the port imports none of these
 PORT_FILES = sorted((ROOT / "tpukit_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                             ROOT / "ce_ablation.py"]
 
@@ -24,7 +26,7 @@ import importlib.abc, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "tpukit"):
+        if name.split(".")[0] in REFUSED:
             raise ImportError(f"{name} is refused in this process")
         return None
 
@@ -32,7 +34,7 @@ sys.meta_path.insert(0, Refuse())
 import importlib
 for mod in MODULES:
     importlib.import_module(mod)
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpukit")]
+assert not [m for m in sys.modules if m.split(".")[0] in REFUSED]
 print("imported", len(MODULES))
 """
 
@@ -52,13 +54,15 @@ def _run(args, cwd=ROOT, env=None, timeout=120):
 def test_port_imports_without_jax_or_tpukit():
     mods = _port_modules()
     assert "tpukit_torch.ops.paged_attention" in mods and "tpukit_torch.serve.engine" in mods
-    proc = _run([sys.executable, "-c", f"MODULES = {mods!r}\n" + _BLOCKER])
+    proc = _run([sys.executable, "-c", f"MODULES = {mods!r}\nREFUSED = {REFUSED!r}\n" + _BLOCKER])
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(mods)}" in proc.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_has_no_jax_or_tpukit_import(path):
+    """No import of jax, tpukit, flax or msgpack (the port's own
+    `tpukit_torch.msgpack` is not msgpack)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -68,7 +72,7 @@ def test_port_source_has_no_jax_or_tpukit_import(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "tpukit"), \
+            assert name.split(".")[0] not in REFUSED, \
                 f"{path.name}:{node.lineno} imports {name}"
 
 
@@ -94,8 +98,9 @@ def test_serve_cli_runs_on_cpu_when_asked():
     assert proc.returncode == 0, proc.stderr
     assert "served 4 requests / " in proc.stdout
     bad = _run([sys.executable, "-m", "tpukit_torch.serve", "--device", "cpu",
-                "--checkpoint", "ckpt.pt"])
-    assert bad.returncode != 0 and "NotPortedError" in bad.stderr and "item 10" in bad.stderr
+                "--checkpoint", "ckpt.pt"])  # never served as seeded weights in its place
+    assert bad.returncode != 0 and "RuntimeError: --checkpoint ckpt.pt: failed integrity " \
+        "verification (missing file)" in bad.stderr and "served" not in bad.stdout
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

@@ -41,6 +41,7 @@ import optax
 import pytest
 import torch
 
+from tpukit import checkpoint as tk_checkpoint
 from tpukit import pipeline_schedule as tk_schedule
 from tpukit.flags import build_parser as tk_build_parser
 from tpukit.mesh import create_mesh as tk_create_mesh
@@ -49,6 +50,7 @@ from tpukit.model.gpt import init_params as tk_init_params
 from tpukit.pipeline import Pipeline as TkPipeline
 from tpukit.pipeline import Pipeline1F1B as TkPipeline1F1B
 from tpukit.shardings import SingleDevice as TkSingleDevice
+from tpukit.train import TrainState as TkTrainState
 from tpukit.train import make_optimizer as tk_make_optimizer
 import tpukit_torch
 from tpukit_torch import NotPortedError, checkpoint, pipeline_schedule
@@ -434,6 +436,28 @@ def test_checkpoint_restores_into_the_same_strategy(worlds, label):
     params = _tree(got, f"{label}/param")
     for name, leaf in zip(paths(payload["params"]), leaves(payload["params"])):
         assert np.array_equal(leaf.numpy(), params[name]), name
+
+
+@pytest.mark.parametrize("label", [c["label"] for c in CASES if c["checkpoint"]])
+def test_sharded_pipeline_checkpoint_restores_in_tpukit(worlds, param_sets, label):
+    """The stepped pipeline state in tpukit's sharded layout, written by the
+    stage ranks' pieces (the stack padded and, at V > 1, chunk-permuted):
+    tpukit's `verify_checkpoint` passes, and its `restore_sharded` into a
+    train state of that layout gives the parameters (rank 0's `full_params`)
+    bit for bit, at step and count 1."""
+    case = BY_LABEL[label]
+    got = worlds(case["world"])["got"]
+    path = Path(str(got[f"{label}/sharded"]))
+    assert tk_checkpoint.verify_checkpoint(path) == (True, "verified")
+    assert json.loads((path / "manifest.json").read_text())["nprocs"] == case["world"]
+    params = _nest(_layout(case, _flat(param_sets[case["params"]])))
+    opt = tk_make_optimizer(1e-3)
+    template = TkTrainState(params=params, opt_state=opt.init(params), step=jnp.int32(0))
+    restored = tk_checkpoint.restore_sharded(path, template)
+    assert int(restored.step) == int(restored.opt_state[0].count) == 1
+    want = _tree(got, f"{label}/param")
+    for name, leaf in _flat(_np(restored.params)).items():
+        assert np.array_equal(leaf, want[name]), name
 
 
 def test_even_checkpoint_restores_into_single_device(worlds):

@@ -332,14 +332,12 @@ def test_tokenizer_and_stream_match_tpukit(seed, kw):
 
 
 def test_unported_paths_raise_named_errors():
-    """What the port still lacks raises, naming its ROADMAP item: checkpoint
-    restore for serving (item 10), the fleet (item 19) and EP over more
-    than one rank (item 13). `ServeConfig()` is tpukit's ring default."""
+    """What the port still lacks raises, naming its ROADMAP item: the fleet
+    (item 19) and EP over more than one rank (item 13). `ServeConfig()` is
+    tpukit's ring default."""
     from tpukit_torch.serve import __main__ as serve_main
 
-    for argv, item in ((["--checkpoint", "c.pt"], "item 10"),
-                       (["--draft", "model", "--draft_checkpoint", "d.pt"], "item 10"),
-                       (["--replicas", "2"], "item 19")):
+    for argv, item in ((["--replicas", "2"], "item 19"),):
         with pytest.raises(NotPortedError, match=item):
             serve_main.main(argv + ["--device", "cpu"])
     with pytest.raises(NotPortedError, match="ROADMAP"):  # MoE serves; EP over ranks waits
@@ -351,3 +349,98 @@ def test_unported_paths_raise_named_errors():
         ServeConfig(page_size=8, draft="ngram")
     with pytest.raises(ValueError, match="paged cache"):
         ServeConfig(fused_decode=True)
+
+
+# ------------------------------------------- main-serve.py's every flag ----
+
+
+def _main_serve_parser():
+    """`main-serve.py`'s own parser: the script loaded by path (its name has
+    a hyphen), `parse_serve_flags` run once with `ArgumentParser.parse_args`
+    recording the parser it was called on."""
+    import argparse
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "main_serve", Path(__file__).resolve().parent.parent / "main-serve.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    seen, real = [], argparse.ArgumentParser.parse_args
+
+    def spy(self, *args, **kwargs):
+        seen.append(self)
+        return real(self, *args, **kwargs)
+
+    argparse.ArgumentParser.parse_args = spy
+    try:
+        module.parse_serve_flags([])
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return {a.dest: a for a in seen[0]._actions if a.dest != "help"}
+
+
+MAIN_SERVE = _main_serve_parser()
+_BASE = ["--device", "cpu", "--num_layers", "1", "--dim", "32", "--head_dim", "8", "--heads",
+         "4", "--sequence_length", "64", "--requests", "2", "--slots", "2", "--buckets", "8,16",
+         "--max_new_tokens", "2"]
+# a non-default value of each carried flag that runs on `_BASE`, with the
+# flags it needs beside it; every other flag takes the generic one
+_VALUES = {
+    "buckets": ["--buckets", "8"], "requests": ["--requests", "3"],
+    "qps": ["--qps", "1000"], "num_pages": ["--page_size", "8", "--num_pages", "16"],
+    "kv_dtype": ["--page_size", "8", "--kv_dtype", "bf16"],
+    "prefill_chunk": ["--page_size", "8", "--prefill_chunk", "8"],
+    "fused_decode": ["--page_size", "8", "--fused_decode"], "page_size": ["--page_size", "8"],
+    "spec_k": ["--draft", "ngram", "--spec_k", "2"],
+    "ngram_max": ["--draft", "ngram", "--ngram_max", "2"],
+    "draft": ["--draft", "model", "--draft_dim", "16", "--draft_head_dim", "4",
+              "--draft_heads", "4", "--draft_num_layers", "1"],
+    "num_experts": ["--num_experts", "2"],
+    "moe_dispatch": ["--num_experts", "2", "--moe_dispatch", "pallas"],
+    "moe_top_k": ["--num_experts", "2", "--moe_top_k", "2"],
+}
+
+
+def _generic(action) -> list:
+    opt = action.option_strings[0]
+    if action.nargs == 0:
+        return [opt]
+    if action.choices:
+        return [opt, next(c for c in action.choices if c != action.default)]
+    if action.type in (int, float):
+        return [opt, str(action.default + action.type(1))]
+    return [opt, "x"]
+
+
+@pytest.mark.parametrize("dest", sorted(MAIN_SERVE))
+def test_every_main_serve_flag_parses_with_tpukit_default(dest, tmp_path, monkeypatch):
+    """Each option of `main-serve.py` (`parse_serve_flags` with
+    `add_serve_flags` and `add_fleet_flags`): the port's parser has its
+    dest and tpukit's default, and a non-default value either serves (a
+    tiny model, 2 requests, on the CPU; a checkpoint flag given a real
+    checkpoint of that shape) or raises `NotPortedError` naming a ROADMAP
+    item."""
+    from tpukit_torch import checkpoint as ckpt
+    from tpukit_torch.data import get_tokenizer
+    from tpukit_torch.serve import __main__ as serve_main
+    from tpukit_torch.train import create_train_state
+
+    ours = {a.dest: a for a in serve_main.build_parser()._actions}
+    assert dest in ours and ours[dest].default == MAIN_SERVE[dest].default, dest
+    argv = _VALUES.get(dest) or _generic(MAIN_SERVE[dest])
+    if dest in ("checkpoint", "draft_checkpoint"):
+        shape = (dict(dim=32, head_dim=8, heads=4, num_layers=1) if dest == "checkpoint" else
+                 dict(dim=16, head_dim=4, heads=4, num_layers=1))
+        cfg = GPTConfig(**shape, vocab_size=get_tokenizer().vocab_size,
+                        max_position_embeddings=64)
+        path = ckpt.save_consolidated(create_train_state(
+            gpt.init_params(cfg, seed=1, device="cpu"), 1e-3), tmp_path)
+        argv = [f"--{dest}", str(path)] + (_VALUES["draft"] if dest == "draft_checkpoint"
+                                           else [])
+    monkeypatch.chdir(tmp_path)
+    if dest in serve_main.NOT_CARRIED:
+        with pytest.raises(NotPortedError, match=r"ROADMAP.md, queue A item \d+"):
+            serve_main.main(_BASE + argv)
+    else:
+        assert serve_main.main(_BASE + argv) == 0

@@ -309,7 +309,8 @@ RECIPE_ARGS = [
 @pytest.fixture(scope="module")
 def tpukit_recipe(tmp_path_factory):
     """tpukit's `fit` once for the module: its window losses (JSONL), eval
-    metrics, sample texts and initial parameters."""
+    metrics, sample texts, initial parameters, `train_tokens` and final
+    checkpoint (a consolidated msgpack)."""
     out = tmp_path_factory.mktemp("tpukit_recipe")
     log = out / "metrics.jsonl"
     flags = tk_parse_flags(RECIPE_ARGS + ["--metrics_log", str(log), "--prefetch", "0"])
@@ -339,7 +340,9 @@ def tpukit_recipe(tmp_path_factory):
                               compute_dtype=jnp.float32)
     init = tk_gpt.init_params(jax.random.PRNGKey(flags.seed), tk_cfg)
     return dict(windows=[r["loss"] for r in records if r.get("kind") == "train"],
-                eval=result.metrics["eval"], texts=texts, init=init, config=tk_cfg)
+                eval=result.metrics["eval"], texts=texts, init=init, config=tk_cfg,
+                train_tokens=result.metrics["train_tokens"],
+                checkpoint=Path(result.checkpoint_path))
 
 
 def test_recipe_matches_tpukit_fit(tpukit_recipe, tmp_path, monkeypatch):
@@ -347,8 +350,9 @@ def test_recipe_matches_tpukit_fit(tpukit_recipe, tmp_path, monkeypatch):
     initial parameters (a port checkpoint at step 0, `--resume`) against
     tpukit's `fit` on the fixture corpus: train window losses within f32
     bars (rtol 1e-4 after nine AdamW steps), eval loss and accuracy within
-    bf16 bands (both evaluate in bf16: rtol 2e-2, 1.5 accuracy points), and
-    the three greedy sample texts equal."""
+    bf16 bands (both evaluate in bf16: rtol 2e-2, 1.5 accuracy points), the
+    three greedy sample texts equal, and the meter's `train_tokens` equal
+    (tpukit's meter skips the first step's tokens)."""
     monkeypatch.chdir(tmp_path)
     cfg = _port_config(tpukit_recipe["config"])
     state = create_train_state(_bridge(tpukit_recipe["init"]), 1e-3)
@@ -361,12 +365,60 @@ def test_recipe_matches_tpukit_fit(tpukit_recipe, tmp_path, monkeypatch):
                                rtol=2e-2)
     assert abs(result.metrics["eval"]["accuracy"] - tpukit_recipe["eval"]["accuracy"]) <= 1.5
     assert result.metrics["samples"] == tpukit_recipe["texts"]
+    assert result.metrics["train_tokens"] == tpukit_recipe["train_tokens"] > 0
     assert result.config == cfg.replace(max_position_embeddings=64)
     assert result.checkpoint_path.exists()
     assert result.checkpoint_path.with_suffix(".json").exists()
 
 
 # ----------------------------------------------------------- checkpoint ----
+
+
+def test_served_tpukit_checkpoint_gives_fit_samples(tpukit_recipe, capsys):
+    """`python -m tpukit_torch.serve --device cpu --checkpoint PATH
+    --page_size 8 --fused_decode` on tpukit's own final msgpack of that run
+    (f32, as `RECIPE_ARGS` trains), serving `GENERATION_PROMPTS` greedily:
+    the restore line, and every completion's text equal to tpukit's `fit`
+    sample of that prompt."""
+    from tpukit_torch.serve import __main__ as serve_main
+    from tpukit_torch.train import GENERATION_PROMPTS
+
+    path = tpukit_recipe["checkpoint"]
+    prompts = [a for p in GENERATION_PROMPTS for a in ("--prompt", p)]
+    assert serve_main.main(["--device", "cpu", "--checkpoint", str(path), "--page_size", "8",
+                            "--fused_decode", "--dim", "32", "--head_dim", "8", "--heads", "4",
+                            "--num_layers", "2", "--sequence_length", "64", "--disable_amp",
+                            "--buckets", "8,16", "--slots", "2"] + prompts) == 0
+    out = capsys.readouterr().out
+    assert f"serving checkpoint {path} (step 10, params-only restore: {path.stat().st_size} B " \
+        f"read)" in out
+    for i, text in enumerate(tpukit_recipe["texts"][-3:]):
+        assert f"  [{i}] {text}\n" in out, (i, text)
+
+
+@pytest.mark.parametrize("fmt", ["consolidated", "sharded"])
+def test_recipe_writes_and_resumes_tpukit_formats(fmt, tmp_path, monkeypatch):
+    """`--checkpoint_format consolidated|sharded` on `SingleDevice`: the
+    periodic and final saves in tpukit's format and naming, verified; a
+    run resumed from the final one ends bit-equal to a run resumed from
+    the same state's `.pt`."""
+    monkeypatch.chdir(tmp_path)
+    args = RECIPE_ARGS[:] + ["--device", "cpu"]
+    args[args.index("--dataset_slice") + 1] = "16"
+    suffix = {"consolidated": "msgpack", "sharded": "sharded"}[fmt]
+    first = single.main(args + ["--checkpoint_every", "1", "--checkpoint_format", fmt])
+    assert (tmp_path / "checkpoints" / f"checkpoint-step000000001.{suffix}").exists()
+    assert first.checkpoint_path.name == f"checkpoint-step000000002.{suffix}"
+    assert checkpoint.verify_checkpoint(first.checkpoint_path) == (True, "verified")
+    assert checkpoint.latest_any().resolve() == first.checkpoint_path
+    pt = checkpoint.save(first.state, directory=tmp_path / "pt")
+    resumed = [single.main(args + ["--resume", str(p)]).state
+               for p in (first.checkpoint_path, pt)]
+    assert resumed[0].step == resumed[1].step == 4
+    for a, b in zip(leaves(resumed[0].params), leaves(resumed[1].params)):
+        assert torch.equal(a, b)
+
+
 
 
 def test_checkpoint_round_trip_and_resume(tiny_config, tiny_params, tmp_path, monkeypatch):
@@ -453,7 +505,6 @@ def test_every_tpukit_flag_parses():
     (["--grad_buckets", "2"], "item 16"),
     (["--metrics_log", "m.jsonl"], "item 18"),
     (["--keep_checkpoints", "2"], "item 17"),
-    (["--checkpoint_format", "sharded"], "item 10"),
     (["--resume", "latest"], "item 17"),
 ])
 def test_flags_not_carried_raise_with_their_roadmap_item(argv, item):

@@ -5,14 +5,19 @@
 Imports `tpukit_torch` only, never `jax` or `tpukit`. `inputs.npz` holds the
 initial parameters (`param/<path>`), the global batch (`input_ids`,
 `position_ids`, `mask`, `targets`), the model config (`config`, JSON) and
-the path of a checkpoint written by `SingleDevice` (`single_ckpt`). Rank r
+the paths of a checkpoint written by `SingleDevice`, as the port's `.pt`
+(`single_ckpt`) and in tpukit's sharded layout (`single_sharded`). Rank r
 takes rows [r B / world, (r + 1) B / world), as tpukit's `P("data")`
 splits them. For `DataParallel` and `FSDP` each it takes one AdamW step
 (lr 1e-3) and records the global loss, the gradients, the bf16 eval loss
 and accuracy after the step and the parameters, all gathered whole; then
 the averaged-per-rank-mean objective of plain DDP (the negative control),
 an FSDP checkpoint of the stepped state (`<out>/fsdp_ckpt`), the
-single-device checkpoint restored into a fresh FSDP state, and each
+single-device checkpoint restored into a fresh FSDP state, each
+strategy's stepped state in tpukit's sharded layout (`<out>/<label>_sharded`,
+every rank writing its blocks) and whether a fresh state of the same
+strategy restores it bit for bit on every rank, the single-device sharded
+checkpoint restored into a fresh FSDP state, and each
 strategy's loss and gradients at dropout 0.1 with step 0's key of seed 0
 (`dropout/...`). Rank 0 writes everything to `<out>/result.npz`.
 """
@@ -64,6 +69,15 @@ def _opt_state(prefix: str, state) -> dict:
     return out
 
 
+def _local_state(state) -> list:
+    """This rank's parameters and AdamW moments, as it holds them."""
+    out = list(leaves(state.params))
+    for p in leaves(state.params):
+        st = state.optimizer.state[p]
+        out += [st["exp_avg"], st["exp_avg_sq"]]
+    return out
+
+
 def main() -> None:
     src, out, world, rank = sys.argv[1], Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
     torch.set_num_threads(1)
@@ -96,6 +110,17 @@ def main() -> None:
         result[f"{label}/eval_loss"] = np.float64(total_loss / total)
         result[f"{label}/eval_acc"] = np.float64(total_acc / total)
         result.update(_gathered(f"{label}/param", state.params))
+        path = checkpoint.save_sharded(state, directory=out / f"{label}_sharded")
+        fresh = create_train_state(params_from_numpy(init, "cpu"), LR, make())
+        checkpoint.restore_any(path, fresh)
+        same = fresh.step == state.step and all(
+            torch.equal(a.to_local() if hasattr(a, "to_local") else a,
+                        b.to_local() if hasattr(b, "to_local") else b)
+            for a, b in zip(_local_state(state), _local_state(fresh)))
+        flags = torch.tensor([int(same)])
+        torch.distributed.all_reduce(flags, op=torch.distributed.ReduceOp.MIN)
+        result[f"{label}/sharded_restored_exactly"] = np.int64(flags.item())
+        result[f"{label}/sharded"] = str(path)
         if label == "fsdp":
             result["fsdp/replicated"] = np.array(
                 [n for n, p in zip(checkpoint.paths(state.params), leaves(state.params))
@@ -106,6 +131,10 @@ def main() -> None:
             checkpoint.restore(str(data["single_ckpt"]), restored)
             result.update(_gathered("restored/param", restored.params))
             result.update(_opt_state("restored/opt", restored))
+            from_sharded = create_train_state(params_from_numpy(init, "cpu"), LR, FSDP())
+            checkpoint.restore_any(str(data["single_sharded"]), from_sharded)
+            result.update(_gathered("restored_sharded/param", from_sharded.params))
+            result.update(_opt_state("restored_sharded/opt", from_sharded))
 
     # dropout: each rank draws its rows of the global batch's masks
     for label, make in (("ddp", DataParallel), ("fsdp", FSDP)):

@@ -17,9 +17,11 @@ gradients of one step with `value_and_grad` (dropout: step 0's key of seed
 the global loss, the gradients and the parameters in tpukit's layout
 (`full_params`: padded, chunk-permuted at V > 1), the eval loss and
 accuracy summed over the data replicas, and, for the cases that ask,
-writes a checkpoint of the stepped state (`<out>/<label>_ckpt`), restores
-it into a fresh state of the same strategy and records whether every
-rank's parameters and AdamW state came back bit for bit. Rank 0 writes
+writes a checkpoint of the stepped state, the port's `.pt`
+(`<out>/<label>_ckpt`) and tpukit's sharded layout (`<out>/<label>_sharded`,
+each stage rank of data replica 0 writing its pieces), restores each into
+a fresh state of the same strategy and records whether every rank's
+parameters and AdamW state came back bit for bit. Rank 0 writes
 everything to `<out>/result.npz`.
 """
 
@@ -112,17 +114,21 @@ def run_case(case: dict, data, base: dict, out: Path, result: dict) -> None:
         result[f"{label}/param/{name}"] = p.numpy().copy()
     if case.get("checkpoint"):
         path = checkpoint.save(state, directory=out / f"{label}_ckpt")
-        fresh = create_train_state(params_from_numpy(init, "cpu"), LR,
-                                   cls(num_microbatches=case["micro"], data=case["data"],
-                                       stages=case["stage"]), cfg)
-        checkpoint.restore(path, fresh)
-        same = all(np.array_equal(a, b) for a, b in zip(_state_arrays(state),
-                                                        _state_arrays(fresh)))
-        same &= fresh.step == state.step
+        sharded = checkpoint.save_sharded(state, directory=out / f"{label}_sharded")
+        same = True
+        for written in (path, sharded):
+            fresh = create_train_state(params_from_numpy(init, "cpu"), LR,
+                                       cls(num_microbatches=case["micro"], data=case["data"],
+                                           stages=case["stage"]), cfg)
+            checkpoint.restore_any(written, fresh)
+            same &= all(np.array_equal(a, b) for a, b in zip(_state_arrays(state),
+                                                             _state_arrays(fresh)))
+            same &= fresh.step == state.step
         flags = torch.tensor([int(same)])
         torch.distributed.all_reduce(flags, op=torch.distributed.ReduceOp.MIN)
         result[f"{label}/restored_exactly"] = np.int64(flags.item())
         result[f"{label}/checkpoint"] = str(path)
+        result[f"{label}/sharded"] = str(sharded)
 
 
 def main() -> None:

@@ -23,7 +23,10 @@ decoding (`serve/spec.py`) and dropout, around the same kernels. Slice 10
 ports pipeline parallelism, recipes 4 and 5 (`python -m
 tpukit_torch.recipes.pipe` and `.pipe_ddp`): GPipe and 1F1B, flat and
 interleaved, over c10d stage ranks (`pipeline.py`), the flash kernels
-inside every stage.
+inside every stage. Slice 11 reads and writes tpukit's checkpoint formats
+(`checkpoint.py`, with `msgpack.py`, a standard-library codec for what
+flax writes) beside the port's own `.pt`, and serves a checkpoint of any
+of them (`python -m tpukit_torch.serve --checkpoint latest`).
 
 Every entry point takes a `device` argument and runs on `cuda` unless the
 caller passes `device="cpu"`. Without a GPU and without that request it

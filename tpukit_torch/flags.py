@@ -40,7 +40,7 @@ class TrainFlags:
     checkpoint_format: str = "auto"  # auto | consolidated | sharded
     async_checkpoint: bool = False
     keep_checkpoints: int = 0
-    resume: str = ""  # a checkpoint path ("latest" is not carried)
+    resume: str = ""  # a checkpoint path, any format ("latest" is not carried)
     prefetch: int = 2
     compilation_cache_dir: str = ""
     profile_dir: str = ""
@@ -86,8 +86,6 @@ _CORE_FLAGS = [
 # flag -> the ROADMAP.md item that carries it; set to a non-default value,
 # each raises NotPortedError in this slice
 NOT_CARRIED = {
-    "checkpoint_format": "item 10 'Checkpoints in tpukit's format' (tpukit's sharded "
-                         "layout: npz blocks and a manifest)",
     "async_checkpoint": "item 17 'Resilience'",
     "keep_checkpoints": "item 17 'Resilience'",
     "compilation_cache_dir": "item 18 'Tracing and metrics' (the eager port compiles no "
@@ -146,7 +144,11 @@ def build_parser(cpu_offload: bool = False, num_experts: bool = False,
     parser.add_argument("--dropout", type=float, default=d.dropout)
     parser.add_argument("--checkpoint_every", type=int, default=d.checkpoint_every)
     parser.add_argument("--checkpoint_format", choices=("auto", "consolidated", "sharded"),
-                        default=d.checkpoint_format)
+                        default=d.checkpoint_format,
+                        help="auto (the default): the port's own checkpoint-<step>.pt; "
+                        "consolidated: tpukit's flax msgpack + sha256 sidecar; sharded: "
+                        "tpukit's directory of npz blocks + manifest. tpukit reads the last "
+                        "two; `--resume` and the server read all three")
     parser.add_argument("--keep_checkpoints", type=int, default=d.keep_checkpoints)
     parser.add_argument("--resume", type=str, default=d.resume)
     parser.add_argument("--prefetch", type=int, default=d.prefetch)
@@ -177,14 +179,11 @@ def parse_flags(argv=None, cpu_offload: bool = False, num_experts: bool = False,
 
 def check_carried(flags: TrainFlags) -> None:
     """Raise `NotPortedError` for the first flag this slice does not carry
-    that differs from its default ("consolidated" checkpoints are the
-    port's own format, so that value is carried too)."""
+    that differs from its default."""
     default = TrainFlags()
     for name, item in NOT_CARRIED.items():
         value = getattr(flags, name)
         if value == getattr(default, name):
-            continue
-        if name == "checkpoint_format" and value == "consolidated":
             continue
         raise NotPortedError(f"--{name} {value!r} is not in the port yet (ROADMAP.md, "
                              f"queue A {item})")

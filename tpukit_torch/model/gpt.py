@@ -156,10 +156,11 @@ def _layer_norm_params(lead, dim, device, dtype) -> dict:
 def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
     """The parameter tree, drawn from a `torch.Generator` seeded with
     `seed` on `device`. Every leaf under `layers` has a leading
-    `num_layers` axis."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    `num_layers` axis. `device="meta"` gives the tree's shapes alone, with
+    no memory and no draw (the twin of `jax.eval_shape` of tpukit's)."""
+    meta = str(device) == "meta"
+    device = torch.device("meta") if meta else resolve_device(device)
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     dt, lead, dim, inner = PARAM_DTYPE, (cfg.num_layers,), cfg.dim, cfg.inner_dim
     lin = lambda fi, fo, bias: _linear_params(lead, fi, fo, bias, gen, device, dt)
     if cfg.num_experts > 0:

@@ -479,6 +479,18 @@ class Pipeline(Strategy):
             return full
         return full.chunk(self.num_stages, dim=dim)[self.mesh.get_local_rank("stage")]
 
+    def leaf_block(self, name: str, t: torch.Tensor):
+        """The stage ranks of data replica 0 write their pieces (each at
+        its stage's start on the split dimension), rank 0 the leaves held
+        whole."""
+        dim = self._split_dim(name, t)
+        if dim is None:
+            return super().leaf_block(name, t)
+        shape, starts = list(t.shape), [0] * t.dim()
+        starts[dim] = self.mesh.get_local_rank("stage") * shape[dim]
+        shape[dim] *= self.num_stages
+        return tuple(shape), t if self.mesh.get_local_rank("data") == 0 else None, starts
+
     def full_params(self, params: dict) -> dict:
         """tpukit's layout, whole on every rank: the padded (and, at V > 1,
         chunk-permuted) stack and the whole vocab. Gradients too."""

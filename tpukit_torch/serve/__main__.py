@@ -1,19 +1,30 @@
 """`python -m tpukit_torch.serve`: continuous-batching serving on one GPU
 (the port of `main-serve.py`).
 
-Serves fresh seeded parameters (no checkpoint) over a seeded synthetic
-request stream and prints the throughput line of `main-serve.py`. Runs on
-cuda unless `--device cpu` is given. `--page_size 0` (the default) serves
-from the ring KV cache, `--page_size P` from pages of P positions;
-`--temperature`/`--top_k` sample with each request's seeded key; `--draft
-ngram|model` decodes speculatively on the ring (the draft model is fresh
-seeded, shaped by the `--draft_*` flags).
+Serves a checkpoint (`--checkpoint PATH|latest`, any of the three formats
+of `tpukit_torch.checkpoint`: the port's `.pt`, tpukit's consolidated
+msgpack or sharded directory, whichever package wrote it) or, without one,
+fresh seeded parameters, over a seeded synthetic request stream (or the
+`--prompt`s given), and prints the throughput line of `main-serve.py`. A
+checkpoint is verified first (a failed check raises; it is never replaced
+by seeded weights) and restored params-only. Runs on cuda unless `--device
+cpu` is given. `--page_size 0` (the default) serves from the ring KV
+cache, `--page_size P` from pages of P positions; `--temperature`/`--top_k`
+sample with each request's seeded key; `--draft ngram|model` decodes
+speculatively on the ring (the draft model from `--draft_checkpoint PATH`,
+or fresh seeded, shaped by the `--draft_*` flags).
+
+Every flag of `main-serve.py` parses with tpukit's default; a value other
+than the default of one the port does not carry raises `NotPortedError`
+naming its ROADMAP.md item (`NOT_CARRIED`). `--no_trace` and `--no_metrics`
+are accepted: the port serves without either plane (item 18).
 
   python -m tpukit_torch.serve --requests 64                  # ring, greedy
+  python -m tpukit_torch.serve --checkpoint latest --page_size 16 --fused_decode
   python -m tpukit_torch.serve --temperature 0.8 --top_k 40   # sampled
-  python -m tpukit_torch.serve --page_size 16 --fused_decode --requests 64
   python -m tpukit_torch.serve --draft ngram --stream_profile repetitive
-  python -m tpukit_torch.serve --draft model --draft_dim 64 --draft_num_layers 2
+  python -m tpukit_torch.serve --draft model --draft_dim 64 --draft_num_layers 2 \\
+      --draft_checkpoint draft/checkpoint-step000000100.msgpack
   python -m tpukit_torch.serve --num_experts 8 --moe_dispatch pallas --fused_decode \\
       --page_size 16
   python -m tpukit_torch.serve --device cpu --num_layers 2 --dim 64 \\
@@ -25,14 +36,51 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from tpukit_torch import NotPortedError, resolve_device
 
+_ITEM18 = "item 18 'Tracing and metrics'"
+_ITEM19 = "item 19 'Fleet'"
+# main-serve.py flags the port parses but does not carry (tpukit's
+# `add_serve_flags` telemetry, `add_fleet_flags`, main-serve.py's own):
+# name -> (argparse keywords with tpukit's default, the ROADMAP.md item)
+NOT_CARRIED = {
+    "window_steps": (dict(type=int, default=32), _ITEM18),
+    "trace_capacity": (dict(type=int, default=8192), _ITEM18),
+    "slo": (dict(type=str, default=""), _ITEM18),
+    "metrics_dir": (dict(type=str, default=""), _ITEM18),
+    "metrics_log": (dict(type=str, default=""), _ITEM18),
+    "compilation_cache_dir": (dict(type=str, default=""),
+                              _ITEM18 + " (the eager port compiles no programs to cache)"),
+    "replicas": (dict(type=int, default=0), _ITEM19),
+    "devices_per_replica": (dict(type=int, default=0), _ITEM19),
+    "min_replicas": (dict(type=int, default=1), _ITEM19),
+    "max_replicas": (dict(type=int, default=0), _ITEM19),
+    "scale_up_occupancy": (dict(type=float, default=0.0), _ITEM19),
+    "scale_down_occupancy": (dict(type=float, default=0.0), _ITEM19),
+    "fleet_window_steps": (dict(type=int, default=16), _ITEM19),
+    "disagg_prefill": (dict(action="store_true"), _ITEM19),
+    "prefill_slots": (dict(type=int, default=0), _ITEM19),
+    "prefill_pages": (dict(type=int, default=0), _ITEM19),
+    "fleet_kill": (dict(type=str, default=""), _ITEM19),
+    "fleet_dir": (dict(type=str, default=""), _ITEM19),
+    "replica_timeout": (dict(type=float, default=0.0), _ITEM19),
+    "request_retries": (dict(type=int, default=3), _ITEM19),
+    "max_queue_depth": (dict(type=int, default=0), _ITEM19),
+    "deadline_ms": (dict(type=float, default=0.0), _ITEM19),
+    "fleet_procs": (dict(action="store_true"), _ITEM19),
+    "fleet_worker": (dict(type=int, default=-1), _ITEM19),
+}
 
-def parse_flags(argv=None):
+
+def build_parser() -> argparse.ArgumentParser:
+    """`main-serve.py`'s parser (`parse_serve_flags`, with tpukit's
+    `add_serve_flags` and `add_fleet_flags`), every flag with tpukit's
+    default, plus `--device` and `--prompt`."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -53,6 +101,10 @@ def parse_flags(argv=None):
                     help="meshless decode dataflow of an MoE model; 'pallas' "
                     "(dropless, the grouped-expert kernels) makes the cached "
                     "decode exact")
+    ap.add_argument("--checkpoint", type=str, default="",
+                    help="path (.pt, .msgpack or .sharded directory) or 'latest' "
+                    "(the newest good one in checkpoints/); empty serves fresh "
+                    "seeded params. The shape flags must equal the training run's")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--buckets", type=str, default="16,32,64")
@@ -72,52 +124,73 @@ def parse_flags(argv=None):
     ap.add_argument("--fused_decode", action="store_true",
                     help="decode ticks run the CUDA paged-attention kernel "
                     "(its plain PyTorch version on the CPU)")
+    ap.add_argument("--no_trace", action="store_true",
+                    help="accepted: the port has no request tracing (item 18)")
+    ap.add_argument("--no_metrics", action="store_true",
+                    help="accepted: the port has no metrics plane (item 18)")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--qps", type=float, default=0.0)
     ap.add_argument("--shared_prefix", type=int, default=0)
     ap.add_argument("--stream_profile", default="uniform",
                     choices=("uniform", "repetitive", "shared_prefix"))
+    ap.add_argument("--prompt", action="append", default=None,
+                    help="serve these prompts (repeat the flag), one request each, "
+                    "in place of the synthetic stream, and print every completion")
     ap.add_argument("--draft", choices=("", "ngram", "model"), default="",
                     help="speculative decoding on the ring: 'ngram' "
-                    "self-speculation or a fresh seeded draft 'model'")
+                    "self-speculation or a draft 'model'")
     ap.add_argument("--spec_k", type=int, default=4,
                     help="draft tokens proposed per slot per verify")
     ap.add_argument("--ngram_max", type=int, default=3,
                     help="longest n-gram the self-speculation proposer matches")
+    ap.add_argument("--draft_checkpoint", type=str, default="",
+                    help="checkpoint PATH of the --draft model (no 'latest'); "
+                    "empty serves fresh seeded draft params")
     ap.add_argument("--draft_dim", type=int, default=64)
     ap.add_argument("--draft_head_dim", type=int, default=16)
     ap.add_argument("--draft_heads", type=int, default=4)
     ap.add_argument("--draft_num_layers", type=int, default=2)
-    # main-serve.py flags the port does not carry yet: named errors
-    ap.add_argument("--checkpoint", type=str, default="")
-    ap.add_argument("--draft_checkpoint", type=str, default="")
-    ap.add_argument("--replicas", type=int, default=0)
-    return ap.parse_args(argv)
+    for name, (kw, _) in NOT_CARRIED.items():
+        ap.add_argument(f"--{name}", **kw)
+    return ap
+
+
+def parse_flags(argv=None):
+    return build_parser().parse_args(argv)
 
 
 def _reject_unported(flags) -> None:
-    unported = [
-        (flags.checkpoint, "--checkpoint",
-         "checkpoint restore (item 10 'Checkpoints in tpukit's format')"),
-        (flags.draft_checkpoint, "--draft_checkpoint",
-         "draft checkpoint restore (item 10 'Checkpoints in tpukit's format')"),
-        (flags.replicas, "--replicas", "the fleet router (item 19 'Fleet')"),
-    ]
-    for value, flag, what in unported:
-        if value:
+    for name, (kw, item) in NOT_CARRIED.items():
+        value = getattr(flags, name)
+        if value != kw.get("default", False):
             raise NotPortedError(
-                f"{flag}: {what} is not in the port yet (ROADMAP.md, queue A); "
-                f"the port serves fresh seeded params"
-            )
+                f"--{name} {value!r} is not in the port yet (ROADMAP.md, queue A {item})")
+
+
+def _restore(path, cfg, device, what: str, shape_flags: str):
+    """Verify, then restore the parameters of `cfg`'s model from `path`."""
+    from tpukit_torch import checkpoint as ckpt_lib
+    from tpukit_torch.model import init_params
+
+    ok, detail = ckpt_lib.verify_checkpoint(path)
+    if not ok:
+        raise RuntimeError(f"{what} {path}: failed integrity verification ({detail})")
+    try:
+        return ckpt_lib.restore_params(path, init_params(cfg, device="meta"), device)
+    except ValueError as exc:
+        raise ValueError(
+            f"{what} {path}: state structure does not match the {shape_flags} must equal "
+            f"the training run's). Original error: {exc}") from exc
 
 
 def main(argv=None) -> int:
     flags = parse_flags(argv)
     _reject_unported(flags)
     device = resolve_device(flags.device)
+    from tpukit_torch import checkpoint as ckpt_lib
     from tpukit_torch.data import get_tokenizer
     from tpukit_torch.model import GPTConfig, init_params
-    from tpukit_torch.serve.engine import (ServeConfig, ServeEngine,
+    from tpukit_torch.serve.engine import (Request, ServeConfig, ServeEngine,
                                            synthetic_request_stream)
 
     tokenizer = get_tokenizer()
@@ -138,8 +211,20 @@ def main(argv=None) -> int:
         prefill_chunk=flags.prefill_chunk, fused_decode=flags.fused_decode,
         draft=flags.draft, spec_k=flags.spec_k, ngram_max=flags.ngram_max,
     )
-    params = init_params(cfg, seed=flags.seed, device=device)
-    print(f"serving fresh seeded params (no --checkpoint) on {device}")
+    if flags.checkpoint:
+        path = (ckpt_lib.latest_any() if flags.checkpoint == "latest"
+                else Path(flags.checkpoint))
+        if path is None:
+            raise FileNotFoundError("--checkpoint latest: no checkpoint found")
+        params, info = _restore(path, cfg, device, "--checkpoint",
+                                "model flags (--dim/--heads/--num_layers/--num_experts...")
+        step, skipped = ckpt_lib._step_of(path), info["bytes_skipped"]
+        print(f"serving checkpoint {path} (" + (f"step {step}, " if step >= 0 else "")
+              + f"params-only restore: {info['bytes_read']} B read"
+              + (f", {skipped} B of opt state skipped" if skipped else "") + ")")
+    else:
+        params = init_params(cfg, seed=flags.seed, device=device)
+        print(f"serving fresh seeded params (no --checkpoint) on {device}")
     draft_params = draft_cfg = None
     if flags.draft == "model":
         draft_cfg = GPTConfig(
@@ -147,15 +232,33 @@ def main(argv=None) -> int:
             num_layers=flags.draft_num_layers, vocab_size=tokenizer.vocab_size,
             max_position_embeddings=flags.sequence_length, compute_dtype=cfg.compute_dtype,
         )
-        draft_params = init_params(draft_cfg, seed=flags.seed, device=device)
-        print("draft model: fresh seeded params (no --draft_checkpoint)")
+        if flags.draft_checkpoint == "latest":
+            raise ValueError(
+                "--draft_checkpoint takes an explicit path: 'latest' would resolve through "
+                "the same checkpoint directory as --checkpoint latest and pick the "
+                "identical (newest) save for both models")
+        if flags.draft_checkpoint:
+            d_path = Path(flags.draft_checkpoint)
+            draft_params, d_info = _restore(
+                d_path, draft_cfg, device, "--draft_checkpoint",
+                "draft shape flags (--draft_dim/--draft_heads/--draft_num_layers...")
+            print(f"draft model {d_path} (params-only restore: {d_info['bytes_read']} B read)")
+        else:
+            draft_params = init_params(draft_cfg, seed=flags.seed, device=device)
+            print("draft model: fresh seeded params (no --draft_checkpoint)")
     engine = ServeEngine(params, cfg, serve, eos_id=int(tokenizer.eos_token_id),
                          device=device, draft_params=draft_params, draft_cfg=draft_cfg)
-    requests = synthetic_request_stream(
-        tokenizer, flags.requests, seed=flags.seed,
-        max_new_tokens=flags.max_new_tokens, buckets=buckets, qps=flags.qps,
-        shared_prefix=flags.shared_prefix, stream_profile=flags.stream_profile,
-    )
+    if flags.prompt:
+        encoded = tokenizer(list(flags.prompt))["input_ids"]
+        requests = [Request(rid=i, ids=tuple(int(t) for t in ids[: max(buckets)]),
+                            max_new_tokens=flags.max_new_tokens, seed=flags.seed)
+                    for i, ids in enumerate(encoded)]
+    else:
+        requests = synthetic_request_stream(
+            tokenizer, flags.requests, seed=flags.seed,
+            max_new_tokens=flags.max_new_tokens, buckets=buckets, qps=flags.qps,
+            shared_prefix=flags.shared_prefix, stream_profile=flags.stream_profile,
+        )
     t0 = time.perf_counter()
     completions = engine.run(requests)
     wall = time.perf_counter() - t0
@@ -163,7 +266,7 @@ def main(argv=None) -> int:
     gen = sum(c.generated for c in completions)
     print(f"served {len(completions)} requests / {gen} tokens in "
           f"{wall:.2f}s ({gen / wall:.1f} tokens/s, occupancy "
-          f"{100 * s['mean_occupancy']:.0f}%)")
+          f"{100 * s['mean_occupancy']:.0f}%), {engine.steps} decode ticks")
     if serve.paged:
         print(f"paged KV: {s['num_pages']} pages x {s['page_size']} tokens "
               f"({s['kv_dtype']}), prefix hits {s['prefix_hits']}/{s['admitted']} "
@@ -182,7 +285,8 @@ def main(argv=None) -> int:
     if e2e:
         print(f"e2e latency p50 {1e3 * e2e[len(e2e) // 2]:.1f} ms  "
               f"p99 {1e3 * e2e[min(len(e2e) - 1, int(len(e2e) * 0.99))]:.1f} ms")
-    for c in completions[:3]:
+    shown = sorted(completions, key=lambda c: c.rid)
+    for c in shown if flags.prompt else shown[:3]:
         print(f"  [{c.rid}] " + tokenizer.decode(np.asarray(c.ids),
                                                  skip_special_tokens=True))
     return 0

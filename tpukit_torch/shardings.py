@@ -137,6 +137,18 @@ class Strategy:
         return DTensor.from_local(shard, live.device_mesh, live.placements, shape=live.shape,
                                   stride=live.stride())
 
+    def leaf_block(self, name: str, t: torch.Tensor):
+        """For a sharded checkpoint: (the global shape of leaf `name`, or of
+        a state tensor shaped like it; the block of it this rank writes, or
+        None where another rank writes it; the block's global start on each
+        dimension). Every element is written once, as tpukit writes the
+        blocks of replica 0: a DTensor's local block by its placements,
+        FSDP2's padding stripped; a plain tensor by rank 0."""
+        if isinstance(t, DTensor):
+            block, starts = dtensor_block(t)
+            return tuple(t.shape), block, starts
+        return tuple(t.shape), t if mesh_lib.rank() == 0 else None, [0] * t.dim()
+
     def all_sum(self, values) -> list[float]:
         """`values` summed over the data-parallel ranks."""
         return [float(v) for v in values]
@@ -290,6 +302,25 @@ def local_shard(full: torch.Tensor, like: DTensor) -> torch.Tensor:
             parts = torch.chunk(local, mesh.size(axis), dim=placement.dim)
             local = parts[mesh.get_local_rank(axis)]
     return local
+
+
+def dtensor_block(t: DTensor):
+    """This rank's block of `t` (its local tensor cut to the `torch.chunk`
+    piece its placements give it) and the block's global start on each
+    dimension; (None, starts) where the rank's coordinate on a replicated
+    mesh axis is not 0."""
+    mesh, starts, sizes = t.device_mesh, [0] * t.dim(), list(t.shape)
+    for axis, placement in enumerate(t.placements):
+        r = mesh.get_local_rank(axis)
+        if isinstance(placement, Shard):
+            d = placement.dim
+            chunk = -(-sizes[d] // mesh.size(axis))
+            lo = min(r * chunk, sizes[d])
+            starts[d] += lo
+            sizes[d] = min(lo + chunk, sizes[d]) - lo
+        elif r != 0:
+            return None, starts
+    return t.to_local()[tuple(slice(0, s) for s in sizes)], starts
 
 
 MIN_SHARD_SIZE = 100  # tpukit FSDP's default `min_shard_size`

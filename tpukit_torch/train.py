@@ -12,7 +12,14 @@ Loop surface, as tpukit's:
     one full-width prefill of the batch and ring-cached steps, as tpukit's
     `generate_samples` decodes them. The config has no `moe_dispatch`, so
     MoE samples run the meshless "xla" dispatch, as tpukit's do;
-  - a checkpoint at the end (`checkpoint.save`, the port's own format).
+  - a checkpoint at the end (and every `--checkpoint_every` steps) in the
+    `--checkpoint_format` (`checkpoint.save_auto`: the port's `.pt` by
+    default, tpukit's consolidated msgpack or sharded directory on
+    request); `--resume` reads any of the three;
+  - throughput by tpukit's meter (`tpukit/obs/meter.py:106-113`): one
+    clock for the run, started when the first step returns (the card's
+    queue drained), the real tokens of every later step, the time read at
+    the last step's return, after a sync.
 Under `DataParallel`, `FSDP` and the pipeline the loop is rank-aware
 (tpukit `train.py:501-545`): the global batch is `--batch_size` x data
 replicas rows, each replica loading its `DistributedSampler` share (every
@@ -21,7 +28,7 @@ token count are summed over the replicas; rank 0 alone prints, samples and
 writes the checkpoint, after every rank has taken part in gathering what
 they need. The step runs eagerly: forward, loss, backward and `torch.optim.AdamW` in
 place. Not carried (ROADMAP.md): the JSONL StepLogger records, the MFU
-meter, the prefetch thread, and the obs, recovery and metrics planes.
+figure, the prefetch thread, and the obs, recovery and metrics planes.
 """
 
 from __future__ import annotations
@@ -213,24 +220,33 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
     state = create_train_state(gpt.init_params(cfg, seed=flags.seed, device=device),
                                flags.learning_rate, strategy, cfg)
     if flags.resume:
-        ckpt_lib.restore(flags.resume, state)
+        ckpt_lib.restore_any(flags.resume, state)
         if p0:
             print(f"resumed from {flags.resume} at step {state.step}")
 
     epochs = flags.epochs if num_epochs is None else num_epochs
     windows, eval_metrics, texts = [], {}, []
-    train_tokens, train_s = 0, 0.0
+    # tpukit's meter: the clock starts at the first step's return and stops
+    # at the last one's; the first step's tokens are not counted
+    train_tokens, t_first, t_last = 0, None, None
     checkpoint_path = None
+
+    def save():
+        return ckpt_lib.save_auto(state, flags.checkpoint_format, flags)
+
     for epoch in range(epochs):
         train_loader.set_epoch(epoch)
         running, win_n = None, 0
-        t0 = time.perf_counter()
         for i, raw in enumerate(train_loader):
             batch, targets = to_device(*prepare_batch(raw, pad_id), device)
             loss = train_step(state, cfg, strategy, batch, targets, seed=flags.seed)
             running = loss if running is None else running + loss
             win_n += 1
-            train_tokens += raw["real_rows"] * targets.shape[1]
+            if t_first is None:
+                _sync(device)
+                t_first = time.perf_counter()
+            else:
+                train_tokens += raw["real_rows"] * targets.shape[1]
             if i > 0 and not i % PRINT_FREQ:
                 avg = float(running) / win_n  # one host sync per window
                 windows.append({"epoch": epoch, "step": state.step, "loss": avg})
@@ -239,9 +255,10 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
                           f"loss: {avg:.3f}", flush=True)
                 running, win_n = None, 0
             if flags.checkpoint_every and state.step % flags.checkpoint_every == 0:
-                checkpoint_path = ckpt_lib.save(state, flags)
-        _sync(device)
-        train_s += time.perf_counter() - t0
+                checkpoint_path = save()
+        if t_first is not None:
+            _sync(device)
+            t_last = time.perf_counter()
 
         # every rank runs every batch (a sharded forward is a collective);
         # the weighted sums are summed over the ranks before the division
@@ -274,8 +291,9 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
                 print(text)
         del full
 
-    checkpoint_path = ckpt_lib.save(state, flags)
+    checkpoint_path = save()
     train_tokens = int(strategy.all_sum([train_tokens])[0])
+    train_s = t_last - t_first if t_first is not None else 0.0
     tokens_per_sec = train_tokens / train_s if train_s > 0 else 0.0
     if p0:
         print(f"throughput: {tokens_per_sec:,.0f} tok/s on {device}; checkpoint "
