@@ -161,10 +161,38 @@ not 0:
      22's seeded draft saved consolidated and restored: phase 22's draft
      run's tokens and acceptance, sampled speculation's tokens equal to the
      in-memory draft's, and the CLI's `--draft model --draft_checkpoint`;
+ 30. tensor parallelism at full width, in a world of one over NCCL:
+     phase 7's rung and batches under `TensorParallel` (recipe 6's grid
+     of one card: data 1 x model 1), 8 steps; the loss falls on a repeated
+     batch, each step launches the flash kernels 12 times each (forward,
+     D, dK/dV, dQ: 12 + 36) and the CE kernels not at all (the head is the
+     vocab-parallel CE); step wall, tokens/s and peak beside phase 7's;
+ 31. the TP steps equal `SingleDevice`'s: phase 8's f32 2-layer setup, 4
+     AdamW steps; in the world of one the losses within rtol 1e-4 of the
+     default `SingleDevice` step's and the parameters bit-equal to its
+     unfused step's (`TPUKIT_FUSED_HEAD=0`, three q/k/v products: the same
+     kernels, since every Megatron operator is the identity at one rank);
+     then model 2 over two gloo ranks on this card (`chip_smoke.py
+     --tp-gloo-rank R`, 6 heads a rank through the flash kernels): each
+     leaf of the first step's gradient within 1e-2 of its norm, losses
+     within rtol 1e-4 of the single device's, parameters within 2 x lr x
+     steps (AdamW's bound on an update whose sign flips);
+ 32. recipe 6 end to end (`python -m tpukit_torch.recipes.tp`, world of
+     one) as phase 9: train, evaluate, sample on the ring, checkpoint; the
+     checkpoint restores into a `SingleDevice` state bit for bit;
+ 33. dense serving through the serving grid (`serve.__main__.serving_grid`
+     -> `pick_serve_grid` -> `TensorParallel` -> the engine's `mesh`, whose
+     decode ticks call the TP wrapper of the paged kernels): phase 4's
+     stream (each paged kernel layers x decode ticks times: 3072 for 64
+     requests); at f32 with 4 layers the paged fused and the ring engines'
+     greedy tokens equal phase 5's; the MoE model over a data grid of one
+     gives phase 15's tokens, its grouped forward launching layers x
+     forwards times;
 then one JSON line of kernel results and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
-code 2 and prints no result.
+code 2 and prints no result. `--tp-gloo-rank R STORE OUT` is one rank of
+phase 31's two-rank world, which the script starts itself.
 """
 
 from __future__ import annotations
@@ -206,6 +234,7 @@ from tpukit_torch.recipes import moe as moe_recipe
 from tpukit_torch.recipes import pipe as pipe_recipe
 from tpukit_torch.recipes import pipe_ddp as pipe_ddp_recipe
 from tpukit_torch.recipes import single
+from tpukit_torch.recipes import tp as tp_recipe
 from tpukit_torch.recipes.profile import (
     BATCH,
     GPT2_SMALL_TRAIN,
@@ -229,6 +258,7 @@ from tpukit_torch.shardings import (
     DataParallel,
     ExpertParallel,
     SingleDevice,
+    TensorParallel,
     gather_full,
     leaves,
     unflatten,
@@ -1621,8 +1651,10 @@ def _restores_exactly(result, dev) -> bool:
     """The recipe's final checkpoint restores into a fresh state, bit for bit."""
     other = create_train_state(init_params(result.config, seed=5, device=dev), 1e-4)
     ckpt_lib.restore_any(result.checkpoint_path, other)
+    whole = (result.state.strategy or SingleDevice()).gather_leaf
     want = dict(zip(ckpt_lib.paths(result.state.params),
-                    (gather_full(p) for p in leaves(result.state.params))))
+                    (whole(n, p) for n, p in zip(ckpt_lib.paths(result.state.params),
+                                                  leaves(result.state.params)))))
     got = dict(zip(ckpt_lib.paths(other.params), leaves(other.params)))
     return other.step == result.state.step and all(torch.equal(got[n], want[n]) for n in want)
 
@@ -1707,11 +1739,11 @@ def moe_serving(dev) -> dict:
     return dict(counts=counts, tokens_per_s=s["generated_tokens"] / wall, wall=wall)
 
 
-def moe_fused_vs_unfused(dev) -> None:
+def moe_fused_vs_unfused(dev) -> dict:
     """Phase 15: the MoE model at f32 (4 layers, 8 experts, pallas): the
     64-request stream's greedy tokens equal fused and unfused on the card,
     and the first 16 requests' tokens equal those of the same engine
-    through the plain versions on the CPU."""
+    through the plain versions on the CPU. Returns the fused tokens."""
     cfg, params, serve, reqs, eos = build(dev, fused=True, num_layers=4,
                                           compute_dtype=torch.float32, num_experts=8)
     runs = {}
@@ -1729,6 +1761,7 @@ def moe_fused_vs_unfused(dev) -> None:
     print(f"MoE fused == unfused on all {len(reqs)} requests "
           f"({sum(len(v) for v in runs['fused'].values())} tokens incl. prompts); == the plain "
           f"versions on the CPU for the first 16", flush=True)
+    return runs["fused"]
 
 
 THREEFRY_KNOWN = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
@@ -2250,7 +2283,226 @@ def serve_moe_and_draft(dev, moe_run: dict, spec: dict, runs: dict) -> None:
         raise AssertionError("the CLI did not serve the draft checkpoint")
 
 
+def tp_full_width(dev, single_run: dict) -> dict:
+    """Phase 30: phase 7's steps under `TensorParallel` on recipe 6's grid
+    of one card (data 1 x model 1), in the world of one `main` brought up,
+    checked as phase 7 checks its own (the flash kernels 12 times a step
+    each, no CE kernel: the head is the vocab-parallel CE); step wall,
+    tokens/s and peak device memory beside phase 7's."""
+    strategy = TensorParallel(**tp_recipe.pick_grid(mesh_lib.world_size(),
+                                                    GPT2_SMALL_TRAIN["heads"]))
+    run = train_full_width(dev, strategy)
+    del run["state"], strategy
+    _free()
+    steps = len(run["losses"])
+    print(f"tp: {run['wall']:.4f} s a step ({single_run['wall']:.4f} single, "
+          f"{run['wall'] / single_run['wall']:.4f}x), {BATCH * SEQ / run['wall']:.1f} tokens/s, "
+          f"peak {run['peak']} B ({single_run['peak']} single, "
+          f"{run['peak'] / single_run['peak']:.4f}x); flash launches a step: forward "
+          f"{run['counts']['flash_forward'] // steps}, backward "
+          f"{sum(run['counts'][f'flash_backward_{k}'] for k in ('dcap', 'dkv', 'dq')) // steps}",
+          flush=True)
+    return run
+
+
+TP_GLOO_TIMEOUT = 240  # seconds phase 31's two ranks may take
+
+
+def _tp_small(dev):
+    """Phase 8's f32 2-layer setup: (cfg, base parameters, 4 batches)."""
+    cfg, base = build_train(dev, num_layers=2, compute_dtype=torch.float32,
+                            attention_impl="flash", seed=1)
+    rng = np.random.RandomState(1)
+    batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, 4, SEQ, pad_rows=1), dev)
+               for _ in range(4)]
+    return cfg, base.params, batches
+
+
+def _tp_steps(cfg, base, batches, strategy, lr=1e-4):
+    """4 AdamW steps from a copy of `base` under `strategy`: (losses, the
+    parameters whole, flash forward launches, the first batch's gradients
+    whole, taken before the steps)."""
+    params = unflatten(base, [t.detach().clone() for t in leaves(base)])
+    state = create_train_state(params, lr, strategy)
+    names = ckpt_lib.paths(state.params)
+    _, grads = strategy.value_and_grad(state.params, cfg, *batches[0])
+    grads = [strategy.gather_leaf(n, g).detach() for n, g in zip(names, leaves(grads))]
+    reset_counts()
+    losses = [float(train_step(state, cfg, strategy, *b)) for b in batches]
+    flash = read_counts()["flash_forward"]
+    whole = [strategy.gather_leaf(n, p).detach() for n, p in zip(names, leaves(state.params))]
+    return losses, whole, flash, grads
+
+
+def tp_gloo_rank(rank: int, store: str, out: str) -> int:
+    """One rank of phase 31's model-2 world: gloo on cuda:0 (NCCL cannot
+    put two ranks on one card); rank 0 writes the losses, the flash
+    launches and the parameters whole to `out`."""
+    torch.distributed.init_process_group("gloo", init_method=f"file://{store}", world_size=2,
+                                         rank=rank)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    try:
+        cfg, base, batches = _tp_small(dev)
+        losses, whole, flash, grads = _tp_steps(cfg, base, batches, TensorParallel(model=2))
+        if rank == 0:
+            np.savez(out, losses=np.array(losses), flash=np.int64(flash),
+                     **{f"p{i}": t.cpu().numpy() for i, t in enumerate(whole)},
+                     **{f"g{i}": t.cpu().numpy() for i, t in enumerate(grads)})
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_equals_single(dev) -> None:
+    """Phase 31: phase 8's setup under `TensorParallel` against
+    `SingleDevice`. In the world of one: losses within rtol 1e-4 of the
+    default single-device step's, and parameters bit-equal to the unfused
+    single-device step's (`TPUKIT_FUSED_HEAD=0`, `fuse_qkv=False`: at one
+    rank every Megatron operator is the identity, so the step is the same
+    kernels). Then model 2 over two gloo ranks on this card (each rank 6
+    heads through the flash kernels, the collectives through host memory):
+    the first step's gradient against the unfused single-device step's,
+    each leaf within 1e-2 of its norm, and the losses of 4 steps within
+    rtol 1e-4 of the default single-device step's. The model group's sums
+    add the shards' partial products in another order, so at this width
+    an FFN relu input or two within that noise of 0 take the other side
+    (ROADMAP.md §C, differences by construction): that token's cotangent
+    then differs in one channel, which moves rows of the FFN's gradients
+    by 1e-3 of their norm, where a cotangent summed over the group (x 2)
+    or a missing all-reduce moves them by 0.5 or more. AdamW moves an
+    element by about lr whatever its gradient's size, so where a gradient
+    lies within the summation noise of 0 the element may step the other
+    way: the parameters are held within 2 x lr x steps, and the share more
+    than 1e-5 away is printed."""
+    cfg, base, batches = _tp_small(dev)
+    ref, _, _, _ = _tp_steps(cfg, base, batches, SingleDevice())
+    with contextlib.ExitStack() as stack:
+        os.environ["TPUKIT_FUSED_HEAD"] = "0"
+        stack.callback(os.environ.pop, "TPUKIT_FUSED_HEAD")
+        plain, plain_params, _, plain_grads = _tp_steps(cfg.replace(fuse_qkv=False), base,
+                                                        batches, SingleDevice())
+    losses, params, flash, _ = _tp_steps(cfg, base, batches, TensorParallel())
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    equal = [torch.equal(a, b) for a, b in zip(params, plain_params)]
+    print(f"tp (world of one): losses {losses} vs single {ref}: worst relative difference "
+          f"{worst:.3e} (bar 1e-4); bit-equal to the unfused single step: losses "
+          f"{losses == plain}, parameters {sum(equal)} of {len(equal)} leaves; flash forward "
+          f"launches {flash}", flush=True)
+    if not worst <= 1e-4 or not all(equal) or flash != 2 * len(batches):
+        raise AssertionError(f"tp and single-device steps disagree: {losses} vs {ref}; "
+                             f"{len(equal) - sum(equal)} leaves differ; flash {flash}")
+    work = ROOT / "build" / "chip_smoke_tp_gloo"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = work / "rank0.npz"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-gloo-rank",
+                               str(r), str(work / "store"), str(out)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=TP_GLOO_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    got = np.load(out)
+    losses = got["losses"].tolist()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    gerr = max(float(np.linalg.norm(got[f"g{i}"] - g.cpu().numpy()) / g.norm())
+               for i, g in enumerate(plain_grads) if g.norm() > 0)
+    diffs = [np.abs(got[f"p{i}"] - t.cpu().numpy()) for i, t in enumerate(plain_params)]
+    perr = max(float(d.max()) for d in diffs)
+    far = sum(int((d > 1e-5).sum()) for d in diffs) / sum(d.size for d in diffs)
+    bound = 2 * 1e-4 * len(batches)
+    print(f"tp model 2 over two gloo ranks on this card ({time.perf_counter() - t0:.1f} s): "
+          f"first step's gradients within {gerr:.3e} of each leaf's norm (bar 1e-2); "
+          f"losses {losses} vs single {ref}: worst relative difference {worst:.3e} (bar "
+          f"1e-4); parameters within {perr:.3e} (bar {bound:.0e}), share beyond 1e-5 "
+          f"{far:.3e}; rank 0's flash forward launches {int(got['flash'])} (6 of 12 heads "
+          f"each)", flush=True)
+    if (not gerr <= 1e-2 or not worst <= 1e-4 or not perr <= bound
+            or int(got["flash"]) != 2 * len(batches)):
+        raise AssertionError(f"model-2 TP over gloo disagrees with the single device: "
+                             f"gradients {gerr}, losses {losses} vs {ref}, parameters {perr}, "
+                             f"flash {int(got['flash'])}")
+
+
+def tp_serving(dev, fused32: dict, moe32: dict) -> dict:
+    """Phase 33: dense serving through the serving grid, as
+    `python -m tpukit_torch.serve` builds it: `serving_grid` (tpukit's
+    `pick_serve_grid` for a dense model, the slots' largest data degree
+    for MoE) -> `create_tp_mesh` -> `TensorParallel(mesh=...).setup` ->
+    `ServeEngine(..., mesh=...)`, whose fused decode ticks call
+    `fused_paged_attention`. Phase 4's stream (bf16, 12 layers): each
+    paged kernel launches layers x decode ticks times; f32 4 layers: paged
+    fused and ring greedy tokens equal phase 5's fused tokens; the MoE
+    model (8 experts, pallas) over its data grid gives phase 15's."""
+    tok_flags = lambda **kw: serve_main.parse_flags(
+        ["--heads", str(GPT2_SMALL_TRAIN["heads"]), "--slots", str(SERVE_SHAPE["slots"]),
+         "--page_size", str(SERVE_SHAPE["page_size"])]
+        + [f"--{k}={v}" for k, v in kw.items()])
+
+    def on_grid(params, cfg, serve, reqs, eos, flags):
+        grid = serve_main.serving_grid(flags, mesh_lib.world_size())
+        grid_mesh = mesh_lib.create_tp_mesh(grid["data"], grid["model"], "cuda")
+        if cfg.num_experts == 0:
+            params = TensorParallel(mesh=grid_mesh).setup(params)
+        engine = ServeEngine(params, cfg, serve, eos_id=eos, device=dev, mesh=grid_mesh)
+        t0 = time.perf_counter()
+        outs = {c.rid: np.asarray(c.ids) for c in engine.run(list(reqs))}
+        torch.cuda.synchronize()
+        return engine, outs, time.perf_counter() - t0, grid
+
+    cfg, params, serve, reqs, eos = build(dev, fused=True)
+    on_grid(params, cfg, serve, reqs[:4], eos, tok_flags())  # warm-up
+    reset_counts()
+    engine, outs, wall, grid = on_grid(params, cfg, serve, reqs, eos, tok_flags())
+    counts = {k: v for k, v in read_counts().items() if k.startswith("paged_")}
+    paged = paged_want(cfg.num_layers * engine.steps)
+    check_outputs(outs, reqs, cfg)
+    print(f"serving grid {grid} (TensorParallel): {_split(engine, wall)}; paged launches "
+          f"{counts} (want {paged})", flush=True)
+    if counts != paged or engine.steps == 0:
+        raise AssertionError(f"TP serving's paged launches {counts} != {paged}")
+    cfg32, params32, serve32, reqs32, _ = build(dev, fused=True, num_layers=4,
+                                                compute_dtype=torch.float32)
+    runs = {"fused": fused32}
+    for label, kw, flags in (("tp paged fused", {}, tok_flags()),
+                             ("tp ring", dict(page_size=0, prefill_chunk=0, fused_decode=False),
+                              tok_flags(page_size=0))):
+        runs[label] = on_grid(params32, cfg32, dataclasses.replace(serve32, **kw), reqs32, eos,
+                              flags)[1]
+        check_outputs(runs[label], reqs32, cfg32)
+    _same_tokens(runs, "fused", [r.rid for r in reqs32], "f32 greedy (phase 5's fused engine)")
+    mcfg, mparams, mserve, mreqs, _ = build(dev, fused=True, num_layers=4,
+                                            compute_dtype=torch.float32, num_experts=8)
+    reset_counts()
+    moe = on_grid(mparams, mcfg, mserve, mreqs, eos, tok_flags(num_experts=8,
+                                                                moe_dispatch="pallas"))
+    moe_up = read_counts()["moe_forward_up_f32"]  # f32 compute: the f32 instance
+    forwards = moe[0].last_summary["prefill_dispatches"] + moe[0].steps
+    _same_tokens({"grid": moe[1], "phase 15": moe32}, "phase 15", [r.rid for r in mreqs],
+                 "MoE f32 greedy")
+    print(f"f32 greedy on the grid == phase 5's fused engine, paged fused and ring, on all "
+          f"{len(reqs32)} requests; MoE over the data grid {moe[3]} == phase 15's, grouped "
+          f"forward launches {moe_up} = {mcfg.num_layers} layers x {forwards} forwards",
+          flush=True)
+    if moe_up != mcfg.num_layers * forwards:
+        raise AssertionError(f"MoE on the data grid: grouped forward launches {moe_up} != "
+                             f"{mcfg.num_layers} x {forwards}")
+    return dict(counts=counts, tokens_per_s=engine.last_summary["generated_tokens"] / wall,
+                moe_forward_up=moe_up)
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--tp-gloo-rank":
+        return tp_gloo_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; it needs one CUDA GPU",
               file=sys.stderr)
@@ -2358,7 +2610,7 @@ def main() -> int:
     moe_served = moe_serving(dev)
 
     phase("MoE fused vs unfused vs plain (f32 compute, 4 layers)")
-    moe_fused_vs_unfused(dev)
+    moe32 = moe_fused_vs_unfused(dev)
 
     # recipes 2 and 3 run in a world of one over NCCL, destroyed after them
     with mesh_lib.scoped_runtime():
@@ -2414,6 +2666,25 @@ def main() -> int:
     del ckpt_runs, moe_run, spec
     _free()
 
+    # recipe 6 and the serving grid run in a world of one over NCCL
+    t_tp = time.perf_counter()
+    with mesh_lib.scoped_runtime():
+        mesh_lib.initialize_runtime(dev)
+        phase("tensor parallel at full width (gpt-small-dim768, batch 64, S 512, bf16, NCCL "
+              "world of one)")
+        tp_run = tp_full_width(dev, step)
+
+        phase("TP steps == single-device steps (f32, 2 layers; model 2 over two gloo ranks)")
+        tp_equals_single(dev)
+
+        phase("recipe 6 end to end (GPT-2-small width, fixture corpus)")
+        recipe_end_to_end(dev, tp_recipe, "recipe 6", kernels=("flash_",))
+
+        phase("dense serving through the serving grid (pick_serve_grid -> TensorParallel)")
+        tp_served = tp_serving(dev, runs["fused"], moe32)
+    print(f"phases 30-33: {time.perf_counter() - t_tp:.1f} s", flush=True)
+    _free()
+
     fl, ce = trained["flash"], trained["ce"]
 
     def entry(name, source, replaces, launches, res, way, err, library_ms, **extra):
@@ -2433,11 +2704,13 @@ def main() -> int:
          "launches": paged_counts["paged_scores"], "library_ms": None, **main_pair,
          "kernels_per_call": 3,
          "launches_by_kernel": {k[len("paged_"):]: v for k, v in paged_counts.items()},
+         "launches_under_tp": tp_served["counts"]["paged_scores"],
          "shapes": paged_shapes},
         entry("flash_attention_fwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:178",
               c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"],
               launches_under_pipeline={k: r["counts"]["flash_forward"]
-                                       for k, r in piped.items()}),
+                                       for k, r in piped.items()},
+              launches_under_tp=tp_run["counts"]["flash_forward"]),
         entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",
               c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],
               also_replaces=["tpukit/ops/pallas_attention.py:346",
@@ -2446,7 +2719,8 @@ def main() -> int:
                                                       "dkv": c["flash_backward_dkv"],
                                                       "dq": c["flash_backward_dq"]},
               launches_under_pipeline={k: r["counts"]["flash_backward_dkv"]
-                                       for k, r in piped.items()}),
+                                       for k, r in piped.items()},
+              launches_under_tp=tp_run["counts"]["flash_backward_dkv"]),
         entry("fused_head_ce_fwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:65",
               c["ce_forward"], ce, "fwd", ce["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"forward": c["ce_forward"],
@@ -2469,7 +2743,8 @@ def main() -> int:
               None, kernels_per_call=4, launches_by_kernel={
                   k: moe_served["counts"][f"moe_forward_{k}"] for k in ("up", "down", "combine")},
               library_products_ms=moe_decode["fwd_library_products_ms"],
-              units=moe_decode["units"]),
+              units=moe_decode["units"],
+              launches_under_data_grid_f32=tp_served["moe_forward_up"]),
         entry("moe_grouped_ffn_bwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:145",
               mc["moe_backward_dh"], moe_main, "bwd", moe_main["bwd_err"], None,
               kernels_per_call=4, launches_by_kernel={

@@ -17,6 +17,16 @@ tpukit's they differ by up to 8.3e-5 on one or two elements, where a relu
 input lies within rounding of 0, on a single device already). Also here: FSDP's placement against tpukit's at world 8, CPU offload
 degrading on the CPU, checkpoints between FSDP and `SingleDevice` bit for
 bit, the recipes under `torch.distributed.run`, and what they refuse.
+
+The same spawns run recipe 6's `TensorParallel` on `tests/test_tensor_parallel.py`'s
+config and batch (dim 32, 4 heads x 8, 2 layers, vocab 160, S 32, batch 8)
+on every `(data, model)` grid of their world (model 2; model 4 and data 2
+x model 2), held to tpukit's `TensorParallel` on the same grid of virtual
+CPU devices at its bars (loss 1e-5, parameters atol 5e-5 / rtol 1e-4; bf16
+eval within 1e-2 and 1.0 point), the gradients to the port's single-device
+ones at GRAD_TOL; configs whose heads or dimensions the model degree does
+not divide, checkpoints both ways between TP, `SingleDevice` and tpukit,
+and a negative control (the head's cotangent summed over `model`).
 """
 
 import dataclasses
@@ -40,6 +50,7 @@ from tpukit.model import GPTConfig as TkGPTConfig
 from tpukit.model.gpt import init_params as tk_init_params
 from tpukit.shardings import DataParallel as TkDataParallel
 from tpukit.shardings import FSDP as TkFSDP
+from tpukit.shardings import TensorParallel as TkTensorParallel
 from tpukit.train import create_train_state as tk_create_train_state
 from tpukit.train import make_optimizer as tk_make_optimizer
 from tpukit.train import make_step_fns
@@ -49,7 +60,7 @@ from tpukit_torch.bridge import params_from_numpy
 from tpukit_torch.data import get_tokenizer
 from tpukit_torch.flags import build_parser, parse_flags
 from tpukit_torch.model import gpt
-from tpukit_torch.recipes import ddp, fsdp, single
+from tpukit_torch.recipes import ddp, fsdp, single, tp
 from tpukit_torch.shardings import FSDP, DataParallel, SingleDevice, fsdp_shard_dim, leaves
 from tpukit_torch.train import create_train_state, dropout_key, fit, train_step
 
@@ -61,6 +72,9 @@ CONFIG = dict(dim=32, head_dim=8, heads=4, num_layers=4, vocab_size=211,
 SPAWN_TIMEOUT = 240  # seconds a world may take; a hung collective fails the test
 PARAM_TOL = dict(atol=5e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=1e-7, rtol=1e-5)
+TP_BATCH, TP_SEQ = 8, 32
+TP_CONFIG = dict(dim=32, head_dim=8, heads=4, num_layers=2, vocab_size=160,
+                 max_position_embeddings=TP_SEQ)
 
 
 @pytest.fixture(scope="module")
@@ -107,13 +121,19 @@ def _tk_one_step(strategy, cfg, batch, targets):
             float(eval_loss), float(eval_acc))
 
 
-def _spawn(world: int, inputs: Path, out: Path, timeout: float = SPAWN_TIMEOUT) -> None:
-    """Run `world` ranks of the worker; kill them all when one fails or the
-    world outlives `timeout`."""
+def _start(world: int, inputs: Path, out: Path) -> list:
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, str(WORKER), str(inputs), str(out), str(world),
-                               str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, env=env) for r in range(world)]
+    return [subprocess.Popen([sys.executable, str(WORKER), str(inputs), str(out), str(world),
+                              str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True, env=env) for r in range(world)]
+
+
+def _spawn(world: int, inputs: Path, out: Path, timeout: float = SPAWN_TIMEOUT,
+           procs: list | None = None) -> None:
+    """Run `world` ranks of the worker (or wait for the `procs` of
+    `_start`); kill them all when one fails or the world outlives
+    `timeout`."""
+    procs = _start(world, inputs, out) if procs is None else procs
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     except subprocess.TimeoutExpired:
@@ -140,11 +160,15 @@ def world_run(request, tmp_path_factory, tk_cfg, global_batch, init_params):
                torch.from_numpy(targets))
     single_ckpt = checkpoint.save(single_state, directory=work / "single_ckpt")
     single_sharded = checkpoint.save_sharded(single_state, directory=work / "single_sharded")
+    tp_in = tp_inputs(world, work)
     np.savez(work / "inputs.npz", config=json.dumps(CONFIG), single_ckpt=str(single_ckpt),
              single_sharded=str(single_sharded),
              targets=targets, **model_batch,
-             **{f"param/{k}": v for k, v in _flat(init_params).items()})
-    _spawn(world, work / "inputs.npz", work)
+             **{f"param/{k}": v for k, v in _flat(init_params).items()},
+             **tp_in["npz"])
+    procs = _start(world, work / "inputs.npz", work)
+    tp_refs = tp_references(world, tp_in)
+    _spawn(world, work / "inputs.npz", work, procs=procs)
     devices = jax.devices()[:world]
     refs = {label: _tk_one_step(make(tk_create_mesh({"data": world}, devices)), tk_cfg,
                                 model_batch, targets)
@@ -165,7 +189,86 @@ def world_run(request, tmp_path_factory, tk_cfg, global_batch, init_params):
     dropout = dict(tk_loss=drop_ref, loss=float(drop_loss),
                    grads={k: v.numpy() for k, v in _flat(drop_grads).items()})
     return dict(world=world, work=work, got=dict(np.load(work / "result.npz")), refs=refs,
-                grads=grads, single=single_state, single_ckpt=single_ckpt, dropout=dropout)
+                grads=grads, single=single_state, single_ckpt=single_ckpt, dropout=dropout,
+                tp=tp_refs)
+
+
+# ---------------------------------------------- tensor parallelism ----
+
+TP_GRIDS = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}  # as the worker's
+
+
+def _tk_tp_cfg():
+    return TkGPTConfig(**TP_CONFIG, compute_dtype=jnp.float32)
+
+
+def _tk_axes(d: int, m: int) -> dict:
+    return {"model": m} if d == 1 else {"data": d, "model": m}
+
+
+def tp_inputs(world: int, work: Path) -> dict:
+    """`tests/test_tensor_parallel.py`'s batch and tpukit's initial TP
+    state (PRNGKey(0)), its TP sharded checkpoint on the world's first
+    grid, and the worker's `tp/...` inputs."""
+    rng = np.random.RandomState(11)
+    ids = rng.randint(3, TP_CONFIG["vocab_size"], size=(TP_BATCH, TP_SEQ)).astype(np.int32)
+    mask = np.zeros((TP_BATCH, TP_SEQ), dtype=bool)
+    mask[1, 25:] = True
+    targets = np.roll(ids, -1, axis=1).astype(np.int32)
+    targets[mask] = -100
+    batch = {"input_ids": ids, "mask": mask, "position_ids": np.ascontiguousarray(
+        np.broadcast_to(np.arange(TP_SEQ, dtype=np.int32), ids.shape))}
+    tk_cfg = _tk_tp_cfg()
+    d, m = TP_GRIDS[world][0]
+    mesh = tk_create_mesh(_tk_axes(d, m), jax.devices()[:world])
+    tk_state = tk_create_train_state(jax.random.PRNGKey(0), tk_cfg, tk_make_optimizer(1e-3),
+                                     TkTensorParallel(mesh))
+    tk_sharded = tk_checkpoint.save_sharded(tk_state, directory=work / "tk_tp")
+    init = jax.tree.map(np.asarray, jax.device_get(tk_state.params))
+    npz = {"tp/config": json.dumps(TP_CONFIG), "tp/targets": targets,
+           "tp/tk_sharded": str(tk_sharded), **{f"tp/{k}": v for k, v in batch.items()},
+           **{f"tp/param/{k}": v for k, v in _flat(init).items()}}
+    return dict(npz=npz, batch=batch, targets=targets, init=init, tk_sharded=tk_sharded)
+
+
+def tp_references(world: int, tp_in: dict) -> dict:
+    """tpukit's `TensorParallel` step on each grid of the world, and the
+    port's single-device step (plain, at dropout 0.1, and on the
+    undividable configs) on the global batch."""
+    tk_cfg, devices = _tk_tp_cfg(), jax.devices()[:world]
+    batch, targets = tp_in["batch"], tp_in["targets"]
+    tk = {f"d{d}m{m}": _tk_one_step(TkTensorParallel(tk_create_mesh(_tk_axes(d, m), devices)),
+                                    tk_cfg, batch, targets)
+          for d, m in TP_GRIDS[world]}
+    cfg = gpt.GPTConfig(**TP_CONFIG, compute_dtype=torch.float32)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tt = torch.from_numpy(targets)
+
+    def single(c, params, rng=None):
+        # ids folded into a smaller vocab as the worker folds them
+        b = {**tb, "input_ids": tb["input_ids"] % c.vocab_size}
+        t = torch.where(tt == -100, tt, tt % c.vocab_size)
+        state = create_train_state(params, 1e-3)
+        loss, grads = SingleDevice().value_and_grad(state.params, c, b, t, rng=rng)
+        for p, g in zip(leaves(state.params), leaves(grads)):
+            p.grad = g
+        state.optimizer.step()
+        return dict(loss=float(loss), grads={k: v.numpy() for k, v in _flat(grads).items()},
+                    params=_params(state))
+
+    out = dict(tk=tk, single=single(cfg, params_from_numpy(tp_in["init"], "cpu")),
+               dropout=single(cfg.replace(dropout=0.1), params_from_numpy(tp_in["init"], "cpu"),
+                              rng=dropout_key(0, 0, "cpu")))
+    sys.path.insert(0, str(WORKER.parent))
+    try:
+        import torch_dist_worker
+    finally:
+        sys.path.pop(0)
+    for name, shape in torch_dist_worker.TP_ODD[world].items():
+        ocfg = gpt.GPTConfig(**{**TP_CONFIG, **shape}, compute_dtype=torch.float32)
+        out[f"odd/{name}"] = single(ocfg, gpt.init_params(ocfg, seed=0, device="cpu"))
+        out[f"odd/{name}/cfg"] = ocfg
+    return out
 
 
 def _tree(got: dict, prefix: str) -> dict:
@@ -391,7 +494,7 @@ RECIPE_ARGS = ["--epochs", "1", "--sequence_length", "64", "--dim", "32", "--hea
                "--dataset_slice", "80", "--num_workers", "0", "--disable_amp", "--device", "cpu"]
 
 
-@pytest.mark.parametrize("recipe", [ddp, fsdp], ids=["ddp", "fsdp"])
+@pytest.mark.parametrize("recipe", [ddp, fsdp, tp], ids=["ddp", "fsdp", "tp"])
 @pytest.mark.parametrize("argv,item", [
     (["--comm_dtype", "int8"], "item 16"),
 ])
@@ -401,7 +504,7 @@ def test_new_recipes_refuse_what_is_not_ported(recipe, argv, item):
     assert not torch.distributed.is_initialized()
 
 
-@pytest.mark.parametrize("recipe", [ddp, fsdp], ids=["ddp", "fsdp"])
+@pytest.mark.parametrize("recipe", [ddp, fsdp, tp], ids=["ddp", "fsdp", "tp"])
 def test_new_recipes_refuse_the_cpu_unless_asked(recipe, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(tpukit_torch.CudaUnavailableError):
@@ -477,17 +580,19 @@ def test_fsdp_recipe_writes_tpukit_sharded_checkpoint_on_two_ranks(tmp_path):
     assert other.step == 2
 
 
-@pytest.mark.parametrize("recipe", ["ddp", "fsdp"])
+@pytest.mark.parametrize("recipe", ["ddp", "fsdp", "tp"])
 def test_recipe_on_two_ranks_matches_single_device(recipe, single_at_twice_the_batch, tmp_path):
     """`python -m torch.distributed.run --standalone --nproc_per_node 2 -m
-    tpukit_torch.recipes.<recipe> --device cpu` at batch 4 a rank against
-    recipe 1 at batch 8, from the same seed: one set of rank-0 lines, the
-    window loss within rtol 1e-4 and eval within the bf16 bands of
+    tpukit_torch.recipes.<recipe> --device cpu` at batch 4 a rank (recipe
+    6: batch 8 on its one data replica, model 2) against recipe 1 at batch
+    8, from the same seed: one set of rank-0 lines, the window loss within
+    rtol 1e-4 and eval within the bf16 bands of
     `test_recipe_matches_tpukit_fit` (rtol 2e-2, 1.5 accuracy points), and
     a whole checkpoint that restores into a `SingleDevice` state."""
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)}
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           "2", "-m", f"tpukit_torch.recipes.{recipe}", *RECIPE_ARGS, "--batch_size", "4"]
+           "2", "-m", f"tpukit_torch.recipes.{recipe}", *RECIPE_ARGS, "--batch_size",
+           "8" if recipe == "tp" else "4"]
     try:
         proc = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True, text=True,
                               timeout=SPAWN_TIMEOUT)
@@ -515,3 +620,180 @@ def test_recipe_on_two_ranks_matches_single_device(recipe, single_at_twice_the_b
 
 
 
+
+
+# ---------------------------------------------- tensor parallelism ----
+
+
+def _tp_grids(world_run):
+    return [f"d{d}m{m}" for d, m in TP_GRIDS[world_run["world"]]]
+
+
+def test_tp_step_matches_tpukit(world_run):
+    """Recipe 6's step on every grid of the world (model 2; model 4, data 2
+    x model 2) against tpukit's `TensorParallel` on the same grid: loss
+    within 1e-5, bf16 eval after the step within 1e-2 and 1.0 point, the
+    parameters after AdamW at atol 5e-5 / rtol 1e-4; the gradients, and
+    the parameters at atol 2e-6, against the port's single-device step on
+    the global batch (the model group's sums add the shards' partial
+    products in another order)."""
+    got, ref = world_run["got"], world_run["tp"]
+    single = ref["single"]
+    for label in _tp_grids(world_run):
+        tk_params, tk_loss, tk_eval, tk_acc = ref["tk"][label]
+        key = f"tp/{label}"
+        assert abs(float(got[f"{key}/loss"]) - tk_loss) < 1e-5, label
+        assert abs(float(got[f"{key}/loss"]) - single["loss"]) < 1e-5, label
+        assert abs(float(got[f"{key}/eval_loss"]) - tk_eval) < 1e-2, label
+        assert abs(float(got[f"{key}/eval_acc"]) - tk_acc) < 1.0, label
+        grads, params = _tree(got, f"{key}/grad"), _tree(got, f"{key}/param")
+        assert grads.keys() == params.keys() == tk_params.keys() == single["grads"].keys()
+        for name, want in single["grads"].items():
+            np.testing.assert_allclose(grads[name], want, **GRAD_TOL, err_msg=f"{label} {name}")
+        for name, want in tk_params.items():
+            np.testing.assert_allclose(params[name], want, **PARAM_TOL, err_msg=f"{label} {name}")
+            np.testing.assert_allclose(params[name], single["params"][name], atol=2e-6, rtol=0,
+                                       err_msg=f"{label} {name}")
+
+
+def test_tp_shared_cotangent_fails_the_bar(world_run):
+    """Negative control: with the pipeline's "shared" contract the CE's
+    backward sums the head's cotangent over `model`, which every rank of
+    TP already holds whole: the gradients come out scaled by the model
+    degree and miss the bar the real step meets."""
+    got, single = world_run["got"], world_run["tp"]["single"]
+    shared = _tree(got, "tp/shared/grad")
+    m = TP_GRIDS[world_run["world"]][0][1]
+    np.testing.assert_allclose(shared["lm_head/kernel"], m * single["grads"]["lm_head/kernel"],
+                               rtol=1e-4, atol=1e-6)
+    with pytest.raises(AssertionError):
+        for name, want in single["grads"].items():
+            np.testing.assert_allclose(shared[name], want, **GRAD_TOL, err_msg=name)
+
+
+def test_tp_dropout_matches_single_device(world_run):
+    """At dropout 0.1 (step 0's key of seed 0) every rank of the model
+    group draws the same masks on the replicated attention and FFN
+    outputs: loss within 1e-5 and gradients at GRAD_TOL of the port's
+    single-device step, whose masks are tpukit's bits."""
+    got, ref = world_run["got"], world_run["tp"]["dropout"]
+    assert abs(float(got["tp/dropout/loss"]) - ref["loss"]) < 1e-5
+    assert abs(ref["loss"] - world_run["tp"]["single"]["loss"]) > 1e-4  # the masks matter
+    grads = _tree(got, "tp/dropout/grad")
+    for name, want in ref["grads"].items():
+        np.testing.assert_allclose(grads[name], want, **GRAD_TOL, err_msg=name)
+
+
+def _tk_specs(cfg_kw: dict, m: int, devices) -> dict:
+    """tpukit's `TensorParallel.state_sharding` of a config's params on a
+    model-`m` grid: leaf -> the dimension sharded over `model` or -1."""
+    cfg = TkGPTConfig(**cfg_kw, compute_dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda: tk_init_params(jax.random.PRNGKey(0), cfg))
+    sh = TkTensorParallel(tk_create_mesh({"model": m}, devices[:m])).state_sharding(shapes)
+    return {n: next((i for i, a in enumerate(v.spec) if a == "model"), -1)
+            for n, v in _flat(sh).items()}
+
+
+def test_tp_placement_matches_tpukit(world_run):
+    """Each grid's split dimension of every leaf is tpukit's
+    `state_sharding` on that model degree."""
+    got, world = world_run["got"], world_run["world"]
+    for d, m in TP_GRIDS[world]:
+        key = f"tp/d{d}m{m}/dims"
+        ours = dict(zip(got[f"{key}/names"].tolist(), got[f"{key}/dim"].tolist()))
+        assert ours == _tk_specs(TP_CONFIG, m, jax.devices())
+
+
+def test_tp_undividable_shapes_match_single_device(world_run):
+    """Configs the world's model degree does not divide, which tpukit runs:
+    heads 5 x 6 (dim 30, FFN 120, vocab 151 unpadded: the q/k/v columns
+    split at model 2 though the heads do not, so the attention gathers its
+    weights; at model 4 the attention and the vocab stay whole) and heads
+    2 x 16 at model 4 (columns split, heads not). Each splits what tpukit
+    shards and steps as the single device does."""
+    got, world = world_run["got"], world_run["world"]
+    for key in [k for k in world_run["tp"] if k.startswith("odd/") and k.count("/") == 1]:
+        ref, cfg = world_run["tp"][key], world_run["tp"][f"{key}/cfg"]
+        split = set(got[f"tp/{key}/split"].tolist())
+        kw = {k: getattr(cfg, k) for k in ("dim", "head_dim", "heads", "num_layers",
+                                          "vocab_size", "max_position_embeddings",
+                                          "vocab_pad_multiple")}
+        assert split == {n for n, dim in _tk_specs(kw, world, jax.devices()).items()
+                         if dim >= 0}, key
+        assert "layers/ffn/up/kernel" in split
+        assert abs(float(got[f"tp/{key}/loss"]) - ref["loss"]) < 1e-5
+        grads, params = _tree(got, f"tp/{key}/grad"), _tree(got, f"tp/{key}/param")
+        for name, want in ref["grads"].items():
+            np.testing.assert_allclose(grads[name], want, **GRAD_TOL, err_msg=f"{key} {name}")
+            np.testing.assert_allclose(params[name], ref["params"][name], atol=2e-6, rtol=0,
+                                       err_msg=f"{key} {name}")
+
+
+@pytest.mark.parametrize("fmt", ["sharded", "consolidated"])
+def test_tp_checkpoint_restores_into_single_device_and_tpukit(world_run, fmt):
+    """Each grid's stepped TP state in tpukit's layouts (sharded: each
+    shard once, by data replica 0's model ranks at its offset; consolidated:
+    gathered by rank 0) verifies in both packages and restores bit for bit
+    into a port `SingleDevice` state and into tpukit's (parameters, AdamW
+    moments, step)."""
+    got = world_run["got"]
+    tk_cfg = _tk_tp_cfg()
+    for label in _tp_grids(world_run):
+        path = Path(str(got[f"tp/{label}/{fmt}"]))
+        assert checkpoint.verify_checkpoint(path) == tk_checkpoint.verify_checkpoint(path) \
+            == (True, "verified")
+        other = create_train_state(gpt.init_params(gpt.GPTConfig(**TP_CONFIG), seed=3,
+                                                   device="cpu"), 1e-3)
+        checkpoint.restore_any(path, other)
+        assert other.step == 1
+        _equal_state(got, f"tp/{label}", other)
+        template = tk_create_train_state(jax.random.PRNGKey(0), tk_cfg, tk_make_optimizer(1e-3))
+        restored = jax.tree.map(np.asarray, tk_checkpoint.restore_any(path, template)[0])
+        adam = restored.opt_state[0]
+        assert int(restored.step) == int(adam.count) == 1
+        want = {**{f"param/{n}": v for n, v in _flat(restored.params).items()},
+                **{f"opt/{n}/exp_avg": v for n, v in _flat(adam.mu).items()},
+                **{f"opt/{n}/exp_avg_sq": v for n, v in _flat(adam.nu).items()}}
+        for key, v in want.items():
+            assert np.array_equal(v, got[f"tp/{label}/{key}"]), (label, key)
+
+
+@pytest.mark.parametrize("fmt", ["pt", "sharded"])
+def test_single_device_checkpoint_restores_into_tp(world_run, fmt):
+    """A `SingleDevice` state (the port's `.pt`, tpukit's sharded layout)
+    restored into a TP state on the world's model degree: each rank's
+    shards, gathered, are the single-device tensors bit for bit, AdamW
+    moments and step included."""
+    got = world_run["got"]
+    assert int(got[f"tp/single_{fmt}/step"]) == world_run["single"].step == 1
+    _equal_state(got, f"tp/single_{fmt}", world_run["single"])
+
+
+def test_tpukit_tp_checkpoint_restores_into_tp(world_run):
+    """tpukit's own `TensorParallel` state in its sharded layout (one
+    process's blocks of the world's first grid) restored into the port's
+    TP state on every grid of the world: the shards, gathered, are
+    tpukit's parameters bit for bit."""
+    got = world_run["got"]
+    inputs = np.load(world_run["work"] / "inputs.npz")
+    init = {k[len("tp/param/"):]: inputs[k] for k in inputs.files if k.startswith("tp/param/")}
+    for label in _tp_grids(world_run):
+        restored = _tree(got, f"tp/{label}/tk_restored/param")
+        assert restored.keys() == init.keys()
+        for name, v in init.items():
+            assert np.array_equal(restored[name], v), (label, name)
+
+
+def test_tp_argmax_ties_go_to_the_lowest_global_index(world_run):
+    """`vocab_parallel_argmax` over the model group, on rows whose maximum
+    every shard holds (index 5 of each), that no shard holds above the
+    rest (all zeros), and that rank 0 holds below the others (1 against
+    2): `jnp.argmax` of the gathered row, the lowest global index."""
+    m = TP_GRIDS[world_run["world"]][0][1]
+    rows = np.zeros((3, 8 * m), np.float32)
+    rows[0, 5::8] = 1.0
+    rows[2, 2::8] = 2.0
+    rows[2, 2] = 1.0
+    want = np.asarray(jnp.argmax(jnp.asarray(rows), axis=-1))
+    np.testing.assert_array_equal(world_run["got"]["tp/argmax"], want)
+    assert want.tolist() == [5, 0, 10]

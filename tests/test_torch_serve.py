@@ -8,9 +8,24 @@ in f32, fused and unfused, on a pool tight enough to recycle pages and a
 stream whose shared system prompt gives prefix hits. int8 pages are lossy
 by construction and agree on >= 90% of tokens (tpukit's own gate,
 tests/test_paged.py).
+
+Tensor-parallel serving runs in one 2-rank gloo world
+(`tests/torch_dist_worker.py`'s `serve_main`): the ring and the paged
+engine (fused and unfused) over `TensorParallel`'s shards on a model-2
+grid, greedy and sampled (t 0.8, top-k 40), the ring with its slots over a
+data-2 grid, MoE replicated over data 2, a served checkpoint, and the
+serving CLI. Each case's tokens must equal the port's single-device
+engine's, and the greedy ones tpukit's meshless engine's on the settings
+of tpukit's green TP parity tests (`tests/test_serve.py:326`,
+`tests/test_paged.py:497`).
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -444,3 +459,144 @@ def test_every_main_serve_flag_parses_with_tpukit_default(dest, tmp_path, monkey
             serve_main.main(_BASE + argv)
     else:
         assert serve_main.main(_BASE + argv) == 0
+
+
+# ------------------------------------------- tensor-parallel serving ----
+
+WORKER = Path(__file__).resolve().parent / "torch_dist_worker.py"
+TP_SERVE = dict(slots=2, buckets=(8, 16), max_new_tokens=6)  # tpukit's TP parity settings
+TP_CLI = ["--device", "cpu", "--num_layers", "1", "--dim", "32", "--head_dim", "8",
+          "--heads", "4", "--sequence_length", "48", "--requests", "3", "--slots", "2",
+          "--buckets", "8,16", "--max_new_tokens", "6", "--page_size", "8", "--fused_decode",
+          "--disable_amp"]
+# one head: the paged grid is model 1 of 2 ranks, and rank 1 waits
+_HEADS = TP_CLI.index("--heads") + 1
+TP_CLI_IDLE = TP_CLI[:_HEADS] + ["1"] + TP_CLI[_HEADS + 1:]
+
+
+def _tp_serve_cases():
+    sys.path.insert(0, str(WORKER.parent))
+    try:
+        import torch_dist_worker
+    finally:
+        sys.path.pop(0)
+    return torch_dist_worker.SERVE_CASES
+
+
+TP_SERVE_CASES = _tp_serve_cases()
+
+
+def _serve_cfgs(tok):
+    kw = dict(dim=32, head_dim=8, heads=4, num_layers=2, vocab_size=tok.vocab_size,
+              max_position_embeddings=64)
+    return JaxConfig(compute_dtype=jnp.float32, **kw), kw
+
+
+@pytest.fixture(scope="module")
+def tp_world(tok, tmp_path_factory):
+    """One spawn of 2 gloo ranks serving every case of `SERVE_CASES`; the
+    references are computed while the ranks run: the port's single-device
+    engine on each case, tpukit's meshless engine on the greedy ring and
+    paged ones, and the serving CLI in a world of one."""
+    from tpukit_torch import checkpoint as ckpt
+    from tpukit_torch.train import create_train_state
+
+    work = tmp_path_factory.mktemp("tp_serve")
+    jcfg, kw = _serve_cfgs(tok)
+    jp = jax_gpt.init_params(jax.random.PRNGKey(1), jcfg)
+    dense = jax.tree.map(np.asarray, jp)
+    jmoe = jcfg.replace(num_experts=4)
+    moe = jax.tree.map(np.asarray, jax_gpt.init_params(jax.random.PRNGKey(2), jmoe))
+    tcfg = GPTConfig(**kw, compute_dtype=torch.float32)
+    single_ckpt = ckpt.save_sharded(create_train_state(bridge.params_from_numpy(dense, "cpu"),
+                                                       1e-3), work / "single")
+    reqs = jax_stream(tok, 4, seed=4, max_new_tokens=6, buckets=(8, 16))
+    flat = lambda prefix, tree: {f"serve/{prefix}/{n}": v for n, v in _flat(tree).items()}
+    np.savez(work / "inputs.npz", **{"serve/config": json.dumps(kw),
+                                     "serve/serve": json.dumps(TP_SERVE),
+                                     "serve/eos": np.int64(tok.eos_token_id),
+                                     "serve/checkpoint": str(single_ckpt),
+                                     "serve/cli": np.array(TP_CLI),
+                                     "serve/cli_idle": np.array(TP_CLI_IDLE)},
+             **{f"serve/ids/{r.rid}": np.asarray(r.ids, np.int64) for r in reqs},
+             **{f"serve/seed/{r.rid}": np.int64(r.seed) for r in reqs},
+             **flat("dense", dense), **flat("moe", moe))
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, str(WORKER), str(work / "inputs.npz"), str(work),
+                               "2", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for r in range(2)]
+    try:
+        refs = {}
+        for case, (_, ekw, which) in TP_SERVE_CASES.items():
+            cfg = tcfg.replace(num_experts=4, moe_dispatch="pallas") if which == "moe" else tcfg
+            params = bridge.params_from_numpy(moe if which == "moe" else dense, "cpu")
+            eng = ServeEngine(params, cfg, ServeConfig(**TP_SERVE, **ekw),
+                              eos_id=int(tok.eos_token_id), device="cpu")
+            refs[case] = {c.rid: np.asarray(c.ids) for c in eng.run(list(reqs), max_wall_s=300)}
+            refs[f"{case}/kv_bytes"] = eng.kv_bytes
+        tk = {}
+        for case in ("ring", "paged"):
+            ekw = TP_SERVE_CASES[case][1]
+            jeng = JaxServeEngine(jp, jcfg, JaxServeConfig(window_steps=8, **TP_SERVE, **ekw),
+                                  eos_id=int(tok.eos_token_id))
+            tk[case] = {c.rid: np.asarray(c.ids) for c in jeng.run(list(reqs), max_wall_s=300)}
+        from tpukit_torch.serve import __main__ as serve_main
+        import contextlib
+        import io
+        cli = {}
+        for key, argv in (("cli", TP_CLI), ("cli_idle", TP_CLI_IDLE)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                serve_main.main(argv)
+            cli[key] = out.getvalue()
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    return dict(got=dict(np.load(work / "result.npz")), refs=refs, tk=tk, cli=cli,
+                rids=[r.rid for r in reqs])
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(TP_SERVE_CASES))
+def test_tp_serving_tokens_match_single_device(tp_world, case):
+    """On 2 gloo ranks, each case's tokens equal the port's single-device
+    engine's on the same stream (f32); greedy ring and paged tokens equal
+    tpukit's meshless engine's too (tpukit's TP parity settings: 2 slots,
+    buckets 8/16, 6 new tokens, pages of 4). Under model 2 each rank's
+    pools and ring hold half the heads, under data 2 half the ring's
+    slots: half the single device's cache bytes."""
+    got, refs = tp_world["got"], tp_world["refs"]
+    (d, m), _, _ = TP_SERVE_CASES[case]
+    for rid in tp_world["rids"]:
+        np.testing.assert_array_equal(got[f"{case}/{rid}"], refs[case][rid],
+                                      err_msg=f"rid {rid}")
+        if case in tp_world["tk"]:
+            np.testing.assert_array_equal(got[f"{case}/{rid}"], tp_world["tk"][case][rid],
+                                          err_msg=f"rid {rid}")
+    assert int(got[f"{case}/kv_bytes"]) * d * m == refs[f"{case}/kv_bytes"]
+
+
+@pytest.mark.parametrize("key,grid", [("cli", "model 2"), ("cli_idle", "model 1")],
+                         ids=["model2", "idle_rank"])
+def test_tp_serving_cli_on_two_ranks_matches_world_of_one(tp_world, key, grid):
+    """`python -m tpukit_torch.serve` run by both ranks of the world (paged,
+    fused): tpukit's grid is picked (4 heads: model 2; 1 head: model 1 of
+    the 2 ranks, announced, the other rank waiting), and rank 0 alone
+    prints the world of one's completions."""
+    got = str(tp_world["got"][f"{key}/stdout"])
+    assert f"serving grid: data 1 x {grid} (TensorParallel)" in got
+    assert "serving grid: data 1 x model 1 (TensorParallel)" in tp_world["cli"][key]
+    assert ("model=1 of 2 devices" in got) == (key == "cli_idle")
+    pick = lambda text: [l for l in text.splitlines() if l.startswith("  [")]
+    assert len(pick(got)) == 3 and pick(got) == pick(tp_world["cli"][key])

@@ -19,7 +19,26 @@ every rank writing its blocks) and whether a fresh state of the same
 strategy restores it bit for bit on every rank, the single-device sharded
 checkpoint restored into a fresh FSDP state, and each
 strategy's loss and gradients at dropout 0.1 with step 0's key of seed 0
-(`dropout/...`). Rank 0 writes everything to `<out>/result.npz`.
+(`dropout/...`).
+
+`TensorParallel` runs in the same world on its own config (`tp/config`,
+`tp/param/...`, `tp/input_ids`, ...): on each `(data, model)` grid of
+`TP_GRIDS[world]` one AdamW step's loss, gradients, bf16 eval and
+parameters, all gathered whole, the split dimension of every leaf, the
+stepped state in tpukit's sharded and consolidated layouts, tpukit's own
+TP checkpoint (`tp/tk_sharded`) restored into a fresh state; on the first
+grid also the head's cotangent summed over `model` (the negative control,
+`TensorParallel` with the pipeline's "shared" contract) and dropout 0.1;
+then one step of each of `TP_ODD[world]`'s configs, whose heads or
+dimensions do not divide the model degree (`tp/odd/<name>/...`); and the
+single-device checkpoints (`single_ckpt`, `single_sharded`) restored into
+TP states of the whole world's model degree (`tp/single_<fmt>/...`).
+
+With `serve/config` in the inputs the world serves instead: the serving
+cases of `tests/test_torch_serve.py` (`serve_main`), written to
+`<out>/result.npz` by rank 0 as `<case>/<rid>` token arrays.
+
+Rank 0 writes everything to `<out>/result.npz`.
 """
 
 from __future__ import annotations
@@ -35,11 +54,32 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from tpukit_torch import checkpoint, mesh  # noqa: E402
 from tpukit_torch.bridge import params_from_numpy  # noqa: E402
-from tpukit_torch.model import GPTConfig  # noqa: E402
-from tpukit_torch.shardings import DataParallel, FSDP, gather_full, leaves  # noqa: E402
+from tpukit_torch.model import GPTConfig, gpt  # noqa: E402
+from tpukit_torch.ops.layers import vocab_parallel_argmax  # noqa: E402
+from tpukit_torch.shardings import (  # noqa: E402
+    FSDP,
+    DataParallel,
+    TensorParallel,
+    gather_full,
+    leaves,
+)
 from tpukit_torch.train import create_train_state, dropout_key, eval_step  # noqa: E402
 
 LR = 1e-3
+TP_GRIDS = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}  # world -> its (data, model) grids
+# world -> configs whose heads or dims do not divide the model degree (the
+# whole world): heads 5 x 6 (inner 30, FFN 120, vocab 151 unpadded) and
+# heads 2 x 16 (inner 32)
+TP_ODD = {2: {"h5": dict(dim=30, head_dim=6, heads=5, vocab_pad_multiple=1, vocab_size=151)},
+          4: {"h5": dict(dim=30, head_dim=6, heads=5, vocab_pad_multiple=1, vocab_size=151),
+              "h2": dict(dim=32, head_dim=16, heads=2, vocab_size=160)}}
+
+
+class SharedCotangentTP(TensorParallel):
+    """The negative control: the vocab-parallel CE's backward sums the
+    head's cotangent over `model`, as the pipeline's contract does."""
+
+    ce_cotangent = "shared"
 
 
 def _nest(flat: dict) -> dict:
@@ -84,6 +124,13 @@ def main() -> None:
     mesh.initialize_runtime("cpu", address=f"file://{out / 'store'}", world_size=world,
                             rank=rank)
     data = np.load(src)
+    if "serve/config" in data.files:
+        result = serve_main(data, out)
+        if rank == 0:
+            np.savez(out / "result.npz", **result)
+        mesh.sync_global_devices()
+        mesh.shutdown_runtime()
+        return
     cfg = GPTConfig(**json.loads(str(data["config"])), compute_dtype=torch.float32)
     init = _nest({k[len("param/"):]: data[k] for k in data.files if k.startswith("param/")})
     rows = slice(rank * len(data["targets"]) // world, (rank + 1) * len(data["targets"]) // world)
@@ -154,10 +201,173 @@ def main() -> None:
     result.update({f"naive/grad/{n}": p.grad.detach().numpy().copy()
                    for n, p in zip(checkpoint.paths(state.params), leaves(state.params))})
 
+    if "tp/config" in data.files:
+        result.update(_tensor_parallel(data, out, world))
+        # the single-device checkpoints, in both layouts, into TP states of
+        # the DP config (vocab 211, padded to 256, splits over the model)
+        for fmt, path in (("pt", data["single_ckpt"]), ("sharded", data["single_sharded"])):
+            strategy = TensorParallel()
+            state = create_train_state(params_from_numpy(init, "cpu"), LR, strategy)
+            checkpoint.restore_any(str(path), state)
+            result.update(_tp_whole(f"tp/single_{fmt}", strategy, state))
+            result[f"tp/single_{fmt}/step"] = np.int64(state.step)
+
     if rank == 0:
         np.savez(out / "result.npz", **result)
     mesh.sync_global_devices()
     mesh.shutdown_runtime()
+
+
+def _step(state, strategy, cfg, batch, targets, rng=None):
+    """(loss, gradients gathered whole) of one AdamW step, taken."""
+    loss, grads = strategy.value_and_grad(state.params, cfg, batch, targets, rng=rng)
+    names = checkpoint.paths(state.params)
+    whole = {n: strategy.gather_leaf(n, g).detach().cpu().numpy()
+             for n, g in zip(names, leaves(grads))}
+    for p, g in zip(leaves(state.params), leaves(grads)):
+        p.grad = g
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    state.step += 1
+    return float(loss), whole
+
+
+def _tp_whole(prefix: str, strategy, state, opt: bool = True) -> dict:
+    """The parameters (and AdamW moments) of a TP state, gathered whole."""
+    names = checkpoint.paths(state.params)
+    out = {f"{prefix}/param/{n}": strategy.gather_leaf(n, p).detach().numpy()
+           for n, p in zip(names, leaves(state.params))}
+    for i, st in (state.optimizer.state_dict()["state"].items() if opt else ()):
+        for k, v in st.items():
+            out[f"{prefix}/opt/{names[i]}/{k}"] = strategy.gather_leaf(names[i], v).numpy()
+    return out
+
+
+def _tensor_parallel(data, out: Path, world: int) -> dict:
+    res = {}
+    cfg = GPTConfig(**json.loads(str(data["tp/config"])), compute_dtype=torch.float32)
+    init = _nest({k[len("tp/param/"):]: data[k] for k in data.files
+                  if k.startswith("tp/param/")})
+    every = {k: torch.from_numpy(data[f"tp/{k}"]) for k in ("input_ids", "position_ids", "mask")}
+    every_t = torch.from_numpy(data["tp/targets"])
+    for d, m in TP_GRIDS[world]:
+        label = f"tp/d{d}m{m}"
+        strategy = TensorParallel(data=d, model=m)
+        state = create_train_state(params_from_numpy(init, "cpu"), LR, strategy)
+        per = len(every_t) // d
+        rows = slice(strategy.data_rank() * per, (strategy.data_rank() + 1) * per)
+        batch, targets = {k: v[rows] for k, v in every.items()}, every_t[rows]
+        count = float((targets != -100).sum())
+        res[f"{label}/loss"], grads = _step(state, strategy, cfg, batch, targets)
+        res.update({f"{label}/grad/{n}": g for n, g in grads.items()})
+        ev_loss, ev_acc = eval_step(state, cfg, strategy, batch, targets)
+        total_loss, total_acc, total = strategy.all_sum(
+            [float(ev_loss) * count, float(ev_acc) * count, count])
+        res[f"{label}/eval_loss"] = np.float64(total_loss / total)
+        res[f"{label}/eval_acc"] = np.float64(total_acc / total)
+        res.update(_tp_whole(label, strategy, state))
+        dims = [(n, -1 if dim is None else dim) for n, dim in strategy._dims.items()]
+        res[f"{label}/dims/names"] = np.array([n for n, _ in dims], dtype=str)
+        res[f"{label}/dims/dim"] = np.array([dim for _, dim in dims])
+        res[f"{label}/sharded"] = str(checkpoint.save_sharded(state, out / f"d{d}m{m}_sharded"))
+        res[f"{label}/consolidated"] = str(
+            checkpoint.save_consolidated(state, out / f"d{d}m{m}_consolidated"))
+        fresh_strategy = TensorParallel(data=d, model=m)
+        fresh = create_train_state(params_from_numpy(init, "cpu"), LR, fresh_strategy)
+        checkpoint.restore_any(str(data["tp/tk_sharded"]), fresh)
+        res.update(_tp_whole(f"{label}/tk_restored", fresh_strategy, fresh))
+        if (d, m) == TP_GRIDS[world][0]:
+            # ties across the shards go to the lowest global index
+            r = strategy.mesh.get_local_rank("model")
+            local = torch.zeros((3, 8))
+            local[0, 5] = 1.0
+            local[2, 2] = 1.0 if r == 0 else 2.0
+            res["tp/argmax"] = vocab_parallel_argmax(local, r * 8, 8 * m,
+                                                     strategy.mesh.get_group("model")).numpy()
+            shared = SharedCotangentTP(data=d, model=m)
+            state = create_train_state(params_from_numpy(init, "cpu"), LR, shared)
+            _, grads = _step(state, shared, cfg, batch, targets)
+            res.update({f"tp/shared/grad/{n}": g for n, g in grads.items()})
+            strategy = TensorParallel(data=d, model=m)
+            state = create_train_state(params_from_numpy(init, "cpu"), LR, strategy)
+            res["tp/dropout/loss"], grads = _step(state, strategy, cfg.replace(dropout=0.1),
+                                                  batch, targets, rng=dropout_key(0, 0, "cpu"))
+            res.update({f"tp/dropout/grad/{n}": g for n, g in grads.items()})
+    for name, shape in TP_ODD[world].items():
+        ocfg = GPTConfig(**{**json.loads(str(data["tp/config"])), **shape},
+                         compute_dtype=torch.float32)
+        strategy = TensorParallel()
+        state = create_train_state(gpt.init_params(ocfg, seed=0, device="cpu"), LR, strategy)
+        ids = every["input_ids"] % ocfg.vocab_size
+        tgt = torch.where(every_t == -100, every_t, every_t % ocfg.vocab_size)
+        loss, grads = _step(state, strategy, ocfg, {**every, "input_ids": ids}, tgt)
+        res[f"tp/odd/{name}/loss"] = loss
+        res.update({f"tp/odd/{name}/grad/{n}": g for n, g in grads.items()})
+        res.update(_tp_whole(f"tp/odd/{name}", strategy, state, opt=False))
+        res[f"tp/odd/{name}/split"] = np.array(
+            [n for n, dim in strategy._dims.items() if dim is not None], dtype=str)
+    return res
+
+
+# case -> (grid (data, model), engine options, parameter set)
+SERVE_CASES = {
+    "ring": ((1, 2), {}, "dense"),
+    "ring-sampled": ((1, 2), dict(temperature=0.8, top_k=40), "dense"),
+    "paged": ((1, 2), dict(page_size=4, fused_decode=True), "dense"),
+    "paged-sampled": ((1, 2), dict(page_size=4, fused_decode=True, temperature=0.8, top_k=40),
+                      "dense"),
+    "paged-unfused": ((1, 2), dict(page_size=4), "dense"),
+    "ring-data2": ((2, 1), {}, "dense"),
+    "ring-data2-sampled": ((2, 1), dict(temperature=0.8, top_k=40), "dense"),
+    "moe-data2": ((2, 1), {}, "moe"),
+    "checkpoint": ((1, 2), dict(page_size=4, fused_decode=True), "checkpoint"),
+}
+
+
+def serve_main(data, out: Path) -> dict:
+    """Serve `serve/ids/<rid>` (seeded `serve/seed/<rid>`) on every case of `SERVE_CASES` (the world's
+    grid, `TensorParallel`'s shards of a dense model, an MoE model whole),
+    then `python -m tpukit_torch.serve`'s `main` in this world with
+    `serve/cli` and `serve/cli_idle` (a grid that leaves a rank idle) as
+    its argv (rank 0's printouts kept as `<key>/stdout`)."""
+    import contextlib
+    import io
+
+    from tpukit_torch.serve import __main__ as serve_cli
+    from tpukit_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    base = json.loads(str(data["serve/config"]))
+    serve_kw = json.loads(str(data["serve/serve"]))
+    reqs = [Request(rid=int(k.rsplit("/", 1)[1]), ids=tuple(int(t) for t in data[k]),
+                    max_new_tokens=serve_kw["max_new_tokens"],
+                    seed=int(data[k.replace("/ids/", "/seed/")]))
+            for k in data.files if k.startswith("serve/ids/")]
+    sets = {name: _nest({k[len(f"serve/{name}/"):]: data[k] for k in data.files
+                         if k.startswith(f"serve/{name}/")}) for name in ("dense", "moe")}
+    res = {}
+    for case, ((d, m), kw, which) in SERVE_CASES.items():
+        cfg = GPTConfig(**base, compute_dtype=torch.float32)
+        if which == "moe":
+            cfg = cfg.replace(num_experts=4, moe_dispatch="pallas")
+        if which == "checkpoint":
+            params, _ = checkpoint.restore_params(str(data["serve/checkpoint"]),
+                                                  gpt.init_params(cfg, device="meta"), "cpu")
+        else:
+            params = params_from_numpy(sets[which], "cpu")
+        grid = mesh.create_tp_mesh(d, m, "cpu")
+        if which != "moe":
+            params = TensorParallel(mesh=grid).setup(params)
+        engine = ServeEngine(params, cfg, ServeConfig(**{**serve_kw, **kw}),
+                             eos_id=int(data["serve/eos"]), device="cpu", mesh=grid)
+        for c in engine.run(list(reqs), max_wall_s=300):
+            res[f"{case}/{c.rid}"] = np.asarray(c.ids)
+        res[f"{case}/kv_bytes"] = np.int64(engine.kv_bytes)
+    for key in ("cli", "cli_idle"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_cli.main([str(a) for a in data[f"serve/{key}"]])
+        res[f"{key}/stdout"] = buf.getvalue()
+    return res
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Runtime initialisation and the device meshes (twin of `tpukit/mesh.py`:
 `initialize_runtime` :24, `is_process_zero` :139, `create_mesh` :144,
 `sync_global_devices` :187): a 1-D `data` mesh for DDP and FSDP, a 2-D
-`(data, stage)` one for the pipeline.
+`(data, stage)` one for the pipeline and a 2-D `(data, model)` one for
+tensor parallelism and the serving grid.
 
 tpukit's runtime owns its devices and builds a `jax.sharding.Mesh`; the port
 brings up a c10d default process group and a `DeviceMesh` over it. The group
@@ -123,6 +124,29 @@ def create_pipeline_mesh(data: int = 1, stage: int | None = None,
         raise ValueError(f"a (data {data}, stage {stage}) pipeline grid needs {data * stage} "
                          f"ranks, the world has {world}")
     return init_device_mesh(device_type, (data, stage), mesh_dim_names=("data", "stage"))
+
+
+def create_tp_mesh(data: int = 1, model: int | None = None, device_type: str = "cuda",
+                   idle_ok: bool = False) -> DeviceMesh:
+    """A 2-D `(data, model)` mesh over the default group's ranks, `model`
+    innermost (tpukit `main-tp.py:14-16`): rank r sits at data index
+    r // model and model index r % model, so a model group is consecutive
+    ranks. `model` defaults to world / data; `data * model` must be the
+    world, or with `idle_ok` (a serving grid that leaves ranks idle, as
+    tpukit's leaves devices) at most the world: the mesh then spans ranks
+    `[0, data * model)` and the others hold no coordinate
+    (`get_coordinate()` is None). Every rank of the world calls it.
+    `get_group("model")` and `get_group("data")` are its groups."""
+    world = world_size()
+    model = world // data if model is None else model
+    used = data * model
+    if data < 1 or model < 1 or used > world or (used < world and not idle_ok):
+        raise ValueError(f"a (data {data}, model {model}) grid needs {used} ranks, "
+                         f"the world has {world}")
+    if used == world:
+        return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
+    return DeviceMesh(device_type, torch.arange(used).reshape(data, model),
+                      mesh_dim_names=("data", "model"))
 
 
 def stage_neighbours(mesh: DeviceMesh) -> tuple[int, int]:

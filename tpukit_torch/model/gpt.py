@@ -13,6 +13,20 @@ therefore bridges over as a plain copy (`tpukit_torch.bridge`).
 Numerics follow the JAX model's cast points: parameters in f32, matmuls in
 `compute_dtype`, LayerNorm and softmax in f32, the residual stream in the
 compute dtype, logits widened to f32 only where a caller samples them.
+
+Under tensor parallelism (`cfg.tp`, a `ModelGroup` that `TensorParallel`
+and the serving grid set) the tree holds this rank's shards by tpukit's
+rules (`shardings.TensorParallel`), and every function here runs on them
+with the Megatron operators of `ops/layers.py`. Which leaves are shards
+is read from their shapes: q/k/v and `ffn/up` column-parallel behind
+`copy_to_model`, `attn/out` and `ffn/down` row-parallel before
+`reduce_from_model` (their replicated biases added once, after it), the
+token table's vocab rows through `vocab_parallel_embedding`, the head's
+vocab columns gathered for logits (`apply_head`) or kept local for the
+vocab-parallel CE (`head_logits`). Attention runs on the rank's heads,
+`cfg.local_heads`, and so do the KV caches; where the heads do not
+divide the group but the q/k/v columns do, the attention's weights are
+gathered and it runs on every head, replicated.
 """
 
 from __future__ import annotations
@@ -27,7 +41,15 @@ from tpukit_torch import random as tk_random
 from tpukit_torch import resolve_device
 from tpukit_torch.ops import paged_attention
 from tpukit_torch.ops.attention import causal_attention
-from tpukit_torch.ops.layers import dropout, layer_norm, linear
+from tpukit_torch.ops.layers import (
+    copy_to_model,
+    dropout,
+    gather_from_model,
+    layer_norm,
+    linear,
+    reduce_from_model,
+    vocab_parallel_embedding,
+)
 from tpukit_torch.ops.moe_dispatch import moe_ffn_a2a, moe_ffn_xla
 from tpukit_torch.ops.moe_gemm import moe_ffn_pallas
 from tpukit_torch.serve import paged as paged_lib
@@ -93,6 +115,9 @@ class GPTConfig:
     # interleaved pipeline stages (tpukit `gpt.py:198`): each stage rank of
     # `Pipeline1F1B` runs V non-contiguous chunks of the layer stack
     virtual_stages: int = 1
+    # tensor parallelism: this rank's `ops.layers.ModelGroup`, which
+    # `TensorParallel` and the serving grid inject; None is one device
+    tp: Any = None
 
     def __post_init__(self):
         if self.virtual_stages < 1:
@@ -118,6 +143,22 @@ class GPTConfig:
     @property
     def inner_dim(self) -> int:
         return self.head_dim * self.heads
+
+    @property
+    def tp_size(self) -> int:
+        """The degree of the `model` group (1 without tensor parallelism)."""
+        return 1 if self.tp is None else self.tp.size
+
+    @property
+    def heads_split(self) -> bool:
+        """Whether each rank attends over its own heads (heads / model of
+        them): the heads divide a model group larger than one."""
+        return self.tp_size > 1 and self.heads % self.tp_size == 0
+
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank attends over and its KV caches hold."""
+        return self.heads // self.tp_size if self.heads_split else self.heads
 
     @property
     def padded_vocab_size(self) -> int:
@@ -215,30 +256,69 @@ def _unbind(tree: dict) -> list[dict]:
 # --------------------------------------------------------------------------
 
 
+def _model_group(cfg: GPTConfig, leaf: torch.Tensor, dim: int, full: int):
+    """`cfg.tp` where `leaf` is a shard (its `dim` is not `full` long),
+    else None: the leaf is whole on every rank."""
+    return cfg.tp if cfg.tp_size > 1 and leaf.shape[dim] != full else None
+
+
 def apply_embeddings(params: dict, cfg: GPTConfig, input_ids, position_ids):
-    """Token + position embedding sum, cast to the compute dtype."""
+    """Token + position embedding sum, cast to the compute dtype (the token
+    table's vocab rows split over `cfg.tp` when it is a shard)."""
     emb = params["embeddings"]
-    x = emb["token"][input_ids.long()] + emb["position"][position_ids.long()]
+    tp = _model_group(cfg, emb["token"], 0, cfg.padded_vocab_size)
+    x = (vocab_parallel_embedding(emb["token"], input_ids, tp)
+         + emb["position"][position_ids.long()])
     return x.to(cfg.compute_dtype)
+
+
+def _row_parallel(x, params: dict, compute_dtype, tp):
+    """`linear` of a row-parallel product: this rank's partial product,
+    summed over `tp` (None: whole), then the replicated bias, once."""
+    y = reduce_from_model(torch.matmul(x.to(compute_dtype),
+                                       params["kernel"].to(compute_dtype)), tp)
+    if "bias" in params:
+        y = y + params["bias"].to(compute_dtype)
+    return y
+
+
+def _attention_params(layer: dict, cfg: GPTConfig):
+    """(the attention's parameters, the model group its products split
+    over or None). On the rank's heads they are its shards; where the
+    shards do not fall on head boundaries (heads % model != 0, tpukit's
+    `inner_dim % model == 0` rule still sharding them) the q/k/v columns
+    and the out rows are gathered, and the attention is replicated."""
+    attn = layer["attn"]
+    tp = _model_group(cfg, attn["q"]["kernel"], -1, cfg.inner_dim)
+    if tp is None or cfg.heads_split:
+        return attn, tp
+    whole = lambda p, dim: {**p, "kernel": gather_from_model(p["kernel"], dim, tp)}
+    return {**{n: whole(attn[n], -1) for n in ("q", "k", "v")},
+            "out": whole(attn["out"], -2)}, None
 
 
 def _apply_attention(layer, cfg: GPTConfig, x, pad_mask, rng=None, rng_row0: int = 0):
     """Self-attention over a full sequence `x [B, S, dim]` (twin of
     `tpukit/model/gpt.py:428`): q/k/v projections (one fused product with
     `cfg.fuse_qkv`), causal attention by `cfg.attention_impl`, output
-    projection, then dropout under `rng` (never inside the attention)."""
+    projection, then dropout under `rng` (never inside the attention). On
+    the rank's heads under `cfg.tp`: the output is summed over the model
+    group before the bias and the dropout, whose mask every rank of the
+    group draws alike."""
     batch, seq = x.shape[0], x.shape[1]
-    cdt = cfg.compute_dtype
+    cdt, heads = cfg.compute_dtype, cfg.local_heads
+    attn, tp = _attention_params(layer, cfg)
+    x = copy_to_model(x, tp)
     if cfg.fuse_qkv:
-        kernel = torch.cat([layer["attn"][n]["kernel"] for n in ("q", "k", "v")], dim=1)
-        q, k, v = linear(x, {"kernel": kernel}, cdt).split(cfg.inner_dim, dim=-1)
+        kernel = torch.cat([attn[n]["kernel"] for n in ("q", "k", "v")], dim=1)
+        q, k, v = linear(x, {"kernel": kernel}, cdt).split(heads * cfg.head_dim, dim=-1)
     else:
-        q, k, v = (linear(x, layer["attn"][n], cdt) for n in ("q", "k", "v"))
-    split = lambda t: t.reshape(batch, seq, cfg.heads, cfg.head_dim).transpose(1, 2).contiguous()
+        q, k, v = (linear(x, attn[n], cdt) for n in ("q", "k", "v"))
+    split = lambda t: t.reshape(batch, seq, heads, cfg.head_dim).transpose(1, 2).contiguous()
     out = causal_attention(split(q), split(k), split(v), scale=1.0 / cfg.head_dim**0.5,
                            pad_mask=pad_mask, impl=cfg.attention_impl)
-    out = out.transpose(1, 2).reshape(batch, seq, cfg.inner_dim)
-    out = linear(out, layer["attn"]["out"], cdt)
+    out = out.transpose(1, 2).reshape(batch, seq, heads * cfg.head_dim)
+    out = _row_parallel(out, attn["out"], cdt, tp)
     return dropout(out, cfg.dropout, rng, rng_row0)
 
 
@@ -320,9 +400,13 @@ def forward(params: dict, cfg: GPTConfig, input_ids, position_ids, mask=None,
 
 
 def _apply_feed_forward(layer, cfg: GPTConfig, x):
-    """up -> relu -> down -> relu (the reference's double ReLU)."""
-    h = torch.relu(linear(x, layer["ffn"]["up"], cfg.compute_dtype))
-    return torch.relu(linear(h, layer["ffn"]["down"], cfg.compute_dtype))
+    """up -> relu -> down -> relu (the reference's double ReLU); under
+    `cfg.tp` `up` column- and `down` row-parallel, summed before `down`'s
+    bias and the second relu."""
+    up, down = layer["ffn"]["up"], layer["ffn"]["down"]
+    tp = _model_group(cfg, up["kernel"], -1, cfg.dim * FFN_MULT)
+    h = torch.relu(linear(copy_to_model(x, tp), up, cfg.compute_dtype))
+    return torch.relu(_row_parallel(h, down, cfg.compute_dtype, tp))
 
 
 _MOE_DISPATCH = {"xla": moe_ffn_xla, "a2a": moe_ffn_a2a, "pallas": moe_ffn_pallas}
@@ -338,8 +422,9 @@ def _apply_moe_ffn(layer, cfg: GPTConfig, x, pad_mask=None):
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None) -> dict:
     """The ring KV cache (twin of `tpukit/model/gpt.py:574`): per-layer
     stacked K/V buffers `[num_layers, B, heads, max_len, head_dim]` in the
-    compute dtype, zeroed."""
-    shape = (cfg.num_layers, batch, cfg.heads, max_len, cfg.head_dim)
+    compute dtype, zeroed; the rank's heads (`cfg.local_heads`) under
+    tensor parallelism."""
+    shape = (cfg.num_layers, batch, cfg.local_heads, max_len, cfg.head_dim)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
@@ -355,11 +440,13 @@ def _apply_attention_cached(layer, cfg: GPTConfig, x, k_cache, v_cache, start):
     clamps to `[0, W - T]` as `lax.dynamic_update_slice` clamps it; the
     query positions do not."""
     batch, t = x.shape[0], x.shape[1]
-    cdt, h, d = cfg.compute_dtype, cfg.heads, cfg.head_dim
+    cdt, h, d = cfg.compute_dtype, cfg.local_heads, cfg.head_dim
+    attn, tp = _attention_params(layer, cfg)
+    x = copy_to_model(x, tp)
     split = lambda z: z.view(batch, t, h, d).permute(0, 2, 1, 3)
-    q = split(linear(x, layer["attn"]["q"], cdt))
-    k = split(linear(x, layer["attn"]["k"], cdt))
-    v = split(linear(x, layer["attn"]["v"], cdt))
+    q = split(linear(x, attn["q"], cdt))
+    k = split(linear(x, attn["k"], cdt))
+    v = split(linear(x, attn["v"], cdt))
     w = k_cache.shape[2]
     steps = torch.arange(t, device=x.device)
     if isinstance(start, torch.Tensor) and start.dim() == 1:
@@ -375,16 +462,17 @@ def _apply_attention_cached(layer, cfg: GPTConfig, x, k_cache, v_cache, start):
         k_cache[:, :, first:first + t] = k
         v_cache[:, :, first:first + t] = v
         q_pos = (s0 + steps)[None, None, :, None]
-    return _attend_over_cache(layer, cfg, q, k_cache, v_cache, q_pos)
+    return _attend_over_cache(attn, tp, cfg, q, k_cache, v_cache, q_pos)
 
 
-def _attend_over_cache(layer, cfg: GPTConfig, q, k_cache, v_cache, q_pos):
+def _attend_over_cache(attn, tp, cfg: GPTConfig, q, k_cache, v_cache, q_pos):
     """Scores over every cache position, causal window, softmax, value mix,
-    output projection. `q [B, H, T, D]`, caches `[B, H, W, D]`."""
-    batch, t = q.shape[0], q.shape[2]
+    output projection (row-parallel over `tp`). `q [B, H, T, D]`, caches
+    `[B, H, W, D]`."""
+    batch, h, t = q.shape[0], q.shape[1], q.shape[2]
     out = paged_attention.attend_core(q, k_cache, v_cache, q_pos)
-    out = out.permute(0, 2, 1, 3).reshape(batch, t, cfg.inner_dim)
-    return linear(out, layer["attn"]["out"], cfg.compute_dtype)
+    out = out.permute(0, 2, 1, 3).reshape(batch, t, h * cfg.head_dim)
+    return _row_parallel(out, attn["out"], cfg.compute_dtype, tp)
 
 
 def _apply_attention_paged(layer, cfg: GPTConfig, x, pool_k, pool_v, scale_k,
@@ -396,18 +484,20 @@ def _apply_attention_paged(layer, cfg: GPTConfig, x, pool_k, pool_v, scale_k,
     and `_attend_over_cache` attends. Then the fresh K/V go to the pools,
     in place (`write_token` for T == 1, whole pages for a prefill chunk)."""
     batch, t = x.shape[0], x.shape[1]
-    cdt, h, d = cfg.compute_dtype, cfg.heads, cfg.head_dim
-    q = linear(x, layer["attn"]["q"], cdt)
-    k = linear(x, layer["attn"]["k"], cdt)
-    v = linear(x, layer["attn"]["v"], cdt)
+    cdt, h, d = cfg.compute_dtype, cfg.local_heads, cfg.head_dim
+    attn, tp = _attention_params(layer, cfg)
+    x = copy_to_model(x, tp)
+    q = linear(x, attn["q"], cdt)
+    k = linear(x, attn["k"], cdt)
+    v = linear(x, attn["v"], cdt)
 
     if cfg.fused_decode and t == 1:
         k_tok, v_tok = k.view(batch, h, d), v.view(batch, h, d)
-        attn = paged_attention.paged_attend(
+        out = paged_attention.fused_paged_attention(
             pool_k, pool_v, scale_k, scale_v, bt, start, q.view(batch, h, d),
-            k_tok, v_tok,
+            k_tok, v_tok, tp=cfg.tp, heads=cfg.heads,
         )
-        out = linear(attn.reshape(batch, 1, cfg.inner_dim), layer["attn"]["out"], cdt)
+        out = _row_parallel(out.reshape(batch, 1, h * d), attn["out"], cdt, tp)
     else:
         split = lambda z: z.view(batch, t, h, d).permute(0, 2, 1, 3)
         q, k, v = split(q), split(k), split(v)
@@ -421,7 +511,7 @@ def _apply_attention_paged(layer, cfg: GPTConfig, x, pool_k, pool_v, scale_k,
         view_k[rows, :, cols] = k.permute(0, 2, 1, 3)
         view_v[rows, :, cols] = v.permute(0, 2, 1, 3)
         q_pos = (start.long()[:, None] + torch.arange(t, device=x.device))[:, None, :, None]
-        out = _attend_over_cache(layer, cfg, q, view_k, view_v, q_pos)
+        out = _attend_over_cache(attn, tp, cfg, q, view_k, view_v, q_pos)
         k_tok, v_tok = (k[:, :, 0, :], v[:, :, 0, :]) if t == 1 else (k, v)
 
     if t == 1:
@@ -477,13 +567,26 @@ def forward_cached(params: dict, cfg: GPTConfig, input_ids, position_ids,
     return apply_head(params, cfg, x), cache
 
 
-def apply_head(params: dict, cfg: GPTConfig, x):
-    """Final LayerNorm and the untied LM head. Returns `[B, S,
-    padded_vocab]` in the compute dtype; pad columns are -1e9."""
+def head_logits(params: dict, cfg: GPTConfig, x):
+    """Final LayerNorm and the untied LM head on this rank's vocab columns:
+    (logits `[B, S, V']` in the compute dtype, pad columns -1e9, their
+    first global column, the model group they split over or None). V' is
+    the padded vocab unless the head kernel is a vocab shard."""
     x = layer_norm(x, params["norm_out"]).to(cfg.compute_dtype)
-    logits = linear(x, params["lm_head"], cfg.compute_dtype)
+    kernel = params["lm_head"]["kernel"]
+    tp = _model_group(cfg, kernel, -1, cfg.padded_vocab_size)
+    offset = tp.rank * kernel.shape[-1] if tp is not None else 0
+    logits = linear(copy_to_model(x, tp), params["lm_head"], cfg.compute_dtype)
     if cfg.padded_vocab_size != cfg.vocab_size:
-        col = torch.arange(cfg.padded_vocab_size, device=x.device)
+        col = offset + torch.arange(kernel.shape[-1], device=x.device)
         logits = torch.where(col < cfg.vocab_size, logits,
                              torch.tensor(NEG_INF, dtype=logits.dtype, device=x.device))
-    return logits
+    return logits, offset, tp
+
+
+def apply_head(params: dict, cfg: GPTConfig, x):
+    """Final LayerNorm and the untied LM head. Returns `[B, S,
+    padded_vocab]` in the compute dtype; pad columns are -1e9. A
+    vocab-sharded head's columns are gathered over the model group."""
+    logits, _, tp = head_logits(params, cfg, x)
+    return gather_from_model(logits, -1, tp)

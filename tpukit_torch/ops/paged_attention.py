@@ -12,6 +12,9 @@ returns the attention output before the output projection.
     for sm_90a on first use) or raises. There is no path from a CUDA tensor
     to the plain version.
 
+`fused_paged_attention` is its twin of tpukit's tensor-parallel wrapper:
+each rank calls `paged_attend` on its own heads.
+
 The kernels split each window into runs of pages (`plan`): a scores kernel
 and a values kernel over (slot, head, split) units, and a combine kernel
 that sums the splits' partial outputs. `launches` counts each kernel's
@@ -198,3 +201,23 @@ def paged_attend(pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new):
     for k in launches:
         launches[k] += 1
     return out
+
+
+def fused_paged_attention(pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new,
+                          tp=None, heads: int | None = None):
+    """`paged_attend` on a rank's heads (twin of tpukit
+    `ops/paged_attention.py:239`, whose `shard_map` gives each device of
+    the `model` axis its heads). Here each rank already holds its heads'
+    pools and scales and its heads of `q`, `k_new` and `v_new`, so it calls
+    `paged_attend` on them; the block tables and cursors are the same on
+    every rank, and nothing is exchanged. `tp` is the rank's
+    `ops.layers.ModelGroup` (None: one device) and `heads` the model's
+    head count, which the group's degree must divide."""
+    m = 1 if tp is None else tp.size
+    if m > 1:
+        heads = q.shape[1] if heads is None else heads
+        if heads % m:
+            raise ValueError(
+                f"fused paged attention shards heads over the model axis: heads={heads} "
+                f"must divide model={m} (the paged serving grid picker guarantees this)")
+    return paged_attend(pool_k, pool_v, scale_k, scale_v, bt, start, q, k_new, v_new)

@@ -54,10 +54,10 @@ global batch over their count, known before the first tick (the count is
 all-reduced over the data replicas), plus, for MoE configs, moe_aux_weight
 x the mean over micro-batches and data replicas of each micro's summed
 load-balance aux (gated to real jobs). The collective CE's backward sums
-its cotangent over the stages (tpukit's treatment): stage 0 hands it the
-loss's cotangent and the other stages 0. Gradients of the layer blocks and
-vocab slices are summed over the data replicas; those of replicated
-leaves (the position table, the final norm, and the fallback's table and
+its cotangent over the stages (tpukit's treatment, the CE's "shared"
+contract): stage 0 hands it the loss's cotangent and the other stages 0.
+Gradients of the layer blocks and vocab slices are summed over the data
+replicas; those of replicated leaves (the position table, the final norm, and the fallback's table and
 head) over every rank.
 
 Dropout keys fold in tpukit's indices, so the masks are bit-equal to its
@@ -80,10 +80,11 @@ from tpukit_torch.ops.layers import (
     linear,
     masked_correct,
     psum_bcast,
+    vocab_parallel_argmax,
     vocab_parallel_ce,
 )
 from tpukit_torch.pipeline_schedule import cached_schedule
-from tpukit_torch.shardings import Strategy, comm_device, leaves, paths, unflatten
+from tpukit_torch.shardings import GridStrategy, leaves, paths, unflatten
 
 NEG_INF = -1e9
 
@@ -98,7 +99,8 @@ def _vocab_slice_ce(norm_p, lm_kernel, y, targets, offset, v_local, cfg, group):
     col = offset + torch.arange(v_local, device=y.device)
     local_logits = torch.where(col < cfg.vocab_size, local_logits,
                                torch.tensor(NEG_INF, dtype=local_logits.dtype, device=y.device))
-    return vocab_parallel_ce(local_logits, targets, offset, group), local_logits
+    return (vocab_parallel_ce(local_logits, targets, offset, group, cotangent="shared"),
+            local_logits)
 
 
 def _tree_map(fn, tree: dict) -> dict:
@@ -218,13 +220,7 @@ class _Run:
         correct = None
         if with_accuracy:
             # the global argmax, first index of a tie (tpukit :573-587)
-            lmax, larg = local.float().max(-1)
-            gmax = lmax.clone()
-            if self.sg is not None:
-                dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=self.sg)
-            preds = torch.where(lmax >= gmax, larg + self.offset, self.v_pad)
-            if self.sg is not None:
-                dist.all_reduce(preds, op=dist.ReduceOp.MIN, group=self.sg)
+            preds = vocab_parallel_argmax(local, self.offset, self.v_pad, self.sg)
             correct = ((tgt != IGNORE_INDEX) & (preds == tgt)).sum().float()
         return leaf, (loss_sum, count, correct)
 
@@ -253,7 +249,7 @@ class _Run:
         return bufs
 
 
-class Pipeline(Strategy):
+class Pipeline(GridStrategy):
     """GPipe over stage ranks (twin of tpukit `pipeline.py:106`). The
     default group is a `(data, stage)` grid: `data` replicas (1 by
     default) of a pipeline of `stages` ranks (world / data by default).
@@ -263,7 +259,7 @@ class Pipeline(Strategy):
     the meshless dropless "pallas" dispatch runs inside the stages."""
 
     name = "pipe"
-    distributed = True
+    split_axis = "stage"
     fused_head = False  # the head is the vocab-parallel CE (tpukit's jnp head)
     supports_interleave = False
 
@@ -295,6 +291,10 @@ class Pipeline(Strategy):
             raise RuntimeError("the stage count defaults to world / data: bring up the "
                                "runtime first (mesh.initialize_runtime) or pass stages=")
         return mesh_lib.world_size() // self.data_size
+
+    @property
+    def split_size(self) -> int:
+        return self.num_stages
 
     @property
     def num_microbatches(self) -> int:
@@ -376,13 +376,6 @@ class Pipeline(Strategy):
             return len(shape) - 1
         return None
 
-    def _split_dim(self, name: str, t: torch.Tensor) -> int | None:
-        """The dimension this rank's leaf `name` (or a state tensor shaped
-        like it) is a piece of, decided on the whole shapes in `setup`."""
-        if self.num_stages == 1 or t.dim() == 0:
-            return None
-        return self._dims[name]
-
     def prepare_params(self, params: dict, cfg: gpt.GPTConfig) -> dict:
         """tpukit's layout (`pipeline.py:247`): the stacked layers padded to
         `padded_layers` with all-zero identity layers, and at V > 1
@@ -455,56 +448,6 @@ class Pipeline(Strategy):
             if dist.get_world_size(group) > 1:
                 dist.barrier(group=group)
         return self.params
-
-    def _check(self, params) -> None:
-        if self.mesh is None or params is not self.params:
-            raise ValueError(f"{self.name}: pass the tree `setup` returned (the train "
-                             f"state's params)")
-
-    def gather_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """The whole tensor of a local leaf (or of a state tensor shaped
-        like it): the stage group's pieces, concatenated. A collective."""
-        dim = self._split_dim(name, t)
-        if dim is None:
-            return t
-        t = t.detach().contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.num_stages)]
-        dist.all_gather(parts, t, group=self.mesh.get_group("stage"))
-        return torch.cat(parts, dim=dim)
-
-    def local_leaf(self, name: str, full: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
-        """This rank's piece of the whole tensor `full`, as `live` holds it."""
-        dim = self._split_dim(name, live)
-        if dim is None:
-            return full
-        return full.chunk(self.num_stages, dim=dim)[self.mesh.get_local_rank("stage")]
-
-    def leaf_block(self, name: str, t: torch.Tensor):
-        """The stage ranks of data replica 0 write their pieces (each at
-        its stage's start on the split dimension), rank 0 the leaves held
-        whole."""
-        dim = self._split_dim(name, t)
-        if dim is None:
-            return super().leaf_block(name, t)
-        shape, starts = list(t.shape), [0] * t.dim()
-        starts[dim] = self.mesh.get_local_rank("stage") * shape[dim]
-        shape[dim] *= self.num_stages
-        return tuple(shape), t if self.mesh.get_local_rank("data") == 0 else None, starts
-
-    def full_params(self, params: dict) -> dict:
-        """tpukit's layout, whole on every rank: the padded (and, at V > 1,
-        chunk-permuted) stack and the whole vocab. Gradients too."""
-        return unflatten(params, [self.gather_leaf(n, p).detach()
-                                  for n, p in zip(paths(params), leaves(params))])
-
-    def all_sum(self, values) -> list[float]:
-        """Summed over the data replicas (one rank of each stage group
-        counts: every stage of a replica holds the same values)."""
-        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
-                         device=comm_device(self.mesh))
-        if self.data_size > 1:
-            dist.all_reduce(t, group=self.mesh.get_group("data"))
-        return t.tolist()
 
     # -- the schedules -----------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Where a training step's time goes on the GPU:
 `python -m tpukit_torch.recipes.profile [--rung NAME] [--steps N]
-[--strategy single|ddp|fsdp|fsdp-offload|pipe|pipe-1f1b]`.
+[--strategy single|ddp|fsdp|fsdp-offload|pipe|pipe-1f1b|tp] [--heads H]`.
 
 Runs the train step of one rung on synthetic token batches built as the
 repo's ladder builds them, from random weights (seed 0):
@@ -19,7 +19,13 @@ repo's ladder builds them, from random weights (seed 0):
 world of one over NCCL, in place of `SingleDevice`; `--strategy
 pipe|pipe-1f1b` under `Pipeline` (GPipe) or `Pipeline1F1B` with 4
 micro-batches (recipes 4 and 5: one stage, the head the vocab-parallel
-CE).
+CE); `--strategy tp` under `TensorParallel` on recipe 6's grid
+(`recipes/tp.py:pick_grid` of the world and the heads). Under `torchrun
+--nproc_per_node N` those strategies span N cards, each rank printing its
+own lines (`--batch_size` rows a data replica, as the recipes load them).
+`--heads H` splits the rung's 768 into H heads of 768 / H (12 x 64 by
+default), which moves recipe 6's grid: 6 x 128 over four cards is data 2 x
+model 2.
 
 It times a steady window of steps by host clock (each step ends in a host
 read of its loss), then profiles a short window under `torch.profiler` and
@@ -88,31 +94,38 @@ def build_train(device, num_layers: int = 12, compute_dtype=torch.bfloat16,
                 attention_impl: str = "auto", learning_rate: float = 1e-4, seed: int = 0,
                 strategy=None, **moe):
     """Config and train state of the GPT-2-small-width step; `moe` sets
-    the MoE fields of the config (num_experts, router_top_k, ...); a
-    `strategy` sets the state up for itself (`create_train_state`)."""
+    the MoE fields of the config (num_experts, router_top_k, ...) or
+    overrides its shape (heads, head_dim); a `strategy` sets the state up
+    for itself (`create_train_state`)."""
     from tpukit_torch.model import GPTConfig, init_params
     from tpukit_torch.train import create_train_state
 
     cfg = GPTConfig(compute_dtype=compute_dtype, attention_impl=attention_impl,
-                    **{**GPT2_SMALL_TRAIN, "num_layers": num_layers}, **moe)
+                    **{**GPT2_SMALL_TRAIN, "num_layers": num_layers, **moe})
     if strategy is not None:
         strategy.validate_config(cfg)
     return cfg, create_train_state(init_params(cfg, seed=seed, device=device), learning_rate,
                                    strategy, cfg)
 
 
-STRATEGIES = ("single", "ddp", "fsdp", "fsdp-offload", "pipe", "pipe-1f1b")
+STRATEGIES = ("single", "ddp", "fsdp", "fsdp-offload", "pipe", "pipe-1f1b", "tp")
 PIPE_MICRO = 4  # the pipeline's micro-batches (recipe 4's "4x" at one stage)
 
 
-def rung_strategy(kind: str, strategy: str = "single"):
+def rung_strategy(kind: str, strategy: str = "single", heads: int = 12):
     """The strategy of a rung: `SingleDevice`, or `ExpertParallel` on one
-    device with the named dispatch; `strategy` names a data-parallel or
-    pipeline one (`DataParallel`, `FSDP`, `FSDP(cpu_offload=True)`,
-    `Pipeline`, `Pipeline1F1B`) in place of `SingleDevice`."""
+    device with the named dispatch; `strategy` names a data-parallel,
+    pipeline or tensor-parallel one (`DataParallel`, `FSDP`,
+    `FSDP(cpu_offload=True)`, `Pipeline`, `Pipeline1F1B`, `TensorParallel`
+    on recipe 6's grid for `heads`) in place of `SingleDevice`."""
+    from tpukit_torch import mesh
     from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
-    from tpukit_torch.shardings import FSDP, DataParallel, ExpertParallel, SingleDevice
+    from tpukit_torch.recipes.tp import pick_grid
+    from tpukit_torch.shardings import (FSDP, DataParallel, ExpertParallel, SingleDevice,
+                                        TensorParallel)
 
+    if strategy == "tp":
+        return TensorParallel(**pick_grid(mesh.world_size(), heads))
     if strategy != "single":
         return {"ddp": DataParallel, "fsdp": FSDP,
                 "fsdp-offload": lambda: FSDP(cpu_offload=True),
@@ -126,6 +139,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rung", choices=tuple(RUNGS), default="gpt-small-dim768")
     ap.add_argument("--steps", type=int, default=6, help="steps in the timed window")
     ap.add_argument("--strategy", choices=STRATEGIES, default="single")
+    ap.add_argument("--heads", type=int, default=GPT2_SMALL_TRAIN["heads"],
+                    help="attention heads (head_dim = 768 / heads)")
     flags = ap.parse_args(argv)
     from tpukit_torch import mesh, resolve_device
 
@@ -140,8 +155,13 @@ def _profile(flags, device) -> int:
     from tpukit_torch.train import to_device, train_step
 
     batch, moe, kind = RUNGS[flags.rung]
-    strategy = rung_strategy(kind, flags.strategy)
-    cfg, state = build_train(device, strategy=strategy, **moe)
+    strategy = rung_strategy(kind, flags.strategy, flags.heads)
+    dim = GPT2_SMALL_TRAIN["dim"]
+    if dim % flags.heads:
+        raise ValueError(f"--heads {flags.heads} must divide the rung's dim {dim}")
+    shape = {} if flags.heads == GPT2_SMALL_TRAIN["heads"] else dict(
+        heads=flags.heads, head_dim=dim // flags.heads)
+    cfg, state = build_train(device, strategy=strategy, **shape, **moe)
     rng = np.random.RandomState(0)
     batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, batch, SEQ), device)
                for _ in range(2)]
@@ -156,8 +176,11 @@ def _profile(flags, device) -> int:
         step(i)
         walls.append(time.perf_counter() - t0)
     wall = float(np.mean(walls))
+    grid = (f" (data {strategy.data_size} x model {strategy.model_size})"
+            if flags.strategy == "tp" else "")
     print(f"{torch.cuda.get_device_name(0)}; {flags.rung}: train step B{batch} S{SEQ} dim "
-          f"{cfg.dim} layers {cfg.num_layers} experts {cfg.num_experts} vocab "
+          f"{cfg.dim} heads {cfg.heads}x{cfg.head_dim} layers {cfg.num_layers} experts "
+          f"{cfg.num_experts}{grid} vocab "
           f"{cfg.vocab_size} bf16, {strategy.name}: wall per step {wall:.4f} s (min "
           f"{min(walls):.4f}, max {max(walls):.4f}, {flags.steps} steps), "
           f"{batch * SEQ / wall:.1f} tokens/s, max_memory_allocated "

@@ -14,6 +14,15 @@ sample with each request's seeded key; `--draft ngram|model` decodes
 speculatively on the ring (the draft model from `--draft_checkpoint PATH`,
 or fresh seeded, shaped by the `--draft_*` flags).
 
+The serving grid is tpukit's (`main-serve.py:251-265`): a dense model is
+served by `TensorParallel` over `pick_serve_grid(world, heads, slots,
+paged)` (heads over `model`, the ring's slots over `data`; paged serving
+on a model-only grid), an MoE model with its parameters replicated over
+the largest data degree that divides the slots. Launched by `torchrun`
+(or `python -m torch.distributed.run ... --device cpu` on gloo ranks),
+every rank of the grid serves the same stream in lockstep and rank 0
+prints; ranks the grid leaves out wait. A plain run is a world of one.
+
 Every flag of `main-serve.py` parses with tpukit's default; a value other
 than the default of one the port does not carry raises `NotPortedError`
 naming its ROADMAP.md item (`NOT_CARRIED`). `--no_trace` and `--no_metrics`
@@ -29,6 +38,7 @@ are accepted: the port serves without either plane (item 18).
       --page_size 16
   python -m tpukit_torch.serve --device cpu --num_layers 2 --dim 64 \\
       --head_dim 16 --heads 4 --requests 8 --page_size 8 --fused_decode
+  torchrun --nproc_per_node 4 -m tpukit_torch.serve --page_size 16 --fused_decode
 """
 
 from __future__ import annotations
@@ -183,11 +193,43 @@ def _restore(path, cfg, device, what: str, shape_flags: str):
             f"the training run's). Original error: {exc}") from exc
 
 
+def serving_grid(flags, world: int, announce: bool = True) -> dict:
+    """tpukit's serving grid (`main-serve.py:251-265`): for a dense model
+    `pick_serve_grid`'s; for an MoE model data-only, the largest degree
+    that divides the slots."""
+    from tpukit_torch.serve.fleet import pick_serve_grid
+
+    if flags.num_experts > 0:
+        data = world
+        while data > 1 and flags.slots % data:
+            data -= 1
+        return {"data": data, "model": 1}
+    return pick_serve_grid(world, flags.heads, flags.slots, paged=flags.page_size > 0,
+                           announce=announce)
+
+
 def main(argv=None) -> int:
     flags = parse_flags(argv)
     _reject_unported(flags)
+    from tpukit_torch import mesh as mesh_lib
+
     device = resolve_device(flags.device)
+    with mesh_lib.scoped_runtime():  # a world brought up here ends here
+        device = mesh_lib.initialize_runtime(device)
+        grid = serving_grid(flags, mesh_lib.world_size(), announce=mesh_lib.is_process_zero())
+        grid_mesh = mesh_lib.create_tp_mesh(grid["data"], grid["model"], device.type,
+                                            idle_ok=True)
+        if grid_mesh.get_coordinate() is not None:
+            _serve(flags, device, grid_mesh)
+        mesh_lib.sync_global_devices()
+    return 0
+
+
+def _serve(flags, device, grid_mesh) -> None:
+    """Serve on this rank's place of `grid_mesh`; rank 0 prints."""
     from tpukit_torch import checkpoint as ckpt_lib
+    from tpukit_torch import mesh as mesh_lib
+    from tpukit_torch.shardings import TensorParallel
     from tpukit_torch.data import get_tokenizer
     from tpukit_torch.model import GPTConfig, init_params
     from tpukit_torch.serve.engine import (Request, ServeConfig, ServeEngine,
@@ -202,6 +244,10 @@ def main(argv=None) -> int:
         num_experts=flags.num_experts, router_top_k=flags.moe_top_k,
         moe_dispatch=flags.moe_dispatch if flags.num_experts > 0 else "xla",
     )
+    strategy = None if cfg.num_experts > 0 else TensorParallel(mesh=grid_mesh)
+    if strategy is not None:
+        strategy.validate_config(cfg)
+    show = print if mesh_lib.is_process_zero() else (lambda *a, **k: None)
     buckets = tuple(sorted({int(b) for b in flags.buckets.split(",") if b}))
     serve = ServeConfig(
         slots=flags.slots, buckets=buckets, max_new_tokens=flags.max_new_tokens,
@@ -219,12 +265,16 @@ def main(argv=None) -> int:
         params, info = _restore(path, cfg, device, "--checkpoint",
                                 "model flags (--dim/--heads/--num_layers/--num_experts...")
         step, skipped = ckpt_lib._step_of(path), info["bytes_skipped"]
-        print(f"serving checkpoint {path} (" + (f"step {step}, " if step >= 0 else "")
+        show(f"serving checkpoint {path} (" + (f"step {step}, " if step >= 0 else "")
               + f"params-only restore: {info['bytes_read']} B read"
               + (f", {skipped} B of opt state skipped" if skipped else "") + ")")
     else:
         params = init_params(cfg, seed=flags.seed, device=device)
-        print(f"serving fresh seeded params (no --checkpoint) on {device}")
+        show(f"serving fresh seeded params (no --checkpoint) on {device}")
+    show(f"serving grid: data {grid_mesh.size(0)} x model {grid_mesh.size(1)} ("
+         + ("TensorParallel" if strategy is not None else "MoE, replicated") + ")")
+    if strategy is not None:
+        params = strategy.setup(params)
     draft_params = draft_cfg = None
     if flags.draft == "model":
         draft_cfg = GPTConfig(
@@ -242,12 +292,13 @@ def main(argv=None) -> int:
             draft_params, d_info = _restore(
                 d_path, draft_cfg, device, "--draft_checkpoint",
                 "draft shape flags (--draft_dim/--draft_heads/--draft_num_layers...")
-            print(f"draft model {d_path} (params-only restore: {d_info['bytes_read']} B read)")
+            show(f"draft model {d_path} (params-only restore: {d_info['bytes_read']} B read)")
         else:
             draft_params = init_params(draft_cfg, seed=flags.seed, device=device)
-            print("draft model: fresh seeded params (no --draft_checkpoint)")
+            show("draft model: fresh seeded params (no --draft_checkpoint)")
     engine = ServeEngine(params, cfg, serve, eos_id=int(tokenizer.eos_token_id),
-                         device=device, draft_params=draft_params, draft_cfg=draft_cfg)
+                         device=device, draft_params=draft_params, draft_cfg=draft_cfg,
+                         mesh=grid_mesh)
     if flags.prompt:
         encoded = tokenizer(list(flags.prompt))["input_ids"]
         requests = [Request(rid=i, ids=tuple(int(t) for t in ids[: max(buckets)]),
@@ -264,32 +315,31 @@ def main(argv=None) -> int:
     wall = time.perf_counter() - t0
     s = engine.last_summary
     gen = sum(c.generated for c in completions)
-    print(f"served {len(completions)} requests / {gen} tokens in "
+    show(f"served {len(completions)} requests / {gen} tokens in "
           f"{wall:.2f}s ({gen / wall:.1f} tokens/s, occupancy "
           f"{100 * s['mean_occupancy']:.0f}%), {engine.steps} decode ticks")
     if serve.paged:
-        print(f"paged KV: {s['num_pages']} pages x {s['page_size']} tokens "
+        show(f"paged KV: {s['num_pages']} pages x {s['page_size']} tokens "
               f"({s['kv_dtype']}), prefix hits {s['prefix_hits']}/{s['admitted']} "
               f"admissions, {s['prefix_pages_reused']} pages of prefill skipped")
     else:
-        print(f"ring KV: {serve.slots} slots x {serve.kv_width} positions "
+        show(f"ring KV: {serve.slots} slots x {serve.kv_width} positions "
               f"({s['kv_bytes']} bytes)")
     if serve.draft:
         sp = s["spec"]
         rate = sp["accept_rate"]
-        print(f"speculative decoding ({serve.draft}, k={serve.spec_k}): accepted "
+        show(f"speculative decoding ({serve.draft}, k={serve.spec_k}): accepted "
               f"{sp['accepted']}/{sp['proposed']} draft tokens"
               + (f" ({100 * rate:.0f}%)" if rate is not None else "")
               + f", appended/verify histogram {sp['accepted_hist']}")
     e2e = sorted(c.e2e_s for c in completions)
     if e2e:
-        print(f"e2e latency p50 {1e3 * e2e[len(e2e) // 2]:.1f} ms  "
+        show(f"e2e latency p50 {1e3 * e2e[len(e2e) // 2]:.1f} ms  "
               f"p99 {1e3 * e2e[min(len(e2e) - 1, int(len(e2e) * 0.99))]:.1f} ms")
     shown = sorted(completions, key=lambda c: c.rid)
     for c in shown if flags.prompt else shown[:3]:
-        print(f"  [{c.rid}] " + tokenizer.decode(np.asarray(c.ids),
+        show(f"  [{c.rid}] " + tokenizer.decode(np.asarray(c.ids),
                                                  skip_special_tokens=True))
-    return 0
 
 
 if __name__ == "__main__":

@@ -25,6 +25,13 @@ with the slot's key folded with its cursor, so token streams depend on
 neither the schedule nor the neighbouring slots; greedy ticks take the
 argmax (first index on ties, as `jnp.argmax`).
 
+Under a serving grid (`cfg.tp`, set by the engine's `mesh`) every rank
+holds the whole host-side state and its heads of the cache; on a ring
+with a data axis a rank's ring holds only its replica's slots
+(`slot_rows`), each replica runs the forward on those rows, and
+`forward_slots` all-gathers the replicas' logits, so every rank samples
+the same tokens from the same rows.
+
 Stale ring positions are never read: a slot writes its K/V at `cursor - 1`
 before it attends, and attention reads only `key_pos <= q_pos`, so what a
 longer evicted request (or a rejected speculative window) left above the
@@ -34,9 +41,40 @@ cursor is rewritten before anything attends to it.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from tpukit_torch.model import gpt
 from tpukit_torch.sampling import _sample_next
+
+
+def slot_rows(cfg: gpt.GPTConfig, n: int) -> slice:
+    """The slots of this rank's data replica among `n` (all of them
+    without a data axis): the rows its ring holds."""
+    d = 1 if cfg.tp is None else cfg.tp.data_size
+    if d == 1:
+        return slice(0, n)
+    per = n // d
+    return slice(cfg.tp.data_rank * per, (cfg.tp.data_rank + 1) * per)
+
+
+def forward_slots(params, cfg: gpt.GPTConfig, ids, position_ids, cache, start,
+                  write_mask=None):
+    """`gpt.forward_cached`'s logits for every slot's row of `ids [N, T]`.
+    Under a data axis the rank's replica forwards its own slots' rows
+    against its ring rows and the replicas' logits are all-gathered over
+    `data` (every row is independent of the others, a per-row MoE capacity
+    included)."""
+    rows = slot_rows(cfg, ids.shape[0])
+    if rows.stop - rows.start == ids.shape[0]:
+        return gpt.forward_cached(params, cfg, ids, position_ids, cache, start,
+                                  write_mask=write_mask)[0]
+    vec = isinstance(start, torch.Tensor) and start.dim() == 1
+    local, _ = gpt.forward_cached(params, cfg, ids[rows], position_ids[rows], cache,
+                                  start[rows] if vec else start)
+    local = local.contiguous()
+    parts = [torch.empty_like(local) for _ in range(cfg.tp.data_size)]
+    dist.all_gather(parts, local, group=cfg.tp.data_group)
+    return torch.cat(parts)
 
 
 def _select_next(last, cursors, keys, temperature: float, top_k: int):
@@ -59,8 +97,7 @@ def _advance(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits, ke
     read = (cursors - 1).clamp(0, total - 1)
     tok = buf.gather(1, read[:, None].long())
     mask = active if "bt" in cache else None
-    logits, _ = gpt.forward_cached(params, cfg, tok, read[:, None], cache, read,
-                                   write_mask=mask)
+    logits = forward_slots(params, cfg, tok, read[:, None], cache, read, write_mask=mask)
     last = logits[:, -1].float()
     next_token = _select_next(last, cursors, keys, temperature, top_k).to(buf.dtype)
     fits = cursors < limits
@@ -93,17 +130,25 @@ def prefill_slots(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limit
     under a capacity MoE dispatch the rows a forward sees set its capacity
     windows, so tpukit's tokens need tpukit's rows. A repeated entry
     rewrites the same slot with the same values. Pad positions write K/V
-    the causal window never reads. Returns `(buf, cache, cursors, active,
-    limits, keys)`."""
-    a, bucket = rows.shape
+    the causal window never reads. Under a data axis each replica forwards
+    only the entries of its own slots (none: no forward) into its ring
+    rows; the lane state is written whole on every rank. Returns `(buf,
+    cache, cursors, active, limits, keys)`."""
     dev = buf.device
-    pos = torch.arange(bucket, dtype=torch.int32, device=dev).expand(a, bucket)
-    scratch = gpt.init_kv_cache(cfg, a, bucket, device=dev)
-    gpt.forward_cached(params, cfg, rows, pos, scratch, 0)
     idx = slots.long()
-    buf[idx, :bucket] = rows.to(buf.dtype)
-    for name, ring in cache.items():
-        ring[:, idx, :, :bucket] = scratch[name]
+    mine = slot_rows(cfg, buf.shape[0])
+    f_rows, f_idx = rows, idx
+    if mine.stop - mine.start < buf.shape[0]:
+        own = (idx >= mine.start) & (idx < mine.stop)
+        f_rows, f_idx = rows[own], idx[own]
+    a, bucket = f_rows.shape
+    if a:
+        pos = torch.arange(bucket, dtype=torch.int32, device=dev).expand(a, bucket)
+        scratch = gpt.init_kv_cache(cfg, a, bucket, device=dev)
+        gpt.forward_cached(params, cfg, f_rows, pos, scratch, 0)
+        for name, ring in cache.items():
+            ring[:, f_idx - mine.start, :, :bucket] = scratch[name]
+    buf[idx, :rows.shape[1]] = rows.to(buf.dtype)
     cursors[idx] = prompt_lens.to(cursors.dtype)
     active[idx] = True
     limits[idx] = new_limits.to(limits.dtype)

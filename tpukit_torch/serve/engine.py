@@ -25,6 +25,17 @@ With `draft` set, each quantum is speculative on the ring: a proposer
 tokens a slot and the target verifies them in one forward
 (`serve/spec.py`); the output is the vanilla output, greedy or sampled.
 
+Under a serving grid (`mesh`, a `(data, model)` `DeviceMesh` of
+`mesh.create_tp_mesh`, tpukit `engine.py:498-535`) every rank of the
+grid runs this same host scheduler in lockstep over its shards of the
+parameters (`TensorParallel`'s, or whole ones replicated over `data`):
+heads over `model` in the ring and the pools, slots over `data` on the
+ring (paged serving needs a model-only grid). The allocator, the prefix
+registry, the block tables and the lane state stay the same on every
+rank, every rank samples the same tokens from the same gathered logits,
+and the scheduler's clock is rank 0's, broadcast, so every rank takes the
+same decisions and enters the same collectives in the same order.
+
 Not in the port yet (ROADMAP.md): request tracing, the metrics plane,
 deadlines and the fleet hooks.
 """
@@ -37,11 +48,13 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpukit_torch import random as tk_random
 from tpukit_torch import resolve_device
 from tpukit_torch.data import synthetic_stories
 from tpukit_torch.model import gpt
+from tpukit_torch.ops.layers import ModelGroup
 from tpukit_torch.serve import decode as serve_decode
 from tpukit_torch.serve import paged as paged_lib
 
@@ -263,14 +276,36 @@ def _pct(vals, q) -> float | None:
 
 
 class ServeEngine:
-    """Host-side continuous-batching loop over the `decode` programs, on
-    one device. `params` is the model tree (`gpt.init_params`, or tpukit's
-    through `bridge.params_from_numpy`) on `device`; `draft_params` and
-    `draft_cfg` are the draft model of `draft="model"`."""
+    """Host-side continuous-batching loop over the `decode` programs.
+    `params` is the model tree (`gpt.init_params`, or tpukit's through
+    `bridge.params_from_numpy`) on `device`; `draft_params` and
+    `draft_cfg` are the draft model of `draft="model"`, whole on every
+    rank. Under `mesh` (a `(data, model)` `DeviceMesh` this rank is on)
+    `params` is this rank's tree on the grid: `TensorParallel`'s
+    shards on its `model` ranks, whole when the grid's model degree is
+    one."""
 
     def __init__(self, params, cfg: gpt.GPTConfig, serve: ServeConfig,
-                 eos_id: int, device=None, draft_params=None, draft_cfg=None):
+                 eos_id: int, device=None, draft_params=None, draft_cfg=None, mesh=None):
         self.device = resolve_device(device)
+        n = serve.slots
+        if mesh is not None:
+            d = mesh.size(0)
+            if serve.paged and d > 1:
+                raise ValueError(
+                    f"paged serving requires a model-only grid (data axis 1, got data={d}): "
+                    f"the page pool is replicated across `data` and a data-sharded slot set "
+                    f"would make the pool write-back an unauditable cross-shard scatter "
+                    f"(decode.decode_step_comm) — shrink the data axis or use the ring "
+                    f"cache (page_size=0)")
+            if n % d:
+                raise ValueError(f"slots={n} must be a multiple of the mesh's data axis "
+                                 f"({d}) — slots shard over it")
+            cfg = cfg.replace(tp=ModelGroup.of(mesh))
+        # the grid's ranks run this scheduler in lockstep on rank 0's clock
+        self._clock_groups = ([] if mesh is None or mesh.size() == 1 else
+                              [mesh.get_group(a) for a in ("model", "data")
+                               if mesh.size(mesh.mesh_dim_names.index(a)) > 1])
         if serve.kv_width > cfg.max_position_embeddings:
             raise ValueError(
                 f"slot width {serve.kv_width} (max bucket {max(serve.buckets)} + "
@@ -311,7 +346,7 @@ class ServeEngine:
         # top_k beyond the logits width is clamped, as tpukit clamps it
         self._top_k = min(int(serve.top_k), cfg.padded_vocab_size)
         self._temperature = float(serve.temperature)
-        n, w = serve.slots, serve.padded_width
+        w = serve.padded_width
         dev = self.device
         if serve.paged:
             self.num_pages = serve.num_pages or n * serve.pages_per_slot + 1
@@ -327,7 +362,9 @@ class ServeEngine:
         else:
             self.num_pages = 0
             self.allocator = None
-            self.cache = gpt.init_kv_cache(cfg, n, serve.kv_width, device=dev)
+            rows = serve_decode.slot_rows(cfg, n)
+            self.cache = gpt.init_kv_cache(cfg, rows.stop - rows.start, serve.kv_width,
+                                           device=dev)
             self.kv_bytes = sum(c.numel() * c.element_size() for c in self.cache.values())
         self.draft_cache = (gpt.init_kv_cache(draft_cfg, n, serve.kv_width, device=dev)
                             if serve.draft == "model" else None)
@@ -358,6 +395,20 @@ class ServeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _clock(self, t0: float) -> float:
+        """Seconds since `t0`: under a grid of more than one rank, the
+        grid's first rank's, broadcast along `model` from each replica's
+        first rank, then along `data` from replica 0 (each rank's own
+        clock would let the ranks admit, time out or sleep differently and
+        then wait in different collectives)."""
+        now = time.perf_counter() - t0
+        if not self._clock_groups:
+            return now
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        for group in self._clock_groups:
+            dist.broadcast(t, src=dist.get_process_group_ranks(group)[0], group=group)
+        return float(t)
 
     # ---- scheduling ------------------------------------------------------
 
@@ -751,7 +802,7 @@ class ServeEngine:
         self._walls = {k: 0.0 for k in self._walls}
         t0 = time.perf_counter()
         while self._pending or self._lanes:
-            now = time.perf_counter() - t0
+            now = self._clock(t0)
             if max_wall_s is not None and now > max_wall_s:
                 raise TimeoutError(
                     f"serve run exceeded max_wall_s={max_wall_s} with "
@@ -763,15 +814,15 @@ class ServeEngine:
                 ready.append(self._pending.popleft())
             for req in reversed(self.admit(ready, now)):
                 self._pending.appendleft(req)
-            self.poll_prefill(time.perf_counter() - t0)
+            self.poll_prefill(self._clock(t0))
             if not self.dispatch_decode():
                 if not self._lanes and self._pending:
                     wait = self._pending[0].arrival_s - now
                     if wait > 0:
                         time.sleep(min(wait, 0.05))
                 continue
-            self.sync(time.perf_counter() - t0)
-        return self.finish(time.perf_counter() - t0)
+            self.sync(self._clock(t0))
+        return self.finish(self._clock(t0))
 
 
 STREAM_PROFILES = ("uniform", "repetitive", "shared_prefix")

@@ -69,13 +69,15 @@ def init_paged_cache(cfg, num_pages: int, page_size: int, pages_per_slot: int,
                      slots: int, kv_dtype: str = "f32", device=None) -> dict:
     """The paged cache: K/V pools `[L, num_pages, H, P, D]` (int8 adds the
     `ks`/`vs` scale sidecars `[L, num_pages, H, blocks]`) and the block
-    tables `bt [slots, pages_per_slot]` int32, all zeros."""
+    tables `bt [slots, pages_per_slot]` int32, all zeros. Under tensor
+    parallelism the pools and scales hold the rank's heads
+    (`cfg.local_heads`); the block tables are the same on every rank."""
     device = resolve_device(device)
     validate_kv_layout(cfg, page_size, kv_dtype)
-    shape = (cfg.num_layers, num_pages, cfg.heads, page_size, cfg.head_dim)
+    shape = (cfg.num_layers, num_pages, cfg.local_heads, page_size, cfg.head_dim)
     bt = torch.zeros((slots, pages_per_slot), dtype=torch.int32, device=device)
     if kv_dtype == "int8":
-        sshape = (cfg.num_layers, num_pages, cfg.heads, scale_blocks(cfg, page_size))
+        sshape = (cfg.num_layers, num_pages, cfg.local_heads, scale_blocks(cfg, page_size))
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -89,14 +91,15 @@ def init_paged_cache(cfg, num_pages: int, page_size: int, pages_per_slot: int,
 
 
 def pool_bytes(cfg, num_pages: int, page_size: int, kv_dtype: str) -> int:
-    """Closed-form device bytes of the K+V pools (int8 pays one byte per
-    element plus the f32 scale per 256-element block)."""
+    """Closed-form device bytes of the K+V pools on one rank, its heads
+    under tensor parallelism (int8 pays one byte per element plus the f32
+    scale per 256-element block)."""
     per_head_row = page_size * cfg.head_dim
     if kv_dtype == "int8":
         row_bytes = quant_comm.packed_bytes(per_head_row)
     else:
         row_bytes = per_head_row * storage_dtype(kv_dtype).itemsize
-    return 2 * cfg.num_layers * num_pages * cfg.heads * row_bytes
+    return 2 * cfg.num_layers * num_pages * cfg.local_heads * row_bytes
 
 
 # -- device-side page ops (called per layer from gpt.forward_cached) --------

@@ -44,6 +44,7 @@ import torch
 from tpukit_torch import random as tk_random
 from tpukit_torch.model import gpt
 from tpukit_torch.sampling import _adjust_logits, _sample_next
+from tpukit_torch.serve import decode as serve_decode
 
 # salts of the accept uniforms and of the correction draw (tpukit
 # spec.py:102-103), folded in after the position
@@ -126,7 +127,7 @@ def _verify_body(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits
     last_tok = buf.gather(1, read[:, None].long())
     toks = torch.cat([last_tok, draft.to(buf.dtype)], dim=1)
     pos = read[:, None] + torch.arange(k + 1, dtype=read.dtype, device=dev)
-    logits, _ = gpt.forward_cached(params, cfg, toks, pos, cache, read)
+    logits = serve_decode.forward_slots(params, cfg, toks, pos, cache, read)
     lg = logits.float()  # [N, k+1, V]
     q = (torch.nn.functional.one_hot(draft.long(), lg.shape[-1]).float()
          if draft_q is None else draft_q)

@@ -16,9 +16,11 @@ module and wraps it in `DistributedDataParallel` or FSDP2's `fully_shard`,
 and the loss runs through that module, which hands the model the
 parameters as they stand at call time. Both train on tpukit's objective, the
 mean CE over the valid tokens of the global batch. The pipeline strategies
-(`Pipeline`, `Pipeline1F1B`) are in `tpukit_torch/pipeline.py`; tensor and
-context parallelism, and expert parallelism over more than one rank are
-ROADMAP.md items 13-15.
+(`Pipeline`, `Pipeline1F1B`) are in `tpukit_torch/pipeline.py`.
+`TensorParallel` holds each rank's Megatron shards over a `(data, model)`
+grid of c10d ranks and runs the model's functions on them. Context
+parallelism and expert parallelism over more than one rank are ROADMAP.md
+items 13 and 15.
 """
 
 from __future__ import annotations
@@ -37,7 +39,14 @@ from tpukit_torch import NotPortedError
 from tpukit_torch import mesh as mesh_lib
 from tpukit_torch.model import gpt
 from tpukit_torch.ops.fused_head_ce import fused_head_ce
-from tpukit_torch.ops.layers import cross_entropy_sum, masked_correct
+from tpukit_torch.ops.layers import (
+    IGNORE_INDEX,
+    ModelGroup,
+    cross_entropy_sum,
+    masked_correct,
+    vocab_parallel_argmax,
+    vocab_parallel_ce,
+)
 from tpukit_torch.ops.moe_dispatch import ExpertGrid
 
 
@@ -501,3 +510,248 @@ class FSDP(_DataParallelBase):
     def full_params(self, params: dict) -> dict:
         device = comm_device(self.mesh)
         return unflatten(params, [gather_full(p).detach().to(device) for p in leaves(params)])
+
+
+class GridStrategy(Strategy):
+    """A strategy over a 2-D `(data, <axis>)` mesh (`self.mesh`, made by
+    `setup`) whose rank holds an even piece of some leaves along one
+    dimension each (`self._dims`, leaf path -> that dimension or None),
+    split over `split_axis` and the same on every data replica: the
+    pipeline's stages, tensor parallelism's model ranks. Checkpoints
+    gather, place and write those pieces here."""
+
+    distributed = True
+    split_axis = ""  # the mesh axis the pieces are split over
+
+    @property
+    def split_size(self) -> int:
+        raise NotImplementedError
+
+    def _split_dim(self, name: str, t: torch.Tensor) -> int | None:
+        """The dimension this rank's leaf `name` (or a state tensor shaped
+        like it) is a piece of, decided on the whole shapes in `setup`."""
+        if self.split_size == 1 or t.dim() == 0:
+            return None
+        return self._dims[name]
+
+    def _check(self, params) -> None:
+        if self.mesh is None or params is not self.params:
+            raise ValueError(f"{self.name}: pass the tree `setup` returned (the train "
+                             f"state's params)")
+
+    def gather_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of a local leaf (or of a state tensor shaped
+        like it): the split group's pieces, concatenated. A collective."""
+        dim = self._split_dim(name, t)
+        if dim is None:
+            return t
+        t = t.detach().contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.split_size)]
+        dist.all_gather(parts, t, group=self.mesh.get_group(self.split_axis))
+        return torch.cat(parts, dim=dim)
+
+    def local_leaf(self, name: str, full: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of the whole tensor `full`, as `live` holds it."""
+        dim = self._split_dim(name, live)
+        if dim is None:
+            return full
+        return full.chunk(self.split_size, dim=dim)[self.mesh.get_local_rank(self.split_axis)]
+
+    def leaf_block(self, name: str, t: torch.Tensor):
+        """The split ranks of data replica 0 write their pieces (each at
+        its start on the split dimension), rank 0 the leaves held whole."""
+        dim = self._split_dim(name, t)
+        if dim is None:
+            return super().leaf_block(name, t)
+        shape, starts = list(t.shape), [0] * t.dim()
+        starts[dim] = self.mesh.get_local_rank(self.split_axis) * shape[dim]
+        shape[dim] *= self.split_size
+        return tuple(shape), t if self.mesh.get_local_rank("data") == 0 else None, starts
+
+    def full_params(self, params: dict) -> dict:
+        """Every leaf whole on every rank (a collective). Gradients too."""
+        return unflatten(params, [self.gather_leaf(n, p).detach()
+                                  for n, p in zip(paths(params), leaves(params))])
+
+    def all_sum(self, values) -> list[float]:
+        """Summed over the data replicas (every rank of a split group holds
+        the same values)."""
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=comm_device(self.mesh))
+        if self.data_size > 1:
+            dist.all_reduce(t, group=self.mesh.get_group("data"))
+        return t.tolist()
+
+
+TP_MOE_ERROR = ("TensorParallel does not support MoE configs (the Megatron column/row rules "
+                "assume dense FFN kernels) — use ExpertParallel (main-moe.py) for "
+                "num_experts > 0")
+
+
+class TensorParallel(GridStrategy):
+    """Megatron tensor parallelism (twin of tpukit `shardings.py:998`,
+    which states it as GSPMD shardings) over a `(data, model)` grid of the
+    default group's ranks (`mesh.create_tp_mesh`, `model` innermost).
+    `model` defaults to world / data.
+
+    Each rank holds its shard of every leaf that tpukit's `_spec_for`
+    shards over `model` (q/k/v and `ffn/up` by output columns, `attn/out`
+    and `ffn/down` kernels by input rows, the head kernel by vocab
+    columns, the token table by vocab rows; a dimension the degree does
+    not divide stays whole) and runs the model's functions on them under
+    `cfg.tp` (`model/gpt.py`). The loss is the vocab-parallel CE with
+    every rank differentiating the same replicated loss ("replicated"
+    cotangent), and eval's accuracy takes the vocab-parallel argmax. As
+    in tpukit: no fused head, three q/k/v products instead of the fused
+    one, MoE refused. Rows of the global batch are split over `data`;
+    tpukit's objective (the CE summed over the global batch's valid
+    tokens over their count) is differentiated on each rank over its
+    rows, and the gradients are summed over the `data` group. Dropout
+    masks are drawn over the global batch: every rank of a model group
+    draws its replica's rows alike. A `mesh` from `mesh.create_tp_mesh`
+    may be given in place of the degrees (the serving grid's)."""
+
+    name = "tp"
+    split_axis = "model"
+    fused_head = False  # the vocab-sharded head is the vocab-parallel CE
+    ce_cotangent = "replicated"  # every model rank differentiates the whole loss
+
+    def __init__(self, data: int = 1, model: int | None = None, mesh=None):
+        if mesh is not None:
+            data, model = mesh.size(0), mesh.size(1)
+        self.data_size = data
+        self._model = model
+        self.mesh = mesh  # the (data, model) mesh: given, or made by `setup`
+        self.params: dict | None = None
+        self._dims: dict = {}  # leaf path -> the dimension split over `model`
+
+    @property
+    def model_size(self) -> int:
+        if self._model is not None:
+            return self._model
+        if not dist.is_initialized():
+            raise RuntimeError("the model degree defaults to world / data: bring up the "
+                               "runtime first (mesh.initialize_runtime) or pass model=")
+        return mesh_lib.world_size() // self.data_size
+
+    @property
+    def split_size(self) -> int:
+        return self.model_size
+
+    @property
+    def batch_divisor(self) -> int:
+        return self.data_size
+
+    @property
+    def data_replicas(self) -> int:
+        return self.data_size
+
+    def data_rank(self) -> int:
+        return mesh_lib.rank() // self.model_size
+
+    def validate_config(self, cfg: gpt.GPTConfig) -> None:
+        if cfg.num_experts > 0:
+            raise ValueError(TP_MOE_ERROR)
+
+    def spec_dim(self, names: tuple, shape: tuple) -> int | None:
+        """The dimension of a leaf (at path `names`, of global `shape`)
+        split over `model`, or None where it is whole: tpukit's `_spec_for`
+        (`shardings.py:1045-1073`), rule for rule."""
+        def shard(dim: int) -> int | None:
+            return None if shape[dim] % self.model_size else dim
+
+        if "attn" in names and names[-1] == "kernel":
+            if any(k in names for k in ("q", "k", "v")):
+                return shard(len(shape) - 1)  # column parallel
+            if "out" in names:
+                return shard(len(shape) - 2)  # row parallel
+        if "attn" in names and names[-1] == "bias" and any(k in names for k in ("q", "k", "v")):
+            return shard(len(shape) - 1)
+        if "ffn" in names:
+            if "up" in names:
+                return shard(len(shape) - 1)  # column (kernel and bias)
+            if "down" in names and names[-1] == "kernel":
+                return shard(len(shape) - 2)  # row
+        if "lm_head" in names and names[-1] == "kernel":
+            return shard(len(shape) - 1)
+        if "token" in names:
+            return shard(0)  # vocab rows
+        return None
+
+    def setup(self, params: dict) -> dict:
+        """The (data, model) mesh (unless one was given), and this rank's
+        tree: its shard of each split leaf (a leaf of its own), the rest
+        as given."""
+        device = leaves(params)[0].device
+        if self.mesh is None:
+            self.mesh = mesh_lib.create_tp_mesh(self.data_size, self.model_size, device.type)
+        m, r = self.model_size, self.mesh.get_local_rank("model")
+        out = []
+        for name, p in zip(paths(params), leaves(params)):
+            dim = self.spec_dim(tuple(name.split("/")), tuple(p.shape))
+            self._dims[name] = dim
+            if dim is None or m == 1:
+                out.append(p)
+                continue
+            out.append(p.detach().chunk(m, dim=dim)[r].clone().requires_grad_(True))
+        self.params = unflatten(params, out)
+        # a first collective on each group, which NCCL wants from every rank
+        for group in (self.mesh.get_group("model"), self.mesh.get_group("data")):
+            if dist.get_world_size(group) > 1:
+                dist.barrier(group=group)
+        return self.params
+
+    def _cfg(self, cfg: gpt.GPTConfig) -> gpt.GPTConfig:
+        """The config the loss runs with: the grid's `ModelGroup`, and
+        three column-parallel q/k/v products (tpukit `:1041-1043`: the fused
+        product would concatenate kernels along their sharded axis)."""
+        return cfg.replace(fuse_qkv=False, tp=ModelGroup.of(self.mesh))
+
+    def loss_sums(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
+                  with_accuracy: bool = False, aux_out: list | None = None, rng=None,
+                  rng_row0: int | None = None):
+        """This replica's sums over its rows, the same on every rank of its
+        model group. Dropout masks are the replica's rows of the global
+        batch's, `[data index x B, (data index + 1) x B)`."""
+        self._check(params)
+        self.validate_config(cfg)
+        tcfg = self._cfg(cfg)
+        if rng_row0 is None:
+            rng_row0 = self.mesh.get_local_rank("data") * batch["input_ids"].shape[0]
+        h = gpt.apply_decoder_layers(
+            params["layers"], tcfg,
+            gpt.apply_embeddings(params, tcfg, batch["input_ids"], batch["position_ids"]),
+            batch["mask"], rng=rng, rng_row0=rng_row0)
+        logits, offset, tp = gpt.head_logits(params, tcfg, h)
+        group = None if tp is None else tp.group
+        loss_sum, count = vocab_parallel_ce(logits, targets, offset, group,
+                                            cotangent=self.ce_cotangent)
+        correct = torch.zeros((), dtype=torch.float32, device=logits.device)
+        if with_accuracy:
+            preds = vocab_parallel_argmax(logits, offset, cfg.padded_vocab_size, group)
+            correct = ((targets != IGNORE_INDEX) & (preds == targets)).sum().float()
+        return loss_sum, count, correct
+
+    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng=None):
+        """(global loss, this rank's gradients): the valid-token count
+        summed over the data replicas first, `loss_sum / count` through
+        `.backward()` on every rank, then each gradient summed over the
+        `data` group (one bucket)."""
+        for p in leaves(params):
+            p.grad = None
+        loss_sum, count, _ = self.loss_sums(params, cfg, batch, targets, rng=rng)
+        totals = torch.stack([loss_sum.detach(), count])
+        if self.data_size > 1:
+            dist.all_reduce(totals, group=self.mesh.get_group("data"))
+        denom = torch.clamp(totals[1], min=1.0)
+        (loss_sum / denom).backward()
+        flat = leaves(params)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in flat]
+        if self.data_size > 1:
+            bucket = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(bucket, group=self.mesh.get_group("data"))
+            for g, part in zip(grads, bucket.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+        for p in flat:
+            p.grad = None
+        return totals[0] / denom, unflatten(params, grads)
