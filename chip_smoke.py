@@ -28,7 +28,8 @@ not 0:
   5. fused vs unfused: the same stream at f32 compute (4 layers) gives the
      same greedy tokens both ways, and int8 pages agree on >= 90% of them;
   6. training kernels vs plain: flash attention forward and backward at
-     64 x 12 x 512 x 64 (and S = 511, 2048; every bf16 head dim, 16 to 128,
+     64 x 12 x 512 x 64 (and S = 511, 2048, and 8192 at 1 x 12 heads, the
+     Ulysses shape of phase 34, timed; every bf16 head dim, 16 to 128,
      at S = 511, 512, 2048, with and without a pad mask), fused head + CE
      forward and backward at 32768 tokens x 768 x vocab 50257, bf16 and f32,
      with and without a pad mask, each against its plain version (the CE
@@ -188,11 +189,30 @@ not 0:
      greedy tokens equal phase 5's; the MoE model over a data grid of one
      gives phase 15's tokens, its grouped forward launching layers x
      forwards times;
-then one JSON line of kernel results and, last, the device JSON line.
+ 34. context parallelism at full width, in a world of one over NCCL: the
+     rung under `ContextParallel` at 32768 tokens a step, the ring at
+     batch 16 x S 2048 (one diagonal hop, plain PyTorch) and Ulysses at
+     batch 4 x S 8192, 8 steps each; the loss falls on a repeated batch,
+     the CE kernels launch as in phase 7, the flash kernels 12 + 36 a step
+     under Ulysses and not at all under the ring; step wall, tokens/s and
+     peak beside phase 7's;
+ 35. the CP steps equal `SingleDevice`'s: phase 8's f32 2-layer setup, 4
+     AdamW steps; in the world of one Ulysses bit-equal (losses and
+     parameters) and the ring's losses within rtol 1e-4; then Ulysses seq
+     2 over two gloo ranks on this card (`chip_smoke.py --cp-gloo-rank R`;
+     gloo carries the all-to-all and the all-gather of CUDA tensors, not
+     the ring's point-to-point sends) at phase 31's bars;
+ 36. recipe 7 end to end (`python -m tpukit_torch.recipes.ring`, world of
+     one), the ring and `--cp_attention ulysses`, as phase 9: train,
+     evaluate, sample on the ring cache, checkpoint; each checkpoint
+     restores into a `SingleDevice` state bit for bit;
+then one JSON line of kernel results (the flash and CE rows with their
+launches under CP) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
-code 2 and prints no result. `--tp-gloo-rank R STORE OUT` is one rank of
-phase 31's two-rank world, which the script starts itself.
+code 2 and prints no result. `--tp-gloo-rank R STORE OUT` and
+`--cp-gloo-rank R STORE OUT` are one rank of phase 31's and phase 35's
+two-rank worlds, which the script starts itself.
 """
 
 from __future__ import annotations
@@ -233,6 +253,7 @@ from tpukit_torch.recipes import fsdp as fsdp_recipe
 from tpukit_torch.recipes import moe as moe_recipe
 from tpukit_torch.recipes import pipe as pipe_recipe
 from tpukit_torch.recipes import pipe_ddp as pipe_ddp_recipe
+from tpukit_torch.recipes import ring as ring_recipe
 from tpukit_torch.recipes import single
 from tpukit_torch.recipes import tp as tp_recipe
 from tpukit_torch.recipes.profile import (
@@ -255,6 +276,7 @@ from tpukit_torch.model import GPTConfig, init_params
 from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
 from tpukit_torch.shardings import (
     FSDP,
+    ContextParallel,
     DataParallel,
     ExpertParallel,
     SingleDevice,
@@ -901,6 +923,9 @@ def check_training_kernels(dev) -> dict:
     check_flash(dev, 8, hh, s - 1, d, torch.bfloat16, True)  # the recipe's S (phase 9)
     check_flash(dev, 2, hh, 2048, d, torch.bfloat16, True)
     check_flash(dev, 2, hh, 2048, d, torch.float32, True)
+    # Ulysses at one rank (phase 34): S 8192 on every head; one row of its
+    # batch of 4, which keeps the plain f64 backward's S x S tensors in memory
+    flash_8192 = check_flash(dev, 1, hh, 8192, d, torch.bfloat16, True, timed=True)
     # every bf16 instance (head dim 16, 32, 64, 128) at S = 511, 512, 2048,
     # with and without a pad mask, at a small batch
     done = {(512, True), (512, False), (511, True), (2048, True)}  # D = 64, above
@@ -919,6 +944,10 @@ def check_training_kernels(dev) -> dict:
             check_flash(dev, 2, 6, 511, dd, dtype, True)
     check_flash(dev, 4100, 16, 32, 16, torch.bfloat16, True)
     check_flash(dev, 4100, 16, 32, 16, torch.float32, False)
+    main["flash_8192"] = {k: flash_8192[k] for k in ("fwd_ms", "bwd_ms", "fwd_plain_ms",
+                                                      "bwd_plain_ms", "fwd_library_ms",
+                                                      "bwd_library_ms", "fwd_bound",
+                                                      "bwd_bound")}
     main["ce"] = check_ce(dev, b * s, g["dim"], g["vocab_size"], torch.bfloat16, timed=True)
     check_ce(dev, 4096, g["dim"], g["vocab_size"], torch.float32)
     check_ce(dev, 4000, g["dim"], g["vocab_size"], torch.bfloat16)
@@ -1001,35 +1030,39 @@ def ce_want(steps: int, tokens: int, cfg) -> dict:
 FULL_ORDER = (0, 1, 2, 3, 0, 1, 2, 3)  # batches a, b, c and the padded p, twice
 
 
-def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0) -> dict:
-    """Phase 7 (and 16, 23, 24): train steps of the gpt-small-dim768 rung (batch
-    64, S 512, bf16) on synthetic batches, by default eight: three full
-    batches and one with 16 padded rows, each twice, under `strategy`
-    (`SingleDevice` by default), with `dropout` after each attention and
-    FFN block (phase 23). Checks the loss (finite; lower on the first
-    batch's second visit) and the launch counts; returns them with the
-    step walls, the peak device memory and the state."""
+def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0,
+                     batch: int = BATCH, seq: int = SEQ) -> dict:
+    """Phase 7 (and 16, 23, 24, 30, 34): train steps of the gpt-small-dim768
+    rung (batch 64, S 512, bf16; or `batch` rows of `seq` tokens, the
+    position table `seq + 1` long) on synthetic batches, by default eight:
+    three full batches and one with a quarter of its rows padded, each
+    twice, under `strategy` (`SingleDevice` by default), with `dropout`
+    after each attention and FFN block (phase 23). Checks the loss
+    (finite; lower on the first batch's second visit) and the launch
+    counts; returns them with the step walls, the peak device memory and
+    the state."""
     strategy = SingleDevice() if strategy is None else strategy
-    cfg, state = build_train(dev, strategy=strategy, dropout=dropout)
+    shape = {} if seq == SEQ else dict(max_position_embeddings=seq + 1)
+    cfg, state = build_train(dev, strategy=strategy, dropout=dropout, **shape)
     rng = np.random.RandomState(0)
-    a, b, c = (to_device(*synthetic_batch(rng, cfg.vocab_size, BATCH, SEQ), dev)
+    a, b, c = (to_device(*synthetic_batch(rng, cfg.vocab_size, batch, seq), dev)
                for _ in range(3))
-    p = to_device(*synthetic_batch(rng, cfg.vocab_size, BATCH, SEQ, pad_rows=16), dev)
+    p = to_device(*synthetic_batch(rng, cfg.vocab_size, batch, seq, pad_rows=batch // 4), dev)
     float(train_step(state, cfg, strategy, *p))  # warm-up: cuBLAS, the allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, walls = [], []
-    for batch in ((a, b, c, p)[i] for i in order):
+    for rows in ((a, b, c, p)[i] for i in order):
         t0 = time.perf_counter()
-        losses.append(float(train_step(state, cfg, strategy, *batch)))  # syncs
+        losses.append(float(train_step(state, cfg, strategy, *rows)))  # syncs
         walls.append(time.perf_counter() - t0)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     steps, layers = len(losses), cfg.num_layers
     wall = float(np.mean(walls))
     print(f"{strategy.name}: losses {[round(x, 4) for x in losses]}; step walls (s) "
-          f"{[round(w, 4) for w in walls]}; mean {wall:.4f} s, {BATCH * SEQ / wall:.1f} "
+          f"{[round(w, 4) for w in walls]}; mean {wall:.4f} s, {batch * seq / wall:.1f} "
           f"tokens/s; max_memory_allocated {peak} B")
     print(f"launches in {steps} steps: {counts}", flush=True)
     if not all(np.isfinite(losses)):
@@ -1039,9 +1072,12 @@ def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0)
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses[0]} -> "
                              f"{losses[again]}")
     # the pipeline runs each layer once a micro-batch, and its head is the
-    # vocab-parallel CE (tpukit's jnp head), so no CE kernel
+    # vocab-parallel CE (tpukit's jnp head), so no CE kernel; the ring's
+    # hops are plain PyTorch, so no flash kernel
     calls = layers * steps * (strategy.num_microbatches if isinstance(strategy, Pipeline) else 1)
-    ce = (ce_want(steps, BATCH * SEQ, cfg) if strategy.fused_head
+    if isinstance(strategy, ContextParallel) and strategy.attention == "ring":
+        calls = 0
+    ce = (ce_want(steps, batch * seq, cfg) if strategy.fused_head
           else {f"ce_{k}": 0 for k in fce.launches})
     want = dict(**{f"paged_{k}": 0 for k in pa.launches}, flash_forward=calls,
                 flash_backward_dcap=calls, flash_backward_dkv=calls, flash_backward_dq=calls,
@@ -1089,18 +1125,18 @@ RECIPE_ARGV = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layer
 
 
 def recipe_end_to_end(dev, recipe=single, label: str = "recipe",
-                      kernels=("flash_", "ce_")) -> dict:
-    """Phase 9 (and 18, 26): `python -m tpukit_torch.recipes.single` (or
-    the `recipe` module given; `kernels` the launch counters that must have
-    moved) at GPT-2-small width on 576 fixture stories (9
-    steps of 64), 1 epoch, bf16, in build/chip_smoke/ (another recipe in
-    build/chip_smoke_<module>/). `--sequence_length 512`: the recipe trains on
+                      kernels=("flash_", "ce_"), extra=()) -> dict:
+    """Phase 9 (and 18, 26, 32, 36): `python -m tpukit_torch.recipes.single`
+    (or the `recipe` module given, with the `extra` flags; `kernels` the
+    launch counters that must have moved) at GPT-2-small width on 576
+    fixture stories (9 steps of 64), 1 epoch, bf16, in build/chip_smoke/
+    (another recipe in build/chip_smoke_<module>[_<extra flags' values>]/). `--sequence_length 512`: the recipe trains on
     S - 1 positions (prepare_batch's shift), so S = 511 (a ragged last key
     tile) is in front of the attention, where "auto" picks the flash
     kernels. Checks that the flash and CE kernels ran, the eval metrics
     are finite, three samples came back (decoded on the ring, as tpukit's
     recipes decode them), and the checkpoint restores."""
-    name = recipe.__name__.rsplit(".", 1)[1]
+    name = "_".join([recipe.__name__.rsplit(".", 1)[1], *extra[1::2]])
     work = ROOT / "build" / ("chip_smoke" if recipe is single else f"chip_smoke_{name}")
     work.mkdir(parents=True, exist_ok=True)
     cwd = os.getcwd()
@@ -1108,7 +1144,7 @@ def recipe_end_to_end(dev, recipe=single, label: str = "recipe",
     try:
         reset_counts()
         t0 = time.perf_counter()
-        result = recipe.main(RECIPE_ARGV)
+        result = recipe.main(RECIPE_ARGV + list(extra))
         wall = time.perf_counter() - t0
         counts = read_counts()
         restored = _restores_exactly(result, dev)
@@ -2305,13 +2341,13 @@ def tp_full_width(dev, single_run: dict) -> dict:
     return run
 
 
-TP_GLOO_TIMEOUT = 240  # seconds phase 31's two ranks may take
+TP_GLOO_TIMEOUT = 240  # seconds phase 31's (or 35's) two ranks may take
 
 
-def _tp_small(dev):
+def _tp_small(dev, **shape):
     """Phase 8's f32 2-layer setup: (cfg, base parameters, 4 batches)."""
     cfg, base = build_train(dev, num_layers=2, compute_dtype=torch.float32,
-                            attention_impl="flash", seed=1)
+                            attention_impl="flash", seed=1, **shape)
     rng = np.random.RandomState(1)
     batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, 4, SEQ, pad_rows=1), dev)
                for _ in range(4)]
@@ -2334,17 +2370,47 @@ def _tp_steps(cfg, base, batches, strategy, lr=1e-4):
     return losses, whole, flash, grads
 
 
-def tp_gloo_rank(rank: int, store: str, out: str) -> int:
-    """One rank of phase 31's model-2 world: gloo on cuda:0 (NCCL cannot
-    put two ranks on one card); rank 0 writes the losses, the flash
-    launches and the parameters whole to `out`."""
+def gloo_pair(flag: str, name: str) -> dict:
+    """Run `chip_smoke.py <flag> R STORE OUT` as two gloo ranks on this
+    card (NCCL cannot put two ranks on one card) in build/<name>/; returns
+    what rank 0 wrote."""
+    work = ROOT / "build" / name
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = work / "rank0.npz"
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(r),
+                               str(work / "store"), str(out)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=TP_GLOO_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    return dict(np.load(out))
+
+
+def gloo_rank(flag: str, rank: int, store: str, out: str) -> int:
+    """One rank of phase 31's model-2 world (`--tp-gloo-rank`) or of phase
+    35's Ulysses seq-2 world (`--cp-gloo-rank`): gloo on cuda:0; rank 0
+    writes the losses, the flash launches and the parameters whole to
+    `out`."""
     torch.distributed.init_process_group("gloo", init_method=f"file://{store}", world_size=2,
                                          rank=rank)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     try:
-        cfg, base, batches = _tp_small(dev)
-        losses, whole, flash, grads = _tp_steps(cfg, base, batches, TensorParallel(model=2))
+        if flag == "--tp-gloo-rank":
+            cfg, base, batches = _tp_small(dev)
+            strategy = TensorParallel(model=2)
+        else:
+            cfg, base, batches = _cp_small(dev)
+            strategy = ContextParallel(attention="ulysses")
+        losses, whole, flash, grads = _tp_steps(cfg, base, batches, strategy)
         if rank == 0:
             np.savez(out, losses=np.array(losses), flash=np.int64(flash),
                      **{f"p{i}": t.cpu().numpy() for i, t in enumerate(whole)},
@@ -2393,25 +2459,8 @@ def tp_equals_single(dev) -> None:
     if not worst <= 1e-4 or not all(equal) or flash != 2 * len(batches):
         raise AssertionError(f"tp and single-device steps disagree: {losses} vs {ref}; "
                              f"{len(equal) - sum(equal)} leaves differ; flash {flash}")
-    work = ROOT / "build" / "chip_smoke_tp_gloo"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    out = work / "rank0.npz"
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-gloo-rank",
-                               str(r), str(work / "store"), str(out)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    try:
-        logs = [p.communicate(timeout=TP_GLOO_TIMEOUT)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n{log[-3000:]}")
-    got = np.load(out)
+    got = gloo_pair("--tp-gloo-rank", "chip_smoke_tp_gloo")
     losses = got["losses"].tolist()
     worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
     gerr = max(float(np.linalg.norm(got[f"g{i}"] - g.cpu().numpy()) / g.norm())
@@ -2499,10 +2548,102 @@ def tp_serving(dev, fused32: dict, moe32: dict) -> dict:
     return dict(counts=counts, tokens_per_s=engine.last_summary["generated_tokens"] / wall,
                 moe_forward_up=moe_up)
 
+# phase 34's shapes, the rung's 32768 tokens a step: the ring at one rank
+# attends one diagonal hop over the whole sequence, f32 scores [B, 12, S,
+# S], so a long sequence at a small batch does not fit; S_l = 2048 is what
+# four cards see at S 8192. Ulysses keeps no S x S: batch 4 x S 8192, the
+# flash kernels at main-ring.py's own example's length.
+CP_SHAPES = {"ring": (16, 2048), "ulysses": (4, 8192)}
+
+
+def cp_full_width(dev, single_run: dict) -> dict:
+    """Phase 34: the rung under `ContextParallel` in the world of one `main`
+    brought up, the ring at batch 16 x S 2048 and Ulysses at batch 4 x S
+    8192 (8 steps each), checked as phase 7 checks its own (the CE kernels
+    as phase 7's, the flash kernels 12 times a step each under Ulysses and
+    never under the ring, whose hops are plain PyTorch); step wall,
+    tokens/s and peak beside phase 7's."""
+    runs = {}
+    for attention, (batch, seq) in CP_SHAPES.items():
+        strategy = ContextParallel(attention=attention)
+        run = train_full_width(dev, strategy, batch=batch, seq=seq)
+        del run["state"], strategy
+        _free()
+        steps, c = len(run["losses"]), run["counts"]
+        print(f"cp {attention} (batch {batch} x S {seq}): {run['wall']:.4f} s a step "
+              f"({single_run['wall']:.4f} single, {run['wall'] / single_run['wall']:.4f}x), "
+              f"{batch * seq / run['wall']:.1f} tokens/s, peak {run['peak']} B "
+              f"({single_run['peak']} single, {run['peak'] / single_run['peak']:.4f}x); "
+              f"launches a step: flash forward {c['flash_forward'] // steps}, backward "
+              f"{sum(c[f'flash_backward_{k}'] for k in ('dcap', 'dkv', 'dq')) // steps}, CE "
+              f"forward {c['ce_forward'] // steps} (+ {c['ce_forward_combine'] // steps} "
+              f"combine), backward {c['ce_backward_dw'] // steps} chunks x 4", flush=True)
+        runs[attention] = run
+    return runs
+
+
+def _cp_small(dev):
+    """Phase 8's f32 2-layer setup with a position table of 513, so that
+    its 512-token batches divide over two sequence ranks as tpukit's CP
+    checks them (sequence_length - 1)."""
+    return _tp_small(dev, max_position_embeddings=SEQ + 1)
+
+
+def cp_equals_single(dev) -> None:
+    """Phase 35: phase 8's setup (f32, 2 layers, 4 AdamW steps) under
+    `ContextParallel` against `SingleDevice`. In the world of one: Ulysses
+    bit-equal in losses and parameters (its all-to-alls are the identity,
+    and its local attention the same flash kernels), the ring's losses
+    within rtol 1e-4 (its hops are f32 plain PyTorch, the single step's
+    attention the flash kernels). Then Ulysses seq 2 over two gloo ranks
+    on this card (`chip_smoke.py --cp-gloo-rank R`: gloo carries the
+    all-to-all and the all-gather of CUDA tensors, not their point-to-point
+    sends, so the ring of two ranks runs on four cards only): each rank's
+    6 heads through the flash kernels at the full sequence; the first
+    step's gradient each leaf within 1e-2 of its norm, losses within rtol
+    1e-4, parameters within 2 x lr x steps, as phase 31 holds TP (the
+    CE's and the gradients' sums run over two ranks' tokens)."""
+    cfg, base, batches = _cp_small(dev)
+    ref, ref_params, _, ref_grads = _tp_steps(cfg, base, batches, SingleDevice())
+    uly, uly_params, uly_flash, _ = _tp_steps(cfg, base, batches,
+                                              ContextParallel(attention="ulysses"))
+    ring, _, ring_flash, _ = _tp_steps(cfg, base, batches, ContextParallel())
+    equal = [torch.equal(a, b) for a, b in zip(uly_params, ref_params)]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(ring, ref))
+    print(f"cp (world of one): ulysses losses {uly} vs single {ref}: bit-equal losses "
+          f"{uly == ref}, parameters {sum(equal)} of {len(equal)} leaves; flash forward "
+          f"launches {uly_flash}; ring losses {ring}: worst relative difference {worst:.3e} "
+          f"(bar 1e-4), flash launches {ring_flash}", flush=True)
+    if uly != ref or not all(equal) or uly_flash != 2 * len(batches):
+        raise AssertionError(f"Ulysses at one rank is not the single step: {uly} vs {ref}; "
+                             f"{len(equal) - sum(equal)} leaves differ; flash {uly_flash}")
+    if not worst <= 1e-4 or ring_flash != 0:
+        raise AssertionError(f"the ring at one rank and the single step disagree: {ring} vs "
+                             f"{ref}; flash {ring_flash}")
+    t0 = time.perf_counter()
+    got = gloo_pair("--cp-gloo-rank", "chip_smoke_cp_gloo")
+    losses = got["losses"].tolist()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    gerr = max(float(np.linalg.norm(got[f"g{i}"] - g.cpu().numpy()) / g.norm())
+               for i, g in enumerate(ref_grads) if g.norm() > 0)
+    diffs = [np.abs(got[f"p{i}"] - t.cpu().numpy()) for i, t in enumerate(ref_params)]
+    perr = max(float(d.max()) for d in diffs)
+    bound = 2 * 1e-4 * len(batches)
+    print(f"cp ulysses seq 2 over two gloo ranks on this card ({time.perf_counter() - t0:.1f} "
+          f"s): first step's gradients within {gerr:.3e} of each leaf's norm (bar 1e-2); losses "
+          f"{losses} vs single {ref}: worst relative difference {worst:.3e} (bar 1e-4); "
+          f"parameters within {perr:.3e} (bar {bound:.0e}); rank 0's flash forward launches "
+          f"{int(got['flash'])} (6 of 12 heads at S 512)", flush=True)
+    if (not gerr <= 1e-2 or not worst <= 1e-4 or not perr <= bound
+            or int(got["flash"]) != 2 * len(batches)):
+        raise AssertionError(f"Ulysses seq 2 over gloo disagrees with the single device: "
+                             f"gradients {gerr}, losses {losses} vs {ref}, parameters {perr}, "
+                             f"flash {int(got['flash'])}")
+
 
 def main() -> int:
-    if len(sys.argv) > 1 and sys.argv[1] == "--tp-gloo-rank":
-        return tp_gloo_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if len(sys.argv) > 1 and sys.argv[1] in ("--tp-gloo-rank", "--cp-gloo-rank"):
+        return gloo_rank(sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; it needs one CUDA GPU",
               file=sys.stderr)
@@ -2685,6 +2826,25 @@ def main() -> int:
     print(f"phases 30-33: {time.perf_counter() - t_tp:.1f} s", flush=True)
     _free()
 
+    # recipe 7 runs in a world of one over NCCL
+    t_cp = time.perf_counter()
+    with mesh_lib.scoped_runtime():
+        mesh_lib.initialize_runtime(dev)
+        phase("context parallel at full width (gpt-small-dim768, bf16, 32768 tokens a step: "
+              "ring B16 x S2048, Ulysses B4 x S8192, NCCL world of one)")
+        cp_runs = cp_full_width(dev, step)
+
+        phase("CP steps == single-device steps (f32, 2 layers; Ulysses seq 2 over two gloo "
+              "ranks)")
+        cp_equals_single(dev)
+
+        phase("recipe 7 end to end, ring and Ulysses (GPT-2-small width, fixture corpus)")
+        recipe_end_to_end(dev, ring_recipe, "recipe 7 (ring)", kernels=("ce_",))
+        recipe_end_to_end(dev, ring_recipe, "recipe 7 (ulysses)",
+                          extra=("--cp_attention", "ulysses"))
+    print(f"phases 34-36: {time.perf_counter() - t_cp:.1f} s", flush=True)
+    _free()
+
     fl, ce = trained["flash"], trained["ce"]
 
     def entry(name, source, replaces, launches, res, way, err, library_ms, **extra):
@@ -2696,6 +2856,7 @@ def main() -> int:
                 "library_ms": library_ms, **extra}
 
     c, mc = step["counts"], moe_step["counts"]
+    under_cp = lambda key: {k: r["counts"][key] for k, r in cp_runs.items()}
     phase("kernel results")
     print(json.dumps({"kernels": [
         {"name": "paged_attend", "route": "cuda",
@@ -2710,7 +2871,9 @@ def main() -> int:
               c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"],
               launches_under_pipeline={k: r["counts"]["flash_forward"]
                                        for k, r in piped.items()},
-              launches_under_tp=tp_run["counts"]["flash_forward"]),
+              launches_under_tp=tp_run["counts"]["flash_forward"],
+              launches_under_cp=under_cp("flash_forward"),
+              at_ulysses_shape=trained["flash_8192"]),
         entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",
               c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],
               also_replaces=["tpukit/ops/pallas_attention.py:346",
@@ -2720,17 +2883,19 @@ def main() -> int:
                                                       "dq": c["flash_backward_dq"]},
               launches_under_pipeline={k: r["counts"]["flash_backward_dkv"]
                                        for k, r in piped.items()},
-              launches_under_tp=tp_run["counts"]["flash_backward_dkv"]),
+              launches_under_tp=tp_run["counts"]["flash_backward_dkv"],
+              launches_under_cp=under_cp("flash_backward_dkv")),
         entry("fused_head_ce_fwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:65",
               c["ce_forward"], ce, "fwd", ce["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"forward": c["ce_forward"],
-                                                      "combine": c["ce_forward_combine"]}),
+                                                      "combine": c["ce_forward_combine"]},
+              launches_under_cp=under_cp("ce_forward")),
         entry("fused_head_ce_bwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:134",
               c["ce_backward_dw"], ce, "bwd", ce["bwd_err"], None,
               kernels_per_call=4 * c["ce_backward_dw"] // c["ce_forward"],
               launches_by_kernel={k: c[f"ce_backward_{k}"]
                                   for k in ("d", "dh", "dh_combine", "dw")},
-              unfused_ms=ce["unfused_ms"]),
+              unfused_ms=ce["unfused_ms"], launches_under_cp=under_cp("ce_backward_dw")),
         entry("moe_grouped_ffn_fwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
               mc["moe_forward_up"], moe_main, "fwd", moe_main["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"up": mc["moe_forward_up"],

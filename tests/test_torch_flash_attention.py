@@ -23,7 +23,6 @@ import torch
 
 import tpukit.ops.pallas_attention as tk_pa
 from tpukit.ops.attention import causal_attention as tk_causal_attention
-from tpukit_torch import NotPortedError
 from tpukit_torch.ops.attention import causal_attention
 from tpukit_torch.ops.flash_attention import flash_causal_attention
 
@@ -126,11 +125,16 @@ def test_xla_path_matches_tpukit(dtype):
 
 
 def test_auto_picks_xla_on_the_cpu_and_context_parallel_is_not_ported():
+    """"auto" picks the eager path for CPU tensors. Context parallelism is
+    ported since recipe 7 (the name is kept): without a sequence group,
+    "ring" and "ulysses" attend over a world of one, the ring within f32
+    summation order of the eager path and Ulysses through it."""
     qkv, mask = _inputs(1, 2, 600, False, seed=4)
     q, k, v = (torch.from_numpy(t) for t in qkv)
     auto = causal_attention(q, k, v, scale=SCALE, impl="auto")
     xla = causal_attention(q, k, v, scale=SCALE, impl="xla")
     assert torch.equal(auto, xla)  # flash is chosen only for CUDA tensors
-    for impl in ("ring", "ulysses"):
-        with pytest.raises(NotPortedError, match="item 15"):
-            causal_attention(q, k, v, scale=SCALE, impl=impl)
+    assert torch.equal(causal_attention(q, k, v, scale=SCALE, impl="ulysses"), xla)
+    for layout in ("contiguous", "zigzag"):
+        ring = causal_attention(q, k, v, scale=SCALE, impl="ring", ring_layout=layout)
+        np.testing.assert_allclose(ring.numpy(), xla.numpy(), atol=1e-5, rtol=1e-4)

@@ -692,6 +692,6 @@ def test_pipeline_flags_parse():
     assert pipe_ddp.pick_grid(4, 6) == {"data": 2, "stage": 2}
     assert pipe_ddp.pick_grid(3, 4) == {"data": 3, "stage": 1}
     for name, value in (("comm_dtype", "int8"), ("keep_checkpoints", 2),
-                        ("cp_attention", "ulysses")):
+                        ("grad_buckets", 2)):
         with pytest.raises(NotPortedError):
             check_carried(dataclasses.replace(flags, **{name: value}))

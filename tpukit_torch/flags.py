@@ -107,7 +107,6 @@ NOT_CARRIED = {
     "max_rollbacks": "item 17 'Resilience'",
     "io_retries": "item 17 'Resilience'",
     "chaos_spec": "item 17 'Resilience'",
-    "cp_attention": "item 15 'Context parallel'",
     "comm_dtype": "item 16 'Quantized collectives and grad buckets'",
     "quant_stochastic": "item 16 'Quantized collectives and grad buckets'",
     "grad_buckets": "item 16 'Quantized collectives and grad buckets'",
@@ -115,19 +114,22 @@ NOT_CARRIED = {
 
 
 def build_parser(cpu_offload: bool = False, num_experts: bool = False,
-                 pipeline_schedule: bool = False, default_experts: int = 8
-                 ) -> argparse.ArgumentParser:
+                 pipeline_schedule: bool = False, default_experts: int = 8,
+                 cp_attention: bool = False) -> argparse.ArgumentParser:
     """tpukit's training parser plus `--device`; of its recipe-specific
-    groups, `--cpu_offload` (recipe 3), the pipeline's (`--schedule`, also
-    spelled `--pipeline_schedule`, and `--virtual_stages`; recipes 4 and 5)
-    and the MoE one (`num_experts`, recipe 8; the pipeline recipes default
-    it to 0) are carried."""
+    groups, `--cpu_offload` (recipe 3), `--cp_attention` (recipe 7), the
+    pipeline's (`--schedule`, also spelled `--pipeline_schedule`, and
+    `--virtual_stages`; recipes 4 and 5) and the MoE one (`num_experts`,
+    recipe 8; the pipeline recipes default it to 0) are carried."""
     parser = argparse.ArgumentParser()
     d = TrainFlags()
     for name, typ in _CORE_FLAGS:
         parser.add_argument(f"--{name}", type=typ, default=getattr(d, name))
     if cpu_offload:
         parser.add_argument("--cpu_offload", action="store_true")
+    if cp_attention:
+        parser.add_argument("--cp_attention", choices=("ring", "ulysses"),
+                            default=d.cp_attention)
     if pipeline_schedule:
         parser.add_argument("--schedule", "--pipeline_schedule", dest="pipeline_schedule",
                             choices=("gpipe", "1f1b"), default=d.pipeline_schedule)
@@ -172,9 +174,10 @@ def build_parser(cpu_offload: bool = False, num_experts: bool = False,
 
 
 def parse_flags(argv=None, cpu_offload: bool = False, num_experts: bool = False,
-                pipeline_schedule: bool = False, default_experts: int = 8) -> TrainFlags:
+                pipeline_schedule: bool = False, default_experts: int = 8,
+                cp_attention: bool = False) -> TrainFlags:
     return TrainFlags(**vars(build_parser(cpu_offload, num_experts, pipeline_schedule,
-                                          default_experts).parse_args(argv)))
+                                          default_experts, cp_attention).parse_args(argv)))
 
 
 def check_carried(flags: TrainFlags) -> None:

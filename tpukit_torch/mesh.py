@@ -1,8 +1,9 @@
 """Runtime initialisation and the device meshes (twin of `tpukit/mesh.py`:
 `initialize_runtime` :24, `is_process_zero` :139, `create_mesh` :144,
 `sync_global_devices` :187): a 1-D `data` mesh for DDP and FSDP, a 2-D
-`(data, stage)` one for the pipeline and a 2-D `(data, model)` one for
-tensor parallelism and the serving grid.
+`(data, stage)` one for the pipeline, a 2-D `(data, model)` one for
+tensor parallelism and the serving grid and a 2-D `(data, seq)` one for
+context parallelism.
 
 tpukit's runtime owns its devices and builds a `jax.sharding.Mesh`; the port
 brings up a c10d default process group and a `DeviceMesh` over it. The group
@@ -147,6 +148,20 @@ def create_tp_mesh(data: int = 1, model: int | None = None, device_type: str = "
         return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
     return DeviceMesh(device_type, torch.arange(used).reshape(data, model),
                       mesh_dim_names=("data", "model"))
+
+
+def create_cp_mesh(data: int = 1, seq: int | None = None,
+                   device_type: str = "cuda") -> DeviceMesh:
+    """A 2-D `(data, seq)` mesh over the default group's ranks, `seq`
+    innermost (tpukit's `create_mesh({"data": d, "seq": s})` order): rank
+    r sits at data index r // seq and sequence index r % seq. `seq`
+    defaults to world / data; `data * seq` must be the world."""
+    world = world_size()
+    seq = world // data if seq is None else seq
+    if data < 1 or seq < 1 or data * seq != world:
+        raise ValueError(f"a (data {data}, seq {seq}) grid needs {data * seq} ranks, "
+                         f"the world has {world}")
+    return init_device_mesh(device_type, (data, seq), mesh_dim_names=("data", "seq"))
 
 
 def stage_neighbours(mesh: DeviceMesh) -> tuple[int, int]:

@@ -27,6 +27,11 @@ vocab-parallel CE (`head_logits`). Attention runs on the rank's heads,
 `cfg.local_heads`, and so do the KV caches; where the heads do not
 divide the group but the q/k/v columns do, the attention's weights are
 gathered and it runs on every head, replicated.
+
+Under context parallelism (`cfg.cp`, a `ring_attention.SeqGroup` that
+`ContextParallel` injects with `attention_impl` "ring" or "ulysses") the
+tensors hold this rank's shard of the sequence; the attention runs over
+the group, and everything else is token-local.
 """
 
 from __future__ import annotations
@@ -118,6 +123,11 @@ class GPTConfig:
     # tensor parallelism: this rank's `ops.layers.ModelGroup`, which
     # `TensorParallel` and the serving grid inject; None is one device
     tp: Any = None
+    # context parallelism (attention_impl "ring" or "ulysses"): the
+    # `ring_attention.SeqGroup` `ContextParallel` injects (None: a world of
+    # one), and the ring's layout, "contiguous" or "zigzag"
+    cp: Any = None
+    ring_layout: str = "contiguous"
 
     def __post_init__(self):
         if self.virtual_stages < 1:
@@ -316,7 +326,8 @@ def _apply_attention(layer, cfg: GPTConfig, x, pad_mask, rng=None, rng_row0: int
         q, k, v = (linear(x, attn[n], cdt) for n in ("q", "k", "v"))
     split = lambda t: t.reshape(batch, seq, heads, cfg.head_dim).transpose(1, 2).contiguous()
     out = causal_attention(split(q), split(k), split(v), scale=1.0 / cfg.head_dim**0.5,
-                           pad_mask=pad_mask, impl=cfg.attention_impl)
+                           pad_mask=pad_mask, impl=cfg.attention_impl, seq=cfg.cp,
+                           ring_layout=cfg.ring_layout)
     out = out.transpose(1, 2).reshape(batch, seq, heads * cfg.head_dim)
     out = _row_parallel(out, attn["out"], cdt, tp)
     return dropout(out, cfg.dropout, rng, rng_row0)

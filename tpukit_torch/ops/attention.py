@@ -9,14 +9,16 @@ tensors, with the `[B, S]` bool pad mask (True = padding) applied to keys:
   - "flash": the flash-attention kernels (`ops/flash_attention.py`);
   - "auto": "flash" exactly when the tensors are on CUDA, S >=
     FLASH_MIN_SEQ and the head dim is at most the kernels' largest
-    instance (smaller head dims run zero-padded to the next one).
+    instance (smaller head dims run zero-padded to the next one);
+  - "ring", "ulysses": context-parallel attention over the sequence group
+    `seq` (`tpukit_torch/ring_attention.py`; a world of one when None),
+    the ring in `ring_layout`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpukit_torch import NotPortedError
 from tpukit_torch.ops.flash_attention import HEAD_DIMS, flash_causal_attention
 
 NEG_INF = -1e9  # the causal additive term of the reference model
@@ -29,9 +31,10 @@ NEG_INF = -1e9  # the causal additive term of the reference model
 FLASH_MIN_SEQ = 32
 
 
-def causal_attention(q, k, v, *, scale: float, pad_mask=None, impl: str = "xla"):
+def causal_attention(q, k, v, *, scale: float, pad_mask=None, impl: str = "xla", seq=None,
+                     ring_layout: str = "contiguous"):
     """Scaled dot-product causal attention; returns `[B, H, S, D]` in v's
-    dtype."""
+    dtype (under "ring" and "ulysses", this rank's shard of S)."""
     if impl == "auto":
         # tpukit's rule, with the accelerator in the TPU's place and the
         # H100's own threshold
@@ -39,11 +42,15 @@ def causal_attention(q, k, v, *, scale: float, pad_mask=None, impl: str = "xla")
         impl = "flash" if q.device.type == "cuda" and fits else "xla"
     if impl == "flash":
         return flash_causal_attention(q, k, v, scale=scale, pad_mask=pad_mask)
-    if impl in ("ring", "ulysses"):
-        raise NotPortedError(
-            f"attention_impl={impl!r} is context-parallel attention, not in the port "
-            f"yet (ROADMAP.md, queue A item 15 'Context parallel')"
-        )
+    if impl == "ring":
+        from tpukit_torch.ring_attention import ring_causal_attention
+
+        return ring_causal_attention(q, k, v, scale=scale, seq=seq, pad_mask=pad_mask,
+                                     layout=ring_layout)
+    if impl == "ulysses":
+        from tpukit_torch.ring_attention import ulysses_attention
+
+        return ulysses_attention(q, k, v, scale=scale, seq=seq, pad_mask=pad_mask)
     if impl != "xla":
         raise ValueError(f"attention_impl must be auto, xla, flash, ring or ulysses, "
                          f"got {impl!r}")

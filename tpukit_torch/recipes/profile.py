@@ -1,6 +1,7 @@
 """Where a training step's time goes on the GPU:
 `python -m tpukit_torch.recipes.profile [--rung NAME] [--steps N]
-[--strategy single|ddp|fsdp|fsdp-offload|pipe|pipe-1f1b|tp] [--heads H]`.
+[--strategy single|ddp|fsdp|fsdp-offload|pipe|pipe-1f1b|tp|cp|cp-ulysses]
+[--heads H] [--sequence_length L] [--batch_size B] [--data D]`.
 
 Runs the train step of one rung on synthetic token batches built as the
 repo's ladder builds them, from random weights (seed 0):
@@ -25,7 +26,14 @@ CE); `--strategy tp` under `TensorParallel` on recipe 6's grid
 own lines (`--batch_size` rows a data replica, as the recipes load them).
 `--heads H` splits the rung's 768 into H heads of 768 / H (12 x 64 by
 default), which moves recipe 6's grid: 6 x 128 over four cards is data 2 x
-model 2.
+model 2. `--strategy cp|cp-ulysses` runs the rung under `ContextParallel`
+(recipe 7: the zigzag ring, or Ulysses) on a `(data, seq)` grid of the
+world, `--data D` replicas (1 by default) of world / D sequence ranks, at
+the rung's 32768 tokens a step by default (batch 64 x S 512, the position
+table 513 long, so that S divides over the ranks as tpukit checks it);
+`--sequence_length L` (the position table; the step runs S = L - 1, as
+`fit` does) and `--batch_size B` (rows a data replica) set another shape,
+e.g. `main-ring.py`'s `--sequence_length 8193 --batch_size 4`.
 
 It times a steady window of steps by host clock (each step ends in a host
 read of its loss), then profiles a short window under `torch.profiler` and
@@ -108,24 +116,28 @@ def build_train(device, num_layers: int = 12, compute_dtype=torch.bfloat16,
                                    strategy, cfg)
 
 
-STRATEGIES = ("single", "ddp", "fsdp", "fsdp-offload", "pipe", "pipe-1f1b", "tp")
+STRATEGIES = ("single", "ddp", "fsdp", "fsdp-offload", "pipe", "pipe-1f1b", "tp", "cp",
+              "cp-ulysses")
 PIPE_MICRO = 4  # the pipeline's micro-batches (recipe 4's "4x" at one stage)
 
 
-def rung_strategy(kind: str, strategy: str = "single", heads: int = 12):
+def rung_strategy(kind: str, strategy: str = "single", heads: int = 12, data: int = 1):
     """The strategy of a rung: `SingleDevice`, or `ExpertParallel` on one
     device with the named dispatch; `strategy` names a data-parallel,
-    pipeline or tensor-parallel one (`DataParallel`, `FSDP`,
+    pipeline, tensor- or context-parallel one (`DataParallel`, `FSDP`,
     `FSDP(cpu_offload=True)`, `Pipeline`, `Pipeline1F1B`, `TensorParallel`
-    on recipe 6's grid for `heads`) in place of `SingleDevice`."""
+    on recipe 6's grid for `heads`, `ContextParallel` with the ring or
+    Ulysses over `data` replicas) in place of `SingleDevice`."""
     from tpukit_torch import mesh
     from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
     from tpukit_torch.recipes.tp import pick_grid
-    from tpukit_torch.shardings import (FSDP, DataParallel, ExpertParallel, SingleDevice,
-                                        TensorParallel)
+    from tpukit_torch.shardings import (FSDP, ContextParallel, DataParallel, ExpertParallel,
+                                        SingleDevice, TensorParallel)
 
     if strategy == "tp":
         return TensorParallel(**pick_grid(mesh.world_size(), heads))
+    if strategy in ("cp", "cp-ulysses"):
+        return ContextParallel(data=data, attention="ring" if strategy == "cp" else "ulysses")
     if strategy != "single":
         return {"ddp": DataParallel, "fsdp": FSDP,
                 "fsdp-offload": lambda: FSDP(cpu_offload=True),
@@ -141,6 +153,12 @@ def main(argv=None) -> int:
     ap.add_argument("--strategy", choices=STRATEGIES, default="single")
     ap.add_argument("--heads", type=int, default=GPT2_SMALL_TRAIN["heads"],
                     help="attention heads (head_dim = 768 / heads)")
+    ap.add_argument("--sequence_length", type=int, default=0,
+                    help="the position table; the step runs S = L - 1 tokens a row (default: "
+                    "the rung's S 512, with a table of 513 under cp)")
+    ap.add_argument("--batch_size", type=int, default=0,
+                    help="rows a data replica (default: the rung's)")
+    ap.add_argument("--data", type=int, default=1, help="cp: data replicas of the grid")
     flags = ap.parse_args(argv)
     from tpukit_torch import mesh, resolve_device
 
@@ -155,15 +173,20 @@ def _profile(flags, device) -> int:
     from tpukit_torch.train import to_device, train_step
 
     batch, moe, kind = RUNGS[flags.rung]
-    strategy = rung_strategy(kind, flags.strategy, flags.heads)
+    strategy = rung_strategy(kind, flags.strategy, flags.heads, flags.data)
     dim = GPT2_SMALL_TRAIN["dim"]
     if dim % flags.heads:
         raise ValueError(f"--heads {flags.heads} must divide the rung's dim {dim}")
     shape = {} if flags.heads == GPT2_SMALL_TRAIN["heads"] else dict(
         heads=flags.heads, head_dim=dim // flags.heads)
+    positions = flags.sequence_length or (SEQ + 1 if flags.strategy.startswith("cp") else SEQ)
+    seq = SEQ if positions == SEQ else positions - 1
+    if positions != SEQ:
+        shape["max_position_embeddings"] = positions
+    batch = flags.batch_size or batch
     cfg, state = build_train(device, strategy=strategy, **shape, **moe)
     rng = np.random.RandomState(0)
-    batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, batch, SEQ), device)
+    batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, batch, seq), device)
                for _ in range(2)]
     step = lambda i: float(train_step(state, cfg, strategy, *batches[i % 2]))
     for i in range(2):  # warm-up: kernel builds, cuBLAS handles, the allocator
@@ -177,13 +200,15 @@ def _profile(flags, device) -> int:
         walls.append(time.perf_counter() - t0)
     wall = float(np.mean(walls))
     grid = (f" (data {strategy.data_size} x model {strategy.model_size})"
-            if flags.strategy == "tp" else "")
-    print(f"{torch.cuda.get_device_name(0)}; {flags.rung}: train step B{batch} S{SEQ} dim "
+            if flags.strategy == "tp" else
+            f" (data {strategy.data_size} x seq {strategy.seq_size})"
+            if flags.strategy.startswith("cp") else "")
+    print(f"{torch.cuda.get_device_name(0)}; {flags.rung}: train step B{batch} S{seq} dim "
           f"{cfg.dim} heads {cfg.heads}x{cfg.head_dim} layers {cfg.num_layers} experts "
           f"{cfg.num_experts}{grid} vocab "
           f"{cfg.vocab_size} bf16, {strategy.name}: wall per step {wall:.4f} s (min "
           f"{min(walls):.4f}, max {max(walls):.4f}, {flags.steps} steps), "
-          f"{batch * SEQ / wall:.1f} tokens/s, max_memory_allocated "
+          f"{batch * seq / wall:.1f} tokens/s, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B")
 
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

@@ -18,9 +18,11 @@ parameters as they stand at call time. Both train on tpukit's objective, the
 mean CE over the valid tokens of the global batch. The pipeline strategies
 (`Pipeline`, `Pipeline1F1B`) are in `tpukit_torch/pipeline.py`.
 `TensorParallel` holds each rank's Megatron shards over a `(data, model)`
-grid of c10d ranks and runs the model's functions on them. Context
-parallelism and expert parallelism over more than one rank are ROADMAP.md
-items 13 and 15.
+grid of c10d ranks and runs the model's functions on them.
+`ContextParallel` splits each sequence over the `seq` ranks of a
+`(data, seq)` grid and runs the ring or Ulysses attention
+(`tpukit_torch/ring_attention.py`) over them. Expert parallelism over more
+than one rank is ROADMAP.md item 13.
 """
 
 from __future__ import annotations
@@ -37,17 +39,21 @@ from torch.distributed.tensor import DTensor, Shard
 
 from tpukit_torch import NotPortedError
 from tpukit_torch import mesh as mesh_lib
+from tpukit_torch import random as tk_random
 from tpukit_torch.model import gpt
 from tpukit_torch.ops.fused_head_ce import fused_head_ce
 from tpukit_torch.ops.layers import (
     IGNORE_INDEX,
     ModelGroup,
     cross_entropy_sum,
+    layer_norm,
     masked_correct,
+    reduce_from_model,
     vocab_parallel_argmax,
     vocab_parallel_ce,
 )
 from tpukit_torch.ops.moe_dispatch import ExpertGrid
+from tpukit_torch.ring_attention import SeqGroup, zigzag_order
 
 
 def fused_head_disabled() -> bool:
@@ -124,6 +130,13 @@ class Strategy:
         """The tree a train state holds, made from `params` (leaves that
         require grad); the optimizer is built over its leaves afterwards."""
         return params
+
+    def host_batch_fn(self, cfg: gpt.GPTConfig):
+        """A transform `(model_batch, targets) -> (model_batch, targets)` of
+        numpy batches that `fit` applies to every host batch before it
+        moves to the device (tpukit `shardings.py:323`), or None: every
+        strategy but `ContextParallel`'s zigzag."""
+        return None
 
     def full_params(self, params: dict) -> dict:
         """Every leaf as a plain, whole tensor on the compute device, for
@@ -755,3 +768,197 @@ class TensorParallel(GridStrategy):
         for p in flat:
             p.grad = None
         return totals[0] / denom, unflatten(params, grads)
+
+
+CP_MOE_ERROR = ("ContextParallel does not support MoE configs (the routed "
+                "dispatch is token-global, the CP loss is seq-sharded) — "
+                "use ExpertParallel (main-moe.py) for num_experts > 0")
+
+
+class ContextParallel(Strategy):
+    """Context parallelism (twin of tpukit `shardings.py:785`) over a
+    `(data, seq)` grid of the default group's ranks
+    (`mesh.create_cp_mesh`, `seq` innermost; `seq` defaults to world /
+    data). Parameters are replicated. Each data replica loads its
+    `--batch_size` rows, and each of its `seq` ranks takes columns
+    `[r S/P, (r+1) S/P)` of them; the embeddings, LayerNorms, FFNs and the
+    head are token-local, and attention runs over the `seq` group
+    (`cfg.cp`): `attention="ring"` (the zigzag layout when 2P divides S and
+    P > 1, else the contiguous one) or "ulysses" (heads must divide P).
+    The loss goes through the fused head + CE kernels on each rank's
+    tokens (`TPUKIT_FUSED_HEAD=0`: `cross_entropy_sum`). With
+    `host_permute` the caller permutes batches into the zigzag order (`fit`
+    through `host_batch_fn`), else the loss does. tpukit's objective (the
+    CE summed over the global batch's valid tokens over their count) is
+    differentiated on each rank over its tokens, and the gradients are
+    summed over the whole grid. Dropout masks are drawn over each rank's
+    shard, from `fold_in(rng, data index x seq + seq index)`. A `mesh`
+    from `create_cp_mesh` may be given in place of the degrees."""
+
+    name = "cp"
+    distributed = True
+
+    def __init__(self, data: int = 1, seq: int | None = None, attention: str = "ring",
+                 host_permute: bool = False, mesh=None):
+        if attention not in ("ring", "ulysses"):
+            raise ValueError(f"attention must be 'ring' or 'ulysses', got {attention!r}")
+        if mesh is not None:
+            data, seq = mesh.size(0), mesh.size(1)
+        self.data_size, self._seq = data, seq
+        self.attention, self.host_permute = attention, host_permute
+        self.mesh = mesh  # the (data, seq) mesh: given, or made by `setup`
+        self.params: dict | None = None
+        if attention == "ulysses":
+            self.name = "cp-ulysses"
+
+    @property
+    def seq_size(self) -> int:
+        if self._seq is not None:
+            return self._seq
+        if not dist.is_initialized():
+            raise RuntimeError("the seq degree defaults to world / data: bring up the "
+                               "runtime first (mesh.initialize_runtime) or pass seq=")
+        return mesh_lib.world_size() // self.data_size
+
+    @property
+    def batch_divisor(self) -> int:
+        return self.data_size
+
+    @property
+    def data_replicas(self) -> int:
+        return self.data_size
+
+    def data_rank(self) -> int:
+        return mesh_lib.rank() // self.seq_size
+
+    def validate_config(self, cfg: gpt.GPTConfig) -> None:
+        if cfg.num_experts > 0:
+            raise ValueError(CP_MOE_ERROR)
+        # the model consumes sequence_length - 1 tokens after the LM shift
+        seq = cfg.max_position_embeddings - 1
+        if seq % self.seq_size:
+            raise ValueError(
+                f"--sequence_length {cfg.max_position_embeddings}: the model "
+                f"sequence {seq} must divide over {self.seq_size} sequence "
+                f"shards; pick sequence_length = k*{self.seq_size} + 1")
+        if self.attention == "ulysses" and cfg.heads % self.seq_size:
+            raise ValueError(
+                f"ulysses attention re-partitions heads over the seq axis: "
+                f"--heads {cfg.heads} must divide by {self.seq_size} "
+                f"sequence shards (or use attention='ring')")
+
+    def _use_zigzag(self, seq_len: int) -> bool:
+        """The ring's zigzag layout (tpukit `:862`): when 2P divides the
+        sequence and P > 1; Ulysses keeps the contiguous one."""
+        return self.attention == "ring" and seq_len % (2 * self.seq_size) == 0 and \
+            self.seq_size > 1
+
+    def host_batch_fn(self, cfg: gpt.GPTConfig):
+        """The zigzag permutation of numpy batches, with `host_permute` and
+        where the zigzag layout applies; else None."""
+        seq_len = cfg.max_position_embeddings - 1  # the model's sequence after the shift
+        if not (self.host_permute and self._use_zigzag(seq_len)):
+            return None
+        order = zigzag_order(seq_len, self.seq_size)
+
+        def permute(model_batch, targets):
+            return {k: v[:, order] for k, v in model_batch.items()}, targets[:, order]
+
+        return permute
+
+    def setup(self, params: dict) -> dict:
+        """The (data, seq) mesh (unless one was given); the tree as given."""
+        if self.mesh is None:
+            device = leaves(params)[0].device
+            self.mesh = mesh_lib.create_cp_mesh(self.data_size, self.seq_size, device.type)
+        # a first collective on each group, which NCCL wants from every rank
+        for group in (self.mesh.get_group("seq"), self.mesh.get_group("data")):
+            if dist.get_world_size(group) > 1:
+                dist.barrier(group=group)
+        self.params = params
+        return params
+
+    def _check(self, params) -> None:
+        if self.mesh is None or params is not self.params:
+            raise ValueError(f"{self.name}: pass the tree `setup` returned (the train "
+                             f"state's params)")
+
+    def loss_sums(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
+                  with_accuracy: bool = False, aux_out: list | None = None, rng=None,
+                  rng_row0: int | None = None):
+        """This replica's sums, the same on every rank of its `seq` group:
+        this rank's columns of the replica's rows through the model, summed
+        over the group (the loss sum with an identity backward, so that
+        each rank differentiates its own tokens' terms)."""
+        if cfg.num_experts > 0:
+            raise ValueError(CP_MOE_ERROR)
+        seq_len, ring = batch["input_ids"].shape[1], self.seq_size
+        if seq_len % ring:
+            raise ValueError(f"sequence length {seq_len} must divide over {ring} sequence "
+                             f"shards (pick a dividing --sequence_length)")
+        self._check(params)
+        zigzag = self._use_zigzag(seq_len)
+        if zigzag and not self.host_permute:
+            order = torch.from_numpy(zigzag_order(seq_len, ring)).to(targets.device)
+            batch = {k: v[:, order] for k, v in batch.items()}
+            targets = targets[:, order]
+        sg = SeqGroup.of(self.mesh)
+        cols = slice(sg.rank * (seq_len // ring), (sg.rank + 1) * (seq_len // ring))
+        ids, pos, mask, tgts = (t[:, cols].contiguous() for t in (
+            batch["input_ids"], batch["position_ids"], batch["mask"], targets))
+        lcfg = cfg.replace(attention_impl=self.attention, cp=sg,
+                           ring_layout="zigzag" if zigzag else "contiguous")
+        if rng is not None:  # a mask of its own for each shard of the grid
+            rng = tk_random.fold_in(rng, self.mesh.get_local_rank("data") * ring + sg.rank)
+        x = gpt.apply_decoder_layers(params["layers"], lcfg,
+                                     gpt.apply_embeddings(params, lcfg, ids, pos), mask,
+                                     rng=rng)
+        if self.fused_head and not fused_head_disabled():
+            h = layer_norm(x, params["norm_out"]).to(cfg.compute_dtype)
+            loss_sum, count, correct = fused_head_ce(
+                h.reshape(-1, h.shape[-1]), params["lm_head"]["kernel"], tgts.reshape(-1),
+                cfg.vocab_size, with_accuracy=with_accuracy)
+        else:
+            logits = gpt.apply_head(params, lcfg, x)
+            loss_sum, count = cross_entropy_sum(logits, tgts)
+            correct = (masked_correct(logits, tgts) if with_accuracy
+                       else torch.zeros((), dtype=torch.float32, device=logits.device))
+        if ring == 1:
+            return loss_sum, count, correct
+        sums = torch.stack([count, correct])
+        dist.all_reduce(sums, group=sg.group)
+        loss_sum = reduce_from_model(loss_sum, ModelGroup(group=sg.group, size=ring))
+        return loss_sum, sums[0], sums[1]
+
+    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng=None):
+        """(global loss, gradients): the replica's sums summed over the data
+        replicas, `loss_sum / count` through `.backward()` on every rank,
+        then the gradients summed over the whole grid (one bucket): the
+        transpose of tpukit's replicated in-spec."""
+        for p in leaves(params):
+            p.grad = None
+        loss_sum, count, _ = self.loss_sums(params, cfg, batch, targets, rng=rng)
+        totals = torch.stack([loss_sum.detach(), count])
+        if self.data_size > 1:
+            dist.all_reduce(totals, group=self.mesh.get_group("data"))
+        denom = torch.clamp(totals[1], min=1.0)
+        (loss_sum / denom).backward()
+        flat = leaves(params)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in flat]
+        if self.data_size * self.seq_size > 1:
+            bucket = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(bucket)
+            for g, part in zip(grads, bucket.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+        for p in flat:
+            p.grad = None
+        return totals[0] / denom, unflatten(params, grads)
+
+    def all_sum(self, values) -> list[float]:
+        """Summed over the data replicas (every rank of a `seq` group holds
+        the same values)."""
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=comm_device(self.mesh))
+        if self.data_size > 1:
+            dist.all_reduce(t, group=self.mesh.get_group("data"))
+        return t.tolist()

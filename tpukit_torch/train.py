@@ -16,11 +16,15 @@ Loop surface, as tpukit's:
     `--checkpoint_format` (`checkpoint.save_auto`: the port's `.pt` by
     default, tpukit's consolidated msgpack or sharded directory on
     request); `--resume` reads any of the three;
+  - a strategy's host transform of every batch (`host_batch_fn`, tpukit
+    `train.py:685-694`: ContextParallel's zigzag permutation) before it
+    moves to the device;
   - throughput by tpukit's meter (`tpukit/obs/meter.py:106-113`): one
     clock for the run, started when the first step returns (the card's
     queue drained), the real tokens of every later step, the time read at
     the last step's return, after a sync.
-Under `DataParallel`, `FSDP` and the pipeline the loop is rank-aware
+Under `DataParallel`, `FSDP`, the pipeline, `TensorParallel` and
+`ContextParallel` the loop is rank-aware
 (tpukit `train.py:501-545`): the global batch is `--batch_size` x data
 replicas rows, each replica loading its `DistributedSampler` share (every
 stage rank of a pipeline replica the same rows); eval sums and the train
@@ -234,11 +238,21 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
     def save():
         return ckpt_lib.save_auto(state, flags.checkpoint_format, flags)
 
+    # the strategy's host transform (ContextParallel's zigzag permutation),
+    # applied to every train and eval batch before it moves to the device
+    host_batch = strategy.host_batch_fn(cfg)
+
+    def on_device(raw):
+        model_batch, targets = prepare_batch(raw, pad_id)
+        if host_batch is not None:
+            model_batch, targets = host_batch(model_batch, targets)
+        return to_device(model_batch, targets, device)
+
     for epoch in range(epochs):
         train_loader.set_epoch(epoch)
         running, win_n = None, 0
         for i, raw in enumerate(train_loader):
-            batch, targets = to_device(*prepare_batch(raw, pad_id), device)
+            batch, targets = on_device(raw)
             loss = train_step(state, cfg, strategy, batch, targets, seed=flags.seed)
             running = loss if running is None else running + loss
             win_n += 1
@@ -265,7 +279,7 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
         total_loss = total_acc = total_weight = 0.0
         eval_metrics = {"loss": float("nan"), "accuracy": float("nan")}
         for raw in validation_loader:
-            batch, targets = to_device(*prepare_batch(raw, pad_id), device)
+            batch, targets = on_device(raw)
             weight = float((targets != IGNORE_INDEX).sum())
             loss, acc = eval_step(state, cfg, strategy, batch, targets)
             if weight > 0.0:
