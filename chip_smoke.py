@@ -61,7 +61,9 @@ not 0:
      empty expert, 1-row segments, segments across tiles, a padding
      tail; also at D 100, F 400, no multiple of 8), and one decode tick
      (16 rows, top-1), where the forward's
-     decode policy must give every SM a unit in both products; the
+     decode policy must give every SM a unit in both products, and a
+     rank's bank under expert parallelism at the e8 rung (E_local 2 x
+     10240 rows at data 1 x expert 4, 4 x 5120 at 2 x 2); the
      backward under O(1) seeded cotangents, with negative controls; device
      times (CUDA graph), call and plain times, bounds, and
      `torch._grouped_mm`'s time for the same products where this torch has
@@ -206,13 +208,23 @@ not 0:
      one), the ring and `--cp_attention ulysses`, as phase 9: train,
      evaluate, sample on the ring cache, checkpoint; each checkpoint
      restores into a `SingleDevice` state bit for bit;
+ 37. MoE under DataParallel and expert parallelism over ranks: one step of
+     the e8 rung (dropless pallas) under `DataParallel` in a world of one
+     over NCCL, bit-equal to `SingleDevice`'s; then `ExpertParallel` on
+     (data 1, expert 2) over two gloo ranks on this card (`chip_smoke.py
+     --ep-gloo-rank R`: each rank 2 of 4 experts through the grouped
+     kernels after the token all-to-all) against the single device's
+     `ExpertParallel` 1 x 1 step (f32, 2 layers, top-2, 4 steps) at phase
+     12's bars, each rank's grouped kernels launched layers x steps times;
 then one JSON line of kernel results (the flash and CE rows with their
-launches under CP) and, last, the device JSON line.
+launches under CP, the grouped rows with theirs under EP and their times
+at the EP shapes) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
-code 2 and prints no result. `--tp-gloo-rank R STORE OUT` and
-`--cp-gloo-rank R STORE OUT` are one rank of phase 31's and phase 35's
-two-rank worlds, which the script starts itself.
+code 2 and prints no result. `--tp-gloo-rank R STORE OUT`,
+`--cp-gloo-rank R STORE OUT` and `--ep-gloo-rank R STORE OUT` are one rank
+of phase 31's, 35's and 37's two-rank worlds, which the script starts
+itself.
 """
 
 from __future__ import annotations
@@ -247,7 +259,7 @@ from tpukit_torch.ops import moe_gemm
 from tpukit_torch.ops import paged_attention as pa
 from tpukit_torch.ops import quant_comm
 from tpukit_torch import checkpoint as ckpt_lib
-from tpukit_torch.ops.moe_dispatch import _route_topk
+from tpukit_torch.ops.moe_dispatch import ExpertGrid, _route_topk
 from tpukit_torch.recipes import ddp as ddp_recipe
 from tpukit_torch.recipes import fsdp as fsdp_recipe
 from tpukit_torch.recipes import moe as moe_recipe
@@ -336,6 +348,9 @@ MOE_TRAIN_KERNELS = ("forward_up", "forward_down", "backward_dz2", "backward_dh"
 # phase 10 c: an empty expert, 1-row segments, segments across row tiles;
 # 9999 rows, so a 241-row padding tail
 MOE_ADVERSARIAL = (3000, 0, 1, 129, 2047, 130, 1, 4691)
+# phase 10 e: a rank's experts under expert parallelism at (data 1, expert
+# 4) and (2, 2) of the e8 rung
+EP_LOCAL_EXPERTS = (2, 4)
 
 
 _PHASE_T0 = [time.perf_counter()]
@@ -1447,7 +1462,8 @@ def grouped_mm_ms(xs, wu, wd, offsets, h, cot) -> dict:
     return dict(fwd=fwd, bwd=bwd, note="torch._grouped_mm, products only")
 
 
-def check_moe(dev, name, rows, offsets, n, dtype, timed=False, dims=None) -> dict:
+def check_moe(dev, name, rows, offsets, n, dtype, timed=False, dims=None,
+              experts: int | None = None) -> dict:
     """Forward (y) and backward (dx, dWu, dbu, dWd, dbd) kernels against the
     plain versions on the same inputs: the backward under O(1) seeded
     cotangents (0 on the padding rows; the mean loss's would be ~1/count)
@@ -1456,8 +1472,9 @@ def check_moe(dev, name, rows, offsets, n, dtype, timed=False, dims=None) -> dic
     without the relu mask on dz1 must fail the bar on dx, dWu and dbu, and
     (bf16) with dbu summed from the rounded dz1 on dbu. With `timed`, device,
     call and plain times and the bounds too. `dims`: (D, F) in place of the
-    rung's (768, 3072)."""
-    e = MOE_ROUTED["experts"]
+    rung's (768, 3072); `experts`: a bank of that many experts in place of
+    the rung's 8 (a rank's share under expert parallelism)."""
+    e = experts or MOE_ROUTED["experts"]
     d, f = dims or (GPT2_SMALL_TRAIN["dim"], 4 * GPT2_SMALL_TRAIN["dim"])
     wu, bu, wd, bd = moe_bank(dev, e, d, f, dtype, seed=len(name))
     xs = rows.to(dtype)
@@ -1559,8 +1576,9 @@ def check_moe_kernels(dev) -> dict:
     every layout of `moe_layouts`, bf16 and f32; times on the recipe's
     equal segments in bf16 (the main path), on the top-1 routing's and on
     the decode tick's, where at least one unit an SM must stream the bank
-    in each forward product; the adversarial layout also at D 100, F 400.
-    Returns the timed equal and decode runs."""
+    in each forward product; the adversarial layout also at D 100, F 400;
+    a rank's bank under expert parallelism (`EP_LOCAL_EXPERTS`, 20480 rows),
+    timed in bf16. Returns the timed runs."""
     timed_runs = {}
     for name, (rows, offsets, n) in moe_layouts(dev).items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -1573,6 +1591,19 @@ def check_moe_kernels(dev) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         check_moe(dev, "adversarial", rows[:, :100].contiguous(), offsets, n, dtype,
                   dims=(100, 400))
+    # a rank's bank after the exchange under expert parallelism at the e8
+    # rung (batch 32 a rank, capacity 80): E_local 2 experts x 10240 rows at
+    # (data 1, expert 4), 4 x 5120 at (2, 2); 20480 rows either way
+    g = torch.Generator(device=dev).manual_seed(14)
+    m = MOE_ROUTED["experts"] * MOE_ROUTED["batch"] * 80
+    for e_local in EP_LOCAL_EXPERTS:
+        rows = torch.randn((m, GPT2_SMALL_TRAIN["dim"]), generator=g, device=dev)
+        offsets = torch.arange(e_local + 1, dtype=torch.int32, device=dev) * (m // e_local)
+        for dtype in (torch.bfloat16, torch.float32):
+            res = check_moe(dev, f"ep_local{e_local}", rows, offsets, m, dtype,
+                            timed=dtype == torch.bfloat16, experts=e_local)
+            if dtype == torch.bfloat16:
+                timed_runs[f"ep_local{e_local}"] = res
     units, sms = timed_runs["decode"]["units"], torch.cuda.get_device_properties(0).multi_processor_count
     if units["policy"] != "decode" or min(units["up"], units["down"]) < sms:
         raise AssertionError(f"the decode tick's forward does not stream the bank on {sms} SMs: "
@@ -2395,10 +2426,11 @@ def gloo_pair(flag: str, name: str) -> dict:
 
 
 def gloo_rank(flag: str, rank: int, store: str, out: str) -> int:
-    """One rank of phase 31's model-2 world (`--tp-gloo-rank`) or of phase
-    35's Ulysses seq-2 world (`--cp-gloo-rank`): gloo on cuda:0; rank 0
-    writes the losses, the flash launches and the parameters whole to
-    `out`."""
+    """One rank of phase 31's model-2 world (`--tp-gloo-rank`), of phase
+    35's Ulysses seq-2 world (`--cp-gloo-rank`) or of phase 37's expert-2
+    world (`--ep-gloo-rank`, each rank its half of the rows): gloo on
+    cuda:0; rank 0 writes the losses, the flash and grouped launches and
+    the parameters and first gradients whole to `out`."""
     torch.distributed.init_process_group("gloo", init_method=f"file://{store}", world_size=2,
                                          rank=rank)
     dev = torch.device("cuda", 0)
@@ -2407,14 +2439,20 @@ def gloo_rank(flag: str, rank: int, store: str, out: str) -> int:
         if flag == "--tp-gloo-rank":
             cfg, base, batches = _tp_small(dev)
             strategy = TensorParallel(model=2)
-        else:
+        elif flag == "--cp-gloo-rank":
             cfg, base, batches = _cp_small(dev)
             strategy = ContextParallel(attention="ulysses")
+        else:
+            cfg, base, batches = _ep_small(dev)
+            strategy = ExpertParallel(ExpertGrid(data=1, expert=2), dispatch="pallas")
+            batches = [_rows_of(b, rank, 2) for b in batches]
         losses, whole, flash, grads = _tp_steps(cfg, base, batches, strategy)
+        grouped = {k: v for k, v in read_counts().items() if k.startswith("moe_")}
         if rank == 0:
             np.savez(out, losses=np.array(losses), flash=np.int64(flash),
                      **{f"p{i}": t.cpu().numpy() for i, t in enumerate(whole)},
-                     **{f"g{i}": t.cpu().numpy() for i, t in enumerate(grads)})
+                     **{f"g{i}": t.cpu().numpy() for i, t in enumerate(grads)},
+                     **{f"count/{k}": np.int64(v) for k, v in grouped.items()})
         torch.distributed.barrier()
     finally:
         torch.distributed.destroy_process_group()
@@ -2641,8 +2679,104 @@ def cp_equals_single(dev) -> None:
                              f"flash {int(got['flash'])}")
 
 
+GLOO_FLAGS = ("--tp-gloo-rank", "--cp-gloo-rank", "--ep-gloo-rank")
+
+
+def _ep_small(dev):
+    """Phase 12's f32 2-layer MoE setup at GPT-2-small width, with 4
+    experts, top-2: (cfg, base parameters, 4 batches of 4 rows, one
+    padded)."""
+    cfg, base = build_train(dev, num_layers=2, compute_dtype=torch.float32,
+                            attention_impl="flash", seed=2, num_experts=4, router_top_k=2)
+    rng = np.random.RandomState(2)
+    batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, 4, SEQ, pad_rows=1), dev)
+               for _ in range(4)]
+    return cfg, base.params, batches
+
+
+def _rows_of(batch, rank: int, ranks: int):
+    """This rank's rows of a (model batch, targets) pair, as the grid splits
+    them: `[rank B / ranks, (rank + 1) B / ranks)`."""
+    model_batch, targets = batch
+    n = targets.shape[0] // ranks
+    take = slice(rank * n, (rank + 1) * n)
+    return {k: v[take] for k, v in model_batch.items()}, targets[take]
+
+
+def ep_equals_single(dev) -> dict:
+    """Phase 37: one step of the gpt-small-dim768-e8 rung (bf16, the
+    meshless dropless pallas dispatch, batch 32) under `DataParallel` in
+    the world of one `main` brought up, bit-equal to `SingleDevice`'s from
+    the same parameters on the same batch (one rank reduces nothing; its
+    aux statistics are its own). Then `ExpertParallel` on (data 1, expert
+    2) over two gloo ranks on this card (`chip_smoke.py --ep-gloo-rank R`:
+    each rank 2 of 4 experts through the grouped kernels after the
+    all-to-all, the trunk gathered by an all-gather and its gradients
+    reduce-scattered) against the single device's `ExpertParallel` 1 x 1
+    step with the same pallas dispatch, phase 12's f32 setup (2 layers,
+    top-2, 4 AdamW steps, 4 rows a step): the first step's gradient each
+    leaf within 1e-3 of its norm and the losses within rtol 1e-4 (phase
+    12's bars), the parameters within 2 x lr x steps (AdamW's bound on an
+    update whose sign flips), and each rank's grouped forward and backward
+    kernels launched layers x steps times. Returns rank 0's launches."""
+    rows, moe, _ = RUNGS["gpt-small-dim768-e8"]
+    cfg, base = build_train(dev, moe_dispatch="pallas", **moe)
+    batch = to_device(*synthetic_batch(np.random.RandomState(3), cfg.vocab_size, rows, SEQ,
+                                       pad_rows=4), dev)
+    stepped = {}
+    for make in (SingleDevice, DataParallel):
+        strategy = make()
+        params = unflatten(base.params, [t.detach().clone() for t in leaves(base.params)])
+        state = create_train_state(params, 1e-4, strategy)
+        reset_counts()
+        loss = float(train_step(state, cfg, strategy, *batch))
+        up = read_counts()["moe_forward_up"]
+        stepped[strategy.name] = (loss, [p.detach().clone() for p in leaves(state.params)], up)
+        del params, state, strategy
+        _free()
+    del base
+    _free()
+    (loss, ref, up), (dloss, got, dup) = stepped["single"], stepped["ddp"]
+    equal = [torch.equal(a, b) for a, b in zip(got, ref)]
+    print(f"e8 step under DataParallel (world of one, NCCL): loss {dloss} vs single {loss}, "
+          f"parameters bit-equal in {sum(equal)} of {len(equal)} leaves; grouped forward "
+          f"launches {dup} (single {up})", flush=True)
+    if dloss != loss or not all(equal) or dup != up or up != cfg.num_layers:
+        raise AssertionError(f"the e8 step under DataParallel is not the single step: {dloss} "
+                             f"vs {loss}, {len(equal) - sum(equal)} leaves differ, launches "
+                             f"{dup} vs {up}")
+    del stepped, ref, got
+    _free()
+    cfg, base, batches = _ep_small(dev)
+    ref, ref_params, _, ref_grads = _tp_steps(cfg, base, batches,
+                                              ExpertParallel(dispatch="pallas"))
+    t0 = time.perf_counter()
+    got = gloo_pair("--ep-gloo-rank", "chip_smoke_ep_gloo")
+    losses = got["losses"].tolist()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    gerr = max(float(np.linalg.norm(got[f"g{i}"] - g.cpu().numpy()) / g.norm())
+               for i, g in enumerate(ref_grads) if g.norm() > 0)
+    diffs = [np.abs(got[f"p{i}"] - t.cpu().numpy()) for i, t in enumerate(ref_params)]
+    perr = max(float(d.max()) for d in diffs)
+    bound = 2 * 1e-4 * len(batches)
+    counts = {k[len("count/moe_"):]: int(v) for k, v in got.items() if k.startswith("count/")}
+    want = cfg.num_layers * len(batches)
+    grouped = ("forward_up_f32", "forward_down_f32", "backward_dh_f32", "backward_dx_f32",
+               "backward_dwu_f32", "backward_dwd_f32")
+    print(f"ep (data 1, expert 2) over two gloo ranks on this card ({time.perf_counter() - t0:.1f}"
+          f" s): first step's gradients within {gerr:.3e} of each leaf's norm (bar 1e-3); losses "
+          f"{losses} vs single {ref}: worst relative difference {worst:.3e} (bar 1e-4); "
+          f"parameters within {perr:.3e} (bar {bound:.0e}); rank 0's grouped launches "
+          f"{ {k: counts[k] for k in grouped} } (2 of 4 experts, want {want} each)", flush=True)
+    if (not gerr <= 1e-3 or not worst <= 1e-4 or not perr <= bound
+            or any(counts[k] != want for k in grouped)):
+        raise AssertionError(f"EP over gloo disagrees with the single device: gradients {gerr}, "
+                             f"losses {losses} vs {ref}, parameters {perr}, launches {counts}")
+    return counts
+
+
 def main() -> int:
-    if len(sys.argv) > 1 and sys.argv[1] in ("--tp-gloo-rank", "--cp-gloo-rank"):
+    if len(sys.argv) > 1 and sys.argv[1] in GLOO_FLAGS:
         return gloo_rank(sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; it needs one CUDA GPU",
@@ -2845,6 +2979,16 @@ def main() -> int:
     print(f"phases 34-36: {time.perf_counter() - t_cp:.1f} s", flush=True)
     _free()
 
+    # MoE under DataParallel in a world of one over NCCL; EP over gloo ranks
+    t_ep = time.perf_counter()
+    with mesh_lib.scoped_runtime():
+        mesh_lib.initialize_runtime(dev)
+        phase("MoE under DataParallel == SingleDevice (e8 rung, NCCL world of one); EP on "
+              "(data 1, expert 2) over two gloo ranks == the single device (f32, 2 layers)")
+        ep_counts = ep_equals_single(dev)
+    print(f"phase 37: {time.perf_counter() - t_ep:.1f} s", flush=True)
+    _free()
+
     fl, ce = trained["flash"], trained["ce"]
 
     def entry(name, source, replaces, launches, res, way, err, library_ms, **extra):
@@ -2856,6 +3000,12 @@ def main() -> int:
                 "library_ms": library_ms, **extra}
 
     c, mc = step["counts"], moe_step["counts"]
+
+    def ep_shapes(way):  # phase 10's timings of a rank's bank under EP
+        return {f"E_local {e} x {MOE_ROUTED['experts'] * MOE_ROUTED['batch'] * 80 // e} rows": {
+            k: moe_runs[f"ep_local{e}"][f"{way}{k}"]
+            for k in ("_ms", "_call_ms", "_plain_ms", "_bound", "_err")}
+            for e in EP_LOCAL_EXPERTS}
     under_cp = lambda key: {k: r["counts"][key] for k, r in cp_runs.items()}
     phase("kernel results")
     print(json.dumps({"kernels": [
@@ -2902,7 +3052,9 @@ def main() -> int:
                                                       "down": mc["moe_forward_down"],
                                                       "combine": mc["moe_forward_combine"]},
               library_products_ms=moe_main["fwd_library_products_ms"],
-              units=moe_main["units"]),
+              units=moe_main["units"],
+              launches_under_ep_f32={k: ep_counts[f"forward_{k}_f32"] for k in ("up", "down")},
+              at_ep_shapes=ep_shapes("fwd")),
         entry("moe_grouped_ffn_fwd_decode", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
               moe_served["counts"]["moe_forward_up"], moe_decode, "fwd", moe_decode["fwd_err"],
               None, kernels_per_call=4, launches_by_kernel={
@@ -2914,7 +3066,10 @@ def main() -> int:
               mc["moe_backward_dh"], moe_main, "bwd", moe_main["bwd_err"], None,
               kernels_per_call=4, launches_by_kernel={
                   k: mc[f"moe_backward_{k}"] for k in ("dz2", "dh", "dx", "dw")},
-              library_products_ms=moe_main["bwd_library_products_ms"]),
+              library_products_ms=moe_main["bwd_library_products_ms"],
+              launches_under_ep_f32={k: ep_counts[f"backward_{k}_f32"]
+                                     for k in ("dh", "dx", "dwu", "dwd")},
+              at_ep_shapes=ep_shapes("bwd")),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

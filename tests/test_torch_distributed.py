@@ -29,7 +29,6 @@ not divide, checkpoints both ways between TP, `SingleDevice` and tpukit,
 and a negative control (the head's cotangent summed over `model`).
 """
 
-import dataclasses
 import json
 import os
 import subprocess
@@ -62,7 +61,7 @@ from tpukit_torch.flags import build_parser, parse_flags
 from tpukit_torch.model import gpt
 from tpukit_torch.recipes import ddp, fsdp, single, tp
 from tpukit_torch.shardings import FSDP, DataParallel, SingleDevice, fsdp_shard_dim, leaves
-from tpukit_torch.train import create_train_state, dropout_key, fit, train_step
+from tpukit_torch.train import create_train_state, dropout_key, train_step
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = ROOT / "tests" / "torch_dist_worker.py"
@@ -509,15 +508,6 @@ def test_new_recipes_refuse_the_cpu_unless_asked(recipe, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(tpukit_torch.CudaUnavailableError):
         recipe.main([a for a in RECIPE_ARGS if a not in ("--device", "cpu")])
-    assert not torch.distributed.is_initialized()
-
-
-@pytest.mark.parametrize("strategy", ["ddp", "fsdp"])
-def test_moe_under_data_parallel_is_item_13(strategy):
-    make = {"ddp": DataParallel, "fsdp": FSDP}[strategy]
-    flags = dataclasses.replace(parse_flags(RECIPE_ARGS), num_experts=4)
-    with pytest.raises(NotPortedError, match="item 13"):
-        fit(flags, make())
     assert not torch.distributed.is_initialized()
 
 

@@ -44,10 +44,8 @@ from tpukit.serve import synthetic_request_stream as jax_stream
 from tpukit_torch import NotPortedError, bridge
 from tpukit_torch.data import WordTokenizer, synthetic_stories
 from tpukit_torch.model import GPTConfig, gpt
-from tpukit_torch.ops.moe_dispatch import ExpertGrid
 from tpukit_torch.serve import paged
 from tpukit_torch.serve.engine import ServeConfig, ServeEngine, synthetic_request_stream
-from tpukit_torch.shardings import ExpertParallel
 
 MAX_NEW = 10
 
@@ -348,15 +346,12 @@ def test_tokenizer_and_stream_match_tpukit(seed, kw):
 
 def test_unported_paths_raise_named_errors():
     """What the port still lacks raises, naming its ROADMAP item: the fleet
-    (item 19) and EP over more than one rank (item 13). `ServeConfig()` is
-    tpukit's ring default."""
+    (item 19). `ServeConfig()` is tpukit's ring default."""
     from tpukit_torch.serve import __main__ as serve_main
 
     for argv, item in ((["--replicas", "2"], "item 19"),):
         with pytest.raises(NotPortedError, match=item):
             serve_main.main(argv + ["--device", "cpu"])
-    with pytest.raises(NotPortedError, match="ROADMAP"):  # MoE serves; EP over ranks waits
-        ExpertParallel(ExpertGrid(data=1, expert=2))
     with pytest.raises(ValueError, match="divide every bucket"):
         ServeConfig(page_size=8, buckets=(12,))
     assert ServeConfig().page_size == JaxServeConfig().page_size == 0

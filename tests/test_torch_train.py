@@ -169,14 +169,27 @@ def test_unfused_head_path_matches_fused(tiny_config, tiny_params, monkeypatch):
     np.testing.assert_allclose(float(unfused), float(fused), rtol=1e-6)
 
 
-def test_ep_grid_over_more_than_one_rank_is_not_ported():
-    """Dropout is ported (test_dropout_train_steps_match_tpukit); an
-    expert-parallel grid larger than 1 x 1 still raises, naming item 13."""
+def test_ep_grid_over_more_than_one_rank_needs_its_ranks():
+    """Dropout is ported (test_dropout_train_steps_match_tpukit) and refuses
+    a rate of 1; an expert-parallel grid larger than 1 x 1 (ported, see
+    tests/test_torch_expert_parallel.py) needs a world of its size: a grid
+    of 2 in a world of one raises when it sets up its mesh, and leaves the
+    tree whole."""
+    from tpukit_torch import mesh
     from tpukit_torch.ops.moe_dispatch import ExpertGrid
     from tpukit_torch.shardings import ExpertParallel
 
-    with pytest.raises(NotPortedError, match="item 13"):
-        ExpertParallel(ExpertGrid(data=2, expert=1))
+    strategy = ExpertParallel(ExpertGrid(data=2, expert=1))
+    assert strategy.distributed and strategy.batch_divisor == 2 and strategy.row_shards == 2
+    mesh.initialize_runtime("cpu")
+    try:
+        params = gpt.init_params(gpt.GPTConfig(num_experts=4, dim=32, head_dim=8, heads=4,
+                                               num_layers=1), device="cpu")
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            strategy.setup(params)
+        assert strategy.params is None
+    finally:
+        mesh.shutdown_runtime()
     with pytest.raises(ValueError, match="dropout"):
         gpt.GPTConfig(dropout=1.0)
 

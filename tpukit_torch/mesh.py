@@ -2,8 +2,8 @@
 `initialize_runtime` :24, `is_process_zero` :139, `create_mesh` :144,
 `sync_global_devices` :187): a 1-D `data` mesh for DDP and FSDP, a 2-D
 `(data, stage)` one for the pipeline, a 2-D `(data, model)` one for
-tensor parallelism and the serving grid and a 2-D `(data, seq)` one for
-context parallelism.
+tensor parallelism and the serving grid, a 2-D `(data, seq)` one for
+context parallelism and a 2-D `(data, expert)` one for expert parallelism.
 
 tpukit's runtime owns its devices and builds a `jax.sharding.Mesh`; the port
 brings up a c10d default process group and a `DeviceMesh` over it. The group
@@ -162,6 +162,24 @@ def create_cp_mesh(data: int = 1, seq: int | None = None,
         raise ValueError(f"a (data {data}, seq {seq}) grid needs {data * seq} ranks, "
                          f"the world has {world}")
     return init_device_mesh(device_type, (data, seq), mesh_dim_names=("data", "seq"))
+
+
+def create_ep_mesh(data: int = 1, expert: int | None = None,
+                   device_type: str = "cuda") -> DeviceMesh:
+    """A 2-D `(data, expert)` mesh over the default group's ranks, `expert`
+    innermost (`main-moe.py:50-51`'s `create_mesh({"data": d, "expert":
+    e})`): rank r sits at data index r // expert and expert index r %
+    expert, so an expert group is consecutive ranks, and a batch's rows
+    split over both axes in that order go to the ranks in rank order.
+    `expert` defaults to world / data; `data * expert` must be the world.
+    `get_group("expert")` and `get_group("data")` are its groups; the whole
+    grid is the default group."""
+    world = world_size()
+    expert = world // data if expert is None else expert
+    if data < 1 or expert < 1 or data * expert != world:
+        raise ValueError(f"a (data {data}, expert {expert}) grid needs {data * expert} ranks, "
+                         f"the world has {world}")
+    return init_device_mesh(device_type, (data, expert), mesh_dim_names=("data", "expert"))
 
 
 def stage_neighbours(mesh: DeviceMesh) -> tuple[int, int]:

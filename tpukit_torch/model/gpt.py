@@ -107,8 +107,11 @@ class GPTConfig:
     # with moe_aux_mask_pads). moe_dispatch: "xla" (one-hot einsums), "a2a"
     # (the expert-parallel exchange block) or "pallas" (the grouped-expert
     # kernels; dropless unless moe_capacity > 0). moe_mesh is the
-    # ExpertGrid ExpertParallel injects at loss time; moe_capacity > 0
-    # overrides the per-row capacity of every dispatch.
+    # ExpertGrid ExpertParallel injects at loss time; moe_rows the RowGroup
+    # (the ranks that hold the batch's rows) that ExpertParallel,
+    # DataParallel and FSDP inject, over which every dispatch sums the
+    # load-balance statistics; moe_capacity > 0 overrides the per-row
+    # capacity of every dispatch.
     num_experts: int = 0
     expert_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
@@ -116,6 +119,7 @@ class GPTConfig:
     router_top_k: int = 1
     moe_dispatch: str = "xla"
     moe_mesh: Any = None
+    moe_rows: Any = None
     moe_capacity: int = 0
     # interleaved pipeline stages (tpukit `gpt.py:198`): each stage rank of
     # `Pipeline1F1B` runs V non-contiguous chunks of the layer stack

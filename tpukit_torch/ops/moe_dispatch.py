@@ -7,36 +7,48 @@ load-balance aux):
 
   - "xla": the global one-hot einsum formulation (`moe_ffn_xla`);
   - "a2a": the expert-parallel exchange block (`moe_ffn_a2a`): local rows
-    packed into `[E, B, C, D]` capacity buffers, the expert FFN, the
-    mirrored combine. The port carries it for an expert axis of size 1,
-    where the exchange moves nothing; more ranks raise `NotPortedError`
-    (multi-rank `all_to_all_single` is ROADMAP.md item 13, on the process
-    groups of `tpukit_torch/mesh.py`);
+    packed into `[E, B, C, D]` capacity buffers, sent by
+    `all_to_all_single` over the expert group of `cfg.moe_mesh`, the
+    expert FFN on this rank's `E / ep` experts over `[E / ep, ep B, C, D]`,
+    the mirrored exchange back, the gated combine (tpukit's tiled
+    `lax.all_to_all` pair, `tpukit/ops/quant_comm.py:498-502`). Each
+    exchange is an autograd Function whose backward is the other
+    exchange, so a training step runs 4 a layer;
   - "pallas": the grouped-expert GEMM of `tpukit_torch/ops/moe_gemm.py`,
     which reuses `_route_topk`, `_kept_mask`, `_aux_stats` and
     `_moe_ffn_exchange` from here.
 
 `ExpertGrid` stands in for tpukit's `moe_mesh`: the `(data, expert)` grid
-sizes `ExpertParallel` injects into the config at loss time.
+`ExpertParallel` injects into the config at loss time, with the c10d
+expert group where the expert axis spans ranks. Routing, capacity and
+drops are per row, so a rank's rows route alone; only the load-balance
+aux crosses ranks: with `cfg.moe_rows` (a `RowGroup`, injected by
+`ExpertParallel`, `DataParallel` and `FSDP`) every dispatch sums its
+statistics over the ranks that hold the batch's rows, as tpukit's psum
+over the row axes (and GSPMD over the global batch) does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
-
-from tpukit_torch import NotPortedError
 
 
 @dataclasses.dataclass(frozen=True)
 class ExpertGrid:
     """The `(data, expert)` device grid of an expert-parallel run: the
-    sizes of tpukit's `moe_mesh` axes, without devices."""
+    sizes of tpukit's `moe_mesh` axes and, where the expert axis spans
+    ranks, the c10d group of this rank's expert peers (in expert-index
+    order) and this rank's index in it."""
 
     data: int = 1
     expert: int = 1
+    group: Any = dataclasses.field(default=None, compare=False)
+    rank: int = dataclasses.field(default=0, compare=False)
 
     def __post_init__(self):
         if self.data < 1 or self.expert < 1:
@@ -46,6 +58,24 @@ class ExpertGrid:
     @property
     def size(self) -> int:
         return self.data * self.expert
+
+    @classmethod
+    def of(cls, mesh) -> "ExpertGrid":
+        """This rank's place on a `(data, expert)` `DeviceMesh`
+        (`mesh.create_ep_mesh`)."""
+        d, e = mesh.size(0), mesh.size(1)
+        return cls(data=d, expert=e, group=mesh.get_group("expert") if e > 1 else None,
+                   rank=mesh.get_local_rank("expert"))
+
+
+@dataclasses.dataclass(frozen=True)
+class RowGroup:
+    """The c10d group whose ranks hold the batch's rows between them (None
+    at one rank) and its size: the load-balance statistics are summed over
+    it."""
+
+    group: Any = dataclasses.field(default=None, compare=False)
+    size: int = 1
 
 
 def moe_capacity(cfg, seq_len: int) -> int:
@@ -148,7 +178,32 @@ def _aux_stats(probs, assign, pad_mask, cfg):
     return num, probs.new_full((), float(assign.shape[0]))  # a fill: no host sync
 
 
+class _RowSum(torch.autograd.Function):
+    """All-reduce (sum) over the row group forward; identity backward: each
+    rank differentiates its own rows' terms, and the strategy's gradient
+    reduction (a sum under `ExpertParallel`, the wrappers' mean of an
+    objective scaled by the world under `DataParallel` and `FSDP`) adds
+    them up."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
 def _aux(num, den, cfg):
+    """`E * num / max(den, 1)`, with (num, den) summed over `cfg.moe_rows`
+    first (one all-reduce: den has no gradient, routing being discrete):
+    every rank gets the global aux of the batch."""
+    rows = cfg.moe_rows
+    if rows is not None and rows.size > 1:
+        stats = _RowSum.apply(torch.stack([num.float(), den.detach().float()]), rows.group)
+        num, den = stats[0], stats[1]
     return cfg.num_experts * num / torch.clamp(den, min=1.0)
 
 
@@ -175,12 +230,67 @@ def moe_ffn_a2a(layer, cfg, x, pad_mask=None):
     return _moe_ffn_exchange(layer, cfg, x, pad_mask, _expert_ffn, "a2a")
 
 
+def _dispatch_exchange(x: torch.Tensor, grid: ExpertGrid) -> torch.Tensor:
+    """`[E, B, C, D]` -> `[E / ep, ep B, C, D]`: block j of the experts (dim
+    0 cut into ep blocks) goes to expert rank j, and the blocks that arrive
+    are laid side by side on dim 1 in peer order (tpukit's tiled
+    all-to-all, split axis 0, concat axis 1)."""
+    e, b, c, d = x.shape
+    ep = grid.expert
+    x = x.contiguous()  # the einsum's layout: empty_like would keep its strides
+    got = torch.empty_like(x)
+    dist.all_to_all_single(got, x, group=grid.group)
+    return got.reshape(ep, e // ep, b, c, d).transpose(0, 1).reshape(e // ep, ep * b, c, d)
+
+
+def _combine_exchange(h: torch.Tensor, grid: ExpertGrid) -> torch.Tensor:
+    """The mirror, `[E / ep, ep B, C, D]` -> `[E, B, C, D]`: block j of dim
+    1 goes back to expert rank j, and the blocks that arrive are stacked on
+    dim 0 in peer order (split axis 1, concat axis 0)."""
+    el, epb, c, d = h.shape
+    ep = grid.expert
+    send = h.reshape(el, ep, epb // ep, c, d).transpose(0, 1).contiguous()
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=grid.group)
+    return got.reshape(el * ep, epb // ep, c, d)
+
+
+class _Dispatch(torch.autograd.Function):
+    """`_dispatch_exchange` forward, `_combine_exchange` of the cotangent
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        return _dispatch_exchange(x, grid)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _combine_exchange(ct, ctx.grid), None
+
+
+class _Combine(torch.autograd.Function):
+    """`_combine_exchange` forward, `_dispatch_exchange` of the cotangent
+    backward."""
+
+    @staticmethod
+    def forward(ctx, h, grid):
+        ctx.grid = grid
+        return _combine_exchange(h, grid)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _dispatch_exchange(ct, ctx.grid), None
+
+
 def _moe_ffn_exchange(layer, cfg, x, pad_mask, expert_ffn, name):
-    """The exchange block shared by "a2a" and "pallas": route, pack local
-    rows into `[E, B, C, D]` capacity buffers, `expert_ffn(experts,
-    buffer, dtype)`, combine. With one rank on the expert axis the
-    exchange moves nothing and the block runs as is; an expert axis > 1
-    raises `NotPortedError`."""
+    """The exchange block shared by "a2a" and "pallas": route this rank's
+    rows, pack them into `[E, B, C, D]` capacity buffers, send each expert
+    block to its rank (`_Dispatch`), `expert_ffn(experts, buffer, dtype)`
+    on this rank's experts (the layer's bank holds `E / ep` of them) over
+    `[E / ep, ep B, C, D]`, send the results back (`_Combine`), the gated
+    combine. With one rank on the expert axis the exchanges are skipped
+    and the block runs as is. The aux is `_aux` over `cfg.moe_rows`."""
     grid = cfg.moe_mesh
     if grid is None:
         raise ValueError(f"moe_dispatch={name!r} under ExpertParallel needs cfg.moe_mesh "
@@ -189,9 +299,13 @@ def _moe_ffn_exchange(layer, cfg, x, pad_mask, expert_ffn, name):
     if cfg.num_experts % grid.expert:
         raise ValueError(f"num_experts {cfg.num_experts} must divide over the "
                          f"{grid.expert}-way expert axis for {name} dispatch")
+    xc, dispatch, gate_map, probs, assign = _route(x, layer["ffn"]["router"]["kernel"], cfg)
+    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, xc)
     if grid.expert > 1:
-        raise NotPortedError(
-            f"moe_dispatch={name!r} over a {grid.expert}-way expert axis needs "
-            f"all_to_all_single between ranks, which is not in the port yet "
-            f"(ROADMAP.md, queue A item 13 'EP over more than one rank')")
-    return _capacity_ffn(layer, cfg, x, pad_mask, expert_ffn)
+        expert_in = _Dispatch.apply(expert_in, grid)
+    h = expert_ffn(layer["ffn"]["experts"], expert_in, cfg.compute_dtype)
+    if grid.expert > 1:
+        h = _Combine.apply(h, grid)
+    out = torch.einsum("ebcd,bsec->bsd", h,
+                       dispatch * gate_map.to(cfg.compute_dtype)[..., None])
+    return out, _aux(*_aux_stats(probs, assign, pad_mask, cfg), cfg)

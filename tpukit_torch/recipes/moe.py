@@ -1,16 +1,24 @@
 """Recipe 8: mixture-of-experts training (twin of `main-moe.py`).
 
     python -m tpukit_torch.recipes.moe [main-moe.py's flags] [--device cuda|cpu]
+    torchrun --nproc_per_node N -m tpukit_torch.recipes.moe [flags]
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m tpukit_torch.recipes.moe [flags] --device cpu
 
 `--num_experts N` (default 8) replaces every layer's FFN with a routed
 expert bank (top `--moe_top_k`, default 1) and trains it with
 `ExpertParallel` and `--moe_dispatch` ("a2a" by default, "pallas" for the
 grouped-expert kernels, "xla" for the one-hot einsums) through
-`tpukit_torch.train.fit`. The device grid is tpukit's `pick_grid` over the
-devices this run uses. The port trains in one process on one device, so the
-grid is (data 1, expert 1): the exchange moves nothing, and "pallas" runs
-the grouped kernels over its equal capacity segments. Without a card it
-raises `CudaUnavailableError` unless `--device cpu` is given.
+`tpukit_torch.train.fit`. The world is split into a `(data, expert)` grid
+by tpukit's `pick_grid` (the expert degree the gcd of the world and the
+experts, `expert` innermost): each rank holds its experts and its piece of
+the trunk, and "a2a" and "pallas" exchange tokens with the expert group by
+`all_to_all_single`, forward and backward. `--batch_size` is rows a data
+replica (tpukit's per-data-shard batch), split over the replica's expert
+ranks. Run as a plain module it is a world of one (a 1 x 1 grid: the
+exchange moves nothing); under a launcher, one rank per process (NCCL on
+`cuda:{LOCAL_RANK}`, gloo with `--device cpu`); rank 0 prints. Without a
+card it raises `CudaUnavailableError` unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -18,15 +26,11 @@ from __future__ import annotations
 import math
 import sys
 
-from tpukit_torch import resolve_device
-from tpukit_torch.flags import parse_flags
+from tpukit_torch import mesh
+from tpukit_torch.flags import check_carried, parse_flags
 from tpukit_torch.ops.moe_dispatch import ExpertGrid
 from tpukit_torch.shardings import ExpertParallel
 from tpukit_torch.train import fit
-
-# devices one run of the port trains on; expert parallelism over more ranks
-# is ROADMAP.md item 13, on tpukit_torch/mesh.py's process groups
-DEVICES = 1
 
 
 def pick_grid(n_devices: int, num_experts: int) -> dict:
@@ -38,9 +42,11 @@ def pick_grid(n_devices: int, num_experts: int) -> dict:
 
 def main(argv=None):
     flags = parse_flags(argv, num_experts=True)
-    resolve_device(flags.device)  # without a card: CudaUnavailableError, before the grid
-    grid = ExpertGrid(**pick_grid(DEVICES, flags.num_experts))
-    return fit(flags, ExpertParallel(grid, dispatch=flags.moe_dispatch))
+    check_carried(flags)  # before a world comes up: --comm_dtype et al. are item 16
+    with mesh.scoped_runtime():  # a world brought up here ends here
+        mesh.initialize_runtime(flags.device)
+        grid = ExpertGrid(**pick_grid(mesh.world_size(), flags.num_experts))
+        return fit(flags, ExpertParallel(grid, dispatch=flags.moe_dispatch))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Where a training step's time goes on the GPU:
 `python -m tpukit_torch.recipes.profile [--rung NAME] [--steps N]
-[--strategy single|ddp|fsdp|fsdp-offload|pipe|pipe-1f1b|tp|cp|cp-ulysses]
-[--heads H] [--sequence_length L] [--batch_size B] [--data D]`.
+[--strategy single|ddp|fsdp|fsdp-offload|pipe|pipe-1f1b|tp|cp|cp-ulysses|ep]
+[--heads H] [--sequence_length L] [--batch_size B] [--data D] [--expert E]`.
 
 Runs the train step of one rung on synthetic token batches built as the
 repo's ladder builds them, from random weights (seed 0):
@@ -34,6 +34,12 @@ table 513 long, so that S divides over the ranks as tpukit checks it);
 `--sequence_length L` (the position table; the step runs S = L - 1, as
 `fit` does) and `--batch_size B` (rows a data replica) set another shape,
 e.g. `main-ring.py`'s `--sequence_length 8193 --batch_size 4`.
+`--strategy ep` runs the `gpt-small-dim768-e8` rung (its default under
+ep) under `ExpertParallel` with the pallas dispatch (recipe 8) on a
+`(data, expert)` grid of the world: recipe 8's `pick_grid` of the world
+and the experts, or `--expert E` ranks on the expert axis; each rank steps
+on `--batch_size` rows of its own (32, the rung's, by default), drawn from
+a seed of its rank, and the grid's tokens/s is printed beside the card's.
 
 It times a steady window of steps by host clock (each step ends in a host
 read of its loss), then profiles a short window under `torch.profiler` and
@@ -43,7 +49,8 @@ unprofiled wall, the device time of each of the port's kernels against
 everything else, the calls and device time of PyTorch's float adds and
 fills, the annotated regions (the optimizer step, DDP's forward, FSDP2's
 hooks) with the device and host time under each, and the kernels that
-took the most device time. Needs one CUDA device.
+took the most device time, and the launches a step of each of the
+port's kernels, by their counters. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -117,23 +124,34 @@ def build_train(device, num_layers: int = 12, compute_dtype=torch.bfloat16,
 
 
 STRATEGIES = ("single", "ddp", "fsdp", "fsdp-offload", "pipe", "pipe-1f1b", "tp", "cp",
-              "cp-ulysses")
+              "cp-ulysses", "ep")
+EP_RUNG = "gpt-small-dim768-e8"  # --strategy ep's rung
 PIPE_MICRO = 4  # the pipeline's micro-batches (recipe 4's "4x" at one stage)
 
 
-def rung_strategy(kind: str, strategy: str = "single", heads: int = 12, data: int = 1):
+def rung_strategy(kind: str, strategy: str = "single", heads: int = 12, data: int = 1,
+                  expert: int = 0, experts: int = 8):
     """The strategy of a rung: `SingleDevice`, or `ExpertParallel` on one
     device with the named dispatch; `strategy` names a data-parallel,
-    pipeline, tensor- or context-parallel one (`DataParallel`, `FSDP`,
-    `FSDP(cpu_offload=True)`, `Pipeline`, `Pipeline1F1B`, `TensorParallel`
-    on recipe 6's grid for `heads`, `ContextParallel` with the ring or
-    Ulysses over `data` replicas) in place of `SingleDevice`."""
+    pipeline, tensor-, context- or expert-parallel one (`DataParallel`,
+    `FSDP`, `FSDP(cpu_offload=True)`, `Pipeline`, `Pipeline1F1B`,
+    `TensorParallel` on recipe 6's grid for `heads`, `ContextParallel` with
+    the ring or Ulysses over `data` replicas, `ExpertParallel` with the
+    rung's dispatch on recipe 8's grid of the world and `experts`, or on
+    `expert` ranks an expert group) in place of `SingleDevice`."""
     from tpukit_torch import mesh
+    from tpukit_torch.ops.moe_dispatch import ExpertGrid
     from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
+    from tpukit_torch.recipes import moe
     from tpukit_torch.recipes.tp import pick_grid
     from tpukit_torch.shardings import (FSDP, ContextParallel, DataParallel, ExpertParallel,
                                         SingleDevice, TensorParallel)
 
+    if strategy == "ep":
+        world = mesh.world_size()
+        grid = (moe.pick_grid(world, experts) if not expert
+                else {"data": world // expert, "expert": expert})
+        return ExpertParallel(ExpertGrid(**grid), dispatch=kind)
     if strategy == "tp":
         return TensorParallel(**pick_grid(mesh.world_size(), heads))
     if strategy in ("cp", "cp-ulysses"):
@@ -146,9 +164,19 @@ def rung_strategy(kind: str, strategy: str = "single", heads: int = 12, data: in
     return SingleDevice() if kind == "single" else ExpertParallel(dispatch=kind)
 
 
+def _launch_counters() -> dict:
+    """The port's per-kernel launch counters (each wrapper adds one where it
+    launches its kernel), by module."""
+    from tpukit_torch.ops import flash_attention, fused_head_ce, moe_gemm, paged_attention
+
+    return {"flash": flash_attention.launches, "ce": fused_head_ce.launches,
+            "moe": moe_gemm.launches, "paged": paged_attention.launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--rung", choices=tuple(RUNGS), default="gpt-small-dim768")
+    ap.add_argument("--rung", choices=tuple(RUNGS), default=None,
+                    help=f"default: gpt-small-dim768 ({EP_RUNG} under --strategy ep)")
     ap.add_argument("--steps", type=int, default=6, help="steps in the timed window")
     ap.add_argument("--strategy", choices=STRATEGIES, default="single")
     ap.add_argument("--heads", type=int, default=GPT2_SMALL_TRAIN["heads"],
@@ -159,7 +187,12 @@ def main(argv=None) -> int:
     ap.add_argument("--batch_size", type=int, default=0,
                     help="rows a data replica (default: the rung's)")
     ap.add_argument("--data", type=int, default=1, help="cp: data replicas of the grid")
+    ap.add_argument("--expert", type=int, default=0,
+                    help="ep: ranks on the expert axis (default: recipe 8's pick_grid)")
     flags = ap.parse_args(argv)
+    flags.rung = flags.rung or (EP_RUNG if flags.strategy == "ep" else "gpt-small-dim768")
+    if flags.strategy == "ep" and not RUNGS[flags.rung][1]:
+        raise ValueError(f"--strategy ep needs an MoE rung, got --rung {flags.rung}")
     from tpukit_torch import mesh, resolve_device
 
     device = resolve_device("cuda")
@@ -172,8 +205,11 @@ def main(argv=None) -> int:
 def _profile(flags, device) -> int:
     from tpukit_torch.train import to_device, train_step
 
+    from tpukit_torch import mesh
+
     batch, moe, kind = RUNGS[flags.rung]
-    strategy = rung_strategy(kind, flags.strategy, flags.heads, flags.data)
+    strategy = rung_strategy(kind, flags.strategy, flags.heads, flags.data, flags.expert,
+                             moe.get("num_experts", 0))
     dim = GPT2_SMALL_TRAIN["dim"]
     if dim % flags.heads:
         raise ValueError(f"--heads {flags.heads} must divide the rung's dim {dim}")
@@ -185,7 +221,8 @@ def _profile(flags, device) -> int:
         shape["max_position_embeddings"] = positions
     batch = flags.batch_size or batch
     cfg, state = build_train(device, strategy=strategy, **shape, **moe)
-    rng = np.random.RandomState(0)
+    ranks = strategy.grid.size if flags.strategy == "ep" else 1  # ranks with rows of their own
+    rng = np.random.RandomState(mesh.rank() if ranks > 1 else 0)
     batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, batch, seq), device)
                for _ in range(2)]
     step = lambda i: float(train_step(state, cfg, strategy, *batches[i % 2]))
@@ -193,23 +230,32 @@ def _profile(flags, device) -> int:
         step(i)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    counters = _launch_counters()
+    for c in counters.values():
+        c.update(dict.fromkeys(c, 0))
     walls = []
     for i in range(flags.steps):
         t0 = time.perf_counter()
         step(i)
         walls.append(time.perf_counter() - t0)
     wall = float(np.mean(walls))
+    launches = {f"{mod}.{k}": v // flags.steps for mod, c in counters.items()
+                for k, v in c.items() if v}
     grid = (f" (data {strategy.data_size} x model {strategy.model_size})"
             if flags.strategy == "tp" else
             f" (data {strategy.data_size} x seq {strategy.seq_size})"
-            if flags.strategy.startswith("cp") else "")
+            if flags.strategy.startswith("cp") else
+            f" (data {strategy.grid.data} x expert {strategy.grid.expert}, rank "
+            f"{mesh.rank()}, {batch} rows a rank)" if flags.strategy == "ep" else "")
     print(f"{torch.cuda.get_device_name(0)}; {flags.rung}: train step B{batch} S{seq} dim "
           f"{cfg.dim} heads {cfg.heads}x{cfg.head_dim} layers {cfg.num_layers} experts "
           f"{cfg.num_experts}{grid} vocab "
           f"{cfg.vocab_size} bf16, {strategy.name}: wall per step {wall:.4f} s (min "
           f"{min(walls):.4f}, max {max(walls):.4f}, {flags.steps} steps), "
-          f"{batch * seq / wall:.1f} tokens/s, max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B")
+          f"{batch * seq / wall:.1f} tokens/s"
+          + (f" (the grid's {ranks * batch * seq / wall:.1f})" if ranks > 1 else "")
+          + f", max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    print(f"launches a step (the port's counters): {launches}")
 
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     prof_steps = 2

@@ -1,5 +1,5 @@
 """Strategies (twin of `tpukit/shardings.py:261-760` and of
-`ExpertParallel` :1094, on one device).
+`ExpertParallel` :1094-1368).
 
 A strategy owns the loss: `loss_fn` runs the model and the masked
 cross-entropy, `value_and_grad` differentiates it. With `fused_head` (the
@@ -21,8 +21,11 @@ mean CE over the valid tokens of the global batch. The pipeline strategies
 grid of c10d ranks and runs the model's functions on them.
 `ContextParallel` splits each sequence over the `seq` ranks of a
 `(data, seq)` grid and runs the ring or Ulysses attention
-(`tpukit_torch/ring_attention.py`) over them. Expert parallelism over more
-than one rank is ROADMAP.md item 13.
+(`tpukit_torch/ring_attention.py`) over them. `ExpertParallel` holds each
+rank's experts and trunk pieces over a `(data, expert)` grid of c10d ranks
+and exchanges tokens with its expert peers (`ops/moe_dispatch.py`). MoE
+configs also train under `DataParallel` and `FSDP`: routing is per row, and
+the load-balance aux sums its statistics over the ranks.
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ from torch import nn
 from torch.distributed.fsdp import CPUOffloadPolicy, OffloadPolicy, fully_shard
 from torch.distributed.tensor import DTensor, Shard
 
-from tpukit_torch import NotPortedError
 from tpukit_torch import mesh as mesh_lib
 from tpukit_torch import random as tk_random
 from tpukit_torch.model import gpt
@@ -52,7 +54,7 @@ from tpukit_torch.ops.layers import (
     vocab_parallel_argmax,
     vocab_parallel_ce,
 )
-from tpukit_torch.ops.moe_dispatch import ExpertGrid
+from tpukit_torch.ops.moe_dispatch import ExpertGrid, RowGroup
 from tpukit_torch.ring_attention import SeqGroup, zigzag_order
 
 
@@ -111,6 +113,16 @@ class Strategy:
     def data_rank(self) -> int:
         """This rank's replica index, `[0, data_replicas)`."""
         return 0
+
+    @property
+    def row_shards(self) -> int:
+        """The loaders a global batch's rows are split between: one a data
+        replica, or (`ExpertParallel`) one a rank."""
+        return self.data_replicas
+
+    def row_shard(self) -> int:
+        """This rank's loader, `[0, row_shards)`."""
+        return self.data_rank()
 
     def validate_config(self, cfg: gpt.GPTConfig) -> None:
         """Raise before the first step when the config cannot run on this
@@ -228,14 +240,62 @@ class SingleDevice(Strategy):
     name = "single"
 
 
+MIN_SHARD_SIZE = 100  # tpukit FSDP's and ExpertParallel's default `min_shard_size`
+
+
+def ep_placement(names: tuple, shape: tuple, data: int, expert: int) -> tuple | None:
+    """Where tpukit's `ExpertParallel._spec_for` (`shardings.py:1307-1359`)
+    puts a leaf (at path `names`, of global `shape`) on a `(data, expert)`
+    grid: `("expert", 1)` for an expert-bank leaf (`[L, E, ...]`, its
+    expert dimension split over `expert`, the same on every data replica);
+    `("grid", dim)` for a trunk leaf split on `dim` over the whole grid, in
+    rank order; None for a leaf whole on every rank. A trunk leaf under
+    `MIN_SHARD_SIZE` elements stays whole; an embedding table splits its
+    rows or stays whole; any other leaf splits the last dimension the grid
+    divides, never a kernel's contraction dimension (-2): summed in pieces,
+    its product would flip top-k routing."""
+    if "experts" in names:
+        return ("expert", 1)
+    world = data * expert
+    if world <= 1 or math.prod(shape) < MIN_SHARD_SIZE:
+        return None
+    if "embeddings" in names:
+        dim = 0 if shape[0] % world == 0 else None
+    else:
+        candidates = [i for i, d in enumerate(shape)
+                      if d % world == 0 and not (len(shape) >= 2 and i == len(shape) - 2)]
+        dim = candidates[-1] if candidates else None
+    return None if dim is None else ("grid", dim)
+
+
 class ExpertParallel(Strategy):
     """Expert parallelism for MoE configs (twin of tpukit
-    `shardings.py:1094`) on a `(data, expert)` grid of one device: the
-    port runs one process, so the grid is 1 x 1 and the exchange moves
-    nothing; a larger grid raises `NotPortedError`. `dispatch` ("a2a" by
-    default, "pallas", or "xla") is injected into the config at loss time
-    with the grid, so training and the bf16 eval run the same dispatch;
-    checkpoints, decoding and plain model calls never carry it."""
+    `shardings.py:1094-1368`) over a `(data, expert)` grid of the default
+    group's ranks (`mesh.create_ep_mesh`, `expert` innermost). A 1 x 1
+    grid is one device and needs no process group.
+
+    Placement (`ep_placement`): each rank holds its `E / expert` experts of
+    every expert-bank leaf (the same on every data replica) and its piece
+    of each trunk leaf tpukit shards FSDP-style over the whole grid; AdamW's
+    moments mirror the parameters. Rows of the global batch split over the
+    whole grid in rank order (tpukit's `P(("data", "expert"))`).
+
+    A step (`value_and_grad`): the sharded trunk gathered whole once, before
+    the forward (one all-gather; summed in pieces, a trunk product would
+    flip routing, tpukit `to_compute` :1216-1249); the forward on this
+    rank's rows with `dispatch` ("a2a" by default, "pallas", or "xla")
+    injected into the config with the grid and the row group: "a2a" and
+    "pallas" exchange tokens with the expert group by `all_to_all_single`
+    (`ops/moe_dispatch.py`), "xla" runs the meshless einsums on the whole
+    bank, gathered over `expert`, as GSPMD runs them; the load-balance aux
+    summed over the grid. tpukit's objective (the CE summed over the global
+    batch's valid tokens over their count, plus `moe_aux_weight` x the
+    global aux) differentiated on each rank over its rows; then the trunk's
+    gradients summed and scattered back to their pieces (one
+    reduce-scatter), the whole leaves' summed over the grid, the experts'
+    summed over `data` (under "xla": the bank's summed over the grid and
+    cut to this rank's experts). Checkpoints, decoding and plain model
+    calls never carry the injected config."""
 
     name = "ep"
 
@@ -243,12 +303,33 @@ class ExpertParallel(Strategy):
         self.grid = grid if grid is not None else ExpertGrid()
         if dispatch not in ("xla", "a2a", "pallas"):
             raise ValueError(f"dispatch must be 'xla', 'a2a' or 'pallas', got {dispatch!r}")
-        if self.grid.size > 1:
-            raise NotPortedError(
-                f"ExpertParallel over a {self.grid.data} x {self.grid.expert} (data, expert) "
-                f"grid needs all_to_all_single between ranks, which is not in the port "
-                f"yet (ROADMAP.md, queue A item 13 'EP over more than one rank')")
         self.dispatch = dispatch
+        self.mesh = None  # the (data, expert) mesh, once `setup` ran on a grid > 1 x 1
+        self.params: dict | None = None
+        self._place: dict = {}  # leaf path -> its `ep_placement`
+        self._names: list = []  # the leaf paths of `params`, in `leaves` order
+
+    @property
+    def distributed(self) -> bool:
+        return self.grid.size > 1
+
+    @property
+    def batch_divisor(self) -> int:
+        return self.grid.size
+
+    @property
+    def data_replicas(self) -> int:
+        return self.grid.data
+
+    def data_rank(self) -> int:
+        return mesh_lib.rank() // self.grid.expert
+
+    @property
+    def row_shards(self) -> int:
+        return self.grid.size
+
+    def row_shard(self) -> int:
+        return mesh_lib.rank()
 
     def validate_config(self, cfg: gpt.GPTConfig) -> None:
         if cfg.num_experts <= 0:
@@ -258,17 +339,230 @@ class ExpertParallel(Strategy):
             raise ValueError(f"--num_experts {cfg.num_experts} must divide over the "
                              f"{self.grid.expert}-way expert axis")
 
+    def setup(self, params: dict) -> dict:
+        """The (data, expert) mesh and this rank's tree: its experts of each
+        bank leaf and its piece of each sharded trunk leaf (leaves of their
+        own), the rest as given. A 1 x 1 grid keeps the tree."""
+        if self.grid.size == 1:
+            return params
+        device = leaves(params)[0].device
+        self.mesh = mesh_lib.create_ep_mesh(self.grid.data, self.grid.expert, device.type)
+        self.grid = ExpertGrid.of(self.mesh)
+        out = []
+        for name, p in zip(paths(params), leaves(params)):
+            place = ep_placement(tuple(name.split("/")), tuple(p.shape), self.grid.data,
+                                 self.grid.expert)
+            self._place[name] = place
+            if place is None:
+                out.append(p)
+                continue
+            n, i = self._split(place)
+            out.append(p.detach().chunk(n, dim=place[1])[i].clone().requires_grad_(True))
+        self.params = unflatten(params, out)
+        self._names = paths(self.params)
+        # a first collective on each group, which NCCL wants from every rank
+        dist.barrier()
+        for axis in ("data", "expert"):
+            group = self.mesh.get_group(axis)
+            if dist.get_world_size(group) > 1:
+                dist.barrier(group=group)
+        return self.params
+
+    def _split(self, place) -> tuple[int, int]:
+        """(pieces, this rank's index) of a placement."""
+        if place[0] == "grid":
+            return self.grid.size, mesh_lib.rank()
+        return self.grid.expert, self.grid.rank
+
+    def _group(self, place):
+        return None if place[0] == "grid" else self.mesh.get_group("expert")
+
+    def _check(self, params) -> None:
+        if self.grid.size > 1 and (self.mesh is None or params is not self.params):
+            raise ValueError(f"{self.name}: pass the tree `setup` returned (the train "
+                             f"state's params)")
+
     def _dispatch_cfg(self, cfg: gpt.GPTConfig) -> gpt.GPTConfig:
         """The config the loss runs with: this dispatch and grid injected
-        for MoE configs (tpukit `shardings.py:1251-1258`)."""
-        if cfg.num_experts <= 0 or self.dispatch == "xla":
+        for MoE configs (tpukit `shardings.py:1251-1258`), and the grid as
+        the row group of the aux."""
+        if cfg.num_experts <= 0:
             return cfg
-        return cfg.replace(moe_dispatch=self.dispatch, moe_mesh=self.grid)
+        rows = RowGroup(size=self.grid.size) if self.grid.size > 1 else None  # the default group
+        if self.dispatch == "xla":
+            return cfg.replace(moe_rows=rows)
+        return cfg.replace(moe_dispatch=self.dispatch, moe_mesh=self.grid, moe_rows=rows)
+
+    def _bank_whole(self) -> bool:
+        """Whether the forward runs on the whole bank ("xla" over an expert
+        axis > 1, as GSPMD runs it)."""
+        return self.dispatch == "xla" and self.grid.expert > 1
+
+    def _gathered(self, flat: list, idx: list, group, n: int) -> list:
+        """The leaves `flat[i]` (i in `idx`, each split over `group`'s `n`
+        ranks on its placement's dimension) whole: one all-gather of every
+        piece, in the group's rank order."""
+        if not idx:
+            return []
+        bucket = torch.cat([flat[i].detach().reshape(-1) for i in idx])
+        got = bucket.new_empty(n * bucket.numel())
+        dist.all_gather_into_tensor(got, bucket, group=group)
+        got = got.view(n, -1)
+        out, offset = [], 0
+        for i in idx:
+            t = flat[i]
+            parts = [got[r, offset:offset + t.numel()].view(t.shape) for r in range(n)]
+            out.append(torch.cat(parts, dim=self._place_of(i)[1]))
+            offset += t.numel()
+        return out
+
+    def _place_of(self, i: int):
+        return self._place[self._names[i]]
+
+    def compute_params(self, params) -> dict:
+        """The tree the forward runs on: every trunk leaf whole (gathered
+        ones as leaves of their own), this rank's experts (the whole bank
+        under "xla" over an expert axis > 1)."""
+        self._check(params)
+        if self.grid.size == 1:
+            return params
+        flat = leaves(params)
+        out = list(flat)
+        kinds = [self._kind(i) for i in range(len(flat))]
+        for kind, group, n in (("grid", None, self.grid.size),
+                               ("bank", self.mesh.get_group("expert"), self.grid.expert)):
+            idx = [i for i, k in enumerate(kinds) if k == kind]
+            for i, whole in zip(idx, self._gathered(flat, idx, group, n)):
+                out[i] = whole.requires_grad_(True)
+        return unflatten(params, out)
+
+    def _kind(self, i: int) -> str:
+        """"grid" (a trunk piece), "bank" (experts gathered whole), "expert"
+        (this rank's experts as they are) or "whole"."""
+        place = self._place_of(i)
+        if place is None:
+            return "whole"
+        if place[0] == "grid":
+            return "grid"
+        return "bank" if self._bank_whole() else "expert"
+
+    def loss_sums(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
+                  with_accuracy: bool = False, aux_out: list | None = None, rng=None,
+                  rng_row0: int | None = None):
+        """This rank's sums over its rows, on `params` as the forward runs on
+        them (`compute_params`). Dropout masks are this rank's rows of the
+        global batch's, `[rank x B, (rank + 1) x B)`."""
+        if rng_row0 is None:
+            rng_row0 = mesh_lib.rank() * batch["input_ids"].shape[0] if self.distributed else 0
+        return super().loss_sums(params, self._dispatch_cfg(cfg), batch, targets,
+                                 with_accuracy, aux_out, rng, rng_row0)
 
     def loss_fn(self, params, cfg: gpt.GPTConfig, batch: dict, targets,
                 with_accuracy: bool = False, aux_out: list | None = None, rng=None):
-        return super().loss_fn(params, self._dispatch_cfg(cfg), batch, targets,
+        """This rank's means over its rows (the trunk gathered first)."""
+        return super().loss_fn(self.compute_params(params), cfg, batch, targets,
                                with_accuracy=with_accuracy, aux_out=aux_out, rng=rng)
+
+    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng=None):
+        """(global loss, this rank's gradients, shaped as its tree)."""
+        if self.grid.size == 1:
+            return super().value_and_grad(params, cfg, batch, targets, rng=rng)
+        tree = self.compute_params(params)
+        aux_list: list = []
+        loss_sum, count, _ = self.loss_sums(tree, cfg, batch, targets, aux_out=aux_list, rng=rng)
+        totals = torch.stack([loss_sum.detach(), count])
+        dist.all_reduce(totals)
+        denom = torch.clamp(totals[1], min=1.0)
+        total = loss_sum / denom
+        for aux in aux_list:
+            total = total + cfg.moe_aux_weight * aux
+        inputs = leaves(tree)
+        grads = torch.autograd.grad(total, inputs, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads)]
+        return totals[0] / denom, unflatten(params, self._reduce(grads))
+
+    def _reduce(self, grads: list) -> list:
+        """Each gradient summed over the ranks that share its leaf, in this
+        rank's layout: the trunk's pieces by one reduce-scatter over the
+        grid, the whole leaves (and a gathered bank) by one all-reduce over
+        it, this rank's experts by one all-reduce over `data`."""
+        kinds = [self._kind(i) for i in range(len(grads))]
+        out = list(grads)
+        world = self.grid.size
+        idx = [i for i, k in enumerate(kinds) if k == "grid"]
+        if idx:
+            chunks = [grads[i].chunk(world, dim=self._place_of(i)[1]) for i in idx]
+            send = torch.cat([c[r].reshape(-1) for r in range(world) for c in chunks])
+            got = send.new_empty(send.numel() // world)
+            dist.reduce_scatter_tensor(got, send)
+            for i, c, part in zip(idx, chunks, got.split([c[0].numel() for c in chunks])):
+                out[i] = part.view(c[0].shape)
+        for kinds_of, group in ((("whole", "bank"), None),
+                                (("expert",), self.mesh.get_group("data"))):
+            idx = [i for i, k in enumerate(kinds) if k in kinds_of]
+            if not idx or dist.get_world_size(group) == 1:
+                continue
+            bucket = torch.cat([grads[i].reshape(-1) for i in idx])
+            dist.all_reduce(bucket, group=group)
+            for i, part in zip(idx, bucket.split([grads[i].numel() for i in idx])):
+                out[i] = part.view(grads[i].shape)
+        for i, k in enumerate(kinds):
+            if k == "bank":
+                out[i] = out[i].chunk(self.grid.expert, dim=1)[self.grid.rank].contiguous()
+        return out
+
+    def _piece(self, name: str, t: torch.Tensor):
+        """The placement of this rank's leaf `name` (or of a state tensor
+        shaped like it), or None where it is whole."""
+        if self.mesh is None or t.dim() == 0:
+            return None
+        return self._place.get(name)
+
+    def gather_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of a local leaf (or of a state tensor shaped
+        like it). A collective."""
+        place = self._piece(name, t)
+        if place is None:
+            return t
+        n, _ = self._split(place)
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.detach().contiguous(), group=self._group(place))
+        return torch.cat(parts, dim=place[1])
+
+    def local_leaf(self, name: str, full: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of the whole tensor `full`, as `live` holds it."""
+        place = self._piece(name, live)
+        if place is None:
+            return full
+        n, i = self._split(place)
+        return full.chunk(n, dim=place[1])[i]
+
+    def leaf_block(self, name: str, t: torch.Tensor):
+        """Every rank writes its trunk pieces, the ranks of data replica 0
+        their experts, rank 0 the leaves held whole (each element once)."""
+        place = self._piece(name, t)
+        if place is None:
+            return super().leaf_block(name, t)
+        n, i = self._split(place)
+        shape, starts = list(t.shape), [0] * t.dim()
+        starts[place[1]] = i * shape[place[1]]
+        shape[place[1]] *= n
+        writes = place[0] == "grid" or self.mesh.get_local_rank("data") == 0
+        return tuple(shape), t if writes else None, starts
+
+    def full_params(self, params: dict) -> dict:
+        """Every leaf whole on every rank (a collective)."""
+        return unflatten(params, [self.gather_leaf(n, p).detach()
+                                  for n, p in zip(paths(params), leaves(params))])
+
+    def all_sum(self, values) -> list[float]:
+        """Summed over the grid: every rank holds rows of its own."""
+        if self.mesh is None:
+            return super().all_sum(values)
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=comm_device(self.mesh))
+        dist.all_reduce(t)
+        return t.tolist()
 
 
 class ParamTree(nn.Module):
@@ -345,9 +639,6 @@ def dtensor_block(t: DTensor):
     return t.to_local()[tuple(slice(0, s) for s in sizes)], starts
 
 
-MIN_SHARD_SIZE = 100  # tpukit FSDP's default `min_shard_size`
-
-
 def fsdp_shard_dim(shape, world: int) -> int | None:
     """tpukit's FSDP placement (`shardings.py:724-738`): the dimension a
     leaf of `shape` shards over `world` ranks, or None to replicate it. A
@@ -388,13 +679,6 @@ class _DataParallelBase(Strategy):
     def data_rank(self) -> int:
         return mesh_lib.rank()
 
-    def validate_config(self, cfg: gpt.GPTConfig) -> None:
-        if cfg.num_experts > 0:
-            raise NotPortedError(
-                f"MoE configs under {type(self).__name__} are not in the port yet (ROADMAP.md, "
-                f"queue A item 13 'EP over more than one rank'): tpukit's step takes the "
-                f"router's load-balance statistics and capacity windows over the global batch")
-
     def _wrap(self, module: ParamTree, device: torch.device):
         raise NotImplementedError
 
@@ -421,6 +705,8 @@ class _DataParallelBase(Strategy):
         self._check(params)
         if rng_row0 is None:
             rng_row0 = dist.get_rank(self.mesh.get_group()) * batch["input_ids"].shape[0]
+        if cfg.num_experts > 0 and self.world > 1:
+            cfg = cfg.replace(moe_rows=RowGroup(group=self.mesh.get_group(), size=self.world))
         return self.module(super().loss_sums, cfg, batch, targets, with_accuracy, aux_out,
                            rng, rng_row0)
 
@@ -428,15 +714,24 @@ class _DataParallelBase(Strategy):
         """(global loss, grads) by `.backward()`, so that DDP's and FSDP2's
         gradient hooks run. tpukit's objective is the CE summed over the
         global batch's valid tokens over their count
-        (`tpukit/shardings.py:456-465`); the count is summed over the ranks
-        before the backward, and each rank differentiates
-        `world x loss_sum_r / count`, which the wrappers' average over
-        ranks turns into that objective's gradient."""
-        loss_sum, count, _ = self.loss_sums(params, cfg, batch, targets, rng=rng)
+        (`tpukit/shardings.py:456-465`), plus for MoE configs
+        moe_aux_weight x the load-balance aux of the global batch; the count
+        is summed over the ranks before the backward, the aux's statistics
+        in the forward (`cfg.moe_rows`), and each rank differentiates
+        `world x (loss_sum_r / count + moe_aux_weight x aux)`, which the
+        wrappers' average over ranks turns into that objective's gradient.
+        Routing and capacity are per row, so each rank's forward is the
+        global batch's on its rows."""
+        aux_list: list = []
+        loss_sum, count, _ = self.loss_sums(params, cfg, batch, targets, aux_out=aux_list,
+                                            rng=rng)
         totals = torch.stack([loss_sum.detach(), count])
         dist.all_reduce(totals, group=self.mesh.get_group())
         denom = torch.clamp(totals[1], min=1.0)
-        (loss_sum * self.world / denom).backward()
+        objective = loss_sum / denom
+        for aux in aux_list:
+            objective = objective + cfg.moe_aux_weight * aux
+        (objective * self.world).backward()
         self._after_backward()
         flat = leaves(params)
         return totals[0] / denom, unflatten(params, [p.grad for p in flat])
@@ -455,7 +750,8 @@ class DataParallel(_DataParallelBase):
     """Twin of tpukit's `DataParallel` (`shardings.py:512`) and of the
     reference's DDP recipe: parameters replicated, rows sharded,
     `DistributedDataParallel` averaging the gradients in its backward
-    hooks. `--comm_dtype` and `--grad_buckets` are ROADMAP.md item 16."""
+    hooks. `--comm_dtype` and `--grad_buckets` are ROADMAP.md item 16
+    (`fit` refuses them, MoE or dense)."""
 
     name = "ddp"
 

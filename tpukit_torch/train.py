@@ -23,12 +23,13 @@ Loop surface, as tpukit's:
     clock for the run, started when the first step returns (the card's
     queue drained), the real tokens of every later step, the time read at
     the last step's return, after a sync.
-Under `DataParallel`, `FSDP`, the pipeline, `TensorParallel` and
-`ContextParallel` the loop is rank-aware
+Under `DataParallel`, `FSDP`, the pipeline, `TensorParallel`,
+`ContextParallel` and `ExpertParallel` the loop is rank-aware
 (tpukit `train.py:501-545`): the global batch is `--batch_size` x data
-replicas rows, each replica loading its `DistributedSampler` share (every
-stage rank of a pipeline replica the same rows); eval sums and the train
-token count are summed over the replicas; rank 0 alone prints, samples and
+replicas rows, each replica (under `ExpertParallel` each rank of the grid)
+loading its `DistributedSampler` share (every stage rank of a pipeline
+replica the same rows); eval sums and the train token count are summed
+over the ranks that hold different rows; rank 0 alone prints, samples and
 writes the checkpoint, after every rank has taken part in gathering what
 they need. The step runs eagerly: forward, loss, backward and `torch.optim.AdamW` in
 place. Not carried (ROADMAP.md): the JSONL StepLogger records, the MFU
@@ -193,15 +194,16 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
     pad_id = tokenizer.pad_token_id
     cfg = build_config(flags, tokenizer.vocab_size)
     strategy.validate_config(cfg)
-    rank = replica = 0
+    rank = shard_rank = 0
     if strategy.distributed:
         device = mesh_lib.initialize_runtime(device)
-        rank, replica = mesh_lib.rank(), strategy.data_rank()
-    replicas = strategy.data_replicas
+        rank, shard_rank = mesh_lib.rank(), strategy.row_shard()
+    replicas, shards = strategy.data_replicas, strategy.row_shards
     p0 = rank == 0
-    if flags.batch_size * replicas % strategy.batch_divisor:
+    global_batch = flags.batch_size * replicas
+    if global_batch % strategy.batch_divisor:
         raise ValueError(
-            f"global batch {flags.batch_size * replicas} (batch_size {flags.batch_size} x "
+            f"global batch {global_batch} (batch_size {flags.batch_size} x "
             f"{replicas} data shards) must be a multiple of {strategy.batch_divisor} for the "
             f"{strategy.name} strategy")
 
@@ -209,15 +211,17 @@ def fit(flags: TrainFlags, strategy: Strategy, num_epochs: int | None = None) ->
     train_ds = transform_dataset(train_ds, tokenizer, max_length=flags.sequence_length)
     validation_ds = transform_dataset(validation_ds, tokenizer,
                                       max_length=flags.sequence_length)
-    # the global batch is batch_size rows on each of the data replicas,
-    # each loading its DistributedSampler share (every stage rank of a
-    # pipeline replica the same rows); wrap-padding keeps every train step
-    # full-shape; validation pads with all-ignore rows so its metrics are
-    # those of the exact partial batch
-    shard = dict(num_replicas=replicas, rank=replica)
-    train_loader = DataLoader(train_ds, flags.batch_size, shuffle=True, seed=flags.seed,
+    # the global batch is batch_size rows on each of the data replicas, its
+    # rows split between the strategy's row shards (a replica each, or
+    # under ExpertParallel a rank each), each loading its DistributedSampler
+    # share (every stage rank of a pipeline replica the same rows);
+    # wrap-padding keeps every train step full-shape; validation pads with
+    # all-ignore rows so its metrics are those of the exact partial batch
+    rows = global_batch // shards
+    shard = dict(num_replicas=shards, rank=shard_rank)
+    train_loader = DataLoader(train_ds, rows, shuffle=True, seed=flags.seed,
                               pad_to_batch=True, **shard)
-    validation_loader = DataLoader(validation_ds, flags.batch_size, shuffle=False,
+    validation_loader = DataLoader(validation_ds, rows, shuffle=False,
                                    pad_to_batch=True, pad_mode="empty", pad_fill=pad_id,
                                    **shard)
 
