@@ -216,15 +216,28 @@ not 0:
      kernels after the token all-to-all) against the single device's
      `ExpertParallel` 1 x 1 step (f32, 2 layers, top-2, 4 steps) at phase
      12's bars, each rank's grouped kernels launched layers x steps times;
+ 38. the quantized collectives and gradient buckets: phase 7's rung under
+     `DataParallel` and `FSDP` in a world of one over NCCL at
+     `--comm_dtype int8` (DataParallel's hand-placed wire quantizes at one
+     rank too) and at f32 with `--grad_buckets 4` (8 steps each, checked
+     as phase 7's, the step wall beside phase 7's); DataParallel int8 over
+     two gloo ranks on this card (`chip_smoke.py --dp-gloo-rank R`, phase
+     8's f32 2-layer setup) against the same step computed in this
+     process, the loss within 1e-5 and each gradient within one
+     quantization step of its block; phase 37's EP (data 1, expert 2) with
+     an int8 and a bf16 exchange (the same spawn), each rank's grouped
+     kernels counted and the losses within the EP band of the f32
+     exchange's;
 then one JSON line of kernel results (the flash and CE rows with their
-launches under CP, the grouped rows with theirs under EP and their times
-at the EP shapes) and, last, the device JSON line.
+launches under CP and under the quantized wires, the grouped rows with
+theirs under EP, f32 and quantized exchanges, and their times at the EP
+shapes) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
 code 2 and prints no result. `--tp-gloo-rank R STORE OUT`,
-`--cp-gloo-rank R STORE OUT` and `--ep-gloo-rank R STORE OUT` are one rank
-of phase 31's, 35's and 37's two-rank worlds, which the script starts
-itself.
+`--cp-gloo-rank R STORE OUT`, `--ep-gloo-rank R STORE OUT` and
+`--dp-gloo-rank R STORE OUT` are one rank of phase 31's, 35's, 37's and
+38's two-rank worlds, which the script starts itself.
 """
 
 from __future__ import annotations
@@ -1046,19 +1059,20 @@ FULL_ORDER = (0, 1, 2, 3, 0, 1, 2, 3)  # batches a, b, c and the padded p, twice
 
 
 def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0,
-                     batch: int = BATCH, seq: int = SEQ) -> dict:
+                     batch: int = BATCH, seq: int = SEQ, comm: dict | None = None) -> dict:
     """Phase 7 (and 16, 23, 24, 30, 34): train steps of the gpt-small-dim768
     rung (batch 64, S 512, bf16; or `batch` rows of `seq` tokens, the
     position table `seq + 1` long) on synthetic batches, by default eight:
     three full batches and one with a quarter of its rows padded, each
     twice, under `strategy` (`SingleDevice` by default), with `dropout`
-    after each attention and FFN block (phase 23). Checks the loss
+    after each attention and FFN block (phase 23) and the config's `comm`
+    fields (`comm_dtype`, `grad_buckets`: phase 38). Checks the loss
     (finite; lower on the first batch's second visit) and the launch
     counts; returns them with the step walls, the peak device memory and
     the state."""
     strategy = SingleDevice() if strategy is None else strategy
     shape = {} if seq == SEQ else dict(max_position_embeddings=seq + 1)
-    cfg, state = build_train(dev, strategy=strategy, dropout=dropout, **shape)
+    cfg, state = build_train(dev, strategy=strategy, dropout=dropout, **shape, **(comm or {}))
     rng = np.random.RandomState(0)
     a, b, c = (to_device(*synthetic_batch(rng, cfg.vocab_size, batch, seq), dev)
                for _ in range(3))
@@ -1076,7 +1090,8 @@ def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0,
     peak = torch.cuda.max_memory_allocated()
     steps, layers = len(losses), cfg.num_layers
     wall = float(np.mean(walls))
-    print(f"{strategy.name}: losses {[round(x, 4) for x in losses]}; step walls (s) "
+    label = strategy.name + "".join(f" {k} {v}" for k, v in (comm or {}).items())
+    print(f"{label}: losses {[round(x, 4) for x in losses]}; step walls (s) "
           f"{[round(w, 4) for w in walls]}; mean {wall:.4f} s, {batch * seq / wall:.1f} "
           f"tokens/s; max_memory_allocated {peak} B")
     print(f"launches in {steps} steps: {counts}", flush=True)
@@ -2427,32 +2442,46 @@ def gloo_pair(flag: str, name: str) -> dict:
 
 def gloo_rank(flag: str, rank: int, store: str, out: str) -> int:
     """One rank of phase 31's model-2 world (`--tp-gloo-rank`), of phase
-    35's Ulysses seq-2 world (`--cp-gloo-rank`) or of phase 37's expert-2
-    world (`--ep-gloo-rank`, each rank its half of the rows): gloo on
-    cuda:0; rank 0 writes the losses, the flash and grouped launches and
-    the parameters and first gradients whole to `out`."""
+    35's Ulysses seq-2 world (`--cp-gloo-rank`), of phase 37's expert-2
+    world (`--ep-gloo-rank`, each rank its half of the rows; then again
+    with the int8 and the bf16 exchange of phase 38, their results under
+    `int8/` and `bf16/`) or of phase 38's DataParallel int8 world
+    (`--dp-gloo-rank`, each rank its half of the rows): gloo on cuda:0;
+    rank 0 writes the losses, the flash, CE and grouped launches and the
+    parameters and first gradients whole to `out`."""
     torch.distributed.init_process_group("gloo", init_method=f"file://{store}", world_size=2,
                                          rank=rank)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     try:
+        runs = [("", None)]  # (prefix, comm_dtype) of each run of this world
         if flag == "--tp-gloo-rank":
             cfg, base, batches = _tp_small(dev)
-            strategy = TensorParallel(model=2)
+            make = lambda: TensorParallel(model=2)  # noqa: E731
         elif flag == "--cp-gloo-rank":
             cfg, base, batches = _cp_small(dev)
-            strategy = ContextParallel(attention="ulysses")
+            make = lambda: ContextParallel(attention="ulysses")  # noqa: E731
+        elif flag == "--dp-gloo-rank":
+            cfg, base, batches = _tp_small(dev)
+            make, runs = DataParallel, [("", "int8")]
+            batches = [_rows_of(b, rank, 2) for b in batches]
         else:
             cfg, base, batches = _ep_small(dev)
-            strategy = ExpertParallel(ExpertGrid(data=1, expert=2), dispatch="pallas")
+            make = lambda: ExpertParallel(ExpertGrid(data=1, expert=2), dispatch="pallas")  # noqa: E731,E501
             batches = [_rows_of(b, rank, 2) for b in batches]
-        losses, whole, flash, grads = _tp_steps(cfg, base, batches, strategy)
-        grouped = {k: v for k, v in read_counts().items() if k.startswith("moe_")}
+            runs += [(f"{c}/", c) for c in QUANT_EXCHANGES]
+        result = {}
+        for prefix, comm in runs:
+            run_cfg = cfg if comm is None else cfg.replace(comm_dtype=comm)
+            losses, whole, flash, grads = _tp_steps(run_cfg, base, batches, make())
+            counts = {k: v for k, v in read_counts().items()
+                      if k.startswith(("moe_", "ce_", "flash_"))}
+            result.update({f"{prefix}losses": np.array(losses), f"{prefix}flash": np.int64(flash),
+                           **{f"{prefix}p{i}": t.cpu().numpy() for i, t in enumerate(whole)},
+                           **{f"{prefix}g{i}": t.cpu().numpy() for i, t in enumerate(grads)},
+                           **{f"{prefix}count/{k}": np.int64(v) for k, v in counts.items()}})
         if rank == 0:
-            np.savez(out, losses=np.array(losses), flash=np.int64(flash),
-                     **{f"p{i}": t.cpu().numpy() for i, t in enumerate(whole)},
-                     **{f"g{i}": t.cpu().numpy() for i, t in enumerate(grads)},
-                     **{f"count/{k}": np.int64(v) for k, v in grouped.items()})
+            np.savez(out, **result)
         torch.distributed.barrier()
     finally:
         torch.distributed.destroy_process_group()
@@ -2679,7 +2708,8 @@ def cp_equals_single(dev) -> None:
                              f"flash {int(got['flash'])}")
 
 
-GLOO_FLAGS = ("--tp-gloo-rank", "--cp-gloo-rank", "--ep-gloo-rank")
+GLOO_FLAGS = ("--tp-gloo-rank", "--cp-gloo-rank", "--ep-gloo-rank", "--dp-gloo-rank")
+QUANT_EXCHANGES = ("int8", "bf16")  # phase 38's payloads of phase 37's exchange
 
 
 def _ep_small(dev):
@@ -2759,7 +2789,8 @@ def ep_equals_single(dev) -> dict:
     diffs = [np.abs(got[f"p{i}"] - t.cpu().numpy()) for i, t in enumerate(ref_params)]
     perr = max(float(d.max()) for d in diffs)
     bound = 2 * 1e-4 * len(batches)
-    counts = {k[len("count/moe_"):]: int(v) for k, v in got.items() if k.startswith("count/")}
+    counts = {k[len("count/moe_"):]: int(v) for k, v in got.items()
+              if k.startswith("count/moe_")}
     want = cfg.num_layers * len(batches)
     grouped = ("forward_up_f32", "forward_down_f32", "backward_dh_f32", "backward_dx_f32",
                "backward_dwu_f32", "backward_dwd_f32")
@@ -2772,7 +2803,151 @@ def ep_equals_single(dev) -> dict:
             or any(counts[k] != want for k in grouped)):
         raise AssertionError(f"EP over gloo disagrees with the single device: gradients {gerr}, "
                              f"losses {losses} vs {ref}, parameters {perr}, launches {counts}")
-    return counts
+    return dict(counts=counts, got=got, ref=ref, steps=len(batches), layers=cfg.num_layers)
+
+
+QUANT_FULL = {  # phase 38's full-width runs: label -> (strategy, config fields)
+    "ddp int8": (DataParallel, dict(comm_dtype="int8")),
+    "fsdp int8": (FSDP, dict(comm_dtype="int8")),
+    "ddp f32 buckets 4": (DataParallel, dict(grad_buckets=4)),
+    "fsdp f32 buckets 4": (FSDP, dict(grad_buckets=4)),
+}
+EP_FIRST_STEP_TOL, FINAL_LOSS_TOL = 1e-2, 2e-2  # tests/test_quant_comm.py's EP gate
+
+
+def quant_full_width(dev, single_run: dict) -> dict:
+    """Phase 38 a: phase 7's steps (8, the rung, bf16) under `DataParallel`
+    and `FSDP` in the world of one `main` brought up, at `--comm_dtype
+    int8` (DataParallel's hand-placed wire quantizes at one rank too) and
+    at f32 with `--grad_buckets 4`, each checked as phase 7 checks its own
+    (the loss falls on a repeated batch; the flash and CE kernels launch as
+    in phase 7); the step wall, tokens/s and peak beside phase 7's."""
+    runs = {}
+    for label, (make, comm) in QUANT_FULL.items():
+        run = train_full_width(dev, make(), comm=comm)
+        run.pop("state")
+        runs[label] = run
+        _free()
+    for label, run in runs.items():
+        print(f"{label}: {run['wall']:.4f} s a step ({single_run['wall']:.4f} single, "
+              f"{run['wall'] / single_run['wall']:.4f}x), {BATCH * SEQ / run['wall']:.1f} "
+              f"tokens/s, peak {run['peak']} B ({single_run['peak']} single)", flush=True)
+    return runs
+
+
+def _two_shot_in_process(cfg, base, batch, ranks: int = 2):
+    """The first step of `DataParallel` at `--comm_dtype int8` over `ranks`
+    ranks, computed in this process (the same step, rank by rank): each
+    rank's local objective (its rows' CE sum over the whole batch's valid
+    tokens) differentiated, the payloads flattened in tpukit's order and
+    cut into `[ranks, chunk]` rows, each destination's rows packed,
+    dequantized and summed in rank order, re-packed and unpacked. Returns
+    (loss, gradients in `leaves` order, each element's bar: one
+    quantization step of its block on each hop, every rank's wire row and
+    the reduced one, plus `tests/test_torch_distributed.py`'s GRAD_TOL
+    allowance (atol 1e-7, rtol 1e-5) for the ranks' local gradients)."""
+    tree = unflatten(base, [t.detach().clone().requires_grad_(True) for t in leaves(base)])
+    count = (batch[1] != -100).sum().float()
+    flats, loss = [], 0.0
+    for r in range(ranks):
+        b, t = _rows_of(batch, r, ranks)
+        loss_sum, _, _ = SingleDevice().loss_sums(tree, cfg, b, t)
+        objective = loss_sum / count
+        loss += float(objective.detach())
+        grads = unflatten(tree, torch.autograd.grad(objective, leaves(tree)))
+        flats.append(torch.cat([g.reshape(-1) for _, g in quant_comm.sorted_items(grads)]))
+    parts = [quant_comm._rows_of(f, ranks) for f in flats]
+    chunk = parts[0].shape[1]
+    packed = [quant_comm.pack_quantized(p) for p in parts]
+    rows = []
+    for j in range(ranks):
+        recv = torch.stack([packed[r][j] for r in range(ranks)])
+        red = quant_comm._sum_rows(quant_comm.unpack_dequantized(recv, chunk))
+        rows.append(quant_comm.pack_quantized(red[None])[0])
+    res = quant_comm.unpack_dequantized(torch.stack(rows), chunk)
+
+    def steps(rows):  # each element's `amax / 127` of its block in wire rows [ranks, chunk]
+        blocks = torch.nn.functional.pad(rows.abs(), (0, -chunk % quant_comm.DEFAULT_BLOCK))
+        blocks = blocks.reshape(ranks, -1, quant_comm.DEFAULT_BLOCK).amax(-1) / 127.0
+        return blocks.repeat_interleave(quant_comm.DEFAULT_BLOCK, dim=1)[:, :chunk].reshape(-1)
+
+    # one step of each hop: every rank's row and the reduced one; plus
+    # GRAD_TOL's allowance for the ranks' local gradients
+    step = steps(res) + sum(steps(p) for p in parts) + 1e-7 + 1e-5 * res.abs().reshape(-1)
+    order = {"/".join(path): i for i, (path, _) in enumerate(quant_comm.sorted_items(base))}
+    sizes = [leaf.numel() for _, leaf in quant_comm.sorted_items(base)]
+    offs = np.cumsum([0] + sizes)
+    names = ckpt_lib.paths(base)
+    out_g, out_s = [], []
+    flat, flat_step = res.reshape(-1), step
+    for name, leaf in zip(names, leaves(base)):
+        i = order[name]
+        out_g.append(flat[offs[i]:offs[i + 1]].view(leaf.shape))
+        out_s.append(flat_step[offs[i]:offs[i + 1]].view(leaf.shape))
+    return loss, out_g, out_s
+
+
+def quant_gloo_and_ep(dev, ep: dict) -> dict:
+    """Phase 38 b and c. DataParallel at `--comm_dtype int8` over two gloo
+    ranks on this card (`chip_smoke.py --dp-gloo-rank R`, phase 8's f32
+    2-layer setup, 4 rows a step, 2 a rank) against the same step computed
+    in this process (`_two_shot_in_process`), at the CPU tests' bars: the
+    first step's loss within 1e-5, each gradient element within one
+    quantization step of its block on each hop plus GRAD_TOL (the count
+    of bit-equal elements is printed); each rank's flash and CE kernels
+    launched as its steps ask.
+    Then phase 37's `ExpertParallel` (data 1, expert 2) with an int8 and a
+    bf16 exchange (the same spawn): each rank's grouped kernels launched
+    layers x steps times, and the losses against the f32 exchange's within
+    the EP band of `tests/test_quant_comm.py` (the first step 1e-2, every
+    step 2e-2). Returns rank 0's launches of each."""
+    cfg, base, batches = _tp_small(dev)
+    qcfg = cfg.replace(comm_dtype="int8")
+    loss, ref_g, ref_step = _two_shot_in_process(qcfg, base, batches[0])
+    t0 = time.perf_counter()
+    got = gloo_pair("--dp-gloo-rank", "chip_smoke_dp_gloo")
+    wall = time.perf_counter() - t0
+    losses = got["losses"].tolist()
+    worst, equal, total = 0.0, 0, 0
+    for i, (g, st) in enumerate(zip(ref_g, ref_step)):
+        mine = torch.from_numpy(got[f"g{i}"]).to(g.device)
+        over = (mine - g).abs() - st
+        worst = max(worst, float(over.max()))
+        equal += int((mine == g).sum())
+        total += g.numel()
+    counts = {k[len("count/"):]: int(v) for k, v in got.items() if k.startswith("count/")}
+    steps = len(batches)
+    want = dict(flash_forward=cfg.num_layers * steps, ce_forward_f32=steps)
+    print(f"ddp int8 over two gloo ranks on this card ({wall:.1f} s): first loss "
+          f"{losses[0]} vs {loss} in one process (bar 1e-5); gradients bit-equal in {equal} "
+          f"of {total} elements, the worst excess over the bar {worst:.3e} (must be <= 0); "
+          f"losses of {steps} steps {losses}; rank 0's launches flash_forward "
+          f"{counts['flash_forward']}, ce_forward_f32 {counts['ce_forward_f32']} (want {want})",
+          flush=True)
+    if (not abs(losses[0] - loss) <= 1e-5 or worst > 0
+            or any(counts[k] != v for k, v in want.items())):
+        raise AssertionError(f"DataParallel int8 over gloo disagrees with the step in one "
+                             f"process: loss {losses[0]} vs {loss}, excess {worst}, "
+                             f"launches {counts}")
+    ref = ep["got"]["losses"].tolist()
+    grouped = ("forward_up_f32", "forward_down_f32", "backward_dh_f32", "backward_dx_f32",
+               "backward_dwu_f32", "backward_dwd_f32")
+    ep_want = ep["layers"] * ep["steps"]
+    out = {"ddp_int8_gloo": {k: counts[k] for k in want}}
+    for comm in QUANT_EXCHANGES:
+        q = ep["got"][f"{comm}/losses"].tolist()
+        c = {k[len(f"{comm}/count/moe_"):]: int(v) for k, v in ep["got"].items()
+             if k.startswith(f"{comm}/count/moe_")}
+        first, every = abs(q[0] - ref[0]), max(abs(a - b) for a, b in zip(q, ref))
+        print(f"ep (data 1, expert 2) {comm} exchange over two gloo ranks: losses {q} vs the "
+              f"f32 exchange's {ref}: first step {first:.3e} (bar {EP_FIRST_STEP_TOL}), every "
+              f"step within {every:.3e} (bar {FINAL_LOSS_TOL}); rank 0's grouped launches "
+              f"{ {k: c[k] for k in grouped} } (want {ep_want} each)", flush=True)
+        if (not first < EP_FIRST_STEP_TOL or not every < FINAL_LOSS_TOL
+                or any(c[k] != ep_want for k in grouped) or q == ref):
+            raise AssertionError(f"EP with an {comm} exchange: losses {q} vs {ref}, launches {c}")
+        out[f"ep_{comm}"] = {k: c[k] for k in grouped}
+    return out
 
 
 def main() -> int:
@@ -2985,8 +3160,23 @@ def main() -> int:
         mesh_lib.initialize_runtime(dev)
         phase("MoE under DataParallel == SingleDevice (e8 rung, NCCL world of one); EP on "
               "(data 1, expert 2) over two gloo ranks == the single device (f32, 2 layers)")
-        ep_counts = ep_equals_single(dev)
+        ep = ep_equals_single(dev)
+        ep_counts = ep["counts"]
     print(f"phase 37: {time.perf_counter() - t_ep:.1f} s", flush=True)
+    _free()
+
+    # the quantized wires: DataParallel / FSDP in a world of one over NCCL,
+    # DataParallel int8 over two gloo ranks, phase 37's exchange at int8 and bf16
+    t_q = time.perf_counter()
+    with mesh_lib.scoped_runtime():
+        mesh_lib.initialize_runtime(dev)
+        phase("quantized collectives and gradient buckets: DDP and FSDP at --comm_dtype int8 "
+              "and f32 --grad_buckets 4 (gpt-small-dim768, NCCL world of one); DDP int8 over "
+              "two gloo ranks == the step in one process; EP (data 1, expert 2) int8 and bf16 "
+              "exchanges")
+        quant_runs = quant_full_width(dev, step)
+        quant_pairs = quant_gloo_and_ep(dev, ep)
+    print(f"phase 38: {time.perf_counter() - t_q:.1f} s", flush=True)
     _free()
 
     fl, ce = trained["flash"], trained["ce"]
@@ -3007,6 +3197,14 @@ def main() -> int:
             for k in ("_ms", "_call_ms", "_plain_ms", "_bound", "_err")}
             for e in EP_LOCAL_EXPERTS}
     under_cp = lambda key: {k: r["counts"][key] for k, r in cp_runs.items()}
+
+    def under_quant(key):  # phase 38's full-width runs, and rank 0 of the gloo pair (f32)
+        out = {k: r["counts"][key] for k, r in quant_runs.items()}
+        f32 = {"flash_forward": "flash_forward", "ce_forward": "ce_forward_f32"}.get(key)
+        if f32 is not None:
+            out["ddp int8, 2 gloo ranks, f32 2 layers (rank 0)"] = \
+                quant_pairs["ddp_int8_gloo"][f32]
+        return out
     phase("kernel results")
     print(json.dumps({"kernels": [
         {"name": "paged_attend", "route": "cuda",
@@ -3023,6 +3221,7 @@ def main() -> int:
                                        for k, r in piped.items()},
               launches_under_tp=tp_run["counts"]["flash_forward"],
               launches_under_cp=under_cp("flash_forward"),
+              launches_under_quant=under_quant("flash_forward"),
               at_ulysses_shape=trained["flash_8192"]),
         entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",
               c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],
@@ -3034,18 +3233,21 @@ def main() -> int:
               launches_under_pipeline={k: r["counts"]["flash_backward_dkv"]
                                        for k, r in piped.items()},
               launches_under_tp=tp_run["counts"]["flash_backward_dkv"],
-              launches_under_cp=under_cp("flash_backward_dkv")),
+              launches_under_cp=under_cp("flash_backward_dkv"),
+              launches_under_quant=under_quant("flash_backward_dkv")),
         entry("fused_head_ce_fwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:65",
               c["ce_forward"], ce, "fwd", ce["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"forward": c["ce_forward"],
                                                       "combine": c["ce_forward_combine"]},
-              launches_under_cp=under_cp("ce_forward")),
+              launches_under_cp=under_cp("ce_forward"),
+              launches_under_quant=under_quant("ce_forward")),
         entry("fused_head_ce_bwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:134",
               c["ce_backward_dw"], ce, "bwd", ce["bwd_err"], None,
               kernels_per_call=4 * c["ce_backward_dw"] // c["ce_forward"],
               launches_by_kernel={k: c[f"ce_backward_{k}"]
                                   for k in ("d", "dh", "dh_combine", "dw")},
-              unfused_ms=ce["unfused_ms"], launches_under_cp=under_cp("ce_backward_dw")),
+              unfused_ms=ce["unfused_ms"], launches_under_cp=under_cp("ce_backward_dw"),
+              launches_under_quant=under_quant("ce_backward_dw")),
         entry("moe_grouped_ffn_fwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
               mc["moe_forward_up"], moe_main, "fwd", moe_main["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"up": mc["moe_forward_up"],
@@ -3054,6 +3256,9 @@ def main() -> int:
               library_products_ms=moe_main["fwd_library_products_ms"],
               units=moe_main["units"],
               launches_under_ep_f32={k: ep_counts[f"forward_{k}_f32"] for k in ("up", "down")},
+              **{f"launches_under_ep_{c}_exchange": {
+                  k: quant_pairs[f"ep_{c}"][f"forward_{k}_f32"] for k in ("up", "down")}
+                 for c in QUANT_EXCHANGES},
               at_ep_shapes=ep_shapes("fwd")),
         entry("moe_grouped_ffn_fwd_decode", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
               moe_served["counts"]["moe_forward_up"], moe_decode, "fwd", moe_decode["fwd_err"],
@@ -3069,6 +3274,9 @@ def main() -> int:
               library_products_ms=moe_main["bwd_library_products_ms"],
               launches_under_ep_f32={k: ep_counts[f"backward_{k}_f32"]
                                      for k in ("dh", "dx", "dwu", "dwd")},
+              **{f"launches_under_ep_{c}_exchange": {
+                  k: quant_pairs[f"ep_{c}"][f"backward_{k}_f32"]
+                  for k in ("dh", "dx", "dwu", "dwd")} for c in QUANT_EXCHANGES},
               at_ep_shapes=ep_shapes("bwd")),
     ]}))
     print(smi)

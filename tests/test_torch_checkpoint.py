@@ -34,6 +34,7 @@ from tpukit_torch.bridge import params_from_numpy
 from tpukit_torch.model import gpt
 from tpukit_torch.shardings import SingleDevice, leaves, paths
 from tpukit_torch.train import create_train_state, train_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 LR = 1e-3
 

@@ -68,6 +68,7 @@ from tpukit_torch.recipes import ring, single
 from tpukit_torch.ring_attention import zigzag_order
 from tpukit_torch.shardings import ContextParallel
 from tpukit_torch.train import create_train_state
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = ROOT / "tests" / "torch_cp_worker.py"

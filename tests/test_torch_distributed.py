@@ -29,8 +29,11 @@ not divide, checkpoints both ways between TP, `SingleDevice` and tpukit,
 and a negative control (the head's cotangent summed over `model`).
 """
 
+import contextlib
+import fcntl
 import json
 import os
+import pickle
 import subprocess
 import sys
 import warnings
@@ -54,7 +57,7 @@ from tpukit.train import create_train_state as tk_create_train_state
 from tpukit.train import make_optimizer as tk_make_optimizer
 from tpukit.train import make_step_fns
 import tpukit_torch
-from tpukit_torch import NotPortedError, checkpoint, mesh
+from tpukit_torch import checkpoint, mesh
 from tpukit_torch.bridge import params_from_numpy
 from tpukit_torch.data import get_tokenizer
 from tpukit_torch.flags import build_parser, parse_flags
@@ -62,6 +65,7 @@ from tpukit_torch.model import gpt
 from tpukit_torch.recipes import ddp, fsdp, single, tp
 from tpukit_torch.shardings import FSDP, DataParallel, SingleDevice, fsdp_shard_dim, leaves
 from tpukit_torch.train import create_train_state, dropout_key, train_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = ROOT / "tests" / "torch_dist_worker.py"
@@ -145,10 +149,46 @@ def _spawn(world: int, inputs: Path, out: Path, timeout: float = SPAWN_TIMEOUT,
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
 
 
+@contextlib.contextmanager
+def _shared(tmp_path_factory, name: str):
+    """Under pytest-xdist, a file every worker of this run reads `name`
+    from, held under a lock while one worker makes it; None otherwise."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if run is None:
+        yield None
+        return
+    root = tmp_path_factory.getbasetemp().parent / f"torch_dist_{run}"
+    root.mkdir(exist_ok=True)
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            yield root / f"{name}.pkl"
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 @pytest.fixture(scope="module", params=[2, 4], ids=lambda n: f"world{n}")
 def world_run(request, tmp_path_factory, tk_cfg, global_batch, init_params):
-    """One spawn of N ranks, both strategies, and tpukit's references at N."""
+    """One spawn of N ranks, both strategies, and tpukit's references at N,
+    once a test run (shared between xdist workers)."""
     world = request.param
+    if world in _RUNS:  # tests that pick their world set it up again
+        return _RUNS[world]
+    with _shared(tmp_path_factory, f"world{world}") as path:
+        if path is not None and path.exists():
+            run = pickle.loads(path.read_bytes())
+        else:
+            run = _run_world(world, tmp_path_factory, tk_cfg, global_batch, init_params)
+            if path is not None:
+                path.write_bytes(pickle.dumps(run))
+    _RUNS[world] = run
+    return run
+
+
+_RUNS: dict = {}  # world -> its run, once a process
+
+
+def _run_world(world, tmp_path_factory, tk_cfg, global_batch, init_params):
     model_batch, targets = global_batch
     work = tmp_path_factory.mktemp(f"world{world}")
     # a SingleDevice checkpoint after one step, for FSDP to restore
@@ -160,13 +200,15 @@ def world_run(request, tmp_path_factory, tk_cfg, global_batch, init_params):
     single_ckpt = checkpoint.save(single_state, directory=work / "single_ckpt")
     single_sharded = checkpoint.save_sharded(single_state, directory=work / "single_sharded")
     tp_in = tp_inputs(world, work)
+    q_in = quant_inputs(world)
     np.savez(work / "inputs.npz", config=json.dumps(CONFIG), single_ckpt=str(single_ckpt),
              single_sharded=str(single_sharded),
              targets=targets, **model_batch,
              **{f"param/{k}": v for k, v in _flat(init_params).items()},
-             **tp_in["npz"])
+             **tp_in["npz"], **q_in)
     procs = _start(world, work / "inputs.npz", work)
     tp_refs = tp_references(world, tp_in)
+    quant = quant_references(world, q_in, tk_cfg, init_params, model_batch, targets)
     _spawn(world, work / "inputs.npz", work, procs=procs)
     devices = jax.devices()[:world]
     refs = {label: _tk_one_step(make(tk_create_mesh({"data": world}, devices)), tk_cfg,
@@ -189,7 +231,7 @@ def world_run(request, tmp_path_factory, tk_cfg, global_batch, init_params):
                    grads={k: v.numpy() for k, v in _flat(drop_grads).items()})
     return dict(world=world, work=work, got=dict(np.load(work / "result.npz")), refs=refs,
                 grads=grads, single=single_state, single_ckpt=single_ckpt, dropout=dropout,
-                tp=tp_refs)
+                tp=tp_refs, quant=quant)
 
 
 # ---------------------------------------------- tensor parallelism ----
@@ -497,9 +539,32 @@ RECIPE_ARGS = ["--epochs", "1", "--sequence_length", "64", "--dim", "32", "--hea
 @pytest.mark.parametrize("argv,item", [
     (["--comm_dtype", "int8"], "item 16"),
 ])
-def test_new_recipes_refuse_what_is_not_ported(recipe, argv, item):
-    with pytest.raises(NotPortedError, match=item):
-        recipe.main(argv + ["--device", "cpu"])
+def test_new_recipes_refuse_what_is_not_ported(recipe, argv, item, tmp_path, monkeypatch):
+    """Item 16 is ported: recipes 2 and 3 run `--comm_dtype int8` (a world
+    of one: DataParallel's wire quantizes there too), as tpukit's
+    `DataParallel` and `FSDP` do; recipe 6 refuses it with tpukit's
+    `ValueError` (`TensorParallel` has no hand-placed wire). Nothing is
+    left running, and no `DistributedDataParallel` is built: its reducer
+    has no part in the hand-placed wire."""
+    monkeypatch.chdir(tmp_path)
+    built = []
+
+    class CountingDDP(torch.nn.parallel.DistributedDataParallel):
+        def __init__(self, *args, **kwargs):
+            built.append(self)
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.parallel, "DistributedDataParallel", CountingDDP)
+    args = RECIPE_ARGS[:]
+    args[args.index("--dataset_slice") + 1] = "16"
+    if recipe is tp:
+        with pytest.raises(ValueError, match="--comm_dtype int8: the tp strategy has no"):
+            recipe.main(argv + args)
+    else:
+        result = recipe.main(argv + args + ["--batch_size", "4"])
+        assert result.config.comm_dtype == "int8"
+        assert np.isfinite(result.metrics["eval"]["loss"])
+    assert not built
     assert not torch.distributed.is_initialized()
 
 
@@ -787,3 +852,377 @@ def test_tp_argmax_ties_go_to_the_lowest_global_index(world_run):
     want = np.asarray(jnp.argmax(jnp.asarray(rows), axis=-1))
     np.testing.assert_array_equal(world_run["got"]["tp/argmax"], want)
     assert want.tolist() == [5, 0, 10]
+
+
+# ------------------- quantized collectives and gradient buckets ----
+#
+# The worker's `_quantized` cases (`QUANT_STEPS`, `QUANT_TRAJ`) against
+# tpukit's `ops/quant_comm.py` and its hand-placed `DataParallel` / `FSDP`
+# blocks on a `data` mesh of as many virtual CPU devices. The bars:
+#   - the collectives on the same per-rank inputs: bit-equal at world 2;
+#     at world 4, where XLA sums the 4 received rows in another order,
+#     those that reduce within one quantization step of their 256-element
+#     block (int8: `amax / 127` of the block of the reduced wire row; bf16:
+#     one bf16 ulp of the reduced value), those that move bits without
+#     arithmetic (the gathers, the exchange and its backward) bit-equal;
+#   - one step at int8 and bf16 (on a tree built in the port's own key
+#     order, which the wire must flatten in tpukit's sorted order): the
+#     loss within 1e-5, every gradient within one quantization step of its
+#     block on each hop it takes (int8: the block's `amax / 127` in every
+#     rank's wire row and in the reduced row; bf16: one ulp of every
+#     rank's value and of the reduced one), plus GRAD_TOL, since the ranks'
+#     exact local gradients differ from tpukit's by summation order and a
+#     value near a rounding boundary may land on the other side; at f32
+#     with buckets the gradients at GRAD_TOL;
+#   - six steps (`tests/test_quant_comm.py`'s gate): int8 and bf16 against
+#     the port's own f32 run, first step within FIRST_STEP_TOL, last within
+#     FINAL_LOSS_TOL, and the loss falling.
+
+FIRST_STEP_TOL = 1e-3  # tests/test_quant_comm.py:44-45
+FINAL_LOSS_TOL = 2e-2
+WIRE_BLOCK = 256
+
+
+def _worker_module():
+    sys.path.insert(0, str(WORKER.parent))
+    try:
+        import torch_dist_worker
+    finally:
+        sys.path.pop(0)
+    return torch_dist_worker
+
+
+def quant_inputs(world: int) -> dict:
+    """Per-rank inputs of the collectives (leading axis: the rank), sizes
+    no multiple of 256 or of the world: x [700, 3] (all-reduce), y [6, 40,
+    5] (reduce-scatter on dim 1), z [3, 300] (all-gather on dim 0), the
+    exchange's e [2 world, 3, 4, 6] (dispatch), h [2, 3 world, 4, 6]
+    (combine) and ct, the dispatch output's cotangent."""
+    rng = np.random.RandomState(21)
+
+    def draw(*shape):
+        scale = rng.uniform(0.05, 3.0, size=(world,) + (1,) * len(shape))
+        return (rng.randn(world, *shape) * scale).astype(np.float32)
+
+    b, c, d = 3, 4, 6
+    return {"quant/x": draw(700, 3), "quant/y": draw(6, 40, 5), "quant/z": draw(3, 300),
+            "quant/e": draw(2 * world, b, c, d), "quant/h": draw(2, world * b, c, d),
+            "quant/ct": draw(2, world * b, c, d)}
+
+
+def _tk_collectives(world: int, q: dict) -> dict:
+    """tpukit's collectives under `shard_map` on the same per-rank inputs:
+    `{"<fn>/<dtype>": every rank's output, stacked}`."""
+    from jax.sharding import PartitionSpec as P
+
+    from tpukit.compat import shard_map
+    from tpukit.ops import quant_comm as tkq
+
+    def block(x, y, z, e, h, ct):
+        x, y, z, e, h, ct = (a[0] for a in (x, y, z, e, h, ct))
+        out = {}
+        for dt in ("int8", "bf16"):
+            out[f"all_reduce/{dt}"] = tkq.quantized_all_reduce(x, "data", world, dt)
+            out[f"reduce_scatter/{dt}"] = tkq.quantized_reduce_scatter(y, "data", world, 1, dt)
+            out[f"all_gather/{dt}"] = tkq.quantized_all_gather(z, "data", world, 0, dt)
+            out[f"bucket_all_reduce/{dt}"] = tkq.bucket_all_reduce(x, "data", world, dt)
+            out[f"combine/{dt}"] = tkq.exchange_all_to_all(h, "data", world, "combine", dt)
+
+            def send(v, dt=dt):
+                return tkq.exchange_all_to_all(v, "data", world, "dispatch", dt)
+
+            out[f"dispatch/{dt}"] = send(e)
+            out[f"dispatch_grad/{dt}"] = jax.grad(lambda v: jnp.sum(send(v) * ct))(e)
+        out["bucket_all_reduce/f32"] = tkq.bucket_all_reduce(x, "data", world, "f32")
+        return {k: v[None] for k, v in out.items()}
+
+    mesh = tk_create_mesh({"data": world}, jax.devices()[:world])
+    spec = P("data")
+    fn = jax.jit(shard_map(block, mesh=mesh, in_specs=(spec,) * 6, out_specs=spec,
+                           check_vma=False))
+    got = fn(*(q[f"quant/{k}"] for k in ("x", "y", "z", "e", "h", "ct")))
+    return {k: np.asarray(v) for k, v in got.items()}
+
+
+def quant_references(world: int, q: dict, tk_cfg, init_params, model_batch, targets) -> dict:
+    """tpukit's collectives, and its hand-placed step (loss, gradients, the
+    closed form of the wire at `backend=None`) for each case of the
+    worker's `QUANT_STEPS[world]` it has a twin of (not the controls; at
+    world 4 the bucketed FSDP step)."""
+    refs = {"collectives": _tk_collectives(world, q), "steps": {}}
+    mesh = tk_create_mesh({"data": world}, jax.devices()[:world])
+    step_key = jax.random.fold_in(jax.random.PRNGKey(0 ^ 0x5EED), 0)
+    for label, kind, fields, opts in _worker_module().QUANT_STEPS[world]:
+        if "control" in opts or (world == 4 and label != "fsdp/f32b3"):
+            continue
+        strategy = {"ddp": TkDataParallel, "fsdp": TkFSDP}[kind](mesh)
+        cfg = tk_cfg.replace(**fields)
+        strategy.validate_config(cfg)
+        fn = jax.jit(lambda p, b, t, r, strategy=strategy, cfg=cfg:
+                     strategy.value_and_grad(p, cfg, b, t, rng=r))
+        loss, grads = fn(init_params, model_batch, targets,
+                         step_key if opts.get("rng") else None)
+        refs["steps"][label] = dict(
+            loss=float(loss), grads=_flat(jax.tree.map(np.asarray, jax.device_get(grads))),
+            closed=strategy.grad_comm(cfg, init_params, backend=None))
+    return refs
+
+
+def _int8_steps(rows: np.ndarray) -> np.ndarray:
+    """One quantization step (`amax / 127` of its 256-element block) for
+    every element of wire rows `[rows, n]`."""
+    n = rows.shape[1]
+    pad = -(-n // WIRE_BLOCK) * WIRE_BLOCK
+    blocks = np.abs(np.pad(rows, ((0, 0), (0, pad - n)))).reshape(rows.shape[0], -1, WIRE_BLOCK)
+    return np.repeat(blocks.max(-1) / 127.0, WIRE_BLOCK, axis=1)[:, :n]
+
+
+def _bf16_ulp(v: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each value (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(v), 1e-30))) - 7)
+
+
+def _wire_rows(flat: np.ndarray, world: int) -> np.ndarray:
+    """A flat payload padded to `[world, chunk]`, as the two-shot cuts it."""
+    chunk = -(-max(flat.size, 1) // world)
+    return np.pad(flat, (0, world * chunk - flat.size)).reshape(world, chunk)
+
+
+def _held(got: np.ndarray, ref: np.ndarray, bar: np.ndarray) -> float:
+    """Assert |got - ref| <= bar; return the share of elements that differ
+    at all."""
+    diff = np.abs(got.astype(np.float64) - ref)
+    assert (diff <= bar + 1e-12).all(), (float(diff.max()), float(bar[diff > bar].min()))
+    return float((got != ref).mean())
+
+
+REDUCING = ("all_reduce", "reduce_scatter", "bucket_all_reduce")
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_quantized_collectives_match_tpukit(world_run, dtype):
+    """Each collective of the port's `quant_comm` on gloo ranks against
+    tpukit's under `shard_map` on the same per-rank inputs: bit-equal at 2
+    ranks; at 4 the reducing ones within one quantization step of their
+    block (bf16: one ulp of the reduced value), the rest bit-equal."""
+    world, got, refs = world_run["world"], world_run["got"], world_run["quant"]["collectives"]
+    for name in REDUCING + ("all_gather", "dispatch", "combine", "dispatch_grad"):
+        mine, ref = got[f"quant/{name}/{dtype}"], refs[f"{name}/{dtype}"]
+        assert mine.shape == ref.shape and mine.dtype == ref.dtype, name
+        if world == 2 or name not in REDUCING:
+            np.testing.assert_array_equal(mine, ref, err_msg=name)
+            continue
+        for r in range(world):
+            if dtype == "bf16":
+                bar = _bf16_ulp(ref[r])
+            elif name == "reduce_scatter":  # this rank's row of each source
+                bar = _int8_steps(ref[r].swapaxes(0, 1).reshape(1, -1)).reshape(
+                    ref[r].swapaxes(0, 1).shape).swapaxes(0, 1)
+            else:
+                rows = _wire_rows(ref[r].reshape(-1), world)
+                bar = _int8_steps(rows).reshape(-1)[:ref[r].size].reshape(ref[r].shape)
+            _held(mine[r], ref[r], bar)
+
+
+def test_f32_bucket_all_reduce_matches_tpukit(world_run):
+    """`bucket_all_reduce` at f32 (the two-shot shape, rank-order sums):
+    bit-equal to tpukit's at 2 ranks, at GRAD_TOL at 4."""
+    got = world_run["got"]["quant/bucket_all_reduce/f32"]
+    ref = world_run["quant"]["collectives"]["bucket_all_reduce/f32"]
+    if world_run["world"] == 2:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, **GRAD_TOL)
+
+
+def _tk_order(names) -> list:
+    """Leaf paths in tpukit's flatten order (keys sorted at every level)."""
+    return sorted(names, key=lambda n: n.split("/"))
+
+
+def _tol(ref: np.ndarray) -> np.ndarray:
+    """GRAD_TOL's allowance: the ranks' exact local gradients differ from
+    tpukit's by summation order."""
+    return GRAD_TOL["atol"] + GRAD_TOL["rtol"] * np.abs(ref)
+
+
+def _dp_bars(ref: dict, local: dict, world: int, dtype: str, buckets) -> dict:
+    """Per-leaf bars of a DataParallel step: one quantization step of each
+    hop the element takes, where a rank's value near a rounding boundary
+    can land on the other side of it. int8: the step of its block in each
+    rank's wire rows (the payload, the whole tree in tpukit's order or a
+    bucket, cut into `[world, chunk]`) and in the reduced row; bf16: one
+    ulp of each rank's value and of the reduced one; plus GRAD_TOL."""
+    if dtype == "bf16":
+        return {n: sum(_bf16_ulp(local[n][r]) for r in range(world)) + _bf16_ulp(g) + _tol(g)
+                for n, g in ref.items()}
+    order = _tk_order(ref)
+    payloads = [order] if buckets is None else [[order[i] for i in b] for b in buckets]
+    bars = {}
+    for names in payloads:
+        def steps(tree):
+            flat = np.concatenate([tree[n].reshape(-1) for n in names])
+            return _int8_steps(_wire_rows(flat, world)).reshape(-1)
+        total = steps(ref) + sum(steps({n: local[n][r] for n in names}) for r in range(world))
+        off = 0
+        for n in names:
+            bars[n] = total[off:off + ref[n].size].reshape(ref[n].shape) + _tol(ref[n])
+            off += ref[n].size
+    return bars
+
+
+def _fsdp_bars(ref: dict, local: dict, world: int, dtype: str) -> dict:
+    """Per-leaf bars of an FSDP step: one quantization step of each rank's
+    value (int8: the step of its block in the rank's reduce-scatter rows of
+    its leaf, the shard dimension first; bf16: one ulp; the sum is not
+    re-quantized), plus GRAD_TOL; a replicated leaf (an f32 all-reduce) at
+    GRAD_TOL."""
+    bars = {}
+    for n, g in ref.items():
+        dim = fsdp_shard_dim(g.shape, world)
+        if dim is None:
+            bars[n] = _tol(g)
+            continue
+        total = np.zeros_like(g, dtype=np.float64)
+        for r in range(world):
+            if dtype == "bf16":
+                total += _bf16_ulp(local[n][r])
+            else:
+                moved = np.moveaxis(local[n][r], dim, 0)
+                total += np.moveaxis(_int8_steps(moved.reshape(world, -1)).reshape(moved.shape),
+                                     0, dim)
+        bars[n] = total + _tol(g)
+    return bars
+
+
+QSTEPS_VS_TPUKIT = {2: ["ddp/int8", "ddp/bf16", "ddp/f32b3", "ddp/int8b3", "ddp/int8sr",
+                        "fsdp/int8", "fsdp/bf16", "fsdp/f32b3"], 4: ["fsdp/f32b3"]}
+
+
+def _hold_qstep(world_run, label: str, ref_label: str | None = None) -> float:
+    """The port's hand-placed step `label` against tpukit's `ref_label`
+    (default the same) at the bars above; returns the share of gradient
+    elements that differ at all."""
+    world, got = world_run["world"], world_run["got"]
+    ref = world_run["quant"]["steps"][ref_label or label]
+    kind, wire = (ref_label or label).split("/")
+    grads = _tree(got, f"qstep/{label}/grad")
+    assert grads.keys() == ref["grads"].keys()
+    assert abs(float(got[f"qstep/{label}/loss"]) - ref["loss"]) < 1e-5
+    if wire.startswith("f32"):
+        for name, want in ref["grads"].items():
+            np.testing.assert_allclose(grads[name], want, **GRAD_TOL, err_msg=name)
+        return 0.0
+    dtype = "bf16" if wire.startswith("bf16") else "int8"
+    tag = "dropout" if wire == "int8sr" else "plain"
+    local = _tree(got, f"qlocal/{tag}")
+    if kind == "fsdp":
+        bars = _fsdp_bars(ref["grads"], local, world, dtype)
+    else:
+        buckets = None
+        if "b" in wire[4:]:
+            from tpukit.ops.quant_comm import grad_bucket_plan
+            buckets = grad_bucket_plan(jax.tree.map(np.asarray, _nested(ref["grads"])),
+                                       int(wire.rsplit("b", 1)[1]))
+        bars = _dp_bars(ref["grads"], local, world, dtype, buckets)
+    differ = [(grads[n] != want).sum() for n, want in ref["grads"].items()]
+    for name, want in ref["grads"].items():
+        diff = np.abs(grads[name].astype(np.float64) - want)
+        assert (diff <= bars[name] + 1e-12).all(), (name, float(diff.max()))
+    return float(sum(differ) / sum(g.size for g in ref["grads"].values()))
+
+
+def _nested(flat: dict) -> dict:
+    tree: dict = {}
+    for name, v in flat.items():
+        *keys, last = name.split("/")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+@pytest.mark.parametrize("world_run,label", [(w, lab) for w, labs in QSTEPS_VS_TPUKIT.items()
+                                             for lab in labs],
+                         ids=[f"world{w}-{lab}" for w, labs in QSTEPS_VS_TPUKIT.items()
+                              for lab in labs], indirect=["world_run"])
+def test_quantized_step_matches_tpukit(world_run, label):
+    """One hand-placed `DataParallel` / `FSDP` step (`--comm_dtype int8 |
+    bf16`, `--grad_buckets 3`, int8 with stochastic rounding and dropout
+    0.1, whose keys come from the step: `fold_in(fold_in(key, rank),
+    0x5151)` and `fold_in(key, rank)`) against tpukit's on the same mesh:
+    loss within 1e-5, gradients within one quantization step of their
+    block on each hop (bf16: one ulp; f32 buckets: GRAD_TOL)."""
+    _hold_qstep(world_run, label)
+
+
+@pytest.mark.parametrize("world_run", [4], indirect=True, ids=["world4"])
+def test_f32_bucket_wire_is_bit_identical_for_any_partition(world_run):
+    """At f32 the bucket wire sums every element in rank order: the
+    gradients of `--grad_buckets` 1, 2, 3 and 5 are the same bits, under
+    `DataParallel` and `FSDP`, on 4 ranks."""
+    got = world_run["got"]
+    for kind in ("ddp", "fsdp"):
+        labels = [f"{kind}/f32b{n}" for n in (1, 2, 3, 5)]
+        base = _tree(got, f"qstep/{labels[0]}/grad")
+        for label in labels[1:]:
+            other = _tree(got, f"qstep/{label}/grad")
+            assert other.keys() == base.keys()
+            for name in base:
+                np.testing.assert_array_equal(other[name], base[name], err_msg=f"{label} {name}")
+
+
+def test_quantized_step_bytes_match_closed_forms(world_run):
+    """The `all_to_all_single` and `all_gather_into_tensor` calls of a
+    hand-placed step and the bytes they moved (counted by wrapping c10d,
+    `recipes/profile.comm_bytes`) against the port's closed
+    forms (`grad_comm`), which equal tpukit's at `backend=None`: one a2a and
+    one all-gather a DataParallel payload or bucket; under FSDP one f32
+    all-gather a sharded leaf and one a2a a sharded leaf or a bucket."""
+    world, got = world_run["world"], world_run["got"]
+    names = {"all_to_all_single": "all-to-all", "all_gather_into_tensor": "all-gather"}
+    for label in [k.split("/")[1] + "/" + k.split("/")[2] for k in got
+                  if k.startswith("qstep/") and k.endswith("/calls")]:
+        calls = json.loads(str(got[f"qstep/{label}/calls"]))
+        closed = json.loads(str(got[f"qstep/{label}/closed"]))
+        seen = {names[op]: rec for op, rec in calls.items() if op in names}
+        assert seen == closed, label
+        # beside the wire, only the loss's and the valid-token count's
+        # f32 all-reduces (and FSDP's replicated leaves')
+        assert set(calls) - set(names) <= {"all_reduce"}, label
+        ref = world_run["quant"]["steps"].get(label)
+        if ref is not None:
+            assert closed == ref["closed"], label
+    if world == 2:
+        assert json.loads(str(got["qstep/ddp/int8/closed"]))["all-to-all"]["count"] == 1
+        assert json.loads(str(got["qstep/ddp/f32b3/closed"]))["all-to-all"]["count"] == 3
+        n_sharded = sum(fsdp_shard_dim(v.shape, world) is not None
+                        for v in _tree(got, "qstep/fsdp/int8/grad").values())
+        assert json.loads(str(got["qstep/fsdp/int8/closed"]))["all-to-all"]["count"] == n_sharded
+
+
+@pytest.mark.parametrize("world_run", [2], indirect=True, ids=["world2"])
+@pytest.mark.parametrize("control", ["ddp_reducer", "insertion_order"])
+def test_quantized_step_negative_controls_fail_the_bar(world_run, control):
+    """DDP's reducer left running under the hand-placed wire (a double
+    reduction), and the payload flattened in the tree's insertion order in
+    place of tpukit's sorted-key order, each miss the int8 step's bar
+    against tpukit's `DataParallel`, which the real step meets (above)."""
+    with pytest.raises(AssertionError):
+        _hold_qstep(world_run, f"control/{control}", "ddp/int8")
+
+
+@pytest.mark.parametrize("world_run", [4], indirect=True, ids=["world4"])
+@pytest.mark.parametrize("label", ["ddp/int8", "ddp/bf16", "ddp/int8sr", "fsdp/int8",
+                                   "fsdp/int8sr"])
+def test_quantized_trajectory_tracks_f32(world_run, label):
+    """`tests/test_quant_comm.py`'s gate on 4 ranks: six steps of the
+    quantized wire against the port's own f32 run, the first loss within
+    FIRST_STEP_TOL, the last within FINAL_LOSS_TOL, and the loss falling."""
+    got = world_run["got"]
+    quant, ref = got[f"qtraj/{label}"], got[f"qtraj/{label.split('/')[0]}/f32"]
+    assert np.isfinite(quant).all()
+    assert abs(quant[0] - ref[0]) < FIRST_STEP_TOL, (quant, ref)
+    assert abs(quant[-1] - ref[-1]) < FINAL_LOSS_TOL, (quant, ref)
+    assert quant[-1] < quant[0]

@@ -68,7 +68,7 @@ from tpukit.train import create_train_state as tk_create_train_state
 from tpukit.train import make_optimizer as tk_make_optimizer
 from tpukit.train import make_step_fns
 import tpukit_torch
-from tpukit_torch import NotPortedError, checkpoint, mesh
+from tpukit_torch import checkpoint, mesh
 from tpukit_torch.bridge import params_from_numpy
 from tpukit_torch.model import GPTConfig, gpt
 from tpukit_torch.ops.moe_dispatch import ExpertGrid
@@ -76,6 +76,7 @@ from tpukit_torch.recipes import moe as moe_recipe
 from tpukit_torch.shardings import (ExpertParallel, SingleDevice, ep_placement, leaves, paths,
                                     unflatten)
 from tpukit_torch.train import create_train_state, train_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = ROOT / "tests" / "torch_ep_worker.py"
@@ -116,7 +117,12 @@ CASES = {
         _ep("control/rank_mean_aux", 1, 2, "a2a", 1, "allpad", control="rank_mean_aux"),
         _dp("ddp", "xla"), _dp("ddp", "pallas"), _dp("fsdp", "xla"), _dp("fsdp", "pallas", 2,
                                                                           "allpad"),
-    ],
+        _ep("d1e2/a2a/top1/int8", 1, 2, "a2a", 1, comm="int8", count_a2a=True),
+        _ep("d1e2/a2a/top1/bf16", 1, 2, "a2a", 1, comm="bf16"),
+        _ep("d1e2/a2a/top1/int8b2", 1, 2, "a2a", 1, comm="int8", buckets=2),
+    ] + [_ep(f"traj/d1e2/{name}", 1, 2, "a2a", 1, traj=True, **kw) for name, kw in (
+        ("f32", {}), ("int8", dict(comm="int8")), ("bf16", dict(comm="bf16")),
+        ("int8sr", dict(comm="int8", stochastic=True)))],
     # each dispatch at top-1 on one grid and top-2 on the other
     4: _grid_cases(1, 4, dict(a2a=1, pallas=2, xla=1))
     + _grid_cases(2, 2, dict(a2a=2, pallas=1, xla=2)) + [
@@ -127,12 +133,18 @@ CASES = {
         _ep("control/no_data_sum", 2, 2, "a2a", 1, control="no_data_sum"),
         _dp("ddp", "xla", 1, "allpad"), _dp("ddp", "pallas", 2), _dp("fsdp", "xla", 2),
         _dp("fsdp", "pallas"),
+        _ep("d2e2/a2a/top1/int8", 2, 2, "a2a", 1, comm="int8", count_a2a=True),
+        _ep("d2e2/a2a/top1/bf16", 2, 2, "a2a", 1, comm="bf16"),
     ],
 }
 CONTROLS = {"control/rank_mean_aux": "d1e2/a2a/top1/allpad",
             "control/no_data_sum": "d2e2/a2a/top1"}
+# the quantized exchange's one-step cases, held to tpukit's within the EP
+# band of tests/test_quant_comm.py (their own test, below)
+QUANT_LABELS = [(w, c["label"]) for w, cs in CASES.items() for c in cs
+                if c.get("comm") and not c.get("traj") and not c.get("buckets")]
 STEP_LABELS = [(w, c["label"]) for w, cs in CASES.items() for c in cs
-               if c["label"] not in CONTROLS]
+               if c["label"] not in CONTROLS and not c.get("comm") and not c.get("traj")]
 
 
 def _flat(tree, prefix=""):
@@ -165,7 +177,8 @@ def _batches() -> dict:
 
 
 def _tk_cfg(case: dict) -> TkGPTConfig:
-    kw = dict(router_top_k=case["top_k"], expert_capacity_factor=case.get("capacity", 1.25))
+    kw = dict(router_top_k=case["top_k"], expert_capacity_factor=case.get("capacity", 1.25),
+              comm_dtype=case.get("comm", "f32"))
     if case["kind"] != "ep":
         kw["moe_dispatch"] = case["dispatch"]
     return TkGPTConfig(**CONFIG, compute_dtype=jnp.float32, **kw)
@@ -265,8 +278,10 @@ def _run_world(world: int, work: Path) -> dict:
         refs, grads = {}, {}
         for case in CASES[world]:
             label = case["label"]
-            if label not in CONTROLS:
-                refs[label] = _tk_one_step(case, world, batches)
+            if label in CONTROLS or case.get("traj") or case.get("buckets"):
+                continue
+            refs[label] = _tk_one_step(case, world, batches)
+            if not case.get("comm"):
                 grads[label] = _single_grads(case, init, batches)
         deadline = time.monotonic() + SPAWN_TIMEOUT
         for p, _ in procs:
@@ -412,6 +427,70 @@ def test_exchange_count_matches_expected_a2a(worlds, world):
     want = expected_a2a(_tk_cfg(case), case["data"], case["expert"], BATCH, SEQ)
     assert want["train"]["count"] == 4 * CONFIG["num_layers"]
     assert got.tolist() == [want["buffer_bytes"]] * want["train"]["count"]
+
+
+EP_FIRST_STEP_TOL = 1e-2  # tests/test_quant_comm.py:306, int8 activations
+FINAL_LOSS_TOL = 2e-2
+
+
+@pytest.mark.parametrize("world,label", QUANT_LABELS, ids=[f"{w}-{lab}" for w, lab in QUANT_LABELS])
+def test_quantized_exchange_step_matches_tpukit(worlds, world, label):
+    """`ExpertParallel` with an int8 or a bf16 exchange (`--comm_dtype`) on
+    gloo ranks against tpukit's `ExpertParallel(dispatch="a2a")` with the
+    same payload: the loss, and the bf16 eval after one AdamW step, within
+    the EP first-step band of `tests/test_quant_comm.py` (1e-2); the
+    exchange really moved another payload than f32 (the loss differs from
+    the f32 step's)."""
+    run = worlds(world)
+    got, ref = run["got"], run["refs"][label]
+    assert abs(float(got[f"{label}/loss"]) - ref["loss"]) < EP_FIRST_STEP_TOL
+    assert abs(float(got[f"{label}/eval_loss"]) - ref["eval_loss"]) < EP_FIRST_STEP_TOL
+    f32 = label.rsplit("/", 1)[0]
+    assert float(got[f"{label}/loss"]) != float(got[f"{f32}/loss"])
+
+
+def test_exchange_grad_buckets_change_no_bits(worlds):
+    """`--grad_buckets 2` under `ExpertParallel` changes no dataflow (tpukit
+    `shardings.py:1290-1305`): the int8 step's loss, gradients and stepped
+    parameters are the bits of the step without buckets."""
+    got = worlds(2)["got"]
+    a, b = "d1e2/a2a/top1/int8", "d1e2/a2a/top1/int8b2"
+    assert float(got[f"{a}/loss"]) == float(got[f"{b}/loss"])
+    for kind in ("grad", "param"):
+        mine, theirs = _tree(got, f"{b}/{kind}"), _tree(got, f"{a}/{kind}")
+        assert mine.keys() == theirs.keys()
+        for name in mine:
+            np.testing.assert_array_equal(mine[name], theirs[name], err_msg=name)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_quantized_exchange_bytes_match_expected_a2a(worlds, world):
+    """An int8 exchange's training step runs tpukit's `expected_a2a` count
+    (4 x num_layers `all_to_all_single`), each moving its packed bytes (`E`
+    / expert destinations of `packed_bytes` rows)."""
+    case = next(c for c in CASES[world] if c.get("count_a2a") and c.get("comm") == "int8")
+    got = worlds(world)["got"][f"{case['label']}/a2a_bytes"]
+    want = expected_a2a(_tk_cfg(case), case["data"], case["expert"], BATCH, SEQ)
+    count = want["train"]["count"]
+    assert count == 4 * CONFIG["num_layers"]
+    assert got.tolist() == [want["train"]["bytes"] // count] * count
+    f32 = expected_a2a(_tk_cfg({**case, "comm": "f32"}), case["data"], case["expert"], BATCH,
+                       SEQ)
+    assert want["train"]["bytes"] <= 0.30 * f32["train"]["bytes"]
+
+
+@pytest.mark.parametrize("name", ["int8", "bf16", "int8sr"])
+def test_quantized_exchange_trajectory_tracks_f32(worlds, name):
+    """`tests/test_quant_comm.py`'s gate on (data 1, expert 2): six steps of
+    the quantized exchange (stochastic rounding too, whose keys cannot be
+    tpukit's) against the port's own f32 exchange, the first loss within
+    the EP band 1e-2, the last within 2e-2, and the loss falling."""
+    got = worlds(2)["got"]
+    quant, ref = got[f"traj/d1e2/{name}/traj"], got["traj/d1e2/f32/traj"]
+    assert np.isfinite(quant).all()
+    assert abs(quant[0] - ref[0]) < EP_FIRST_STEP_TOL, (quant, ref)
+    assert abs(quant[-1] - ref[-1]) < FINAL_LOSS_TOL, (quant, ref)
+    assert quant[-1] < quant[0]
 
 
 def _tk_specs(world: int) -> tuple[dict, dict]:
@@ -572,13 +651,27 @@ RECIPE_ARGS = ["--epochs", "1", "--sequence_length", "64", "--dim", "32", "--hea
 
 
 @pytest.mark.parametrize("argv", [["--comm_dtype", "bf16"], ["--comm_dtype", "int8"],
-                                  ["--grad_buckets", "2"]],
-                         ids=["comm_bf16", "comm_int8", "grad_buckets"])
-def test_moe_recipe_refuses_what_is_not_ported(argv):
-    """The int8 and bf16 exchange payloads and grad buckets under recipe 8
-    are item 16; nothing is left running."""
-    with pytest.raises(NotPortedError, match="item 16"):
-        moe_recipe.main(RECIPE_ARGS + argv)
+                                  ["--grad_buckets", "2"],
+                                  ["--comm_dtype", "int8", "--moe_dispatch", "xla"],
+                                  ["--grad_buckets", "2", "--moe_dispatch", "xla"]],
+                         ids=["comm_bf16", "comm_int8", "grad_buckets", "comm_int8_xla",
+                              "grad_buckets_xla"])
+def test_moe_recipe_refuses_what_is_not_ported(argv, tmp_path, monkeypatch):
+    """Item 16 is ported: recipe 8 runs the bf16 and int8 exchange payloads
+    and grad buckets with the pallas dispatch, as tpukit's `ExpertParallel`
+    does (a world of one here: its 1 x 1 grid exchanges nothing), and
+    refuses them with the xla dispatch with tpukit's `ValueError`
+    (`tpukit/shardings.py:1200-1214`); nothing is left running."""
+    monkeypatch.chdir(tmp_path)
+    args = RECIPE_ARGS[:]
+    args[args.index("--dataset_slice") + 1] = "16"
+    if "xla" in argv:
+        with pytest.raises(ValueError, match="needs the hand-placed exchange"):
+            moe_recipe.main(args + argv)
+    else:
+        result = moe_recipe.main(args + argv)
+        assert np.isfinite(result.metrics["eval"]["loss"])
+        assert result.config.comm_dtype == (argv[1] if argv[0] == "--comm_dtype" else "f32")
     assert not torch.distributed.is_initialized()
 
 

@@ -25,6 +25,7 @@ import tpukit.ops.pallas_attention as tk_pa
 from tpukit.ops.attention import causal_attention as tk_causal_attention
 from tpukit_torch.ops.attention import causal_attention
 from tpukit_torch.ops.flash_attention import flash_causal_attention
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 D = 32
 SCALE = D**-0.5

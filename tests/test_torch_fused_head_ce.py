@@ -24,6 +24,7 @@ import tpukit.ops.fused_head_ce as tk_fce
 from tpukit_torch.ops.fused_head_ce import fused_head_ce
 from tpukit_torch.ops.layers import cross_entropy_sum, masked_correct
 from tpukit.ops import layers as tk_layers
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 DIM, VOCAB = 32, 300
 V_PAD = -(-VOCAB // 128) * 128

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import tpukit_torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 REFUSED = ("jax", "jaxlib", "tpukit", "flax", "msgpack")  # the port imports none of these

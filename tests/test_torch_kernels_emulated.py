@@ -51,6 +51,7 @@ from tpukit_torch.ops import fused_head_ce as fce
 from tpukit_torch.ops import moe_gemm
 from tpukit_torch.ops import paged_attention as pa
 from tpukit_torch.ops import quant_comm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 EMU = ROOT / "tpukit_torch" / "csrc" / "host_emu"

@@ -12,6 +12,7 @@ from tpukit.ops import layers as jax_layers
 from tpukit.ops import quant_comm as jax_qc
 from tpukit_torch.ops import layers
 from tpukit_torch.ops import quant_comm as qc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _np_params(rng, fan_in, fan_out, bias):

@@ -50,6 +50,7 @@ from tpukit_torch.serve import __main__ as serve_main
 from tpukit_torch.serve.engine import ServeConfig, ServeEngine
 from tpukit_torch.shardings import ExpertParallel, SingleDevice, leaves
 from tpukit_torch.train import create_train_state, train_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BATCH, SEQ = 16, 32
 ROOT = Path(__file__).resolve().parent.parent

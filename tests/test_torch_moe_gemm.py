@@ -25,6 +25,7 @@ from tpukit.ops import moe_gemm as tk_moe_gemm
 from tpukit.ops.moe_dispatch import _route_topk as tk_route_topk
 from tpukit_torch.model import GPTConfig
 from tpukit_torch.ops import moe_gemm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # (segment sizes, real rows n): the padded row count m is plan_rows(n)[1],
 # the padding tail folds into the last segment. tpukit's own layout (an

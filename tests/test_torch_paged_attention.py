@@ -23,6 +23,7 @@ from tpukit.serve import paged as jax_paged
 from tpukit_torch.ops import paged_attention as pa
 from tpukit_torch.ops import quant_comm as qc
 from tpukit_torch.serve import paged
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 H, P, D, MP, N = 4, 8, 8, 3, 4  # tests/test_paged_attention.py:113
 # cursors: 0 (the fresh token alone), mid-page, a page boundary, W - 1

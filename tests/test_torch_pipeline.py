@@ -60,7 +60,8 @@ from tpukit_torch.model import gpt
 from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
 from tpukit_torch.recipes import pipe, pipe_ddp, single
 from tpukit_torch.shardings import SingleDevice, leaves, paths
-from tpukit_torch.train import create_train_state
+from tpukit_torch.train import build_config, create_train_state
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = ROOT / "tests" / "torch_pipe_worker.py"
@@ -670,7 +671,9 @@ def test_microbatch_counts_follow_tpukit():
 def test_pipeline_flags_parse():
     """`--microbatches`, `--schedule` (also `--pipeline_schedule`) and
     `--virtual_stages` parse as tpukit's pipeline parser has them, and are
-    carried; every other flag of `NOT_CARRIED` still raises."""
+    carried; every other flag of `NOT_CARRIED` still raises. `--comm_dtype`
+    and `--grad_buckets` are carried, and the pipeline refuses them with
+    tpukit's `ValueError` (`tpukit/pipeline.py:223`: no hand-placed wire)."""
     argv = ["--microbatches", "8", "--pipeline_schedule", "1f1b", "--virtual_stages", "2",
             "--num_experts", "4", "--moe_dispatch", "pallas"]
     flags = pipe.pipeline_flags(argv)
@@ -693,5 +696,11 @@ def test_pipeline_flags_parse():
     assert pipe_ddp.pick_grid(3, 4) == {"data": 3, "stage": 1}
     for name, value in (("comm_dtype", "int8"), ("keep_checkpoints", 2),
                         ("grad_buckets", 2)):
-        with pytest.raises(NotPortedError):
-            check_carried(dataclasses.replace(flags, **{name: value}))
+        changed = dataclasses.replace(flags, **{name: value})
+        if name in NOT_CARRIED:
+            with pytest.raises(NotPortedError):
+                check_carried(changed)
+            continue
+        check_carried(changed)
+        with pytest.raises(ValueError, match=f"--{name} .*the {strategy.name} strategy has no"):
+            strategy.validate_config(build_config(changed, 211))

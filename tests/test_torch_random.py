@@ -15,6 +15,7 @@ import torch
 from tpukit.ops.layers import dropout as tk_dropout
 from tpukit_torch import random as tr
 from tpukit_torch.ops.layers import dropout
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SHAPES = [(1,), (7,), (3, 5), (2, 3, 5), (4, 50304)]
 SEEDS = [0, 1234, 2**31 - 1]

@@ -27,6 +27,7 @@ from tpukit_torch import random as tr
 from tpukit_torch.data import WordTokenizer, synthetic_stories
 from tpukit_torch.model import GPTConfig, gpt
 from tpukit_torch.serve import decode
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 PROMPTS = ["The big brown cat ", "One day, ", "She said "]
 SAMPLED = [(0.0, 0), (0.8, 0), (0.8, 5)]

@@ -46,6 +46,7 @@ from tpukit_torch.data import WordTokenizer, synthetic_stories
 from tpukit_torch.model import GPTConfig, gpt
 from tpukit_torch.serve import paged
 from tpukit_torch.serve.engine import ServeConfig, ServeEngine, synthetic_request_stream
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MAX_NEW = 10
 

@@ -29,6 +29,7 @@ from tpukit_torch import random as tr
 from tpukit_torch.model import GPTConfig
 from tpukit_torch.serve import spec
 from tpukit_torch.serve.engine import ServeConfig, ServeEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 K = 4
 V = 50

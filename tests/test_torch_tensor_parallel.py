@@ -31,6 +31,7 @@ from tpukit_torch.serve.engine import ServeConfig, ServeEngine
 from tpukit_torch.serve.fleet import pick_serve_grid
 from tpukit_torch.shardings import SingleDevice, TensorParallel, leaves
 from tpukit_torch.train import create_train_state, train_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 TP_CONFIG = dict(dim=32, head_dim=8, heads=4, num_layers=2, vocab_size=160,

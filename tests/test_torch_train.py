@@ -39,6 +39,7 @@ from tpukit_torch.model import gpt
 from tpukit_torch.recipes import single
 from tpukit_torch.shardings import SingleDevice, leaves
 from tpukit_torch.train import create_train_state, train_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CPU = torch.device("cpu")
 
@@ -521,6 +522,15 @@ def test_every_tpukit_flag_parses():
     (["--resume", "latest"], "item 17"),
 ])
 def test_flags_not_carried_raise_with_their_roadmap_item(argv, item):
+    """A flag of `NOT_CARRIED` raises `NotPortedError` naming its item.
+    Item 16's flags are carried: recipe 1 refuses them with tpukit's
+    `ValueError` (`SingleDevice` has no hand-placed wire,
+    `tpukit/shardings.py:336-355`)."""
+    if item == "item 16":
+        with pytest.raises(ValueError, match=f"{argv[0]} {argv[1]}: the single strategy has no"):
+            single.main(argv + ["--device", "cpu"])
+        assert argv[0][2:] not in NOT_CARRIED
+        return
     with pytest.raises(NotPortedError, match=item):
         single.main(argv + ["--device", "cpu"])
     assert set(NOT_CARRIED) <= set(vars(parse_flags([])))

@@ -34,6 +34,21 @@ dimensions do not divide the model degree (`tp/odd/<name>/...`); and the
 single-device checkpoints (`single_ckpt`, `single_sharded`) restored into
 TP states of the whole world's model degree (`tp/single_<fmt>/...`).
 
+With `quant/x` in the inputs the world also runs the quantized
+collectives and gradient wires (`_quantized`, `--comm_dtype`,
+`--grad_buckets`, `--quant_stochastic`): each collective of
+`tpukit_torch/ops/quant_comm.py` on this rank's slice of `quant/x`,
+`quant/y`, `quant/z` and `quant/e` (the exchange's `[E, B, C, D]`
+buffers, with the cotangent `quant/ct` of its backward), every rank's
+output gathered (`quant/<fn>/<dtype>`); every rank's exact local
+gradients, without and with dropout 0.1 (`qlocal/<tag>/<path>`, stacked);
+one `value_and_grad` of each case
+of `QUANT_STEPS[world]` (`qstep/<label>/...`: the global loss and the
+gradients whole; the c10d collectives of the step, their calls and
+bytes, where the case counts); and
+`QUANT_STEPS`' trajectories, six AdamW steps on the global batch
+(`qtraj/<label>`).
+
 With `serve/config` in the inputs the world serves instead: the serving
 cases of `tests/test_torch_serve.py` (`serve_main`), written to
 `<out>/result.npz` by rank 0 as `<case>/<rid>` token arrays.
@@ -49,21 +64,30 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from tpukit_torch import checkpoint, mesh  # noqa: E402
 from tpukit_torch.bridge import params_from_numpy  # noqa: E402
 from tpukit_torch.model import GPTConfig, gpt  # noqa: E402
+from tpukit_torch.ops import quant_comm  # noqa: E402
 from tpukit_torch.ops.layers import vocab_parallel_argmax  # noqa: E402
+from tpukit_torch.recipes.profile import comm_bytes  # noqa: E402
 from tpukit_torch.shardings import (  # noqa: E402
     FSDP,
     DataParallel,
     TensorParallel,
     gather_full,
     leaves,
+    unflatten,
 )
-from tpukit_torch.train import create_train_state, dropout_key, eval_step  # noqa: E402
+from tpukit_torch.train import (  # noqa: E402
+    create_train_state,
+    dropout_key,
+    eval_step,
+    train_step,
+)
 
 LR = 1e-3
 TP_GRIDS = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}  # world -> its (data, model) grids
@@ -212,10 +236,155 @@ def main() -> None:
             result.update(_tp_whole(f"tp/single_{fmt}", strategy, state))
             result[f"tp/single_{fmt}/step"] = np.int64(state.step)
 
+    if "quant/x" in data.files:
+        result.update(_quantized(data, init, cfg, batch, targets, world, rank))
+
     if rank == 0:
         np.savez(out / "result.npz", **result)
     mesh.sync_global_devices()
     mesh.shutdown_runtime()
+
+
+# world -> the one-step cases (label, strategy, config fields, options):
+# "rng" passes step 0's key of seed 0, "count" records the step's
+# collectives, "control" names a negative control
+QUANT_STEPS = {
+    2: [("ddp/int8", "ddp", dict(comm_dtype="int8"), dict(count=True)),
+        ("ddp/bf16", "ddp", dict(comm_dtype="bf16"), dict(count=True)),
+        ("ddp/f32b3", "ddp", dict(grad_buckets=3), dict(count=True)),
+        ("ddp/int8b3", "ddp", dict(comm_dtype="int8", grad_buckets=3), dict(count=True)),
+        ("ddp/int8sr", "ddp", dict(comm_dtype="int8", quant_stochastic=True, dropout=0.1),
+         dict(rng=True)),
+        ("fsdp/int8", "fsdp", dict(comm_dtype="int8"), dict(count=True)),
+        ("fsdp/bf16", "fsdp", dict(comm_dtype="bf16"), dict(count=True)),
+        ("fsdp/f32b3", "fsdp", dict(grad_buckets=3), dict(count=True)),
+        ("control/ddp_reducer", "ddp", dict(comm_dtype="int8"), dict(control="reducer")),
+        ("control/insertion_order", "ddp", dict(comm_dtype="int8"),
+         dict(control="insertion_order"))],
+    4: [(f"{kind}/f32b{n}", kind, dict(grad_buckets=n),
+         dict(count=kind == "fsdp" and n == 3)) for kind in ("ddp", "fsdp")
+        for n in (1, 2, 3, 5)],
+}
+# world -> the trajectories: label -> (strategy, config fields)
+QUANT_TRAJ = {
+    2: {},
+    4: {"ddp/f32": ("ddp", {}), "ddp/int8": ("ddp", dict(comm_dtype="int8")),
+        "ddp/bf16": ("ddp", dict(comm_dtype="bf16")),
+        "ddp/int8sr": ("ddp", dict(comm_dtype="int8", quant_stochastic=True)),
+        "fsdp/f32": ("fsdp", {}), "fsdp/int8": ("fsdp", dict(comm_dtype="int8")),
+        "fsdp/int8sr": ("fsdp", dict(comm_dtype="int8", quant_stochastic=True))},
+}
+TRAJ_STEPS = 6
+
+
+class ReducerLeftRunningDP(DataParallel):
+    """The negative control: the hand-placed wire applied on top of DDP's
+    own reduction (the f32 path's `.backward()` through the wrapper, then
+    the quantized psum of what DDP left)."""
+
+    def value_and_grad(self, params, cfg, batch, targets, rng=None):
+        loss, grads = super().value_and_grad(params, cfg.replace(comm_dtype="f32"), batch,
+                                             targets, rng=rng)
+        return loss, quant_comm.quantized_psum_tree(grads, self.mesh.get_group(), self.world,
+                                                    cfg.comm_dtype)
+
+
+class InsertionOrderDP(DataParallel):
+    """The negative control: the payload flattened in the tree's insertion
+    order, not tpukit's sorted-key order."""
+
+    def value_and_grad(self, params, cfg, batch, targets, rng=None):
+        objective, _ = self._local_objective(params, cfg, batch, targets, rng)
+        flat = list(torch.autograd.grad(objective, leaves(params)))
+        red = quant_comm.quantized_all_reduce(torch.cat([g.reshape(-1) for g in flat]),
+                                              self.mesh.get_group(), self.world, cfg.comm_dtype)
+        parts = red.split([g.numel() for g in flat])
+        return self._global_loss(objective), unflatten(
+            params, [p.view_as(g) for p, g in zip(parts, flat)])
+
+
+def _gather_out(t: torch.Tensor, world: int) -> np.ndarray:
+    """Every rank's `t`, stacked in rank order (on every rank)."""
+    parts = [torch.empty_like(t) for _ in range(world)]
+    dist.all_gather(parts, t.contiguous())
+    return torch.stack(parts).numpy()
+
+
+def _collectives(data, world: int, rank: int) -> dict:
+    res = {}
+    x, y, z = (torch.from_numpy(data[f"quant/{k}"][rank]) for k in ("x", "y", "z"))
+    e, ct = torch.from_numpy(data["quant/e"][rank]), torch.from_numpy(data["quant/ct"][rank])
+    for dtype in ("int8", "bf16"):
+        outs = {
+            "all_reduce": quant_comm.quantized_all_reduce(x, None, world, dtype),
+            "reduce_scatter": quant_comm.quantized_reduce_scatter(y, None, world, 1, dtype),
+            "all_gather": quant_comm.quantized_all_gather(z, None, world, 0, dtype),
+            "bucket_all_reduce": quant_comm.bucket_all_reduce(x, None, world, dtype),
+            "combine": quant_comm.exchange_all_to_all(
+                torch.from_numpy(data["quant/h"][rank]), None, world, "combine", dtype),
+        }
+        leaf = e.clone().requires_grad_(True)
+        sent = quant_comm.exchange_all_to_all(leaf, None, world, "dispatch", dtype)
+        (sent * ct).sum().backward()
+        outs.update(dispatch=sent.detach(), dispatch_grad=leaf.grad)
+        for name, t in outs.items():
+            res[f"quant/{name}/{dtype}"] = _gather_out(t, world)
+    res["quant/bucket_all_reduce/f32"] = _gather_out(
+        quant_comm.bucket_all_reduce(x, None, world, "f32"), world)
+    return res
+
+
+def _port_order(init: dict, cfg) -> dict:
+    """`init` rebuilt in the key order of the port's own `init_params` (the
+    tree a recipe trains), not the sorted order tpukit's arrays came in: the
+    hand-placed wire must flatten it in tpukit's order all the same."""
+    template = gpt.init_params(cfg, device="meta")
+    flat = dict(zip(checkpoint.paths(init), leaves(init)))
+    return unflatten(template, [flat[n] for n in checkpoint.paths(template)])
+
+
+def _quantized(data, init, cfg, batch, targets, world: int, rank: int) -> dict:
+    res = _collectives(data, world, rank)
+    init = _port_order(init, cfg)
+    rng = dropout_key(0, 0, "cpu")
+    # every rank's exact f32 local gradients (its rows' CE sum over the
+    # global count), before any wire: what each rank puts on it
+    for tag, fields, key in (("plain", {}, None), ("dropout", dict(dropout=0.1), rng)):
+        strategy = DataParallel()
+        state = create_train_state(params_from_numpy(init, "cpu"), LR, strategy)
+        objective, _ = strategy._local_objective(state.params, cfg.replace(**fields), batch,
+                                                 targets, key)
+        grads = torch.autograd.grad(objective, leaves(state.params))
+        for name, g in zip(checkpoint.paths(state.params), grads):
+            res[f"qlocal/{tag}/{name}"] = _gather_out(g.detach(), world)
+    make = {"ddp": DataParallel, "fsdp": FSDP,
+            "reducer": ReducerLeftRunningDP, "insertion_order": InsertionOrderDP}
+    for label, kind, fields, opts in QUANT_STEPS[world]:
+        strategy = make[opts.get("control", kind)]()
+        qcfg = cfg.replace(**fields)
+        strategy.validate_config(qcfg)
+        state = create_train_state(params_from_numpy(init, "cpu"), LR, strategy)
+
+        def step():
+            return strategy.value_and_grad(state.params, qcfg, batch, targets,
+                                           rng=rng if opts.get("rng") else None)
+
+        out: list = []
+        calls = comm_bytes(lambda: out.append(step()))
+        loss, grads = out[0]
+        res[f"qstep/{label}/loss"] = np.float64(loss)
+        res.update(_gathered(f"qstep/{label}/grad", grads))
+        if opts.get("count"):
+            res[f"qstep/{label}/calls"] = json.dumps(calls)
+            res[f"qstep/{label}/closed"] = json.dumps(strategy.grad_comm(qcfg, state.params))
+    for label, (kind, fields) in QUANT_TRAJ[world].items():
+        strategy = {"ddp": DataParallel, "fsdp": FSDP}[kind]()
+        qcfg = cfg.replace(**fields)
+        state = create_train_state(params_from_numpy(init, "cpu"), LR, strategy)
+        losses = [float(train_step(state, qcfg, strategy, batch, targets))
+                  for _ in range(TRAJ_STEPS)]
+        res[f"qtraj/{label}"] = np.array(losses)
+    return res
 
 
 def _step(state, strategy, cfg, batch, targets, rng=None):

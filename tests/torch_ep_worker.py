@@ -34,6 +34,11 @@ Case kinds (`kind`):
   - "ddp", "fsdp": the strategy on the whole world with the MoE config's
     dispatch ("xla" or the meshless "pallas").
 
+`comm` sets the config's `comm_dtype` (the exchange's payload), `buckets`
+its `grad_buckets`, `stochastic` its `quant_stochastic`; a case with
+`traj` takes six AdamW steps on the same batch instead and records the
+losses (`<label>/traj`).
+
 Rank 0 writes everything to `<out>/result.npz`.
 """
 
@@ -62,7 +67,7 @@ from tpukit_torch.shardings import (  # noqa: E402
     leaves,
     paths,
 )
-from tpukit_torch.train import create_train_state, eval_step  # noqa: E402
+from tpukit_torch.train import create_train_state, eval_step, train_step  # noqa: E402
 
 LR = 1e-3
 
@@ -125,7 +130,9 @@ def _strategy(case: dict):
 
 
 def _config(base: dict, case: dict) -> GPTConfig:
-    kw = dict(router_top_k=case["top_k"], expert_capacity_factor=case.get("capacity", 1.25))
+    kw = dict(router_top_k=case["top_k"], expert_capacity_factor=case.get("capacity", 1.25),
+              comm_dtype=case.get("comm", "f32"), grad_buckets=case.get("buckets", 0),
+              quant_stochastic=case.get("stochastic", False))
     if case["kind"] != "ep":
         kw["moe_dispatch"] = case["dispatch"]
     return GPTConfig(**base, compute_dtype=torch.float32, **kw)
@@ -148,9 +155,13 @@ def _count_a2a():
     return calls, lambda: setattr(dist, "all_to_all_single", real)
 
 
+TRAJ_STEPS = 6  # tests/test_quant_comm.py's horizon
+
+
 def run_case(case: dict, data, base: dict, world: int, rank: int, out: Path) -> dict:
     cfg = _config(base, case)
     strategy = _strategy(case)
+    strategy.validate_config(cfg)
     state = create_train_state(params_from_numpy(_init(data), "cpu"), LR, strategy, cfg)
     b = case["batch"]
     model_batch = {k: data[f"{b}/{k}"] for k in ("input_ids", "position_ids", "mask")}
@@ -161,6 +172,9 @@ def run_case(case: dict, data, base: dict, world: int, rank: int, out: Path) -> 
     tgt = torch.from_numpy(np.ascontiguousarray(targets[take]))
     label = case["label"]
     res: dict = {}
+    if case.get("traj"):  # six AdamW steps on the same batch: the losses
+        losses = [float(train_step(state, cfg, strategy, batch, tgt)) for _ in range(TRAJ_STEPS)]
+        return {f"{label}/traj": np.array(losses)}
     aux, calls, restore = moe_dispatch._aux, None, None
     if case.get("control") == "rank_mean_aux":
         moe_dispatch._aux = _rank_mean_aux

@@ -107,9 +107,6 @@ NOT_CARRIED = {
     "max_rollbacks": "item 17 'Resilience'",
     "io_retries": "item 17 'Resilience'",
     "chaos_spec": "item 17 'Resilience'",
-    "comm_dtype": "item 16 'Quantized collectives and grad buckets'",
-    "quant_stochastic": "item 16 'Quantized collectives and grad buckets'",
-    "grad_buckets": "item 16 'Quantized collectives and grad buckets'",
 }
 
 

@@ -132,8 +132,23 @@ class GPTConfig:
     # one), and the ring's layout, "contiguous" or "zigzag"
     cp: Any = None
     ring_layout: str = "contiguous"
+    # the payload of the hand-placed collectives (tpukit `gpt.py:160-187`):
+    # "f32", "bf16" or block-scaled "int8" gradients under DataParallel and
+    # FSDP and the token exchange under ExpertParallel, f32 accumulation;
+    # quant_stochastic rounds the int8 quantizer stochastically; grad_buckets
+    # N > 0 splits the DataParallel / FSDP gradient wire into N buckets
+    # (ops/quant_comm.py). The other strategies refuse them.
+    comm_dtype: str = "f32"
+    quant_stochastic: bool = False
+    grad_buckets: int = 0
 
     def __post_init__(self):
+        if self.comm_dtype not in ("f32", "bf16", "int8"):
+            raise ValueError(f"comm_dtype={self.comm_dtype!r} must be 'f32', 'bf16' or "
+                             f"'int8'")
+        if self.grad_buckets < 0:
+            raise ValueError(f"grad_buckets={self.grad_buckets} must be >= 0 (0 = the "
+                             f"serial schedule, N = bucket count)")
         if self.virtual_stages < 1:
             raise ValueError(f"virtual_stages={self.virtual_stages} must be >= 1 (1 = "
                              f"one contiguous layer block per pipeline stage)")

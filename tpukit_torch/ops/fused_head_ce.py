@@ -97,8 +97,12 @@ def head_terms_reference(h, w, targets, vocab_size: int, with_argmax: bool):
 
 def head_terms_backward_reference(h, w, targets, lse, g_lse, g_tgt, vocab_size: int):
     """The plain backward: `(dh in h's dtype, dw f32)` from the cotangents
-    of lse and the target logit."""
-    p = torch.exp(_logits(h, w, vocab_size) - lse[:, None])
+    of lse and the target logit. The exponential is taken in f64 and
+    rounded to f32, the correctly rounded value: torch's f32 `exp` differs
+    by the CPU's vector ISA (AVX512 lands half an ulp off at some
+    arguments), and a `d` near a bf16 rounding boundary then rounds to the
+    other side of the kernel's."""
+    p = torch.exp((_logits(h, w, vocab_size) - lse[:, None]).double()).float()
     d = p * g_lse[:, None]
     rows = torch.arange(h.shape[0], device=h.device)
     valid = targets != IGNORE_INDEX

@@ -11,7 +11,8 @@ load-balance aux):
     `all_to_all_single` over the expert group of `cfg.moe_mesh`, the
     expert FFN on this rank's `E / ep` experts over `[E / ep, ep B, C, D]`,
     the mirrored exchange back, the gated combine (tpukit's tiled
-    `lax.all_to_all` pair, `tpukit/ops/quant_comm.py:498-502`). Each
+    `lax.all_to_all` pair, `tpukit/ops/quant_comm.py:487-509`:
+    `quant_comm.exchange_all_to_all`, its payload `cfg.comm_dtype`). Each
     exchange is an autograd Function whose backward is the other
     exchange, so a training step runs 4 a layer;
   - "pallas": the grouped-expert GEMM of `tpukit_torch/ops/moe_gemm.py`,
@@ -36,6 +37,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from tpukit_torch.ops import quant_comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,67 +233,20 @@ def moe_ffn_a2a(layer, cfg, x, pad_mask=None):
     return _moe_ffn_exchange(layer, cfg, x, pad_mask, _expert_ffn, "a2a")
 
 
-def _dispatch_exchange(x: torch.Tensor, grid: ExpertGrid) -> torch.Tensor:
-    """`[E, B, C, D]` -> `[E / ep, ep B, C, D]`: block j of the experts (dim
-    0 cut into ep blocks) goes to expert rank j, and the blocks that arrive
-    are laid side by side on dim 1 in peer order (tpukit's tiled
-    all-to-all, split axis 0, concat axis 1)."""
-    e, b, c, d = x.shape
-    ep = grid.expert
-    x = x.contiguous()  # the einsum's layout: empty_like would keep its strides
-    got = torch.empty_like(x)
-    dist.all_to_all_single(got, x, group=grid.group)
-    return got.reshape(ep, e // ep, b, c, d).transpose(0, 1).reshape(e // ep, ep * b, c, d)
-
-
-def _combine_exchange(h: torch.Tensor, grid: ExpertGrid) -> torch.Tensor:
-    """The mirror, `[E / ep, ep B, C, D]` -> `[E, B, C, D]`: block j of dim
-    1 goes back to expert rank j, and the blocks that arrive are stacked on
-    dim 0 in peer order (split axis 1, concat axis 0)."""
-    el, epb, c, d = h.shape
-    ep = grid.expert
-    send = h.reshape(el, ep, epb // ep, c, d).transpose(0, 1).contiguous()
-    got = torch.empty_like(send)
-    dist.all_to_all_single(got, send, group=grid.group)
-    return got.reshape(el * ep, epb // ep, c, d)
-
-
-class _Dispatch(torch.autograd.Function):
-    """`_dispatch_exchange` forward, `_combine_exchange` of the cotangent
-    backward."""
-
-    @staticmethod
-    def forward(ctx, x, grid):
-        ctx.grid = grid
-        return _dispatch_exchange(x, grid)
-
-    @staticmethod
-    def backward(ctx, ct):
-        return _combine_exchange(ct, ctx.grid), None
-
-
-class _Combine(torch.autograd.Function):
-    """`_combine_exchange` forward, `_dispatch_exchange` of the cotangent
-    backward."""
-
-    @staticmethod
-    def forward(ctx, h, grid):
-        ctx.grid = grid
-        return _combine_exchange(h, grid)
-
-    @staticmethod
-    def backward(ctx, ct):
-        return _dispatch_exchange(ct, ctx.grid), None
-
-
 def _moe_ffn_exchange(layer, cfg, x, pad_mask, expert_ffn, name):
     """The exchange block shared by "a2a" and "pallas": route this rank's
     rows, pack them into `[E, B, C, D]` capacity buffers, send each expert
-    block to its rank (`_Dispatch`), `expert_ffn(experts, buffer, dtype)`
-    on this rank's experts (the layer's bank holds `E / ep` of them) over
-    `[E / ep, ep B, C, D]`, send the results back (`_Combine`), the gated
-    combine. With one rank on the expert axis the exchanges are skipped
-    and the block runs as is. The aux is `_aux` over `cfg.moe_rows`."""
+    block to its rank (`quant_comm.exchange_all_to_all`, "dispatch"),
+    `expert_ffn(experts, buffer, dtype)` on this rank's experts (the
+    layer's bank holds `E / ep` of them) over `[E / ep, ep B, C, D]`, send
+    the results back ("combine"), the gated combine. Each hop is one
+    `all_to_all_single` forward and its mirror backward, its payload
+    `cfg.comm_dtype` (tpukit `moe_dispatch.py:277-293`: f32 as computed,
+    bf16 cast around the exchange, int8 packed per destination). Routing
+    runs before the exchange on exact values, so a quantized payload
+    perturbs expert activations, never the routing. With one rank on the
+    expert axis the exchanges are skipped and the block runs as is. The aux
+    is `_aux` over `cfg.moe_rows`."""
     grid = cfg.moe_mesh
     if grid is None:
         raise ValueError(f"moe_dispatch={name!r} under ExpertParallel needs cfg.moe_mesh "
@@ -302,10 +258,13 @@ def _moe_ffn_exchange(layer, cfg, x, pad_mask, expert_ffn, name):
     xc, dispatch, gate_map, probs, assign = _route(x, layer["ffn"]["router"]["kernel"], cfg)
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, xc)
     if grid.expert > 1:
-        expert_in = _Dispatch.apply(expert_in, grid)
+        expert_in = quant_comm.exchange_all_to_all(
+            expert_in, grid.group, grid.expert, "dispatch", cfg.comm_dtype,
+            stochastic=cfg.quant_stochastic)
     h = expert_ffn(layer["ffn"]["experts"], expert_in, cfg.compute_dtype)
     if grid.expert > 1:
-        h = _Combine.apply(h, grid)
+        h = quant_comm.exchange_all_to_all(h, grid.group, grid.expert, "combine",
+                                           cfg.comm_dtype, stochastic=cfg.quant_stochastic)
     out = torch.einsum("ebcd,bsec->bsd", h,
                        dispatch * gate_map.to(cfg.compute_dtype)[..., None])
     return out, _aux(*_aux_stats(probs, assign, pad_mask, cfg), cfg)

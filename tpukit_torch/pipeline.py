@@ -358,6 +358,7 @@ class Pipeline(GridStrategy):
         """tpukit's checks. The interleave check needs the stage count: when
         it comes from a world that is not up yet, `prepare_params` and the
         schedules make it."""
+        self._validate_comm_dtype(cfg)
         if cfg.num_layers < 1:
             raise ValueError(f"num_layers must be >= 1, got {cfg.num_layers}")
         self._check_moe(cfg)

@@ -7,7 +7,9 @@
 
 Trains the GPT through `tpukit_torch.train.fit` with `DataParallel`: each
 rank holds every parameter and `--batch_size` rows of the global batch,
-and `DistributedDataParallel` averages the gradients. Run as a plain
+and `DistributedDataParallel` averages the gradients; with `--comm_dtype
+bf16|int8` or `--grad_buckets N` tpukit's hand-placed wire sums them
+instead (`ops/quant_comm.py`: the two-shot all-reduce, f32 accumulation). Run as a plain
 module it is a world of one; under a launcher, one rank per process (NCCL
 on `cuda:{LOCAL_RANK}`, gloo with `--device cpu`). Without a card it
 raises `CudaUnavailableError` unless `--device cpu` is given.
@@ -25,8 +27,12 @@ from tpukit_torch.train import fit
 
 def main(argv=None):
     flags = parse_flags(argv)
+    strategy = DataParallel()
     with scoped_runtime():  # a world brought up here ends here
-        return fit(flags, DataParallel())
+        try:
+            return fit(flags, strategy)
+        finally:
+            strategy.release()  # DDP's reducer lets go of the group before it goes
 
 
 if __name__ == "__main__":

@@ -11,8 +11,11 @@ Trains the GPT through `tpukit_torch.train.fit` with `FSDP`: FSDP2
 leaf of 100 elements or more along its largest dimension divisible by the
 world, as tpukit places them. `--cpu_offload` keeps the shards and the
 optimizer step in host memory on `cuda` (on the CPU it warns and runs plain
-FSDP). The checkpoint is whole, written by rank 0. Launches as recipe 2
-does. Without a card it raises `CudaUnavailableError` unless `--device
+FSDP). With `--comm_dtype bf16|int8` or `--grad_buckets N` each sharded
+leaf is gathered at use and its gradient reduce-scattered through a
+compressed (or bucketed) wire of `ops/quant_comm.py` instead of FSDP2's
+own collectives. The checkpoint is whole, written by rank 0. Launches as
+recipe 2 does. Without a card it raises `CudaUnavailableError` unless `--device
 cpu` is given.
 """
 

@@ -13,7 +13,9 @@ grouped-expert kernels, "xla" for the one-hot einsums) through
 by tpukit's `pick_grid` (the expert degree the gcd of the world and the
 experts, `expert` innermost): each rank holds its experts and its piece of
 the trunk, and "a2a" and "pallas" exchange tokens with the expert group by
-`all_to_all_single`, forward and backward. `--batch_size` is rows a data
+`all_to_all_single`, forward and backward, its payload `--comm_dtype`
+(f32, bf16 or block-scaled int8; the xla dispatch refuses anything but
+f32). `--batch_size` is rows a data
 replica (tpukit's per-data-shard batch), split over the replica's expert
 ranks. Run as a plain module it is a world of one (a 1 x 1 grid: the
 exchange moves nothing); under a launcher, one rank per process (NCCL on
@@ -42,7 +44,7 @@ def pick_grid(n_devices: int, num_experts: int) -> dict:
 
 def main(argv=None):
     flags = parse_flags(argv, num_experts=True)
-    check_carried(flags)  # before a world comes up: --comm_dtype et al. are item 16
+    check_carried(flags)  # before a world comes up
     with mesh.scoped_runtime():  # a world brought up here ends here
         mesh.initialize_runtime(flags.device)
         grid = ExpertGrid(**pick_grid(mesh.world_size(), flags.num_experts))

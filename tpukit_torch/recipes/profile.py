@@ -1,7 +1,8 @@
 """Where a training step's time goes on the GPU:
 `python -m tpukit_torch.recipes.profile [--rung NAME] [--steps N]
 [--strategy single|ddp|fsdp|fsdp-offload|pipe|pipe-1f1b|tp|cp|cp-ulysses|ep]
-[--heads H] [--sequence_length L] [--batch_size B] [--data D] [--expert E]`.
+[--heads H] [--sequence_length L] [--batch_size B] [--data D] [--expert E]
+[--comm_dtype f32|bf16|int8] [--grad_buckets N]`.
 
 Runs the train step of one rung on synthetic token batches built as the
 repo's ladder builds them, from random weights (seed 0):
@@ -40,6 +41,9 @@ ep) under `ExpertParallel` with the pallas dispatch (recipe 8) on a
 and the experts, or `--expert E` ranks on the expert axis; each rank steps
 on `--batch_size` rows of its own (32, the rung's, by default), drawn from
 a seed of its rank, and the grid's tokens/s is printed beside the card's.
+`--comm_dtype` and `--grad_buckets` set the config's fields (recipes 2,
+3 and 8's flags): the hand-placed gradient wire of
+`DataParallel` and `FSDP`, the exchange's payload under `ExpertParallel`.
 
 It times a steady window of steps by host clock (each step ends in a host
 read of its loss), then profiles a short window under `torch.profiler` and
@@ -49,8 +53,11 @@ unprofiled wall, the device time of each of the port's kernels against
 everything else, the calls and device time of PyTorch's float adds and
 fills, the annotated regions (the optimizer step, DDP's forward, FSDP2's
 hooks) with the device and host time under each, and the kernels that
-took the most device time, and the launches a step of each of the
-port's kernels, by their counters. Needs one CUDA device.
+took the most device time, the launches a step of each of the
+port's kernels, by their counters, and the c10d collectives of one step
+(calls and bytes of each, counted by wrapping `torch.distributed`'s
+functions) beside the strategy's closed form where it has one. Needs one
+CUDA device.
 """
 
 from __future__ import annotations
@@ -173,6 +180,39 @@ def _launch_counters() -> dict:
             "moe": moe_gemm.launches, "paged": paged_attention.launches}
 
 
+COLLECTIVES = ("all_to_all_single", "all_gather_into_tensor", "all_reduce",
+               "reduce_scatter_tensor", "all_gather", "broadcast")
+
+
+def comm_bytes(fn) -> dict:
+    """`fn()` run with `torch.distributed`'s collectives wrapped: `{name:
+    {count, bytes}}` of the calls, bytes those of the output (the input of
+    an all-reduce and a broadcast)."""
+    import torch.distributed as dist
+
+    seen: dict = {}
+    real = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def wrap(name):
+        def counted(*args, **kwargs):
+            out = args[0] if args else next(iter(kwargs.values()))  # FSDP2 passes keywords
+            tensors = out if isinstance(out, (list, tuple)) else [out]
+            rec = seen.setdefault(name, {"count": 0, "bytes": 0})
+            rec["count"] += 1
+            rec["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+            return real[name](*args, **kwargs)
+        return counted
+
+    for name in COLLECTIVES:
+        setattr(dist, name, wrap(name))
+    try:
+        fn()
+    finally:
+        for name, f in real.items():
+            setattr(dist, name, f)
+    return seen
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rung", choices=tuple(RUNGS), default=None,
@@ -189,6 +229,10 @@ def main(argv=None) -> int:
     ap.add_argument("--data", type=int, default=1, help="cp: data replicas of the grid")
     ap.add_argument("--expert", type=int, default=0,
                     help="ep: ranks on the expert axis (default: recipe 8's pick_grid)")
+    ap.add_argument("--comm_dtype", choices=("f32", "bf16", "int8"), default="f32",
+                    help="the payload of the hand-placed collectives (ddp, fsdp, ep)")
+    ap.add_argument("--grad_buckets", type=int, default=0,
+                    help="ddp, fsdp: gradient buckets of the hand-placed wire")
     flags = ap.parse_args(argv)
     flags.rung = flags.rung or (EP_RUNG if flags.strategy == "ep" else "gpt-small-dim768")
     if flags.strategy == "ep" and not RUNGS[flags.rung][1]:
@@ -220,7 +264,8 @@ def _profile(flags, device) -> int:
     if positions != SEQ:
         shape["max_position_embeddings"] = positions
     batch = flags.batch_size or batch
-    cfg, state = build_train(device, strategy=strategy, **shape, **moe)
+    comm = dict(comm_dtype=flags.comm_dtype, grad_buckets=flags.grad_buckets)
+    cfg, state = build_train(device, strategy=strategy, **shape, **moe, **comm)
     ranks = strategy.grid.size if flags.strategy == "ep" else 1  # ranks with rows of their own
     rng = np.random.RandomState(mesh.rank() if ranks > 1 else 0)
     batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, batch, seq), device)
@@ -256,6 +301,12 @@ def _profile(flags, device) -> int:
           + (f" (the grid's {ranks * batch * seq / wall:.1f})" if ranks > 1 else "")
           + f", max_memory_allocated {torch.cuda.max_memory_allocated()} B")
     print(f"launches a step (the port's counters): {launches}")
+    if flags.strategy != "single":
+        seen = comm_bytes(lambda: step(0))
+        closed = getattr(strategy, "grad_comm", lambda *a: None)(cfg, state.params)
+        print(f"collectives of one step, comm {cfg.comm_dtype}, buckets {cfg.grad_buckets} "
+              f"(calls, bytes of the output): {seen}; the strategy's closed form of its "
+              f"gradient wire: {closed}")
 
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     prof_steps = 2

@@ -26,6 +26,11 @@ rank's experts and trunk pieces over a `(data, expert)` grid of c10d ranks
 and exchanges tokens with its expert peers (`ops/moe_dispatch.py`). MoE
 configs also train under `DataParallel` and `FSDP`: routing is per row, and
 the load-balance aux sums its statistics over the ranks.
+
+`--comm_dtype bf16|int8` and `--grad_buckets N` (tpukit's `quantized_comm`
+strategies) put `DataParallel` and `FSDP` on their hand-placed gradient
+wire (`ops/quant_comm.py`) and set the payload of `ExpertParallel`'s
+exchange; every other strategy refuses them (`_validate_comm_dtype`).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from tpukit_torch.ops.layers import (
     vocab_parallel_argmax,
     vocab_parallel_ce,
 )
+from tpukit_torch.ops import quant_comm
 from tpukit_torch.ops.moe_dispatch import ExpertGrid, RowGroup
 from tpukit_torch.ring_attention import SeqGroup, zigzag_order
 
@@ -95,6 +101,9 @@ class Strategy:
     name = "single"
     fused_head = True
     distributed = False  # runs over the default process group
+    # strategies with hand-placed collectives carry --comm_dtype and
+    # --grad_buckets (tpukit `shardings.py:279-283`); the rest refuse them
+    quantized_comm = False
 
     @property
     def batch_divisor(self) -> int:
@@ -127,6 +136,31 @@ class Strategy:
     def validate_config(self, cfg: gpt.GPTConfig) -> None:
         """Raise before the first step when the config cannot run on this
         strategy."""
+        self._validate_comm_dtype(cfg)
+
+    def _validate_comm_dtype(self, cfg: gpt.GPTConfig) -> None:
+        """tpukit's `--comm_dtype` / `--grad_buckets` gate (`shardings.py:
+        336-365`), which every `validate_config` override of a strategy
+        without hand-placed collectives calls: a flag that changed nothing
+        would read as a wire cut that never happened."""
+        if cfg.comm_dtype != "f32" and not self.quantized_comm:
+            raise ValueError(
+                f"--comm_dtype {cfg.comm_dtype}: the {self.name} strategy has no wired "
+                f"quantized collectives — supported on ddp (grad all-reduce), fsdp (grad "
+                f"reduce-scatter) and ep (a2a dispatch payload)")
+        if cfg.grad_buckets > 0 and not self.quantized_comm:
+            raise ValueError(
+                f"--grad_buckets {cfg.grad_buckets}: the {self.name} strategy has no "
+                f"hand-placed grad wire to bucket — supported on ddp (bucketed two-shot "
+                f"all-reduce), fsdp (bucketed grad reduce-scatter) and ep (the per-layer "
+                f"a2a pairs are already bucket-granular)")
+
+    @staticmethod
+    def _hand_placed(cfg: gpt.GPTConfig) -> bool:
+        """Whether `DataParallel` / `FSDP` run their hand-placed gradient
+        wire (tpukit `shardings.py:356-365`): a quantized payload, or any
+        bucket schedule."""
+        return cfg.comm_dtype != "f32" or cfg.grad_buckets > 0
 
     def prepare_params(self, params: dict, cfg: gpt.GPTConfig) -> dict:
         """The tree in this strategy's layout, before `setup` (tpukit
@@ -298,6 +332,9 @@ class ExpertParallel(Strategy):
     calls never carry the injected config."""
 
     name = "ep"
+    # the a2a / pallas exchange's payload follows --comm_dtype; the trunk's
+    # gather and reduce-scatter stay f32
+    quantized_comm = True
 
     def __init__(self, grid: ExpertGrid | None = None, dispatch: str = "a2a"):
         self.grid = grid if grid is not None else ExpertGrid()
@@ -338,6 +375,17 @@ class ExpertParallel(Strategy):
         if cfg.num_experts % self.grid.expert:
             raise ValueError(f"--num_experts {cfg.num_experts} must divide over the "
                              f"{self.grid.expert}-way expert axis")
+        if cfg.comm_dtype != "f32" and self.dispatch == "xla":
+            raise ValueError(
+                f"--comm_dtype {cfg.comm_dtype} under ExpertParallel needs the hand-placed "
+                f"exchange: use --moe_dispatch a2a or pallas (the xla dispatch leaves its "
+                f"collectives to GSPMD, which cannot carry the packed int8 payload)")
+        if cfg.grad_buckets > 0 and self.dispatch == "xla":
+            raise ValueError(
+                f"--grad_buckets {cfg.grad_buckets} under ExpertParallel needs the "
+                f"hand-placed exchange: use --moe_dispatch a2a or pallas (the xla dispatch "
+                f"leaves its collectives to GSPMD — there is no hand-placed schedule to "
+                f"declare overlap for)")
 
     def setup(self, params: dict) -> dict:
         """The (data, expert) mesh and this rank's tree: its experts of each
@@ -739,6 +787,42 @@ class _DataParallelBase(Strategy):
     def _after_backward(self) -> None:
         pass
 
+    def validate_config(self, cfg: gpt.GPTConfig) -> None:
+        """tpukit's refusal (`shardings.py:532-539`, :621-628): the
+        hand-placed wire with an MoE config."""
+        if self._hand_placed(cfg) and cfg.num_experts > 0:
+            raise ValueError(
+                f"--comm_dtype {cfg.comm_dtype} / --grad_buckets {cfg.grad_buckets} under "
+                f"{self._TK_NAME} requires a dense model: the MoE aux-loss statistics are "
+                f"not psummed by the hand-placed grad block — use ExpertParallel "
+                f"(main-moe.py) for MoE comm")
+
+    _TK_NAME = ""
+
+    def _local_objective(self, tree: dict, cfg: gpt.GPTConfig, batch: dict, targets, rng):
+        """The hand-placed step's local objective (tpukit `_quantized_dp_grads`'
+        block, `shardings.py:134-147`): this rank's CE sum over its rows on
+        `tree` (not through the wrapper) over the valid-token count summed
+        over the ranks in f32. Dropout draws this rank's own masks from
+        `fold_in(rng, rank)` over its rows, as tpukit's block does. Returns
+        (objective, that key)."""
+        if cfg.num_experts > 0:
+            raise ValueError(f"--comm_dtype bf16/int8 / --grad_buckets under {self._TK_NAME} "
+                             f"requires a dense model (see {self._TK_NAME}.validate_config)")
+        local_rng = None if rng is None else tk_random.fold_in(rng, self.data_rank())
+        gcount = (targets != IGNORE_INDEX).sum().float()
+        if self.world > 1:
+            dist.all_reduce(gcount, group=self.mesh.get_group())
+        loss_sum, _, _ = Strategy.loss_sums(self, tree, cfg, batch, targets, rng=local_rng,
+                                            rng_row0=0)
+        return loss_sum / torch.clamp(gcount, min=1.0), local_rng
+
+    def _global_loss(self, objective: torch.Tensor) -> torch.Tensor:
+        loss = objective.detach().clone()
+        if self.world > 1:
+            dist.all_reduce(loss, group=self.mesh.get_group())
+        return loss
+
     def all_sum(self, values) -> list[float]:
         t = torch.tensor([float(v) for v in values], dtype=torch.float64,
                          device=comm_device(self.mesh))
@@ -750,15 +834,80 @@ class DataParallel(_DataParallelBase):
     """Twin of tpukit's `DataParallel` (`shardings.py:512`) and of the
     reference's DDP recipe: parameters replicated, rows sharded,
     `DistributedDataParallel` averaging the gradients in its backward
-    hooks. `--comm_dtype` and `--grad_buckets` are ROADMAP.md item 16
-    (`fit` refuses them, MoE or dense)."""
+    hooks (the wrapper is built at the first such step; `release` drops it
+    before the group goes).
+
+    With `--comm_dtype bf16|int8` or `--grad_buckets N` the gradient wire
+    is hand-placed instead (tpukit `_quantized_dp_grads`,
+    `shardings.py:110-169`): each rank takes the exact f32 gradients of its
+    local objective (`_local_objective`, differentiated by
+    `torch.autograd.grad` on the unwrapped tree; no DDP wrapper is built),
+    then one `quant_comm.quantized_psum_tree` of the whole tree, or
+    one `bucket_all_reduce` a bucket of `grad_bucket_plan`. The loss and
+    the count are summed in f32. The stochastic key of the int8 wire is
+    `fold_in(fold_in(step key, rank), 0x5151)` (tpukit `_quant_rng`)."""
 
     name = "ddp"
+    quantized_comm = True
+    _TK_NAME = "DataParallel"
+
+    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng=None):
+        if not self._hand_placed(cfg):
+            self._check(params)
+            self._ddp()
+            return super().value_and_grad(params, cfg, batch, targets, rng=rng)
+        self._check(params)
+        objective, local_rng = self._local_objective(params, cfg, batch, targets, rng)
+        flat = leaves(params)
+        grads = unflatten(params, torch.autograd.grad(objective, flat))
+        qrng = None
+        if cfg.quant_stochastic and local_rng is not None:
+            qrng = tk_random.fold_in(local_rng, 0x5151)
+        group = self.mesh.get_group()
+        if cfg.grad_buckets > 0:
+            grads = quant_comm.bucketed_psum_tree(grads, group, self.world, cfg.grad_buckets,
+                                                  cfg.comm_dtype, rng=qrng)
+        else:
+            grads = quant_comm.quantized_psum_tree(grads, group, self.world, cfg.comm_dtype,
+                                                   rng=qrng)
+        return self._global_loss(objective), grads
+
+    def grad_comm(self, cfg: gpt.GPTConfig, params: dict) -> dict | None:
+        """The hand-placed wire's `{op: {count, bytes}}` a step (tpukit
+        `DataParallel.grad_comm`, `shardings.py:559-587`, at `backend=None`:
+        c10d moves bf16 as 2 bytes): one two-shot pair, or one a bucket;
+        None where nothing is hand-placed."""
+        world = self.world
+        if cfg.grad_buckets > 0:
+            items = quant_comm.sorted_items(params)
+            sizes = [sum(items[i][1].numel() for i in idxs)
+                     for idxs in quant_comm.grad_bucket_plan(params, cfg.grad_buckets)]
+            return quant_comm.expected_bucketed_all_reduce(sizes, world, cfg.comm_dtype)
+        if cfg.comm_dtype == "f32":
+            return None
+        return quant_comm.expected_all_reduce(sum(p.numel() for p in leaves(params)), world,
+                                              cfg.comm_dtype)
 
     def _wrap(self, module: ParamTree, device: torch.device):
+        return module  # `_ddp` wraps it at the first f32 step
+
+    def _ddp(self) -> None:
+        """Wrap the tree in `DistributedDataParallel` (first f32 step
+        only), so a run on the hand-placed wire never builds DDP's reducer
+        and its f32 gradient buckets."""
+        if isinstance(self.module, nn.parallel.DistributedDataParallel):
+            return
+        device = leaves(self.params)[0].device
         ids = [device.index] if device.type == "cuda" else None
-        return nn.parallel.DistributedDataParallel(
-            module, device_ids=ids, process_group=self.mesh.get_group())
+        self.module = nn.parallel.DistributedDataParallel(
+            self.module, device_ids=ids, process_group=self.mesh.get_group())
+
+    def release(self) -> None:
+        """Unwrap the tree before the group is destroyed: DDP's reducer
+        holds the group, and freed after it (as a run's result is dropped)
+        it can hang the process's exit over gloo once the peer has gone."""
+        if isinstance(self.module, nn.parallel.DistributedDataParallel):
+            self.module = self.module.module
 
 
 class FSDP(_DataParallelBase):
@@ -779,6 +928,8 @@ class FSDP(_DataParallelBase):
     other device it warns and runs plain FSDP, as tpukit degrades off-TPU."""
 
     name = "fsdp"
+    quantized_comm = True
+    _TK_NAME = "FSDP"
 
     def __init__(self, cpu_offload: bool = False):
         super().__init__()
@@ -815,6 +966,93 @@ class FSDP(_DataParallelBase):
         for p in self.replicated:
             dist.all_reduce(p.grad, group=group)
             p.grad.div_(self.world)
+
+    def _jax_order(self, params: dict) -> list[int]:
+        """The `leaves` index of each leaf in tpukit's (sorted-key) order."""
+        pos = {tuple(n.split("/")): k for k, n in enumerate(paths(params))}
+        return [pos[path] for path, _ in quant_comm.sorted_items(params)]
+
+    def _buckets(self, params: dict, cfg: gpt.GPTConfig, dims: list) -> list[list[int]]:
+        """`grad_bucket_plan` of the sharded leaves, as `leaves` indices."""
+        order = self._jax_order(params)
+        sharded = {j for j, k in enumerate(order) if dims[k] is not None}
+        plan = quant_comm.grad_bucket_plan(params, cfg.grad_buckets, include=sharded)
+        return [[order[j] for j in idxs] for idxs in plan]
+
+    def _dims(self, params: dict) -> list:
+        """The dimension each leaf of the tree is sharded on, or None."""
+        return [self.shard_dim(p.shape) if isinstance(p, DTensor) else None
+                for p in leaves(params)]
+
+    def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng=None):
+        """FSDP2's step, or with `--comm_dtype bf16|int8` or `--grad_buckets
+        N` the hand-placed one (tpukit `_quantized_fsdp_grads`,
+        `shardings.py:172-260`). FSDP2's reduce-scatter cannot carry that
+        payload (its bf16 `reduce_dtype` accumulates in bf16; tpukit
+        accumulates in f32), so this step runs its own collectives, as
+        `ExpertParallel` does: every sharded leaf gathered at use at full
+        precision along its `fsdp_shard_dim` through `all_gather_qgrad`
+        (or one `bucket_gather_qgrad` a bucket), whose backward is the
+        quantized reduce-scatter; the replicated leaves through `psum_grad`
+        (f32). Gradients land in the shard layout, as DTensors like their
+        parameters. FSDP2's own hooks never run on this path."""
+        if not self._hand_placed(cfg):
+            return super().value_and_grad(params, cfg, batch, targets, rng=rng)
+        self._check(params)
+        group, world = self.mesh.get_group(), self.world
+        flat, dims = leaves(params), self._dims(params)
+        device = comm_device(self.mesh)
+        local = [p.to_local() if isinstance(p, DTensor) else p for p in flat]
+        xs = [t.detach().to(device).requires_grad_(True) for t in local]
+        full: list = [None] * len(flat)
+        for k, (x, dim) in enumerate(zip(xs, dims)):
+            if dim is None:
+                full[k] = quant_comm.psum_grad(x, group, world)
+        if cfg.grad_buckets > 0:
+            for idxs in self._buckets(params, cfg, dims):
+                gathered = quant_comm.bucket_gather_qgrad(
+                    tuple(xs[k] for k in idxs), group, world, tuple(dims[k] for k in idxs),
+                    cfg.comm_dtype, quant_comm.DEFAULT_BLOCK, cfg.quant_stochastic)
+                for k, g in zip(idxs, gathered):
+                    full[k] = g
+        else:
+            for k, (x, dim) in enumerate(zip(xs, dims)):
+                if dim is not None:
+                    full[k] = quant_comm.all_gather_qgrad(
+                        x, group, world, dim, cfg.comm_dtype, quant_comm.DEFAULT_BLOCK,
+                        cfg.quant_stochastic)
+        objective, _ = self._local_objective(unflatten(params, full), cfg, batch, targets, rng)
+        gs = torch.autograd.grad(objective, xs)
+        grads = []
+        for p, t, g in zip(flat, local, gs):
+            if isinstance(p, DTensor):
+                g = DTensor.from_local(g.to(t.device), p.device_mesh, p.placements,
+                                       shape=p.shape, stride=p.stride())
+            grads.append(g)
+        return self._global_loss(objective), unflatten(params, grads)
+
+    def grad_comm(self, cfg: gpt.GPTConfig, params: dict) -> dict | None:
+        """The hand-placed wire's `{op: {count, bytes}}` a step (tpukit
+        `FSDP.grad_comm`, `shardings.py:663-705`, at `backend=None`): the
+        f32 forward gathers of the sharded leaves, one packed reduce-scatter
+        all-to-all a sharded leaf or a bucket; None where nothing is
+        hand-placed or at a world of one."""
+        if not self._hand_placed(cfg) or self.world <= 1:
+            return None
+        world, flat, dims = self.world, leaves(params), self._dims(params)
+        sharded = [k for k, d in enumerate(dims) if d is not None]
+        gather = {"count": len(sharded), "bytes": sum(flat[k].numel() * 4 for k in sharded)}
+        if cfg.grad_buckets > 0:
+            sizes = [sum(flat[k].numel() for k in idxs)
+                     for idxs in self._buckets(params, cfg, dims)]
+            exp = quant_comm.expected_bucketed_reduce_scatter(sizes, world, cfg.comm_dtype)
+            return {"all-to-all": exp["all-to-all"], "all-gather": gather}
+        a2a = {"count": 0, "bytes": 0}
+        for k in sharded:
+            exp = quant_comm.expected_reduce_scatter(flat[k].numel(), world, cfg.comm_dtype)
+            a2a["count"] += exp["all-to-all"]["count"]
+            a2a["bytes"] += exp["all-to-all"]["bytes"]
+        return {"all-to-all": a2a, "all-gather": gather}
 
     def full_params(self, params: dict) -> dict:
         device = comm_device(self.mesh)
@@ -959,6 +1197,7 @@ class TensorParallel(GridStrategy):
         return mesh_lib.rank() // self.model_size
 
     def validate_config(self, cfg: gpt.GPTConfig) -> None:
+        self._validate_comm_dtype(cfg)
         if cfg.num_experts > 0:
             raise ValueError(TP_MOE_ERROR)
 
@@ -1128,6 +1367,7 @@ class ContextParallel(Strategy):
         return mesh_lib.rank() // self.seq_size
 
     def validate_config(self, cfg: gpt.GPTConfig) -> None:
+        self._validate_comm_dtype(cfg)
         if cfg.num_experts > 0:
             raise ValueError(CP_MOE_ERROR)
         # the model consumes sequence_length - 1 tokens after the LM shift

@@ -124,8 +124,11 @@ def train_step(state: TrainState, cfg: gpt.GPTConfig, strategy: Strategy, batch:
                targets, seed: int = 0) -> torch.Tensor:
     """One step: loss and gradients by the strategy, then AdamW in place.
     With `cfg.dropout > 0` the step draws its masks from `dropout_key(seed,
-    step)`. Returns the loss (a detached device scalar)."""
-    rng = dropout_key(seed, state.step, targets.device) if cfg.dropout > 0 else None
+    step)`; the same key feeds the stochastic rounding of the int8
+    gradient wire (`quant_stochastic`, tpukit `train.py:149-152`). Returns
+    the loss (a detached device scalar)."""
+    keyed = cfg.dropout > 0 or (cfg.quant_stochastic and cfg.comm_dtype == "int8")
+    rng = dropout_key(seed, state.step, targets.device) if keyed else None
     loss, grads = strategy.value_and_grad(state.params, cfg, batch, targets, rng=rng)
     for p, g in zip(leaves(state.params), leaves(grads)):
         p.grad = g
@@ -174,7 +177,8 @@ def build_config(flags: TrainFlags, vocab_size: int) -> gpt.GPTConfig:
         compute_dtype=torch.float32 if flags.disable_amp else torch.bfloat16,
         remat_layers=flags.remat, scan_layers=flags.scan_layers,
         num_experts=flags.num_experts, router_top_k=flags.moe_top_k,
-        virtual_stages=flags.virtual_stages,
+        virtual_stages=flags.virtual_stages, comm_dtype=flags.comm_dtype,
+        quant_stochastic=flags.quant_stochastic, grad_buckets=flags.grad_buckets,
     )
 
 
