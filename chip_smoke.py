@@ -228,6 +228,23 @@ not 0:
      an int8 and a bf16 exchange (the same spawn), each rank's grouped
      kernels counted and the losses within the EP band of the f32
      exchange's;
+ 39. resilience on the card: recipe 1 at GPT-2-small width (batch 64, S
+     512, 33 steps of the fixture corpus) through the recovery plane, each
+     run through `recovery.run_recipe` as the recipe's `__main__` runs it:
+     (a) a control run; (b) `--chaos_spec sigterm@9` exits 75 with a
+     checkpoint whose sidecar says preempted at epoch 0, batch 9, and
+     `--resume latest` finishes the epoch with the control's windows after
+     step 9, bit for bit; (c) `--checkpoint_every 8 --chaos_spec
+     nan_loss@20 --spike_threshold 6 --on_anomaly rollback` rolls back
+     once (the window ending at step 25 to the step-16 checkpoint, step
+     24's quarantined) and exits 0, its windows after the rollback equal
+     to a control restored from step 16 with `skip@25`, every one of its
+     33 steps (the 8 replayed ones too) launching phase 7's flash and CE
+     counts; (d) `--max_rollbacks 0` exits 77 and `--spike_action abort`
+     76, each with the blown-up state checkpointed; `--async_checkpoint
+     --keep_checkpoints 2` leaves the two newest checkpoints, and the async
+     writer's bytes equal the sync writer's on the same state; each run's
+     wall, and a sync and an async save of the 1.03 GB state timed;
 then one JSON line of kernel results (the flash and CE rows with their
 launches under CP and under the quantized wires, the grouped rows with
 theirs under EP, f32 and quantized exchanges, and their times at the EP
@@ -272,6 +289,9 @@ from tpukit_torch.ops import moe_gemm
 from tpukit_torch.ops import paged_attention as pa
 from tpukit_torch.ops import quant_comm
 from tpukit_torch import checkpoint as ckpt_lib
+from tpukit_torch import recovery
+from tpukit_torch import train as train_mod
+from tpukit_torch.flags import parse_flags
 from tpukit_torch.ops.moe_dispatch import ExpertGrid, _route_topk
 from tpukit_torch.recipes import ddp as ddp_recipe
 from tpukit_torch.recipes import fsdp as fsdp_recipe
@@ -2950,6 +2970,195 @@ def quant_gloo_and_ep(dev, ep: dict) -> dict:
     return out
 
 
+# phase 39's recipe 1: 2112 rows of batch 64, 33 steps (windows close at
+# steps 9, 17, 25 and 33)
+RESILIENCE_ARGV = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layers", "12",
+                   "--sequence_length", "512", "--batch_size", "64", "--epochs", "1",
+                   "--dataset_slice", "2112", "--device", "cuda"]
+
+
+@contextlib.contextmanager
+def launches_per_step():
+    """Each `train.train_step` call's kernel launches, as `fit` makes them
+    (the launch counters are host-side, so no sync is needed)."""
+    real, steps = train_mod.train_step, []
+
+    def counted(*args, **kwargs):
+        before = read_counts()
+        out = real(*args, **kwargs)
+        after = read_counts()
+        steps.append({k: after[k] - before[k] for k in after})
+        return out
+
+    train_mod.train_step = counted
+    try:
+        yield steps
+    finally:
+        train_mod.train_step = real
+
+
+def resilient_run(label: str, work: Path, extra=()) -> tuple:
+    """Recipe 1 at RESILIENCE_ARGV + `extra` in `work`, through
+    `recovery.run_recipe` as the recipe's `__main__`: (exit code, the fit's
+    result or None, wall)."""
+    work.mkdir(parents=True, exist_ok=True)
+    box = {}
+
+    def main(argv):
+        box["result"] = single.main(argv)
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        code = recovery.run_recipe(main, RESILIENCE_ARGV + list(extra))
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    result = box.get("result")
+    windows = ([(w["step"], w["loss"]) for w in result.metrics["train_windows"]]
+               if result is not None else None)
+    print(f"  {label} ({' '.join(extra) or 'no flags'}): exit {code}, wall {wall:.2f} s, "
+          f"windows (step, loss) {windows}", flush=True)
+    return code, result, wall
+
+
+def _same_windows(got: list, want: list, spread, what: str) -> None:
+    """`got` windows equal `want` bit for bit, or, where the control runs
+    themselves differ run to run (`spread`, None when not measured), within
+    that spread."""
+    if got == want:
+        return
+    if spread is None or len(got) != len(want) or any(
+            g["step"] != w["step"] or abs(g["loss"] - w["loss"]) > spread
+            for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: windows {got} != {want} (control spread {spread})")
+
+
+def resilience_on_card(dev, smi: str) -> dict:
+    """Phase 39 (see the module docstring)."""
+    work = ROOT / "build" / "chip_smoke_resilience"
+    shutil.rmtree(work, ignore_errors=True)
+    walls = {}
+
+    code, a, walls["control"] = resilient_run("(a) control", work / "a")
+    if code != 0:
+        raise AssertionError(f"the control run exited {code}")
+    cfg, control = a.config, a.metrics["train_windows"]
+    tokens = 64 * 511
+    want = dict(**{f"paged_{k}": 0 for k in pa.launches},
+                **{f"flash_{k}": cfg.num_layers for k in fa.launches if not k.endswith("_f32")},
+                **{f"flash_{k}": 0 for k in fa.launches if k.endswith("_f32")},
+                **ce_want(1, tokens, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
+    state_bytes = _disk_bytes(work / "a" / a.checkpoint_path)
+    del a
+    _free()
+
+    # (b) preempt, then --resume latest in the same directory
+    code, _, walls["preempt"] = resilient_run("(b) preempt", work / "b",
+                                              ["--chaos_spec", "sigterm@9"])
+    meta = ckpt_lib.read_meta(work / "b" / "checkpoints" / "checkpoint-9.pt")
+    print(f"  (b) sidecar: {meta}", flush=True)
+    if code != recovery.EXIT_PREEMPTED or not meta or (
+            meta["preempted"], meta["epoch"], meta["batch_in_epoch"]) != (True, 0, 9):
+        raise AssertionError(f"sigterm@9: exit {code}, meta {meta}")
+    code, b, walls["resume"] = resilient_run("(b) resume", work / "b", ["--resume", "latest"])
+    resumed = b.metrics["train_windows"] if b is not None else None
+    spread = None
+    if code != 0 or resumed != control[1:]:
+        # not bit for bit: the spread of a second control bounds the gap
+        _, a2, walls["control 2"] = resilient_run("(a) control again", work / "a2")
+        spread = max(abs(x["loss"] - y["loss"]) for x, y in zip(a2.metrics["train_windows"],
+                                                                 control))
+        print(f"  the control's windows differ run to run by up to {spread:.3e}: not bitwise "
+              f"deterministic outside the port's kernels (phase 6 holds the flash and CE "
+              f"kernels to the same bits on a second run)", flush=True)
+        del a2
+    if code != 0:
+        raise AssertionError(f"--resume latest exited {code}")
+    _same_windows(resumed, control[1:], spread, "(b) preempt and resume")
+    del b
+    shutil.rmtree(work / "b")
+    _free()
+
+    # (c) a rollback, and the control restored from its target
+    with launches_per_step() as steps:
+        code, c, walls["rollback"] = resilient_run("(c) rollback", work / "c", [
+            "--checkpoint_every", "8", "--chaos_spec", "nan_loss@20", "--spike_threshold", "6",
+            "--on_anomaly", "rollback"])
+    if code != 0:
+        raise AssertionError(f"the rollback run exited {code}")
+    [rb] = c.metrics["events"]["rollbacks"]
+    print(f"  (c) rollback {rb}", flush=True)
+    if (rb["anomaly_step"], rb["target_step"], rb["quarantined"]) != (
+            25, 16, ["checkpoint-24.pt.quarantined-0001"]) or c.state.step != 24:
+        raise AssertionError(f"rollback {rb}, final step {c.state.step}")
+    bad = [i for i, got in enumerate(steps) if got != want]
+    print(f"  (c) launches in each of its {len(steps)} steps (8 replayed): "
+          f"{'all' if not bad else len(steps) - len(bad)} equal phase 7's per-step counts "
+          f"{ {k: v for k, v in want.items() if v} }", flush=True)
+    if len(steps) != 33 or bad:
+        raise AssertionError(f"rollback run launches: steps {bad} of {len(steps)}: "
+                             f"{[steps[i] for i in bad[:2]]} != {want}")
+    post = c.metrics["train_windows"][rb["windows_before"]:]
+    del c
+    _free()
+    code, cc, walls["restored control"] = resilient_run("(c) restored control", work / "cc", [
+        "--resume", str(work / "c" / "checkpoints" / "checkpoint-16.pt"),
+        "--chaos_spec", "skip@25"])
+    if code != 0 or not post:
+        raise AssertionError(f"restored control exited {code}; post-rollback windows {post}")
+    _same_windows(post, cc.metrics["train_windows"], spread, "(c) rollback vs restored control")
+    del cc
+    shutil.rmtree(work / "c")
+    shutil.rmtree(work / "cc")
+    _free()
+
+    # (d) exit codes 77 and 76, async saves and retention
+    sentinel = ["--chaos_spec", "nan_loss@4", "--spike_threshold", "6"]
+    for label, extra, want_code in (
+            ("(d) budget 0", ["--on_anomaly", "rollback", "--max_rollbacks", "0"], 77),
+            ("(d) abort", ["--spike_action", "abort"], 76)):
+        code, _, walls[label] = resilient_run(label, work / "d", sentinel + extra)
+        autopsy = work / "d" / "checkpoints" / "checkpoint-9.pt"
+        if code != want_code or not autopsy.exists():
+            raise AssertionError(f"{label}: exit {code} (want {want_code}), {autopsy}")
+        shutil.rmtree(work / "d")
+    _free()
+    keep = ["--checkpoint_every", "8", "--async_checkpoint", "--keep_checkpoints", "2"]
+    code, e, walls["async keep 2"] = resilient_run("(d) async, keep 2", work / "e", keep)
+    kept = [p.name for p in ckpt_lib.all_checkpoints(work / "e" / "checkpoints")]
+    if code != 0 or kept != ["checkpoint-32.pt", "checkpoint-33.pt"]:
+        raise AssertionError(f"async keep 2: exit {code}, published {kept}")
+    flags = parse_flags(RESILIENCE_ARGV + keep)
+    saver = ckpt_lib.AsyncCheckpointer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    apath = saver.save_auto(e.state, "auto", flags, directory=work / "async")
+    call_s = time.perf_counter() - t0
+    saver.wait()
+    async_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spath = ckpt_lib.save_auto(e.state, "auto", flags, directory=work / "sync")
+    sync_s = time.perf_counter() - t0
+    same = all(x.read_bytes() == y.read_bytes() for x, y in (
+        (apath, spath), (apath.with_suffix(".json"), spath.with_suffix(".json")),
+        (work / "e" / "checkpoints" / "checkpoint-33.pt", spath)))
+    print(f"  (d) published {kept}; async == sync bytes (and the run's own checkpoint-33.pt): "
+          f"{same}", flush=True)
+    print(f"  save of the {state_bytes / 1e9:.3f} GB state ({smi}): sync {sync_s:.3f} s; async "
+          f"{call_s:.3f} s on the training thread (the snapshot), {async_s:.3f} s until "
+          f"durable", flush=True)
+    if not same:
+        raise AssertionError("the async writer's bytes differ from the sync writer's")
+    del e
+    shutil.rmtree(work)
+    _free()
+    print(f"  phase 39 walls (s): { {k: round(v, 2) for k, v in walls.items()} }", flush=True)
+    return dict(walls=walls, sync_s=sync_s, async_call_s=call_s, async_s=async_s,
+                state_bytes=state_bytes)
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] in GLOO_FLAGS:
         return gloo_rank(sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4])
@@ -3178,6 +3387,12 @@ def main() -> int:
         quant_pairs = quant_gloo_and_ep(dev, ep)
     print(f"phase 38: {time.perf_counter() - t_q:.1f} s", flush=True)
     _free()
+
+    t_r = time.perf_counter()
+    phase("resilience on the card: recipe 1 (GPT-2-small width, batch 64, S 512, 33 steps) "
+          "preempted and resumed, rolled back, aborted (76, 77), async saves kept 2")
+    resilience_on_card(dev, smi)
+    print(f"phase 39: {time.perf_counter() - t_r:.1f} s", flush=True)
 
     fl, ce = trained["flash"], trained["ce"]
 

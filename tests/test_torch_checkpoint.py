@@ -363,7 +363,8 @@ def test_latest_any_matches_tpukit_and_skips_corrupt(tiny_config, stepped, tmp_p
 def test_resume_metadata_is_read_as_tpukit_wrote_it(tiny_config, stepped, tmp_path):
     """tpukit's meta sidecar (`<file>.meta.json`, `resume.json` in a sharded
     directory) reads back through the port's `read_meta`; the port writes
-    none (item 17), so its checkpoints read as None, as tpukit reads them."""
+    one only when a save is given `meta` (as `fit` gives every save), so
+    these read as None, as tpukit reads them."""
     tk, state = stepped
     meta = {"epoch": 1, "batch": 3, "preempted": True}
     for path in (tkc.save(tk.state, tmp_path, meta=meta),

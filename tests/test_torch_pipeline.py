@@ -694,7 +694,8 @@ def test_pipeline_flags_parse():
     assert pipe_ddp.pick_grid(8, 8) == {"data": 2, "stage": 4}
     assert pipe_ddp.pick_grid(4, 6) == {"data": 2, "stage": 2}
     assert pipe_ddp.pick_grid(3, 4) == {"data": 3, "stage": 1}
-    for name, value in (("comm_dtype", "int8"), ("keep_checkpoints", 2),
+    check_carried(dataclasses.replace(flags, keep_checkpoints=2))  # item 17: carried
+    for name, value in (("comm_dtype", "int8"), ("log_grad_norms", True),
                         ("grad_buckets", 2)):
         changed = dataclasses.replace(flags, **{name: value})
         if name in NOT_CARRIED:

@@ -34,7 +34,7 @@ import tpukit_torch
 from tpukit_torch import NotPortedError, checkpoint, data, loader
 from tpukit_torch.batching import prepare_batch
 from tpukit_torch.bridge import params_from_numpy, params_to_numpy
-from tpukit_torch.flags import NOT_CARRIED, build_parser, parse_flags
+from tpukit_torch.flags import NOT_CARRIED, build_parser, check_carried, parse_flags
 from tpukit_torch.model import gpt
 from tpukit_torch.recipes import single
 from tpukit_torch.shardings import SingleDevice, leaves
@@ -520,16 +520,30 @@ def test_every_tpukit_flag_parses():
     (["--metrics_log", "m.jsonl"], "item 18"),
     (["--keep_checkpoints", "2"], "item 17"),
     (["--resume", "latest"], "item 17"),
+    (["--log_grad_norms"], "item 18"),
+    (["--hang_timeout", "30"], "item 18"),
+    (["--divergence_check_freq", "8"], "item 18"),
+    (["--debug_dir", "dbg"], "item 18"),
 ])
-def test_flags_not_carried_raise_with_their_roadmap_item(argv, item):
+def test_flags_not_carried_raise_with_their_roadmap_item(argv, item, tmp_path, monkeypatch):
     """A flag of `NOT_CARRIED` raises `NotPortedError` naming its item.
-    Item 16's flags are carried: recipe 1 refuses them with tpukit's
-    `ValueError` (`SingleDevice` has no hand-placed wire,
-    `tpukit/shardings.py:336-355`)."""
+    Items 16 and 17 are carried: recipe 1 refuses item 16's flags with
+    tpukit's `ValueError` (`SingleDevice` has no hand-placed wire,
+    `tpukit/shardings.py:336-355`), and item 17's pass `check_carried`
+    (`--resume latest` with no checkpoint raises tpukit's
+    `FileNotFoundError`)."""
     if item == "item 16":
         with pytest.raises(ValueError, match=f"{argv[0]} {argv[1]}: the single strategy has no"):
             single.main(argv + ["--device", "cpu"])
         assert argv[0][2:] not in NOT_CARRIED
+        return
+    if item == "item 17":
+        assert argv[0][2:] not in NOT_CARRIED
+        check_carried(parse_flags(argv))
+        if argv[0] == "--resume":
+            monkeypatch.chdir(tmp_path)
+            with pytest.raises(FileNotFoundError, match="--resume latest: no checkpoint found"):
+                single.main(RECIPE_ARGS + argv + ["--device", "cpu"])
         return
     with pytest.raises(NotPortedError, match=item):
         single.main(argv + ["--device", "cpu"])

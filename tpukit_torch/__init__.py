@@ -26,7 +26,11 @@ interleaved, over c10d stage ranks (`pipeline.py`), the flash kernels
 inside every stage. Slice 11 reads and writes tpukit's checkpoint formats
 (`checkpoint.py`, with `msgpack.py`, a standard-library codec for what
 flax writes) beside the port's own `.pt`, and serves a checkpoint of any
-of them (`python -m tpukit_torch.serve --checkpoint latest`).
+of them (`python -m tpukit_torch.serve --checkpoint latest`). Slice 16 is
+tpukit's recovery plane in `train.fit` (`recovery.py`, `chaos.py`,
+`retry.py`, `prefetch.py`, `reshard.py`, `obs/`): `--resume latest`,
+preemption (exit 75), the loss sentinel (76), rollback (77 past its
+budget), chaos injection, I/O retries, async saves and retention.
 
 Every entry point takes a `device` argument and runs on `cuda` unless the
 caller passes `device="cpu"`. Without a GPU and without that request it

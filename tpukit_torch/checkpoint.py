@@ -38,8 +38,26 @@ pipeline stack restores into an unpadded tree and back
 (`_adapt_layer_axis`). `restore_any` takes any of the three, `restore_params`
 reads the parameters alone (for serving), `verify_checkpoint` checks a
 sidecar or a manifest, and `latest_any` picks the newest good checkpoint of
-any format by step. Not carried: the resume-metadata sidecar, retention and
-async saves (ROADMAP.md item 17).
+any format by step.
+
+**Resilience** (twins of tpukit's `_publish_sidecars` :137,
+`_finalize_manifest` :889, `all_checkpoints` :558, `latest_good` :572,
+`prune_checkpoints` :589 and `AsyncCheckpointer` :1265). Every writer takes
+`meta`, the resume-metadata sidecar: `<file>.meta.json` beside a `.pt` or a
+msgpack, `resume.json` inside a sharded directory (`fit` records the saving
+world in every save, and a preemption's epoch and batch position).
+`all_checkpoints` lists the published checkpoints of the three formats,
+`latest_good` picks the newest that verifies under a step limit (the
+rollback target), and `prune_checkpoints` keeps the newest K and never
+touches a quarantined timeline or the newest good checkpoint.
+`AsyncCheckpointer` takes the snapshot (device-to-host copies) on the
+calling thread, since AdamW updates the parameters in place, and writes on
+a background thread with no collective: one write in flight at most,
+`wait()` re-raises its failure. The sync and async writers of a format run
+the same write code on the same snapshot, so their bytes are equal (the
+shard archives carry fixed zip timestamps). Every write and read is a
+`retry_io` unit with its chaos hook (`ckpt_io_fail`, `ckpt_read_fail`)
+inside.
 """
 
 from __future__ import annotations
@@ -50,6 +68,8 @@ import json
 import os
 import re
 import shutil
+import threading
+import time
 import warnings
 import zipfile
 from pathlib import Path
@@ -59,8 +79,10 @@ import torch
 from numpy.lib import format as npformat
 from torch.distributed.tensor import DTensor
 
+from tpukit_torch import chaos
 from tpukit_torch import mesh as mesh_lib
 from tpukit_torch import msgpack
+from tpukit_torch.retry import retry_io
 from tpukit_torch.shardings import Strategy, leaves, paths, unflatten
 
 
@@ -73,43 +95,91 @@ def _write_atomic(path: Path, write) -> None:
     os.replace(tmp, path)
 
 
-def _full_cpu(strategy: Strategy, name: str, t):
-    """A whole tensor on the host (a collective for a sharded leaf)."""
-    return strategy.gather_leaf(name, t).detach().cpu() if isinstance(t, torch.Tensor) else t
+def atomic_write_text(path, text: str) -> None:
+    """Publish `text` at `path` whole or not at all (a hidden temporary,
+    then a rename): the sidecars, heartbeats and decision files."""
+    _write_atomic(Path(path), lambda p: p.write_text(text))
+
+
+def _full_cpu(strategy: Strategy, name: str, t, copy: bool = False):
+    """A whole tensor on the host (a collective for a sharded leaf); with
+    `copy`, never a view of live storage (an async save's snapshot)."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    t = strategy.gather_leaf(name, t).detach()
+    return t.to("cpu", copy=True) if copy else t.cpu()
+
+
+def _publish_meta(path: Path, meta: dict | None) -> None:
+    if meta is not None:
+        atomic_write_text(meta_path(path), json.dumps(meta))
 
 
 # ---------------------------------------------------------------- the .pt --
 
 
-def save(state, flags=None, directory=CHECKPOINT_DIR) -> Path:
-    """Write `state` (a `train.TrainState`) and `flags` as the port's
-    `.pt`; returns its path. Every rank calls it; rank 0 writes, and every
-    rank returns once the file is there."""
+def _torch_save(payload: dict, path: Path) -> None:
+    # through a file object, so that the archive's inner name is torch's
+    # fixed "archive", not the (pid-keyed) temporary file's: equal states
+    # give equal bytes
+    with open(path, "wb") as f:
+        torch.save(payload, f)
+
+
+def _write_pt_file(path: Path, payload: dict) -> None:
+    chaos.maybe_io_fault("ckpt_write")
+    _write_atomic(path, lambda p: _torch_save(payload, p))
+
+
+def _pt_plan(state, flags, directory, meta, copy: bool):
+    """The `.pt` save split at its snapshot: (path, the write for rank 0 or
+    None). The snapshot (a gather on every rank) happens here."""
     out = Path(directory)
     path = out / f"checkpoint-{state.step}.pt"
     strategy = state.strategy or Strategy()
     opt = state.optimizer.state_dict()
     names = paths(state.params)
-    opt_state = {"state": {names[i]: {k: _full_cpu(strategy, names[i], v) for k, v in st.items()}
+    opt_state = {"state": {names[i]: {k: _full_cpu(strategy, names[i], v, copy)
+                                      for k, v in st.items()}
                            for i, st in opt["state"].items()},
                  "param_groups": [{**g, "params": [names[i] for i in g["params"]]}
                                   for g in opt["param_groups"]]}
-    params = unflatten(state.params, [_full_cpu(strategy, n, p)
+    params = unflatten(state.params, [_full_cpu(strategy, n, p, copy)
                                       for n, p in zip(names, leaves(state.params))])
-    if mesh_lib.is_process_zero():
+    if not mesh_lib.is_process_zero():
+        return path, None
+    payload = {"params": params, "opt_state": opt_state, "step": int(state.step)}
+    text = (json.dumps(dataclasses.asdict(flags), indent=1, sort_keys=True)
+            if flags is not None else None)
+
+    def work():
         out.mkdir(parents=True, exist_ok=True)
-        payload = {"params": params, "opt_state": opt_state, "step": int(state.step)}
-        _write_atomic(path, lambda p: torch.save(payload, p))
-        if flags is not None:
-            text = json.dumps(dataclasses.asdict(flags), indent=1, sort_keys=True)
-            _write_atomic(path.with_suffix(".json"), lambda p: p.write_text(text))
+        retry_io(_write_pt_file, path, payload, label="ckpt_write")
+        if text is not None:
+            atomic_write_text(path.with_suffix(".json"), text)
+        _publish_meta(path, meta)
+    return path, work
+
+
+def save(state, flags=None, directory=CHECKPOINT_DIR, meta: dict | None = None) -> Path:
+    """Write `state` (a `train.TrainState`) and `flags` as the port's
+    `.pt`, with `meta` as its sidecar; returns its path. Every rank calls
+    it; rank 0 writes, and every rank returns once the file is there."""
+    path, work = _pt_plan(state, flags, directory, meta, copy=False)
+    if work is not None:
+        work()
     mesh_lib.sync_global_devices()
     return path
 
 
+def _load_pt(path: Path) -> dict:
+    chaos.maybe_io_fault("ckpt_read")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load(path) -> dict:
     """The checkpoint's payload, tensors on the CPU."""
-    return torch.load(Path(path), map_location="cpu", weights_only=True)
+    return retry_io(_load_pt, Path(path), label="ckpt_read")
 
 
 def restore(path, state) -> None:
@@ -175,7 +245,7 @@ def checksum_sidecar(path) -> Path:
 
 def meta_path(path) -> Path:
     """The resume-metadata sidecar: `<file>.meta.json`, or `resume.json`
-    inside a sharded directory (read only; its writer is item 17)."""
+    inside a sharded directory."""
     path = Path(path)
     if path.suffix == ".sharded" or path.is_dir():
         return path / "resume.json"
@@ -190,6 +260,19 @@ def read_meta(path) -> dict | None:
         return None
 
 
+def sidecars(path) -> list[Path]:
+    """The files that travel with a checkpoint file when it is renamed or
+    deleted: its sha256 and meta sidecars, and a `.pt`'s flags JSON (a
+    sharded directory holds its own)."""
+    path = Path(path)
+    if path.suffix == ".sharded":
+        return []
+    out = [checksum_sidecar(path), meta_path(path)]
+    if path.suffix == ".pt":
+        out.append(path.with_suffix(".json"))
+    return out
+
+
 def _sha256_file(path: Path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -200,7 +283,8 @@ def _sha256_file(path: Path) -> str:
 
 def _read_file(path: Path) -> bytearray:
     """A file's bytes in one writable buffer (the codec's tensors are
-    copied out of it)."""
+    copied out of it); the retried unit of a consolidated read."""
+    chaos.maybe_io_fault("ckpt_read")
     with open(path, "rb") as f:
         buf = bytearray(os.fstat(f.fileno()).st_size)
         f.readinto(buf)
@@ -349,34 +433,58 @@ def _lookup(source, flat: dict):
 # ------------------------------------------------------- consolidated --------
 
 
-def save_consolidated(state, directory=CHECKPOINT_DIR) -> Path:
-    """tpukit's consolidated checkpoint of `state`: the msgpack, then its
-    sha256 sidecar. Every rank gathers; rank 0 writes; every rank returns
-    the path once it is published."""
+def _write_blob(path: Path, blob) -> None:
+    chaos.maybe_io_fault("ckpt_write")
+    _write_atomic(path, lambda p: p.write_bytes(blob))
+
+
+def _publish_sidecars(path: Path, digest: str, meta: dict | None) -> None:
+    """The sha256 and meta sidecars, after the blob: a crash in between
+    leaves a blob without a sidecar, which verifies as legacy, never as
+    corrupt."""
+    atomic_write_text(checksum_sidecar(path), digest)
+    _publish_meta(path, meta)
+
+
+def _consolidated_plan(state, directory, meta, copy: bool):
+    """The consolidated save split at its snapshot: (path, the encode and
+    write for rank 0 or None). Every rank gathers here."""
     strategy = state.strategy or Strategy()
     out = Path(directory).resolve()
     path = out / f"{step_name(state.step)}.msgpack"
-    full = {k: _full_cpu(strategy, n, t) if n else t for k, n, t in _state_entries(state)}
-    if mesh_lib.is_process_zero():
+    full = {k: _full_cpu(strategy, n, t, copy) if n else t for k, n, t in _state_entries(state)}
+    if not mesh_lib.is_process_zero():
+        return path, None
+    names = paths(state.params)
+    skeleton = state.params
+
+    def work():
         def tree(prefix):
-            return unflatten(state.params, [full[_key_path(prefix, n)]
-                                            for n in paths(state.params)])
+            return unflatten(skeleton, [full[_key_path(prefix, n)] for n in names])
 
         adam = {"count": full[_COUNT], **{f: tree(_moment_prefix(f)) for f, _ in _MOMENTS}}
         blob = msgpack.packb({"params": tree(_PARAMS_PREFIX),
                               "opt_state": {"0": adam, "1": {}, "2": {}},
                               "step": full[_STEP]})
-        del full, adam
         out.mkdir(parents=True, exist_ok=True)
-        _write_atomic(path, lambda p: p.write_bytes(blob))
-        digest = hashlib.sha256(blob).hexdigest()
-        _write_atomic(checksum_sidecar(path), lambda p: p.write_text(digest))
+        retry_io(_write_blob, path, blob, label="ckpt_write")
+        _publish_sidecars(path, hashlib.sha256(blob).hexdigest(), meta)
+    return path, work
+
+
+def save_consolidated(state, directory=CHECKPOINT_DIR, meta: dict | None = None) -> Path:
+    """tpukit's consolidated checkpoint of `state`: the msgpack, then its
+    sha256 and `meta` sidecars. Every rank gathers; rank 0 writes; every
+    rank returns the path once it is published."""
+    path, work = _consolidated_plan(state, directory, meta, copy=False)
+    if work is not None:
+        work()
     mesh_lib.sync_global_devices()
     return path
 
 
 def _read_consolidated(path: Path) -> tuple[dict, int]:
-    blob = _read_file(path)
+    blob = retry_io(_read_file, path, label="ckpt_read")
     raw = msgpack.unpackb(blob)
     if not isinstance(raw, dict) or "params" not in raw:
         keys = sorted(raw)[:8] if isinstance(raw, dict) else type(raw).__name__
@@ -470,27 +578,31 @@ def _shard_files(base: Path, nprocs: int) -> list[Path]:
 
 
 def _savez(path: Path, blocks: dict) -> None:
-    with open(path, "wb") as f:
-        np.savez(f, **blocks)
+    """`np.savez`'s archive (stored, zip64 entries `<key>.npy`) with fixed
+    entry timestamps, so equal blocks give equal bytes."""
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for key, arr in blocks.items():
+            info = zipfile.ZipInfo(f"{key}.npy", date_time=(1980, 1, 1, 0, 0, 0))
+            with zf.open(info, "w", force_zip64=True) as f:
+                npformat.write_array(f, np.asanyarray(arr), allow_pickle=False)
 
 
-def save_sharded(state, directory=CHECKPOINT_DIR) -> Path:
-    """tpukit's sharded checkpoint of `state`: every rank writes its blocks
-    (`Strategy.leaf_block`) to its shard file and that file's sha256;
-    rank 0 folds the digests into the manifest and publishes the `.tmp`
-    directory by renaming it. Every rank calls it and gets the path. A
-    directory already published at this step is kept, with a warning, as
-    tpukit keeps it (a same-step re-save holds the same state)."""
+def _write_shard(shard: Path, blocks: dict) -> None:
+    chaos.maybe_io_fault("ckpt_write")
+    _write_atomic(shard, lambda p: _savez(p, blocks))
+
+
+def _write_shard_digest(shard: Path) -> None:
+    chaos.maybe_io_fault("ckpt_write")
+    digest = _sha256_file(shard)
+    atomic_write_text(shard.with_name(shard.name + ".sha256"), digest)
+
+
+def _shard_snapshot(state, copy: bool) -> tuple[dict, dict]:
+    """This rank's blocks (`Strategy.leaf_block`; copies with `copy`) and
+    the manifest without its checksums."""
     strategy = state.strategy or Strategy()
-    rank, world = mesh_lib.rank(), mesh_lib.world_size()
-    base = Path(directory).resolve() / f"{step_name(state.step)}.sharded"
-    tmp = base.with_name(base.name + ".tmp")
-    if rank == 0 and tmp.exists():
-        shutil.rmtree(tmp)  # a crashed save's leftovers
-    mesh_lib.sync_global_devices()
-    tmp.mkdir(parents=True, exist_ok=True)
-    mesh_lib.sync_global_devices()
-
+    rank = mesh_lib.rank()
     blocks, meta, keys = {}, [], []
     for i, (key, name, t) in enumerate(_state_entries(state)):
         if name is None:  # the scalars: rank 0's
@@ -500,32 +612,119 @@ def save_sharded(state, directory=CHECKPOINT_DIR) -> Path:
         keys.append(key)
         meta.append({"shape": list(shape), "dtype": msgpack.DTYPE_NAMES[t.dtype]})
         if block is not None and block.numel():
-            blocks[f"{i}|{','.join(map(str, starts))}"] = block.detach().cpu().numpy()
+            arr = block.detach().cpu().numpy()
+            blocks[f"{i}|{','.join(map(str, starts))}"] = arr.copy() if copy else arr
+    return blocks, {"nprocs": mesh_lib.world_size(), "paths": keys, "leaves": meta}
+
+
+def _finalize_manifest(tmp: Path, manifest: dict, meta: dict | None) -> None:
+    """Rank 0, once every shard and its digest exist: the manifest with the
+    shards' digests, then the meta sidecar."""
+    def digest(f: Path) -> str:
+        def read() -> str:
+            chaos.maybe_io_fault("ckpt_read")
+            return f.with_name(f.name + ".sha256").read_text().strip()
+        return retry_io(read, label="ckpt_read")
+
+    manifest = {**manifest, "checksums": {f.name: digest(f)
+                                          for f in _shard_files(tmp, manifest["nprocs"])}}
+    text = json.dumps(manifest)
+
+    def write() -> None:
+        chaos.maybe_io_fault("ckpt_write")
+        atomic_write_text(tmp / "manifest.json", text)
+    retry_io(write, label="ckpt_write")
+    _publish_meta(tmp, meta)
+
+
+def _keep_published(base: Path, meta: dict | None) -> None:
+    """A same-step re-save keeps the published directory (it holds the same
+    state), with a warning; the caller's meta still lands in it."""
+    warnings.warn(f"sharded checkpoint {base} already exists; keeping the published "
+                  f"directory (same-step re-save)", stacklevel=3)
+    _publish_meta(base, meta)
+
+
+def save_sharded(state, directory=CHECKPOINT_DIR, meta: dict | None = None) -> Path:
+    """tpukit's sharded checkpoint of `state`: every rank writes its blocks
+    (`Strategy.leaf_block`) to its shard file and that file's sha256;
+    rank 0 folds the digests into the manifest, writes `meta` as
+    `resume.json` and publishes the `.tmp` directory by renaming it. Every
+    rank calls it and gets the path. A directory already published at this
+    step is kept, with a warning, as tpukit keeps it (a same-step re-save
+    holds the same state)."""
+    rank = mesh_lib.rank()
+    base = Path(directory).resolve() / f"{step_name(state.step)}.sharded"
+    tmp = base.with_name(base.name + ".tmp")
+    if rank == 0 and tmp.exists():
+        shutil.rmtree(tmp)  # a crashed save's leftovers
+    mesh_lib.sync_global_devices()
+    tmp.mkdir(parents=True, exist_ok=True)
+    mesh_lib.sync_global_devices()
+
+    blocks, manifest = _shard_snapshot(state, copy=False)
     shard = tmp / f"shard-{rank:05d}.npz"
-    _write_atomic(shard, lambda p: _savez(p, blocks))
-    digest = _sha256_file(shard)
-    _write_atomic(shard.with_name(shard.name + ".sha256"), lambda p: p.write_text(digest))
+    retry_io(_write_shard, shard, blocks, label="ckpt_write")
+    retry_io(_write_shard_digest, shard, label="ckpt_write")
     mesh_lib.sync_global_devices()
     if rank == 0:
-        manifest = {"nprocs": world, "paths": keys, "leaves": meta,
-                    "checksums": {f.name: (f.with_name(f.name + ".sha256")).read_text().strip()
-                                  for f in _shard_files(tmp, world)}}
-        text = json.dumps(manifest)
-        _write_atomic(tmp / "manifest.json", lambda p: p.write_text(text))
         if base.exists():
-            warnings.warn(f"sharded checkpoint {base} already exists; keeping the published "
-                          f"directory (same-step re-save)", stacklevel=2)
             shutil.rmtree(tmp)
+            _keep_published(base, meta)
         else:
+            _finalize_manifest(tmp, manifest, meta)
             tmp.rename(base)
     mesh_lib.sync_global_devices()
     return base
 
 
+def _publish_sharded_snapshot(blocks: dict, manifest: dict, base: Path, timeout: float,
+                              meta: dict | None) -> None:
+    """The background half of an async sharded save, with no collective:
+    this rank's shard and digest into the staging directory, then rank 0
+    waits for every rank's files, finalizes and publishes, and the other
+    ranks wait for the published directory."""
+    rank = mesh_lib.rank()
+    if base.exists():
+        if rank == 0:
+            _keep_published(base, meta)
+        return
+    tmp = base.with_name(base.name + ".tmp")
+    tmp.mkdir(parents=True, exist_ok=True)
+    shard = tmp / f"shard-{rank:05d}.npz"
+    retry_io(_write_shard, shard, blocks, label="ckpt_write")
+    retry_io(_write_shard_digest, shard, label="ckpt_write")
+    deadline = time.monotonic() + timeout
+    if rank != 0:
+        while not base.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"async sharded checkpoint {base}: timed out after "
+                                   f"{timeout}s waiting for rank 0 to publish")
+            time.sleep(0.05)
+        return
+    expected = [tmp / f"shard-{p:05d}.npz{ext}" for p in range(manifest["nprocs"])
+                for ext in ("", ".sha256")]
+    while True:
+        missing = [p.name for p in expected if not p.exists()]
+        if not missing:
+            break
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"async sharded checkpoint {base}: timed out after {timeout}s "
+                               f"waiting for shard files {missing}")
+        time.sleep(0.05)
+    _finalize_manifest(tmp, manifest, meta)
+    if not base.exists():
+        tmp.rename(base)
+
+
 def _read_shard_manifest(base: Path) -> tuple[dict, list[Path]]:
     """manifest.json and exactly the shard files of its world, each of
     which must exist."""
-    manifest = json.loads((base / "manifest.json").read_text())
+    def read() -> str:
+        chaos.maybe_io_fault("ckpt_read")
+        return (base / "manifest.json").read_text()
+
+    manifest = json.loads(retry_io(read, label="ckpt_read"))
     files = _shard_files(base, manifest["nprocs"])
     missing = [str(f) for f in files if not f.exists()]
     if missing:
@@ -543,7 +742,8 @@ class _Shards:
     def __init__(self, base: Path):
         self.base = base
         self.manifest, files = _read_shard_manifest(base)
-        self.npz = [np.load(f) for f in files]
+        self.files = files
+        self.npz = [retry_io(self._open, f, label="ckpt_read") for f in files]
         self.blocks: dict[int, list] = {}  # leaf index -> [(file index, key, nbytes)]
         for fi, f in enumerate(files):
             for key, shape, dtype in _npz_block_headers(f):
@@ -551,6 +751,22 @@ class _Shards:
                 nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
                 self.blocks.setdefault(idx, []).append((fi, key, nbytes))
         self.index = {k: i for i, k in enumerate(self.manifest["paths"])}
+
+    @staticmethod
+    def _open(f: Path):
+        chaos.maybe_io_fault("ckpt_read")
+        return np.load(f)
+
+    def _block(self, fi: int, key: str) -> np.ndarray:
+        """One block, retried: a failed read reopens its file."""
+        def read():
+            try:
+                return self.npz[fi][key]
+            except OSError:
+                self.npz[fi].close()
+                self.npz[fi] = self._open(self.files[fi])
+                raise
+        return retry_io(read, label="ckpt_read")
 
     def nbytes(self, idx: int) -> int:
         return sum(b[2] for b in self.blocks.get(idx, ()))
@@ -561,7 +777,7 @@ class _Shards:
         full = np.empty(meta["shape"], np.dtype(meta["dtype"]))
         covered = 0
         for fi, key, _ in self.blocks.get(idx, ()):
-            block = self.npz[fi][key]
+            block = self._block(fi, key)
             _, starts = _parse_block_key(key)
             full[tuple(slice(s, s + n) for s, n in zip(starts, block.shape))] = block
             covered += block.size
@@ -601,17 +817,77 @@ def restore_sharded(path, state) -> None:
 # ---------------------------------------------------------- any format ------
 
 
-def save_auto(state, format: str = "auto", flags=None, directory=CHECKPOINT_DIR) -> Path:
+def save_auto(state, format: str = "auto", flags=None, directory=CHECKPOINT_DIR,
+              meta: dict | None = None) -> Path:
     """`--checkpoint_format`: "auto" writes the port's `.pt` (with the
     flags beside it), "consolidated" tpukit's msgpack, "sharded" tpukit's
-    sharded directory."""
+    sharded directory; each with `meta` as its resume-metadata sidecar."""
     if format == "auto":
-        return save(state, flags, directory)
+        return save(state, flags, directory, meta)
     if format == "consolidated":
-        return save_consolidated(state, directory)
+        return save_consolidated(state, directory, meta)
     if format == "sharded":
-        return save_sharded(state, directory)
+        return save_sharded(state, directory, meta)
     raise ValueError(f"format must be auto|consolidated|sharded, got {format!r}")
+
+
+class AsyncCheckpointer:
+    """A checkpoint writer that does not block the training loop (twin of
+    tpukit's `AsyncCheckpointer`, `checkpoint.py:1265`). `save_auto` takes
+    the snapshot on the calling thread (every rank's gather, copied off the
+    live tensors: the next step updates them in place), then writes on a
+    background thread and returns the path the write will publish. At most
+    one write is in flight: the next `save_auto` and `wait()` join it, and
+    `wait()` re-raises its failure. The background half runs no
+    collective; a sharded save's ranks meet through the filesystem."""
+
+    def __init__(self, shard_timeout: float = 600.0):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self._shard_timeout = shard_timeout
+
+    @property
+    def in_flight(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def wait(self) -> None:
+        """Block until the write in flight (if any) has published, then
+        re-raise its failure (if any)."""
+        t = self._thread
+        if t is not None:
+            t.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint write failed") from err
+
+    def save_auto(self, state, format: str = "auto", flags=None, directory=CHECKPOINT_DIR,
+                  meta: dict | None = None) -> Path:
+        self.wait()
+        if format == "auto":
+            path, work = _pt_plan(state, flags, directory, meta, copy=True)
+        elif format == "consolidated":
+            path, work = _consolidated_plan(state, directory, meta, copy=True)
+        elif format == "sharded":
+            blocks, manifest = _shard_snapshot(state, copy=True)
+            path = Path(directory).resolve() / f"{step_name(state.step)}.sharded"
+            work = lambda: _publish_sharded_snapshot(blocks, manifest, path,  # noqa: E731
+                                                     self._shard_timeout, meta)
+        else:
+            raise ValueError(f"format must be auto|consolidated|sharded, got {format!r}")
+        if work is None:
+            return path
+
+        def run():
+            try:
+                work()
+            except BaseException as exc:  # noqa: BLE001 — re-raised at wait()
+                self._error = exc
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="tpukit-torch-async-ckpt")
+        self._thread.start()
+        return path
 
 
 def restore_any(path, state) -> None:
@@ -786,3 +1062,64 @@ def latest_any(directory=CHECKPOINT_DIR, verify: bool = True) -> Path | None:
     found = [p for p in (latest(directory, verify), latest_sharded(directory, verify),
                          latest_pt(directory)) if p]
     return max(found, key=lambda p: (_step_of(p), p.name)) if found else None
+
+
+def all_checkpoints(directory=CHECKPOINT_DIR) -> list[Path]:
+    """Every published checkpoint of the three formats, ascending by step
+    (none verified: callers verify what they restore)."""
+    directory = Path(directory)
+    if not directory.is_dir():
+        return []
+    out = list(directory.glob("checkpoint-*.msgpack")) + list(directory.glob("checkpoint-*.pt"))
+    out += [p for p in directory.glob("*.sharded")
+            if p.is_dir() and (p / "manifest.json").exists()]
+    return sorted(out, key=lambda p: (_step_of(p), p.name))
+
+
+def latest_good(directory=CHECKPOINT_DIR, max_step: int | None = None) -> Path | None:
+    """The newest checkpoint that verifies with step <= `max_step` (the
+    rollback target); corrupt ones are skipped with a warning."""
+    for path in reversed(all_checkpoints(directory)):
+        if max_step is not None and _step_of(path) > max_step:
+            continue
+        ok, detail = verify_checkpoint(path)
+        if ok:
+            return path
+        warnings.warn(f"skipping corrupt checkpoint {path}: {detail} — resuming from the "
+                      f"next older good one instead", stacklevel=2)
+    return None
+
+
+def prune_checkpoints(directory=CHECKPOINT_DIR, keep: int = 1,
+                      assume_newest_verified: bool = False) -> list[str]:
+    """`--keep_checkpoints K`: delete the published checkpoints older than
+    the newest `keep` (with their sidecars); returns their names. A
+    quarantined timeline matches no published name and is never touched;
+    when none of the kept checkpoints verifies, the newest one that does is
+    spared. `assume_newest_verified` skips verifying the kept ones (the
+    trainer prunes right after its own publish). Rank 0 only; a failed
+    deletion is skipped."""
+    if keep < 1:
+        raise ValueError(f"keep must be >= 1, got {keep}")
+    candidates = all_checkpoints(directory)
+    doomed, kept = candidates[:-keep], candidates[-keep:]
+    if not doomed:
+        return []
+    if not assume_newest_verified and not any(verify_checkpoint(p)[0] for p in reversed(kept)):
+        for p in reversed(doomed):
+            if verify_checkpoint(p)[0]:
+                doomed = [d for d in doomed if d != p]
+                break
+    removed = []
+    for path in doomed:
+        try:
+            if path.is_dir():
+                shutil.rmtree(path)
+            else:
+                path.unlink()
+                for side in sidecars(path):
+                    side.unlink(missing_ok=True)
+        except OSError:
+            continue
+        removed.append(path.name)
+    return removed

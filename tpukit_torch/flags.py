@@ -4,10 +4,14 @@ parser).
 Every tpukit flag parses, with tpukit's name and default, plus `--device`
 (cuda unless `cpu` is asked for). `check_carried` raises `NotPortedError`,
 naming the ROADMAP.md item, for a flag this slice does not carry that is set
-to anything but its default. `--prefetch` is accepted as given: tpukit
-documents its prefetch thread as value-identical to the synchronous path
-(`flags.py:72-76`), and the port loads synchronously. `--disable_compile`
-is accepted: the port runs eagerly either way. `--num_workers` is accepted
+to anything but its default. `--prefetch N` runs the host side of the input
+pipeline N batches ahead on a worker thread (`prefetch.HostPrefetcher`;
+`0` loads synchronously, with the same losses). The resilience flags
+(`--resume latest`, `--chaos_spec`, `--on_anomaly`, `--max_rollbacks`,
+`--spike_threshold`, `--spike_action`, `--io_retries`, `--async_checkpoint`,
+`--keep_checkpoints`, `--heartbeat_dir`, `--heartbeat_timeout`) are carried,
+and `fit` validates them with tpukit's errors. `--disable_compile` is
+accepted: the port runs eagerly either way. `--num_workers` is accepted
 for CLI parity, as in tpukit.
 """
 
@@ -40,7 +44,7 @@ class TrainFlags:
     checkpoint_format: str = "auto"  # auto | consolidated | sharded
     async_checkpoint: bool = False
     keep_checkpoints: int = 0
-    resume: str = ""  # a checkpoint path, any format ("latest" is not carried)
+    resume: str = ""  # a checkpoint path, any format, or "latest"
     prefetch: int = 2
     compilation_cache_dir: str = ""
     profile_dir: str = ""
@@ -86,8 +90,6 @@ _CORE_FLAGS = [
 # flag -> the ROADMAP.md item that carries it; set to a non-default value,
 # each raises NotPortedError in this slice
 NOT_CARRIED = {
-    "async_checkpoint": "item 17 'Resilience'",
-    "keep_checkpoints": "item 17 'Resilience'",
     "compilation_cache_dir": "item 18 'Tracing and metrics' (the eager port compiles no "
                              "programs to cache)",
     "profile_dir": "item 18 'Tracing and metrics'",
@@ -95,18 +97,10 @@ NOT_CARRIED = {
     "metrics_dir": "item 18 'Tracing and metrics'",
     "debug_nans": "item 18 'Tracing and metrics'",
     "log_grad_norms": "item 18 'Tracing and metrics'",
-    "spike_threshold": "item 18 'Tracing and metrics'",
-    "spike_action": "item 18 'Tracing and metrics'",
-    "heartbeat_dir": "item 17 'Resilience'",
-    "heartbeat_timeout": "item 17 'Resilience'",
     "hang_timeout": "item 18 'Tracing and metrics'",
     "debug_dir": "item 18 'Tracing and metrics'",
     "trace_on_anomaly": "item 18 'Tracing and metrics'",
     "divergence_check_freq": "item 18 'Tracing and metrics'",
-    "on_anomaly": "item 17 'Resilience'",
-    "max_rollbacks": "item 17 'Resilience'",
-    "io_retries": "item 17 'Resilience'",
-    "chaos_spec": "item 17 'Resilience'",
 }
 
 
@@ -187,8 +181,3 @@ def check_carried(flags: TrainFlags) -> None:
             continue
         raise NotPortedError(f"--{name} {value!r} is not in the port yet (ROADMAP.md, "
                              f"queue A {item})")
-    if flags.resume == "latest":
-        raise NotPortedError("--resume latest is not in the port yet (ROADMAP.md, queue A "
-                             "item 17 'Resilience'); pass a checkpoint path")
-    if flags.prefetch < 0:
-        raise ValueError(f"--prefetch must be >= 0, got {flags.prefetch}")

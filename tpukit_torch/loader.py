@@ -1,5 +1,4 @@
-"""Host-side batch loading (a copy of `tpukit/loader.py:32-284` without the
-chaos and retry hooks, which come with ROADMAP item 17).
+"""Host-side batch loading (a copy of `tpukit/loader.py:32-284`).
 
 - `DataLoader`: mini-batch iterator over an `ArrayDataset`, reshuffled each
   epoch with `np.random.RandomState(seed + epoch)` (call `set_epoch`);
@@ -7,6 +6,9 @@ chaos and retry hooks, which come with ROADMAP item 17).
   `pad_fill` tokens and a zero mask ("empty", all-ignore rows for eval).
 - `distributed_indices`: torch `DistributedSampler`'s index math (pad to an
   even split by wrapping, then rank-strided), for per-rank loading.
+
+Each batch's fetch is one `retry_io` unit with the chaos hook inside it
+(`loader_io_fail@K`), as tpukit's (`loader.py:257-273`).
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from typing import Iterator
 
 import numpy as np
 
+from tpukit_torch import chaos
 from tpukit_torch.data import ArrayDataset
+from tpukit_torch.retry import retry_io
 
 
 def distributed_indices(
@@ -135,15 +139,19 @@ class DataLoader:
             return n // self.batch_size
         return math.ceil(n / self.batch_size)
 
+    def _fetch_rows(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """One batch's fetch, the retried unit (the chaos hook inside)."""
+        chaos.maybe_io_fault("loader_fetch")
+        safe = np.maximum(idx, 0)
+        return self.dataset.input_ids[safe], self.dataset.attention_mask[safe]
+
     def __iter__(self) -> Iterator[dict]:
         indices, real = self._indices()
         n = len(indices)
         stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
         for start in range(0, stop, self.batch_size):
             idx = indices[start: start + self.batch_size]
-            safe = np.maximum(idx, 0)
-            ids = self.dataset.input_ids[safe]
-            mask = self.dataset.attention_mask[safe]
+            ids, mask = retry_io(self._fetch_rows, idx, label="loader_fetch")
             pad_rows = idx < 0
             if pad_rows.any():
                 ids = np.where(pad_rows[:, None], self.pad_fill, ids)

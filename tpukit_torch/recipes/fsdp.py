@@ -25,6 +25,7 @@ import sys
 
 from tpukit_torch.flags import parse_flags
 from tpukit_torch.mesh import scoped_runtime
+from tpukit_torch.recovery import run_recipe
 from tpukit_torch.shardings import FSDP
 from tpukit_torch.train import fit
 
@@ -36,4 +37,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    # exit codes: 0 clean, 75 preempted and checkpointed, 76 sentinel abort,
+    # 77 rollback budget exhausted (recovery.py)
+    sys.exit(run_recipe(main))

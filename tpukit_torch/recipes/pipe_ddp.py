@@ -20,6 +20,7 @@ import sys
 
 from tpukit_torch import mesh
 from tpukit_torch.recipes.pipe import make_strategy, pipeline_flags
+from tpukit_torch.recovery import run_recipe
 from tpukit_torch.train import fit
 
 
@@ -42,4 +43,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    # exit codes: 0 clean, 75 preempted and checkpointed, 76 sentinel abort,
+    # 77 rollback budget exhausted (recovery.py)
+    sys.exit(run_recipe(main))
