@@ -245,8 +245,23 @@ not 0:
      --keep_checkpoints 2` leaves the two newest checkpoints, and the async
      writer's bytes equal the sync writer's on the same state; each run's
      wall, and a sync and an async save of the 1.03 GB state timed;
+ 40. training telemetry on the card: recipe 1 at phase 39's width for 17
+     steps (1088 fixture rows) with `--metrics_log --metrics_dir
+     --log_grad_norms --divergence_check_freq 8 --hang_timeout 60`, and
+     again with telemetry off: the windows and every final parameter bit
+     for bit, each of the 17 steps launching phase 7's flash and CE counts,
+     the JSONL of tpukit's kinds (no `xla`), every `train` record with MFU
+     in (0, 1) and its `hbm` peak under the card's limit, `tools/report.py`
+     exits 0 on it, the window wall with telemetry on and off; a
+     `--chaos_spec hang@5:3 --hang_timeout 1 --trace_on_anomaly 2` run
+     finishes, its step-5 bundle holds the training thread's stack in the
+     hang and the card's memory gauges, `tools/flightview.py` renders it,
+     and the anomaly trace's Chrome JSON names the flash and CE kernels; a
+     bundle's write time; a 3-step `--profile_dir` run whose trace names
+     them too; a `--debug_nans` run bit-equal to the run without it;
 then one JSON line of kernel results (the flash and CE rows with their
-launches under CP and under the quantized wires, the grouped rows with
+launches under CP, under the quantized wires and in phase 40's telemetry
+step, the grouped rows with
 theirs under EP, f32 and quantized exchanges, and their times at the EP
 shapes) and, last, the device JSON line.
 
@@ -318,6 +333,7 @@ from tpukit_torch.serve.engine import (Request, ServeConfig, ServeEngine,
                                        synthetic_request_stream)
 from tpukit_torch.serve.profile import REQUESTS, SERVE_SHAPE, build
 from tpukit_torch.model import GPTConfig, init_params
+from tpukit_torch.obs import FlightRecorder, write_bundle
 from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
 from tpukit_torch.shardings import (
     FSDP,
@@ -387,6 +403,7 @@ EP_LOCAL_EXPERTS = (2, 4)
 
 
 _PHASE_T0 = [time.perf_counter()]
+_START = _PHASE_T0[0]
 
 
 def phase(name: str) -> None:
@@ -3159,6 +3176,159 @@ def resilience_on_card(dev, smi: str) -> dict:
                 state_bytes=state_bytes)
 
 
+TELEMETRY_ROWS = ["--dataset_slice", "1088"]  # 17 steps of 64 rows: windows at 9 and 17
+TELEMETRY_ON = ["--metrics_log", "run.jsonl", "--metrics_dir", "md", "--log_grad_norms",
+                "--divergence_check_freq", "8", "--hang_timeout", "60"]
+TELEMETRY_KINDS = {"train", "divergence_check", "validation", "epoch", "metrics"}
+PORT_KERNELS = ("flash_fwd_kernel_tc", "ce_fwd_wgmma_kernel")  # a Chrome trace must name them
+
+
+def _tool(name: str, *args) -> None:
+    """`python tools/<name>.py args` (jax-free); raises unless it exits 0."""
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / f"{name}.py"), *map(str, args)],
+                          capture_output=True, text=True)
+    print(f"  tools/{name}.py: exit {proc.returncode}; "
+          f"{(proc.stdout.strip().splitlines() or [''])[0][:120]}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools/{name}.py {args}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+
+
+def _trace_names_kernels(path: Path, what: str) -> None:
+    text = path.read_text()
+    missing = [k for k in PORT_KERNELS if k not in text]
+    print(f"  {what}: {path.name}, {len(text) / 1e6:.1f} MB, names "
+          f"{[k for k in PORT_KERNELS if k in text]}", flush=True)
+    if missing:
+        raise AssertionError(f"{what} {path} names no {missing}")
+
+
+def _same_state(a, b, what: str) -> None:
+    if a.metrics["train_windows"] != b.metrics["train_windows"]:
+        raise AssertionError(f"{what}: windows {a.metrics['train_windows']} != "
+                             f"{b.metrics['train_windows']}")
+    for (n, x), y in zip(_named(a.state.params).items(), _named(b.state.params).values()):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: parameter {n} differs")
+
+
+def telemetry_on_card(dev, smi: str) -> dict:
+    """Phase 40 (see the module docstring)."""
+    work = ROOT / "build" / "chip_smoke_telemetry"
+    shutil.rmtree(work, ignore_errors=True)
+    walls = {}
+
+    # (a) telemetry on, every step's launches counted; (b) off
+    with launches_per_step() as steps:
+        code, on, walls["on"] = resilient_run("(a) telemetry on", work / "on",
+                                              TELEMETRY_ROWS + TELEMETRY_ON)
+    code_off, off, walls["off"] = resilient_run("(b) telemetry off", work / "off",
+                                                TELEMETRY_ROWS)
+    if code != 0 or code_off != 0:
+        raise AssertionError(f"telemetry on exited {code}, off {code_off}")
+    cfg = on.config
+    want = dict(**{f"paged_{k}": 0 for k in pa.launches},
+                **{f"flash_{k}": cfg.num_layers for k in fa.launches if not k.endswith("_f32")},
+                **{f"flash_{k}": 0 for k in fa.launches if k.endswith("_f32")},
+                **ce_want(1, 64 * 511, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
+    bad = [i for i, got in enumerate(steps) if got != want]
+    print(f"  (a) launches in each of its {len(steps)} steps: "
+          f"{'all' if not bad else len(steps) - len(bad)} equal phase 7's per-step counts "
+          f"{ {k: v for k, v in want.items() if v} }", flush=True)
+    if len(steps) != 17 or bad:
+        raise AssertionError(f"telemetry run launches: steps {bad} of {len(steps)}: "
+                             f"{[steps[i] for i in bad[:2]]} != {want}")
+    _same_state(on, off, "telemetry on vs off")
+    records = [json.loads(line) for line in (work / "on" / "run.jsonl").read_text().splitlines()]
+    kinds = {r["kind"] for r in records}
+    train = [r for r in records if r["kind"] == "train"]
+    for r in train:
+        hbm = r.get("hbm") or {}
+        if not (r["mfu"] is not None and 0.0 < r["mfu"] < 1.0 and hbm
+                and hbm["peak_bytes_in_use"] <= hbm["bytes_limit"]):
+            raise AssertionError(f"train record {r}")
+    if not TELEMETRY_KINDS <= kinds or "xla" in kinds or [r["step"] for r in train] != [9, 17]:
+        raise AssertionError(f"JSONL kinds {sorted(kinds)}, windows {[r['step'] for r in train]}")
+    tokens = 8 * 64 * 511  # a window's tokens
+    tps = {k: r.metrics["tokens_per_sec"] for k, r in (("on", on), ("off", off))}
+    print(f"  (a)/(b) bit for bit: windows {on.metrics['train_windows']}, every parameter; "
+          f"kinds {sorted(kinds)}", flush=True)
+    for r in train:
+        print(f"  (a) window at step {r['step']}: {r['window_s']:.4f} s, tokens/s "
+              f"{r['tokens_per_sec']:.1f}, mfu {r['mfu']:.4f}, goodput {r['goodput']:.4f}, "
+              f"grad_norm {r['grad_norm']:.4f}, update_norm {r['update_norm']:.4e}, "
+              f"param_norm {r['param_norm']:.2f}, hbm {r.get('hbm')} ({smi})", flush=True)
+    print(f"  window of 8 steps by the meter ({smi}): telemetry on "
+          f"{tokens / tps['on']:.4f} s ({tps['on']:.1f} tokens/s, MFU "
+          f"{on.metrics['mfu']:.4f}), off {tokens / tps['off']:.4f} s ({tps['off']:.1f} "
+          f"tokens/s): on/off {tps['off'] / tps['on']:.4f}", flush=True)
+    _tool("report", work / "on" / "run.jsonl")
+    result = dict(walls=walls, mfu=on.metrics["mfu"], tps=tps, counts=steps[0],
+                  peak=max(r["hbm"]["peak_bytes_in_use"] for r in train),
+                  window_s=[r["window_s"] for r in train])
+    del on
+    _free()
+
+    # (c) a hang at step 5 under a 1 s deadline, the anomaly trace armed
+    code, hang, walls["hang"] = resilient_run("(c) hang", work / "hang", TELEMETRY_ROWS + [
+        "--chaos_spec", "hang@5:3", "--hang_timeout", "1", "--trace_on_anomaly", "2",
+        "--debug_dir", "dbg", "--metrics_log", "run.jsonl"])
+    if code != 0 or hang.state.step != 17:
+        raise AssertionError(f"the hang run exited {code} at step {hang.state.step}")
+    dbg = work / "hang" / "dbg"
+    bundles = {p: json.loads(p.read_text()) for p in sorted(dbg.glob("bundle-*-hang-*.json"))}
+    [(path, bundle)] = [(p, b) for p, b in bundles.items() if b["step"] == 5]
+    main_stack = next(f for n, f in bundle["stacks"].items() if n.startswith("MainThread"))
+    mem = bundle["memory"] or {}
+    print(f"  (c) {len(bundles)} hang bundle(s) at steps {[b['step'] for b in bundles.values()]};"
+          f" step 5's stuck {bundle['stuck_for_s']} s, memory {mem}, device "
+          f"{bundle['process'].get('device_kind')}", flush=True)
+    if not (any("sleep" in line for line in main_stack) and mem.get("bytes_limit")):
+        raise AssertionError(f"bundle {path}: training stack {main_stack[-3:]}, memory {mem}")
+    records = [json.loads(line) for line in (work / "hang" / "run.jsonl").read_text().splitlines()]
+    events = [(r["kind"], r.get("event"), r.get("step")) for r in records
+              if r["kind"] in ("watchdog", "anomaly_trace")]
+    print(f"  (c) records {events}", flush=True)
+    if ("anomaly_trace", "stopped", 11) not in events or not any(
+            k == "watchdog" and e == "hang" for k, e, _ in events):
+        raise AssertionError(f"hang records {events}")
+    _tool("flightview", dbg)
+    _trace_names_kernels(dbg / "anomaly_trace" / "trace-p00000.json", "(c) anomaly trace")
+    rec = FlightRecorder()
+    for i in range(256):
+        rec.record("step", step=i, epoch=0)
+    t0 = time.perf_counter()
+    write_bundle(work / "timing", "timing", step=17, recorder=rec, probes={"x": lambda: 1},
+                 config=parse_flags(RESILIENCE_ARGV), device=dev)
+    result["bundle_s"] = time.perf_counter() - t0
+    print(f"  a bundle with a full ring (256 records) and the card's memory block: "
+          f"{result['bundle_s'] * 1e3:.2f} ms ({smi})", flush=True)
+    del hang
+    _free()
+
+    # (d) --profile_dir over 3 steps
+    code, prof, walls["profile"] = resilient_run("(d) profile", work / "prof", [
+        "--dataset_slice", "192", "--profile_dir", "prof"])
+    if code != 0 or prof.state.step != 3:
+        raise AssertionError(f"the profiled run exited {code}")
+    _trace_names_kernels(work / "prof" / "prof" / "trace-p00000.json", "(d) --profile_dir trace")
+    del prof
+    _free()
+
+    # (e) --debug_nans on the healthy run: (b)'s numbers, bit for bit
+    code, nans, walls["debug_nans"] = resilient_run("(e) debug_nans", work / "nans",
+                                                    TELEMETRY_ROWS + ["--debug_nans"])
+    if code != 0:
+        raise AssertionError(f"the --debug_nans run exited {code}")
+    _same_state(nans, off, "--debug_nans vs off")
+    print("  (e) --debug_nans == (b): windows and every parameter, bit for bit", flush=True)
+    del nans, off
+    shutil.rmtree(work)
+    _free()
+    print(f"  phase 40 walls (s): { {k: round(v, 2) for k, v in walls.items()} }", flush=True)
+    return result
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] in GLOO_FLAGS:
         return gloo_rank(sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4])
@@ -3394,7 +3564,16 @@ def main() -> int:
     resilience_on_card(dev, smi)
     print(f"phase 39: {time.perf_counter() - t_r:.1f} s", flush=True)
 
+    t_t = time.perf_counter()
+    phase("training telemetry on the card: recipe 1 (GPT-2-small width, batch 64, S 512, 17 "
+          "steps) with the JSONL, metrics, norms, checksums and the watchdog, against it off; "
+          "a hang bundle and its anomaly trace; --profile_dir; --debug_nans")
+    telemetry = telemetry_on_card(dev, smi)
+    print(f"phase 40: {time.perf_counter() - t_t:.1f} s ({smi}); chip_smoke so far "
+          f"{time.perf_counter() - _START:.1f} s", flush=True)
+
     fl, ce = trained["flash"], trained["ce"]
+    tel = telemetry["counts"]  # one step of phase 40's telemetry run (all 17 equal)
 
     def entry(name, source, replaces, launches, res, way, err, library_ms, **extra):
         bound, bound_by = res[f"{way}_bound"]
@@ -3437,6 +3616,7 @@ def main() -> int:
               launches_under_tp=tp_run["counts"]["flash_forward"],
               launches_under_cp=under_cp("flash_forward"),
               launches_under_quant=under_quant("flash_forward"),
+              launches_under_telemetry=tel["flash_forward"],
               at_ulysses_shape=trained["flash_8192"]),
         entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",
               c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],
@@ -3449,20 +3629,23 @@ def main() -> int:
                                        for k, r in piped.items()},
               launches_under_tp=tp_run["counts"]["flash_backward_dkv"],
               launches_under_cp=under_cp("flash_backward_dkv"),
-              launches_under_quant=under_quant("flash_backward_dkv")),
+              launches_under_quant=under_quant("flash_backward_dkv"),
+              launches_under_telemetry=tel["flash_backward_dkv"]),
         entry("fused_head_ce_fwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:65",
               c["ce_forward"], ce, "fwd", ce["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"forward": c["ce_forward"],
                                                       "combine": c["ce_forward_combine"]},
               launches_under_cp=under_cp("ce_forward"),
-              launches_under_quant=under_quant("ce_forward")),
+              launches_under_quant=under_quant("ce_forward"),
+              launches_under_telemetry=tel["ce_forward"]),
         entry("fused_head_ce_bwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:134",
               c["ce_backward_dw"], ce, "bwd", ce["bwd_err"], None,
               kernels_per_call=4 * c["ce_backward_dw"] // c["ce_forward"],
               launches_by_kernel={k: c[f"ce_backward_{k}"]
                                   for k in ("d", "dh", "dh_combine", "dw")},
               unfused_ms=ce["unfused_ms"], launches_under_cp=under_cp("ce_backward_dw"),
-              launches_under_quant=under_quant("ce_backward_dw")),
+              launches_under_quant=under_quant("ce_backward_dw"),
+              launches_under_telemetry=tel["ce_backward_dw"]),
         entry("moe_grouped_ffn_fwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
               mc["moe_forward_up"], moe_main, "fwd", moe_main["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"up": mc["moe_forward_up"],

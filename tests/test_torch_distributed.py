@@ -468,6 +468,58 @@ def test_single_device_sharded_checkpoint_restores_into_fsdp(world_run):
     _equal_state(world_run["got"], "restored_sharded", world_run["single"])
 
 
+def test_sharded_state_checksums_are_the_one_rank_and_tpukit_s(world_run, tk_cfg, tmp_path):
+    """The single-device state after one step, restored into FSDP and into
+    TP (model = world) from both of its checkpoints: each sharded checksum,
+    folded over the ranks' distinct pieces and gathered, is the one-rank
+    checksum of the same state, and tpukit's `make_state_checksum` of it
+    (read by tpukit from the port's consolidated checkpoint)."""
+    from tpukit.obs.divergence import format_checksum as tk_format_checksum
+    from tpukit.obs.divergence import make_state_checksum as tk_make_state_checksum
+    from tpukit_torch.obs import format_checksum, make_state_checksum
+
+    one_rank = format_checksum(make_state_checksum()(world_run["single"]))
+    path = checkpoint.save_consolidated(world_run["single"], tmp_path)
+    template = tk_create_train_state(jax.random.PRNGKey(0), tk_cfg, tk_make_optimizer(1e-3))
+    tk_state = jax.tree.map(jnp.asarray, tk_checkpoint.restore(template, path))
+    assert one_rank == tk_format_checksum(tk_make_state_checksum()(tk_state))
+    got = world_run["got"]
+    for key in ("fsdp/checksum", "tp/single_pt/checksum", "tp/single_sharded/checksum"):
+        assert str(got[key]) == one_rank, key
+
+
+@pytest.mark.parametrize("label", ["ddp", "fsdp"])
+def test_global_norms_over_ranks_are_the_logical_arrays(world_run, init_params, label):
+    """Under DDP (whole leaves) and FSDP (each rank's distinct blocks, one
+    all-reduce) the grad and param norms of the first step are those of
+    the single-device gradients and parameters (rtol 1e-5)."""
+    got = world_run["got"]
+    grad = np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2))
+                       for g in world_run["grads"].values()))
+    param = np.sqrt(sum(float(np.sum(p.astype(np.float64) ** 2))
+                        for p in _flat(init_params).values()))
+    np.testing.assert_allclose(float(got[f"{label}/grad_norm"]), grad, rtol=1e-5)
+    np.testing.assert_allclose(float(got[f"{label}/param_norm"]), param, rtol=1e-5)
+
+
+def test_tp_global_norms_count_each_piece_once(world_run):
+    """On every TP grid (model pieces, and under data 2 x model 2 the pieces
+    of data replica 1 left out) the grad norm is the norm of the gradients
+    gathered whole, and the param norm that of the initial parameters
+    (rtol 1e-5)."""
+    got = world_run["got"]
+    inputs = np.load(world_run["work"] / "inputs.npz")
+    param = np.sqrt(sum(float(np.sum(inputs[k].astype(np.float64) ** 2))
+                        for k in inputs.files if k.startswith("tp/param/")))
+    for label in _tp_grids(world_run):
+        grads = _tree(got, f"tp/{label}/grad")
+        grad = np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2)) for g in grads.values()))
+        np.testing.assert_allclose(float(got[f"tp/{label}/grad_norm"]), grad, rtol=1e-5,
+                                   err_msg=label)
+        np.testing.assert_allclose(float(got[f"tp/{label}/param_norm"]), param, rtol=1e-5,
+                                   err_msg=label)
+
+
 # ------------------------------------------------- without processes ----
 
 

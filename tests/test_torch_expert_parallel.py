@@ -403,6 +403,20 @@ def test_aux_of_an_all_pad_row_is_global(worlds, world):
             np.testing.assert_allclose(control[name], want, **GRAD_TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("world,label", STEP_LABELS, ids=[f"w{w}-{x}" for w, x in STEP_LABELS])
+def test_global_norms_count_each_expert_once(worlds, world, label):
+    """`global_norms` under EP (an expert's pieces on the data replica that
+    writes them, the trunk's once) and MoE under DDP / FSDP: the grad norm
+    is that of the gradients gathered whole, the param norm that of the
+    initial parameters (rtol 1e-5)."""
+    got = worlds(world)["got"]
+    grads = _tree(got, f"{label}/grad")
+    grad = np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2)) for g in grads.values()))
+    np.testing.assert_allclose(float(got[f"{label}/grad_norm"]), grad, rtol=1e-5)
+    np.testing.assert_allclose(float(got[f"{label}/param_norm"]),
+                               float(got[f"{label}/whole_param_norm"]), rtol=1e-5)
+
+
 def test_expert_gradients_unsummed_over_data_fail_the_bar(worlds):
     """The negative control at (data 2, expert 2): each data replica's
     expert gradients left as it computed them miss the gradient bar, and

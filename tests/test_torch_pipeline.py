@@ -414,6 +414,21 @@ def test_grads_match_single_device(worlds, single_refs, label):
         np.testing.assert_allclose(have, single_refs["grads"][name], **TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("label", LABELS)
+def test_global_norms_sum_the_stages(worlds, label):
+    """Each rank's `global_norms` of its stage pieces, summed over the stage
+    (and data replica 0's) ranks by one all-reduce, is the norm of the
+    gradients and of the parameters before the step, each gathered whole
+    (rtol 1e-5)."""
+    case = BY_LABEL[label]
+    got = worlds(case["world"])["got"]
+    grads = _tree(got, f"{label}/grad")
+    grad = np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2)) for g in grads.values()))
+    np.testing.assert_allclose(float(got[f"{label}/grad_norm"]), grad, rtol=1e-5)
+    np.testing.assert_allclose(float(got[f"{label}/param_norm"]),
+                               float(got[f"{label}/whole_param_norm"]), rtol=1e-5)
+
+
 @pytest.mark.parametrize("world", [2, 3, 4])
 def test_stage_scaled_grads_fail_the_bar(worlds, world):
     """Negative control: every case's gradients scaled by its stage count
@@ -673,7 +688,9 @@ def test_pipeline_flags_parse():
     `--virtual_stages` parse as tpukit's pipeline parser has them, and are
     carried; every other flag of `NOT_CARRIED` still raises. `--comm_dtype`
     and `--grad_buckets` are carried, and the pipeline refuses them with
-    tpukit's `ValueError` (`tpukit/pipeline.py:223`: no hand-placed wire)."""
+    tpukit's `ValueError` (`tpukit/pipeline.py:223`: no hand-placed wire);
+    `--log_grad_norms` is carried and the pipeline takes it (tpukit's
+    `global_norms` sum over the stages)."""
     argv = ["--microbatches", "8", "--pipeline_schedule", "1f1b", "--virtual_stages", "2",
             "--num_experts", "4", "--moe_dispatch", "pallas"]
     flags = pipe.pipeline_flags(argv)
@@ -703,5 +720,8 @@ def test_pipeline_flags_parse():
                 check_carried(changed)
             continue
         check_carried(changed)
+        if name == "log_grad_norms":
+            strategy.validate_config(build_config(changed, 211))
+            continue
         with pytest.raises(ValueError, match=f"--{name} .*the {strategy.name} strategy has no"):
             strategy.validate_config(build_config(changed, 211))

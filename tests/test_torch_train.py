@@ -11,6 +11,7 @@ Tolerances are stated where they are used.
 
 import json
 import os
+import re
 from pathlib import Path
 
 import jax
@@ -524,14 +525,16 @@ def test_every_tpukit_flag_parses():
     (["--hang_timeout", "30"], "item 18"),
     (["--divergence_check_freq", "8"], "item 18"),
     (["--debug_dir", "dbg"], "item 18"),
+    (["--compilation_cache_dir", "cache"], "item 18 'Tracing and metrics' (the eager port"),
 ])
 def test_flags_not_carried_raise_with_their_roadmap_item(argv, item, tmp_path, monkeypatch):
-    """A flag of `NOT_CARRIED` raises `NotPortedError` naming its item.
-    Items 16 and 17 are carried: recipe 1 refuses item 16's flags with
-    tpukit's `ValueError` (`SingleDevice` has no hand-placed wire,
-    `tpukit/shardings.py:336-355`), and item 17's pass `check_carried`
-    (`--resume latest` with no checkpoint raises tpukit's
-    `FileNotFoundError`)."""
+    """A flag of `NOT_CARRIED` raises `NotPortedError` naming its item:
+    only `--compilation_cache_dir` is left (the eager port compiles no
+    programs). Items 16, 17 and 18's training flags are carried: recipe 1
+    refuses item 16's flags with tpukit's `ValueError` (`SingleDevice` has
+    no hand-placed wire, `tpukit/shardings.py:336-355`), item 17's pass
+    `check_carried` (`--resume latest` with no checkpoint raises tpukit's
+    `FileNotFoundError`), and item 18's pass it and train in recipe 1."""
     if item == "item 16":
         with pytest.raises(ValueError, match=f"{argv[0]} {argv[1]}: the single strategy has no"):
             single.main(argv + ["--device", "cpu"])
@@ -545,6 +548,14 @@ def test_flags_not_carried_raise_with_their_roadmap_item(argv, item, tmp_path, m
             with pytest.raises(FileNotFoundError, match="--resume latest: no checkpoint found"):
                 single.main(RECIPE_ARGS + argv + ["--device", "cpu"])
         return
-    with pytest.raises(NotPortedError, match=item):
+    if item == "item 18":
+        assert argv[0][2:] not in NOT_CARRIED
+        check_carried(parse_flags(argv))
+        monkeypatch.chdir(tmp_path)
+        result = single.main(RECIPE_ARGS + argv + ["--device", "cpu"])
+        assert result.state.step > 0
+        return
+    assert set(NOT_CARRIED) == {"compilation_cache_dir"}
+    with pytest.raises(NotPortedError, match=re.escape(item)):
         single.main(argv + ["--device", "cpu"])
     assert set(NOT_CARRIED) <= set(vars(parse_flags([])))

@@ -13,7 +13,9 @@ splits them. For `DataParallel` and `FSDP` each it takes one AdamW step
 and accuracy after the step and the parameters, all gathered whole; then
 the averaged-per-rank-mean objective of plain DDP (the negative control),
 an FSDP checkpoint of the stepped state (`<out>/fsdp_ckpt`), the
-single-device checkpoint restored into a fresh FSDP state, each
+single-device checkpoint restored into a fresh FSDP state (and its state
+checksum, `fsdp/checksum`), each strategy's global grad and param norms
+before the step (`<label>/grad_norm`, `<label>/param_norm`), each
 strategy's stepped state in tpukit's sharded layout (`<out>/<label>_sharded`,
 every rank writing its blocks) and whether a fresh state of the same
 strategy restores it bit for bit on every rank, the single-device sharded
@@ -23,7 +25,8 @@ strategy's loss and gradients at dropout 0.1 with step 0's key of seed 0
 
 `TensorParallel` runs in the same world on its own config (`tp/config`,
 `tp/param/...`, `tp/input_ids`, ...): on each `(data, model)` grid of
-`TP_GRIDS[world]` one AdamW step's loss, gradients, bf16 eval and
+`TP_GRIDS[world]` one AdamW step's loss, gradients, global grad and param
+norms (`obs.global_norms` over the model pieces), bf16 eval and
 parameters, all gathered whole, the split dimension of every leaf, the
 stepped state in tpukit's sharded and consolidated layouts, tpukit's own
 TP checkpoint (`tp/tk_sharded`) restored into a fresh state; on the first
@@ -32,7 +35,8 @@ grid also the head's cotangent summed over `model` (the negative control,
 then one step of each of `TP_ODD[world]`'s configs, whose heads or
 dimensions do not divide the model degree (`tp/odd/<name>/...`); and the
 single-device checkpoints (`single_ckpt`, `single_sharded`) restored into
-TP states of the whole world's model degree (`tp/single_<fmt>/...`).
+TP states of the whole world's model degree (`tp/single_<fmt>/...`, with
+the state checksum).
 
 With `quant/x` in the inputs the world also runs the quantized
 collectives and gradient wires (`_quantized`, `--comm_dtype`,
@@ -71,6 +75,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tpukit_torch import checkpoint, mesh  # noqa: E402
 from tpukit_torch.bridge import params_from_numpy  # noqa: E402
 from tpukit_torch.model import GPTConfig, gpt  # noqa: E402
+from tpukit_torch.obs import format_checksum, global_norms, make_state_checksum  # noqa: E402
 from tpukit_torch.ops import quant_comm  # noqa: E402
 from tpukit_torch.ops.layers import vocab_parallel_argmax  # noqa: E402
 from tpukit_torch.recipes.profile import comm_bytes  # noqa: E402
@@ -169,6 +174,8 @@ def main() -> None:
         state = create_train_state(params_from_numpy(init, "cpu"), LR, strategy)
         loss, grads = strategy.value_and_grad(state.params, cfg, batch, targets)
         result.update(_gathered(f"{label}/grad", grads))
+        norms = global_norms(grads, params=state.params, strategy=strategy)
+        result.update({f"{label}/{k}": np.float64(v) for k, v in norms.items()})
         for p, g in zip(leaves(state.params), leaves(grads)):
             p.grad = g
         state.optimizer.step()
@@ -200,6 +207,7 @@ def main() -> None:
             checkpoint.save(state, directory=out / "fsdp_ckpt")
             restored = create_train_state(params_from_numpy(init, "cpu"), LR, FSDP())
             checkpoint.restore(str(data["single_ckpt"]), restored)
+            result["fsdp/checksum"] = format_checksum(make_state_checksum()(restored))
             result.update(_gathered("restored/param", restored.params))
             result.update(_opt_state("restored/opt", restored))
             from_sharded = create_train_state(params_from_numpy(init, "cpu"), LR, FSDP())
@@ -235,6 +243,7 @@ def main() -> None:
             checkpoint.restore_any(str(path), state)
             result.update(_tp_whole(f"tp/single_{fmt}", strategy, state))
             result[f"tp/single_{fmt}/step"] = np.int64(state.step)
+            result[f"tp/single_{fmt}/checksum"] = format_checksum(make_state_checksum()(state))
 
     if "quant/x" in data.files:
         result.update(_quantized(data, init, cfg, batch, targets, world, rank))
@@ -387,9 +396,13 @@ def _quantized(data, init, cfg, batch, targets, world: int, rank: int) -> dict:
     return res
 
 
-def _step(state, strategy, cfg, batch, targets, rng=None):
-    """(loss, gradients gathered whole) of one AdamW step, taken."""
+def _step(state, strategy, cfg, batch, targets, rng=None, norms: dict | None = None):
+    """(loss, gradients gathered whole) of one AdamW step, taken; `norms`
+    receives the global grad and param norms before the update."""
     loss, grads = strategy.value_and_grad(state.params, cfg, batch, targets, rng=rng)
+    if norms is not None:
+        norms.update({k: np.float64(v) for k, v in
+                      global_norms(grads, params=state.params, strategy=strategy).items()})
     names = checkpoint.paths(state.params)
     whole = {n: strategy.gather_leaf(n, g).detach().cpu().numpy()
              for n, g in zip(names, leaves(grads))}
@@ -427,8 +440,10 @@ def _tensor_parallel(data, out: Path, world: int) -> dict:
         rows = slice(strategy.data_rank() * per, (strategy.data_rank() + 1) * per)
         batch, targets = {k: v[rows] for k, v in every.items()}, every_t[rows]
         count = float((targets != -100).sum())
-        res[f"{label}/loss"], grads = _step(state, strategy, cfg, batch, targets)
+        norms = {}
+        res[f"{label}/loss"], grads = _step(state, strategy, cfg, batch, targets, norms=norms)
         res.update({f"{label}/grad/{n}": g for n, g in grads.items()})
+        res.update({f"{label}/{k}": v for k, v in norms.items()})
         ev_loss, ev_acc = eval_step(state, cfg, strategy, batch, targets)
         total_loss, total_acc, total = strategy.all_sum(
             [float(ev_loss) * count, float(ev_acc) * count, count])

@@ -15,7 +15,9 @@ bf16 eval after it. Rank r takes rows [r B / N, (r + 1) B / N) of the
 global batch, N the ranks that hold different rows (every rank under
 `ExpertParallel`, as tpukit's `P(("data", "expert"))` splits them; every
 rank of the `data` mesh under `DataParallel` and `FSDP`). Rank 0 records
-the global loss, the gradients and the stepped parameters gathered whole,
+the global loss, the global grad and param norms before the step
+(`obs.global_norms`, beside the initial parameters' norm), the gradients
+and the stepped parameters gathered whole,
 and the eval loss and accuracy weighted over the ranks, under
 `<label>/...`.
 
@@ -57,6 +59,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tpukit_torch import checkpoint, mesh  # noqa: E402
 from tpukit_torch.bridge import params_from_numpy  # noqa: E402
 from tpukit_torch.model import GPTConfig  # noqa: E402
+from tpukit_torch.obs import global_norms  # noqa: E402
 from tpukit_torch.ops import moe_dispatch  # noqa: E402
 from tpukit_torch.ops.moe_dispatch import ExpertGrid  # noqa: E402
 from tpukit_torch.shardings import (  # noqa: E402
@@ -188,6 +191,11 @@ def run_case(case: dict, data, base: dict, world: int, rank: int, out: Path) -> 
             restore()
     if calls is not None:
         res[f"{label}/a2a_bytes"] = np.array(calls, dtype=np.int64)
+    res.update({f"{label}/{k}": np.float64(v) for k, v in
+                global_norms(grads, params=state.params, strategy=strategy).items()})
+    res[f"{label}/whole_param_norm"] = np.sqrt(sum(
+        float(np.sum(data[k].astype(np.float64) ** 2)) for k in data.files
+        if k.startswith("param/")))
     names = paths(state.params)
     res.update({f"{label}/grad/{n}": _whole(strategy, n, g)
                 for n, g in zip(names, leaves(grads))})

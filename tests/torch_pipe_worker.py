@@ -13,8 +13,10 @@ takes, of each of the M micro-batches of the global batch, rows
 them. For each case, in order, every rank builds the strategy and its
 train state (`create_train_state(..., strategy, cfg)`), takes the
 gradients of one step with `value_and_grad` (dropout: step 0's key of seed
-0), one AdamW step (lr 1e-3) and the bf16 eval after it; rank 0 records
-the global loss, the gradients and the parameters in tpukit's layout
+0) and their global grad and param norms (`obs.global_norms`, summed over
+the stages; the parameters' norm gathered whole beside them), one AdamW step (lr 1e-3) and the bf16 eval after it; rank 0
+records the global loss, the norms, the gradients and the parameters in
+tpukit's layout
 (`full_params`: padded, chunk-permuted at V > 1), the eval loss and
 accuracy summed over the data replicas, and, for the cases that ask,
 writes a checkpoint of the stepped state, the port's `.pt`
@@ -39,6 +41,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tpukit_torch import checkpoint, mesh  # noqa: E402
 from tpukit_torch.bridge import params_from_numpy  # noqa: E402
 from tpukit_torch.model import GPTConfig  # noqa: E402
+from tpukit_torch.obs import global_norms  # noqa: E402
 from tpukit_torch.pipeline import Pipeline, Pipeline1F1B  # noqa: E402
 from tpukit_torch.shardings import leaves, paths  # noqa: E402
 from tpukit_torch.train import create_train_state, dropout_key, eval_step  # noqa: E402
@@ -95,6 +98,10 @@ def run_case(case: dict, data, base: dict, out: Path, result: dict) -> None:
     state = create_train_state(params_from_numpy(init, "cpu"), LR, strategy, cfg)
     rng = dropout_key(0, 0, "cpu") if case["dropout"] else None
     loss, grads = strategy.value_and_grad(state.params, cfg, batch, targets, rng=rng)
+    norms = global_norms(grads, params=state.params, strategy=strategy)
+    norms["whole_param_norm"] = np.sqrt(sum(
+        float(np.sum(p.double().numpy() ** 2))
+        for p in leaves(strategy.full_params(state.params))))
     full_grads = strategy.full_params(grads)
     for p, g in zip(leaves(state.params), leaves(grads)):
         p.grad = g
@@ -106,6 +113,7 @@ def run_case(case: dict, data, base: dict, out: Path, result: dict) -> None:
         [float(ev_loss) * count, float(ev_acc) * count, count])
     full_params = strategy.full_params(state.params)
     result[f"{label}/loss"] = np.float64(loss)
+    result.update({f"{label}/{k}": np.float64(v) for k, v in norms.items()})
     result[f"{label}/eval_loss"] = np.float64(total_loss / total)
     result[f"{label}/eval_acc"] = np.float64(total_acc / total)
     for name, g in zip(paths(full_grads), leaves(full_grads)):

@@ -9,8 +9,11 @@ pipeline N batches ahead on a worker thread (`prefetch.HostPrefetcher`;
 `0` loads synchronously, with the same losses). The resilience flags
 (`--resume latest`, `--chaos_spec`, `--on_anomaly`, `--max_rollbacks`,
 `--spike_threshold`, `--spike_action`, `--io_retries`, `--async_checkpoint`,
-`--keep_checkpoints`, `--heartbeat_dir`, `--heartbeat_timeout`) are carried,
-and `fit` validates them with tpukit's errors. `--disable_compile` is
+`--keep_checkpoints`, `--heartbeat_dir`, `--heartbeat_timeout`) and the
+telemetry flags (`--metrics_log`, `--metrics_dir`, `--no_metrics`,
+`--log_grad_norms`, `--profile_dir`, `--debug_nans`, `--hang_timeout`,
+`--debug_dir`, `--trace_on_anomaly`, `--divergence_check_freq`) are
+carried, and `fit` validates them with tpukit's errors. `--disable_compile` is
 accepted: the port runs eagerly either way. `--num_workers` is accepted
 for CLI parity, as in tpukit.
 """
@@ -92,15 +95,6 @@ _CORE_FLAGS = [
 NOT_CARRIED = {
     "compilation_cache_dir": "item 18 'Tracing and metrics' (the eager port compiles no "
                              "programs to cache)",
-    "profile_dir": "item 18 'Tracing and metrics'",
-    "metrics_log": "item 18 'Tracing and metrics' (JSONL StepLogger records)",
-    "metrics_dir": "item 18 'Tracing and metrics'",
-    "debug_nans": "item 18 'Tracing and metrics'",
-    "log_grad_norms": "item 18 'Tracing and metrics'",
-    "hang_timeout": "item 18 'Tracing and metrics'",
-    "debug_dir": "item 18 'Tracing and metrics'",
-    "trace_on_anomaly": "item 18 'Tracing and metrics'",
-    "divergence_check_freq": "item 18 'Tracing and metrics'",
 }
 
 

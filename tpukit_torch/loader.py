@@ -139,6 +139,27 @@ class DataLoader:
             return n // self.batch_size
         return math.ceil(n / self.batch_size)
 
+    def global_real_row_counts(self) -> np.ndarray:
+        """Each batch's dataset rows summed over the replicas (tpukit
+        `loader.py:180`'s closed form): padding positions depend only on the
+        dataset's length, the replicas and the batch size, never on the
+        shuffle, so the meter counts a step's global tokens exactly with no
+        collective. Row j of a rank's split holds an original row iff
+        `j * R + rank < N`; summed over the ranks that is `clip(N - j R, 0,
+        R)`, and the batch-padding tail holds none."""
+        n, reps = len(self.dataset), self.num_replicas
+        samples = n // reps if self.drop_last and n % reps else math.ceil(n / reps)
+        per_rank = samples
+        if self.pad_to_batch and per_rank % self.batch_size:
+            per_rank += self.batch_size - per_rank % self.batch_size
+        stop = (per_rank // self.batch_size) * self.batch_size if self.drop_last else per_rank
+        if stop == 0:
+            return np.zeros(0, dtype=np.int64)
+        j = np.arange(stop, dtype=np.int64)
+        real = np.clip(n - j * reps, 0, reps)
+        real[j >= samples] = 0
+        return np.add.reduceat(real, np.arange(0, stop, self.batch_size))
+
     def _fetch_rows(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """One batch's fetch, the retried unit (the chaos hook inside)."""
         chaos.maybe_io_fault("loader_fetch")

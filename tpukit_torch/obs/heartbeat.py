@@ -6,10 +6,9 @@ rollback timeline) to a directory shared by the world, once a window;
 rank 0 reads them back and names the ranks whose beat is stale or whose
 step lags. The check is advisory: it prints, it kills nothing. Writes are
 atomic, so a reader never sees a torn file. `check_divergence` compares
-the state checksums beats may carry (`checksum`, `checksum_step`); the
-port writes none yet (the checksums are ROADMAP item 18), so it reports
-nothing until then. The port has one process per card, so a "process"
-here is a c10d rank.
+the state checksums beats carry under `--divergence_check_freq`
+(`checksum`, `checksum_step`; `obs/divergence.py`). The port has one
+process per card, so a "process" here is a c10d rank.
 """
 
 from __future__ import annotations

@@ -109,6 +109,11 @@ class HostPrefetcher:
             raise val
         raise StopIteration
 
+    @property
+    def buffered(self) -> int:
+        """Batches ready in the buffer now (the diagnostics bundle's probe)."""
+        return self._queue.qsize()
+
     @contextlib.contextmanager
     def quiesce(self):
         """Hold the worker between items while the body runs (an item in

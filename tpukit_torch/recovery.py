@@ -167,9 +167,11 @@ class RollbackCoordinator:
     `rollback-<seq>.json`, every rank acks with
     `rollback-<seq>-ack-p<rank>.json`. A world of one never touches the
     filesystem. Rank 0 clears the previous incarnation's files at
-    construction (a relaunch restarts `seq` at 1). The collective abort and
-    final-drain records of tpukit's deferred (divergence) rollback come
-    with it, in ROADMAP.md item 18."""
+    construction (a relaunch restarts `seq` at 1). The deferred rollback
+    that a divergence drives (only rank 0 sees it) publishes its decision
+    with `execute_after`, one window ahead, or a collective abort
+    (`publish_abort`); the final-drain marker closes the decision channel
+    at the end of training (tpukit `recovery.py:310-400`)."""
 
     def __init__(self, directory: str | os.PathLike | None, process_index: int = 0,
                  process_count: int = 1, timeout_s: float = 120.0):
@@ -194,6 +196,18 @@ class RollbackCoordinator:
         if execute_after is not None:
             rec["execute_after"] = execute_after
         _atomic_write_json(self._path(plan.seq), rec)
+
+    def publish_abort(self, seq: int, reason: str, anomaly_step: int,
+                      execute_after: int) -> None:
+        """Rank 0 publishes a collective abort (the budget is spent, or
+        nothing restorable, on an anomaly only it sees): every rank reaches
+        the abort path at the same boundary, so the autopsy checkpoint's
+        collective completes on all of them."""
+        if self.directory is None or self.process_count == 1:
+            return
+        _atomic_write_json(self._path(seq), {
+            "seq": seq, "action": "abort", "reason": reason,
+            "anomaly_step": anomaly_step, "execute_after": execute_after})
 
     def read(self, seq: int) -> dict | None:
         if self.directory is None:
@@ -232,6 +246,39 @@ class RollbackCoordinator:
         _atomic_write_json(
             self.directory / f"rollback-{seq:04d}-ack-p{self.process_index:05d}.json",
             {"process": self.process_index, "step": step})
+
+    # the final-drain rendezvous: rank 0 writes the marker only after
+    # everything it will ever publish is on disk, and the other ranks do not
+    # trust a missing decision before the marker exists (rank 0 may still
+    # be detecting a divergence in its last boundary block). It lives in
+    # the rollback-*.json namespace, so construction clears a previous
+    # incarnation's marker.
+
+    @property
+    def _final_drain_path(self) -> Path:
+        return self.directory / "rollback-final-drain.json"
+
+    def publish_final_drain(self, step: int) -> None:
+        """Rank 0, entering the final drain: the decision channel is
+        complete."""
+        if self.directory is None or self.process_count == 1 or self.process_index != 0:
+            return
+        _atomic_write_json(self._final_drain_path, {"step": int(step)})
+
+    def wait_final_drain(self) -> None:
+        """Other ranks, entering the final drain: a bounded wait for rank
+        0's marker. Raises on timeout (rank 0 died mid-window; going on
+        could evaluate and save a diverged state)."""
+        if self.directory is None or self.process_count == 1 or self.process_index == 0:
+            return
+        deadline = time.monotonic() + self.timeout_s
+        while not self._final_drain_path.exists():
+            if time.monotonic() > deadline:
+                raise TrainingAborted(
+                    f"final rollback drain: timed out after {self.timeout_s}s waiting for "
+                    f"process 0's final-drain marker in {self.directory}")
+            time.sleep(0.05)
+
 
 class PreemptCoordinator:
     """Decision files that make a preemption checkpoint collective: a rank

@@ -687,6 +687,20 @@ def dtensor_block(t: DTensor):
     return t.to_local()[tuple(slice(0, s) for s in sizes)], starts
 
 
+def distinct_piece(strategy: "Strategy | None", name: str, t: torch.Tensor):
+    """What this rank counts of leaf `name` (or of a state tensor shaped
+    like it) when a reduction must see each element of the logical array
+    once: (False, the local tensor) for a leaf held whole here, which every
+    rank counts for itself; (True, the block `leaf_block` has this rank
+    write, or None where another rank's covers it) for a piece of a leaf
+    split over ranks, or a DTensor (its replicated placements counted by
+    coordinate 0 alone)."""
+    shape, block, _ = (strategy or Strategy()).leaf_block(name, t)
+    if not isinstance(t, DTensor) and tuple(shape) == tuple(t.shape):
+        return False, t
+    return True, block
+
+
 def fsdp_shard_dim(shape, world: int) -> int | None:
     """tpukit's FSDP placement (`shardings.py:724-738`): the dimension a
     leaf of `shape` shards over `world` ranks, or None to replicate it. A
