@@ -111,20 +111,22 @@ not 0:
      t 0.8, top-k 40) gives the CPU's tokens; its time beside argmax's;
  20. sampled serving: phase 4's stream at temperature 0.8, top-k 40, fused:
      each paged kernel launches layers x decode ticks times; tokens/s
-     beside phase 4's; at f32 with 4 layers the seeded stream gives the
-     same tokens fused, unfused, on the ring and on a second run;
+     beside phase 4's; at f32 with 4 layers the seeded stream (its first
+     32 requests) gives the same tokens fused, unfused, on the ring and on
+     a second run;
  21. ring serving (page_size 0, tpukit's default): phase 4's stream,
      tokens/s and the prefill/decode split beside phase 4's; f32 4-layer
-     greedy ring tokens equal the paged ones; MoE on the ring (8 experts,
+     greedy ring tokens equal the paged ones (first 32 requests); MoE on
+     the ring (8 experts,
      pallas): the grouped forward launches layers x (prefill dispatches +
      ticks) times;
  22. speculative serving (spec_k 4): n-gram self-speculation on the
      repetitive stream beside vanilla ring decoding of it, and a fresh
      seeded draft model (64 / 4 x 16 / 2 layers) on phase 4's stream:
      acceptance, tokens appended per verify, tokens/s; at f32 with 4
-     layers greedy speculation equals vanilla (first 32 requests) and
+     layers greedy speculation equals vanilla (first 16 requests) and
      sampled speculation equals the serial `reference_spec_decode` (first
-     8);
+     4);
  23. dropout training: phase 7's rung at dropout 0.1 (the loss falls, the
      kernels launch as in phase 7, the step wall beside phase 7's), and
      phase 8's kernel-vs-plain steps at dropout 0.1 with the same keys;
@@ -231,7 +233,9 @@ not 0:
  39. resilience on the card: recipe 1 at GPT-2-small width (batch 64, S
      512, 33 steps of the fixture corpus) through the recovery plane, each
      run through `recovery.run_recipe` as the recipe's `__main__` runs it:
-     (a) a control run; (b) `--chaos_spec sigterm@9` exits 75 with a
+     (a) a control run, saving with `--checkpoint_every 8
+     --async_checkpoint --keep_checkpoints 2`, which leaves the two newest
+     checkpoints; (b) `--chaos_spec sigterm@9` exits 75 with a
      checkpoint whose sidecar says preempted at epoch 0, batch 9, and
      `--resume latest` finishes the epoch with the control's windows after
      step 9, bit for bit; (c) `--checkpoint_every 8 --chaos_spec
@@ -241,10 +245,9 @@ not 0:
      to a control restored from step 16 with `skip@25`, every one of its
      33 steps (the 8 replayed ones too) launching phase 7's flash and CE
      counts; (d) `--max_rollbacks 0` exits 77 and `--spike_action abort`
-     76, each with the blown-up state checkpointed; `--async_checkpoint
-     --keep_checkpoints 2` leaves the two newest checkpoints, and the async
-     writer's bytes equal the sync writer's on the same state; each run's
-     wall, and a sync and an async save of the 1.03 GB state timed;
+     76, each with the blown-up state checkpointed; the async writer's
+     bytes equal the sync writer's on the control's final state; each
+     run's wall, and a sync and an async save of the 1.03 GB state timed;
  40. training telemetry on the card: recipe 1 at phase 39's width for 17
      steps (1088 fixture rows) with `--metrics_log --metrics_dir
      --log_grad_norms --divergence_check_freq 8 --hang_timeout 60`, and
@@ -259,11 +262,31 @@ not 0:
      and the anomaly trace's Chrome JSON names the flash and CE kernels; a
      bundle's write time; a 3-step `--profile_dir` run whose trace names
      them too; a `--debug_nans` run bit-equal to the run without it;
+ 41. serving telemetry on the card: phase 4's engine and 64-request stream
+     (a) with every serving plane on (request traces, the metrics plane,
+     `--slo`, a JSONL logger, a metrics dir) against all off, three runs
+     each, alternated: tokens/s of each run, the medians and their ratio,
+     the summary's prefill / decode / sync / other / dispatch / device
+     seconds, and the paged launches, which must equal phase 4's formula
+     in both; (b) the on run's tokens equal the off run's bit for bit, with
+     the same steps, prefill dispatches and launches, here and on 16
+     requests sampled (t 0.8, top-k 40), with n-gram speculation on the
+     repetitive stream on the ring (whose summary must show `decode_s` 0
+     and `verify_s` > 0) and on the MoE model (8 experts, pallas, paged,
+     fused: the grouped forward and the paged kernels launching as in
+     phase 14); (c) every on run's records: tpukit's serving kinds, each
+     window's seconds summing to its wall, every span tree closed and
+     complete, none dropped; `build_trees`' time over a full ring; (d)
+     `python -m tpukit_torch.serve` at the recipes' width (`--page_size 16
+     --fused_decode --metrics_log --metrics_dir --slo`, 16 requests) in a
+     process of its own, then `tools/report.py --min_trace_complete 1.0`
+     and `tools/traceview.py` on its JSONL and its merged snapshot;
 then one JSON line of kernel results (the flash and CE rows with their
 launches under CP, under the quantized wires and in phase 40's telemetry
 step, the grouped rows with
 theirs under EP, f32 and quantized exchanges, and their times at the EP
-shapes) and, last, the device JSON line.
+shapes, the paged and grouped decode rows with theirs in phase 41) and,
+last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
 code 2 and prints no result. `--tp-gloo-rank R STORE OUT`,
@@ -333,7 +356,9 @@ from tpukit_torch.serve.engine import (Request, ServeConfig, ServeEngine,
                                        synthetic_request_stream)
 from tpukit_torch.serve.profile import REQUESTS, SERVE_SHAPE, build
 from tpukit_torch.model import GPTConfig, init_params
-from tpukit_torch.obs import FlightRecorder, write_bundle
+from tpukit_torch.obs import (FlightRecorder, MetricRegistry, StepLogger, TraceRecorder,
+                              parse_slo, publish_snapshot, write_bundle)
+from tpukit_torch.obs import trace as trace_lib
 from tpukit_torch.pipeline import Pipeline, Pipeline1F1B
 from tpukit_torch.shardings import (
     FSDP,
@@ -1974,15 +1999,16 @@ def _same_tokens(runs: dict, base: str, rids, what: str) -> None:
 
 
 SAMPLED = dict(temperature=0.8, top_k=40)
+F32_HEAD = 32  # phases 20-21's f32 comparisons (all 64 until phase 41 came)
 
 
 def sampled_serving(dev, greedy: dict) -> dict:
     """Phase 20: phase 4's config and 64-request stream, sampled
     (temperature 0.8, top-k 40, each request's key from its seed), fused
     decode: each paged kernel launches layers x decode ticks times; tokens/s
-    beside phase 4's greedy run. Then at f32 with 4 layers the same seeded
-    stream gives the same tokens fused, unfused, on the ring, and fused
-    again (tpukit's same-seed guarantee)."""
+    beside phase 4's greedy run. Then at f32 with 4 layers the stream's
+    first 32 requests give the same tokens fused, unfused, on the ring,
+    and fused again (tpukit's same-seed guarantee)."""
     cfg, params, serve, reqs, eos = build(dev, fused=True)
     engine, outs, wall, counts = _timed_serve(params, cfg,
                                               dataclasses.replace(serve, **SAMPLED), reqs,
@@ -1998,15 +2024,16 @@ def sampled_serving(dev, greedy: dict) -> dict:
                                             compute_dtype=torch.float32)
     serve32 = dataclasses.replace(serve32, **SAMPLED)
     ring = dataclasses.replace(serve32, page_size=0, prefill_chunk=0, fused_decode=False)
-    runs = {}
+    runs, head = {}, reqs[:F32_HEAD]
     for label, sc in (("fused", serve32), ("unfused", dataclasses.replace(serve32,
                                                                           fused_decode=False)),
                       ("ring", ring), ("fused again", serve32)):
-        _, runs[label] = serve_run(params32, cfg32, sc, reqs, dev, eos)
-        check_outputs(runs[label], reqs, cfg32)
-    _same_tokens(runs, "fused", [r.rid for r in reqs], "sampled f32")
-    print(f"sampled f32: fused == unfused == ring == fused again on all {len(reqs)} requests "
-          f"({sum(len(v) for v in runs['fused'].values())} tokens incl. prompts)", flush=True)
+        _, runs[label] = serve_run(params32, cfg32, sc, head, dev, eos)
+        check_outputs(runs[label], head, cfg32)
+    _same_tokens(runs, "fused", [r.rid for r in head], "sampled f32")
+    print(f"sampled f32: fused == unfused == ring == fused again on the first {len(head)} "
+          f"requests ({sum(len(v) for v in runs['fused'].values())} tokens incl. prompts)",
+          flush=True)
     return dict(tokens_per_s=_tokens_per_s(engine, wall), wall=wall, steps=engine.steps,
                 counts={k: counts[k] for k in paged}, summary=engine.last_summary)
 
@@ -2015,7 +2042,8 @@ def ring_serving(dev, greedy: dict) -> dict:
     """Phase 21: tpukit's default ring cache (page_size 0, bf16, phase 4's
     64 requests): tokens/s and the prefill/decode split beside phase 4's;
     the paged kernels do not run. At f32 with 4 layers the ring's greedy
-    tokens equal the paged (fused) engine's. MoE on the ring (8 experts,
+    tokens equal the paged (fused) engine's on the first 32 requests. MoE
+    on the ring (8 experts,
     pallas): the grouped forward launches layers x (prefill dispatches +
     ticks) times."""
     cfg, params, serve, reqs, eos = build(dev, fused=True)
@@ -2030,11 +2058,12 @@ def ring_serving(dev, greedy: dict) -> dict:
         raise AssertionError(f"the ring ran the paged kernels: {counts}")
     cfg32, params32, serve32, _, _ = build(dev, fused=True, num_layers=4,
                                             compute_dtype=torch.float32)
-    runs = {"paged": serve_run(params32, cfg32, serve32, reqs, dev, eos)[1],
+    head = reqs[:F32_HEAD]
+    runs = {"paged": serve_run(params32, cfg32, serve32, head, dev, eos)[1],
             "ring": serve_run(params32, cfg32, dataclasses.replace(
-                serve32, page_size=0, prefill_chunk=0, fused_decode=False), reqs, dev, eos)[1]}
-    _same_tokens(runs, "paged", [r.rid for r in reqs], "greedy f32")
-    print(f"greedy f32: ring == paged (fused) on all {len(reqs)} requests", flush=True)
+                serve32, page_size=0, prefill_chunk=0, fused_decode=False), head, dev, eos)[1]}
+    _same_tokens(runs, "paged", [r.rid for r in head], "greedy f32")
+    print(f"greedy f32: ring == paged (fused) on the first {len(head)} requests", flush=True)
     mcfg, mparams, mserve, _, _ = build(dev, fused=True, num_experts=8)
     mring = dataclasses.replace(mserve, page_size=0, prefill_chunk=0, fused_decode=False)
     meng, mouts, mwall, mcounts = _timed_serve(mparams, mcfg, mring, reqs, dev, eos)
@@ -2070,6 +2099,11 @@ def _spec_line(engine) -> str:
             f"verify, histogram {hist}")
 
 
+# phase 22's f32 checks: greedy speculation on the first 16 requests, the
+# serial reference on the first 4 (32 and 8 until phase 41 came)
+SPEC_F32_HEAD, SPEC_REFERENCE = 16, 4
+
+
 def speculative_serving(dev, ring: dict) -> dict:
     """Phase 22: speculation on the ring, spec_k 4, 64 requests at full
     width (bf16): `draft="ngram"` on the `repetitive` stream beside vanilla
@@ -2077,8 +2111,8 @@ def speculative_serving(dev, ring: dict) -> dict:
     fresh seeded) on phase 4's stream beside phase 21's ring run:
     acceptance, mean tokens appended per verify, tokens/s. At f32 with 4
     layers: greedy speculation (both proposers) gives vanilla's tokens on
-    the first 32 requests, and sampled (t 0.8, top-k 40) the engine's
-    tokens for the first 8 equal the serial `reference_spec_decode`'s (a
+    the first 16 requests, and sampled (t 0.8, top-k 40) the engine's
+    tokens for the first 4 equal the serial `reference_spec_decode`'s (a
     request's tokens do not depend on its batch)."""
     cfg, params, serve, reqs, eos = build(dev, fused=True)
     ring_cfg = dataclasses.replace(serve, page_size=0, prefill_chunk=0, fused_decode=False)
@@ -2107,7 +2141,7 @@ def speculative_serving(dev, ring: dict) -> dict:
     ring32 = dataclasses.replace(serve32, page_size=0, prefill_chunk=0, fused_decode=False,
                                  spec_k=4)
     draft32 = _draft(cfg32, dev)
-    head = reqs[:32]
+    head = reqs[:SPEC_F32_HEAD]
     runs = {"vanilla": serve_run(params32, cfg32, ring32, head, dev, eos)[1],
             "ngram": serve_run(params32, cfg32, dataclasses.replace(ring32, draft="ngram"),
                                head, dev, eos)[1],
@@ -2115,9 +2149,9 @@ def speculative_serving(dev, ring: dict) -> dict:
                                head, dev, eos, **draft32)[1]}
     _same_tokens(runs, "vanilla", [r.rid for r in head], "greedy speculation")
     sampled = dataclasses.replace(ring32, draft="model", **SAMPLED)
-    _, souts = serve_run(params32, cfg32, sampled, reqs[:8], dev, eos, **draft32)
-    check_outputs(souts, reqs[:8], cfg32)
-    for r in reqs[:8]:
+    _, souts = serve_run(params32, cfg32, sampled, reqs[:SPEC_REFERENCE], dev, eos, **draft32)
+    check_outputs(souts, reqs[:SPEC_REFERENCE], cfg32)
+    for r in reqs[:SPEC_REFERENCE]:
         ref = spec_lib.reference_spec_decode(
             params32, cfg32, r.ids, r.max_new_tokens, eos, k=4, draft="model",
             temperature=0.8, top_k=40, seed=r.seed, **draft32)
@@ -2125,7 +2159,8 @@ def speculative_serving(dev, ring: dict) -> dict:
             raise AssertionError(f"sampled speculation: engine tokens != reference_spec_decode, "
                                  f"rid {r.rid}")
     print(f"f32: greedy ngram == model == vanilla on the first {len(head)} requests; sampled "
-          f"model speculation == reference_spec_decode on the first 8", flush=True)
+          f"model speculation == reference_spec_decode on the first {SPEC_REFERENCE}",
+          flush=True)
     return dict(ngram=neng.last_summary, model_outs=mouts, draft=draft, reqs=reqs,
                 model=meng.last_summary, ngram_tokens_per_s=_tokens_per_s(neng, nwall),
                 vanilla_rep_tokens_per_s=_tokens_per_s(veng, vwall),
@@ -3058,7 +3093,10 @@ def resilience_on_card(dev, smi: str) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     walls = {}
 
-    code, a, walls["control"] = resilient_run("(a) control", work / "a")
+    # the control saves asynchronously every 8 steps and keeps 2 ((d)):
+    # saving moves no window
+    keep = ["--checkpoint_every", "8", "--async_checkpoint", "--keep_checkpoints", "2"]
+    code, a, walls["control, async keep 2"] = resilient_run("(a) control", work / "a", keep)
     if code != 0:
         raise AssertionError(f"the control run exited {code}")
     cfg, control = a.config, a.metrics["train_windows"]
@@ -3068,7 +3106,9 @@ def resilience_on_card(dev, smi: str) -> dict:
                 **{f"flash_{k}": 0 for k in fa.launches if k.endswith("_f32")},
                 **ce_want(1, tokens, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
     state_bytes = _disk_bytes(work / "a" / a.checkpoint_path)
-    del a
+    kept = [p.name for p in ckpt_lib.all_checkpoints(work / "a" / "checkpoints")]
+    if kept != ["checkpoint-32.pt", "checkpoint-33.pt"]:
+        raise AssertionError(f"async keep 2: published {kept}")
     _free()
 
     # (b) preempt, then --resume latest in the same directory
@@ -3142,33 +3182,28 @@ def resilience_on_card(dev, smi: str) -> dict:
             raise AssertionError(f"{label}: exit {code} (want {want_code}), {autopsy}")
         shutil.rmtree(work / "d")
     _free()
-    keep = ["--checkpoint_every", "8", "--async_checkpoint", "--keep_checkpoints", "2"]
-    code, e, walls["async keep 2"] = resilient_run("(d) async, keep 2", work / "e", keep)
-    kept = [p.name for p in ckpt_lib.all_checkpoints(work / "e" / "checkpoints")]
-    if code != 0 or kept != ["checkpoint-32.pt", "checkpoint-33.pt"]:
-        raise AssertionError(f"async keep 2: exit {code}, published {kept}")
     flags = parse_flags(RESILIENCE_ARGV + keep)
     saver = ckpt_lib.AsyncCheckpointer()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    apath = saver.save_auto(e.state, "auto", flags, directory=work / "async")
+    apath = saver.save_auto(a.state, "auto", flags, directory=work / "async")
     call_s = time.perf_counter() - t0
     saver.wait()
     async_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    spath = ckpt_lib.save_auto(e.state, "auto", flags, directory=work / "sync")
+    spath = ckpt_lib.save_auto(a.state, "auto", flags, directory=work / "sync")
     sync_s = time.perf_counter() - t0
     same = all(x.read_bytes() == y.read_bytes() for x, y in (
         (apath, spath), (apath.with_suffix(".json"), spath.with_suffix(".json")),
-        (work / "e" / "checkpoints" / "checkpoint-33.pt", spath)))
-    print(f"  (d) published {kept}; async == sync bytes (and the run's own checkpoint-33.pt): "
-          f"{same}", flush=True)
+        (work / "a" / "checkpoints" / "checkpoint-33.pt", spath)))
+    print(f"  (d) the control published {kept}; async == sync bytes (and the run's own "
+          f"checkpoint-33.pt): {same}", flush=True)
     print(f"  save of the {state_bytes / 1e9:.3f} GB state ({smi}): sync {sync_s:.3f} s; async "
           f"{call_s:.3f} s on the training thread (the snapshot), {async_s:.3f} s until "
           f"durable", flush=True)
     if not same:
         raise AssertionError("the async writer's bytes differ from the sync writer's")
-    del e
+    del a
     shutil.rmtree(work)
     _free()
     print(f"  phase 39 walls (s): { {k: round(v, 2) for k, v in walls.items()} }", flush=True)
@@ -3327,6 +3362,193 @@ def telemetry_on_card(dev, smi: str) -> dict:
     _free()
     print(f"  phase 40 walls (s): { {k: round(v, 2) for k, v in walls.items()} }", flush=True)
     return result
+
+
+SERVE_SLO = "ttft<=250ms@p99;tpot<=40ms@p95;e2e<=2s@p99"  # tpukit's --slo example
+SERVE_KINDS = {"serve", "slo", "serve_summary", "trace_event", "trace", "metrics"}
+SHORT = 16  # phase 41's sampled, n-gram, MoE and entry-point runs: one wave of 16 slots
+
+
+def _serve_telemetry(work: Path) -> dict:
+    """Every serving telemetry plane on, writing under `work`."""
+    work.mkdir(parents=True)
+    return dict(logger=StepLogger(str(work / "serve.jsonl")), recorder=FlightRecorder(),
+                tracer=TraceRecorder(), metrics=MetricRegistry(), slo=parse_slo(SERVE_SLO),
+                metrics_dir=str(work / "metrics"))
+
+
+def _telemetry_pair(params, cfg, serve, reqs, dev, eos, work: Path, what: str, **kw) -> dict:
+    """`reqs` served with telemetry on, then off: the same tokens bit for
+    bit, the same decode steps and prefill dispatches and the same
+    launches; the on run's records checked as (c)."""
+    got = {}
+    for label in ("on", "off"):
+        tel = _serve_telemetry(work) if label == "on" else {}
+        reset_counts()
+        engine, outs = serve_run(params, cfg, serve, reqs, dev, eos, **kw, **tel)
+        check_outputs(outs, reqs, cfg)
+        got[label] = (engine, outs, read_counts())
+    (on, on_outs, on_counts), (off, off_outs, off_counts) = got["on"], got["off"]
+    _same_tokens({"on": on_outs, "off": off_outs}, "off", [r.rid for r in reqs], what)
+    sched = lambda e: (e.steps, e.prefill_dispatches)
+    if sched(on) != sched(off) or on_counts != off_counts:
+        raise AssertionError(f"{what}: telemetry on {sched(on)} {on_counts} != off "
+                             f"{sched(off)} {off_counts}")
+    _check_serve_records(on, work / "serve.jsonl", what)
+    return dict(on=on.last_summary, off=off.last_summary, counts=on_counts, steps=on.steps)
+
+
+def _check_serve_records(engine, path: Path, what: str) -> list:
+    """(c): tpukit's serving kinds; each window's named seconds (`other`
+    among them) sum to its `window_s`; every request's span tree closed
+    and complete, none dropped."""
+    engine.logger.close()
+    recs = [json.loads(line) for line in open(path)]
+    windows = [r for r in recs if r["kind"] == "serve"]
+    trees = [r for r in recs if r["kind"] == "trace"]
+    s = engine.last_summary
+    drift = max((abs(sum(w["seconds"].values()) - w["window_s"]) for w in windows), default=0)
+    print(f"  {what}: {len(windows)} serve windows (seconds sum to window_s within "
+          f"{drift:.2e} s), {len(trees)} span trees, trace_complete {s['trace_complete']}, "
+          f"trace_dropped {s['trace_dropped']}, SLO compliance {s['slo_overall_compliance']}",
+          flush=True)
+    kinds = {r["kind"] for r in recs}
+    if (kinds != SERVE_KINDS or not windows or drift > 1e-6
+            or any(w["other_s"] != w["seconds"]["other"] for w in windows)
+            or len(trees) != s["requests"]
+            or not all(t["closed"] and t["complete"] for t in trees)
+            or s["trace_complete"] != 1.0 or s["trace_dropped"] != 0):
+        raise AssertionError(f"{what}: records {sorted(kinds)}, windows {len(windows)}, drift "
+                             f"{drift}, trees {len(trees)} of {s['requests']}, "
+                             f"trace_complete {s['trace_complete']}, dropped "
+                             f"{s['trace_dropped']}")
+    return recs
+
+
+def _split_line(s: dict) -> str:
+    return " / ".join(f"{k} {s[k]:.4f}" for k in (
+        "prefill_s", "decode_s", "sync_s", "other_s", "dispatch_overhead_s", "device_s"))
+
+
+def serving_telemetry_on_card(dev, smi: str) -> dict:
+    """Phase 41 (see the module docstring)."""
+    work = ROOT / "build" / "chip_smoke_serve_obs"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg, params, serve, reqs, eos = build(dev, fused=True)
+    serve_run(params, cfg, serve, reqs[:4], dev, eos)  # warm-up
+    # (a) the cost: on, off, three times each, alternated
+    runs, first = [], None
+    for i, on in enumerate((True, False) * 3):
+        tel = _serve_telemetry(work / f"a{i}") if on else {}
+        reset_counts()
+        t0 = time.perf_counter()
+        engine, outs = serve_run(params, cfg, serve, reqs, dev, eos, **tel)
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if k.startswith("paged_")}
+        s = engine.last_summary
+        want = paged_want(cfg.num_layers * engine.steps)
+        print(f"  (a) run {i} telemetry {'on ' if on else 'off'}: {s['generated_tokens']} tokens "
+              f"in {wall:.4f} s ({s['generated_tokens'] / wall:.1f} tokens/s), "
+              f"{engine.steps} ticks; {_split_line(s)}; paged launches {counts}", flush=True)
+        check_outputs(outs, reqs, cfg)
+        if counts != want or engine.steps == 0:
+            raise AssertionError(f"(a) run {i}: paged launches {counts} != {want}")
+        if first is None:
+            first = outs
+        _same_tokens({"this": outs, "first": first}, "first", [r.rid for r in reqs],
+                     f"(a) run {i}")
+        if on:
+            recs = _check_serve_records(engine, work / f"a{i}" / "serve.jsonl", f"(a) run {i}")
+            t0 = time.perf_counter()
+            trees = trace_lib.build_trees(engine.tracer.snapshot())
+            trees_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            publish_snapshot(engine.metrics_dir, 0, engine.metrics, time_s=time.time())
+            publish_ms = 1e3 * (time.perf_counter() - t0)
+            windows = sum(r["kind"] == "serve" for r in recs)
+            print(f"  (a) run {i}: build_trees over the whole ring ({len(engine.tracer)} events, "
+                  f"{len(trees)} trees) {trees_ms:.3f} ms, one snapshot publish "
+                  f"{publish_ms:.3f} ms; the engine does both at each of its {windows} windows "
+                  f"(and at its summary)", flush=True)
+        runs.append(dict(on=on, wall=wall, tokens_per_s=s["generated_tokens"] / wall,
+                         summary=s, counts=counts, trees_ms=trees_ms if on else None,
+                         publish_ms=publish_ms if on else None))
+    med = lambda on: float(np.median([r["tokens_per_s"] for r in runs if r["on"] == on]))
+    ratio = med(True) / med(False)
+    print(f"  (a) median tokens/s on {med(True):.1f}, off {med(False):.1f}: on/off {ratio:.4f} "
+          f"({smi})", flush=True)
+
+    # (b) tokens on == off: sampled (paged, fused) and n-gram speculation on
+    # the ring over the repetitive stream; C8: the verify span, not decode
+    sampled = _telemetry_pair(params, cfg, dataclasses.replace(serve, **SAMPLED), reqs[:SHORT],
+                              dev, eos, work / "b_sampled", "(b) sampled t 0.8 top-k 40")
+    rep = synthetic_request_stream(get_tokenizer(), len(reqs), seed=0,
+                                   max_new_tokens=serve.max_new_tokens, buckets=serve.buckets,
+                                   stream_profile="repetitive")[:SHORT]
+    ngram_cfg = dataclasses.replace(serve, page_size=0, prefill_chunk=0, fused_decode=False,
+                                    spec_k=4, draft="ngram")
+    ngram = _telemetry_pair(params, cfg, ngram_cfg, rep, dev, eos, work / "b_ngram",
+                            "(b) ngram spec_k 4 on the ring")
+    for label, s in (("on", ngram["on"]), ("off", ngram["off"])):
+        print(f"  (b) ngram, telemetry {label}: {_split_line(s)}; draft_s {s['draft_s']:.4f}, "
+              f"verify_s {s['verify_s']:.4f}", flush=True)
+        if not (s["decode_s"] == 0.0 and s["verify_s"] > 0):
+            raise AssertionError(f"(b) ngram: decode_s {s['decode_s']}, verify_s "
+                                 f"{s['verify_s']} (C8: the quantum is a verify span)")
+    del params
+    _free()
+
+    # (d) the entry point in a process of its own, started now: its start-up
+    # overlaps the MoE pair, which times nothing
+    cli = work / "cli"
+    cli.mkdir()
+    argv = (WIDTH_FLAGS + STREAM_FLAGS + ["--requests", str(SHORT)] + PAGED_FLAGS +
+            ["--metrics_log", "serve.jsonl", "--metrics_dir", "metrics", "--slo", SERVE_SLO])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tpukit_torch.serve", *argv], cwd=cli,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    # the MoE model (8 experts, pallas), paged and fused: rows 4 and 8
+    mcfg, mparams, mserve, _, _ = build(dev, fused=True, num_experts=8)
+    moe = _telemetry_pair(mparams, mcfg, mserve, reqs[:SHORT], dev, eos, work / "moe",
+                          "MoE paged fused")
+    forwards = moe["on"]["prefill_dispatches"] + moe["steps"]
+    paged = paged_want(mcfg.num_layers * moe["steps"])
+    print(f"  MoE: grouped forward launches {moe['counts']['moe_forward_up']} = "
+          f"{mcfg.num_layers} x ({moe['on']['prefill_dispatches']} prefill dispatches + "
+          f"{moe['steps']} ticks); paged {[moe['counts'][k] for k in paged]}", flush=True)
+    if moe["counts"]["moe_forward_up"] != mcfg.num_layers * forwards or any(
+            moe["counts"][k] != v for k, v in paged.items()):
+        raise AssertionError(f"MoE with telemetry: launches {moe['counts']}")
+    del mparams
+    _free()
+
+    # (d) the entry point's run, and tpukit's tools on its files
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    print(f"  (d) python -m tpukit_torch.serve {' '.join(argv)}: exit {proc.returncode} "
+          f"{time.perf_counter() - t0:.1f} s after its start", flush=True)
+    print("    " + "\n    ".join(l for l in stdout.splitlines() if l.startswith(
+        ("serving grid", "served", "paged KV", "e2e", "traces", "WARNING", "SLO"))), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the entry point exited {proc.returncode}:\n{stderr[-3000:]}")
+    _tool("report", cli / "serve.jsonl", "--min_trace_complete", "1.0")
+    _tool("traceview", cli / "serve.jsonl", "--out", cli / "trace.json")
+    events = json.loads((cli / "trace.json").read_text())["traceEvents"]
+    merged = cli / "metrics" / "metrics-merged.json"
+    print(f"  (d) the Chrome trace loads: {len(events)} events; {merged.name}: "
+          f"{merged.exists()}", flush=True)
+    if not events or not merged.exists():
+        raise AssertionError(f"(d): {len(events)} trace events, {merged} exists "
+                             f"{merged.exists()}")
+    shutil.rmtree(work)
+    return dict(runs=runs, ratio=ratio, sampled=sampled, ngram=ngram, moe=moe,
+                counts=runs[0]["counts"])
 
 
 def main() -> int:
@@ -3572,6 +3794,14 @@ def main() -> int:
     print(f"phase 40: {time.perf_counter() - t_t:.1f} s ({smi}); chip_smoke so far "
           f"{time.perf_counter() - _START:.1f} s", flush=True)
 
+    t_s = time.perf_counter()
+    phase("serving telemetry on the card: phase 4's engine and stream with request traces, "
+          "the metrics plane, --slo, the JSONL and a metrics dir, against them off; sampled, "
+          "n-gram and MoE on and off; python -m tpukit_torch.serve and tpukit's tools")
+    serving = serving_telemetry_on_card(dev, smi)
+    print(f"phase 41: {time.perf_counter() - t_s:.1f} s ({smi}); chip_smoke so far "
+          f"{time.perf_counter() - _START:.1f} s", flush=True)
+
     fl, ce = trained["flash"], trained["ce"]
     tel = telemetry["counts"]  # one step of phase 40's telemetry run (all 17 equal)
 
@@ -3608,6 +3838,7 @@ def main() -> int:
          "kernels_per_call": 3,
          "launches_by_kernel": {k[len("paged_"):]: v for k, v in paged_counts.items()},
          "launches_under_tp": tp_served["counts"]["paged_scores"],
+         "launches_under_serving_telemetry": serving["counts"]["paged_scores"],
          "shapes": paged_shapes},
         entry("flash_attention_fwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:178",
               c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"],
@@ -3664,7 +3895,8 @@ def main() -> int:
                   k: moe_served["counts"][f"moe_forward_{k}"] for k in ("up", "down", "combine")},
               library_products_ms=moe_decode["fwd_library_products_ms"],
               units=moe_decode["units"],
-              launches_under_data_grid_f32=tp_served["moe_forward_up"]),
+              launches_under_data_grid_f32=tp_served["moe_forward_up"],
+              launches_under_serving_telemetry_16=serving["moe"]["counts"]["moe_forward_up"]),
         entry("moe_grouped_ffn_bwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:145",
               mc["moe_backward_dh"], moe_main, "bwd", moe_main["bwd_err"], None,
               kernels_per_call=4, launches_by_kernel={

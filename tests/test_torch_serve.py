@@ -347,10 +347,12 @@ def test_tokenizer_and_stream_match_tpukit(seed, kw):
 
 def test_unported_paths_raise_named_errors():
     """What the port still lacks raises, naming its ROADMAP item: the fleet
-    (item 19). `ServeConfig()` is tpukit's ring default."""
+    (item 19), and the compilation cache, which the eager port has no
+    programs for (item 18). `ServeConfig()` is tpukit's ring default."""
     from tpukit_torch.serve import __main__ as serve_main
 
-    for argv, item in ((["--replicas", "2"], "item 19"),):
+    for argv, item in ((["--replicas", "2"], "item 19"),
+                       (["--compilation_cache_dir", "x"], "item 18")):
         with pytest.raises(NotPortedError, match=item):
             serve_main.main(argv + ["--device", "cpu"])
     with pytest.raises(ValueError, match="divide every bucket"):
@@ -360,6 +362,23 @@ def test_unported_paths_raise_named_errors():
         ServeConfig(page_size=8, draft="ngram")
     with pytest.raises(ValueError, match="paged cache"):
         ServeConfig(fused_decode=True)
+
+
+def test_speculation_times_verify_apart_from_decode_as_tpukit(tok, models):
+    """C8: under n-gram speculation each quantum is a `verify` span, as
+    tpukit's (`tpukit/serve/engine.py:932-958`): the summary's `decode_s`
+    is 0.0, with `draft_s` and `verify_s` beside it."""
+    jcfg, tcfg, jp, tp = models
+    reqs = jax_stream(tok, 6, seed=2, max_new_tokens=MAX_NEW, buckets=(8, 16),
+                      stream_profile="repetitive")
+    kw = dict(slots=2, buckets=(8, 16), max_new_tokens=MAX_NEW, draft="ngram", spec_k=2)
+    jeng = JaxServeEngine(jp, jcfg, JaxServeConfig(**kw), eos_id=int(tok.eos_token_id))
+    jeng.run(list(reqs), max_wall_s=300)
+    teng = ServeEngine(tp, tcfg, ServeConfig(**kw), eos_id=int(tok.eos_token_id), device="cpu")
+    teng.run(list(reqs), max_wall_s=300)
+    for side, s in (("tpukit", jeng.last_summary), ("port", teng.last_summary)):
+        assert s["decode_s"] == 0.0 and s["draft_s"] == 0.0 and s["verify_s"] > 0, (side, s)
+        assert s["dispatch_overhead_s"] == s["verify_s"], side
 
 
 # ------------------------------------------- main-serve.py's every flag ----
@@ -410,6 +429,7 @@ _VALUES = {
     "num_experts": ["--num_experts", "2"],
     "moe_dispatch": ["--num_experts", "2", "--moe_dispatch", "pallas"],
     "moe_top_k": ["--num_experts", "2", "--moe_top_k", "2"],
+    "slo": ["--slo", "e2e<=1000s@p99"],
 }
 
 
@@ -468,6 +488,14 @@ TP_CLI = ["--device", "cpu", "--num_layers", "1", "--dim", "32", "--head_dim", "
 # one head: the paged grid is model 1 of 2 ranks, and rank 1 waits
 _HEADS = TP_CLI.index("--heads") + 1
 TP_CLI_IDLE = TP_CLI[:_HEADS] + ["1"] + TP_CLI[_HEADS + 1:]
+# the telemetry flags, paths relative to each rank's own directory
+OBS_FLAGS = ["--metrics_log", "serve.jsonl", "--metrics_dir", "md", "--slo",
+             "e2e<=1000s@p99;ttft<=1us@p95", "--window_steps", "4"]
+TP_CLI_OBS = TP_CLI + OBS_FLAGS  # paged, fused: model 2
+# the ring with one head: model 1, its 2 slots over data 2
+_PAGED = TP_CLI_IDLE.index("--page_size")
+TP_CLI_OBS_RING = [a for a in TP_CLI_IDLE[:_PAGED] + TP_CLI_IDLE[_PAGED + 2:]
+                   if a != "--fused_decode"] + OBS_FLAGS
 
 
 def _tp_serve_cases():
@@ -513,7 +541,9 @@ def tp_world(tok, tmp_path_factory):
                                      "serve/eos": np.int64(tok.eos_token_id),
                                      "serve/checkpoint": str(single_ckpt),
                                      "serve/cli": np.array(TP_CLI),
-                                     "serve/cli_idle": np.array(TP_CLI_IDLE)},
+                                     "serve/cli_idle": np.array(TP_CLI_IDLE),
+                                     "serve/cli_obs": np.array(TP_CLI_OBS),
+                                     "serve/cli_obs_ring": np.array(TP_CLI_OBS_RING)},
              **{f"serve/ids/{r.rid}": np.asarray(r.ids, np.int64) for r in reqs},
              **{f"serve/seed/{r.rid}": np.int64(r.seed) for r in reqs},
              **flat("dense", dense), **flat("moe", moe))
@@ -540,10 +570,18 @@ def tp_world(tok, tmp_path_factory):
         import contextlib
         import io
         cli = {}
-        for key, argv in (("cli", TP_CLI), ("cli_idle", TP_CLI_IDLE)):
+        for key, argv in (("cli", TP_CLI), ("cli_idle", TP_CLI_IDLE), ("cli_obs", TP_CLI_OBS),
+                          ("cli_obs_ring", TP_CLI_OBS_RING)):
+            one = work / "one" / key
+            one.mkdir(parents=True)
+            cwd = os.getcwd()
+            os.chdir(one)
             out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                serve_main.main(argv)
+            try:
+                with contextlib.redirect_stdout(out):
+                    serve_main.main(argv)
+            finally:
+                os.chdir(cwd)
             cli[key] = out.getvalue()
         logs = [p.communicate(timeout=240)[0] for p in procs]
     finally:
@@ -554,7 +592,7 @@ def tp_world(tok, tmp_path_factory):
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
     return dict(got=dict(np.load(work / "result.npz")), refs=refs, tk=tk, cli=cli,
-                rids=[r.rid for r in reqs])
+                rids=[r.rid for r in reqs], work=work)
 
 
 def _flat(tree, prefix=""):
@@ -596,3 +634,41 @@ def test_tp_serving_cli_on_two_ranks_matches_world_of_one(tp_world, key, grid):
     assert ("model=1 of 2 devices" in got) == (key == "cli_idle")
     pick = lambda text: [l for l in text.splitlines() if l.startswith("  [")]
     assert len(pick(got)) == 3 and pick(got) == pick(tp_world["cli"][key])
+
+
+WINDOW_COUNTS = ("window", "steps", "new_tokens", "occupancy", "admitted", "completed",
+                 "queue_depth", "slots", "page_occupancy", "prefix_hit_rate",
+                 "pages_per_request")
+
+
+@pytest.mark.parametrize("key,grid", [("cli_obs", "data 1 x model 2"),
+                                      ("cli_obs_ring", "data 2 x model 1")],
+                         ids=["paged_model2", "ring_data2"])
+def test_tp_serving_telemetry_only_rank_0_writes(tp_world, key, grid):
+    """`python -m tpukit_torch.serve` with `--metrics_log`, `--metrics_dir`,
+    `--slo` and `--window_steps` on both ranks of the world: rank 0's
+    completions and its records' `(kind, window)` sequence, serve windows'
+    and summary's count fields equal the world of one's; its metrics
+    directory holds one snapshot (process 0's) and the merge; rank 1 writes
+    nothing."""
+    got = str(tp_world["got"][f"{key}/stdout"])
+    assert f"serving grid: {grid} (TensorParallel)" in got
+    pick = lambda text: [l for l in text.splitlines() if l.startswith("  [")]
+    assert len(pick(got)) == 3 and pick(got) == pick(tp_world["cli"][key])
+    rank0, rank1 = (tp_world["work"] / key / f"rank{r}" for r in (0, 1))
+    assert list(rank1.iterdir()) == []
+    assert sorted(p.name for p in (rank0 / "md").iterdir()) == [
+        "metrics-merged.json", "metrics-p00000.json", "metrics.prom"]
+    read = lambda path: [json.loads(line) for line in open(path)]
+    mine, one = read(rank0 / "serve.jsonl"), read(tp_world["work"] / "one" / key / "serve.jsonl")
+    seq = lambda recs: [(r["kind"], r.get("window")) for r in recs
+                        if r["kind"] not in ("trace_event", "trace")]
+    assert seq(mine) == seq(one) and ("serve", 1) in seq(mine)
+    of = lambda recs, kind: [r for r in recs if r["kind"] == kind]
+    for a, b in zip(of(mine, "serve"), of(one, "serve")):
+        assert {k: a.get(k) for k in WINDOW_COUNTS} == {k: b.get(k) for k in WINDOW_COUNTS}
+    [a], [b] = of(mine, "serve_summary"), of(one, "serve_summary")
+    counts = ("requests", "generated_tokens", "decode_steps", "admitted", "evicted_eos",
+              "evicted_length", "trace_complete", "trace_dropped", "slo_overall_compliance")
+    assert {k: a[k] for k in counts} == {k: b[k] for k in counts}
+    assert a["trace_complete"] == 1.0

@@ -63,6 +63,7 @@ Rank 0 writes everything to `<out>/result.npz`.
 from __future__ import annotations
 
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -512,8 +513,10 @@ def serve_main(data, out: Path) -> dict:
     """Serve `serve/ids/<rid>` (seeded `serve/seed/<rid>`) on every case of `SERVE_CASES` (the world's
     grid, `TensorParallel`'s shards of a dense model, an MoE model whole),
     then `python -m tpukit_torch.serve`'s `main` in this world with
-    `serve/cli` and `serve/cli_idle` (a grid that leaves a rank idle) as
-    its argv (rank 0's printouts kept as `<key>/stdout`)."""
+    `serve/cli`, `serve/cli_idle` (a grid that leaves a rank idle),
+    `serve/cli_obs` and `serve/cli_obs_ring` (the telemetry flags, paged on
+    model 2 and the ring on data 2) as its argv, each rank in
+    `<out>/<key>/rank<r>` (rank 0's printouts kept as `<key>/stdout`)."""
     import contextlib
     import io
 
@@ -546,10 +549,19 @@ def serve_main(data, out: Path) -> dict:
         for c in engine.run(list(reqs), max_wall_s=300):
             res[f"{case}/{c.rid}"] = np.asarray(c.ids)
         res[f"{case}/kv_bytes"] = np.int64(engine.kv_bytes)
-    for key in ("cli", "cli_idle"):
+    for key in ("cli", "cli_idle", "cli_obs", "cli_obs_ring"):
+        # each rank in a directory of its own: the telemetry flags' relative
+        # paths show which ranks write
+        work = out / key / f"rank{dist.get_rank()}"
+        work.mkdir(parents=True)
+        cwd = os.getcwd()
+        os.chdir(work)
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            serve_cli.main([str(a) for a in data[f"serve/{key}"]])
+        try:
+            with contextlib.redirect_stdout(buf):
+                serve_cli.main([str(a) for a in data[f"serve/{key}"]])
+        finally:
+            os.chdir(cwd)
         res[f"{key}/stdout"] = buf.getvalue()
     return res
 

@@ -15,14 +15,19 @@ one module a pillar:
                  `SpikeSentinel`;
   - `heartbeat`  per-rank liveness files, the straggler and divergence
                  checks;
+  - `trace`      request-scoped serving traces: `TraceRecorder`'s span-event
+                 rings, per-request span trees with phase walls, the
+                 completeness invariant and the Chrome-trace exporter behind
+                 `tools/traceview.py`;
   - `recorder`   `FlightRecorder`, the bounded ring of recent history;
   - `watchdog`   `HangWatchdog`, the diagnostics bundles, `AnomalyTracer`;
   - `divergence` state checksums, tpukit's value bit for bit.
 
-`train.fit` wires them all; `tools/report.py` renders a run's JSONL,
-`tools/flightview.py` a bundle and `tools/top.py` a `--metrics_dir`.
-tpukit's `xla.py` (HLO analysis) and `trace.py` (serving traces, with the
-serving half of the port) have no twin here.
+`train.fit` wires the training planes and `serve.engine.ServeEngine` the
+serving ones (windows, traces, metrics, SLOs); `tools/report.py` renders a
+run's JSONL, `tools/traceview.py` its traces, `tools/flightview.py` a
+bundle and `tools/top.py` a `--metrics_dir`. tpukit's `xla.py` (HLO
+analysis) has no twin here.
 """
 
 from tpukit_torch.obs.divergence import (  # noqa: F401
@@ -54,6 +59,16 @@ from tpukit_torch.obs.metrics import (  # noqa: F401
     write_merged,
 )
 from tpukit_torch.obs.recorder import FlightRecorder  # noqa: F401
+from tpukit_torch.obs.trace import (  # noqa: F401
+    PHASES,
+    TraceRecorder,
+    build_trees,
+    completeness,
+    flush_to_logger,
+    phase_stats,
+    request_trace_id,
+    to_chrome,
+)
 from tpukit_torch.obs.sentinels import SpikeEvent, SpikeSentinel, global_norms  # noqa: F401
 from tpukit_torch.obs.spans import GOODPUT_SPANS, SpanTimeline, format_breakdown  # noqa: F401
 from tpukit_torch.obs.watchdog import (  # noqa: F401

@@ -23,10 +23,20 @@ the largest data degree that divides the slots. Launched by `torchrun`
 every rank of the grid serves the same stream in lockstep and rank 0
 prints; ranks the grid leaves out wait. A plain run is a world of one.
 
+Telemetry is on, as tpukit's defaults have it (`main-serve.py:418-431`): a
+`kind="serve"` record every `--window_steps` decode steps and a
+`kind="serve_summary"` at the end go to `--metrics_log` (a JSONL file that
+`tools/report.py` reads); request traces (a ring of `--trace_capacity`
+span events, flushed as `kind="trace_event"`/`"trace"` rows that
+`tools/traceview.py` renders) unless `--no_trace`; the metrics plane
+(latency histograms, counters, gauges, `kind="metrics"`, `--slo`'s
+`kind="slo"` rows, snapshots in `--metrics_dir` that `tools/top.py`
+reads) unless `--no_metrics`. `--slo` is parsed at launch, so a malformed
+clause fails the start. On a grid only its first rank writes.
+
 Every flag of `main-serve.py` parses with tpukit's default; a value other
 than the default of one the port does not carry raises `NotPortedError`
-naming its ROADMAP.md item (`NOT_CARRIED`). `--no_trace` and `--no_metrics`
-are accepted: the port serves without either plane (item 18).
+naming its ROADMAP.md item (`NOT_CARRIED`).
 
   python -m tpukit_torch.serve --requests 64                  # ring, greedy
   python -m tpukit_torch.serve --checkpoint latest --page_size 16 --fused_decode
@@ -38,6 +48,8 @@ are accepted: the port serves without either plane (item 18).
       --page_size 16
   python -m tpukit_torch.serve --device cpu --num_layers 2 --dim 64 \\
       --head_dim 16 --heads 4 --requests 8 --page_size 8 --fused_decode
+  python -m tpukit_torch.serve --page_size 16 --fused_decode --metrics_log serve.jsonl \\
+      --metrics_dir metrics --slo 'ttft<=250ms@p99;e2e<=2s@p99'
   torchrun --nproc_per_node 4 -m tpukit_torch.serve --page_size 16 --fused_decode
 """
 
@@ -53,19 +65,14 @@ import torch
 
 from tpukit_torch import NotPortedError, resolve_device
 
-_ITEM18 = "item 18 'Tracing and metrics'"
 _ITEM19 = "item 19 'Fleet'"
-# main-serve.py flags the port parses but does not carry (tpukit's
-# `add_serve_flags` telemetry, `add_fleet_flags`, main-serve.py's own):
-# name -> (argparse keywords with tpukit's default, the ROADMAP.md item)
+# main-serve.py flags the port parses but does not carry (`add_fleet_flags`,
+# main-serve.py's own): name -> (argparse keywords with tpukit's default,
+# the ROADMAP.md item)
 NOT_CARRIED = {
-    "window_steps": (dict(type=int, default=32), _ITEM18),
-    "trace_capacity": (dict(type=int, default=8192), _ITEM18),
-    "slo": (dict(type=str, default=""), _ITEM18),
-    "metrics_dir": (dict(type=str, default=""), _ITEM18),
-    "metrics_log": (dict(type=str, default=""), _ITEM18),
     "compilation_cache_dir": (dict(type=str, default=""),
-                              _ITEM18 + " (the eager port compiles no programs to cache)"),
+                              "item 18 'Tracing and metrics' (the eager port compiles no "
+                              "programs to cache)"),
     "replicas": (dict(type=int, default=0), _ITEM19),
     "devices_per_replica": (dict(type=int, default=0), _ITEM19),
     "min_replicas": (dict(type=int, default=1), _ITEM19),
@@ -134,10 +141,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fused_decode", action="store_true",
                     help="decode ticks run the CUDA paged-attention kernel "
                     "(its plain PyTorch version on the CPU)")
+    ap.add_argument("--window_steps", type=int, default=32,
+                    help="decode steps per kind=\"serve\" JSONL window")
+    ap.add_argument("--metrics_log", type=str, default="",
+                    help="the JSONL file of the run's records (tools/report.py)")
     ap.add_argument("--no_trace", action="store_true",
-                    help="accepted: the port has no request tracing (item 18)")
+                    help="disable request-scoped span tracing (kind=\"trace_event\"/"
+                    "\"trace\" rows, per-phase latency percentiles, tools/traceview.py)")
+    ap.add_argument("--trace_capacity", type=int, default=8192,
+                    help="span events the trace ring keeps (the oldest are evicted, "
+                    "and an evicted event leaves its request's tree incomplete)")
     ap.add_argument("--no_metrics", action="store_true",
-                    help="accepted: the port has no metrics plane (item 18)")
+                    help="disable the metrics plane (latency histograms, "
+                    "kind=\"metrics\"/\"slo\" rows, snapshot files, tools/top.py)")
+    ap.add_argument("--slo", type=str, default="",
+                    help="service objectives, e.g. \"ttft<=250ms@p99;tpot<=40ms@p95;"
+                    "e2e<=2s@p99\", parsed at launch; each window writes each target's "
+                    "compliance and error-budget burn as kind=\"slo\" rows")
+    ap.add_argument("--metrics_dir", type=str, default="",
+                    help="directory of the metric snapshot files (metrics-pNNNNN.json) "
+                    "and their merge with its OpenMetrics text (tools/top.py)")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--qps", type=float, default=0.0)
     ap.add_argument("--shared_prefix", type=int, default=0)
@@ -212,6 +235,10 @@ def main(argv=None) -> int:
     flags = parse_flags(argv)
     _reject_unported(flags)
     from tpukit_torch import mesh as mesh_lib
+    from tpukit_torch.obs import parse_slo
+
+    # a malformed objective fails the launch, not the first window
+    slo = parse_slo(flags.slo) if flags.slo else None
 
     device = resolve_device(flags.device)
     with mesh_lib.scoped_runtime():  # a world brought up here ends here
@@ -220,21 +247,29 @@ def main(argv=None) -> int:
         grid_mesh = mesh_lib.create_tp_mesh(grid["data"], grid["model"], device.type,
                                             idle_ok=True)
         if grid_mesh.get_coordinate() is not None:
-            _serve(flags, device, grid_mesh)
+            _serve(flags, device, grid_mesh, slo)
         mesh_lib.sync_global_devices()
     return 0
 
 
-def _serve(flags, device, grid_mesh) -> None:
-    """Serve on this rank's place of `grid_mesh`; rank 0 prints."""
+def _serve(flags, device, grid_mesh, slo) -> None:
+    """Serve on this rank's place of `grid_mesh`; the grid's first rank
+    prints and alone gets the logger's path, the tracer, the registry and
+    the snapshot directory (it publishes as process 0)."""
     from tpukit_torch import checkpoint as ckpt_lib
     from tpukit_torch import mesh as mesh_lib
-    from tpukit_torch.shardings import TensorParallel
+    from tpukit_torch import reshard as reshard_lib
     from tpukit_torch.data import get_tokenizer
     from tpukit_torch.model import GPTConfig, init_params
+    from tpukit_torch.obs import FlightRecorder, MetricRegistry, StepLogger, TraceRecorder
     from tpukit_torch.serve.engine import (Request, ServeConfig, ServeEngine,
                                            synthetic_request_stream)
+    from tpukit_torch.shardings import DataParallel, SingleDevice, TensorParallel
 
+    p0 = mesh_lib.is_process_zero()
+    show = print if p0 else (lambda *a, **k: None)
+    logger = StepLogger(flags.metrics_log if p0 else "")
+    recorder = FlightRecorder()
     tokenizer = get_tokenizer()
     cfg = GPTConfig(
         dim=flags.dim, head_dim=flags.head_dim, heads=flags.heads,
@@ -247,11 +282,11 @@ def _serve(flags, device, grid_mesh) -> None:
     strategy = None if cfg.num_experts > 0 else TensorParallel(mesh=grid_mesh)
     if strategy is not None:
         strategy.validate_config(cfg)
-    show = print if mesh_lib.is_process_zero() else (lambda *a, **k: None)
     buckets = tuple(sorted({int(b) for b in flags.buckets.split(",") if b}))
     serve = ServeConfig(
         slots=flags.slots, buckets=buckets, max_new_tokens=flags.max_new_tokens,
         temperature=flags.temperature, top_k=flags.top_k,
+        window_steps=flags.window_steps,
         decode_quantum=flags.decode_quantum, page_size=flags.page_size,
         num_pages=flags.num_pages, kv_dtype=flags.kv_dtype,
         prefill_chunk=flags.prefill_chunk, fused_decode=flags.fused_decode,
@@ -264,10 +299,21 @@ def _serve(flags, device, grid_mesh) -> None:
             raise FileNotFoundError("--checkpoint latest: no checkpoint found")
         params, info = _restore(path, cfg, device, "--checkpoint",
                                 "model flags (--dim/--heads/--num_layers/--num_experts...")
+        placement = strategy
+        if placement is None:  # an MoE model, replicated over the grid's data ranks
+            placement = SingleDevice()
+            if grid_mesh.size(0) > 1:
+                placement = DataParallel()
+                placement.mesh = grid_mesh  # the grid's axes, for the record
+        world = reshard_lib.current_world(placement)
+        mismatch = reshard_lib.describe_mismatch(reshard_lib.saved_world(path), world)
+        logger.log(kind="ckpt_restore", params_only=True, checkpoint=str(path),
+                   mismatch=mismatch or "", world=world, **info)
+        recorder.record("ckpt_restore", params_only=True, mismatch=mismatch or "")
         step, skipped = ckpt_lib._step_of(path), info["bytes_skipped"]
         show(f"serving checkpoint {path} (" + (f"step {step}, " if step >= 0 else "")
-              + f"params-only restore: {info['bytes_read']} B read"
-              + (f", {skipped} B of opt state skipped" if skipped else "") + ")")
+             + f"params-only restore: {info['bytes_read']} B read"
+             + (f", {skipped} B of opt state skipped" if skipped else "") + ")")
     else:
         params = init_params(cfg, seed=flags.seed, device=device)
         show(f"serving fresh seeded params (no --checkpoint) on {device}")
@@ -292,13 +338,20 @@ def _serve(flags, device, grid_mesh) -> None:
             draft_params, d_info = _restore(
                 d_path, draft_cfg, device, "--draft_checkpoint",
                 "draft shape flags (--draft_dim/--draft_heads/--draft_num_layers...")
+            logger.log(kind="ckpt_restore", params_only=True, draft=True,
+                       checkpoint=str(d_path), **d_info)
+            recorder.record("ckpt_restore", params_only=True, draft=True)
             show(f"draft model {d_path} (params-only restore: {d_info['bytes_read']} B read)")
         else:
             draft_params = init_params(draft_cfg, seed=flags.seed, device=device)
             show("draft model: fresh seeded params (no --draft_checkpoint)")
+    tracer = None if flags.no_trace or not p0 else TraceRecorder(capacity=flags.trace_capacity)
+    metrics = None if flags.no_metrics or not p0 else MetricRegistry()
     engine = ServeEngine(params, cfg, serve, eos_id=int(tokenizer.eos_token_id),
                          device=device, draft_params=draft_params, draft_cfg=draft_cfg,
-                         mesh=grid_mesh)
+                         mesh=grid_mesh, logger=logger, recorder=recorder, tracer=tracer,
+                         metrics=metrics, slo=slo,
+                         metrics_dir=(flags.metrics_dir or None) if p0 else None)
     if flags.prompt:
         encoded = tokenizer(list(flags.prompt))["input_ids"]
         requests = [Request(rid=i, ids=tuple(int(t) for t in ids[: max(buckets)]),
@@ -316,30 +369,50 @@ def _serve(flags, device, grid_mesh) -> None:
     s = engine.last_summary
     gen = sum(c.generated for c in completions)
     show(f"served {len(completions)} requests / {gen} tokens in "
-          f"{wall:.2f}s ({gen / wall:.1f} tokens/s, occupancy "
-          f"{100 * s['mean_occupancy']:.0f}%), {engine.steps} decode ticks")
+         f"{wall:.2f}s ({gen / wall:.1f} tokens/s, occupancy "
+         f"{100 * s['mean_occupancy']:.0f}%), {engine.steps} decode ticks")
     if serve.paged:
         show(f"paged KV: {s['num_pages']} pages x {s['page_size']} tokens "
-              f"({s['kv_dtype']}), prefix hits {s['prefix_hits']}/{s['admitted']} "
-              f"admissions, {s['prefix_pages_reused']} pages of prefill skipped")
+             f"({s['kv_dtype']}), prefix hits {s['prefix_hits']}/{s['admitted']} "
+             f"admissions, {s['prefix_pages_reused']} pages of prefill skipped")
     else:
         show(f"ring KV: {serve.slots} slots x {serve.kv_width} positions "
-              f"({s['kv_bytes']} bytes)")
+             f"({s['kv_bytes']} bytes)")
     if serve.draft:
         sp = s["spec"]
         rate = sp["accept_rate"]
         show(f"speculative decoding ({serve.draft}, k={serve.spec_k}): accepted "
-              f"{sp['accepted']}/{sp['proposed']} draft tokens"
-              + (f" ({100 * rate:.0f}%)" if rate is not None else "")
-              + f", appended/verify histogram {sp['accepted_hist']}")
+             f"{sp['accepted']}/{sp['proposed']} draft tokens"
+             + (f" ({100 * rate:.0f}%)" if rate is not None else "")
+             + f", appended/verify histogram {sp['accepted_hist']}")
     e2e = sorted(c.e2e_s for c in completions)
     if e2e:
         show(f"e2e latency p50 {1e3 * e2e[len(e2e) // 2]:.1f} ms  "
-              f"p99 {1e3 * e2e[min(len(e2e) - 1, int(len(e2e) * 0.99))]:.1f} ms")
+             f"p99 {1e3 * e2e[min(len(e2e) - 1, int(len(e2e) * 0.99))]:.1f} ms")
+    if s.get("trace_complete") is not None:
+        show(f"traces: {100 * s['trace_complete']:.0f}% complete span trees; phase p50 (ms) "
+             + "  ".join(f"{k} {1e3 * v:.1f}" for k, v in (s.get("phase_p50") or {}).items()
+                         if v)
+             + (f" (view: python tools/traceview.py {flags.metrics_log})"
+                if flags.metrics_log else ""))
+    if s.get("trace_dropped"):
+        show(f"WARNING: {s['trace_dropped']} trace events evicted (ring saturated) — phase "
+             f"aggregates above are built from an incomplete history; grow --trace_capacity")
+    if s.get("slo_overall_compliance") is not None:
+        show(f"SLO compliance {100 * s['slo_overall_compliance']:.2f}% (worst target, "
+             f"cumulative) for --slo {flags.slo!r}")
+    if flags.metrics_dir:
+        show(f"metric snapshots -> {flags.metrics_dir} (live: python tools/top.py "
+             f"{flags.metrics_dir}" + (f" --log {flags.metrics_log}" if flags.metrics_log
+                                       else "") + ")")
     shown = sorted(completions, key=lambda c: c.rid)
     for c in shown if flags.prompt else shown[:3]:
         show(f"  [{c.rid}] " + tokenizer.decode(np.asarray(c.ids),
                                                  skip_special_tokens=True))
+    if flags.metrics_log:
+        show(f"serve telemetry -> {flags.metrics_log} (render: python tools/report.py "
+             f"{flags.metrics_log})")
+    logger.close()
 
 
 if __name__ == "__main__":

@@ -36,8 +36,31 @@ rank, every rank samples the same tokens from the same gathered logits,
 and the scheduler's clock is rank 0's, broadcast, so every rank takes the
 same decisions and enters the same collectives in the same order.
 
-Not in the port yet (ROADMAP.md): request tracing, the metrics plane,
-deadlines and the fleet hooks.
+Serving telemetry is tpukit's (`tpukit/serve/engine.py:1165-1541`): wall
+clock goes into `SpanTimeline` spans named as tpukit's (`prefill`,
+`decode`, `draft`, `verify`, `sync`); every `window_steps` decode steps a
+`kind="serve"` record (tokens/s, occupancy, admissions, evictions, the
+span split with its `other_s` residual, the dispatch/device attribution,
+latency percentiles; the paged triple and the `spec` block) goes to
+`logger`, and `finish` writes the `kind="serve_summary"` record. With a
+`tracer` (`obs/trace.py`) the step primitives emit per-request span events
+(enqueue, admit, prefill, prefill_done, quantum, finish) that `finish`
+flushes with their span trees; with `metrics` (`obs/metrics.py`) each
+window feeds the latency histograms, counters and gauges, `slo`'s targets
+are accounted as `kind="slo"` rows, and `metrics_dir` gets the registry's
+snapshot. Each of `logger`, `recorder`, `tracer` and `metrics` may be None,
+and none of them changes a token or the schedule. Under a grid only the
+grid's first rank is given them (the entry point's rule): the telemetry
+adds no collective, and the tracer's clock is that rank's own.
+
+The port's fused `decode_loop_window` reads the lanes' flags on the host
+after every tick, so its `decode` span (the quantum's dispatch wall, which
+tpukit's records call `dispatch_overhead_s`) holds most of the device's
+time, and `sync` (tpukit's `device_s`) little of it, where tpukit's
+asynchronous dispatch puts the device's time in `sync` (ROADMAP.md §C).
+
+Not in the port yet (ROADMAP.md item 19): deadlines, priorities and the
+fleet hooks.
 """
 
 from __future__ import annotations
@@ -54,6 +77,9 @@ from tpukit_torch import random as tk_random
 from tpukit_torch import resolve_device
 from tpukit_torch.data import synthetic_stories
 from tpukit_torch.model import gpt
+from tpukit_torch.obs import metrics as metrics_lib
+from tpukit_torch.obs import trace as trace_lib
+from tpukit_torch.obs.spans import SpanTimeline
 from tpukit_torch.ops.layers import ModelGroup
 from tpukit_torch.serve import decode as serve_decode
 from tpukit_torch.serve import paged as paged_lib
@@ -62,14 +88,21 @@ from tpukit_torch.serve import paged as paged_lib
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One request: a tokenized prompt, its decode budget, the seed of its
-    sampling key (`PRNGKey(seed)`; unused by greedy decoding) and its
-    arrival offset in seconds from the start of the stream."""
+    sampling key (`PRNGKey(seed)`; unused by greedy decoding), its arrival
+    offset in seconds from the start of the stream and its trace id
+    (`obs/trace.py`; -1 takes the rid)."""
 
     rid: int
     ids: tuple[int, ...]
     max_new_tokens: int = 20
     seed: int = 0
     arrival_s: float = 0.0
+    trace: int = -1
+
+
+def trace_id(req: Request) -> int:
+    """The request's effective trace id (`trace_lib.request_trace_id`)."""
+    return trace_lib.request_trace_id(req.rid, req.trace)
 
 
 @dataclasses.dataclass
@@ -90,6 +123,12 @@ class Completion:
     pages: int = 0
     prefix_pages: int = 0
     active_s: float = 0.0
+
+    @property
+    def admit_latency_s(self) -> float:
+        """Slot assignment to decode-ready: the prefill a request paid,
+        which shared-prefix reuse shrinks."""
+        return max(self.active_s - self.admit_s, 0.0)
 
     @property
     def e2e_s(self) -> float:
@@ -116,13 +155,15 @@ class ServeConfig:
     pages-per-slot + the null page) and `prefill_chunk` 0 is one page.
     `draft` "ngram" or "model" (ring only) makes each quantum speculative:
     `spec_k` proposed tokens a slot, n-grams of up to `ngram_max`
-    tokens."""
+    tokens. A `kind="serve"` window closes every `window_steps` decode
+    steps."""
 
     slots: int = 8
     buckets: tuple[int, ...] = (16, 32, 64)
     max_new_tokens: int = 20
     temperature: float = 0.0
     top_k: int = 0
+    window_steps: int = 32
     max_len: int = 0
     decode_quantum: int = 4
     page_size: int = 0
@@ -283,10 +324,15 @@ class ServeEngine:
     rank. Under `mesh` (a `(data, model)` `DeviceMesh` this rank is on)
     `params` is this rank's tree on the grid: `TensorParallel`'s
     shards on its `model` ranks, whole when the grid's model degree is
-    one."""
+    one. `logger` (`obs.StepLogger`), `recorder` (`obs.FlightRecorder`),
+    `tracer` (`obs.TraceRecorder`), `metrics` (`obs.MetricRegistry`, with
+    `slo`, a list of `obs.parse_slo` targets, and `metrics_dir`, where its
+    snapshots go) are tpukit's telemetry planes; None turns each off."""
 
     def __init__(self, params, cfg: gpt.GPTConfig, serve: ServeConfig,
-                 eos_id: int, device=None, draft_params=None, draft_cfg=None, mesh=None):
+                 eos_id: int, device=None, draft_params=None, draft_cfg=None, mesh=None,
+                 logger=None, recorder=None, tracer=None, metrics=None, slo=None,
+                 metrics_dir=None):
         self.device = resolve_device(device)
         n = serve.slots
         if mesh is not None:
@@ -343,6 +389,22 @@ class ServeEngine:
         self.serve = serve
         self.eos_id = int(eos_id)
         self.draft_params, self.draft_cfg = draft_params, draft_cfg
+        self.logger = logger
+        self.recorder = recorder
+        # the replica label of every trace event: None, a standalone
+        # engine's (a fleet's engines carry theirs, item 19)
+        self.replica = None
+        # telemetry (tpukit engine.py:540-566): the tracer's span events,
+        # the metric registry fed at window boundaries only, and the SLO
+        # targets accounted there
+        self.tracer = tracer
+        self.metrics = metrics
+        self.slo_accountant = (metrics_lib.SloAccountant(slo)
+                               if (metrics is not None and slo) else None)
+        self.metrics_dir = metrics_dir
+        self._metrics_traces_seen: set = set()
+        self._metrics_q_mark = -1.0  # the last quantum's t1 the registry has seen
+        self._pending_quantum = None  # the dispatch half of a quantum event
         # top_k beyond the logits width is clamped, as tpukit clamps it
         self._top_k = min(int(serve.top_k), cfg.padded_vocab_size)
         self._temperature = float(serve.temperature)
@@ -377,12 +439,13 @@ class ServeEngine:
         self._lanes: dict[int, _Lane] = {}
         self._pending: deque[Request] = deque()
         self.completions: list[Completion] = []
+        self.spans = SpanTimeline()
         self.buckets_used: set[int] = set()
         self.steps = 0
         self.prefill_dispatches = 0  # batched prefill calls (one forward each)
         self.admitted = 0
         self.max_live = 0
-        self.evicted = {"eos": 0, "length": 0}
+        self.evicted = {"eos": 0, "length": 0, "deadline": 0}
         # speculation (tpukit engine.py:253-259): draft tokens proposed and
         # accepted, and how many verifies appended 0 .. spec_k + 1 tokens
         self.spec_proposed = 0
@@ -390,8 +453,11 @@ class ServeEngine:
         self.spec_hist = [0] * (serve.spec_k + 2) if serve.draft else []
         self._pending_spec = None
         self._gen_total = 0
-        self._walls = {"prefill": 0.0, "decode": 0.0, "sync": 0.0}
         self.last_summary: dict | None = None
+        # the open window's starting counts
+        self._win = dict(steps=0, gen0=0, admit0=0, comps0=0, hits0=0, prop0=0, acc0=0,
+                         hist0=list(self.spec_hist))
+        self._window_idx = 0
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -409,6 +475,11 @@ class ServeEngine:
         for group in self._clock_groups:
             dist.broadcast(t, src=dist.get_process_group_ranks(group)[0], group=group)
         return float(t)
+
+    def _decoding_traces(self) -> list[int]:
+        """The trace ids of the lanes a quantum advances, in slot order."""
+        return [trace_id(l.req) for s, l in sorted(self._lanes.items())
+                if l.phase == "decode"]
 
     # ---- scheduling ------------------------------------------------------
 
@@ -438,6 +509,7 @@ class ServeEngine:
         groups: dict[int, list] = {}
         for req, plen, bucket in validated:
             groups.setdefault(bucket, []).append((self._free.popleft(), req, plen))
+        tr = self.tracer
         for bucket, entries in sorted(groups.items()):
             a = 1 << (len(entries) - 1).bit_length()
             rows = np.zeros((a, bucket), np.int32)
@@ -452,22 +524,29 @@ class ServeEngine:
                 lims[i] = min(plen + req.max_new_tokens, self.serve.width)
                 keys[i] = tk_random.PRNGKey(req.seed).numpy()
             args = [self._tensor(x) for x in (slots, rows, plens, lims, keys)]
-            t0 = time.perf_counter()
-            serve_decode.prefill_slots(self.params, self.cfg, self.buf, self.cache,
-                                       self.cursors, self.active, self.limits, self.keys,
-                                       *args)
-            if self.serve.draft == "model":
-                # the draft's ring takes the same admit batch; the lane state
-                # it writes again is the same values
-                serve_decode.prefill_slots(self.draft_params, self.draft_cfg, self.buf,
-                                           self.draft_cache, self.cursors, self.active,
-                                           self.limits, self.keys, *args)
-            self._walls["prefill"] += time.perf_counter() - t0
+            p0 = tr.now() if tr is not None else 0.0
+            with self.spans.span("prefill"):
+                serve_decode.prefill_slots(self.params, self.cfg, self.buf, self.cache,
+                                           self.cursors, self.active, self.limits,
+                                           self.keys, *args)
+                if self.serve.draft == "model":
+                    # the draft's ring takes the same admit batch; the lane
+                    # state it writes again is the same values
+                    serve_decode.prefill_slots(self.draft_params, self.draft_cfg, self.buf,
+                                               self.draft_cache, self.cursors, self.active,
+                                               self.limits, self.keys, *args)
+            p1 = tr.now() if tr is not None else 0.0
             self.prefill_dispatches += 1
             self.buckets_used.add(bucket)
             for slot, req, plen in entries:
                 self._lanes[slot] = _Lane(req, now, plen, bucket, active_s=now)
                 self.admitted += 1
+                if tr is not None:
+                    tid = trace_id(req)
+                    tr.emit("admit", tid, rid=req.rid, t=now, slot=slot, replica=self.replica)
+                    tr.emit("prefill", tid, rid=req.rid, t0=p0, t1=p1, chunk=0,
+                            replica=self.replica)
+                    tr.emit("prefill_done", tid, rid=req.rid, t=p1, replica=self.replica)
         self.max_live = max(self.max_live, len(self._lanes))
 
     def _admit_paged_one(self, req: Request, now: float) -> bool:
@@ -506,6 +585,9 @@ class ServeEngine:
         self.admitted += 1
         self.max_live = max(self.max_live, len(self._lanes))
         self.buckets_used.add(bucket)
+        if self.tracer is not None:
+            self.tracer.emit("admit", trace_id(req), rid=req.rid, t=now, slot=slot,
+                             replica=self.replica)
         if shared:
             self.allocator.stats.prefix_hits += 1
             self.allocator.stats.prefix_pages_reused += len(shared)
@@ -543,17 +625,26 @@ class ServeEngine:
             lims[i] = min(lane.prompt_len + lane.req.max_new_tokens, self.serve.width)
             keys[i] = lane.key
         self._refresh_bt()
-        t0 = time.perf_counter()
-        serve_decode.prefill_chunk_paged(
-            self.params, self.cfg, self.buf, self.cache, self.cursors,
-            self.active, self.limits, self.keys, self._tensor(slots), self._tensor(rows),
-            self._tensor(starts), self._tensor(last), self._tensor(plens),
-            self._tensor(lims), self._tensor(keys),
-        )
-        self._walls["prefill"] += time.perf_counter() - t0
+        tr = self.tracer
+        p0 = tr.now() if tr is not None else 0.0
+        with self.spans.span("prefill"):
+            serve_decode.prefill_chunk_paged(
+                self.params, self.cfg, self.buf, self.cache, self.cursors,
+                self.active, self.limits, self.keys, self._tensor(slots),
+                self._tensor(rows), self._tensor(starts), self._tensor(last),
+                self._tensor(plens), self._tensor(lims), self._tensor(keys),
+            )
+        p1 = tr.now() if tr is not None else 0.0
         self.prefill_dispatches += 1
         for slot, lane, start, row, is_last in entries:
             lane.next_chunk = start + c
+            if tr is not None:
+                tid = trace_id(lane.req)
+                tr.emit("prefill", tid, rid=lane.req.rid, t0=p0, t1=p1, chunk=start // c,
+                        replica=self.replica)
+                if is_last:
+                    tr.emit("prefill_done", tid, rid=lane.req.rid, t=p1,
+                            replica=self.replica)
             if is_last:
                 lane.phase = "decode"
                 lane.active_s = now
@@ -572,10 +663,12 @@ class ServeEngine:
         the pages the head of the queue needs (1 << 30 when nothing
         waits). Otherwise (unfused, or the ring): `decode_step` of exactly
         `decode_quantum` ticks."""
-        t0 = time.perf_counter()
+        tr = self.tracer
         sample = (self._temperature, self._top_k)
-        if self.serve.fused_decode:
+        if self.serve.paged:
             self._refresh_bt()
+        t0 = tr.now() if tr is not None else 0.0
+        if self.serve.fused_decode:
             ph = np.zeros((self.serve.slots,), np.int32)
             for s, lane in self._lanes.items():
                 if lane.phase == "decode":
@@ -586,33 +679,39 @@ class ServeEngine:
                          // self.serve.page_size)
             else:
                 need = 1 << 30
-            (self.buf, self.cache, self.cursors, self.active, ticks,
-             _) = serve_decode.decode_loop_window(
-                self.params, self.cfg, self.buf, self.cache, self.cursors,
-                self.active, self.limits, self.keys, self._tensor(ph),
-                self.serve.decode_quantum, need, self.eos_id, *sample,
-            )
+            with self.spans.span("decode"):
+                (self.buf, self.cache, self.cursors, self.active, ticks,
+                 _) = serve_decode.decode_loop_window(
+                    self.params, self.cfg, self.buf, self.cache, self.cursors,
+                    self.active, self.limits, self.keys, self._tensor(ph),
+                    self.serve.decode_quantum, need, self.eos_id, *sample,
+                )
         else:
-            if self.serve.paged:
-                self._refresh_bt()
-            self.buf, self.cache, self.cursors, self.active = serve_decode.decode_step(
-                self.params, self.cfg, self.buf, self.cache, self.cursors,
-                self.active, self.limits, self.keys, self.eos_id, *sample,
-                steps=self.serve.decode_quantum,
-            )
+            with self.spans.span("decode"):
+                self.buf, self.cache, self.cursors, self.active = serve_decode.decode_step(
+                    self.params, self.cfg, self.buf, self.cache, self.cursors,
+                    self.active, self.limits, self.keys, self.eos_id, *sample,
+                    steps=self.serve.decode_quantum,
+                )
             ticks = self.serve.decode_quantum
-        self._walls["decode"] += time.perf_counter() - t0
+        if tr is not None:
+            # the dispatch half of the quantum event; the sync adds its half.
+            # The fused window's tick count is already on the host here
+            # (tpukit fetches its device count at the sync)
+            self._pending_quantum = dict(t0=t0, t1=tr.now(), steps=ticks,
+                                         lanes=self._decoding_traces())
         self.steps += ticks
+        self._win["steps"] += ticks
 
     # ---- speculative decoding (serve/spec.py) ----------------------------
 
     def _spec_step(self) -> None:
         """One draft-and-verify quantum (twin of `tpukit/serve/engine.py:584`):
-        propose up to `spec_k` tokens a slot (the draft model's ticks, or
-        the n-gram match fused into the verify), then score all spec_k + 1
-        positions in one batched target forward and accept a per-slot
-        prefix. Counts as one step; a verify appends up to spec_k + 1
-        tokens a slot."""
+        propose up to `spec_k` tokens a slot (the draft model's ticks, the
+        `draft` span; or the n-gram match fused into the verify), then
+        score all spec_k + 1 positions in one batched target forward and
+        accept a per-slot prefix (the `verify` span). Counts as one step; a
+        verify appends up to spec_k + 1 tokens a slot."""
         from tpukit_torch.serve import spec as spec_lib
 
         k, n = self.serve.spec_k, self.serve.slots
@@ -621,27 +720,34 @@ class ServeEngine:
             if lane.phase == "decode":
                 live[s] = True
         sample = dict(temperature=self._temperature, top_k=self._top_k)
-        t0 = time.perf_counter()
+        tr = self.tracer
+        t0 = tr.now() if tr is not None else 0.0
         if self.serve.draft == "model":
-            draft_toks, draft_q, _ = spec_lib.draft_propose(
-                self.draft_params, self.draft_cfg, self.buf, self.draft_cache,
-                self.cursors, self.keys, k=k, **sample)
-            dlen = np.where(live, k, 0).astype(np.int32)
-            draft_len = torch.full((n,), k, dtype=torch.int32, device=self.device)
-            (self.buf, self.cache, self.cursors, self.active, acc,
-             napp) = spec_lib.verify_step(
-                self.params, self.cfg, self.buf, self.cache, self.cursors, self.active,
-                self.limits, self.keys, draft_toks, draft_q, draft_len, self.eos_id,
-                k=k, **sample)
+            with self.spans.span("draft"):
+                draft_toks, draft_q, _ = spec_lib.draft_propose(
+                    self.draft_params, self.draft_cfg, self.buf, self.draft_cache,
+                    self.cursors, self.keys, k=k, **sample)
+                dlen = np.where(live, k, 0).astype(np.int32)
+                draft_len = torch.full((n,), k, dtype=torch.int32, device=self.device)
+            with self.spans.span("verify"):
+                (self.buf, self.cache, self.cursors, self.active, acc,
+                 napp) = spec_lib.verify_step(
+                    self.params, self.cfg, self.buf, self.cache, self.cursors, self.active,
+                    self.limits, self.keys, draft_toks, draft_q, draft_len, self.eos_id,
+                    k=k, **sample)
         else:
-            (self.buf, self.cache, self.cursors, self.active, acc, napp,
-             dlen) = spec_lib.spec_ngram_step(
-                self.params, self.cfg, self.buf, self.cache, self.cursors, self.active,
-                self.limits, self.keys, self.eos_id, k=k, max_ngram=self.serve.ngram_max,
-                **sample)
-        self._walls["decode"] += time.perf_counter() - t0
+            with self.spans.span("verify"):
+                (self.buf, self.cache, self.cursors, self.active, acc, napp,
+                 dlen) = spec_lib.spec_ngram_step(
+                    self.params, self.cfg, self.buf, self.cache, self.cursors, self.active,
+                    self.limits, self.keys, self.eos_id, k=k,
+                    max_ngram=self.serve.ngram_max, **sample)
         self._pending_spec = (live, dlen, acc, napp)
+        if tr is not None:
+            self._pending_quantum = dict(t0=t0, t1=tr.now(), steps=1,
+                                         lanes=self._decoding_traces())
         self.steps += 1
+        self._win["steps"] += 1
 
     def _drain_spec(self, dlen, acc, napp) -> None:
         """Fold the last verify's counters into the spec telemetry (twin of
@@ -657,18 +763,25 @@ class ServeEngine:
         """Fetch cursors and flags (and a verify's counters, in the same
         copy), retire finished lanes (paged: release their pages, zero
         their block-table row), and count generated tokens."""
-        t0 = time.perf_counter()
-        if self._pending_spec is not None:
-            _, dlen, acc, napp = self._pending_spec
-            if isinstance(dlen, np.ndarray):
-                dlen = torch.from_numpy(dlen).to(self.device)
-            host = torch.stack([self.cursors.long(), self.active.long(), dlen.long(),
-                                acc.long(), napp.long()]).cpu().numpy()
-            cur, act = host[0], host[1].astype(bool)
-            self._drain_spec(host[2], host[3], host[4])
-        else:
-            host = torch.stack([self.cursors.long(), self.active.long()]).cpu().numpy()
-            cur, act = host[0], host[1].astype(bool)
+        tr = self.tracer
+        s0 = tr.now() if tr is not None else 0.0
+        with self.spans.span("sync"):
+            if self._pending_spec is not None:
+                _, dlen, acc, napp = self._pending_spec
+                if isinstance(dlen, np.ndarray):
+                    dlen = torch.from_numpy(dlen).to(self.device)
+                host = torch.stack([self.cursors.long(), self.active.long(), dlen.long(),
+                                    acc.long(), napp.long()]).cpu().numpy()
+                cur, act = host[0], host[1].astype(bool)
+                self._drain_spec(host[2], host[3], host[4])
+            else:
+                host = torch.stack([self.cursors.long(), self.active.long()]).cpu().numpy()
+                cur, act = host[0], host[1].astype(bool)
+        if tr is not None and self._pending_quantum is not None:
+            # [t0, t1] the dispatch wall, [s0, s1] the wall to the sync
+            q, self._pending_quantum = self._pending_quantum, None
+            tr.emit("quantum", -1, t0=q["t0"], t1=q["t1"], s0=s0, s1=tr.now(),
+                    steps=q["steps"], lanes=q["lanes"], replica=self.replica)
         finished = [s for s, lane in self._lanes.items()
                     if lane.phase == "decode" and not act[s]]
         gen_live = sum(int(cur[s]) - lane.prompt_len
@@ -676,9 +789,13 @@ class ServeEngine:
                        if lane.phase == "decode" and s not in finished)
         if finished:
             host_buf = self.buf.cpu().numpy()
+            # stamped after the copy, so the last quantum's sync lies inside
+            # the request's tree
+            fin_t = tr.now() if tr is not None else 0.0
             for s in finished:
                 lane = self._lanes.pop(s)
                 length = int(cur[s])
+                generated = length - lane.prompt_len
                 ids = host_buf[s, :length].copy()
                 if self.serve.paged:
                     # a prefix hit skipped its shared chunks, so the buffer
@@ -690,26 +807,147 @@ class ServeEngine:
                 self.evicted[reason] += 1
                 self.completions.append(Completion(
                     rid=lane.req.rid, ids=ids, prompt_len=lane.prompt_len,
-                    generated=length - lane.prompt_len, reason=reason,
+                    generated=generated, reason=reason,
                     arrival_s=lane.req.arrival_s, admit_s=lane.admit_s,
                     done_s=now, pages=len(lane.pages), prefix_pages=lane.shared,
                     active_s=lane.active_s or lane.admit_s,
                 ))
+                if tr is not None:
+                    tr.emit("finish", trace_id(lane.req), rid=lane.req.rid, t=fin_t,
+                            reason=reason, generated=generated, replica=self.replica)
                 if self.serve.paged:
                     self.allocator.release(lane.pages)
                     self._bt[s] = 0
                     self._bt_dirty = True
                 self._free.append(s)
         self._gen_total = sum(c.generated for c in self.completions) + gen_live
-        self._walls["sync"] += time.perf_counter() - t0
+
+    # ---- telemetry (tpukit engine.py:1165-1419) --------------------------
+
+    def _emit_window(self) -> None:
+        """Close the window: the `kind="serve"` record, its flight-recorder
+        entry and the metrics window."""
+        b = self.spans.window()
+        comps = self.completions[self._win["comps0"]:]
+        new_tokens = self._gen_total - self._win["gen0"]
+        steps = self._win["steps"]
+        # slot-step utilization; under speculation a step is one verify of
+        # spec_k + 1 tokens a slot
+        cap = (self.serve.spec_k + 1) if self.serve.draft else 1
+        sec = b["seconds"]
+        rec = dict(
+            kind="serve", window=self._window_idx, steps=steps, new_tokens=new_tokens,
+            tokens_per_sec=(new_tokens / b["total_s"]) if b["total_s"] else None,
+            occupancy=(new_tokens / (self.serve.slots * steps * cap)) if steps else 0.0,
+            admitted=self.admitted - self._win["admit0"],
+            completed=len(comps), queue_depth=len(self._pending),
+            slots=self.serve.slots, window_s=b["total_s"],
+            seconds=sec, fractions=b["fractions"],
+            p50_e2e_s=_pct([c.e2e_s for c in comps], 50),
+            p99_e2e_s=_pct([c.e2e_s for c in comps], 99),
+            p50_token_s=_pct([c.per_token_s for c in comps], 50),
+            p99_token_s=_pct([c.per_token_s for c in comps], 99),
+            # the named spans and other_s sum to window_s
+            other_s=sec.get("other", 0.0),
+            dispatch_overhead_s=(sec.get("decode", 0.0) + sec.get("draft", 0.0)
+                                 + sec.get("verify", 0.0)),
+            device_s=sec.get("sync", 0.0),
+        )
+        if self.serve.paged:
+            hits = self.allocator.stats.prefix_hits - self._win["hits0"]
+            rec["page_occupancy"] = self.allocator.occupancy
+            rec["prefix_hit_rate"] = hits / rec["admitted"] if rec["admitted"] else None
+            rec["pages_per_request"] = (float(np.mean([c.pages for c in comps]))
+                                        if comps else None)
+        if self.serve.draft:
+            prop = self.spec_proposed - self._win["prop0"]
+            acc = self.spec_accepted - self._win["acc0"]
+            rec["spec"] = dict(
+                draft=self.serve.draft, k=self.serve.spec_k, proposed=prop, accepted=acc,
+                accept_rate=(acc / prop) if prop else None,
+                accepted_hist=[h - h0 for h, h0 in zip(self.spec_hist, self._win["hist0"])],
+            )
+        if self.logger is not None:
+            self.logger.log(**rec)
+        if self.recorder is not None:
+            self.recorder.record("serve", window=self._window_idx, steps=steps,
+                                 new_tokens=new_tokens, occupancy=rec["occupancy"],
+                                 completed=len(comps))
+        if self.metrics is not None:
+            self._metrics_window(comps, rec)
+        self._window_idx += 1
+        self._win = dict(
+            steps=0, gen0=self._gen_total, admit0=self.admitted,
+            comps0=len(self.completions),
+            hits0=self.allocator.stats.prefix_hits if self.serve.paged else 0,
+            prop0=self.spec_proposed, acc0=self.spec_accepted, hist0=list(self.spec_hist),
+        )
+
+    def _metrics_window(self, comps, rec: dict) -> None:
+        """Fold one window into the registry and account the SLOs, derived
+        from the completions, the closed span trees and the quantum events
+        alone (tpukit engine.py:1249-1327)."""
+        m = self.metrics
+        for c in comps:
+            m.observe("serve_e2e_s", c.e2e_s)
+            m.observe("serve_ttft_s", max(c.active_s - c.arrival_s, 0.0))
+            m.observe("serve_queue_wait_s", max(c.admit_s - c.arrival_s, 0.0))
+            m.observe("serve_tpot_s", c.per_token_s)
+            m.observe("serve_tokens_per_request", c.generated)
+            m.inc("serve_requests", 1, reason=c.reason)
+            m.inc("serve_tokens", c.generated)
+        if rec.get("tokens_per_sec") is not None:
+            m.gauge("serve_tokens_per_sec", rec["tokens_per_sec"])
+        m.gauge("serve_occupancy", rec["occupancy"])
+        m.gauge("serve_queue_depth", rec["queue_depth"])
+        if self.serve.paged:
+            m.gauge("serve_page_occupancy", rec["page_occupancy"])
+        if self.tracer is not None:
+            # phase walls of newly closed trees, each request once
+            events = self.tracer.snapshot()
+            rids = {c.rid for c in self.completions}
+            for t in trace_lib.build_trees(events):
+                if (t["trace"] in self._metrics_traces_seen
+                        or not t["closed"] or t["rid"] not in rids):
+                    continue
+                self._metrics_traces_seen.add(t["trace"])
+                for ph, wall in t["phases"].items():
+                    m.observe("serve_phase_s", wall, phase=ph)
+            # each quantum's dispatch and sync walls, once (watermarked on t1)
+            mark = self._metrics_q_mark
+            for ev in events:
+                if ev.get("ev") != "quantum" or ev.get("t1", 0.0) <= mark:
+                    continue
+                self._metrics_q_mark = max(self._metrics_q_mark, ev["t1"])
+                m.observe("serve_dispatch_s", ev["t1"] - ev["t0"], phase="dispatch")
+                if "s1" in ev:
+                    m.observe("serve_sync_s", ev["s1"] - ev["s0"], phase="sync")
+        if self.slo_accountant is not None:
+            samples = {
+                "e2e": [c.e2e_s for c in comps],
+                "ttft": [max(c.active_s - c.arrival_s, 0.0) for c in comps],
+                "queue_wait": [max(c.admit_s - c.arrival_s, 0.0) for c in comps],
+                "tpot": [c.per_token_s for c in comps],
+            }
+            slo_rec = dict(kind="slo", window=self._window_idx,
+                           **self.slo_accountant.evaluate(samples))
+            if self.logger is not None:
+                self.logger.log(**slo_rec)
+            if self.recorder is not None:
+                self.recorder.record("slo", window=self._window_idx,
+                                     overall_compliance=slo_rec["overall_compliance"])
+        if self.metrics_dir:
+            metrics_lib.publish_snapshot(self.metrics_dir, 0, m, time_s=time.time())
 
     def summary(self, wall_s: float) -> dict:
+        """The `kind="serve_summary"` record (tpukit engine.py:1329-1419),
+        with the port's `prefill_dispatches` beside tpukit's keys."""
         comps = self.completions
         gen = sum(c.generated for c in comps)
         # under speculation a step is one verify, spec_k + 1 tokens a slot
         cap = (self.serve.spec_k + 1) if self.serve.draft else 1
         rec = dict(
-            requests=len(comps), slots=self.serve.slots,
+            kind="serve_summary", requests=len(comps), slots=self.serve.slots,
             buckets=list(self.serve.buckets), buckets_used=sorted(self.buckets_used),
             generated_tokens=gen, decode_steps=self.steps,
             prefill_dispatches=self.prefill_dispatches, wall_s=wall_s,
@@ -718,15 +956,27 @@ class ServeEngine:
                             if self.steps else 0.0),
             admitted=self.admitted, evicted_eos=self.evicted["eos"],
             evicted_length=self.evicted["length"],
+            evicted_deadline=self.evicted["deadline"],
             p50_e2e_s=_pct([c.e2e_s for c in comps], 50),
             p99_e2e_s=_pct([c.e2e_s for c in comps], 99),
             p50_token_s=_pct([c.per_token_s for c in comps], 50),
             p99_token_s=_pct([c.per_token_s for c in comps], 99),
-            prefill_s=self._walls["prefill"], decode_s=self._walls["decode"],
-            sync_s=self._walls["sync"],
-            max_live_slots=self.max_live, kv_bytes=self.kv_bytes,
         )
+        sec = self.spans.epoch()["seconds"]
+        spec_s = sec.get("draft", 0.0) + sec.get("verify", 0.0)
+        rec["prefill_s"] = sec.get("prefill", 0.0)
+        rec["decode_s"] = sec.get("decode", 0.0)
+        rec["sync_s"] = sec.get("sync", 0.0)
+        # the wall outside every span (run resets the epoch at its start)
+        rec["other_s"] = max(wall_s - rec["prefill_s"] - rec["decode_s"] - rec["sync_s"]
+                             - spec_s, 0.0)
+        rec["dispatch_overhead_s"] = rec["decode_s"] + spec_s
+        rec["device_s"] = rec["sync_s"]
+        rec["max_live_slots"] = self.max_live
+        rec["kv_bytes"] = self.kv_bytes
         if self.serve.draft:
+            rec["draft_s"] = sec.get("draft", 0.0)
+            rec["verify_s"] = sec.get("verify", 0.0)
             rec["spec"] = dict(
                 draft=self.serve.draft, k=self.serve.spec_k,
                 proposed=self.spec_proposed, accepted=self.spec_accepted,
@@ -736,6 +986,8 @@ class ServeEngine:
             )
         if self.serve.paged:
             st = self.allocator.stats
+            hit = [c.admit_latency_s for c in comps if c.prefix_pages > 0]
+            cold = [c.admit_latency_s for c in comps if c.prefix_pages == 0]
             rec.update(
                 page_size=self.serve.page_size, num_pages=self.num_pages,
                 kv_dtype=self.serve.kv_dtype, prefix_hits=st.prefix_hits,
@@ -745,7 +997,20 @@ class ServeEngine:
                 page_occupancy=self.allocator.occupancy,
                 pages_per_request=(float(np.mean([c.pages for c in comps]))
                                    if comps else None),
+                admit_latency_hit_s=float(np.mean(hit)) if hit else None,
+                admit_latency_cold_s=float(np.mean(cold)) if cold else None,
             )
+        if self.tracer is not None:
+            # phase percentiles of this engine's own requests' trees
+            rids = {c.rid for c in comps}
+            trees = [t for t in trace_lib.build_trees(self.tracer.snapshot())
+                     if t["rid"] in rids]
+            rec["phase_p50"], rec["phase_p99"] = trace_lib.phase_stats(trees)
+            rec["trace_complete"] = trace_lib.completeness(trees)
+            # ring evictions make every aggregate above partial: say so
+            rec["trace_dropped"] = self.tracer.dropped
+        if self.slo_accountant is not None:
+            rec["slo_overall_compliance"] = self.slo_accountant.overall_compliance()
         return rec
 
     # ---- step primitives -------------------------------------------------
@@ -785,13 +1050,42 @@ class ServeEngine:
         return True
 
     def sync(self, now: float) -> None:
-        """The per-quantum host sync: retire finished lanes."""
+        """The per-quantum host sync: retire finished lanes, and close a
+        `kind="serve"` window when one is due."""
         self._sync_evict(now)
+        if self._win["steps"] >= self.serve.window_steps:
+            self._emit_window()
 
     def finish(self, wall_s: float) -> list[Completion]:
-        """Record the run's summary (`last_summary`); returns the
+        """Close the partial window and record the run's summary
+        (`last_summary`, and the logger's `kind="serve_summary"` row); a
+        standalone engine also flushes its traces and span trees, the
+        `kind="metrics"` row and the merged snapshot. Returns the
         completions."""
-        self.last_summary = self.summary(wall_s)
+        if self._win["steps"]:
+            self._emit_window()
+        rec = self.last_summary = self.summary(wall_s)
+        if self.logger is not None:
+            self.logger.log(**rec)
+        if self.recorder is not None:
+            self.recorder.record("serve_summary", requests=rec["requests"],
+                                 tokens_per_sec=rec["tokens_per_sec"],
+                                 mean_occupancy=rec["mean_occupancy"])
+        if self.tracer is not None:
+            trace_lib.flush_to_logger(self.tracer, self.logger,
+                                      trace_lib.build_trees(self.tracer.snapshot()))
+        if self.metrics is not None:
+            rec_m = dict(kind="metrics", source="serve", **self.metrics.summary())
+            if self.logger is not None:
+                self.logger.log(**rec_m)
+            if self.recorder is not None:
+                self.recorder.record("metrics", source="serve", hists=len(rec_m["hists"]),
+                                     tokens=self.metrics.sum_counter("serve_tokens"))
+            if self.metrics_dir:
+                metrics_lib.publish_snapshot(self.metrics_dir, 0, self.metrics,
+                                             time_s=time.time())
+                merged, meta = metrics_lib.merge_snapshot_dir(self.metrics_dir)
+                metrics_lib.write_merged(self.metrics_dir, merged, meta=meta)
         return self.completions
 
     @torch.no_grad()
@@ -799,8 +1093,13 @@ class ServeEngine:
         """Serve `requests` (each admitted no earlier than its `arrival_s`)
         to completion; returns the completions in finish order."""
         self._pending = deque(sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
-        self._walls = {k: 0.0 for k in self._walls}
+        self.spans.epoch()  # the summary's walls start with the run
         t0 = time.perf_counter()
+        if self.tracer is not None:
+            self.tracer.set_epoch(t0)
+            for r in self._pending:
+                self.tracer.emit("enqueue", trace_id(r), rid=r.rid, t=r.arrival_s,
+                                 replica=self.replica)
         while self._pending or self._lanes:
             now = self._clock(t0)
             if max_wall_s is not None and now > max_wall_s:
