@@ -231,20 +231,20 @@ not 0:
      kernels counted and the losses within the EP band of the f32
      exchange's;
  39. resilience on the card: recipe 1 at GPT-2-small width (batch 64, S
-     512, 33 steps of the fixture corpus) through the recovery plane, each
+     512, 17 steps of the fixture corpus) through the recovery plane, each
      run through `recovery.run_recipe` as the recipe's `__main__` runs it:
      (a) a control run, saving with `--checkpoint_every 8
      --async_checkpoint --keep_checkpoints 2`, which leaves the two newest
      checkpoints; (b) `--chaos_spec sigterm@9` exits 75 with a
-     checkpoint whose sidecar says preempted at epoch 0, batch 9, and
-     `--resume latest` finishes the epoch with the control's windows after
-     step 9, bit for bit; (c) `--checkpoint_every 8 --chaos_spec
-     nan_loss@20 --spike_threshold 6 --on_anomaly rollback` rolls back
-     once (the window ending at step 25 to the step-16 checkpoint, step
-     24's quarantined) and exits 0, its windows after the rollback equal
-     to a control restored from step 16 with `skip@25`, every one of its
-     33 steps (the 8 replayed ones too) launching phase 7's flash and CE
-     counts; (d) `--max_rollbacks 0` exits 77 and `--spike_action abort`
+     checkpoint whose sidecar says preempted at epoch 0, batch 9 (kept for
+     phase 40 (e)), and `--resume latest` finishes the epoch with the
+     control's windows after step 9, bit for bit; (c) on 25 steps
+     `--checkpoint_every 8 --chaos_spec nan_loss@12 --spike_threshold 6
+     --on_anomaly rollback` rolls back once (the window ending at step 17
+     to the step-8 checkpoint, step 16's quarantined) and exits 0, its
+     windows after the rollback equal to a control restored from step 8
+     with `skip@17`, every one of its 25 steps (the 8 replayed ones too)
+     launching phase 7's flash and CE counts; (d) `--max_rollbacks 0` exits 77 and `--spike_action abort`
      76, each with the blown-up state checkpointed; the async writer's
      bytes equal the sync writer's on the control's final state; each
      run's wall, and a sync and an async save of the 1.03 GB state timed;
@@ -261,7 +261,9 @@ not 0:
      hang and the card's memory gauges, `tools/flightview.py` renders it,
      and the anomaly trace's Chrome JSON names the flash and CE kernels; a
      bundle's write time; a 3-step `--profile_dir` run whose trace names
-     them too; a `--debug_nans` run bit-equal to the run without it;
+     them too; a `--debug_nans` run over one window, preempted at step 9,
+     whose checkpoint's bytes (every parameter and the AdamW state) equal
+     those of phase 39 (b)'s run without the flag;
  41. serving telemetry on the card: phase 4's engine and 64-request stream
      (a) with every serving plane on (request traces, the metrics plane,
      `--slo`, a JSONL logger, a metrics dir) against all off, three runs
@@ -281,12 +283,38 @@ not 0:
      --fused_decode --metrics_log --metrics_dir --slo`, 16 requests) in a
      process of its own, then `tools/report.py --min_trace_complete 1.0`
      and `tools/traceview.py` on its JSONL and its merged snapshot;
+ 42. serving fleet on the card (`serve.fleet.FleetRouter` over
+     `ServeEngine` replicas on this card): (a) phase 4's engine and stream
+     through one engine and a fleet of two replicas, in turns, tokens/s of
+     each, the paged kernels launching layers x the replicas' summed ticks;
+     at f32 with 4 layers (phase 5's) the fleet's greedy tokens equal one
+     engine's, each request once; (b) `replica_kill@8:1` mid-stream: the
+     same tokens, each request once, the requeue count; (c)
+     `disagg_prefill`, one prefill worker and two decode replicas: the
+     same tokens, no prefill dispatch on a decode replica and no tick on
+     the worker (so no paged launch), the pages claimed and copied and the
+     copy's host wall; (d) autoscale: one replica grows to two and drains
+     back to one (`scale_up`, `scale_down`, `scale_down_complete` of
+     replica 1, in that order), the same tokens; (e) `stuck_request` with
+     a 500 ms deadline: evicted with reason "deadline" and a
+     `deadline_miss` row, its tokens a prefix of the run without it, the
+     others' unchanged; (f) the MoE model (8 experts, pallas) on two
+     replicas, 16 requests: the grouped forward launches layers x (prefill
+     dispatches + ticks) and the paged kernels layers x ticks, summed over
+     the replicas; (g) in processes of their own, `python -m
+     tpukit_torch.serve --replicas 2 --fleet_kill replica_kill@8:1` with
+     the JSONL and `--slo`, and `--fleet_procs --fleet_dir --fleet_kill
+     replica_sigkill@6:1` with two worker processes on this card (a real
+     SIGKILL, the worker's exit -9), 16 requests each: `tools/report.py
+     --min_fleet_tps 1` exits 0 on each JSONL (and `--min_trace_complete
+     1.0` on the router's; the process fleet's workers trace nothing),
+     each request once;
 then one JSON line of kernel results (the flash and CE rows with their
 launches under CP, under the quantized wires and in phase 40's telemetry
 step, the grouped rows with
 theirs under EP, f32 and quantized exchanges, and their times at the EP
-shapes, the paged and grouped decode rows with theirs in phase 41) and,
-last, the device JSON line.
+shapes, the paged and grouped decode rows with theirs in phases 41 and
+42) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
 code 2 and prints no result. `--tp-gloo-rank R STORE OUT`,
@@ -354,6 +382,7 @@ from tpukit_torch.serve import spec as spec_lib
 from tpukit_torch.serve import __main__ as serve_main
 from tpukit_torch.serve.engine import (Request, ServeConfig, ServeEngine,
                                        synthetic_request_stream)
+from tpukit_torch.serve.fleet import FleetConfig, FleetRouter
 from tpukit_torch.serve.profile import REQUESTS, SERVE_SHAPE, build
 from tpukit_torch.model import GPTConfig, init_params
 from tpukit_torch.obs import (FlightRecorder, MetricRegistry, StepLogger, TraceRecorder,
@@ -3026,7 +3055,8 @@ def quant_gloo_and_ep(dev, ep: dict) -> dict:
 # steps 9, 17, 25 and 33)
 RESILIENCE_ARGV = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layers", "12",
                    "--sequence_length", "512", "--batch_size", "64", "--epochs", "1",
-                   "--dataset_slice", "2112", "--device", "cuda"]
+                   "--dataset_slice", "1088", "--device", "cuda"]  # 17 steps of 64 rows
+ROLLBACK_ROWS = ["--dataset_slice", "1600"]  # phase 39 (c): 25 steps, 8 after the rollback
 
 
 @contextlib.contextmanager
@@ -3107,7 +3137,7 @@ def resilience_on_card(dev, smi: str) -> dict:
                 **ce_want(1, tokens, cfg), **{f"moe_{k}": 0 for k in moe_gemm.launches})
     state_bytes = _disk_bytes(work / "a" / a.checkpoint_path)
     kept = [p.name for p in ckpt_lib.all_checkpoints(work / "a" / "checkpoints")]
-    if kept != ["checkpoint-32.pt", "checkpoint-33.pt"]:
+    if kept != ["checkpoint-16.pt", "checkpoint-17.pt"]:
         raise AssertionError(f"async keep 2: published {kept}")
     _free()
 
@@ -3116,6 +3146,8 @@ def resilience_on_card(dev, smi: str) -> dict:
                                               ["--chaos_spec", "sigterm@9"])
     meta = ckpt_lib.read_meta(work / "b" / "checkpoints" / "checkpoint-9.pt")
     print(f"  (b) sidecar: {meta}", flush=True)
+    # the state at step 9 without --debug_nans, for phase 40 (e)
+    shutil.copyfile(work / "b" / "checkpoints" / "checkpoint-9.pt", PREEMPT9)
     if code != recovery.EXIT_PREEMPTED or not meta or (
             meta["preempted"], meta["epoch"], meta["batch_in_epoch"]) != (True, 0, 9):
         raise AssertionError(f"sigterm@9: exit {code}, meta {meta}")
@@ -3140,29 +3172,30 @@ def resilience_on_card(dev, smi: str) -> dict:
 
     # (c) a rollback, and the control restored from its target
     with launches_per_step() as steps:
-        code, c, walls["rollback"] = resilient_run("(c) rollback", work / "c", [
-            "--checkpoint_every", "8", "--chaos_spec", "nan_loss@20", "--spike_threshold", "6",
+        code, c, walls["rollback"] = resilient_run("(c) rollback", work / "c", ROLLBACK_ROWS + [
+            "--checkpoint_every", "8", "--chaos_spec", "nan_loss@12", "--spike_threshold", "6",
             "--on_anomaly", "rollback"])
     if code != 0:
         raise AssertionError(f"the rollback run exited {code}")
     [rb] = c.metrics["events"]["rollbacks"]
     print(f"  (c) rollback {rb}", flush=True)
     if (rb["anomaly_step"], rb["target_step"], rb["quarantined"]) != (
-            25, 16, ["checkpoint-24.pt.quarantined-0001"]) or c.state.step != 24:
+            17, 8, ["checkpoint-16.pt.quarantined-0001"]) or c.state.step != 16:
         raise AssertionError(f"rollback {rb}, final step {c.state.step}")
     bad = [i for i, got in enumerate(steps) if got != want]
     print(f"  (c) launches in each of its {len(steps)} steps (8 replayed): "
           f"{'all' if not bad else len(steps) - len(bad)} equal phase 7's per-step counts "
           f"{ {k: v for k, v in want.items() if v} }", flush=True)
-    if len(steps) != 33 or bad:
+    if len(steps) != 25 or bad:
         raise AssertionError(f"rollback run launches: steps {bad} of {len(steps)}: "
                              f"{[steps[i] for i in bad[:2]]} != {want}")
     post = c.metrics["train_windows"][rb["windows_before"]:]
     del c
     _free()
-    code, cc, walls["restored control"] = resilient_run("(c) restored control", work / "cc", [
-        "--resume", str(work / "c" / "checkpoints" / "checkpoint-16.pt"),
-        "--chaos_spec", "skip@25"])
+    code, cc, walls["restored control"] = resilient_run("(c) restored control", work / "cc",
+                                                        ROLLBACK_ROWS + [
+        "--resume", str(work / "c" / "checkpoints" / "checkpoint-8.pt"),
+        "--chaos_spec", "skip@17"])
     if code != 0 or not post:
         raise AssertionError(f"restored control exited {code}; post-rollback windows {post}")
     _same_windows(post, cc.metrics["train_windows"], spread, "(c) rollback vs restored control")
@@ -3195,9 +3228,9 @@ def resilience_on_card(dev, smi: str) -> dict:
     sync_s = time.perf_counter() - t0
     same = all(x.read_bytes() == y.read_bytes() for x, y in (
         (apath, spath), (apath.with_suffix(".json"), spath.with_suffix(".json")),
-        (work / "a" / "checkpoints" / "checkpoint-33.pt", spath)))
+        (work / "a" / "checkpoints" / "checkpoint-17.pt", spath)))
     print(f"  (d) the control published {kept}; async == sync bytes (and the run's own "
-          f"checkpoint-33.pt): {same}", flush=True)
+          f"checkpoint-17.pt): {same}", flush=True)
     print(f"  save of the {state_bytes / 1e9:.3f} GB state ({smi}): sync {sync_s:.3f} s; async "
           f"{call_s:.3f} s on the training thread (the snapshot), {async_s:.3f} s until "
           f"durable", flush=True)
@@ -3212,6 +3245,7 @@ def resilience_on_card(dev, smi: str) -> dict:
 
 
 TELEMETRY_ROWS = ["--dataset_slice", "1088"]  # 17 steps of 64 rows: windows at 9 and 17
+PREEMPT9 = ROOT / "build" / "chip_smoke_preempt9.pt"  # phase 39 (b)'s step-9 state
 TELEMETRY_ON = ["--metrics_log", "run.jsonl", "--metrics_dir", "md", "--log_grad_norms",
                 "--divergence_check_freq", "8", "--hang_timeout", "60"]
 TELEMETRY_KINDS = {"train", "divergence_check", "validation", "epoch", "metrics"}
@@ -3248,7 +3282,7 @@ def _same_state(a, b, what: str) -> None:
 
 
 def telemetry_on_card(dev, smi: str) -> dict:
-    """Phase 40 (see the module docstring)."""
+    """Phase 40 (see the module docstring); (e) reads phase 39's PREEMPT9."""
     work = ROOT / "build" / "chip_smoke_telemetry"
     shutil.rmtree(work, ignore_errors=True)
     walls = {}
@@ -3350,14 +3384,19 @@ def telemetry_on_card(dev, smi: str) -> dict:
     del prof
     _free()
 
-    # (e) --debug_nans on the healthy run: (b)'s numbers, bit for bit
-    code, nans, walls["debug_nans"] = resilient_run("(e) debug_nans", work / "nans",
-                                                    TELEMETRY_ROWS + ["--debug_nans"])
-    if code != 0:
-        raise AssertionError(f"the --debug_nans run exited {code}")
-    _same_state(nans, off, "--debug_nans vs off")
-    print("  (e) --debug_nans == (b): windows and every parameter, bit for bit", flush=True)
-    del nans, off
+    # (e) --debug_nans on the healthy run's first window: preempted at step
+    # 9, its checkpoint's bytes (every parameter and the AdamW state) equal
+    # those phase 39's preempt run wrote at step 9 without the flag
+    code, _, walls["debug_nans"] = resilient_run("(e) debug_nans", work / "nans", TELEMETRY_ROWS
+                                                 + ["--debug_nans", "--chaos_spec", "sigterm@9"])
+    got = work / "nans" / "checkpoints" / "checkpoint-9.pt"
+    if code != recovery.EXIT_PREEMPTED or got.read_bytes() != PREEMPT9.read_bytes():
+        raise AssertionError(f"the --debug_nans run exited {code}; its step-9 state equals the "
+                             f"run's without the flag: {got.read_bytes() == PREEMPT9.read_bytes()}")
+    print("  (e) --debug_nans, one window: the step-9 state (every parameter and the AdamW "
+          "moments) bit for bit the state without it (phase 39 (b)'s)", flush=True)
+    PREEMPT9.unlink()
+    del off
     shutil.rmtree(work)
     _free()
     print(f"  phase 40 walls (s): { {k: round(v, 2) for k, v in walls.items()} }", flush=True)
@@ -3549,6 +3588,292 @@ def serving_telemetry_on_card(dev, smi: str) -> dict:
     shutil.rmtree(work)
     return dict(runs=runs, ratio=ratio, sampled=sampled, ngram=ngram, moe=moe,
                 counts=runs[0]["counts"])
+
+
+FLEET_SHORT = 16  # phase 42's deadline and MoE runs: one wave of 16 slots a replica
+
+
+def _fleet_run(params, cfg, serve, reqs, dev, eos, fleet: FleetConfig, **kw) -> dict:
+    """`reqs` through a `FleetRouter` on `dev`, launch counts from zero:
+    the router, every engine it built (killed and retired ones too, in
+    build order), the tokens, the wall and the counts."""
+    built = []
+    real = FleetRouter._build_replica
+
+    def keep(self, idx, log=True):
+        eng = real(self, idx, log)
+        built.append(eng)
+        return eng
+
+    FleetRouter._build_replica = keep
+    try:
+        router = FleetRouter(params, cfg, serve, fleet, eos_id=eos, device=dev, **kw)
+        reset_counts()
+        t0 = time.perf_counter()
+        comps = router.run(list(reqs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        FleetRouter._build_replica = real
+    rids = [c.rid for c in comps]
+    if len(rids) != len(set(rids)) or router.last_summary["duplicate_completions"]:
+        raise AssertionError(f"a request completed twice: {sorted(rids)}")
+    return dict(router=router, engines=built, outs={c.rid: np.asarray(c.ids) for c in comps},
+                comps=comps, wall=wall, counts=read_counts(), s=router.last_summary)
+
+
+def _fleet_line(what: str, run: dict) -> str:
+    s, e = run["s"], run["engines"]
+    return (f"{what}: {s['requests']} requests / {s['generated_tokens']} tokens in "
+            f"{run['wall']:.3f} s ({s['generated_tokens'] / run['wall']:.1f} tokens/s), "
+            f"replica ticks {[x.steps for x in e]}, prefill dispatches "
+            f"{[x.prefill_dispatches for x in e]}, kills {s['kills']}, requeued "
+            f"{s['requeued']}, peak replicas {s['replicas_peak']}")
+
+
+def _paged_formula(run: dict, layers: int, what: str) -> int:
+    """The paged kernels launch layers x the ticks of every replica."""
+    ticks = sum(e.steps for e in run["engines"])
+    paged = {k: v for k, v in run["counts"].items() if k.startswith("paged_")}
+    if paged != paged_want(layers * ticks) or ticks == 0:
+        raise AssertionError(f"{what}: paged launches {paged} != {layers} x {ticks} ticks")
+    return ticks
+
+
+def serving_fleet_on_card(dev, smi: str, greedy: dict) -> dict:
+    """Phase 42 (see the module docstring)."""
+    work = ROOT / "build" / "chip_smoke_fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+
+    # (a) tokens/s: phase 4's engine (bf16, 12 layers), one engine and a
+    # fleet of two replicas on this card, in turns after a warm-up
+    cfg, params, serve, reqs, eos = build(dev, fused=True)
+    two = FleetConfig(replicas=2, window_steps=8)
+    serve_run(params, cfg, serve, reqs[:4], dev, eos)
+    _fleet_run(params, cfg, serve, reqs[:4], dev, eos, two)
+    speed = {"single": [], "fleet": []}
+    for label in ("single", "fleet", "fleet", "single"):
+        if label == "single":
+            reset_counts()
+            t0 = time.perf_counter()
+            engine, outs = serve_run(params, cfg, serve, reqs, dev, eos)
+            wall = time.perf_counter() - t0
+            ticks = engine.steps
+            counts = {k: v for k, v in read_counts().items() if k.startswith("paged_")}
+            if counts != paged_want(cfg.num_layers * ticks):
+                raise AssertionError(f"(a) single: paged launches {counts}")
+            tps = engine.last_summary["generated_tokens"] / wall
+        else:
+            run = _fleet_run(params, cfg, serve, reqs, dev, eos, two)
+            ticks = _paged_formula(run, cfg.num_layers, "(a) fleet")
+            outs, wall = run["outs"], run["wall"]
+            tps = run["s"]["generated_tokens"] / wall
+            out["paged_bf16"] = run["counts"]["paged_scores"]
+            if run["s"]["tokens_per_sec"] is None:
+                raise AssertionError("(a) fleet_summary without tokens/s")
+        check_outputs(outs, reqs, cfg)
+        speed[label].append(tps)
+        print(f"  (a) {label}: {wall:.3f} s, {tps:.1f} tokens/s, {ticks} ticks "
+              f"(summed over replicas); paged launches = {cfg.num_layers} x ticks", flush=True)
+    med = {k: float(np.median(v)) for k, v in speed.items()}
+    out["tokens_per_s"] = med
+    print(f"  (a) bf16 12 layers, 64 requests ({smi}): one engine {med['single']:.1f} "
+          f"tokens/s, fleet of 2 {med['fleet']:.1f} (ratio {med['fleet'] / med['single']:.4f}; "
+          f"phase 4 {greedy['tokens_per_s']:.1f})", flush=True)
+    del params
+    _free()
+
+    # f32 greedy, 4 layers (phase 5's): the single engine's tokens
+    cfg, params, serve, reqs, eos = build(dev, fused=True, num_layers=4,
+                                          compute_dtype=torch.float32)
+    _, single_outs = serve_run(params, cfg, serve, reqs, dev, eos)
+    rids = [r.rid for r in reqs]
+    fleet = _fleet_run(params, cfg, serve, reqs, dev, eos, two)
+    _same_tokens({"fleet": fleet["outs"], "single": single_outs}, "single", rids,
+                 "(a) fleet of 2")
+    _paged_formula(fleet, cfg.num_layers, "(a) f32 fleet")
+    print("  " + _fleet_line("(a) f32 fleet of 2", fleet) + "; tokens == one engine's",
+          flush=True)
+
+    # (c) disaggregated prefill: one worker, two decode replicas
+    tracer = TraceRecorder(capacity=1 << 16)
+    dis = _fleet_run(params, cfg, serve, reqs, dev, eos,
+                     FleetConfig(replicas=2, window_steps=8, disagg_prefill=True),
+                     tracer=tracer)
+    _same_tokens({"disagg": dis["outs"], "single": single_outs}, "single", rids,
+                 "(c) disaggregated prefill")
+    _paged_formula(dis, cfg.num_layers, "(c) decode replicas")  # the worker: none
+    worker = dis["router"].prefill
+    hand = [e for e in tracer.snapshot() if e["ev"] == "handoff"]
+    claimed = sum(e.allocator.stats.prefix_pages_reused for e in dis["engines"])
+    copied = sum(e["pages"] for e in hand)
+    copy_ms = [1e3 * e["copy_s"] for e in hand]
+    if (any(e.prefill_dispatches for e in dis["engines"]) or worker.steps
+            or worker.prefill_dispatches == 0 or len(hand) != len(reqs)):
+        raise AssertionError(f"(c) decode prefill dispatches "
+                             f"{[e.prefill_dispatches for e in dis['engines']]}, worker "
+                             f"ticks {worker.steps}, handoffs {len(hand)}")
+    out["disagg"] = dict(handoffs=len(hand), claimed=claimed, copied=copied,
+                         copy_ms_median=float(np.median(copy_ms)),
+                         copy_ms_max=float(np.max(copy_ms)),
+                         worker_prefill_dispatches=worker.prefill_dispatches)
+    print(f"  " + _fleet_line("(c) disaggregated prefill", dis) + f"; tokens == one "
+          f"engine's; worker: {worker.prefill_dispatches} prefill dispatches, 0 ticks; "
+          f"{len(hand)} handoffs: {claimed} pages claimed, {copied} pages copied, the "
+          f"copy's host wall median {out['disagg']['copy_ms_median']:.3f} ms, max "
+          f"{out['disagg']['copy_ms_max']:.3f} ms ({smi})", flush=True)
+
+    # (g) the entry point in processes of their own, started after
+    # the timed parts: their start-up overlaps the token checks below
+    tel = ["--metrics_log", "fleet.jsonl", "--slo", SERVE_SLO]
+    base = WIDTH_FLAGS + STREAM_FLAGS + ["--requests", str(FLEET_SHORT)] + PAGED_FLAGS
+    cli = {
+        "router": base + ["--replicas", "2", "--fleet_kill", "replica_kill@8:1"] + tel,
+        "procs": base + ["--replicas", "2", "--fleet_procs", "--fleet_dir", "fleet",
+                         "--replica_timeout", "120", "--fleet_kill", "replica_sigkill@6:1",
+                         "--metrics_log", "fleet.jsonl"],
+    }
+    procs = {}
+    for name, argv in cli.items():
+        (work / name).mkdir()
+        procs[name] = (subprocess.Popen([sys.executable, "-m", "tpukit_torch.serve", *argv],
+                                        cwd=work / name, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True), time.perf_counter())
+    try:
+        # (b) a replica killed mid-stream: each request once, (a)'s tokens
+        kill = _fleet_run(params, cfg, serve, reqs, dev, eos,
+                          FleetConfig(replicas=2, window_steps=8, kill_spec="replica_kill@8:1"))
+        _same_tokens({"kill": kill["outs"], "single": single_outs}, "single", rids,
+                     "(b) replica_kill@8:1")
+        _paged_formula(kill, cfg.num_layers, "(b) kill")
+        if kill["s"]["kills"] != 1 or kill["s"]["per_replica"][1]["fate"] != "killed":
+            raise AssertionError(f"(b) kill summary {kill['s']}")
+        out["requeued"] = kill["s"]["requeued"]
+        print("  " + _fleet_line("(b) replica_kill@8:1", kill) + "; tokens == one engine's, "
+              "each request once", flush=True)
+
+        # (d) autoscale: one replica grows to two and drains back to one
+        trickle = [dataclasses.replace(reqs[i], rid=1000 + i, arrival_s=3.0 + 0.2 * i)
+                   for i in range(4)]
+        auto_log = ListLog()
+        auto = _fleet_run(params, cfg, serve, reqs[:32] + trickle, dev, eos,
+                          FleetConfig(replicas=1, max_replicas=2, window_steps=2,
+                                      scale_up_occupancy=0.9, scale_down_occupancy=0.45),
+                          logger=auto_log)
+        want = {r.rid: single_outs[r.rid] for r in reqs[:32]}
+        want.update({1000 + i: single_outs[reqs[i].rid] for i in range(4)})
+        _same_tokens({"auto": auto["outs"], "want": want}, "want", list(want), "(d) autoscale")
+        events = [(r["event"], r.get("replica")) for r in auto_log.recs
+                  if r["kind"] == "fleet_event"]
+        order = [events.index(e) if e in events else -1 for e in
+                 (("scale_up", 1), ("scale_down", 1), ("scale_down_complete", 1))]
+        s = auto["s"]
+        if (-1 in order or order != sorted(order) or s["replicas_peak"] != 2
+                or s["replicas_final"] != 1 or s["scale_downs"] < 1):
+            raise AssertionError(f"(d) autoscale events {events}, summary {s}")
+        out["autoscale_events"] = events
+        print(f"  (d) autoscale: events {events}; peak {s['replicas_peak']}, final "
+              f"{s['replicas_final']}; tokens == one engine's", flush=True)
+
+        # (e) a request stuck past EOS, with a deadline: evicted, a prefix
+        short = reqs[:FLEET_SHORT]
+        stuck = short[2].rid
+        dl_log = ListLog()
+        dl = _fleet_run(params, cfg, serve,
+                        [dataclasses.replace(r, deadline_ms=500.0) if r.rid == stuck else r
+                         for r in short], dev, eos,
+                        FleetConfig(replicas=2, window_steps=8,
+                                    kill_spec=f"stuck_request@{stuck}"), logger=dl_log)
+        got, ref = dl["outs"][stuck], single_outs[stuck]
+        miss = [r for r in dl_log.recs if r["kind"] == "deadline_miss"]
+        reason = {c.rid: c.reason for c in dl["comps"]}[stuck]
+        if (reason != "deadline" or len(miss) != 1 or not np.array_equal(got, ref[: len(got)])
+                or dl["s"]["deadline_misses"] != 1):
+            raise AssertionError(f"(e) deadline: reason {reason}, misses {miss}")
+        _same_tokens({"dl": dl["outs"], "single": single_outs}, "single",
+                     [r.rid for r in short if r.rid != stuck], "(e) the other requests")
+        print(f"  (e) stuck_request@{stuck}, deadline 500 ms: evicted, reason deadline, "
+              f"{miss[0]['over_ms']} ms over, {len(got) - len(short[2].ids)} tokens, a prefix "
+              f"of the run without it; the other {FLEET_SHORT - 1} requests' tokens unchanged",
+              flush=True)
+        del params
+        _free()
+
+        # (f) the MoE model (8 experts, pallas), two replicas
+        mcfg, mparams, mserve, mreqs, _ = build(dev, fused=True, num_experts=8)
+        moe = _fleet_run(mparams, mcfg, mserve, mreqs[:FLEET_SHORT], dev, eos, two)
+        check_outputs(moe["outs"], mreqs[:FLEET_SHORT], mcfg)
+        mticks = _paged_formula(moe, mcfg.num_layers, "(f) MoE fleet")
+        forwards = sum(e.prefill_dispatches + e.steps for e in moe["engines"])
+        if moe["counts"]["moe_forward_up"] != mcfg.num_layers * forwards:
+            raise AssertionError(f"(f) grouped forward launches {moe['counts']} != "
+                                 f"{mcfg.num_layers} x {forwards}")
+        out["moe_counts"] = moe["counts"]
+        print("  " + _fleet_line("(f) MoE fleet of 2", moe) + f"; grouped forward "
+              f"{moe['counts']['moe_forward_up']} = {mcfg.num_layers} x {forwards} forwards, "
+              f"paged = {mcfg.num_layers} x {mticks} ticks", flush=True)
+        del mparams
+        _free()
+        out["paged_counts"] = fleet["counts"]
+
+        # (g) the entry point's two runs and tools/report.py on each JSONL
+        for name, (proc, t0) in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            print(f"  (g) python -m tpukit_torch.serve {' '.join(cli[name])}: exit "
+                  f"{proc.returncode}, {time.perf_counter() - t0:.1f} s after its start",
+                  flush=True)
+            print("    " + "\n    ".join(l for l in stdout.splitlines() if l.startswith(
+                ("fleet", "process fleet", "  failures", "  e2e", "  traces", "  SLO",
+                 "  WARNING"))), flush=True)
+            try:
+                if proc.returncode != 0:
+                    raise AssertionError(f"(g) {name} exited {proc.returncode}")
+                gates = ["--min_fleet_tps", "1"]
+                if name == "router":  # the process fleet's workers trace nothing
+                    gates += ["--min_trace_complete", "1.0"]
+                _tool("report", work / name / "fleet.jsonl", *gates)
+                recs = [json.loads(l)
+                        for l in (work / name / "fleet.jsonl").read_text().splitlines()]
+                [s] = [r for r in recs if r["kind"] == "fleet_summary"]
+                if (s["requests"] != FLEET_SHORT or s["duplicate_completions"] or s["kills"] != 1
+                        or not s["requeued"] and name == "router"):
+                    raise AssertionError(f"(g) {name}: fleet_summary {s}")
+            except AssertionError as exc:
+                raise AssertionError(f"{exc}\n(g) {name}'s stderr (its workers' too):\n"
+                                     f"{stderr[-4000:]}") from None
+            out[f"cli_{name}"] = dict(tokens_per_sec=s["tokens_per_sec"], kills=s["kills"],
+                                      requeued=s["requeued"], wall_s=s["wall_s"])
+            if name == "procs":
+                codes = {d.get("code") for d in s["deaths"]}
+                print(f"    deaths {s['deaths']}, worker exit codes {s['worker_exit_codes']}",
+                      flush=True)
+                if -9 not in codes:
+                    raise AssertionError(f"(g) procs: no SIGKILLed worker in {s['deaths']}")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    shutil.rmtree(work)
+    return out
+
+
+class ListLog:
+    """A logger that keeps its records (`log(**record)`)."""
+
+    def __init__(self):
+        self.recs = []
+
+    def log(self, **rec):
+        self.recs.append(rec)
 
 
 def main() -> int:
@@ -3802,6 +4127,15 @@ def main() -> int:
     print(f"phase 41: {time.perf_counter() - t_s:.1f} s ({smi}); chip_smoke so far "
           f"{time.perf_counter() - _START:.1f} s", flush=True)
 
+    t_f = time.perf_counter()
+    phase("serving fleet on the card: FleetRouter over ServeEngine replicas at phase 4's "
+          "width (tokens/s beside one engine; f32 tokens with a kill, disaggregated prefill, "
+          "autoscale, a deadline; MoE replicas); python -m tpukit_torch.serve --replicas 2 "
+          "and --fleet_procs with a real SIGKILL")
+    fleet = serving_fleet_on_card(dev, smi, greedy)
+    print(f"phase 42: {time.perf_counter() - t_f:.1f} s ({smi}); chip_smoke so far "
+          f"{time.perf_counter() - _START:.1f} s", flush=True)
+
     fl, ce = trained["flash"], trained["ce"]
     tel = telemetry["counts"]  # one step of phase 40's telemetry run (all 17 equal)
 
@@ -3839,6 +4173,8 @@ def main() -> int:
          "launches_by_kernel": {k[len("paged_"):]: v for k, v in paged_counts.items()},
          "launches_under_tp": tp_served["counts"]["paged_scores"],
          "launches_under_serving_telemetry": serving["counts"]["paged_scores"],
+         "launches_under_fleet": fleet["paged_bf16"],
+         "launches_under_fleet_f32_4_layers": fleet["paged_counts"]["paged_scores"],
          "shapes": paged_shapes},
         entry("flash_attention_fwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:178",
               c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"],
@@ -3896,7 +4232,8 @@ def main() -> int:
               library_products_ms=moe_decode["fwd_library_products_ms"],
               units=moe_decode["units"],
               launches_under_data_grid_f32=tp_served["moe_forward_up"],
-              launches_under_serving_telemetry_16=serving["moe"]["counts"]["moe_forward_up"]),
+              launches_under_serving_telemetry_16=serving["moe"]["counts"]["moe_forward_up"],
+              launches_under_fleet_16=fleet["moe_counts"]["moe_forward_up"]),
         entry("moe_grouped_ffn_bwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:145",
               mc["moe_backward_dh"], moe_main, "bwd", moe_main["bwd_err"], None,
               kernels_per_call=4, launches_by_kernel={

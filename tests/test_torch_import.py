@@ -1,7 +1,7 @@
 """The port stands alone: `tpukit_torch` and `chip_smoke.py` import with
 `jax`, `tpukit`, `flax` and `msgpack` unimportable, contain (with
-`ce_ablation.py`) no import of any of them, default to cuda and refuse to
-fall back to the CPU silently."""
+`ce_ablation.py` and `fleet_cards.py`) no import of any of them, default
+to cuda and refuse to fall back to the CPU silently."""
 
 import ast
 import os
@@ -20,7 +20,8 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch th
 ROOT = Path(__file__).resolve().parent.parent
 REFUSED = ("jax", "jaxlib", "tpukit", "flax", "msgpack")  # the port imports none of these
 PORT_FILES = sorted((ROOT / "tpukit_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                            ROOT / "ce_ablation.py"]
+                                                            ROOT / "ce_ablation.py",
+                                                            ROOT / "fleet_cards.py"]
 
 _BLOCKER = """
 import importlib.abc, sys
@@ -55,6 +56,7 @@ def _run(args, cwd=ROOT, env=None, timeout=120):
 def test_port_imports_without_jax_or_tpukit():
     mods = _port_modules()
     assert "tpukit_torch.ops.paged_attention" in mods and "tpukit_torch.serve.engine" in mods
+    assert "tpukit_torch.serve.fleet" in mods and "tpukit_torch.serve.ledger" in mods
     proc = _run([sys.executable, "-c", f"MODULES = {mods!r}\nREFUSED = {REFUSED!r}\n" + _BLOCKER])
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(mods)}" in proc.stdout

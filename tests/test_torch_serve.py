@@ -346,12 +346,13 @@ def test_tokenizer_and_stream_match_tpukit(seed, kw):
 
 
 def test_unported_paths_raise_named_errors():
-    """What the port still lacks raises, naming its ROADMAP item: the fleet
-    (item 19), and the compilation cache, which the eager port has no
-    programs for (item 18). `ServeConfig()` is tpukit's ring default."""
+    """What the port still lacks raises, naming its ROADMAP item: a fleet
+    replica over a model-parallel grid (item 19b), and the compilation
+    cache, which the eager port has no programs for (item 18).
+    `ServeConfig()` is tpukit's ring default."""
     from tpukit_torch.serve import __main__ as serve_main
 
-    for argv, item in ((["--replicas", "2"], "item 19"),
+    for argv, item in ((["--devices_per_replica", "2"], "item 19b"),
                        (["--compilation_cache_dir", "x"], "item 18")):
         with pytest.raises(NotPortedError, match=item):
             serve_main.main(argv + ["--device", "cpu"])
@@ -430,6 +431,30 @@ _VALUES = {
     "moe_dispatch": ["--num_experts", "2", "--moe_dispatch", "pallas"],
     "moe_top_k": ["--num_experts", "2", "--moe_top_k", "2"],
     "slo": ["--slo", "e2e<=1000s@p99"],
+    # the fleet flags, each in a fleet it runs in
+    "replicas": ["--replicas", "2"],
+    "devices_per_replica": ["--replicas", "1", "--devices_per_replica", "1"],
+    "min_replicas": ["--replicas", "2", "--min_replicas", "2"],
+    "max_replicas": ["--replicas", "1", "--max_replicas", "2"],
+    "scale_up_occupancy": ["--replicas", "1", "--max_replicas", "2",
+                           "--scale_up_occupancy", "0.5", "--fleet_window_steps", "1"],
+    "scale_down_occupancy": ["--replicas", "2", "--scale_down_occupancy", "0.5",
+                             "--fleet_window_steps", "1"],
+    "fleet_window_steps": ["--replicas", "2", "--fleet_window_steps", "2"],
+    "disagg_prefill": ["--replicas", "2", "--page_size", "8", "--disagg_prefill"],
+    "prefill_slots": ["--replicas", "2", "--page_size", "8", "--disagg_prefill",
+                      "--prefill_slots", "1"],
+    "prefill_pages": ["--replicas", "2", "--page_size", "8", "--disagg_prefill",
+                      "--prefill_pages", "8"],
+    "fleet_kill": ["--replicas", "2", "--fleet_kill", "replica_kill@1:1"],
+    "fleet_dir": ["--replicas", "2", "--fleet_dir", "fleet"],
+    "replica_timeout": ["--replicas", "2", "--fleet_dir", "fleet", "--replica_timeout", "30"],
+    "request_retries": ["--replicas", "2", "--request_retries", "1"],
+    "max_queue_depth": ["--replicas", "2", "--max_queue_depth", "1"],
+    "deadline_ms": ["--replicas", "2", "--deadline_ms", "60000"],
+    "fleet_procs": ["--replicas", "1", "--fleet_procs", "--fleet_dir", "fleet",
+                    "--replica_timeout", "60"],
+    "fleet_worker": ["--replicas", "1", "--fleet_dir", "fleet", "--fleet_worker", "0"],
 }
 
 
@@ -470,6 +495,18 @@ def test_every_main_serve_flag_parses_with_tpukit_default(dest, tmp_path, monkey
         argv = [f"--{dest}", str(path)] + (_VALUES["draft"] if dest == "draft_checkpoint"
                                            else [])
     monkeypatch.chdir(tmp_path)
+    if dest == "fleet_worker":
+        # the worker serves the leases a supervisor wrote: here both
+        # requests of the stream, to replica 0, and the stop record
+        from tpukit_torch.serve.engine import synthetic_request_stream
+        from tpukit_torch.serve.ledger import RequestLedger
+
+        led = RequestLedger(tmp_path / "fleet")
+        reqs = synthetic_request_stream(get_tokenizer(), 2, max_new_tokens=2, buckets=(8, 16))
+        led.open_stream(reqs)
+        for r in reqs:
+            led.assign(r.rid, 0, 1, 0.0)
+        led.request_stop()
     if dest in serve_main.NOT_CARRIED:
         with pytest.raises(NotPortedError, match=r"ROADMAP.md, queue A item \d+"):
             serve_main.main(_BASE + argv)

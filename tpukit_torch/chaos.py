@@ -1,6 +1,7 @@
-"""Deterministic fault injection behind `--chaos_spec` (the training half of
-`tpukit/chaos.py`: `parse_spec` :120, `ChaosEngine` :201,
-`validate_fleet_spec` :407 and the module hooks :515-535).
+"""Deterministic fault injection behind `--chaos_spec` and `--fleet_kill`
+(a copy of `tpukit/chaos.py`: `parse_spec` :120, `ChaosEngine` :201,
+`validate_fleet_spec` :407, `ServingChaos` :427 and the module hooks
+:515-535).
 
     --chaos_spec "nan_loss@120,sigterm@300,ckpt_io_fail@2,hang@450:2.5"
 
@@ -30,14 +31,27 @@ first c attempts, default 1, so c <= --io_retries is absorbed by
     ckpt_read_fail@K[:c]   checkpoint reads
     loader_io_fail@K[:c]   the DataLoader's batch fetch
 
-The fleet kinds (`replica_kill`, `replica_sigkill`, `slow_replica`,
-`stuck_request`, `ledger_io_fail`) parse, and `validate_fleet_spec` takes
-them; the training engine refuses them with tpukit's message. The serving
-engine that consumes them (`ServingChaos`) is ROADMAP item 19.
+Fleet kinds (`--fleet_kill`, `FleetConfig.kill_spec`; `validate_fleet_spec`
+takes only these, and the training engine refuses them with tpukit's
+message). Round-indexed ones fire at the router's dispatch round (the
+process fleet's supervisor poll with leases open):
+    replica_kill@R[:idx]     drop replica idx (default: the highest live)
+    replica_sigkill@R[:idx]  a real SIGKILL of the worker process under
+                             `--fleet_procs`; the in-process router drops
+                             the replica and says the kill was simulated
+    slow_replica@R:ms        the highest live replica's heartbeat stalls
+                             for ms (a straggler, unless the stall outlives
+                             `--replica_timeout`)
+    stuck_request@RID        request RID is never retired by EOS or length
+                             (pair with `--deadline_ms`)
+    ledger_io_fail@K[:c]     the K-th ledger I/O operation fails c times
+`ServingChaos` is the plan of one serving run; the router and the process
+fleet read its round plans and install it for the run, so that the
+ledger's file helpers reach `io_fault("ledger")` through `maybe_io_fault`.
 
 The I/O sites call `maybe_io_fault(site)`, one `is None` test when no
-engine is installed. All injection is host-side: the training step is the
-same code with the flag on or off.
+engine is installed. All injection is host-side: the training step and the
+decode programs are the same code with the flag on or off.
 """
 
 from __future__ import annotations
@@ -252,12 +266,76 @@ def validate_fleet_spec(spec: str) -> list[dict]:
     return entries
 
 
-# The I/O sites (checkpoint.py, loader.py) call `maybe_io_fault(site)`; `fit`
-# installs its engine for the run and restores the previous one on exit.
-_ENGINE: ChaosEngine | None = None
+class ServingChaos:
+    """One serving run's fleet fault plan, the serving twin of
+    `ChaosEngine`, read by `serve.fleet.FleetRouter` (in one process) and
+    `serve.ledger.ProcessFleet` (worker processes). Round-indexed faults
+    fire once, at their round; occurrence-indexed ledger I/O faults fail
+    the scheduled attempts of their occurrence and never fire again.
+    `kills`/`sigkills` map a round to target replica ids (None: the
+    highest live), `stalls` a round to stall seconds, `stuck` holds the
+    pinned rids."""
+
+    def __init__(self, spec: str):
+        self.spec = spec
+        self._lock = threading.Lock()
+        self.fired: list[dict] = []
+        self.kills: dict[int, list[int | None]] = {}
+        self.sigkills: dict[int, list[int | None]] = {}
+        self.stalls: dict[int, list[float]] = {}
+        self.stuck: set[int] = set()
+        self._io_plan: dict[str, dict[int, int]] = {"ledger": {}}
+        self._io_seen: dict[str, int] = {"ledger": 0}
+        for e in validate_fleet_spec(spec):
+            kind, at, param = e["kind"], e["at"], e["param"]
+            if kind == "replica_kill":
+                self.kills.setdefault(at, []).append(int(param) if param is not None else None)
+            elif kind == "replica_sigkill":
+                self.sigkills.setdefault(at, []).append(int(param) if param is not None
+                                                        else None)
+            elif kind == "slow_replica":
+                self.stalls.setdefault(at, []).append(float(param) / 1e3)
+            elif kind == "stuck_request":
+                self.stuck.add(at)
+            elif kind == "ledger_io_fail":
+                self._io_plan["ledger"][at] = int(param) if param is not None else 1
+
+    def io_fault(self, site: str) -> None:
+        """`ChaosEngine.io_fault`'s semantics for the "ledger" site; other
+        sites are not this plan's and pass."""
+        with self._lock:
+            plan = self._io_plan.get(site)
+            if plan is None:
+                return
+            seen = self._io_seen[site] + 1
+            remaining = plan.get(seen)
+            if remaining is not None and remaining > 0:
+                plan[seen] = remaining - 1
+                self.fired.append({"fault": f"{site}_io", "occurrence": seen,
+                                   "remaining": remaining - 1})
+                raise IOError(f"chaos: injected transient {site} failure (occurrence {seen})")
+            self._io_seen[site] = seen
+
+    def record(self, event: dict) -> None:
+        """A kill or stall the router or supervisor fired joins the same
+        trail as the I/O faults."""
+        with self._lock:
+            self.fired.append(dict(event))
+
+    def drain_fired(self) -> list[dict]:
+        with self._lock:
+            out, self.fired = self.fired, []
+        return out
 
 
-def install(engine: ChaosEngine | None) -> ChaosEngine | None:
+# The I/O sites (checkpoint.py, loader.py, serve/ledger.py) call
+# `maybe_io_fault(site)`; `fit` installs its engine for the run, the fleet
+# router and the process fleet their `ServingChaos`, and each restores the
+# previous one on exit.
+_ENGINE: ChaosEngine | ServingChaos | None = None
+
+
+def install(engine: ChaosEngine | ServingChaos | None) -> ChaosEngine | ServingChaos | None:
     """Install (or clear, with None) the process-wide engine; returns the
     previous one."""
     global _ENGINE
@@ -265,7 +343,7 @@ def install(engine: ChaosEngine | None) -> ChaosEngine | None:
     return prev
 
 
-def installed() -> ChaosEngine | None:
+def installed() -> ChaosEngine | ServingChaos | None:
     return _ENGINE
 
 

@@ -58,6 +58,33 @@ def _atomic_write_json(path: Path, obj: dict) -> None:
     ckpt_lib.atomic_write_text(path, json.dumps(obj))
 
 
+def publish_heartbeat(directory: str | Path, name: str, record: dict) -> None:
+    """Atomically publish one heartbeat record as `<directory>/<name>.json`
+    (tpukit `recovery.py:113`), the file a liveness reader polls. The
+    caller stamps its own clock into the record (`t`)."""
+    path = Path(directory) / f"{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _atomic_write_json(path, record)
+
+
+def read_heartbeat_dir(directory: str | Path, prefix: str = "") -> dict[str, dict]:
+    """Every heartbeat record in `directory` whose name starts with
+    `prefix`, as {stem: record}; unparseable or vanished files are
+    skipped (tpukit `recovery.py:121`)."""
+    out: dict[str, dict] = {}
+    d = Path(directory)
+    if not d.is_dir():
+        return out
+    for path in sorted(d.glob(f"{prefix}*.json")):
+        try:
+            rec = json.loads(path.read_text())
+        except (ValueError, OSError):
+            continue
+        if isinstance(rec, dict):
+            out[path.stem] = rec
+    return out
+
+
 class TrainingAborted(RuntimeError):
     """Base of every deliberate abnormal end of training; `exit_code` is
     the status the recipe's process exits with."""

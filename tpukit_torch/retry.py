@@ -11,8 +11,10 @@
     `RetryLog`), so the run can say how many transient errors it absorbed.
 
 Wired sites: the checkpoint writers and readers of every format (the sync
-writers and `AsyncCheckpointer`'s background half) and the `DataLoader`
-batch fetch. The chaos harness (`tpukit_torch/chaos.py`) injects
+writers and `AsyncCheckpointer`'s background half), the `DataLoader`
+batch fetch, and the serving fleet's ledger records, heartbeats and
+metric snapshots (`serve/ledger.py`, `serve/fleet.py`). `backoff_delay`
+spaces the fleet's re-admissions of a dead replica's requests. The chaos harness (`tpukit_torch/chaos.py`) injects
 `IOError`s inside exactly these sites. `retry_io` runs on the training
 thread, the async checkpoint writer and the prefetch worker; the observer
 hook and the jitter stream are lock-protected.
@@ -82,6 +84,18 @@ def set_observer(fn: Callable[[dict], None] | None) -> None:
     global _observer
     with _lock:
         _observer = fn
+
+
+def backoff_delay(attempt: int, policy: RetryPolicy | None = None) -> float:
+    """One jittered-exponential delay for retry `attempt` (1-based), from
+    the process's jitter stream under `policy` (default: the process-wide
+    one). The fleet router spaces the re-admissions of a dead replica's
+    requests with it: they retry a dispatch, not an I/O call, so they
+    cannot ride `retry_io`, and the survivors must not take them all in
+    one round."""
+    with _lock:
+        pol = policy if policy is not None else _default_policy
+        return pol.delay(attempt, _rng)
 
 
 def retry_io(fn: Callable[..., Any], *args, label: str = "io",

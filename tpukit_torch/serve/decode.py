@@ -13,6 +13,9 @@ or the paged one.
     every lane is done or finished lanes have freed `stop_when_freed`
     pages. tpukit runs the loop on the device; here the host checks the
     condition after each tick;
+  - `adopt_slot` (paged): arm a lane whose pages another engine
+    prefilled, the decode replica's half of the fleet's disaggregated
+    prefill; no forward;
   - `decode_loop`: a whole batch known up front (`sampling.generate_batch`):
     one full-width prefill of the `[N, W]` buffer, then ticks until every
     row is done.
@@ -182,6 +185,22 @@ def prefill_chunk_paged(params, cfg: gpt.GPTConfig, buf, cache, cursors, active,
     limits[arm] = new_limits[is_last].to(limits.dtype)
     keys[arm] = new_keys[is_last].to(keys.dtype)
     return buf, cache, cursors, active, limits, keys
+
+
+def adopt_slot(buf, cursors, active, limits, keys, slot: int, row, prompt_len: int,
+               new_limit: int, new_key):
+    """Arm one lane whose K/V another engine prefilled (twin of
+    `tpukit/serve/decode.py:286`, the disaggregated handoff): write the
+    prompt row `row [W]` into the buffer at `slot` and set the lane's
+    cursor to `prompt_len`, its limit, its key and `active`. No forward:
+    the pool already holds the handed-off pages. Returns `(buf, cursors,
+    active, limits, keys)`."""
+    buf[slot] = row.to(buf.dtype)
+    cursors[slot] = prompt_len
+    active[slot] = True
+    limits[slot] = new_limit
+    keys[slot] = new_key.to(keys.dtype)
+    return buf, cursors, active, limits, keys
 
 
 def decode_loop_window(params, cfg: gpt.GPTConfig, buf, cache, cursors, active, limits,

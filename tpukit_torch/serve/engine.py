@@ -59,8 +59,17 @@ tpukit's records call `dispatch_overhead_s`) holds most of the device's
 time, and `sync` (tpukit's `device_s`) little of it, where tpukit's
 asynchronous dispatch puts the device's time in `sync` (ROADMAP.md §C).
 
-Not in the port yet (ROADMAP.md item 19): deadlines, priorities and the
-fleet hooks.
+A request with `deadline_ms` > 0 is evicted with its partial tokens once
+its end-to-end wall passes the deadline (`reason="deadline"`, a
+`kind="deadline_miss"` row). The fleet (`serve/fleet.py`,
+`serve/ledger.py`) drives engines through the step primitives `run` is
+spelled in (`admit`, `poll_prefill`, `dispatch_decode`, `sync`, `finish`)
+and the hooks of tpukit's (`engine.py:1419-1627`): `replica` labels every
+record, trace event and metric series; `stuck_rids` pins requests past EOS
+(chaos); `requeue_live` hands back a killed replica's in-flight requests;
+`release_lane` and `adopt_prefilled` are the two halves of the
+disaggregated prefill's page handoff. A fleet replica leaves the shared
+tracer's flush and the registry's epilogue to its router.
 """
 
 from __future__ import annotations
@@ -90,7 +99,12 @@ class Request:
     """One request: a tokenized prompt, its decode budget, the seed of its
     sampling key (`PRNGKey(seed)`; unused by greedy decoding), its arrival
     offset in seconds from the start of the stream and its trace id
-    (`obs/trace.py`; -1 takes the rid)."""
+    (`obs/trace.py`; -1 takes the rid). A request requeued after a replica
+    kill is the same object, so both attempts share the trace id.
+    `deadline_ms` > 0 bounds its end-to-end latency from `arrival_s`: past
+    it the engine evicts the lane (reason "deadline", the partial output
+    kept). `priority` orders the fleet's backpressure shedding (lower sheds
+    first); it never reorders admission."""
 
     rid: int
     ids: tuple[int, ...]
@@ -98,6 +112,8 @@ class Request:
     seed: int = 0
     arrival_s: float = 0.0
     trace: int = -1
+    deadline_ms: float = 0.0
+    priority: int = 0
 
 
 def trace_id(req: Request) -> int:
@@ -116,7 +132,7 @@ class Completion:
     ids: np.ndarray
     prompt_len: int
     generated: int
-    reason: str  # "eos" | "length"
+    reason: str  # "eos" | "length" | "deadline"
     arrival_s: float
     admit_s: float
     done_s: float
@@ -327,12 +343,14 @@ class ServeEngine:
     one. `logger` (`obs.StepLogger`), `recorder` (`obs.FlightRecorder`),
     `tracer` (`obs.TraceRecorder`), `metrics` (`obs.MetricRegistry`, with
     `slo`, a list of `obs.parse_slo` targets, and `metrics_dir`, where its
-    snapshots go) are tpukit's telemetry planes; None turns each off."""
+    snapshots go) are tpukit's telemetry planes; None turns each off.
+    `replica` is a fleet replica's id (None: a standalone engine): it is
+    stamped on the engine's records, trace events and metric series."""
 
     def __init__(self, params, cfg: gpt.GPTConfig, serve: ServeConfig,
                  eos_id: int, device=None, draft_params=None, draft_cfg=None, mesh=None,
                  logger=None, recorder=None, tracer=None, metrics=None, slo=None,
-                 metrics_dir=None):
+                 metrics_dir=None, replica=None):
         self.device = resolve_device(device)
         n = serve.slots
         if mesh is not None:
@@ -391,9 +409,9 @@ class ServeEngine:
         self.draft_params, self.draft_cfg = draft_params, draft_cfg
         self.logger = logger
         self.recorder = recorder
-        # the replica label of every trace event: None, a standalone
-        # engine's (a fleet's engines carry theirs, item 19)
-        self.replica = None
+        # the fleet identity on every record, trace event and metric series
+        # (None: a standalone engine, whose records carry no label)
+        self.replica = replica
         # telemetry (tpukit engine.py:540-566): the tracer's span events,
         # the metric registry fed at window boundaries only, and the SLO
         # targets accounted there
@@ -446,6 +464,10 @@ class ServeEngine:
         self.admitted = 0
         self.max_live = 0
         self.evicted = {"eos": 0, "length": 0, "deadline": 0}
+        # rids pinned past their natural retirement (stuck_request chaos):
+        # `_sync_evict` never retires them, so they hold their slot until
+        # their deadline evicts them
+        self.stuck_rids: set[int] = set()
         # speculation (tpukit engine.py:253-259): draft tokens proposed and
         # accepted, and how many verifies appended 0 .. spec_k + 1 tokens
         self.spec_proposed = 0
@@ -782,8 +804,10 @@ class ServeEngine:
             q, self._pending_quantum = self._pending_quantum, None
             tr.emit("quantum", -1, t0=q["t0"], t1=q["t1"], s0=s0, s1=tr.now(),
                     steps=q["steps"], lanes=q["lanes"], replica=self.replica)
+        # prefilling lanes are inactive by design, not finished
         finished = [s for s, lane in self._lanes.items()
-                    if lane.phase == "decode" and not act[s]]
+                    if lane.phase == "decode" and not act[s]
+                    and lane.req.rid not in self.stuck_rids]
         gen_live = sum(int(cur[s]) - lane.prompt_len
                        for s, lane in self._lanes.items()
                        if lane.phase == "decode" and s not in finished)
@@ -821,6 +845,58 @@ class ServeEngine:
                     self._bt_dirty = True
                 self._free.append(s)
         self._gen_total = sum(c.generated for c in self.completions) + gen_live
+
+    def _evict_deadlines(self, now: float) -> None:
+        """Retire the decoding lanes past their `deadline_ms` (twin of
+        `tpukit/serve/engine.py:1098`): each becomes a Completion with
+        reason "deadline" and its partial output, a `kind="deadline_miss"`
+        row and a `serve_deadline_miss` count; its pages are released and
+        its block-table row zeroed as at a natural retirement. Runs after
+        `_sync_evict`, so the quantum is synced; prefilling lanes wait for
+        their decode phase, so no chunk in flight targets released pages."""
+        over = [(s, lane) for s, lane in self._lanes.items()
+                if lane.phase == "decode" and lane.req.deadline_ms > 0
+                and (now - lane.req.arrival_s) * 1e3 > lane.req.deadline_ms]
+        if not over:
+            return
+        cur = self.cursors.cpu().numpy()
+        host_buf = self.buf.cpu().numpy()
+        tr = self.tracer
+        fin_t = tr.now() if tr is not None else 0.0
+        for s, lane in over:
+            self._lanes.pop(s)
+            length = int(cur[s])
+            generated = max(length - lane.prompt_len, 0)
+            ids = host_buf[s, :length].copy()
+            if self.serve.paged:
+                ids[: lane.prompt_len] = lane.req.ids
+            self.evicted["deadline"] += 1
+            over_ms = (now - lane.req.arrival_s) * 1e3 - lane.req.deadline_ms
+            self.completions.append(Completion(
+                rid=lane.req.rid, ids=ids, prompt_len=lane.prompt_len,
+                generated=generated, reason="deadline", arrival_s=lane.req.arrival_s,
+                admit_s=lane.admit_s, done_s=now, pages=len(lane.pages),
+                prefix_pages=lane.shared, active_s=lane.active_s or lane.admit_s,
+            ))
+            if self.logger is not None:
+                rec = dict(kind="deadline_miss", rid=lane.req.rid,
+                           deadline_ms=lane.req.deadline_ms, over_ms=round(over_ms, 3),
+                           generated=generated)
+                if self.replica is not None:
+                    rec["replica"] = self.replica
+                self.logger.log(**rec)
+            if self.metrics is not None:
+                self.metrics.inc("serve_deadline_miss")
+            if tr is not None:
+                tr.emit("finish", trace_id(lane.req), rid=lane.req.rid, t=fin_t,
+                        reason="deadline", generated=generated, replica=self.replica)
+            if self.serve.paged:
+                self.allocator.release(lane.pages)
+                self._bt[s] = 0
+                self._bt_dirty = True
+            self._free.append(s)
+        # _gen_total stays: the last sync counted these tokens among the
+        # live lanes, and the next one recounts from the completions
 
     # ---- telemetry (tpukit engine.py:1165-1419) --------------------------
 
@@ -867,6 +943,8 @@ class ServeEngine:
                 accept_rate=(acc / prop) if prop else None,
                 accepted_hist=[h - h0 for h, h0 in zip(self.spec_hist, self._win["hist0"])],
             )
+        if self.replica is not None:
+            rec["replica"] = self.replica
         if self.logger is not None:
             self.logger.log(**rec)
         if self.recorder is not None:
@@ -886,22 +964,25 @@ class ServeEngine:
     def _metrics_window(self, comps, rec: dict) -> None:
         """Fold one window into the registry and account the SLOs, derived
         from the completions, the closed span trees and the quantum events
-        alone (tpukit engine.py:1249-1327)."""
+        alone (tpukit engine.py:1249-1327). Every series carries the
+        engine's `replica` label (none on a standalone engine), so a fleet's
+        replicas share one registry."""
         m = self.metrics
+        rep = self.replica
         for c in comps:
-            m.observe("serve_e2e_s", c.e2e_s)
-            m.observe("serve_ttft_s", max(c.active_s - c.arrival_s, 0.0))
-            m.observe("serve_queue_wait_s", max(c.admit_s - c.arrival_s, 0.0))
-            m.observe("serve_tpot_s", c.per_token_s)
-            m.observe("serve_tokens_per_request", c.generated)
-            m.inc("serve_requests", 1, reason=c.reason)
-            m.inc("serve_tokens", c.generated)
+            m.observe("serve_e2e_s", c.e2e_s, replica=rep)
+            m.observe("serve_ttft_s", max(c.active_s - c.arrival_s, 0.0), replica=rep)
+            m.observe("serve_queue_wait_s", max(c.admit_s - c.arrival_s, 0.0), replica=rep)
+            m.observe("serve_tpot_s", c.per_token_s, replica=rep)
+            m.observe("serve_tokens_per_request", c.generated, replica=rep)
+            m.inc("serve_requests", 1, replica=rep, reason=c.reason)
+            m.inc("serve_tokens", c.generated, replica=rep)
         if rec.get("tokens_per_sec") is not None:
-            m.gauge("serve_tokens_per_sec", rec["tokens_per_sec"])
-        m.gauge("serve_occupancy", rec["occupancy"])
-        m.gauge("serve_queue_depth", rec["queue_depth"])
+            m.gauge("serve_tokens_per_sec", rec["tokens_per_sec"], replica=rep)
+        m.gauge("serve_occupancy", rec["occupancy"], replica=rep)
+        m.gauge("serve_queue_depth", rec["queue_depth"], replica=rep)
         if self.serve.paged:
-            m.gauge("serve_page_occupancy", rec["page_occupancy"])
+            m.gauge("serve_page_occupancy", rec["page_occupancy"], replica=rep)
         if self.tracer is not None:
             # phase walls of newly closed trees, each request once
             events = self.tracer.snapshot()
@@ -912,16 +993,19 @@ class ServeEngine:
                     continue
                 self._metrics_traces_seen.add(t["trace"])
                 for ph, wall in t["phases"].items():
-                    m.observe("serve_phase_s", wall, phase=ph)
-            # each quantum's dispatch and sync walls, once (watermarked on t1)
+                    m.observe("serve_phase_s", wall, replica=rep, phase=ph)
+            # this engine's quanta's dispatch and sync walls, once each
+            # (watermarked on t1)
             mark = self._metrics_q_mark
             for ev in events:
-                if ev.get("ev") != "quantum" or ev.get("t1", 0.0) <= mark:
+                if (ev.get("ev") != "quantum" or ev.get("replica") != rep
+                        or ev.get("t1", 0.0) <= mark):
                     continue
                 self._metrics_q_mark = max(self._metrics_q_mark, ev["t1"])
-                m.observe("serve_dispatch_s", ev["t1"] - ev["t0"], phase="dispatch")
+                m.observe("serve_dispatch_s", ev["t1"] - ev["t0"], replica=rep,
+                          phase="dispatch")
                 if "s1" in ev:
-                    m.observe("serve_sync_s", ev["s1"] - ev["s0"], phase="sync")
+                    m.observe("serve_sync_s", ev["s1"] - ev["s0"], replica=rep, phase="sync")
         if self.slo_accountant is not None:
             samples = {
                 "e2e": [c.e2e_s for c in comps],
@@ -931,13 +1015,16 @@ class ServeEngine:
             }
             slo_rec = dict(kind="slo", window=self._window_idx,
                            **self.slo_accountant.evaluate(samples))
+            if self.replica is not None:
+                slo_rec["replica"] = self.replica
             if self.logger is not None:
                 self.logger.log(**slo_rec)
             if self.recorder is not None:
                 self.recorder.record("slo", window=self._window_idx,
                                      overall_compliance=slo_rec["overall_compliance"])
         if self.metrics_dir:
-            metrics_lib.publish_snapshot(self.metrics_dir, 0, m, time_s=time.time())
+            metrics_lib.publish_snapshot(self.metrics_dir, self.replica or 0, m,
+                                         time_s=time.time())
 
     def summary(self, wall_s: float) -> dict:
         """The `kind="serve_summary"` record (tpukit engine.py:1329-1419),
@@ -962,6 +1049,8 @@ class ServeEngine:
             p50_token_s=_pct([c.per_token_s for c in comps], 50),
             p99_token_s=_pct([c.per_token_s for c in comps], 99),
         )
+        if self.replica is not None:
+            rec["replica"] = self.replica
         sec = self.spans.epoch()["seconds"]
         spec_s = sec.get("draft", 0.0) + sec.get("verify", 0.0)
         rec["prefill_s"] = sec.get("prefill", 0.0)
@@ -1008,12 +1097,37 @@ class ServeEngine:
             rec["phase_p50"], rec["phase_p99"] = trace_lib.phase_stats(trees)
             rec["trace_complete"] = trace_lib.completeness(trees)
             # ring evictions make every aggregate above partial: say so
-            rec["trace_dropped"] = self.tracer.dropped
+            # (the tracer may be a fleet's, so this engine's ring alone)
+            rec["trace_dropped"] = self.tracer.dropped_by_replica.get(self.replica, 0)
         if self.slo_accountant is not None:
             rec["slo_overall_compliance"] = self.slo_accountant.overall_compliance()
         return rec
 
-    # ---- step primitives -------------------------------------------------
+    # ---- step primitives (the fleet drives engines through these) ----------
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_lanes(self) -> int:
+        return len(self._lanes)
+
+    @property
+    def decoding_lanes(self) -> int:
+        return sum(1 for l in self._lanes.values() if l.phase == "decode")
+
+    @property
+    def generated_tokens(self) -> int:
+        """Tokens generated so far (completed and live lanes, as of the last
+        sync): the fleet router's aggregation counter."""
+        return self._gen_total
+
+    @property
+    def free_pages(self) -> int:
+        """Pages an admission could obtain (free and reclaimable); the ring
+        has no page budget and reports 1 << 30."""
+        return self.allocator.available_pages if self.serve.paged else (1 << 30)
 
     def admit(self, reqs: list[Request], now: float) -> list[Request]:
         """Admit as many of `reqs` (in order) as capacity allows; returns the
@@ -1050,9 +1164,11 @@ class ServeEngine:
         return True
 
     def sync(self, now: float) -> None:
-        """The per-quantum host sync: retire finished lanes, and close a
-        `kind="serve"` window when one is due."""
+        """The per-quantum host sync: retire finished lanes, evict those
+        past their deadline, and close a `kind="serve"` window when one is
+        due."""
         self._sync_evict(now)
+        self._evict_deadlines(now)
         if self._win["steps"] >= self.serve.window_steps:
             self._emit_window()
 
@@ -1060,8 +1176,9 @@ class ServeEngine:
         """Close the partial window and record the run's summary
         (`last_summary`, and the logger's `kind="serve_summary"` row); a
         standalone engine also flushes its traces and span trees, the
-        `kind="metrics"` row and the merged snapshot. Returns the
-        completions."""
+        `kind="metrics"` row and the merged snapshot (a fleet replica leaves
+        them to its router, which shares the tracer and the registry and
+        flushes once, killed replicas included). Returns the completions."""
         if self._win["steps"]:
             self._emit_window()
         rec = self.last_summary = self.summary(wall_s)
@@ -1071,10 +1188,10 @@ class ServeEngine:
             self.recorder.record("serve_summary", requests=rec["requests"],
                                  tokens_per_sec=rec["tokens_per_sec"],
                                  mean_occupancy=rec["mean_occupancy"])
-        if self.tracer is not None:
+        if self.tracer is not None and self.replica is None:
             trace_lib.flush_to_logger(self.tracer, self.logger,
                                       trace_lib.build_trees(self.tracer.snapshot()))
-        if self.metrics is not None:
+        if self.metrics is not None and self.replica is None:
             rec_m = dict(kind="metrics", source="serve", **self.metrics.summary())
             if self.logger is not None:
                 self.logger.log(**rec_m)
@@ -1087,6 +1204,72 @@ class ServeEngine:
                 merged, meta = metrics_lib.merge_snapshot_dir(self.metrics_dir)
                 metrics_lib.write_merged(self.metrics_dir, merged, meta=meta)
         return self.completions
+
+    def requeue_live(self) -> list[Request]:
+        """This replica's in-flight requests, rebuilt from the Request objects
+        (twin of `tpukit/serve/engine.py:1543`): a lane's prompt and seed
+        never depend on device state, so a killed replica's work requeues
+        onto survivors and gives the same tokens there. The partial output
+        is dropped, so each request completes once. The engine is not
+        changed: a killed replica is simply dropped."""
+        return sorted((l.req for l in self._lanes.values()), key=lambda r: r.rid)
+
+    def release_lane(self, slot: int) -> None:
+        """Retire lane `slot` without a completion: the prefill worker's half
+        of the page handoff. Its pages are released (registered lead pages
+        stay in the prefix registry for later hits) and its block-table row
+        zeroed, so a stale write lands in the null page."""
+        lane = self._lanes.pop(slot)
+        if self.serve.paged:
+            self.allocator.release(lane.pages)
+            self._bt[slot] = 0
+            self._bt_dirty = True
+        self._free.append(slot)
+
+    @torch.no_grad()
+    def adopt_prefilled(self, req: Request, pages: list[int], shared: int,
+                        admit_s: float, now: float, key) -> int:
+        """The decode replica's half of the handoff (twin of
+        `tpukit/serve/engine.py:1572`): arm a lane whose K/V another engine
+        prefilled and `fleet._copy_pages` copied into this engine's pool at
+        `pages` (allocated or claimed on this allocator; the first `shared`
+        are registry claims). Writes the block-table row, the prompt into
+        the buffer and the lane's decode state (`decode.adopt_slot`, no
+        forward), and registers the lead `(prompt_len - 1) // P` pages so a
+        later handoff of the same prefix claims them. Returns the slot."""
+        if not self.serve.paged:
+            raise ValueError(
+                "adopt_prefilled requires the paged cache (page_size > 0) "
+                "— the disaggregated handoff rides page granularity")
+        plen = len(req.ids)
+        slot = self._free.popleft()
+        self._bt[slot] = 0
+        self._bt[slot, : len(pages)] = pages
+        self._bt_dirty = True
+        self._refresh_bt()
+        row = np.zeros((self.serve.padded_width,), np.int32)
+        row[:plen] = req.ids
+        limit = min(plen + req.max_new_tokens, self.serve.width)
+        key = np.asarray(key, np.int64)
+        (self.buf, self.cursors, self.active, self.limits,
+         self.keys) = serve_decode.adopt_slot(
+            self.buf, self.cursors, self.active, self.limits, self.keys, slot,
+            self._tensor(row), plen, limit, self._tensor(key))
+        reg = (plen - 1) // self.serve.page_size
+        self.allocator.register(req.ids, pages[:reg])
+        self._lanes[slot] = _Lane(
+            req, admit_s, plen, self.bucket_for(plen), pages=list(pages), shared=shared,
+            next_chunk=0, prefill_end=0, phase="decode", active_s=now, key=key,
+        )
+        self.admitted += 1
+        self.max_live = max(self.max_live, len(self._lanes))
+        if self.tracer is not None:
+            self.tracer.emit("adopt", trace_id(req), rid=req.rid, t=now, slot=slot,
+                             replica=self.replica)
+        if shared:
+            self.allocator.stats.prefix_hits += 1
+            self.allocator.stats.prefix_pages_reused += shared
+        return slot
 
     @torch.no_grad()
     def run(self, requests, max_wall_s: float | None = None) -> list[Completion]:

@@ -166,6 +166,29 @@ def write_pages(pool, scales, bt, start, vals, write_mask) -> None:
     scales[pids] = s
 
 
+# -- page handoff (the fleet's disaggregated prefill) ------------------------
+# The device-to-device page copy of the prefill -> decode handoff (twin of
+# `tpukit/serve/paged.py:243-272`): `extract_pages` gathers the source
+# pool's page rows (every layer, every head) into a dense block, the caller
+# moves the block to the destination engine's device, and `insert_pages`
+# scatters it into the destination pool. Works on K/V pools `[L, NP, H, P,
+# D]` and int8 scale sidecars `[L, NP, H, blocks]` alike: the page axis is
+# axis 1. Plain indexing, as tpukit computes it outside any kernel.
+
+
+def extract_pages(pool, ids):
+    """`pool[:, ids]`: the page rows to hand off, `[L, n, ...]`."""
+    return pool[:, ids]
+
+
+def insert_pages(pool, ids, block):
+    """Write a handed-off block into `pool` at page rows `ids`, cast to the
+    pool's dtype, in place; returns the pool. The destination pages are
+    freshly allocated (refcount 1), so no reader sees the write."""
+    pool[:, ids] = block.to(pool.dtype)
+    return pool
+
+
 # -- host-side page allocator + shared-prefix registry ----------------------
 
 
