@@ -73,7 +73,8 @@ not 0:
      the loss falls on a repeated batch, and each step launches each
      grouped-expert kernel of training 12 times (up, down, dz2, dh, dx,
      dW), the flash kernels 12 + 12 + 12 + 12 and the CE kernels as in
-     phase 7;
+     phase 7; the warm-up step runs under the comm audit's recorder (phase
+     43);
  12. MoE train step through the kernels == through the plain versions (f32,
      2 layers, top-2, 4 steps), on the ExpertParallel 1 x 1 path and on the
      meshless dropless path;
@@ -103,7 +104,7 @@ not 0:
  18. recipes 2 and 3 end to end (`python -m tpukit_torch.recipes.ddp` and
      `.fsdp`, world of one) as phase 9: train, evaluate, sample on the
      ring, checkpoint; each checkpoint restores into a `SingleDevice` state
-     bit for bit;
+     bit for bit; recipe 2 writes its `--metrics_log` JSONL (phase 43);
  19. threefry on the card: Random123's known answers; random bits,
      uniforms, split and fold_in keys and Bernoulli masks bit-equal to the
      CPU's at a serving tick's [16, 50304] (one key, and a key a row) and
@@ -120,9 +121,10 @@ not 0:
      the ring (8 experts,
      pallas): the grouped forward launches layers x (prefill dispatches +
      ticks) times;
- 22. speculative serving (spec_k 4): n-gram self-speculation on the
-     repetitive stream beside vanilla ring decoding of it, and a fresh
-     seeded draft model (64 / 4 x 16 / 2 layers) on phase 4's stream:
+ 22. speculative serving (spec_k 4), 32 requests at full width: n-gram
+     self-speculation on the repetitive stream beside vanilla ring decoding
+     of it, and a fresh seeded draft model (64 / 4 x 16 / 2 layers) on the
+     first half of phase 4's stream:
      acceptance, tokens appended per verify, tokens/s; at f32 with 4
      layers greedy speculation equals vanilla (first 16 requests) and
      sampled speculation equals the serial `reference_spec_decode` (first
@@ -192,7 +194,8 @@ not 0:
      requests); at f32 with 4 layers the paged fused and the ring engines'
      greedy tokens equal phase 5's; the MoE model over a data grid of one
      gives phase 15's tokens, its grouped forward launching layers x
-     forwards times;
+     forwards times; the warm-up run (4 requests) runs under the comm
+     audit's recorder (phase 43);
  34. context parallelism at full width, in a world of one over NCCL: the
      rung under `ContextParallel` at 32768 tokens a step, the ring at
      batch 16 x S 2048 (one diagonal hop, plain PyTorch) and Ulysses at
@@ -229,7 +232,9 @@ not 0:
      quantization step of its block; phase 37's EP (data 1, expert 2) with
      an int8 and a bf16 exchange (the same spawn), each rank's grouped
      kernels counted and the losses within the EP band of the f32
-     exchange's;
+     exchange's; DDP int8 and FSDP f32 with buckets take a ninth step
+     under the comm audit's recorder, and rank 0's first gloo
+     `value_and_grad` runs under it (phase 43);
  39. resilience on the card: recipe 1 at GPT-2-small width (batch 64, S
      512, 17 steps of the fixture corpus) through the recovery plane, each
      run through `recovery.run_recipe` as the recipe's `__main__` runs it:
@@ -253,7 +258,8 @@ not 0:
      --log_grad_norms --divergence_check_freq 8 --hang_timeout 60`, and
      again with telemetry off: the windows and every final parameter bit
      for bit, each of the 17 steps launching phase 7's flash and CE counts,
-     the JSONL of tpukit's kinds (no `xla`), every `train` record with MFU
+     the JSONL of tpukit's kinds (its `xla` records: the first train and
+     eval step's, from the comm audit), every `train` record with MFU
      in (0, 1) and its `hbm` peak under the card's limit, `tools/report.py`
      exits 0 on it, the window wall with telemetry on and off; a
      `--chaos_spec hang@5:3 --hang_timeout 1 --trace_on_anomaly 2` run
@@ -309,6 +315,15 @@ not 0:
      --min_fleet_tps 1` exits 0 on each JSONL (and `--min_trace_complete
      1.0` on the router's; the process fleet's workers trace nothing),
      each request once;
+ 43. the comm audit and the native tokenizer on the card
+     (`comm_audit_and_tokenizer`): the traces phases 11, 33 and 38
+     recorded, each linted against its plan (`tpukit_torch.analysis`):
+     the measured collectives equal the plan, no error but an overlap
+     gate finding (fault C10), printed as such, the kernels launched as
+     the phase's steps; recipe 2's `kind="xla"` records (phase 18) with
+     tpukit's keys, `tools/report.py` exit 0 on them; the native
+     tokenizer built and used, its ids and masks byte-equal to the Python
+     encoder's on the fixture corpus, both walls;
 then one JSON line of kernel results (the flash and CE rows with their
 launches under CP, under the quantized wires and in phase 40's telemetry
 step, the grouped rows with
@@ -344,9 +359,11 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from tpukit_torch import mesh as mesh_lib
+from tpukit_torch import native
 from tpukit_torch import random as tk_random
 from tpukit_torch import resolve_device
 from tpukit_torch.data import get_tokenizer
+from tpukit_torch.analysis import comm_ir, decode_comm_plan, lint_trace, train_comm_plan
 from tpukit_torch.ops import _cuda
 from tpukit_torch.ops.attention import FLASH_MIN_SEQ, causal_attention
 from tpukit_torch.ops import flash_attention as fa
@@ -1149,8 +1166,21 @@ def ce_want(steps: int, tokens: int, cfg) -> dict:
 FULL_ORDER = (0, 1, 2, 3, 0, 1, 2, 3)  # batches a, b, c and the padded p, twice
 
 
+def audited_step(step_fn, strategy, cfg, params, global_batch: int, seq: int) -> dict:
+    """`step_fn()` under `comm_ir.record_comm` (phase 43's trace of a step a
+    phase already runs): the trace, the strategy's plan, the launches."""
+    before = read_counts()
+    with comm_ir.record_comm() as trace:
+        out = step_fn()
+    after = read_counts()
+    plan = train_comm_plan(strategy, cfg, params=params, global_batch=global_batch, seq=seq)
+    return dict(trace=trace, plan=plan, out=out,
+                counts={k: after[k] - before[k] for k in after})
+
+
 def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0,
-                     batch: int = BATCH, seq: int = SEQ, comm: dict | None = None) -> dict:
+                     batch: int = BATCH, seq: int = SEQ, comm: dict | None = None,
+                     audit: bool = False) -> dict:
     """Phase 7 (and 16, 23, 24, 30, 34): train steps of the gpt-small-dim768
     rung (batch 64, S 512, bf16; or `batch` rows of `seq` tokens, the
     position table `seq + 1` long) on synthetic batches, by default eight:
@@ -1160,7 +1190,8 @@ def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0,
     fields (`comm_dtype`, `grad_buckets`: phase 38). Checks the loss
     (finite; lower on the first batch's second visit) and the launch
     counts; returns them with the step walls, the peak device memory and
-    the state."""
+    the state; with `audit`, the comm audit (`audited_step`) of one more
+    step after the timed ones, and its wall."""
     strategy = SingleDevice() if strategy is None else strategy
     shape = {} if seq == SEQ else dict(max_position_embeddings=seq + 1)
     cfg, state = build_train(dev, strategy=strategy, dropout=dropout, **shape, **(comm or {}))
@@ -1205,7 +1236,15 @@ def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0,
                 **ce, **{f"moe_{k}": 0 for k in moe_gemm.launches})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    return dict(counts=counts, wall=wall, losses=losses, peak=peak, state=state)
+    audited = None
+    if audit:  # one more step on batch a, under the comm audit's recorder (phase 43)
+        t0 = time.perf_counter()
+        audited = audited_step(lambda: float(train_step(state, cfg, strategy, *a)), strategy,
+                               cfg, state.params, batch, seq)
+        audited["wall"] = time.perf_counter() - t0
+        audited["timed_wall"] = wall
+    return dict(counts=counts, wall=wall, losses=losses, peak=peak, state=state,
+                audit=audited)
 
 
 def kernel_vs_plain_steps(dev, dropout: float = 0.0) -> None:
@@ -1246,7 +1285,7 @@ RECIPE_ARGV = ["--dim", "768", "--head_dim", "64", "--heads", "12", "--num_layer
 
 
 def recipe_end_to_end(dev, recipe=single, label: str = "recipe",
-                      kernels=("flash_", "ce_"), extra=()) -> dict:
+                      kernels=("flash_", "ce_"), extra=(), metrics_log: str | None = None) -> dict:
     """Phase 9 (and 18, 26, 32, 36): `python -m tpukit_torch.recipes.single`
     (or the `recipe` module given, with the `extra` flags; `kernels` the
     launch counters that must have moved) at GPT-2-small width on 576
@@ -1265,7 +1304,10 @@ def recipe_end_to_end(dev, recipe=single, label: str = "recipe",
     try:
         reset_counts()
         t0 = time.perf_counter()
-        result = recipe.main(RECIPE_ARGV + list(extra))
+        log = ["--metrics_log", metrics_log] if metrics_log else []
+        if metrics_log:
+            Path(metrics_log).unlink(missing_ok=True)
+        result = recipe.main(RECIPE_ARGV + list(extra) + log)
         wall = time.perf_counter() - t0
         counts = read_counts()
         restored = _restores_exactly(result, dev)
@@ -1730,7 +1772,9 @@ def moe_train_full_width(dev) -> dict:
                for _ in range(3))
     p = to_device(*synthetic_batch(rng, cfg.vocab_size, rows, SEQ, pad_rows=8), dev)
     strategy = rung_strategy(kind)
-    float(train_step(state, cfg, strategy, *p))  # warm-up: cuBLAS, the allocator
+    # warm-up (cuBLAS, the allocator), phase 43's trace of the e8 step under EP
+    audit = audited_step(lambda: float(train_step(state, cfg, strategy, *p)), strategy, cfg,
+                         state.params, rows, SEQ)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1759,7 +1803,7 @@ def moe_train_full_width(dev) -> dict:
     want.update({f"moe_{k}": layers * steps for k in MOE_TRAIN_KERNELS})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    return dict(counts=counts, wall=wall, losses=losses, peak=peak)
+    return dict(counts=counts, wall=wall, losses=losses, peak=peak, audit=audit)
 
 
 def moe_kernel_vs_plain_steps(dev) -> None:
@@ -2131,19 +2175,22 @@ def _spec_line(engine) -> str:
 # phase 22's f32 checks: greedy speculation on the first 16 requests, the
 # serial reference on the first 4 (32 and 8 until phase 41 came)
 SPEC_F32_HEAD, SPEC_REFERENCE = 16, 4
+SPEC_FULL_WIDTH = 32  # phase 22's full-width runs: the first half of phase 4's stream
 
 
 def speculative_serving(dev, ring: dict) -> dict:
-    """Phase 22: speculation on the ring, spec_k 4, 64 requests at full
-    width (bf16): `draft="ngram"` on the `repetitive` stream beside vanilla
+    """Phase 22: speculation on the ring, spec_k 4, 32 requests at full
+    width (bf16; the first half of phase 4's stream): `draft="ngram"` on the `repetitive` stream beside vanilla
     ring decoding of that stream, and `draft="model"` (tpukit's draft shape,
-    fresh seeded) on phase 4's stream beside phase 21's ring run:
+    fresh seeded) on the same requests of phase 4's stream beside phase
+    21's ring run (all 64):
     acceptance, mean tokens appended per verify, tokens/s. At f32 with 4
     layers: greedy speculation (both proposers) gives vanilla's tokens on
     the first 16 requests, and sampled (t 0.8, top-k 40) the engine's
     tokens for the first 4 equal the serial `reference_spec_decode`'s (a
     request's tokens do not depend on its batch)."""
     cfg, params, serve, reqs, eos = build(dev, fused=True)
+    reqs = reqs[:SPEC_FULL_WIDTH]
     ring_cfg = dataclasses.replace(serve, page_size=0, prefill_chunk=0, fused_decode=False)
     spec = dataclasses.replace(ring_cfg, spec_k=4)
     rep = synthetic_request_stream(get_tokenizer(), len(reqs), seed=0,
@@ -2161,7 +2208,8 @@ def speculative_serving(dev, ring: dict) -> dict:
     meng, mouts, mwall, _ = _timed_serve(params, cfg, dataclasses.replace(spec, draft="model"),
                                          reqs, dev, eos, **draft)
     check_outputs(mouts, reqs, cfg)
-    print(f"phase 4 stream, model draft (64 / 4 x 16 / 2 layers) spec_k 4: "
+    print(f"phase 4 stream ({len(reqs)} requests), model draft (64 / 4 x 16 / 2 layers) "
+          f"spec_k 4: "
           f"{_split(meng, mwall)}; {_spec_line(meng)}; vanilla ring (phase 21) "
           f"{ring['tokens_per_s']:.1f} tokens/s", flush=True)
 
@@ -2501,14 +2549,22 @@ def _tp_small(dev, **shape):
     return cfg, base.params, batches
 
 
-def _tp_steps(cfg, base, batches, strategy, lr=1e-4):
+def _tp_steps(cfg, base, batches, strategy, lr=1e-4, audit: dict | None = None):
     """4 AdamW steps from a copy of `base` under `strategy`: (losses, the
     parameters whole, flash forward launches, the first batch's gradients
-    whole, taken before the steps)."""
+    whole, taken before the steps). `audit` (a dict) receives the comm
+    audit of that first `value_and_grad` (`audited_step`)."""
     params = unflatten(base, [t.detach().clone() for t in leaves(base)])
     state = create_train_state(params, lr, strategy)
     names = ckpt_lib.paths(state.params)
-    _, grads = strategy.value_and_grad(state.params, cfg, *batches[0])
+    first = lambda: strategy.value_and_grad(state.params, cfg, *batches[0])  # noqa: E731
+    if audit is None:
+        _, grads = first()
+    else:
+        rows = batches[0][1].shape[0] * strategy.row_shards
+        audit.update(audited_step(first, strategy, cfg, state.params, rows,
+                                  batches[0][1].shape[1]))
+        _, grads = audit.pop("out")
     grads = [strategy.gather_leaf(n, g).detach() for n, g in zip(names, leaves(grads))]
     reset_counts()
     losses = [float(train_step(state, cfg, strategy, *b)) for b in batches]
@@ -2574,7 +2630,16 @@ def gloo_rank(flag: str, rank: int, store: str, out: str) -> int:
         result = {}
         for prefix, comm in runs:
             run_cfg = cfg if comm is None else cfg.replace(comm_dtype=comm)
-            losses, whole, flash, grads = _tp_steps(run_cfg, base, batches, make())
+            audit = {} if flag == "--dp-gloo-rank" else None
+            losses, whole, flash, grads = _tp_steps(run_cfg, base, batches, make(),
+                                                    audit=audit)
+            if audit:  # phase 43: rank 0's trace of the hand-placed step, linted
+                plan = audit["plan"]
+                result["audit"] = json.dumps(dict(
+                    measured=comm_ir.collective_summary(audit["trace"]),
+                    plan=None if plan is None else plan.ops,
+                    findings=[f.to_record() for f in lint_trace(audit["trace"], plan=plan)],
+                    counts=audit["counts"], ops=audit["trace"].ops))
             counts = {k: v for k, v in read_counts().items()
                       if k.startswith(("moe_", "ce_", "flash_"))}
             result.update({f"{prefix}losses": np.array(losses), f"{prefix}flash": np.int64(flash),
@@ -2677,7 +2742,16 @@ def tp_serving(dev, fused32: dict, moe32: dict) -> dict:
         return engine, outs, time.perf_counter() - t0, grid
 
     cfg, params, serve, reqs, eos = build(dev, fused=True)
-    on_grid(params, cfg, serve, reqs[:4], eos, tok_flags())  # warm-up
+    # the warm-up run, phase 43's trace of the serving grid's decode
+    reset_counts()
+    with comm_ir.record_comm() as trace:
+        warm_engine, _, _, warm_grid = on_grid(params, cfg, serve, reqs[:4], eos, tok_flags())
+    audit = dict(trace=trace, ticks=warm_engine.steps,
+                 plan=decode_comm_plan(warm_engine.cfg, warm_grid, serve.slots,
+                                       paged=serve.paged),
+                 counts={k: v for k, v in read_counts().items() if k.startswith("paged_")},
+                 layers=cfg.num_layers)
+    del warm_engine
     reset_counts()
     engine, outs, wall, grid = on_grid(params, cfg, serve, reqs, eos, tok_flags())
     counts = {k: v for k, v in read_counts().items() if k.startswith("paged_")}
@@ -2714,7 +2788,7 @@ def tp_serving(dev, fused32: dict, moe32: dict) -> dict:
         raise AssertionError(f"MoE on the data grid: grouped forward launches {moe_up} != "
                              f"{mcfg.num_layers} x {forwards}")
     return dict(counts=counts, tokens_per_s=engine.last_summary["generated_tokens"] / wall,
-                moe_forward_up=moe_up)
+                moe_forward_up=moe_up, audit=audit)
 
 # phase 34's shapes, the rung's 32768 tokens a step: the ring at one rank
 # attends one diagonal hop over the whole sequence, f32 scores [B, 12, S,
@@ -2914,6 +2988,7 @@ QUANT_FULL = {  # phase 38's full-width runs: label -> (strategy, config fields)
     "fsdp f32 buckets 4": (FSDP, dict(grad_buckets=4)),
 }
 EP_FIRST_STEP_TOL, FINAL_LOSS_TOL = 1e-2, 2e-2  # tests/test_quant_comm.py's EP gate
+QUANT_AUDITED = ("ddp int8", "fsdp f32 buckets 4")  # phase 43's traces of phase 38's warm-ups
 
 
 def quant_full_width(dev, single_run: dict) -> dict:
@@ -2925,7 +3000,7 @@ def quant_full_width(dev, single_run: dict) -> dict:
     in phase 7); the step wall, tokens/s and peak beside phase 7's."""
     runs = {}
     for label, (make, comm) in QUANT_FULL.items():
-        run = train_full_width(dev, make(), comm=comm)
+        run = train_full_width(dev, make(), comm=comm, audit=label in QUANT_AUDITED)
         run.pop("state")
         runs[label] = run
         _free()
@@ -3034,7 +3109,8 @@ def quant_gloo_and_ep(dev, ep: dict) -> dict:
     grouped = ("forward_up_f32", "forward_down_f32", "backward_dh_f32", "backward_dx_f32",
                "backward_dwu_f32", "backward_dwd_f32")
     ep_want = ep["layers"] * ep["steps"]
-    out = {"ddp_int8_gloo": {k: counts[k] for k in want}}
+    out = {"ddp_int8_gloo": {k: counts[k] for k in want},
+           "dp_gloo_audit": json.loads(str(got["audit"]))}
     for comm in QUANT_EXCHANGES:
         q = ep["got"][f"{comm}/losses"].tolist()
         c = {k[len(f"{comm}/count/moe_"):]: int(v) for k, v in ep["got"].items()
@@ -3049,6 +3125,127 @@ def quant_gloo_and_ep(dev, ep: dict) -> dict:
             raise AssertionError(f"EP with an {comm} exchange: losses {q} vs {ref}, launches {c}")
         out[f"ep_{comm}"] = {k: c[k] for k in grouped}
     return out
+
+
+# phase 18's recipe 2 writes its JSONL here, with phase 43's `kind="xla"` records
+XLA_LOG = ROOT / "build" / "chip_smoke_ddp" / "run.jsonl"
+XLA_KEYS = {"kind", "fn", "strategy", "backend", "expected_comm_ops", "hlolint", "flops",
+            "bytes_accessed", "transcendentals", "memory", "collectives"}  # tpukit's, :905
+
+
+def _audit_verdict(name: str, measured: dict, plan_ops: dict | None, exhaustive: bool,
+                   findings: list) -> list:
+    """Phase 43's bars on one trace: the measured collectives equal the
+    plan's (every kind, for an exhaustive plan) and lint finds no error,
+    an overlap gate finding aside (fault C10), printed as such. Returns the
+    gate findings."""
+    if plan_ops is not None:
+        for op, want in plan_ops.items():
+            got = measured.get(op, {"count": 0, "bytes": 0})
+            if got != want:
+                raise AssertionError(f"{name}: {op} measured {got} != planned {want}")
+        if exhaustive and set(measured) - set(plan_ops):
+            raise AssertionError(f"{name}: unplanned collectives {measured} (plan {plan_ops})")
+    gate = [f for f in findings if f["severity"] == "error" and f["rule"] == "overlap"
+            and "declared" in f.get("data", {})]
+    errors = [f for f in findings if f["severity"] == "error" and f not in gate]
+    if errors:
+        raise AssertionError(f"{name}: comm audit errors {errors}")
+    for f in gate:
+        print(f"  {name}: overlap gate finding (fault C10, reported as found): {f['message']}",
+              flush=True)
+    return gate
+
+
+def comm_audit_and_tokenizer(dev, audits: dict, gloo: dict, smi: str) -> dict:
+    """Phase 43: the comm audit and the native tokenizer on the card.
+
+    (a) The traces phases 11, 33 and 38 recorded (no timed step is
+    touched): a ninth step of phase 38's DDP at `--comm_dtype int8` and
+    FSDP f32 at `--grad_buckets 4` (the rung, NCCL, a world of one), the
+    warm-up of phase 11's e8 rung under EP 1 x 1 and of phase 33's serving
+    grid decode (a whole warm-up run of 4 requests, against the per-tick
+    plan, exhaustive); and rank 0 of phase 38's DDP int8 over two gloo
+    ranks (its first `value_and_grad`). Each: the measured collectives
+    equal the plan; `lint_trace` finds no error but an overlap gate finding
+    (C10), printed as such; the kernels' launches those of the phase's
+    steps (a dense step phase 7's share, the e8 step phase 11's, a decode
+    tick's paged kernels phase 33's rate). What the audit costs: the
+    recorded ninth step's wall beside the timed steps' mean, and the
+    lint's own milliseconds.
+    (b) Phase 18's recipe 2 (`train.fit`, NCCL world of one) wrote
+    `kind="xla"` records with tpukit's keys for `train_step` and
+    `eval_step`; `tools/report.py` exits 0 on its JSONL and renders them.
+    (c) The native tokenizer builds (`native.is_available()`), and its ids
+    and masks equal the Python encoder's on the fixture corpus byte for
+    byte, through `WordTokenizer` (the native path taken: `native.encodes`
+    moves); both encoders' walls."""
+    rows = []
+    for name, a in audits.items():
+        t0 = time.perf_counter()
+        findings = [f.to_record() for f in lint_trace(a["trace"], plan=a["plan"])]
+        lint_ms = (time.perf_counter() - t0) * 1e3
+        plan = a["plan"]
+        measured = comm_ir.collective_summary(a["trace"])
+        gate = _audit_verdict(name, measured, None if plan is None else plan.ops,
+                              plan is not None and plan.exhaustive, findings)
+        want = a["want"]
+        if a["counts"] != want:
+            raise AssertionError(f"{name}: launches {a['counts']} != {want}")
+        cost = (f"; the recorded step {a['wall']:.4f} s against the timed steps' mean "
+                f"{a['timed_wall']:.4f} s ({a['wall'] / a['timed_wall']:.4f}x)"
+                if "timed_wall" in a else "")
+        print(f"{name}: measured {measured}, planned {None if plan is None else plan.ops}; "
+              f"{len(findings)} findings, {len(gate)} gate; {a['trace'].ops} ATen ops, "
+              f"{a['trace'].backward_ops()} in the backward; lint {lint_ms:.2f} ms{cost}; "
+              f"launches as the phase's ({sum(want.values())})", flush=True)
+        rows.append(name)
+    g = gloo
+    gate = _audit_verdict("ddp int8, 2 gloo ranks (rank 0)", g["measured"], g["plan"], False,
+                          g["findings"])
+    want = {"flash_forward": 2, "ce_forward_f32": 1}
+    if {k: g["counts"][k] for k in want} != want:
+        raise AssertionError(f"gloo ddp int8: launches {g['counts']} != {want}")
+    print(f"ddp int8 over two gloo ranks (rank 0): measured {g['measured']} == planned "
+          f"{g['plan']}; {len(g['findings'])} findings; launches {want}", flush=True)
+
+    records = [json.loads(line) for line in XLA_LOG.read_text().splitlines()]
+    xla = [r for r in records if r["kind"] == "xla"]
+    if [r["fn"] for r in xla] != ["train_step", "eval_step"] or any(
+            set(r) - {"time", "a2a_expected", "quant_grad_expected", "comm_dtype"} != XLA_KEYS
+            for r in xla):
+        raise AssertionError(f"recipe 2's xla records: {xla}")
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "report.py"), str(XLA_LOG)],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0 or "== xla static analysis: train_step [ddp] ==" not in proc.stdout:
+        raise AssertionError(f"tools/report.py on recipe 2's JSONL: exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    print(f"recipe 2's xla records: {[(r['fn'], r['collectives'], r['hlolint']) for r in xla]}; "
+          f"tools/report.py exit 0", flush=True)
+
+    if not native.is_available():
+        raise AssertionError(f"the native tokenizer did not build: {native.build_error()}")
+    tok, plain = get_tokenizer(), get_tokenizer()
+    plain._native = None  # the Python encoder
+    from tpukit_torch.data import _fixture_corpus
+
+    texts = [t for part in _fixture_corpus() for t in part]
+    before = native.encodes
+    t0 = time.perf_counter()
+    got = tok(texts, padding="max_length", max_length=SEQ, truncation=True)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = plain(texts, padding="max_length", max_length=SEQ, truncation=True)
+    python_s = time.perf_counter() - t0
+    same = all(got[k].tobytes() == ref[k].tobytes() for k in ("input_ids", "attention_mask"))
+    print(f"native tokenizer ({native.library_path().parent.name}): {len(texts)} fixture "
+          f"stories at max_length {SEQ}: native {native_s * 1e3:.2f} ms, Python "
+          f"{python_s * 1e3:.2f} ms ({python_s / native_s:.1f}x); ids and masks byte-equal: "
+          f"{same}; native batches {native.encodes - before} ({smi})", flush=True)
+    if not same or native.encodes != before + 1:
+        raise AssertionError(f"native tokenizer: equal {same}, batches "
+                             f"{native.encodes - before}")
+    return dict(audited=rows, native_ms=native_s * 1e3, python_ms=python_s * 1e3)
 
 
 # phase 39's recipe 1: 2112 rows of batch 64, 33 steps (windows close at
@@ -3316,8 +3513,11 @@ def telemetry_on_card(dev, smi: str) -> dict:
         if not (r["mfu"] is not None and 0.0 < r["mfu"] < 1.0 and hbm
                 and hbm["peak_bytes_in_use"] <= hbm["bytes_limit"]):
             raise AssertionError(f"train record {r}")
-    if not TELEMETRY_KINDS <= kinds or "xla" in kinds or [r["step"] for r in train] != [9, 17]:
-        raise AssertionError(f"JSONL kinds {sorted(kinds)}, windows {[r['step'] for r in train]}")
+    xla = [r["fn"] for r in records if r["kind"] == "xla"]  # the comm audit's (phase 43)
+    if (not TELEMETRY_KINDS <= kinds or xla != ["train_step", "eval_step"]
+            or [r["step"] for r in train] != [9, 17]):
+        raise AssertionError(f"JSONL kinds {sorted(kinds)}, xla {xla}, windows "
+                             f"{[r['step'] for r in train]}")
     tokens = 8 * 64 * 511  # a window's tokens
     tps = {k: r.metrics["tokens_per_sec"] for k, r in (("on", on), ("off", off))}
     print(f"  (a)/(b) bit for bit: windows {on.metrics['train_windows']}, every parameter; "
@@ -3999,7 +4199,7 @@ def main() -> int:
         dp_equals_single(dev)
 
         phase("recipes 2 and 3 end to end (GPT-2-small width, fixture corpus)")
-        recipe_end_to_end(dev, ddp_recipe, "recipe 2")
+        recipe_end_to_end(dev, ddp_recipe, "recipe 2", metrics_log=str(XLA_LOG))
         recipe_end_to_end(dev, fsdp_recipe, "recipe 3")
 
     phase("threefry on the card (random bits, uniforms, keys, Gumbel noise, the sampler)")
@@ -4136,6 +4336,24 @@ def main() -> int:
     print(f"phase 42: {time.perf_counter() - t_f:.1f} s ({smi}); chip_smoke so far "
           f"{time.perf_counter() - _START:.1f} s", flush=True)
 
+    t_a = time.perf_counter()
+    phase("comm audit and native tokenizer on the card: phase 38's DDP int8 and FSDP f32 "
+          "--grad_buckets 4 steps, phase 11's e8 step under EP, phase 33's serving-grid "
+          "decode and phase 38's DDP int8 over two gloo ranks, linted against their plans; "
+          "recipe 2's kind=\"xla\" records through tools/report.py; the native tokenizer")
+    per_step = lambda run: {k: v // len(run["losses"])  # noqa: E731
+                            for k, v in run["counts"].items()}
+    audits = {f"{label} (phase 38)": dict(quant_runs[label]["audit"],
+                                          want=per_step(quant_runs[label]))
+              for label in QUANT_AUDITED}
+    audits["e8 under EP 1 x 1 (phase 11)"] = dict(moe_step["audit"], want=per_step(moe_step))
+    grid = tp_served["audit"]
+    audits["serving grid decode (phase 33)"] = dict(
+        grid, want=paged_want(grid["layers"] * grid["ticks"]))
+    audited = comm_audit_and_tokenizer(dev, audits, quant_pairs["dp_gloo_audit"], smi)
+    print(f"phase 43: {time.perf_counter() - t_a:.1f} s ({smi}); chip_smoke so far "
+          f"{time.perf_counter() - _START:.1f} s", flush=True)
+
     fl, ce = trained["flash"], trained["ce"]
     tel = telemetry["counts"]  # one step of phase 40's telemetry run (all 17 equal)
 
@@ -4175,6 +4393,7 @@ def main() -> int:
          "launches_under_serving_telemetry": serving["counts"]["paged_scores"],
          "launches_under_fleet": fleet["paged_bf16"],
          "launches_under_fleet_f32_4_layers": fleet["paged_counts"]["paged_scores"],
+         "launches_under_comm_audit": grid["counts"]["paged_scores"],
          "shapes": paged_shapes},
         entry("flash_attention_fwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:178",
               c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"],
@@ -4184,6 +4403,9 @@ def main() -> int:
               launches_under_cp=under_cp("flash_forward"),
               launches_under_quant=under_quant("flash_forward"),
               launches_under_telemetry=tel["flash_forward"],
+              launches_under_comm_audit={k: a["counts"]["flash_forward"]
+                                         for k, a in audits.items() if "flash_forward" in
+                                         a["counts"]},
               at_ulysses_shape=trained["flash_8192"]),
         entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",
               c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],
@@ -4220,6 +4442,8 @@ def main() -> int:
                                                       "combine": mc["moe_forward_combine"]},
               library_products_ms=moe_main["fwd_library_products_ms"],
               units=moe_main["units"],
+              launches_under_comm_audit=audits["e8 under EP 1 x 1 (phase 11)"]["counts"][
+                  "moe_forward_up"],
               launches_under_ep_f32={k: ep_counts[f"forward_{k}_f32"] for k in ("up", "down")},
               **{f"launches_under_ep_{c}_exchange": {
                   k: quant_pairs[f"ep_{c}"][f"forward_{k}_f32"] for k in ("up", "down")}

@@ -27,6 +27,13 @@ eval within 1e-2 and 1.0 point), the gradients to the port's single-device
 ones at GRAD_TOL; configs whose heads or dimensions the model degree does
 not divide, checkpoints both ways between TP, `SingleDevice` and tpukit,
 and a negative control (the head's cotangent summed over `model`).
+
+The port's side runs on MKL's reproducible code path (`MKL_CBWR=COMPATIBLE`,
+set by `tests/torch_threads.py` for this process and the workers it
+spawns): on MKL's AVX2 and AVX-512 paths the port's f32 gradients of this
+fixture put one FFN ReLU input on the other side of 0 from tpukit's, so
+the hand-placed steps held to tpukit's at GRAD_TOL passed or failed with
+the host's instruction set (fault C9).
 """
 
 import contextlib
@@ -1209,6 +1216,21 @@ def test_quantized_step_matches_tpukit(world_run, label):
     _hold_qstep(world_run, label)
 
 
+@pytest.mark.parametrize("world_run", [2], indirect=True, ids=["world2"])
+def test_f32_gradients_match_tpukit_on_the_pinned_mkl_path(world_run):
+    """C9's smallest case: the port's single-device f32 gradients of the
+    global batch (this process) against tpukit's exact f32 `DataParallel`
+    gradients (`--grad_buckets 3`, summed in rank order) at GRAD_TOL, on
+    the MKL path `tests/torch_threads.py` pins. Unpinned, MKL's AVX-512
+    sgemm flips one ReLU of the FFN: `layers/ffn/down/bias` misses by
+    4.6e-5 and 30 elements of `embeddings/position` by up to 2.8e-6."""
+    ref = world_run["quant"]["steps"]["ddp/f32b3"]["grads"]
+    assert ref.keys() == world_run["grads"].keys()
+    for name, want in ref.items():
+        np.testing.assert_allclose(world_run["grads"][name], want, **GRAD_TOL, err_msg=name)
+    assert os.environ.get("MKL_CBWR") == "COMPATIBLE"
+
+
 @pytest.mark.parametrize("world_run", [4], indirect=True, ids=["world4"])
 def test_f32_bucket_wire_is_bit_identical_for_any_partition(world_run):
     """At f32 the bucket wire sums every element in rank order: the
@@ -1228,7 +1250,7 @@ def test_f32_bucket_wire_is_bit_identical_for_any_partition(world_run):
 def test_quantized_step_bytes_match_closed_forms(world_run):
     """The `all_to_all_single` and `all_gather_into_tensor` calls of a
     hand-placed step and the bytes they moved (counted by wrapping c10d,
-    `recipes/profile.comm_bytes`) against the port's closed
+    `analysis.comm_ir.comm_bytes`) against the port's closed
     forms (`grad_comm`), which equal tpukit's at `backend=None`: one a2a and
     one all-gather a DataParallel payload or bucket; under FSDP one f32
     all-gather a sharded leaf and one a2a a sharded leaf or a bucket."""

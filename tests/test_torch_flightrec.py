@@ -22,6 +22,7 @@ at the same boundary, with tpukit's record fields.
 import dataclasses
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -184,6 +185,27 @@ def test_report_flightview_and_top_read_a_port_run(runs):
     assert sorted(p.name for p in md.iterdir()) == ["metrics-merged.json", "metrics-p00000.json",
                                                     "metrics.prom"]
     assert top.main([str(md), "--once"]) == 0
+
+
+def test_xla_records_come_from_the_comm_audit(runs):
+    """The port's `kind="xla"` records (the comm audit of rank 0's first
+    train and eval step): tpukit's functions and keys, None for what only a
+    compiled program has, the collectives and lint verdict of one device;
+    `tools/report.py` renders them in its `== xla ==` section."""
+    from tools import report
+
+    mine = [r for r in runs["on"][1] if r["kind"] == "xla"]
+    theirs = [r for r in runs["tk"] if r["kind"] == "xla"]
+    assert [r["fn"] for r in mine] == [r["fn"] for r in theirs] == ["train_step", "eval_step"]
+    for got, want in zip(mine, theirs):
+        assert set(got) == set(want)
+        assert got["strategy"] == want["strategy"] == "single"
+        assert got["flops"] is got["bytes_accessed"] is got["memory"] is None
+        assert got["collectives"] == {} and got["expected_comm_ops"] == want["expected_comm_ops"]
+        assert got["hlolint"] == {"clean": True, "errors": 0, "warnings": 0, "violations": []}
+    text = report.summarize(report.load(str(runs["tmp"] / "on" / "run.jsonl")))
+    assert "== xla static analysis: train_step [single] ==" in text
+    assert "== xla static analysis: eval_step [single] ==" in text
 
 
 def test_telemetry_and_debug_nans_change_no_number(runs):
@@ -362,6 +384,40 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+RANKS_TIMEOUT = 240  # seconds the two ranks may take, below the suite's limit
+PORT_TAKEN = ("EADDRINUSE", "Address already in use")
+
+
+def _run_ranks(argv: list, cwd: Path, env: dict, world: int = 2, tries: int = 3) -> list:
+    """(stdout, stderr) of `world` ranks of `argv` on a free port. Another
+    process may take the port between `_free_port` and rank 0's store:
+    then the ranks run again, on a new port in a clean `cwd`. Ranks that
+    outlive RANKS_TIMEOUT are killed and the test fails."""
+    for attempt in range(tries):
+        run_env = {**env, "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+                   "WORLD_SIZE": str(world)}
+        procs = [subprocess.Popen(argv, cwd=cwd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True,
+                                  env={**run_env, "RANK": str(r), "LOCAL_RANK": str(r)})
+                 for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=RANKS_TIMEOUT) for p in procs]
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            for p in procs:
+                p.communicate()
+            pytest.fail(f"{world} ranks did not finish in {RANKS_TIMEOUT} s")
+        taken = any(p.returncode and any(t in err for t in PORT_TAKEN)
+                    for p, (_, err) in zip(procs, outs))
+        if not taken or attempt == tries - 1:
+            break
+        for child in cwd.iterdir():
+            shutil.rmtree(child) if child.is_dir() else child.unlink()
+    assert [p.returncode for p in procs] == [0] * world, [o[1][-2000:] for o in outs]
+    return outs
+
+
 def test_ddp_bitflip_drives_the_deferred_rollback_on_both_ranks(tmp_path):
     """Recipe 2 on two gloo ranks with `--heartbeat_dir`, the checksums
     every 4 steps, `--on_anomaly rollback`, the norms and both metrics
@@ -370,20 +426,14 @@ def test_ddp_bitflip_drives_the_deferred_rollback_on_both_ranks(tmp_path):
     ranks roll back to the same checkpoint at that boundary (one ack each),
     after the final drain's rendezvous; the rollback record has tpukit's
     fields, and no divergence is seen after it."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1",
-           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "2"}
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
     argv = [sys.executable, "-m", "tpukit_torch.recipes.ddp",
             *_set(_set(ARGS, "--dataset_slice", "400"), "--batch_size", "4"), "--device", "cpu",
             "--chaos_spec", "bitflip@10:1", "--divergence_check_freq", "4",
             "--heartbeat_dir", "hb", "--on_anomaly", "rollback", "--checkpoint_every", "4",
             "--log_grad_norms", "--metrics_log", "run.jsonl", "--metrics_dir", "md",
             "--debug_dir", "dbg"]
-    procs = [subprocess.Popen(argv, cwd=tmp_path, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True,
-                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
-             for r in range(2)]
-    outs = [p.communicate(timeout=300) for p in procs]
-    assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
+    outs = _run_ranks(argv, tmp_path, env)
     records = _records(tmp_path / "run.jsonl")
     [div] = [r for r in records if r["kind"] == "divergence"]
     [rb] = [r for r in records if r["kind"] == "rollback"]

@@ -57,6 +57,9 @@ def test_port_imports_without_jax_or_tpukit():
     mods = _port_modules()
     assert "tpukit_torch.ops.paged_attention" in mods and "tpukit_torch.serve.engine" in mods
     assert "tpukit_torch.serve.fleet" in mods and "tpukit_torch.serve.ledger" in mods
+    assert {"tpukit_torch.analysis", "tpukit_torch.analysis.comm_ir",
+            "tpukit_torch.analysis.plan", "tpukit_torch.analysis.rules",
+            "tpukit_torch.analysis.__main__", "tpukit_torch.native"} <= set(mods)
     proc = _run([sys.executable, "-c", f"MODULES = {mods!r}\nREFUSED = {REFUSED!r}\n" + _BLOCKER])
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(mods)}" in proc.stdout

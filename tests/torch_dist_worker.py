@@ -51,7 +51,9 @@ of `QUANT_STEPS[world]` (`qstep/<label>/...`: the global loss and the
 gradients whole; the c10d collectives of the step, their calls and
 bytes, where the case counts); and
 `QUANT_STEPS`' trajectories, six AdamW steps on the global batch
-(`qtraj/<label>`).
+(`qtraj/<label>`). Then every audited world of `python -m
+tpukit_torch.analysis` in this world (`audit_worlds`: `audit/<name>`, each
+rank's measured collectives, plan and findings).
 
 With `serve/config` in the inputs the world serves instead: the serving
 cases of `tests/test_torch_serve.py` (`serve_main`), written to
@@ -79,7 +81,7 @@ from tpukit_torch.model import GPTConfig, gpt  # noqa: E402
 from tpukit_torch.obs import format_checksum, global_norms, make_state_checksum  # noqa: E402
 from tpukit_torch.ops import quant_comm  # noqa: E402
 from tpukit_torch.ops.layers import vocab_parallel_argmax  # noqa: E402
-from tpukit_torch.recipes.profile import comm_bytes  # noqa: E402
+from tpukit_torch.analysis.comm_ir import comm_bytes  # noqa: E402
 from tpukit_torch.shardings import (  # noqa: E402
     FSDP,
     DataParallel,
@@ -248,6 +250,7 @@ def main() -> None:
 
     if "quant/x" in data.files:
         result.update(_quantized(data, init, cfg, batch, targets, world, rank))
+        result.update(audit_worlds(world))
 
     if rank == 0:
         np.savez(out / "result.npz", **result)
@@ -394,6 +397,28 @@ def _quantized(data, init, cfg, batch, targets, world: int, rank: int) -> dict:
         losses = [float(train_step(state, qcfg, strategy, batch, targets))
                   for _ in range(TRAJ_STEPS)]
         res[f"qtraj/{label}"] = np.array(losses)
+    return res
+
+
+def audit_worlds(world: int) -> dict:
+    """Every world of `python -m tpukit_torch.analysis` (`WORLDS`) run in
+    this world: `audit/<name>`, JSON of every rank's measured collectives
+    (`collective_summary` of its trace), its plan and its lint findings."""
+    from tpukit_torch.analysis import __main__ as audit
+    from tpukit_torch.analysis import collective_summary, lint_trace
+
+    res = {}
+    for name in audit.WORLDS:
+        ctx = audit.build_world(name, world, torch.device("cpu"))
+        plan = ctx["plan"]
+        rec = {"measured": collective_summary(ctx["trace"]),
+               "plan": None if plan is None else dict(
+                   ops=plan.ops, wire=plan.wire, exhaustive=plan.exhaustive,
+                   overlap=plan.overlap),
+               "findings": [f.to_record() for f in lint_trace(ctx["trace"], plan=plan)]}
+        gathered = [None] * world
+        dist.all_gather_object(gathered, rec)
+        res[f"audit/{name}"] = json.dumps(gathered)
     return res
 
 

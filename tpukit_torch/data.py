@@ -102,13 +102,35 @@ class WordTokenizer:
                 ids.extend(self._token_to_id.get(ch, _UNK) for ch in piece)
         return ids
 
+    def _native_encoder(self):
+        """The C++ batch encoder (`tpukit_torch/native`) over this vocab, or
+        None where no compiler is available or `TPUKIT_NATIVE=0` (tpukit
+        `data.py:141`)."""
+        if not hasattr(self, "_native"):
+            try:
+                from tpukit_torch import native
+
+                self._native = (native.NativeEncoder(self._id_to_token, self.unk_token_id)
+                                if native.is_available() else None)
+            except Exception:
+                self._native = None
+        return self._native
+
     def __call__(self, texts, padding: Union[bool, str, None] = None,
                  max_length: Optional[int] = None, truncation: bool = False) -> dict:
         """Lists of ids and masks; with `padding="max_length"` the int32
-        arrays `[N, max_length]`, padded with `pad_token_id` and mask 0."""
+        arrays `[N, max_length]`, padded with `pad_token_id` and mask 0. A
+        batch of 64 texts or more, padded and truncated, goes to the native
+        encoder where it is available (tpukit `data.py:170-185`), with the
+        same bytes."""
         if isinstance(texts, str):
             texts = [texts]
         max_length = max_length or self.model_max_length
+        if padding == "max_length" and truncation and len(texts) >= 64:
+            encoder = self._native_encoder()
+            if encoder is not None:
+                ids, mask = encoder.encode_batch(texts, max_length, self.pad_token_id)
+                return {"input_ids": ids, "attention_mask": mask}
         encoded = [self._encode_one(t) for t in texts]
         if truncation:
             encoded = [ids[:max_length] for ids in encoded]

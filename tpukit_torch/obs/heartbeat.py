@@ -68,6 +68,24 @@ class Heartbeat:
                 continue  # torn or foreign file: skipped
         return out
 
+    def await_window(self, step: int, timeline: int = 0) -> bool:
+        """Wait until every rank's beat is this window's or later (`step`
+        on `timeline`, or a later timeline), or the heartbeat timeout has
+        passed; whether they all arrived. The ranks of a step run in
+        lockstep, so each writes its beat of the window within moments:
+        rank 0 compares the checksums of one window, not whichever beats the
+        host's load let land before its read. A rank that never beats costs
+        one timeout, and the check then reads what is there."""
+        deadline = time.monotonic() + self.timeout_s
+        while True:
+            beats = self.read_all()
+            if all(proc in beats and (int(beats[proc].get("timeline", 0)), beats[proc]["step"])
+                   >= (timeline, step) for proc in range(self.process_count)):
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.005)
+
     def check(self, now: float | None = None, step_lag: int = 0) -> list[dict]:
         """The stragglers: ranks whose beat is missing, older than the
         effective timeout (`max(timeout_s, 3 x this rank's own beat

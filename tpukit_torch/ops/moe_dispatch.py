@@ -268,3 +268,49 @@ def _moe_ffn_exchange(layer, cfg, x, pad_mask, expert_ffn, name):
     out = torch.einsum("ebcd,bsec->bsd", h,
                        dispatch * gate_map.to(cfg.compute_dtype)[..., None])
     return out, _aux(*_aux_stats(probs, assign, pad_mask, cfg), cfg)
+
+
+def expected_a2a(cfg, data_size: int, expert_size: int, global_batch: int,
+                 seq: int) -> dict | None:
+    """The `all_to_all_single` calls of the exchange in one step on one rank
+    (twin of `tpukit/ops/moe_dispatch.py:315`): `{"buffer_bytes", "train":
+    {count, bytes, wire}, "eval": {...}}`, or None for a dense config or a
+    batch the grid does not divide.
+
+    Per layer each rank sends its `[E, B_local, C, D]` buffer out and the
+    results back: 2 calls forward, and, the exchange being its own
+    transpose, 2 more backward (6 with `remat_layers`, whose backward
+    re-runs the forward). Counts are calls of one step with every layer
+    unrolled, which is tpukit's count at `scan_layers` off (its scanned
+    stack emits each op once). A 1-way expert axis moves nothing. An int8
+    wire moves the packed block-scaled rows (`quant_comm.packed_bytes` a
+    destination), bf16 the cast buffer, f32 the compute-dtype buffer; eval
+    runs forward only in bf16. c10d carries bf16 at 2 bytes on every
+    backend, so the port needs none of tpukit's `backend` pricing; `wire`
+    names the payload's type ("s8-packed" or the torch dtype)."""
+    if cfg.num_experts <= 0:
+        return None
+    zero = {"count": 0, "bytes": 0}
+    if expert_size <= 1:
+        return {"buffer_bytes": 0, "train": dict(zero), "eval": dict(zero)}
+    rows = data_size * expert_size
+    if global_batch % rows:
+        return None
+    capacity = moe_capacity(cfg, seq)
+    n_buf = cfg.num_experts * (global_batch // rows) * capacity * cfg.dim
+    comm = getattr(cfg, "comm_dtype", "f32")
+
+    def entry(dtype: torch.dtype, ops_per_layer: int) -> dict:
+        if comm == "int8":
+            op_bytes, wire = expert_size * quant_comm.packed_bytes(n_buf // expert_size), \
+                "s8-packed"
+        else:
+            dtype = torch.bfloat16 if comm == "bf16" else dtype
+            op_bytes = n_buf * torch.empty((), dtype=dtype).element_size()
+            wire = str(dtype).replace("torch.", "")
+        count = ops_per_layer * cfg.num_layers
+        return {"count": count, "bytes": count * op_bytes, "wire": wire}
+
+    return {"buffer_bytes": n_buf * torch.empty((), dtype=cfg.compute_dtype).element_size(),
+            "train": entry(cfg.compute_dtype, 6 if cfg.remat_layers else 4),
+            "eval": entry(torch.bfloat16, 2)}

@@ -259,6 +259,7 @@ class Pipeline(GridStrategy):
     the meshless dropless "pallas" dispatch runs inside the stages."""
 
     name = "pipe"
+    comm_ops = ("collective-permute", "all-reduce")  # the stage hops, ingest, head and grads
     split_axis = "stage"
     fused_head = False  # the head is the vocab-parallel CE (tpukit's jnp head)
     supports_interleave = False
@@ -519,6 +520,46 @@ class Pipeline(GridStrategy):
             if keep:
                 records.append(rec)
         return totals, records
+
+    def pipe_comm(self, cfg: gpt.GPTConfig, *, global_batch: int, seq: int,
+                  phase: str = "train", stage: int | None = None) -> dict:
+        """The stage hops of one step on this rank (or on `stage`), `{op:
+        {count, bytes}}` (twin of `tpukit/pipeline.py:1910`): one
+        `collective-permute` a received activation or cotangent, of
+        `[global_batch / (M data), seq, dim]` in the compute dtype, walked
+        off the same tick tables the step walks (GPipe's forward and its
+        mirror; 1F1B's table, interleaved at V > 1; `phase="eval"` the
+        forward-only table). tpukit counts one `ppermute` instance a
+        shipping tick for every stage at once; a tick that ships on
+        tpukit's machine is a tick where some stage here receives. MoE
+        configs on a stage-only grid pin `all-to-all` to zero: the meshless
+        dispatch in the stages exchanges nothing."""
+        S, M, D, V = self.num_stages, self.num_microbatches, self.data_size, \
+            cfg.virtual_stages
+        if stage is None:
+            stage = self.mesh.get_local_rank("stage") if self.mesh is not None else 0
+        train = phase == "train"
+        recvs = 0
+        if S > 1:
+            G = S * V
+            prev, nxt = (stage - 1) % S, (stage + 1) % S
+            one_f_one_b = train and isinstance(self, Pipeline1F1B)
+            ticks = cached_schedule(S, V if (one_f_one_b or not train) else 1, M,
+                                    one_f_one_b).ticks
+            for tk in ticks:
+                src = tk.fwd[prev]
+                recvs += src is not None and src[0] * S + prev < G - 1
+                if one_f_one_b:
+                    src = tk.bwd[nxt]
+                    recvs += src is not None and src[0] * S + nxt > 0
+                elif train:  # GPipe's backward mirror of this tick
+                    recvs += tk.fwd[nxt] is not None and stage < S - 1
+        mb = global_batch // (M * D)
+        payload = mb * seq * cfg.dim * torch.empty((), dtype=cfg.compute_dtype).element_size()
+        ops = {"collective-permute": {"count": recvs, "bytes": recvs * payload}}
+        if cfg.num_experts > 0 and D == 1:
+            ops["all-to-all"] = {"count": 0, "bytes": 0}
+        return ops
 
     def _reduce_grads(self, run: _Run, params: dict) -> dict:
         """Each leaf's gradient summed as its placement needs: replicated

@@ -180,39 +180,6 @@ def _launch_counters() -> dict:
             "moe": moe_gemm.launches, "paged": paged_attention.launches}
 
 
-COLLECTIVES = ("all_to_all_single", "all_gather_into_tensor", "all_reduce",
-               "reduce_scatter_tensor", "all_gather", "broadcast")
-
-
-def comm_bytes(fn) -> dict:
-    """`fn()` run with `torch.distributed`'s collectives wrapped: `{name:
-    {count, bytes}}` of the calls, bytes those of the output (the input of
-    an all-reduce and a broadcast)."""
-    import torch.distributed as dist
-
-    seen: dict = {}
-    real = {name: getattr(dist, name) for name in COLLECTIVES}
-
-    def wrap(name):
-        def counted(*args, **kwargs):
-            out = args[0] if args else next(iter(kwargs.values()))  # FSDP2 passes keywords
-            tensors = out if isinstance(out, (list, tuple)) else [out]
-            rec = seen.setdefault(name, {"count": 0, "bytes": 0})
-            rec["count"] += 1
-            rec["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
-            return real[name](*args, **kwargs)
-        return counted
-
-    for name in COLLECTIVES:
-        setattr(dist, name, wrap(name))
-    try:
-        fn()
-    finally:
-        for name, f in real.items():
-            setattr(dist, name, f)
-    return seen
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rung", choices=tuple(RUNGS), default=None,
@@ -302,6 +269,8 @@ def _profile(flags, device) -> int:
           + f", max_memory_allocated {torch.cuda.max_memory_allocated()} B")
     print(f"launches a step (the port's counters): {launches}")
     if flags.strategy != "single":
+        from tpukit_torch.analysis.comm_ir import comm_bytes
+
         seen = comm_bytes(lambda: step(0))
         closed = getattr(strategy, "grad_comm", lambda *a: None)(cfg, state.params)
         print(f"collectives of one step, comm {cfg.comm_dtype}, buckets {cfg.grad_buckets} "

@@ -248,3 +248,58 @@ def decode_loop(params, cfg: gpt.GPTConfig, buf, prompt_lens, max_new_tokens: in
         active = _advance(params, cfg, buf, cache, cursors, active, limits, keys, eos_id,
                           temperature, top_k)
     return buf, cursors
+
+
+def decode_step_comm(cfg: gpt.GPTConfig, mesh, slots: int, top_k: int = 0,
+                     paged: bool = False, verify_tokens: int = 1) -> dict:
+    """The c10d calls of one decode tick (`decode_step` with `steps=1`) on
+    one rank of a serving grid `mesh` (`{"data": d, "model": m}`, None for
+    one device), `{op: {count, bytes}}`
+    (twin of `tpukit/serve/decode.py:418`), exhaustive: the step issues
+    these and nothing else.
+
+      - `all-reduce` x (2 num_layers + 1) under model > 1: the Megatron
+        pair a layer (the row-parallel attention-out and FFN-down partial
+        sums) on `[N/d, t, dim]` in the compute dtype, and the vocab-
+        parallel token embedding's f32 sum;
+      - `all-gather` x 1 under model > 1: the vocab-parallel logits
+        `[N/d, t, padded_vocab]` f32, gathered model-replicated before
+        sampling;
+      - under data > 1, one more `all-gather`: every replica's logits
+        `[N, t, padded_vocab]`, so every rank samples every slot (the
+        port's host-side sampler). tpukit keeps the slot axis sharded and
+        pays a data-axis gather only for top-k sampling (`lax.top_k`'s
+        sort); the port pays it on every tick, top-k or not.
+
+    `verify_tokens = spec_k + 1` prices the speculative verify: the same
+    calls, every byte term `t` positions wide. Bytes are result payloads
+    (`comm_ir`). Raises where tpukit's form does: paged with a data axis,
+    slots the data axis does not divide, heads the model axis does not."""
+    if paged and verify_tokens > 1:
+        raise ValueError("speculative verify (verify_tokens > 1) audits the ring cache only "
+                         "— spec + paged is rejected at ServeConfig")
+    d, m = (1, 1) if mesh is None else (int(mesh.get("data", 1)), int(mesh.get("model", 1)))
+    if paged and d > 1:
+        raise ValueError(f"paged KV serving requires a model-only grid (data axis 1, got "
+                         f"data={d})")
+    if slots % d:
+        raise ValueError(f"slots={slots} must be a multiple of the data axis ({d}) — slots "
+                         f"shard over it")
+    if m > 1 and cfg.heads % m:
+        raise ValueError(f"heads={cfg.heads} must divide the model axis ({m}) for the "
+                         f"closed-form decode audit")
+    n_local, t = slots // d, verify_tokens
+    itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    act = n_local * t * cfg.dim * itemsize
+    embed = n_local * t * cfg.dim * 4  # f32 parameters
+    logits = n_local * t * cfg.padded_vocab_size * 4
+    out: dict = {}
+    if m > 1:
+        out["all-reduce"] = {"count": 2 * cfg.num_layers + 1,
+                             "bytes": 2 * cfg.num_layers * act + embed}
+        out["all-gather"] = {"count": 1, "bytes": logits}
+    if d > 1:
+        rec = out.setdefault("all-gather", {"count": 0, "bytes": 0})
+        rec["count"] += 1
+        rec["bytes"] += d * logits
+    return out

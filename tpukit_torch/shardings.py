@@ -42,6 +42,7 @@ import warnings
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
 from torch.distributed.fsdp import CPUOffloadPolicy, OffloadPolicy, fully_shard
 from torch.distributed.tensor import DTensor, Shard
 
@@ -154,6 +155,23 @@ class Strategy:
                 f"hand-placed grad wire to bucket — supported on ddp (bucketed two-shot "
                 f"all-reduce), fsdp (bucketed grad reduce-scatter) and ep (the per-layer "
                 f"a2a pairs are already bucket-granular)")
+
+    # the collective kinds a step of this strategy issues (tpukit
+    # `shardings.py:278`, in the trace's names), for the `kind="xla"`
+    # record's `expected_comm_ops`
+    comm_ops: tuple[str, ...] = ()
+
+    def comm_ops_for(self, cfg: gpt.GPTConfig) -> tuple[str, ...]:
+        """`comm_ops` for this config (tpukit `shardings.py:392`): a config
+        that reshapes the schedule (the hand-placed wires) names its own."""
+        return self.comm_ops
+
+    def overlap_comm(self, cfg: gpt.GPTConfig, params) -> dict | None:
+        """The declared overlap of this strategy's train step (tpukit
+        `shardings.py:381`): `{op: K}`, at least K calls of that kind must
+        be issued with backward work left to hide behind (`analysis.rules`'
+        `overlap` gate); None where the schedule is serial."""
+        return None
 
     @staticmethod
     def _hand_placed(cfg: gpt.GPTConfig) -> bool:
@@ -335,6 +353,39 @@ class ExpertParallel(Strategy):
     # the a2a / pallas exchange's payload follows --comm_dtype; the trunk's
     # gather and reduce-scatter stay f32
     quantized_comm = True
+
+    def comm_ops_for(self, cfg: gpt.GPTConfig) -> tuple[str, ...]:
+        """tpukit `shardings.py:1170-1179` in the port's calls: the trunk's
+        gather and reduce-scatter and the summed leaves' all-reduces on a
+        grid, the exchange where the expert axis spans ranks."""
+        ops = {"all-reduce"} if self.grid.size > 1 else set()
+        if self.grid.expert > 1 and self.dispatch != "xla":
+            ops.add("all-to-all")
+        if self.grid.size > 1:
+            ops.update({"all-gather", "reduce-scatter"})
+        return tuple(sorted(ops))
+
+    def dispatch_comm(self, cfg: gpt.GPTConfig, global_batch: int, seq: int) -> dict | None:
+        """The exchange's calls of one step (tpukit `shardings.py:1269`):
+        `moe_dispatch.expected_a2a` on this grid for the a2a and pallas
+        dispatches (the pallas dispatch rides the same exchange); None for
+        "xla" and dense configs. `global_batch` is the rows of the whole
+        grid."""
+        if self.dispatch == "xla" or cfg.num_experts <= 0:
+            return None
+        from tpukit_torch.ops.moe_dispatch import expected_a2a
+
+        return expected_a2a(cfg, self.grid.data, self.grid.expert, global_batch, seq)
+
+    def overlap_comm(self, cfg: gpt.GPTConfig, params) -> dict | None:
+        """tpukit `shardings.py:1290`: the exchange is placed a layer at a
+        time, so `--grad_buckets` >= 1 declares the backward's 2 L hops,
+        each with the earlier layers' backward still to run."""
+        if cfg.grad_buckets < 1 or self.grid.expert <= 1:
+            return None
+        if cfg.num_experts <= 0 or self.dispatch == "xla":
+            return None
+        return {"all-to-all": 2 * cfg.num_layers}
 
     def __init__(self, grid: ExpertGrid | None = None, dispatch: str = "a2a"):
         self.grid = grid if grid is not None else ExpertGrid()
@@ -864,6 +915,21 @@ class DataParallel(_DataParallelBase):
     name = "ddp"
     quantized_comm = True
     _TK_NAME = "DataParallel"
+    comm_ops = ("all-reduce",)  # DDP's bucket all-reduces, the loss and count
+
+    def comm_ops_for(self, cfg: gpt.GPTConfig) -> tuple[str, ...]:
+        if self._hand_placed(cfg):
+            return ("all-gather", "all-reduce", "all-to-all")  # the two-shot pairs
+        return self.comm_ops
+
+    def overlap_comm(self, cfg: gpt.GPTConfig, params) -> dict | None:
+        """The bucket wire's declaration (tpukit `shardings.py:589`): each
+        bucket's two-shot pair (its all-to-all and its all-gather) must
+        have backward work left around it; None under two buckets."""
+        if cfg.grad_buckets < 2 or params is None:
+            return None
+        n = len(quant_comm.grad_bucket_plan(params, cfg.grad_buckets))
+        return {"all-to-all": n, "all-gather": n} if n >= 2 else None
 
     def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng=None):
         if not self._hand_placed(cfg):
@@ -915,6 +981,10 @@ class DataParallel(_DataParallelBase):
         ids = [device.index] if device.type == "cuda" else None
         self.module = nn.parallel.DistributedDataParallel(
             self.module, device_ids=ids, process_group=self.mesh.get_group())
+        # the default hook's arithmetic (each bucket divided by the world,
+        # then summed), issued through `torch.distributed.all_reduce`, where
+        # the comm audit's trace sees it; the reducer's own calls are C++
+        self.module.register_comm_hook(self.mesh.get_group(), default_hooks.allreduce_hook)
 
     def release(self) -> None:
         """Unwrap the tree before the group is destroyed: DDP's reducer
@@ -944,6 +1014,22 @@ class FSDP(_DataParallelBase):
     name = "fsdp"
     quantized_comm = True
     _TK_NAME = "FSDP"
+    # FSDP2's gather and reduce-scatter, the replicated leaves' all-reduces
+    comm_ops = ("all-gather", "reduce-scatter", "all-reduce")
+
+    def comm_ops_for(self, cfg: gpt.GPTConfig) -> tuple[str, ...]:
+        if self._hand_placed(cfg):
+            return ("all-gather", "all-reduce", "all-to-all")  # the packed reduce-scatter
+        return self.comm_ops
+
+    def overlap_comm(self, cfg: gpt.GPTConfig, params) -> dict | None:
+        """The bucket wire's declaration (tpukit `shardings.py:709`): each
+        bucket's reduce-scatter all-to-all; the forward gathers are at use
+        by design and not declared."""
+        if cfg.grad_buckets < 2 or params is None:
+            return None
+        n = len(self._buckets(params, cfg, self._dims(params)))
+        return {"all-to-all": n} if n >= 2 else None
 
     def __init__(self, cpu_offload: bool = False):
         super().__init__()
@@ -1173,6 +1259,7 @@ class TensorParallel(GridStrategy):
     may be given in place of the degrees (the serving grid's)."""
 
     name = "tp"
+    comm_ops = ("all-reduce",)  # the Megatron pairs, the vocab-parallel head and CE
     split_axis = "model"
     fused_head = False  # the vocab-sharded head is the vocab-parallel CE
     ce_cotangent = "replicated"  # every model rank differentiates the whole loss
@@ -1357,8 +1444,12 @@ class ContextParallel(Strategy):
         self.attention, self.host_permute = attention, host_permute
         self.mesh = mesh  # the (data, seq) mesh: given, or made by `setup`
         self.params: dict | None = None
+        # tpukit `shardings.py:825-830`: the head re-partitions or the K/V
+        # hops, and the gradients' all-reduce
+        self.comm_ops = ("collective-permute", "all-reduce")
         if attention == "ulysses":
             self.name = "cp-ulysses"
+            self.comm_ops = ("all-to-all", "all-reduce")
 
     @property
     def seq_size(self) -> int:

@@ -62,8 +62,11 @@ around every warm iteration and `--debug_dir` holds its bundles;
 `--profile_dir` the whole loop (`torch.profiler`); `--divergence_check_freq
 N` checksums the state every N steps into the heartbeats, and a divergence
 drives the deferred collective rollback; `--debug_nans` raises
-`FloatingPointError` at the first NaN. No `xla` or `compile_cache` record:
-the eager port compiles no programs.
+`FloatingPointError` at the first NaN. The `xla` record comes from the comm
+audit (`analysis/`): rank 0's first train and eval step recorded, their
+collectives against the strategy's plan; its `flops`, `bytes_accessed`,
+`transcendentals` and `memory` are None (no compiled program). No `compile_cache` record: the
+eager port compiles no programs.
 """
 
 from __future__ import annotations
@@ -88,6 +91,8 @@ from tpukit_torch import checkpoint as ckpt_lib
 from tpukit_torch import mesh as mesh_lib
 from tpukit_torch import reshard as reshard_lib
 from tpukit_torch import retry as retry_lib
+from tpukit_torch.analysis import comm_ir
+from tpukit_torch.analysis import lint_trace, summarize as lint_summarize, train_comm_plan
 from tpukit_torch.batching import IGNORE_INDEX, prepare_batch
 from tpukit_torch.data import get_dataset, get_tokenizer, transform_dataset
 from tpukit_torch.flags import TrainFlags, check_carried
@@ -886,7 +891,12 @@ def _fit_body(flags: TrainFlags, strategy: Strategy, num_epochs: int | None, dev
                     print(f"heartbeat: straggling processes {stragglers}", flush=True)
                     note_anomaly("straggler", host_step)
                     dump_bundle("straggler", host_step, stragglers=stragglers)
-                if checksum_fn is not None:
+                if checksum_fn is not None and not pending_deferred:
+                    # the world's beats of this window, then one report an
+                    # incident: a mismatch on the timeline that a decision
+                    # in flight will roll back is not reported again
+                    if nprocs > 1:
+                        heart.await_window(host_step, timeline)
                     diverged = [m for m in heart.check_divergence()
                                 if (m["process"], m["checksum_step"], m["checksum"])
                                 not in reported_divergence]
@@ -946,6 +956,47 @@ def _fit_body(flags: TrainFlags, strategy: Strategy, num_epochs: int | None, dev
     # card), so the watchdog arms only once the step is warm: --hang_timeout
     # bounds the steady-state step, never the build
     warm = {"train": False, "eval": False}
+    # the comm audit's `kind="xla"` record (tpukit :803-905), rank 0's first
+    # train and eval step run under `comm_ir.record_comm`: the collectives
+    # measured, the strategy's closed forms beside them and the lint verdict
+    xla_pending = {"train_step", "eval_step"} if (flags.metrics_log and p0) else set()
+
+    def audited(fn_name: str, step_fn, batch):
+        if fn_name not in xla_pending:
+            return step_fn()
+        xla_pending.discard(fn_name)
+        with comm_ir.record_comm() as trace:
+            out = step_fn()
+        with spans.span("telemetry"):
+            log_xla_record(fn_name, trace, batch)
+        return out
+
+    def log_xla_record(fn_name: str, trace, batch) -> None:
+        ids = batch["input_ids"]
+        # the rows of the whole grid: each loader's share times the loaders
+        global_batch = ids.shape[0] * strategy.row_shards
+        phase = "train" if fn_name == "train_step" else "eval"
+        extra: dict = {}
+        audit_fn = getattr(strategy, "dispatch_comm", None)
+        if audit_fn is not None:
+            audit = audit_fn(cfg, global_batch=global_batch, seq=ids.shape[1])
+            if audit:
+                extra["a2a_expected"] = audit[phase]
+        grad_fn = getattr(strategy, "grad_comm", None)
+        if grad_fn is not None and fn_name == "train_step":
+            gaudit = grad_fn(cfg, state.params)
+            if gaudit:
+                extra["quant_grad_expected"] = gaudit
+                extra["comm_dtype"] = cfg.comm_dtype
+        plan = train_comm_plan(strategy, cfg, params=state.params, global_batch=global_batch,
+                               seq=ids.shape[1], phase=phase)
+        extra["hlolint"] = lint_summarize(lint_trace(trace, plan=plan))
+        # no compiled program: tpukit's compiled_stats leaves a field its
+        # backend lacks as None
+        logger.log(kind="xla", fn=fn_name, strategy=strategy.name, backend=device.type,
+                   expected_comm_ops=list(strategy.comm_ops_for(cfg)), **extra, flops=None,
+                   bytes_accessed=None, transcendentals=None, memory=None,
+                   collectives=comm_ir.collective_summary(trace))
 
     def close_obs():
         """On any exit of the training block: flush a partial anomaly trace
@@ -1004,8 +1055,9 @@ def _fit_body(flags: TrainFlags, strategy: Strategy, num_epochs: int | None, dev
                         with spans.span("h2d"):
                             batch, targets = host_to_device(host, device)
                     with spans.span("step"):
-                        out = train_step(state, cfg, strategy, batch, targets, seed=flags.seed,
-                                         log_grad_norms=flags.log_grad_norms)
+                        out = audited("train_step", lambda: train_step(
+                            state, cfg, strategy, batch, targets, seed=flags.seed,
+                            log_grad_norms=flags.log_grad_norms), batch)
                     loss, norms = out if flags.log_grad_norms else (out, None)
                     warm["train"] = True
                     host_step += 1
@@ -1073,7 +1125,8 @@ def _fit_body(flags: TrainFlags, strategy: Strategy, num_epochs: int | None, dev
                 with spans.span("eval"):
                     batch, targets = on_device(raw)
                     weight = float((targets != IGNORE_INDEX).sum())
-                    loss, acc = eval_step(state, cfg, strategy, batch, targets)
+                    loss, acc = audited("eval_step", lambda: eval_step(
+                        state, cfg, strategy, batch, targets), batch)
                     warm["eval"] = True
                     if weight > 0.0:
                         total_loss += float(loss) * weight
