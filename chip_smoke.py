@@ -270,8 +270,8 @@ not 0:
      them too; a `--debug_nans` run over one window, preempted at step 9,
      whose checkpoint's bytes (every parameter and the AdamW state) equal
      those of phase 39 (b)'s run without the flag;
- 41. serving telemetry on the card: phase 4's engine and 64-request stream
-     (a) with every serving plane on (request traces, the metrics plane,
+ 41. serving telemetry on the card: phase 4's engine and the first 32
+     requests of its stream (a) with every serving plane on (request traces, the metrics plane,
      `--slo`, a JSONL logger, a metrics dir) against all off, three runs
      each, alternated: tokens/s of each run, the medians and their ratio,
      the summary's prefill / decode / sync / other / dispatch / device
@@ -290,8 +290,9 @@ not 0:
      process of its own, then `tools/report.py --min_trace_complete 1.0`
      and `tools/traceview.py` on its JSONL and its merged snapshot;
  42. serving fleet on the card (`serve.fleet.FleetRouter` over
-     `ServeEngine` replicas on this card): (a) phase 4's engine and stream
-     through one engine and a fleet of two replicas, in turns, tokens/s of
+     `ServeEngine` replicas on this card): (a) phase 4's engine and the
+     first 32 requests of its stream through one engine and a fleet of two
+     replicas, in turns, tokens/s of
      each, the paged kernels launching layers x the replicas' summed ticks;
      at f32 with 4 layers (phase 5's) the fleet's greedy tokens equal one
      engine's, each request once; (b) `replica_kill@8:1` mid-stream: the
@@ -318,12 +319,17 @@ not 0:
  43. the comm audit and the native tokenizer on the card
      (`comm_audit_and_tokenizer`): the traces phases 11, 33 and 38
      recorded, each linted against its plan (`tpukit_torch.analysis`):
-     the measured collectives equal the plan, no error but an overlap
-     gate finding (fault C10), printed as such, the kernels launched as
-     the phase's steps; recipe 2's `kind="xla"` records (phase 18) with
-     tpukit's keys, `tools/report.py` exit 0 on them; the native
-     tokenizer built and used, its ids and masks byte-equal to the Python
-     encoder's on the fixture corpus, both walls;
+     the measured collectives equal the plan, no error (the overlap
+     gate's included), the kernels launched as the phase's steps;
+     recipe 2's `kind="xla"` records (phase 18) with tpukit's keys,
+     `tools/report.py` exit 0 on them; the native tokenizer built and
+     used, its ids and masks byte-equal to the Python encoder's on the
+     fixture corpus, both walls;
+ 44. the bench twin (`bench_twin_on_card`): the headline step of `python
+     -m tpukit_torch.bench` at tpukit's bench config, its `kind="xla"`
+     record clean, the flash and CE kernels launching as its steps need;
+     `comm_overlap` at 2 steps, every rung without error, with tpukit's
+     row keys, FSDP's three rungs the same loss bit for bit;
 then one JSON line of kernel results (the flash and CE rows with their
 launches under CP, under the quantized wires and in phase 40's telemetry
 step, the grouped rows with
@@ -345,6 +351,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -2603,15 +2610,17 @@ def gloo_rank(flag: str, rank: int, store: str, out: str) -> int:
     world (`--ep-gloo-rank`, each rank its half of the rows; then again
     with the int8 and the bf16 exchange of phase 38, their results under
     `int8/` and `bf16/`) or of phase 38's DataParallel int8 world
-    (`--dp-gloo-rank`, each rank its half of the rows): gloo on cuda:0;
-    rank 0 writes the losses, the flash, CE and grouped launches and the
+    (`--dp-gloo-rank`, each rank its half of the rows; then again at f32
+    with one bucket and with 4, under `b1/` and `b4/`, with the deferred
+    bucket steps taken under `b4/bucket_steps`): gloo on cuda:0; rank 0
+    writes the losses, the flash, CE and grouped launches and the
     parameters and first gradients whole to `out`."""
     torch.distributed.init_process_group("gloo", init_method=f"file://{store}", world_size=2,
                                          rank=rank)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     try:
-        runs = [("", None)]  # (prefix, comm_dtype) of each run of this world
+        runs = [("", {})]  # (prefix, config fields) of each run of this world
         if flag == "--tp-gloo-rank":
             cfg, base, batches = _tp_small(dev)
             make = lambda: TensorParallel(model=2)  # noqa: E731
@@ -2620,19 +2629,31 @@ def gloo_rank(flag: str, rank: int, store: str, out: str) -> int:
             make = lambda: ContextParallel(attention="ulysses")  # noqa: E731
         elif flag == "--dp-gloo-rank":
             cfg, base, batches = _tp_small(dev)
-            make, runs = DataParallel, [("", "int8")]
+            make = DataParallel
+            runs = [("", dict(comm_dtype="int8")), ("b1/", dict(grad_buckets=1)),
+                    ("b4/", dict(grad_buckets=4))]
             batches = [_rows_of(b, rank, 2) for b in batches]
         else:
             cfg, base, batches = _ep_small(dev)
             make = lambda: ExpertParallel(ExpertGrid(data=1, expert=2), dispatch="pallas")  # noqa: E731,E501
             batches = [_rows_of(b, rank, 2) for b in batches]
-            runs += [(f"{c}/", c) for c in QUANT_EXCHANGES]
+            runs += [(f"{c}/", dict(comm_dtype=c)) for c in QUANT_EXCHANGES]
         result = {}
-        for prefix, comm in runs:
-            run_cfg = cfg if comm is None else cfg.replace(comm_dtype=comm)
-            audit = {} if flag == "--dp-gloo-rank" else None
+        bucket_steps = []
+        real_step = DataParallel._bucket_step
+
+        def counted(self, *args):
+            bucket_steps.append(1)
+            return real_step(self, *args)
+
+        DataParallel._bucket_step = counted
+        for prefix, fields in runs:
+            run_cfg = cfg.replace(**fields)
+            audit = {} if flag == "--dp-gloo-rank" and not prefix else None
+            bucket_steps.clear()
             losses, whole, flash, grads = _tp_steps(run_cfg, base, batches, make(),
                                                     audit=audit)
+            result[f"{prefix}bucket_steps"] = np.int64(len(bucket_steps))
             if audit:  # phase 43: rank 0's trace of the hand-placed step, linted
                 plan = audit["plan"]
                 result["audit"] = json.dumps(dict(
@@ -2988,6 +3009,7 @@ QUANT_FULL = {  # phase 38's full-width runs: label -> (strategy, config fields)
     "fsdp f32 buckets 4": (FSDP, dict(grad_buckets=4)),
 }
 EP_FIRST_STEP_TOL, FINAL_LOSS_TOL = 1e-2, 2e-2  # tests/test_quant_comm.py's EP gate
+BUCKET_TOL = (1e-7, 1e-5)  # (atol, rtol): GRAD_TOL of tests/test_torch_distributed.py
 QUANT_AUDITED = ("ddp int8", "fsdp f32 buckets 4")  # phase 43's traces of phase 38's warm-ups
 
 
@@ -3076,7 +3098,15 @@ def quant_gloo_and_ep(dev, ep: dict) -> dict:
     bf16 exchange (the same spawn): each rank's grouped kernels launched
     layers x steps times, and the losses against the f32 exchange's within
     the EP band of `tests/test_quant_comm.py` (the first step 1e-2, every
-    step 2e-2). Returns rank 0's launches of each."""
+    step 2e-2). Returns rank 0's launches of each.
+    The same two ranks then run DataParallel at f32 with one bucket (the
+    blocking step) and with 4 (the bucket wires issued from the backward,
+    `ops/deferred.py`, which runs only on two ranks or more): the deferred
+    step taken in the first gradient and in every step, the flash and CE
+    launches as the int8 run's, the first gradients and the losses of the
+    two within BUCKET_TOL and the parameters within AdamW's 2 x lr x steps
+    (all bit-equal on the CPU, where `tests/test_torch_distributed.py`
+    holds them; the count of bit-equal elements is printed)."""
     cfg, base, batches = _tp_small(dev)
     qcfg = cfg.replace(comm_dtype="int8")
     loss, ref_g, ref_step = _two_shot_in_process(qcfg, base, batches[0])
@@ -3105,6 +3135,31 @@ def quant_gloo_and_ep(dev, ep: dict) -> dict:
         raise AssertionError(f"DataParallel int8 over gloo disagrees with the step in one "
                              f"process: loss {losses[0]} vs {loss}, excess {worst}, "
                              f"launches {counts}")
+    b1_losses, b4_losses = got["b1/losses"].tolist(), got["b4/losses"].tolist()
+    worst, drift, equal, total = 0.0, 0.0, 0, 0
+    for key in ["losses"] + [f"g{i}" for i in range(len(ref_g))]:
+        a, b = got[f"b4/{key}"], got[f"b1/{key}"]
+        worst = max(worst, float((np.abs(a - b) - BUCKET_TOL[1] * np.abs(b)).max()))
+        equal += int((a == b).sum())
+        total += a.size
+    for key in [k[3:] for k in got if k.startswith("b1/p")]:
+        a, b = got[f"b4/{key}"], got[f"b1/{key}"]
+        drift = max(drift, float(np.abs(a - b).max()))
+        equal += int((a == b).sum())
+        total += a.size
+    b4_counts = {k: int(got[f"b4/count/{k}"]) for k in want}
+    print(f"ddp f32 over two gloo ranks, 4 buckets from the backward against one bucket: "
+          f"{int(got['b4/bucket_steps'])} deferred bucket steps (want {steps + 1}); losses "
+          f"{b4_losses} vs {b1_losses}; first gradients and parameters bit-equal in {equal} "
+          f"of {total} elements, the worst excess of losses and gradients over rtol "
+          f"{BUCKET_TOL[1]} {worst:.3e} (bar {BUCKET_TOL[0]}), parameters within {drift:.3e} "
+          f"(AdamW's bar 2 x lr x steps {2e-4 * steps:.0e}); launches {b4_counts} (want "
+          f"{want})", flush=True)
+    if (int(got["b4/bucket_steps"]) != steps + 1 or int(got["b1/bucket_steps"]) != 0
+            or not worst <= BUCKET_TOL[0] or not drift <= 2e-4 * steps or b4_counts != want):
+        raise AssertionError(f"DataParallel's deferred bucket step disagrees with the blocking "
+                             f"one: excess {worst}, launches {b4_counts}, bucket steps "
+                             f"{got['b4/bucket_steps']} / {got['b1/bucket_steps']}")
     ref = ep["got"]["losses"].tolist()
     grouped = ("forward_up_f32", "forward_down_f32", "backward_dh_f32", "backward_dx_f32",
                "backward_dwu_f32", "backward_dwd_f32")
@@ -3137,8 +3192,7 @@ def _audit_verdict(name: str, measured: dict, plan_ops: dict | None, exhaustive:
                    findings: list) -> list:
     """Phase 43's bars on one trace: the measured collectives equal the
     plan's (every kind, for an exhaustive plan) and lint finds no error,
-    an overlap gate finding aside (fault C10), printed as such. Returns the
-    gate findings."""
+    the overlap gate's included. Returns the gate's findings."""
     if plan_ops is not None:
         for op, want in plan_ops.items():
             got = measured.get(op, {"count": 0, "bytes": 0})
@@ -3146,15 +3200,10 @@ def _audit_verdict(name: str, measured: dict, plan_ops: dict | None, exhaustive:
                 raise AssertionError(f"{name}: {op} measured {got} != planned {want}")
         if exhaustive and set(measured) - set(plan_ops):
             raise AssertionError(f"{name}: unplanned collectives {measured} (plan {plan_ops})")
-    gate = [f for f in findings if f["severity"] == "error" and f["rule"] == "overlap"
-            and "declared" in f.get("data", {})]
-    errors = [f for f in findings if f["severity"] == "error" and f not in gate]
+    errors = [f for f in findings if f["severity"] == "error"]
     if errors:
         raise AssertionError(f"{name}: comm audit errors {errors}")
-    for f in gate:
-        print(f"  {name}: overlap gate finding (fault C10, reported as found): {f['message']}",
-              flush=True)
-    return gate
+    return [f for f in findings if f["rule"] == "overlap" and "declared" in f.get("data", {})]
 
 
 def comm_audit_and_tokenizer(dev, audits: dict, gloo: dict, smi: str) -> dict:
@@ -3167,8 +3216,8 @@ def comm_audit_and_tokenizer(dev, audits: dict, gloo: dict, smi: str) -> dict:
     grid decode (a whole warm-up run of 4 requests, against the per-tick
     plan, exhaustive); and rank 0 of phase 38's DDP int8 over two gloo
     ranks (its first `value_and_grad`). Each: the measured collectives
-    equal the plan; `lint_trace` finds no error but an overlap gate finding
-    (C10), printed as such; the kernels' launches those of the phase's
+    equal the plan; `lint_trace` finds no error, the overlap gate's
+    included; the kernels' launches those of the phase's
     steps (a dense step phase 7's share, the e8 step phase 11's, a decode
     tick's paged kernels phase 33's rate). What the audit costs: the
     recorded ninth step's wall beside the timed steps' mean, and the
@@ -3246,6 +3295,56 @@ def comm_audit_and_tokenizer(dev, audits: dict, gloo: dict, smi: str) -> dict:
         raise AssertionError(f"native tokenizer: equal {same}, batches "
                              f"{native.encodes - before}")
     return dict(audited=rows, native_ms=native_s * 1e3, python_ms=python_s * 1e3)
+
+
+BENCH_STEPS = 2  # phase 44: the bench twin's windows, 2 steps each
+OVERLAP_ROW_KEYS = ["strategy", "comm_dtype", "grad_buckets", "step_time_s",
+                    "tokens_per_sec_per_chip", "bytes_match", "overlap",
+                    "involuntary_remat_warnings", "final_loss"]  # tpukit bench.py :1577-1587
+
+
+def bench_twin_on_card(dev, smi: str) -> dict:
+    """Phase 44: the bench twin (`tpukit_torch.bench`) in a world of one
+    over NCCL, at tpukit's bench config (dim 256, 8 layers, S 255, GPT-2
+    vocab, bf16, batch 64): (a) the headline's step (one recorded step, two
+    warm-up steps, one window of BENCH_STEPS), whose `kind="xla"` record has
+    tpukit's keys and a clean lint, the flash and CE kernels launching as a
+    step of it needs (the layers' flash launches and `ce_want` a step);
+    (b) `comm_overlap` at BENCH_STEPS: nine rungs with tpukit's row keys and
+    no error; FSDP's three rungs (f32, int8, int8 with 4 buckets: no wire
+    at a world of one, where the bucket step defers nothing) the same
+    final loss, bit for bit."""
+    from tpukit_torch import bench
+    from tpukit_torch.bench import __main__ as bench_main
+
+    cfg = bench_main.bench_config()
+    steps = 1 + 2 + BENCH_STEPS
+    reset_counts()
+    head = bench_main.headline(cfg, 64, steps=BENCH_STEPS, windows=1, device=dev)
+    got = read_counts()
+    xla = head["xla"]
+    if set(xla) - {"time", "a2a_expected", "quant_grad_expected",
+                   "comm_dtype"} != XLA_KEYS or not xla["hlolint"]["clean"]:
+        raise AssertionError(f"(a) headline xla record: {xla}")
+    want = dict(ce_want(steps, head["batch"] * (cfg.max_position_embeddings - 1), cfg),
+                flash_forward=steps * cfg.num_layers)
+    if {k: got[k] for k in want} != want or not math.isfinite(head["final_loss"]):
+        raise AssertionError(f"(a) headline: launches {got} != {want}, loss "
+                             f"{head['final_loss']}")
+    print(f"  (a) headline: {head['tps_chip']:.1f} tokens/s a card, MFU {head['mfu']:.4f}, "
+          f"final loss {head['final_loss']:.4f}, launches {want} ({smi})", flush=True)
+    del head
+    _free()
+    rows = bench.bench_comm_overlap(cfg, 1, steps=BENCH_STEPS, device=dev)
+    for r in rows:
+        if "error" in r or list(r)[:len(OVERLAP_ROW_KEYS)] != OVERLAP_ROW_KEYS:
+            raise AssertionError(f"(b) comm_overlap row: {r}")
+        print(f"  (b) {r['strategy']} {r['comm_dtype']} b{r['grad_buckets']}: step "
+              f"{r['step_time_s']:.6f} s, loss {r['final_loss']}", flush=True)
+    fsdp = {r["final_loss"] for r in rows if r["strategy"] == "fsdp"}
+    if len(fsdp) != 1:
+        raise AssertionError(f"(b) FSDP's rungs differ at a world of one: {fsdp}")
+    return {"headline_launches": want, "comm_overlap": rows}
 
 
 # phase 39's recipe 1: 2112 rows of batch 64, 33 steps (windows close at
@@ -3669,19 +3768,24 @@ def _split_line(s: dict) -> str:
         "prefill_s", "decode_s", "sync_s", "other_s", "dispatch_overhead_s", "device_s"))
 
 
+TELEMETRY_TIMED = 32  # phase 41 (a)'s runs: the first half of phase 4's 64 requests
+
+
 def serving_telemetry_on_card(dev, smi: str) -> dict:
     """Phase 41 (see the module docstring)."""
     work = ROOT / "build" / "chip_smoke_serve_obs"
     shutil.rmtree(work, ignore_errors=True)
     cfg, params, serve, reqs, eos = build(dev, fused=True)
     serve_run(params, cfg, serve, reqs[:4], dev, eos)  # warm-up
-    # (a) the cost: on, off, three times each, alternated
+    # (a) the cost: on, off, three times each, alternated, on the first
+    # TELEMETRY_TIMED requests
+    timed = reqs[:TELEMETRY_TIMED]
     runs, first = [], None
     for i, on in enumerate((True, False) * 3):
         tel = _serve_telemetry(work / f"a{i}") if on else {}
         reset_counts()
         t0 = time.perf_counter()
-        engine, outs = serve_run(params, cfg, serve, reqs, dev, eos, **tel)
+        engine, outs = serve_run(params, cfg, serve, timed, dev, eos, **tel)
         wall = time.perf_counter() - t0
         counts = {k: v for k, v in read_counts().items() if k.startswith("paged_")}
         s = engine.last_summary
@@ -3689,12 +3793,12 @@ def serving_telemetry_on_card(dev, smi: str) -> dict:
         print(f"  (a) run {i} telemetry {'on ' if on else 'off'}: {s['generated_tokens']} tokens "
               f"in {wall:.4f} s ({s['generated_tokens'] / wall:.1f} tokens/s), "
               f"{engine.steps} ticks; {_split_line(s)}; paged launches {counts}", flush=True)
-        check_outputs(outs, reqs, cfg)
+        check_outputs(outs, timed, cfg)
         if counts != want or engine.steps == 0:
             raise AssertionError(f"(a) run {i}: paged launches {counts} != {want}")
         if first is None:
             first = outs
-        _same_tokens({"this": outs, "first": first}, "first", [r.rid for r in reqs],
+        _same_tokens({"this": outs, "first": first}, "first", [r.rid for r in timed],
                      f"(a) run {i}")
         if on:
             recs = _check_serve_records(engine, work / f"a{i}" / "serve.jsonl", f"(a) run {i}")
@@ -3840,6 +3944,9 @@ def _paged_formula(run: dict, layers: int, what: str) -> int:
     return ticks
 
 
+FLEET_TIMED = 32  # phase 42 (a)'s timed turns: the first half of phase 4's 64 requests
+
+
 def serving_fleet_on_card(dev, smi: str, greedy: dict) -> dict:
     """Phase 42 (see the module docstring)."""
     work = ROOT / "build" / "chip_smoke_fleet"
@@ -3848,8 +3955,10 @@ def serving_fleet_on_card(dev, smi: str, greedy: dict) -> dict:
     out = {}
 
     # (a) tokens/s: phase 4's engine (bf16, 12 layers), one engine and a
-    # fleet of two replicas on this card, in turns after a warm-up
+    # fleet of two replicas on this card, in turns after a warm-up, on the
+    # first FLEET_TIMED requests of phase 4's stream
     cfg, params, serve, reqs, eos = build(dev, fused=True)
+    timed = reqs[:FLEET_TIMED]
     two = FleetConfig(replicas=2, window_steps=8)
     serve_run(params, cfg, serve, reqs[:4], dev, eos)
     _fleet_run(params, cfg, serve, reqs[:4], dev, eos, two)
@@ -3858,7 +3967,7 @@ def serving_fleet_on_card(dev, smi: str, greedy: dict) -> dict:
         if label == "single":
             reset_counts()
             t0 = time.perf_counter()
-            engine, outs = serve_run(params, cfg, serve, reqs, dev, eos)
+            engine, outs = serve_run(params, cfg, serve, timed, dev, eos)
             wall = time.perf_counter() - t0
             ticks = engine.steps
             counts = {k: v for k, v in read_counts().items() if k.startswith("paged_")}
@@ -3866,20 +3975,20 @@ def serving_fleet_on_card(dev, smi: str, greedy: dict) -> dict:
                 raise AssertionError(f"(a) single: paged launches {counts}")
             tps = engine.last_summary["generated_tokens"] / wall
         else:
-            run = _fleet_run(params, cfg, serve, reqs, dev, eos, two)
+            run = _fleet_run(params, cfg, serve, timed, dev, eos, two)
             ticks = _paged_formula(run, cfg.num_layers, "(a) fleet")
             outs, wall = run["outs"], run["wall"]
             tps = run["s"]["generated_tokens"] / wall
             out["paged_bf16"] = run["counts"]["paged_scores"]
             if run["s"]["tokens_per_sec"] is None:
                 raise AssertionError("(a) fleet_summary without tokens/s")
-        check_outputs(outs, reqs, cfg)
+        check_outputs(outs, timed, cfg)
         speed[label].append(tps)
         print(f"  (a) {label}: {wall:.3f} s, {tps:.1f} tokens/s, {ticks} ticks "
               f"(summed over replicas); paged launches = {cfg.num_layers} x ticks", flush=True)
     med = {k: float(np.median(v)) for k, v in speed.items()}
     out["tokens_per_s"] = med
-    print(f"  (a) bf16 12 layers, 64 requests ({smi}): one engine {med['single']:.1f} "
+    print(f"  (a) bf16 12 layers, {len(timed)} requests ({smi}): one engine {med['single']:.1f} "
           f"tokens/s, fleet of 2 {med['fleet']:.1f} (ratio {med['fleet'] / med['single']:.4f}; "
           f"phase 4 {greedy['tokens_per_s']:.1f})", flush=True)
     del params
@@ -4354,6 +4463,16 @@ def main() -> int:
     print(f"phase 43: {time.perf_counter() - t_a:.1f} s ({smi}); chip_smoke so far "
           f"{time.perf_counter() - _START:.1f} s", flush=True)
 
+    t_b = time.perf_counter()
+    with mesh_lib.scoped_runtime():
+        mesh_lib.initialize_runtime(dev)
+        phase("the bench twin (python -m tpukit_torch.bench's headline and comm_overlap at "
+              "2 steps, NCCL world of one)")
+        bench_twin = bench_twin_on_card(dev, smi)
+    print(f"phase 44: {time.perf_counter() - t_b:.1f} s ({smi}); chip_smoke so far "
+          f"{time.perf_counter() - _START:.1f} s", flush=True)
+    _free()
+
     fl, ce = trained["flash"], trained["ce"]
     tel = telemetry["counts"]  # one step of phase 40's telemetry run (all 17 equal)
 
@@ -4406,6 +4525,7 @@ def main() -> int:
               launches_under_comm_audit={k: a["counts"]["flash_forward"]
                                          for k, a in audits.items() if "flash_forward" in
                                          a["counts"]},
+              launches_under_bench=bench_twin["headline_launches"]["flash_forward"],
               at_ulysses_shape=trained["flash_8192"]),
         entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",
               c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],

@@ -294,3 +294,140 @@ def test_comm_flags_are_carried():
     assert (cfg.comm_dtype, cfg.quant_stochastic, cfg.grad_buckets) == ("int8", True, 3)
     with pytest.raises(SystemExit):
         parse_flags(["--comm_dtype", "int4"])
+
+
+# -- the deferred weight products of the bucket step ------------------------
+
+
+def _world_of_one_step(cfg, strategy):
+    params = strategy.setup(gpt.init_params(cfg, seed=0, device="cpu"))
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(4, 16)).astype(np.int64))
+    batch = {"input_ids": ids, "position_ids": torch.arange(16).expand(4, 16).contiguous(),
+             "mask": torch.zeros(4, 16, dtype=torch.bool)}
+    batch["mask"][1, 11:] = True
+    targets = torch.roll(ids, -1, 1)
+    targets[1, 11:] = -100
+    return params, batch, targets
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+@pytest.mark.parametrize("n_buckets,compute", [(1, "f32"), (2, "f32"), (3, "f32"), (5, "f32"),
+                                               (3, "bf16")])
+def test_deferred_weight_products_are_bit_equal(n_buckets, compute):
+    """`ops/deferred.Deferral` on the hand-placed step's objective (a world
+    of one): the activation-gradient chain with every weight product in
+    place but those of the most read bucket of `grad_bucket_plan`, which
+    run at its end, each bucket handed over inside the backward's graph
+    task, the last one last. Every leaf's gradient is bit-equal to one
+    `torch.autograd.grad` of the same objective, at 1, 2, 3 and 5 buckets;
+    so are `DataParallel`'s and `FSDP`'s deferred bucket steps (which
+    `value_and_grad` takes from two ranks up) and their steps at a world
+    of one."""
+    from tpukit_torch import mesh
+    from tpukit_torch.ops import deferred
+    from tpukit_torch.shardings import leaves
+
+    dtype = torch.float32 if compute == "f32" else torch.bfloat16
+    cfg = GPTConfig(**TINY, compute_dtype=dtype, grad_buckets=n_buckets)
+    with mesh.scoped_runtime():
+        mesh.initialize_runtime("cpu")
+        st = DataParallel()
+        params, batch, targets = _world_of_one_step(cfg, st)
+        objective, _ = st._local_objective(params, cfg, batch, targets, None)
+        ref = torch.autograd.grad(objective, leaves(params))
+
+        order = st._jax_order(params)
+        buckets = [[order[j] for j in idxs]
+                   for idxs in qc.grad_bucket_plan(params, n_buckets)]
+        d, last = st._deferral(params, cfg, buckets, leaves(params))
+        with d.active():
+            objective, _ = st._local_objective(d.capture(params), cfg, batch, targets, None)
+        assert d._products and all(any(k in d.late for k, _ in p.slots) for p in d._products)
+        seen, midway = [], []
+
+        def on_bucket(b, got):
+            seen.append((b, sorted(got), torch._C._current_graph_task_id() != -1))
+
+        got = d.backward(objective, buckets, last, on_bucket,
+                         on_midway=lambda: midway.append(len(seen)))
+        issue = [b for b in range(len(buckets)) if b != last] + [last]
+        assert seen == [(b, sorted(buckets[b]), True) for b in issue]
+        assert midway == [len(buckets) - 1]
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        for cls in (DataParallel, FSDP):
+            st = cls()
+            params, batch, targets = _world_of_one_step(cfg, st)
+            steps = [st.value_and_grad(params, cfg, batch, targets)[1]]
+            if n_buckets >= 2:
+                steps.append(st._bucket_step(params, cfg, batch, targets, None)[1])
+            for grads in steps:
+                for a, b in zip(leaves(grads), ref):
+                    assert torch.equal(_local(a), b), cls.__name__
+
+
+def test_late_bucket_is_the_most_read():
+    """`deferred.late_bucket`: the bucket the forward reads most (the later
+    on a tie), whose products are deferred and whose wire goes last."""
+    from tpukit_torch.ops import deferred
+
+    assert deferred.late_bucket([9, 8, 4, 9]) == 3
+    assert deferred.late_bucket([5, 1, 2]) == 0
+    assert deferred.late_bucket([3]) == 0
+
+
+def test_a_leaf_read_inside_and_outside_a_deferred_op_raises():
+    """A leaf whose gradient would be split between a deferred op and a
+    read outside one (a tied weight, a second use of a norm) raises rather
+    than losing the part read outside; so does a leaf read by two deferred
+    ops. A leaf read only outside deferred ops keeps its whole gradient."""
+    from tpukit_torch.ops import deferred
+
+    w = torch.randn(3, 4, requires_grad=True)
+    v = torch.randn(4, requires_grad=True)
+    x = torch.randn(2, 3)
+    mm = lambda x, p: torch.matmul(x, p["kernel"])
+
+    def step(second_read):
+        d = deferred.Deferral([w, v], late=[0])
+        tree = d.capture({"kernel": w, "bias": v})
+        with d.active():
+            y = deferred.run(mm, x, {"kernel": tree["kernel"]}) + tree["bias"]
+            y = second_read(y, tree)
+        return d.backward(y.square().sum(), [[1], [0]], 1, lambda b, got: None)
+
+    grads = step(lambda y, tree: y)
+    ref = torch.autograd.grad((torch.matmul(x, w) + v).square().sum(), [w, v])
+    assert all(torch.equal(a, b) for a, b in zip(grads, ref))
+    with pytest.raises(ValueError, match="both by a deferred op and outside one"):
+        step(lambda y, tree: y @ tree["kernel"].T)
+    with pytest.raises(ValueError, match="read by two deferred ops"):
+        step(lambda y, tree: deferred.run(lambda x, p: x @ p["k"].T, y, {"k": tree["kernel"]}))
+
+
+def test_remat_keeps_the_blocking_bucket_step():
+    """With `--remat_layers` a recomputed layer rebuilds its graph in the
+    backward, so no product is deferred: DataParallel and FSDP declare no
+    overlap and run the blocking step, whose gradients equal the deferred
+    bucket step's without remat (`_bucket_step`, which `value_and_grad`
+    takes from two ranks up), bit for bit."""
+    from tpukit_torch import mesh
+    from tpukit_torch.shardings import leaves
+
+    cfg = GPTConfig(**TINY, compute_dtype=torch.float32, grad_buckets=3)
+    with mesh.scoped_runtime():
+        mesh.initialize_runtime("cpu")
+        for cls in (DataParallel, FSDP):
+            st = cls()
+            params, batch, targets = _world_of_one_step(cfg, st)
+            assert st.overlap_comm(cfg, params) is not None
+            assert st.overlap_comm(cfg.replace(remat_layers=True), params) is None
+            _, deferred_grads = st._bucket_step(params, cfg, batch, targets, None)
+            _, remat_grads = st.value_and_grad(params, cfg.replace(remat_layers=True), batch,
+                                               targets)
+            for a, b in zip(leaves(deferred_grads), leaves(remat_grads)):
+                assert torch.equal(_local(a), _local(b)), cls.__name__

@@ -53,7 +53,8 @@ bytes, where the case counts); and
 `QUANT_STEPS`' trajectories, six AdamW steps on the global batch
 (`qtraj/<label>`). Then every audited world of `python -m
 tpukit_torch.analysis` in this world (`audit_worlds`: `audit/<name>`, each
-rank's measured collectives, plan and findings).
+rank's measured collectives, plan and findings), and in the world of 2 the
+bench twin's multi-rank records (`bench_records`: `bench/<record>`).
 
 With `serve/config` in the inputs the world serves instead: the serving
 cases of `tests/test_torch_serve.py` (`serve_main`), written to
@@ -251,6 +252,8 @@ def main() -> None:
     if "quant/x" in data.files:
         result.update(_quantized(data, init, cfg, batch, targets, world, rank))
         result.update(audit_worlds(world))
+        if world == 2:
+            result.update(bench_records(world))
 
     if rank == 0:
         np.savez(out / "result.npz", **result)
@@ -403,23 +406,62 @@ def _quantized(data, init, cfg, batch, targets, world: int, rank: int) -> dict:
 def audit_worlds(world: int) -> dict:
     """Every world of `python -m tpukit_torch.analysis` (`WORLDS`) run in
     this world: `audit/<name>`, JSON of every rank's measured collectives
-    (`collective_summary` of its trace), its plan and its lint findings."""
+    (`collective_summary` of its trace), its plan and its lint findings;
+    for the worlds that declare overlap, also each collective's op, issue
+    point and backward ops left (`calls`), and the clock's model backward
+    ops (`bwd`, their ordinals) with the step's op count (`ops`), from
+    which a test can rebuild the trace."""
     from tpukit_torch.analysis import __main__ as audit
     from tpukit_torch.analysis import collective_summary, lint_trace
 
     res = {}
     for name in audit.WORLDS:
         ctx = audit.build_world(name, world, torch.device("cpu"))
-        plan = ctx["plan"]
-        rec = {"measured": collective_summary(ctx["trace"]),
+        plan, trace = ctx["plan"], ctx["trace"]
+        rec = {"measured": collective_summary(trace),
                "plan": None if plan is None else dict(
                    ops=plan.ops, wire=plan.wire, exhaustive=plan.exhaustive,
                    overlap=plan.overlap),
-               "findings": [f.to_record() for f in lint_trace(ctx["trace"], plan=plan)]}
+               "findings": [f.to_record() for f in lint_trace(trace, plan=plan)]}
+        if plan is not None and plan.overlap:
+            wire = {c.node for c in trace.calls if c.node is not None}
+            rec["calls"] = [dict(op=c.op, fn=c.fn, dtype=c.dtype, bytes=c.bytes,
+                                 group=c.group, ops_at_issue=c.ops_at_issue,
+                                 in_backward=c.in_backward,
+                                 left=trace.backward_left(c) if c.in_backward else 0)
+                            for c in trace.collectives()]
+            rec["bwd"] = [o for o, node in trace._bwd if node not in wire]
+            rec["ops"] = trace.ops
         gathered = [None] * world
         dist.all_gather_object(gathered, rec)
         res[f"audit/{name}"] = json.dumps(gathered)
     return res
+
+
+# the bench twin's multi-rank records, at the tiny shape
+# tests/test_torch_bench.py holds against tpukit's (`BENCH_TINY` there)
+BENCH_TINY = dict(dim=32, head_dim=8, heads=4, num_layers=2, vocab_size=211,
+                  max_position_embeddings=17)
+BENCH_STEPS = 2
+
+
+def bench_records(world: int) -> dict:
+    """`tpukit_torch.bench`'s records that need several ranks, run in this
+    world at `BENCH_TINY` (f32), rank 0's as JSON: `bench/quant_comm`,
+    `bench/comm_overlap`, `bench/elastic_restore`."""
+    from tpukit_torch.bench import __main__ as bench_main
+    from tpukit_torch.bench import records
+
+    cfg = bench_main.bench_config(**BENCH_TINY, compute_dtype=torch.float32)
+    dev = torch.device("cpu")
+    return {
+        "bench/quant_comm": json.dumps(records.bench_quant_comm(cfg, world, steps=BENCH_STEPS,
+                                                                device=dev)),
+        "bench/comm_overlap": json.dumps(records.bench_comm_overlap(
+            cfg, world, steps=BENCH_STEPS, device=dev)),
+        "bench/elastic_restore": json.dumps(records.bench_elastic_restore(cfg, world,
+                                                                          device=dev)),
+    }
 
 
 def _step(state, strategy, cfg, batch, targets, rng=None, norms: dict | None = None):

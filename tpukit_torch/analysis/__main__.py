@@ -17,7 +17,9 @@ verify, and a fleet replica's. Each step runs under
 (`plan.train_comm_plan`, `decode_comm_plan`, `fleet_decode_comm_plan`).
 Every rank lints its own trace; rank 0 writes the findings of all as
 `kind="hlolint"` JSONL (stdout, or `--out`) with `world` and `rank`, which
-`tools/report.py` renders. Any error finding exits 1.
+`tools/report.py` renders. Any error finding exits 1. For a world that
+declares overlap, rank 0 also prints each collective's backward ops left
+at its issue (`CommTrace.backward_left`, what the gate reads) to stderr.
 
 tpukit's `--hlo` fixture mode and its `sched_loop` world have no
 counterpart: the port has no HLO, and its decode window runs on the host
@@ -106,7 +108,7 @@ def _train_world(name: str, world: int, device) -> dict:
                  rows.stop - rows.start, seq).contiguous(),
              "mask": torch.zeros((rows.stop - rows.start, seq), dtype=torch.bool,
                                  device=device)}
-    targets = torch.from_numpy(np.roll(ids, -1, axis=1)[rows].astype(np.int64)).to(device)
+    targets = torch.from_numpy(np.roll(ids, -1, axis=1)[rows]).to(device)  # int32: the CE kernel's
     with comm_ir.record_comm() as trace:
         train_step(state, cfg, strategy, batch, targets)
     plan = train_comm_plan(strategy, cfg, params=state.params, global_batch=batch_n, seq=seq)
@@ -229,6 +231,11 @@ def _rank_main(args) -> int:
                   f"({s['errors']} errors, {s['warnings']} warnings on rank 0; "
                   f"{sum(r['severity'] == 'error' for recs in gathered for r in recs)} "
                   f"errors on {args.world} ranks){planned}", file=sys.stderr)
+            if plan is not None and plan.overlap:
+                trace = ctx["trace"]
+                for c in trace.collectives():
+                    print(f"  {c.fn} %{c.name}: {trace.backward_left(c)} backward op(s) left "
+                          "at its issue (rank 0)", file=sys.stderr)
             for recs in gathered:
                 for rec in recs:
                     out.write(json.dumps(rec) + "\n")

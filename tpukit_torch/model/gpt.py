@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from tpukit_torch import random as tk_random
 from tpukit_torch import resolve_device
 from tpukit_torch.ops import paged_attention
+from tpukit_torch.ops import deferred
 from tpukit_torch.ops.attention import causal_attention
 from tpukit_torch.ops.layers import (
     copy_to_model,
@@ -296,14 +297,21 @@ def apply_embeddings(params: dict, cfg: GPTConfig, input_ids, position_ids):
     table's vocab rows split over `cfg.tp` when it is a shard)."""
     emb = params["embeddings"]
     tp = _model_group(cfg, emb["token"], 0, cfg.padded_vocab_size)
-    x = (vocab_parallel_embedding(emb["token"], input_ids, tp)
-         + emb["position"][position_ids.long()])
-    return x.to(cfg.compute_dtype)
+    return deferred.run(_embed, None, emb, input_ids, position_ids, tp).to(cfg.compute_dtype)
+
+
+def _embed(_, emb: dict, input_ids, position_ids, tp):
+    return (vocab_parallel_embedding(emb["token"], input_ids, tp)
+            + emb["position"][position_ids.long()])
 
 
 def _row_parallel(x, params: dict, compute_dtype, tp):
     """`linear` of a row-parallel product: this rank's partial product,
     summed over `tp` (None: whole), then the replicated bias, once."""
+    return deferred.run(_row_product, x, params, compute_dtype, tp)
+
+
+def _row_product(x, params: dict, compute_dtype, tp):
     y = reduce_from_model(torch.matmul(x.to(compute_dtype),
                                        params["kernel"].to(compute_dtype)), tp)
     if "bias" in params:
@@ -339,8 +347,8 @@ def _apply_attention(layer, cfg: GPTConfig, x, pad_mask, rng=None, rng_row0: int
     attn, tp = _attention_params(layer, cfg)
     x = copy_to_model(x, tp)
     if cfg.fuse_qkv:
-        kernel = torch.cat([attn[n]["kernel"] for n in ("q", "k", "v")], dim=1)
-        q, k, v = linear(x, {"kernel": kernel}, cdt).split(heads * cfg.head_dim, dim=-1)
+        kernels = {n: attn[n]["kernel"] for n in ("q", "k", "v")}
+        q, k, v = deferred.run(_fused_qkv, x, kernels, cdt).split(heads * cfg.head_dim, dim=-1)
     else:
         q, k, v = (linear(x, attn[n], cdt) for n in ("q", "k", "v"))
     split = lambda t: t.reshape(batch, seq, heads, cfg.head_dim).transpose(1, 2).contiguous()
@@ -350,6 +358,13 @@ def _apply_attention(layer, cfg: GPTConfig, x, pad_mask, rng=None, rng_row0: int
     out = out.transpose(1, 2).reshape(batch, seq, heads * cfg.head_dim)
     out = _row_parallel(out, attn["out"], cdt, tp)
     return dropout(out, cfg.dropout, rng, rng_row0)
+
+
+def _fused_qkv(x, kernels: dict, cdt):
+    """The q/k/v projections as one product of the concatenated kernels
+    (one weight-gradient product serves the three leaves)."""
+    kernel = torch.cat([kernels[n] for n in ("q", "k", "v")], dim=1)
+    return linear(x, {"kernel": kernel}, cdt)
 
 
 def apply_decoder_layer(layer: dict, cfg: GPTConfig, x, pad_mask, rng=None,

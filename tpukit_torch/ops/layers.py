@@ -22,13 +22,20 @@ import torch
 import torch.distributed as dist
 
 from tpukit_torch import random as tk_random
+from tpukit_torch.ops import deferred
 
 IGNORE_INDEX = -100  # the F.cross_entropy ignore index every loss path uses
 
 
 def linear(x: torch.Tensor, params: dict, compute_dtype=None) -> torch.Tensor:
     """y = x @ kernel + bias, kernel `[in, out]`. Both operands and the bias
-    are cast to the compute dtype, and the bias is added in it."""
+    are cast to the compute dtype, and the bias is added in it. The weight
+    gradients are deferred under an active `deferred.Deferral` that defers
+    one of its leaves."""
+    return deferred.run(_linear, x, params, compute_dtype)
+
+
+def _linear(x: torch.Tensor, params: dict, compute_dtype=None) -> torch.Tensor:
     dtype = compute_dtype or x.dtype
     y = torch.matmul(x.to(dtype), params["kernel"].to(dtype))
     if "bias" in params:
@@ -38,11 +45,19 @@ def linear(x: torch.Tensor, params: dict, compute_dtype=None) -> torch.Tensor:
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis in f32, spelled as `jnp.var` spells the
-    population variance (mean of squared deviations). Returns f32."""
+    population variance (mean of squared deviations). Returns f32. The
+    scale's and bias's gradients are deferred under an active
+    `deferred.Deferral` that defers one of them (the affine alone: `x` has several uses in the
+    normalization, whose gradients must add up in the step's graph, in its
+    order)."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)
     normed = (xf - mean) * torch.rsqrt(var + eps)
+    return deferred.run(_affine, normed, params)
+
+
+def _affine(normed: torch.Tensor, params: dict) -> torch.Tensor:
     return normed * params["scale"].float() + params["bias"].float()
 
 

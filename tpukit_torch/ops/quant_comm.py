@@ -186,21 +186,29 @@ def _group_rank(group) -> int:
 # -- the wire ---------------------------------------------------------------
 
 
-def _a2a_rows(rows: torch.Tensor, group) -> torch.Tensor:
+def _a2a_rows(rows: torch.Tensor, group, async_op: bool = False):
     """Row j of `rows [world, n]` to rank j; row i of the result from rank
-    i (tpukit's tiled all_to_all, split and concat axis 0)."""
+    i (tpukit's tiled all_to_all, split and concat axis 0). With
+    `async_op`, (the result's buffer, the handle)."""
     rows = rows.contiguous()
     out = torch.empty_like(rows)
-    dist.all_to_all_single(out, rows, group=group)
-    return out
+    work = dist.all_to_all_single(out, rows, group=group, async_op=async_op)
+    return (out, work) if async_op else out
 
 
-def _gather_rows(row: torch.Tensor, group, world: int) -> torch.Tensor:
-    """`[world, *row.shape]`: every rank's `row` in rank order."""
+def _gather_rows(row: torch.Tensor, group, world: int, async_op: bool = False):
+    """`[world, *row.shape]`: every rank's `row` in rank order. With
+    `async_op`, (the result's buffer, the handle)."""
     row = row.contiguous()
     out = row.new_empty(world * row.numel())  # gloo takes a flat output
-    dist.all_gather_into_tensor(out, row.reshape(-1), group=group)
-    return out.view((world,) + tuple(row.shape))
+    work = dist.all_gather_into_tensor(out, row.reshape(-1), group=group, async_op=async_op)
+    out = out.view((world,) + tuple(row.shape))
+    return (out, work) if async_op else out
+
+
+def _wait(work) -> None:
+    if work is not None:
+        work.wait()
 
 
 def _sum_rows(vals: torch.Tensor) -> torch.Tensor:
@@ -230,30 +238,83 @@ def _sum_packed(packed: torch.Tensor, n_c: int, block: int) -> torch.Tensor:
     return acc.reshape(-1)[:n_c]
 
 
+class _ScatterShot:
+    """The reduce-scatter phase of `parts [world, n_c]` f32 (row j bound for
+    rank j) in two steps: `start` packs the rows (f32 raw, bf16 cast, int8
+    packed with the key `rng`) and issues one `all_to_all_single`,
+    `reduced` waits on it and sums the received rows in f32 in rank order:
+    this rank's `[n_c]`. With `async_op` the collective returns a handle,
+    so work can run between the steps; back to back they are the same bits
+    either way."""
+
+    def __init__(self, parts: torch.Tensor, group, world: int, dtype: str, block: int,
+                 rng=None, async_op: bool = False):
+        self.parts, self.group, self.world = parts, group, world
+        self.dtype, self.block, self.rng, self.async_op = dtype, block, rng, async_op
+        self.chunk = parts.shape[1]
+        self.recv = self.work = None
+
+    def _move(self, fn, t, *args):
+        if self.world == 1:
+            return t[None] if fn is _gather_rows else t
+        if not self.async_op:
+            return fn(t, self.group, *args)
+        out, self.work = fn(t, self.group, *args, async_op=True)
+        return out
+
+    def start(self) -> None:
+        if self.dtype == "int8":
+            payload = pack_quantized(self.parts, self.block, self.rng)
+        else:
+            payload = self.parts if self.dtype == "f32" else self.parts.to(torch.bfloat16)
+        self.recv = self._move(_a2a_rows, payload)
+        self.parts = None
+
+    def reduced(self) -> torch.Tensor:
+        _wait(self.work)
+        self.work = None
+        recv, self.recv = self.recv, None
+        if self.dtype == "int8":
+            return _sum_packed(recv, self.chunk, self.block)
+        return _sum_rows(recv)
+
+
+class _TwoShot(_ScatterShot):
+    """The two-shot all-reduce of `parts [world, chunk]` f32: `_ScatterShot`
+    (`start`), then `middle` re-packs the reduced chunk (the second key of
+    `rng` split in two) and issues the all-gather, and `finish` waits on it
+    and returns `[world * chunk]` f32, the whole sum on every rank."""
+
+    def __init__(self, parts: torch.Tensor, group, world: int, dtype: str, block: int,
+                 rng=None, async_op: bool = False):
+        r1 = self.r2 = None
+        if dtype == "int8" and rng is not None:
+            r1, self.r2 = tk_random.split(rng, 2)
+        super().__init__(parts, group, world, dtype, block, r1, async_op)
+        self.gathered = None
+
+    def middle(self) -> None:
+        red = self.reduced()
+        if self.dtype == "int8":
+            row = pack_quantized(red[None], self.block, self.r2)[0]
+        else:
+            row = red if self.dtype == "f32" else red.to(torch.bfloat16)
+        self.gathered = self._move(_gather_rows, row, self.world)
+
+    def finish(self) -> torch.Tensor:
+        _wait(self.work)
+        if self.dtype == "int8":
+            return unpack_dequantized(self.gathered, self.chunk, self.block).reshape(-1)
+        return self.gathered.float().reshape(-1)
+
+
 def _two_shot(parts: torch.Tensor, group, world: int, dtype: str, block: int,
               rng=None) -> torch.Tensor:
-    """The two-shot all-reduce of `parts [world, chunk]` f32 (row j is the
-    chunk rank j reduces): `[world * chunk]` f32, the whole sum on every
-    rank. f32 rows travel raw, bf16 cast, int8 packed."""
-    chunk = parts.shape[1]
-    if dtype == "int8":
-        r1 = r2 = None
-        if rng is not None:
-            r1, r2 = tk_random.split(rng, 2)
-        packed = pack_quantized(parts, block, r1)
-        if world > 1:
-            packed = _a2a_rows(packed, group)
-        red = _sum_packed(packed, chunk, block)
-        row = pack_quantized(red[None], block, r2)[0]
-        gathered = _gather_rows(row, group, world) if world > 1 else row[None]
-        return unpack_dequantized(gathered, chunk, block).reshape(-1)
-    payload = parts if dtype == "f32" else parts.to(torch.bfloat16)
-    if world > 1:
-        payload = _a2a_rows(payload, group)
-    red = _sum_rows(payload)
-    out = red if dtype == "f32" else red.to(torch.bfloat16)
-    gathered = _gather_rows(out, group, world) if world > 1 else out[None]
-    return gathered.float().reshape(-1)
+    """`_TwoShot`'s steps back to back, blocking."""
+    shot = _TwoShot(parts, group, world, dtype, block, rng)
+    shot.start()
+    shot.middle()
+    return shot.finish()
 
 
 def _rows_of(x: torch.Tensor, world: int) -> torch.Tensor:
@@ -304,19 +365,12 @@ def quantized_reduce_scatter(x: torch.Tensor, group, world: int, dim: int = 0,
 
 def _scatter_sum(parts: torch.Tensor, group, world: int, dtype: str, block: int,
                  rng=None) -> torch.Tensor:
-    """The reduce-scatter phase alone: `parts [world, n_c]` (row j bound
-    for rank j) moved by one `all_to_all_single` and summed in f32: this
-    rank's `[n_c]`."""
-    n_c = parts.shape[1]
-    if dtype == "int8":
-        packed = pack_quantized(parts, block, rng)
-        if world > 1:
-            packed = _a2a_rows(packed, group)
-        return _sum_packed(packed, n_c, block)
-    payload = parts if dtype == "f32" else parts.to(torch.bfloat16)
-    if world > 1:
-        payload = _a2a_rows(payload, group)
-    return _sum_rows(payload)
+    """The reduce-scatter phase alone (`_ScatterShot`, blocking): `parts
+    [world, n_c]` (row j bound for rank j) moved by one `all_to_all_single`
+    and summed in f32: this rank's `[n_c]`."""
+    shot = _ScatterShot(parts, group, world, dtype, block, rng)
+    shot.start()
+    return shot.reduced()
 
 
 def quantized_all_gather(x: torch.Tensor, group, world: int, dim: int = 0,
@@ -341,7 +395,7 @@ def quantized_all_gather(x: torch.Tensor, group, world: int, dim: int = 0,
     return full.movedim(0, dim).to(x.dtype)
 
 
-def _gather_dim(x: torch.Tensor, group, world: int, dim: int) -> torch.Tensor:
+def gather_dim(x: torch.Tensor, group, world: int, dim: int) -> torch.Tensor:
     """The full-precision tiled all-gather of `x` along `dim`."""
     parts = _gather_rows(x, group, world)  # [world, *x.shape]
     shape = list(x.shape)
@@ -394,7 +448,7 @@ class _AllGatherQGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, world, dim, dtype, block, stochastic):
         ctx.args = (group, world, dim, dtype, block, stochastic)
-        return _gather_dim(x, group, world, dim)
+        return gather_dim(x, group, world, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -435,28 +489,42 @@ def psum_grad(x: torch.Tensor, group, world: int) -> torch.Tensor:
     return _PsumGrad.apply(x, group, world)
 
 
+class BucketScatter:
+    """One FSDP bucket's reduce-scatter (tpukit :666) in two steps: the
+    bucket's cotangents `gs` (each the whole gathered shape) as one `[world,
+    n_c]` payload, one `all_to_all_single` issued at construction (a handle
+    with `async_op`); `finish()` waits, sums in f32 in rank order and
+    splits each leaf's shard back out."""
+
+    def __init__(self, gs, group, world: int, dims, dtype: str, block: int,
+                 stochastic: bool, async_op: bool = False):
+        parts, self.shapes = [], []
+        for g, dim in zip(gs, dims):
+            moved = g.movedim(dim, 0)
+            self.shapes.append((moved.shape[0] // world,) + tuple(moved.shape[1:]))
+            parts.append(moved.float().reshape(world, -1))
+        row = torch.cat(parts, dim=1)
+        rng = None
+        if dtype == "int8" and stochastic:
+            rng = fallback_key(_group_rank(group), row)
+        self.dims, self.dtypes = tuple(dims), [g.dtype for g in gs]
+        self.shot = _ScatterShot(row, group, world, dtype, block, rng, async_op)
+        self.shot.start()
+
+    def finish(self) -> list:
+        red = self.shot.reduced()
+        out, off = [], 0
+        for shape, dim, dtype in zip(self.shapes, self.dims, self.dtypes):
+            n = math.prod(shape)
+            out.append(red[off:off + n].reshape(shape).movedim(0, dim).to(dtype))
+            off += n
+        return out
+
+
 def _bucket_scatter_grads(gs, group, world: int, dims, dtype: str, block: int,
                           stochastic: bool) -> list:
-    """The bucket's cotangents (each the whole gathered shape) as one
-    `[world, n_c]` payload, one reduce-scatter `all_to_all_single`, f32
-    accumulation in rank order; each leaf's shard split back out (tpukit
-    :666)."""
-    parts, shapes = [], []
-    for g, dim in zip(gs, dims):
-        moved = g.movedim(dim, 0)
-        shapes.append((moved.shape[0] // world,) + tuple(moved.shape[1:]))
-        parts.append(moved.float().reshape(world, -1))
-    row = torch.cat(parts, dim=1)
-    rng = None
-    if dtype == "int8" and stochastic:
-        rng = fallback_key(_group_rank(group), row)
-    red = _scatter_sum(row, group, world, dtype, block, rng)
-    out, off = [], 0
-    for g, shape, dim in zip(gs, shapes, dims):
-        n = math.prod(shape)
-        out.append(red[off:off + n].reshape(shape).movedim(0, dim).to(g.dtype))
-        off += n
-    return out
+    """`BucketScatter`, blocking: each leaf's reduced shard."""
+    return BucketScatter(gs, group, world, dims, dtype, block, stochastic).finish()
 
 
 class _BucketGatherQGrad(torch.autograd.Function):
@@ -464,7 +532,7 @@ class _BucketGatherQGrad(torch.autograd.Function):
     def forward(ctx, args, *xs):
         group, world, dims, dtype, block, stochastic = args
         ctx.args = args
-        return tuple(_gather_dim(x, group, world, d) for x, d in zip(xs, dims))
+        return tuple(gather_dim(x, group, world, d) for x, d in zip(xs, dims))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -637,20 +705,59 @@ def bucket_all_reduce(x: torch.Tensor, group, world: int, dtype: str = "f32",
 def bucketed_psum_tree(tree: dict, group, world: int, n_buckets: int, dtype: str = "f32",
                        block: int = DEFAULT_BLOCK, rng=None) -> dict:
     """The DDP bucket wire (tpukit :637): `grad_bucket_plan`'s buckets, one
-    `bucket_all_reduce` each; bucket b's stochastic key is `fold_in(rng,
-    b)`."""
+    `bucket_all_reduce` each (`BucketAllReduce`, each waited on at once);
+    bucket b's stochastic key is `fold_in(rng, b)`."""
     items = sorted_items(tree)
     out = {path: leaf for path, leaf in items}
+    wire = BucketAllReduce(group, world, dtype, block, rng)
     for b, idxs in enumerate(grad_bucket_plan(tree, n_buckets)):
-        flat = torch.cat([items[i][1].reshape(-1).float() for i in idxs])
-        b_rng = tk_random.fold_in(rng, b) if rng is not None else None
-        red = bucket_all_reduce(flat, group, world, dtype, block, b_rng)
-        off = 0
-        for i in idxs:
-            path, leaf = items[i]
-            out[path] = red[off:off + leaf.numel()].reshape(leaf.shape).to(leaf.dtype)
-            off += leaf.numel()
+        wire.issue(b, [items[i][1] for i in idxs])
+        for i, g in zip(idxs, wire.result(b)):
+            out[items[i][0]] = g
     return _rebuild(tree, out)
+
+
+class BucketAllReduce:
+    """The DDP bucket wire issued bucket by bucket as the gradients come:
+    `issue(b, leaves)` flattens bucket b's gradients (in `grad_bucket_plan`
+    order) and issues its two-shot all-to-all, `advance()` takes every
+    all-to-all issued so far on to its sum and all-gather, `result(b)`
+    waits on bucket b's all-gather and returns its reduced gradients. Each
+    collective is issued with `async_op`. The same bits as
+    `bucketed_psum_tree` in any order of issue: bucket b's stochastic key
+    is `fold_in(rng, b)` and each element's sum runs in rank order."""
+
+    def __init__(self, group, world: int, dtype: str = "f32", block: int = DEFAULT_BLOCK,
+                 rng=None):
+        _check_dtype(dtype)
+        self.group, self.world, self.dtype, self.block, self.rng = group, world, dtype, block, rng
+        self._shots: dict = {}
+        self._pending: list = []
+
+    def issue(self, b: int, leaves: list) -> None:
+        flat = torch.cat([g.reshape(-1).float() for g in leaves])
+        b_rng = tk_random.fold_in(self.rng, b) if self.rng is not None else None
+        shot = _TwoShot(_rows_of(flat, self.world), self.group, self.world, self.dtype,
+                        self.block, b_rng, async_op=True)
+        shot.start()
+        self._shots[b] = (shot, [(g.shape, g.dtype) for g in leaves], flat.numel())
+        self._pending.append(shot)
+
+    def advance(self) -> None:
+        for shot in self._pending:
+            shot.middle()
+        self._pending.clear()
+
+    def result(self, b: int) -> list:
+        self.advance()
+        shot, meta, n = self._shots.pop(b)
+        red = shot.finish()[:n]
+        out, off = [], 0
+        for shape, dtype in meta:
+            k = math.prod(shape)
+            out.append(red[off:off + k].reshape(shape).to(dtype))
+            off += k
+        return out
 
 
 # -- closed-form expected bytes ----------------------------------------------

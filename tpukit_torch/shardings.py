@@ -60,7 +60,7 @@ from tpukit_torch.ops.layers import (
     vocab_parallel_argmax,
     vocab_parallel_ce,
 )
-from tpukit_torch.ops import quant_comm
+from tpukit_torch.ops import deferred, quant_comm
 from tpukit_torch.ops.moe_dispatch import ExpertGrid, RowGroup
 from tpukit_torch.ring_attention import SeqGroup, zigzag_order
 
@@ -766,20 +766,23 @@ def fsdp_shard_dim(shape, world: int) -> int | None:
 
 class _DataParallelBase(Strategy):
     """Rows of the global batch sharded over the `data` mesh, one slice per
-    rank of the default group; the loss and its gradient run through
-    `self.module`, the wrapped `ParamTree`. `setup` builds both."""
+    rank of the default group (or of `mesh`, a 1-D `DeviceMesh` over some
+    of its ranks, as tpukit's strategies take a mesh: a sub-world); the
+    loss and its gradient run through `self.module`, the wrapped
+    `ParamTree`. `setup` builds both."""
 
     distributed = True
 
-    def __init__(self):
-        self.mesh = None  # the `data` mesh over every rank, once `setup` ran
-        self.module = None  # the wrapped ParamTree, likewise
+    def __init__(self, mesh=None):
+        self._given_mesh = mesh
+        self.mesh = mesh  # the `data` mesh (by default every rank's, made by `setup`)
+        self.module = None  # the wrapped ParamTree, once `setup` ran
         self.params: dict | None = None
 
     @property
     def world(self) -> int:
-        """The default group's size, which the `data` mesh spans."""
-        return mesh_lib.world_size()
+        """The size of the `data` mesh: the default group's by default."""
+        return self.mesh.size() if self.mesh is not None else mesh_lib.world_size()
 
     @property
     def batch_divisor(self) -> int:
@@ -790,14 +793,14 @@ class _DataParallelBase(Strategy):
         return self.world
 
     def data_rank(self) -> int:
-        return mesh_lib.rank()
+        return self.mesh.get_local_rank() if self.mesh is not None else mesh_lib.rank()
 
     def _wrap(self, module: ParamTree, device: torch.device):
         raise NotImplementedError
 
     def setup(self, params: dict) -> dict:
         device = leaves(params)[0].device
-        self.mesh = mesh_lib.create_mesh({"data": -1}, device.type)
+        self.mesh = self._given_mesh or mesh_lib.create_mesh({"data": -1}, device.type)
         tree = ParamTree(params)
         self.module = self._wrap(tree, device)
         self.params = tree.tree()
@@ -882,6 +885,49 @@ class _DataParallelBase(Strategy):
                                             rng_row0=0)
         return loss_sum / torch.clamp(gcount, min=1.0), local_rng
 
+    @staticmethod
+    def _defers(cfg: gpt.GPTConfig) -> bool:
+        """Whether the hand-placed step issues its bucket wires from the
+        backward (`ops/deferred.py`) on a world with a wire: two buckets
+        or more, without `--remat_layers` (a recomputed layer rebuilds its
+        graph in the backward, where no product can be set aside)."""
+        return cfg.grad_buckets >= 2 and not cfg.remat_layers
+
+    def _deferral(self, params: dict, cfg: gpt.GPTConfig, buckets: list[list[int]],
+                  tensors: list):
+        """(the `Deferral` over `tensors`, the index of the bucket issued
+        last): `deferred.late_bucket` of `buckets` (indices into `leaves`),
+        a stacked `layers` leaf read once a layer, any other leaf once. The
+        products it defers are those no other wire waits for: the last
+        bucket's and those of the leaves in no bucket (FSDP's replicated
+        leaves, all-reduced after the backward)."""
+        reads = [cfg.num_layers if "layers" in name.split("/") else 1 for name in paths(params)]
+        last = deferred.late_bucket([sum(reads[k] for k in idxs) for idxs in buckets])
+        bucketed = {k for idxs in buckets for k in idxs}
+        late = set(buckets[last]) | set(range(len(tensors))) - bucketed
+        return deferred.Deferral(tensors, late), last
+
+    @staticmethod
+    def _declared(n_buckets: int) -> int | None:
+        """The bucket wires an eager step can hide: B - 1 of each op.
+
+        Every backward ATen op of the step feeds the gradient of some
+        bucketed leaf (FSDP: or of a replicated leaf under 100 elements, a
+        handful of ops). A bucket's wire can be issued only once its
+        leaves' gradients are done, so whichever wire is issued last has no
+        backward op left after it, in any eager order; the other B - 1 are
+        issued while the weight products of the last bucket still have to
+        run (`deferred.late_bucket` defers the products of the bucket the
+        forward reads most). tpukit declares B: its gate counts the compute
+        independent of a wire in the HLO's dataflow, which XLA's scheduler
+        can run beside it."""
+        return n_buckets - 1 if n_buckets >= 2 else None
+
+    def _jax_order(self, params: dict) -> list[int]:
+        """The `leaves` index of each leaf in tpukit's (sorted-key) order."""
+        pos = {tuple(n.split("/")): k for k, n in enumerate(paths(params))}
+        return [pos[path] for path, _ in quant_comm.sorted_items(params)]
+
     def _global_loss(self, objective: torch.Tensor) -> torch.Tensor:
         loss = objective.detach().clone()
         if self.world > 1:
@@ -923,13 +969,15 @@ class DataParallel(_DataParallelBase):
         return self.comm_ops
 
     def overlap_comm(self, cfg: gpt.GPTConfig, params) -> dict | None:
-        """The bucket wire's declaration (tpukit `shardings.py:589`): each
-        bucket's two-shot pair (its all-to-all and its all-gather) must
-        have backward work left around it; None under two buckets."""
-        if cfg.grad_buckets < 2 or params is None:
+        """The bucket wire's declaration (tpukit `shardings.py:589`): all
+        but the last issued bucket's two-shot pair (its all-to-all and its
+        all-gather) must have backward work left around it (`_declared`:
+        B - 1, where tpukit declares B); None under two buckets or with
+        `--remat_layers`, where the wires are issued after the backward."""
+        if not self._defers(cfg) or params is None:
             return None
-        n = len(quant_comm.grad_bucket_plan(params, cfg.grad_buckets))
-        return {"all-to-all": n, "all-gather": n} if n >= 2 else None
+        n = self._declared(len(quant_comm.grad_bucket_plan(params, cfg.grad_buckets)))
+        return {"all-to-all": n, "all-gather": n} if n else None
 
     def value_and_grad(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng=None):
         if not self._hand_placed(cfg):
@@ -937,12 +985,12 @@ class DataParallel(_DataParallelBase):
             self._ddp()
             return super().value_and_grad(params, cfg, batch, targets, rng=rng)
         self._check(params)
+        if self._defers(cfg) and self.world > 1:
+            return self._bucket_step(params, cfg, batch, targets, rng)
         objective, local_rng = self._local_objective(params, cfg, batch, targets, rng)
         flat = leaves(params)
         grads = unflatten(params, torch.autograd.grad(objective, flat))
-        qrng = None
-        if cfg.quant_stochastic and local_rng is not None:
-            qrng = tk_random.fold_in(local_rng, 0x5151)
+        qrng = self._quant_rng(cfg, local_rng)
         group = self.mesh.get_group()
         if cfg.grad_buckets > 0:
             grads = quant_comm.bucketed_psum_tree(grads, group, self.world, cfg.grad_buckets,
@@ -951,6 +999,38 @@ class DataParallel(_DataParallelBase):
             grads = quant_comm.quantized_psum_tree(grads, group, self.world, cfg.comm_dtype,
                                                    rng=qrng)
         return self._global_loss(objective), grads
+
+    @staticmethod
+    def _quant_rng(cfg: gpt.GPTConfig, local_rng):
+        if cfg.quant_stochastic and local_rng is not None:
+            return tk_random.fold_in(local_rng, 0x5151)
+        return None
+
+    def _bucket_step(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng):
+        """The bucket wire issued from the backward (`ops/deferred.py`): the
+        activation-gradient chain with every weight product in place but
+        those of the bucket the forward reads most, then every other
+        bucket's two-shot all-to-all, half the deferred products, those
+        all-to-alls taken on to their all-gathers, the other half, and the
+        last bucket's pair. The gradients and the wire are
+        `bucketed_psum_tree`'s, bit for bit."""
+        order = self._jax_order(params)
+        buckets = [[order[j] for j in idxs]
+                   for idxs in quant_comm.grad_bucket_plan(params, cfg.grad_buckets)]
+        defer, last = self._deferral(params, cfg, buckets, leaves(params))
+        with defer.active():
+            objective, local_rng = self._local_objective(defer.capture(params), cfg, batch,
+                                                         targets, rng)
+        wire = quant_comm.BucketAllReduce(self.mesh.get_group(), self.world, cfg.comm_dtype,
+                                          rng=self._quant_rng(cfg, local_rng))
+        grads = defer.backward(
+            objective, buckets, last,
+            on_bucket=lambda b, got: wire.issue(b, [got[k] for k in buckets[b]]),
+            on_midway=lambda: defer.wire(wire.advance))
+        for b, idxs in enumerate(buckets):
+            for k, g in zip(idxs, wire.result(b)):
+                grads[k] = g
+        return self._global_loss(objective), unflatten(params, grads)
 
     def grad_comm(self, cfg: gpt.GPTConfig, params: dict) -> dict | None:
         """The hand-placed wire's `{op: {count, bytes}}` a step (tpukit
@@ -1023,16 +1103,18 @@ class FSDP(_DataParallelBase):
         return self.comm_ops
 
     def overlap_comm(self, cfg: gpt.GPTConfig, params) -> dict | None:
-        """The bucket wire's declaration (tpukit `shardings.py:709`): each
-        bucket's reduce-scatter all-to-all; the forward gathers are at use
-        by design and not declared."""
-        if cfg.grad_buckets < 2 or params is None:
+        """The bucket wire's declaration (tpukit `shardings.py:709`): all
+        but the last issued bucket's reduce-scatter all-to-all (`_declared`:
+        B - 1, where tpukit declares B); the forward gathers are at use by
+        design and not declared. None under two buckets or with
+        `--remat_layers`."""
+        if not self._defers(cfg) or params is None:
             return None
-        n = len(self._buckets(params, cfg, self._dims(params)))
-        return {"all-to-all": n} if n >= 2 else None
+        n = self._declared(len(self._buckets(params, cfg, self._dims(params))))
+        return {"all-to-all": n} if n else None
 
-    def __init__(self, cpu_offload: bool = False):
-        super().__init__()
+    def __init__(self, cpu_offload: bool = False, mesh=None):
+        super().__init__(mesh)
         self.cpu_offload = cpu_offload
         self.replicated: list = []
         if cpu_offload:
@@ -1067,11 +1149,6 @@ class FSDP(_DataParallelBase):
             dist.all_reduce(p.grad, group=group)
             p.grad.div_(self.world)
 
-    def _jax_order(self, params: dict) -> list[int]:
-        """The `leaves` index of each leaf in tpukit's (sorted-key) order."""
-        pos = {tuple(n.split("/")): k for k, n in enumerate(paths(params))}
-        return [pos[path] for path, _ in quant_comm.sorted_items(params)]
-
     def _buckets(self, params: dict, cfg: gpt.GPTConfig, dims: list) -> list[list[int]]:
         """`grad_bucket_plan` of the sharded leaves, as `leaves` indices."""
         order = self._jax_order(params)
@@ -1099,6 +1176,8 @@ class FSDP(_DataParallelBase):
         if not self._hand_placed(cfg):
             return super().value_and_grad(params, cfg, batch, targets, rng=rng)
         self._check(params)
+        if self._defers(cfg) and self.world > 1:
+            return self._bucket_step(params, cfg, batch, targets, rng)
         group, world = self.mesh.get_group(), self.world
         flat, dims = leaves(params), self._dims(params)
         device = comm_device(self.mesh)
@@ -1123,13 +1202,59 @@ class FSDP(_DataParallelBase):
                         cfg.quant_stochastic)
         objective, _ = self._local_objective(unflatten(params, full), cfg, batch, targets, rng)
         gs = torch.autograd.grad(objective, xs)
+        return self._global_loss(objective), self._shard_grads(params, local, gs)
+
+    @staticmethod
+    def _shard_grads(params: dict, local: list, gs) -> dict:
+        """The shards' gradients in the shard layout, as DTensors like their
+        parameters."""
         grads = []
-        for p, t, g in zip(flat, local, gs):
+        for p, t, g in zip(leaves(params), local, gs):
             if isinstance(p, DTensor):
                 g = DTensor.from_local(g.to(t.device), p.device_mesh, p.placements,
                                        shape=p.shape, stride=p.stride())
             grads.append(g)
-        return self._global_loss(objective), unflatten(params, grads)
+        return unflatten(params, grads)
+
+    def _bucket_step(self, params, cfg: gpt.GPTConfig, batch: dict, targets, rng):
+        """The bucket wire issued from the backward (`ops/deferred.py`): the
+        sharded leaves gathered at use in bucket order, as `_BucketGatherQGrad`
+        gathers them; the activation-gradient chain with every weight
+        product in place but those of the bucket the forward reads most,
+        then every other bucket's packed reduce-scatter (`BucketScatter`),
+        the deferred products, and the last bucket's, each waited on where
+        it is unpacked, after the backward; the replicated leaves' f32
+        all-reduces last. The gradients are the blocking step's, bit for
+        bit."""
+        group, world = self.mesh.get_group(), self.world
+        dims, device = self._dims(params), comm_device(self.mesh)
+        local = [p.to_local() if isinstance(p, DTensor) else p for p in leaves(params)]
+        full = [t.detach().to(device) for t in local]
+        buckets = self._buckets(params, cfg, dims)
+        for idxs in buckets:
+            for k in idxs:
+                full[k] = quant_comm.gather_dim(full[k], group, world, dims[k])
+        defer, last = self._deferral(params, cfg, buckets, full)
+        with defer.active():
+            objective, _ = self._local_objective(defer.capture(unflatten(params, full)), cfg,
+                                                 batch, targets, rng)
+        shots: dict = {}
+
+        def on_bucket(b, got):
+            idxs = buckets[b]
+            shots[b] = quant_comm.BucketScatter(
+                [got[k] for k in idxs], group, world, [dims[k] for k in idxs],
+                cfg.comm_dtype, quant_comm.DEFAULT_BLOCK, cfg.quant_stochastic, async_op=True)
+
+        gs = defer.backward(objective, buckets, last, on_bucket)
+        for b, shot in sorted(shots.items()):
+            for k, g in zip(buckets[b], shot.finish()):
+                gs[k] = g
+        for k, dim in enumerate(dims):
+            if dim is None:  # `psum_grad`'s backward
+                gs[k] = gs[k].clone()
+                dist.all_reduce(gs[k], group=group)
+        return self._global_loss(objective), self._shard_grads(params, local, gs)
 
     def grad_comm(self, cfg: gpt.GPTConfig, params: dict) -> dict | None:
         """The hand-placed wire's `{op: {count, bytes}}` a step (tpukit

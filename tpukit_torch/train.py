@@ -92,7 +92,7 @@ from tpukit_torch import mesh as mesh_lib
 from tpukit_torch import reshard as reshard_lib
 from tpukit_torch import retry as retry_lib
 from tpukit_torch.analysis import comm_ir
-from tpukit_torch.analysis import lint_trace, summarize as lint_summarize, train_comm_plan
+from tpukit_torch.analysis import xla_record
 from tpukit_torch.batching import IGNORE_INDEX, prepare_batch
 from tpukit_torch.data import get_dataset, get_tokenizer, transform_dataset
 from tpukit_torch.flags import TrainFlags, check_carried
@@ -974,29 +974,8 @@ def _fit_body(flags: TrainFlags, strategy: Strategy, num_epochs: int | None, dev
     def log_xla_record(fn_name: str, trace, batch) -> None:
         ids = batch["input_ids"]
         # the rows of the whole grid: each loader's share times the loaders
-        global_batch = ids.shape[0] * strategy.row_shards
-        phase = "train" if fn_name == "train_step" else "eval"
-        extra: dict = {}
-        audit_fn = getattr(strategy, "dispatch_comm", None)
-        if audit_fn is not None:
-            audit = audit_fn(cfg, global_batch=global_batch, seq=ids.shape[1])
-            if audit:
-                extra["a2a_expected"] = audit[phase]
-        grad_fn = getattr(strategy, "grad_comm", None)
-        if grad_fn is not None and fn_name == "train_step":
-            gaudit = grad_fn(cfg, state.params)
-            if gaudit:
-                extra["quant_grad_expected"] = gaudit
-                extra["comm_dtype"] = cfg.comm_dtype
-        plan = train_comm_plan(strategy, cfg, params=state.params, global_batch=global_batch,
-                               seq=ids.shape[1], phase=phase)
-        extra["hlolint"] = lint_summarize(lint_trace(trace, plan=plan))
-        # no compiled program: tpukit's compiled_stats leaves a field its
-        # backend lacks as None
-        logger.log(kind="xla", fn=fn_name, strategy=strategy.name, backend=device.type,
-                   expected_comm_ops=list(strategy.comm_ops_for(cfg)), **extra, flops=None,
-                   bytes_accessed=None, transcendentals=None, memory=None,
-                   collectives=comm_ir.collective_summary(trace))
+        logger.log(**xla_record(fn_name, trace, strategy, cfg, state.params,
+                                ids.shape[0] * strategy.row_shards, ids.shape[1], device.type))
 
     def close_obs():
         """On any exit of the training block: flush a partial anomaly trace
