@@ -219,8 +219,9 @@ not 0:
      (data 1, expert 2) over two gloo ranks on this card (`chip_smoke.py
      --ep-gloo-rank R`: each rank 2 of 4 experts through the grouped
      kernels after the token all-to-all) against the single device's
-     `ExpertParallel` 1 x 1 step (f32, 2 layers, top-2, 4 steps) at phase
-     12's bars, each rank's grouped kernels launched layers x steps times;
+     `ExpertParallel` 1 x 1 step (f32, 2 layers, top-2, EP_STEPS steps) at
+     phase 12's bars, each rank's grouped kernels launched layers x steps
+     times;
  38. the quantized collectives and gradient buckets: phase 7's rung under
      `DataParallel` and `FSDP` in a world of one over NCCL at
      `--comm_dtype int8` (DataParallel's hand-placed wire quantizes at one
@@ -270,7 +271,7 @@ not 0:
      them too; a `--debug_nans` run over one window, preempted at step 9,
      whose checkpoint's bytes (every parameter and the AdamW state) equal
      those of phase 39 (b)'s run without the flag;
- 41. serving telemetry on the card: phase 4's engine and the first 32
+ 41. serving telemetry on the card: phase 4's engine and the first 16
      requests of its stream (a) with every serving plane on (request traces, the metrics plane,
      `--slo`, a JSONL logger, a metrics dir) against all off, three runs
      each, alternated: tokens/s of each run, the medians and their ratio,
@@ -330,6 +331,16 @@ not 0:
      record clean, the flash and CE kernels launching as its steps need;
      `comm_overlap` at 2 steps, every rung without error, with tpukit's
      row keys, FSDP's three rungs the same loss bit for bit;
+ 45. the bench twin's serving records (`bench_serving_on_card`): the
+     eight records of `tpukit_torch/bench/serving.py` at the bench config
+     (8 requests each; the spec target and draft trained 100 and 150
+     steps, 24 new tokens a spec request; the fleet's rungs meshless on
+     the one card), each with the
+     twin's key lists and no error, both overhead records' tokens the same
+     bits, `parity_ok` in `paged_kv`, `decode_fused` and `fleet_serving`,
+     complete traces; the paged kernels launching layers x decode ticks in
+     `decode_fused`'s fused rungs (each run twice: warm and measured), and
+     the flash and CE kernels as the induction training's steps need;
 then one JSON line of kernel results (the flash and CE rows with their
 launches under CP, under the quantized wires and in phase 40's telemetry
 step, the grouped rows with
@@ -623,11 +634,13 @@ def paged_plan(pool_dtype, shape: dict) -> dict:
     return pa.plan(lib, pool_dtype, shape["n"], shape["h"], shape["p"], shape["d"], shape["mp"])
 
 
-def check_kernel(dev, shape: dict, label: str) -> dict:
+def check_kernel(dev, shape: dict, label: str,
+                 main_pair=(torch.float32, torch.bfloat16)) -> dict:
     """Kernels vs plain version in every dtype pair the engine can give
     them, at `shape` (n slots, h heads, head dim d, pages of p, mp pages
-    per slot); returns the results of the main path's pair (f32 pages,
-    bf16 compute).
+    per slot); returns the results of the pair the caller's path runs,
+    `main_pair` (pool dtype, compute dtype): by default f32 pages, bf16
+    compute.
 
     Held element by element: f32 compute within F32_ATOL; bf16 compute
     within 2 bf16 ulp of its (slot, head) row's scale (`bf16_tolerance`),
@@ -699,7 +712,7 @@ def check_kernel(dev, shape: dict, label: str) -> dict:
         if not same_bits:
             raise AssertionError(f"paged_attend gave other bits on a second run (pool "
                                  f"{pool_dtype}, compute {cdt}, {label})")
-        if (pool_dtype, cdt) == (torch.float32, torch.bfloat16):
+        if (pool_dtype, cdt) == tuple(main_pair):
             main = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                         bound_ms=bound, bound_by=bound_by, splits=pl["splits"],
                         units_per_sm=units / sms)
@@ -2908,15 +2921,19 @@ GLOO_FLAGS = ("--tp-gloo-rank", "--cp-gloo-rank", "--ep-gloo-rank", "--dp-gloo-r
 QUANT_EXCHANGES = ("int8", "bf16")  # phase 38's payloads of phase 37's exchange
 
 
+EP_STEPS = 2  # phase 37's (and phase 38's exchanges') steps over two gloo ranks (4 until
+#               the serving records of phase 45 came)
+
+
 def _ep_small(dev):
     """Phase 12's f32 2-layer MoE setup at GPT-2-small width, with 4
-    experts, top-2: (cfg, base parameters, 4 batches of 4 rows, one
+    experts, top-2: (cfg, base parameters, EP_STEPS batches of 4 rows, one
     padded)."""
     cfg, base = build_train(dev, num_layers=2, compute_dtype=torch.float32,
                             attention_impl="flash", seed=2, num_experts=4, router_top_k=2)
     rng = np.random.RandomState(2)
     batches = [to_device(*synthetic_batch(rng, cfg.vocab_size, 4, SEQ, pad_rows=1), dev)
-               for _ in range(4)]
+               for _ in range(EP_STEPS)]
     return cfg, base.params, batches
 
 
@@ -2940,7 +2957,7 @@ def ep_equals_single(dev) -> dict:
     all-to-all, the trunk gathered by an all-gather and its gradients
     reduce-scattered) against the single device's `ExpertParallel` 1 x 1
     step with the same pallas dispatch, phase 12's f32 setup (2 layers,
-    top-2, 4 AdamW steps, 4 rows a step): the first step's gradient each
+    top-2, EP_STEPS AdamW steps, 4 rows a step): the first step's gradient each
     leaf within 1e-3 of its norm and the losses within rtol 1e-4 (phase
     12's bars), the parameters within 2 x lr x steps (AdamW's bound on an
     update whose sign flips), and each rank's grouped forward and backward
@@ -3345,6 +3362,149 @@ def bench_twin_on_card(dev, smi: str) -> dict:
     if len(fsdp) != 1:
         raise AssertionError(f"(b) FSDP's rungs differ at a world of one: {fsdp}")
     return {"headline_launches": want, "comm_overlap": rows}
+
+
+SERVING_REQUESTS = 8  # phase 45: each serving record's requests
+SPEC_STEPS = (100, 150)  # phase 45: the spec target's and draft's training steps
+SPEC_MAX_NEW = 24  # phase 45: the spec record's new tokens (at tpukit's 48 the phase took 45 s)
+
+
+def errors_in(rec, where: str) -> list:
+    """Where in `rec` a failure landed as tpukit's records land one: the
+    path of every dict, at any depth (a fleet rung, the disaggregated
+    half, a spec rung), that holds `error`."""
+    if isinstance(rec, dict):
+        own = [where] if "error" in rec else []
+        return own + [p for k, v in rec.items() for p in errors_in(v, f"{where}.{k}")]
+    if isinstance(rec, list):
+        return [p for i, v in enumerate(rec) for p in errors_in(v, f"{where}[{i}]")]
+    return []
+
+
+def bench_serving_on_card(dev, smi: str) -> dict:
+    """Phase 45: the bench twin's eight serving records on the card, at the
+    bench config (dim 256, 8 layers; the records' own dtypes) and
+    SERVING_REQUESTS requests, the spec target and draft trained SPEC_STEPS
+    steps and serving SPEC_MAX_NEW new tokens, the fleet's rungs meshless
+    (a world of one), after the kernels at the shapes this path first gave
+    them, held against their plain versions. Each record: the twin's key
+    lists, no error at any depth (`errors_in`), the fleet's rungs of 1, 2
+    and 4 replicas; the overhead records' tokens the same bits;
+    `parity_ok` where the record has it; complete traces. The paged kernels
+    launch layers x decode ticks in each of `decode_fused`'s fused rungs,
+    whose warm and measured runs tick alike, and never in its unfused rung;
+    the induction training launches the flash kernels once a layer a step
+    and the f32 CE kernels once a step. Returns each record's launches."""
+    from tpukit_torch.bench import serving
+    from tpukit_torch.bench import __main__ as bench_main
+    from tpukit_torch.data import get_tokenizer
+
+    cfg = bench_main.bench_config()
+    # (a) the kernels at the shapes this path gives them, first run here, against
+    # their plain versions: the paged kernels at `decode_fused`'s pool (4 slots, 8 x
+    # 32 heads, pages of 8, 4 pages a slot); flash f32 and CE f32 at the induction
+    # training's rows (8 x S, S = 32 + new tokens + 10 + 2: 92 in the bench, 68
+    # here), the target's 4 x 32 heads and dim 128, the draft's 2 x 16 and dim 32,
+    # over the fixture vocabulary's padded head
+    vocab = get_tokenizer().vocab_size
+    v_pad = cfg.replace(vocab_size=vocab).padded_vocab_size
+    paged_main = check_kernel(dev, dict(n=4, h=cfg.heads, d=cfg.head_dim, p=8, mp=4),
+                              "bench decode_fused", main_pair=(torch.float32, torch.float32))
+    for seq in (92, 32 + SPEC_MAX_NEW + 12):
+        for h, d, dim in ((4, 32, 128), (2, 16, 32)):
+            check_flash(dev, 8, h, seq, d, torch.float32, False)
+            check_ce(dev, 8 * seq, dim, vocab, torch.float32, v_pad=v_pad)
+    args = dict(device=dev)
+    runs = {"serving": (serving.bench_serving, {}),
+            "paged_kv": (serving.bench_paged_kv, {}),
+            "spec_decode": (serving.bench_spec_decode, {"train_steps": SPEC_STEPS,
+                                                         "max_new": SPEC_MAX_NEW}),
+            "serve_dispatch_attribution": (serving.bench_serve_dispatch_attribution, {}),
+            "decode_fused": (serving.bench_decode_fused, {}),
+            "fleet_serving": (serving.bench_fleet_serving, {}),
+            "serve_trace_overhead": (serving.bench_serve_trace_overhead, {}),
+            "metrics_overhead": (serving.bench_metrics_overhead, {})}
+    recs, counts, walls = {}, {}, {}
+    for name, (record, extra) in runs.items():
+        t0 = time.perf_counter()
+        reset_counts()
+        rec = record(cfg, 1, requests=SERVING_REQUESTS, **args, **extra)
+        counts[name] = {k: v for k, v in read_counts().items() if v}
+        walls[name] = time.perf_counter() - t0
+        bad = serving.key_mismatches(name, rec)
+        failed = errors_in(rec, name)
+        if failed or bad:
+            raise AssertionError(f"{name}: errors at {failed}, keys {bad}, record {rec}")
+        recs[name] = rec
+        _free()
+    held = [x["replicas"] for x in recs["fleet_serving"]["rungs"]]
+    if held != [1, 2, 4]:
+        raise AssertionError(f"fleet_serving: rungs of {held} replicas, not 1, 2 and 4")
+    r = recs
+    print(f"  serving: continuous {r['serving']['continuous']['tokens_per_sec']} tokens/s, "
+          f"serial {r['serving']['serial']['tokens_per_sec']}, serial_cached "
+          f"{r['serving']['serial_cached']['tokens_per_sec']}; speedup "
+          f"{r['serving']['speedup']}, vs cached {r['serving']['speedup_vs_cached']} ({smi})",
+          flush=True)
+    pk = r["paged_kv"]
+    print(f"  paged_kv: ring {pk['ring']['tokens_per_sec']} / paged "
+          f"{pk['paged']['tokens_per_sec']} / int8 {pk['paged_int8']['tokens_per_sec']} "
+          f"tokens/s, slots at equal HBM {pk['slots_at_equal_hbm_ratio']}, int8 agreement "
+          f"{pk['int8_token_agreement']}, prefix {pk['prefix']}", flush=True)
+    sd = r["spec_decode"]
+    print(f"  spec_decode: train {sd['train']}; t0 ngram speedup {sd['t0']['ngram']['speedup']}"
+          f" (accept {sd['t0']['ngram']['accept_rate']}), model "
+          f"{sd['t0']['model']['speedup']} (accept {sd['t0']['model']['accept_rate']}); t0.8 "
+          f"ngram {sd['t0.8']['ngram']['speedup']}, model {sd['t0.8']['model']['speedup']}",
+          flush=True)
+    da = r["serve_dispatch_attribution"]
+    print(f"  serve_dispatch_attribution: {da['quanta']} quanta, dispatch_frac "
+          f"{da['dispatch_frac']}, {da['mean_dispatch_ms_per_quantum']} / "
+          f"{da['mean_device_ms_per_quantum']} ms a quantum", flush=True)
+    df = r["decode_fused"]
+    print(f"  decode_fused: unfused_q1 {df['unfused_q1']['tokens_per_sec']} / fused_q1 "
+          f"{df['fused_q1']['tokens_per_sec']} / fused_loop {df['fused_loop']['tokens_per_sec']}"
+          f" tokens/s; kernel_speedup {df['kernel_speedup']}, amortization_speedup "
+          f"{df['amortization_speedup']}", flush=True)
+    fs = r["fleet_serving"]
+    print(f"  fleet_serving: {[(x['replicas'], x['tokens_per_sec']) for x in fs['rungs']]} "
+          f"tokens/s, scaling_2x_vs_1 {fs['scaling_2x_vs_1']}, disagg {fs['disagg_prefill']}",
+          flush=True)
+    for name in ("serve_trace_overhead", "metrics_overhead"):
+        print(f"  {name}: off {r[name]['tokens_per_sec_off']} / on "
+              f"{r[name]['tokens_per_sec_on']} tokens/s, overhead {r[name]['overhead_frac']}",
+              flush=True)
+    print(f"  walls (s): { {k: round(v, 1) for k, v in walls.items()} }", flush=True)
+    faults = [f"{n} tokens differ with the plane on" for n in ("serve_trace_overhead",
+                                                             "metrics_overhead")
+              if r[n]["tokens_bit_identical"] is not True]
+    faults += [f"{n} parity_ok false" for n in ("paged_kv", "decode_fused", "fleet_serving")
+               if r[n]["parity_ok"] is not True]
+    faults += [f"{n} trace_complete {t}" for n, t in (
+        ("serve_dispatch_attribution", da["trace_complete"]),
+        *((f"decode_fused.{k}", df[k]["trace_complete"])
+          for k in ("unfused_q1", "fused_q1", "fused_loop"))) if t != 1.0]
+    ticks = cfg.num_layers * 2 * (df["fused_q1"]["decode_steps"]
+                                  + df["fused_loop"]["decode_steps"])
+    want_paged = paged_want(ticks)
+    got_paged = {k: counts["decode_fused"].get(k, 0) for k in want_paged}
+    if got_paged != want_paged:
+        faults.append(f"decode_fused paged launches {got_paged} != {want_paged} (8 layers x 2 "
+                      f"runs x the fused rungs' ticks)")
+    tgt_steps, draft_steps = SPEC_STEPS
+    flash = 4 * tgt_steps + 2 * draft_steps  # the target's 4 layers, the draft's 2
+    want_train = {"flash_forward": flash, "flash_backward_dcap": flash,
+                  "flash_backward_dkv": flash, "flash_backward_dq": flash,
+                  "ce_forward_f32": tgt_steps + draft_steps,
+                  "ce_backward_dw_f32": tgt_steps + draft_steps,
+                  "ce_backward_dh_f32": tgt_steps + draft_steps}
+    if counts["spec_decode"] != want_train:
+        faults.append(f"spec_decode launches {counts['spec_decode']} != {want_train}")
+    print(f"  launches by record: {counts}", flush=True)
+    if faults:
+        raise AssertionError(f"phase 45: {faults}")
+    return {"records": recs, "counts": counts, "walls": walls,
+            "paged": dict(paged_main, pool="float32", compute="float32")}
 
 
 # phase 39's recipe 1: 2112 rows of batch 64, 33 steps (windows close at
@@ -3768,7 +3928,8 @@ def _split_line(s: dict) -> str:
         "prefill_s", "decode_s", "sync_s", "other_s", "dispatch_overhead_s", "device_s"))
 
 
-TELEMETRY_TIMED = 32  # phase 41 (a)'s runs: the first half of phase 4's 64 requests
+TELEMETRY_TIMED = 16  # phase 41 (a)'s runs: one wave of phase 4's 16 slots (32 until the
+#                      serving records of phase 45 came)
 
 
 def serving_telemetry_on_card(dev, smi: str) -> dict:
@@ -4473,6 +4634,19 @@ def main() -> int:
           f"{time.perf_counter() - _START:.1f} s", flush=True)
     _free()
 
+    t_s = time.perf_counter()
+    phase("the bench twin's serving records (tpukit_torch/bench/serving.py: serving, paged_kv, "
+          "spec_decode, serve_dispatch_attribution, decode_fused, fleet_serving and both "
+          "overheads at 8 requests, spec trained 100 / 150 steps and 24 new tokens; a world "
+          "of one)")
+    bench_served = bench_serving_on_card(dev, smi)
+    print(f"phase 45: {time.perf_counter() - t_s:.1f} s ({smi}); chip_smoke so far "
+          f"{time.perf_counter() - _START:.1f} s", flush=True)
+    served_counts = bench_served["counts"]
+
+    def under_bench_serving(key):  # phase 45's launches of `key`, by record
+        return {n: c[key] for n, c in served_counts.items() if c.get(key)}
+
     fl, ce = trained["flash"], trained["ce"]
     tel = telemetry["counts"]  # one step of phase 40's telemetry run (all 17 equal)
 
@@ -4513,6 +4687,8 @@ def main() -> int:
          "launches_under_fleet": fleet["paged_bf16"],
          "launches_under_fleet_f32_4_layers": fleet["paged_counts"]["paged_scores"],
          "launches_under_comm_audit": grid["counts"]["paged_scores"],
+         "launches_under_bench_serving": under_bench_serving("paged_scores"),
+         "at_bench_decode_fused_shape": bench_served["paged"],
          "shapes": paged_shapes},
         entry("flash_attention_fwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:178",
               c["flash_forward"], fl, "fwd", fl["fwd_err"], fl["fwd_library_ms"],
@@ -4526,6 +4702,7 @@ def main() -> int:
                                          for k, a in audits.items() if "flash_forward" in
                                          a["counts"]},
               launches_under_bench=bench_twin["headline_launches"]["flash_forward"],
+              launches_under_bench_serving=under_bench_serving("flash_forward"),
               at_ulysses_shape=trained["flash_8192"]),
         entry("flash_attention_bwd", "flash_attention.cu", "tpukit/ops/pallas_attention.py:259",
               c["flash_backward_dkv"], fl, "bwd", fl["bwd_err"], fl["bwd_library_ms"],
@@ -4539,14 +4716,16 @@ def main() -> int:
               launches_under_tp=tp_run["counts"]["flash_backward_dkv"],
               launches_under_cp=under_cp("flash_backward_dkv"),
               launches_under_quant=under_quant("flash_backward_dkv"),
-              launches_under_telemetry=tel["flash_backward_dkv"]),
+              launches_under_telemetry=tel["flash_backward_dkv"],
+              launches_under_bench_serving=under_bench_serving("flash_backward_dkv")),
         entry("fused_head_ce_fwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:65",
               c["ce_forward"], ce, "fwd", ce["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"forward": c["ce_forward"],
                                                       "combine": c["ce_forward_combine"]},
               launches_under_cp=under_cp("ce_forward"),
               launches_under_quant=under_quant("ce_forward"),
-              launches_under_telemetry=tel["ce_forward"]),
+              launches_under_telemetry=tel["ce_forward"],
+              launches_under_bench_serving=under_bench_serving("ce_forward_f32")),
         entry("fused_head_ce_bwd", "fused_head_ce.cu", "tpukit/ops/fused_head_ce.py:134",
               c["ce_backward_dw"], ce, "bwd", ce["bwd_err"], None,
               kernels_per_call=4 * c["ce_backward_dw"] // c["ce_forward"],
@@ -4554,7 +4733,8 @@ def main() -> int:
                                   for k in ("d", "dh", "dh_combine", "dw")},
               unfused_ms=ce["unfused_ms"], launches_under_cp=under_cp("ce_backward_dw"),
               launches_under_quant=under_quant("ce_backward_dw"),
-              launches_under_telemetry=tel["ce_backward_dw"]),
+              launches_under_telemetry=tel["ce_backward_dw"],
+              launches_under_bench_serving=under_bench_serving("ce_backward_dw_f32")),
         entry("moe_grouped_ffn_fwd", "moe_gemm.cu", "tpukit/ops/moe_gemm.py:110",
               mc["moe_forward_up"], moe_main, "fwd", moe_main["fwd_err"], None,
               kernels_per_call=2, launches_by_kernel={"up": mc["moe_forward_up"],

@@ -17,12 +17,15 @@ vocab 211, sequence 17, f32).
   - The headline's final loss on tpukit's parameters (bridged) equals
     tpukit's `setup_step` / `time_windows` loss after the same steps, at
     the band of the train tests (rtol 1e-5).
-  - The entry point's JSON has tpukit's top-level keys; without a card it
-    raises `CudaUnavailableError`, and `--compilation_cache_dir`
+  - The entry point's JSON has tpukit's top-level keys, every serving
+    record measured with tpukit's keys and no error (the records against
+    tpukit's own are `tests/test_torch_bench_serving.py`'s); without a
+    card it raises `CudaUnavailableError`, and `--compilation_cache_dir`
     `NotPortedError`; the harness's batches are tpukit's.
 """
 
 import ast
+import functools
 import json
 from pathlib import Path
 
@@ -175,6 +178,20 @@ def test_two_rank_record_matches_tpukit(world_run, name):
         assert all(g["overlap_frac"] == 1.0 and g["gate_ok"] and g["clean"] for g in gates)
 
 
+@pytest.mark.parametrize("world_run", [2], indirect=True, ids=["world2"])
+def test_two_rank_serving_record_on_rank_zero(world_run):
+    """In a world of two gloo ranks a serving record runs through
+    `on_rank_zero`, as the entry point runs them: rank 0 gets the record
+    (tpukit's keys, the tracer's tokens the same bits), rank 1 None, and
+    both leave the wait."""
+    from tpukit_torch.bench import serving
+
+    got = json.loads(str(world_run["got"]["bench/serving_on_rank_zero"]))
+    assert got["got_none"] == [False, True]
+    assert serving.key_mismatches("serve_trace_overhead", got["record"]) == []
+    assert got["record"]["tokens_bit_identical"] is True
+
+
 def test_headline_loss_matches_tpukit(world_of_one):
     """The headline's step (first step recorded, two more warm-up steps,
     one window of two) on tpukit's initial parameters against tpukit's
@@ -214,21 +231,50 @@ def _tk_result_keys() -> list:
     return [k.value for k in result.keys]
 
 
+# the serving records' size in the entry point's test: their config (head
+# dim 32, so that a page of 8 holds whole int8 quant blocks; 64 positions for
+# the ring's largest bucket, 32, and the new tokens) and their arguments
+SERVING_TINY = dict(BENCH_TINY, head_dim=32, heads=1, max_position_embeddings=64)
+SERVING_ARGS = {key: dict(requests=4, slots=2, max_new=2)
+                for key, _, _ in bench_main.SERVING_RECORDS}
+SERVING_ARGS["decode_fused"]["window"] = 2
+SERVING_ARGS["spec_decode"] = dict(requests=2, slots=2, max_new=4, k=2, train_steps=(2, 2))
+
+
 def test_entry_point_has_tpukits_keys(world_of_one, monkeypatch):
     """`run` (the entry point's body) in a world of one at the tiny shape,
-    the ladder's full-width rungs left out (`run_ladder` given no rung) and
-    the long-context probe at S 32: tpukit's top-level keys in tpukit's
-    order; the serving records and the compile cache null; the records
-    that need several cards say so."""
+    the ladder's full-width rungs left out (`run_ladder` given no rung),
+    the long-context probe at S 32 and the serving records at SERVING_TINY
+    and SERVING_ARGS: tpukit's top-level keys in tpukit's order; every
+    serving record measured, with tpukit's keys and no error, the fleet's
+    rungs meshless; the compile cache null; the records that need several
+    cards say so."""
+    from tpukit_torch.bench import serving
+
     _, cfg = _cfgs()
     real = bench_main.run_ladder
     monkeypatch.setattr(bench_main, "run_ladder",
                         lambda **kw: real(only="no-such-rung", **kw))
     monkeypatch.setattr(bench_main, "LONG_CONTEXT", (32, 2))
+    serving_cfg = bench_main.bench_config(**SERVING_TINY, compute_dtype=torch.float32)
+    real_serving = bench_main.serving_records
+    monkeypatch.setattr(bench_main, "serving_records",
+                        lambda _, n_dev, device: real_serving(serving_cfg, n_dev, device))
+    monkeypatch.setattr(bench_main, "SERVING_RECORDS", tuple(
+        (key, label, functools.partial(record, **SERVING_ARGS[key]))
+        for key, label, record in bench_main.SERVING_RECORDS))
     result = bench_main.run(world_of_one, cfg=cfg, per_chip_batch=2, steps=1, windows=1)
     assert list(result) == _tk_result_keys()
-    assert all(result[k] is None for k in bench_main.SERVING_RECORDS)
-    assert result["obs_overhead"]["serving"] is None and result["compile_cache"] is None
+    for key, _, _ in bench_main.SERVING_RECORDS:
+        rec = (result["obs_overhead"]["serving"] if key == "serve_trace_overhead"
+               else result[key])
+        assert isinstance(rec, dict) and "error" not in rec, (key, rec)
+        assert serving.key_mismatches(key, rec) == [], (key, rec)
+    fleet = result["fleet_serving"]
+    assert fleet["meshed"] is False and fleet["parity_ok"]
+    assert [r["devices_per_replica"] for r in fleet["rungs"]] == [0, 0, 0]
+    assert result["decode_fused"]["parity_ok"] and result["paged_kv"]["parity_ok"]
+    assert result["compile_cache"] is None
     assert result["chips"] == 1 and result["device"] == "cpu" and result["ladder"] == []
     assert result["elastic_restore"] == {
         "error": "needs >= 2 chips (no smaller world to reshard onto)"}

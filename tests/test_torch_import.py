@@ -61,6 +61,7 @@ def test_port_imports_without_jax_or_tpukit():
             "tpukit_torch.analysis.plan", "tpukit_torch.analysis.rules",
             "tpukit_torch.analysis.__main__", "tpukit_torch.native"} <= set(mods)
     assert {"tpukit_torch.bench", "tpukit_torch.bench.ladder", "tpukit_torch.bench.records",
+            "tpukit_torch.bench.serving", "tpukit_torch.bench.induction",
             "tpukit_torch.bench.__main__", "tpukit_torch.ops.deferred"} <= set(mods)
     proc = _run([sys.executable, "-c", f"MODULES = {mods!r}\nREFUSED = {REFUSED!r}\n" + _BLOCKER])
     assert proc.returncode == 0, proc.stderr

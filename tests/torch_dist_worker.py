@@ -448,13 +448,22 @@ BENCH_STEPS = 2
 def bench_records(world: int) -> dict:
     """`tpukit_torch.bench`'s records that need several ranks, run in this
     world at `BENCH_TINY` (f32), rank 0's as JSON: `bench/quant_comm`,
-    `bench/comm_overlap`, `bench/elastic_restore`."""
+    `bench/comm_overlap`, `bench/elastic_restore`; and a serving record
+    through `on_rank_zero`, as the entry point runs them in a world of N
+    (`bench/serving_on_rank_zero`: rank 0's record, and which ranks got
+    None, gathered after the wait)."""
     from tpukit_torch.bench import __main__ as bench_main
-    from tpukit_torch.bench import records
+    from tpukit_torch.bench import records, serving
 
     cfg = bench_main.bench_config(**BENCH_TINY, compute_dtype=torch.float32)
     dev = torch.device("cpu")
+    rec = bench_main.on_rank_zero(lambda: serving.bench_serve_trace_overhead(
+        cfg.replace(max_position_embeddings=64), world, requests=2, slots=2, max_new=2,
+        device=dev))
+    got_none = [None] * world
+    dist.all_gather_object(got_none, rec is None)
     return {
+        "bench/serving_on_rank_zero": json.dumps({"record": rec, "got_none": got_none}),
         "bench/quant_comm": json.dumps(records.bench_quant_comm(cfg, world, steps=BENCH_STEPS,
                                                                 device=dev)),
         "bench/comm_overlap": json.dumps(records.bench_comm_overlap(

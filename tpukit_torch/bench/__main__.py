@@ -18,34 +18,60 @@ MoE probe, `moe_ep_comm`, `moe_dispatch_ladder`, `quant_comm`,
 `host_pipeline`, `obs_overhead` and, on one card, the ladder
 (`bench/ladder.py`, `bench/records.py`).
 
-Rank 0 prints exactly one JSON line, with tpukit's keys
-(`bench.py:2124-2172`). The serving records (`serving`, `paged_kv`,
-`spec_decode`, `serve_dispatch_attribution`, `decode_fused`,
-`fleet_serving`, `metrics_overhead`, and `obs_overhead`'s `serving` rung)
-are not measured by this twin and are null. Records that need several
-cards say so at a world of one, as tpukit's do. Nothing is compiled:
-`compile_cache` is null, `--compilation_cache_dir` raises NotPortedError,
-and `xla_train_step` is the comm audit's `kind="xla"` record of the
-headline's first step, whose cost fields are None.
+Then the serving records (`bench/serving.py`), in tpukit's order, each in
+its own try: `serving` (continuous batching against the serial loops),
+`paged_kv`, `spec_decode` (after `_induction_train`),
+`serve_dispatch_attribution`, `decode_fused`, `fleet_serving`, the
+request tracer's cost (`obs_overhead["serving"]`) and `metrics_overhead`.
+tpukit's serving records use one device whatever the world, and its fleet
+record all of them: in a world of N > 1 they run on rank 0 after the
+training records, while the other ranks leave their cards idle and wait on
+a gloo group (not NCCL, whose watchdog a record of minutes could cross), so
+no record is timed while another rank runs work.
+
+`decode_fused`'s `amortization_speedup` measures the port's window, which
+reads the lanes' flags on the host after every tick (ROADMAP A11), not
+tpukit's on-device loop.
+
+Rank 0 prints exactly one JSON line, with tpukit's keys in tpukit's order
+(`bench.py:2124-2172`). Records that need several cards say so at a world
+of one, as tpukit's do. Nothing is compiled: `compile_cache` is null,
+`--compilation_cache_dir` raises NotPortedError, and `xla_train_step` is
+the comm audit's `kind="xla"` record of the headline's first step, whose
+cost fields are None.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
 import json
 import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from tpukit_torch.bench import records
+from tpukit_torch.bench import records, serving
 from tpukit_torch.bench.ladder import (free_cache, make_batch, run_ladder, setup_step,
                                        time_windows)
 
 LONG_CONTEXT = (2048, 16)  # the long-context probe's sequence and rows a card (tpukit :1874)
-SERVING_RECORDS = ("serving", "paged_kv", "spec_decode", "serve_dispatch_attribution",
-                   "decode_fused", "fleet_serving", "metrics_overhead")
+# the serving records in tpukit's order (bench.py :2011-2110): (key, the
+# label of a failure, the record)
+SERVING_RECORDS = (
+    ("serving", "serving probe", serving.bench_serving),
+    ("paged_kv", "paged kv probe", serving.bench_paged_kv),
+    ("spec_decode", "spec decode probe", serving.bench_spec_decode),
+    ("serve_dispatch_attribution", "serve dispatch attribution probe",
+     serving.bench_serve_dispatch_attribution),
+    ("decode_fused", "fused decode probe", serving.bench_decode_fused),
+    ("fleet_serving", "fleet serving probe", serving.bench_fleet_serving),
+    ("serve_trace_overhead", "serve trace overhead probe", serving.bench_serve_trace_overhead),
+    ("metrics_overhead", "metrics overhead probe", serving.bench_metrics_overhead),
+)
+WAIT_TIMEOUT = datetime.timedelta(hours=4)  # the other ranks' wait on rank 0's serving records
 
 
 def bench_config(**kw):
@@ -157,6 +183,31 @@ def moe_probe(cfg, n_dev: int, rng, moe_dispatch: str, device) -> float:
     return 8 * moe_batch * (cfg.max_position_embeddings - 1) / min(times) / n_dev
 
 
+def serving_records(cfg, n_dev: int, device) -> dict:
+    """Every serving record on this rank's card, each a failure landing as
+    `{"error": ...}`, by key."""
+    out = {}
+    for key, label, record in SERVING_RECORDS:
+        rec, err = _probe(label, lambda: record(cfg, n_dev, device=device))
+        out[key] = rec if err is None else {"error": err}
+    return out
+
+
+def on_rank_zero(fn):
+    """`fn()` on rank 0, None elsewhere; in a world of N > 1 the other ranks
+    wait for it in a barrier of a gloo group, whose timeout is WAIT_TIMEOUT."""
+    from tpukit_torch import mesh
+
+    if mesh.world_size() == 1:
+        return fn()
+    group = dist.new_group(backend="gloo", timeout=WAIT_TIMEOUT)
+    try:
+        return fn() if mesh.rank() == 0 else None
+    finally:
+        dist.barrier(group=group)
+        dist.destroy_process_group(group)
+
+
 def run(device=None, moe_dispatch: str = "xla", cfg=None, per_chip_batch: int = 64,
         steps: int = 12, windows: int = 4) -> dict:
     """Every record of the bench in this world; tpukit's result dict."""
@@ -203,13 +254,14 @@ def run(device=None, moe_dispatch: str = "xla", cfg=None, per_chip_batch: int = 
         "obs overhead probe",
         lambda: records.bench_obs_overhead(cfg, lambda: headline_strategy(n_dev), batch,
                                            device=device))
-    if obs_overhead is None:
-        obs_overhead = {}
-    obs_overhead["serving"] = None  # the serving rung is not measured by this twin
     ladder = None
     if n_dev == 1:
         ladder, err = _probe("ladder", lambda: run_ladder(steps=6, windows=3, device=device))
         ladder = ladder if err is None else [{"shape": "ladder", "error": err}]
+    served = on_rank_zero(lambda: serving_records(cfg, n_dev, device)) or {}
+    if obs_overhead is None:
+        obs_overhead = {}
+    obs_overhead["serving"] = served.get("serve_trace_overhead")
 
     mfu, best = head["mfu"], head["best"]
     result = {
@@ -236,12 +288,17 @@ def run(device=None, moe_dispatch: str = "xla", cfg=None, per_chip_batch: int = 
         "pipe_interleave": pipe_interleave,
         "pipe_moe": pipe_moe,
         "elastic_restore": elastic_restore,
-        **{name: None for name in SERVING_RECORDS[:-1]},
+        "serving": served.get("serving"),
+        "paged_kv": served.get("paged_kv"),
+        "spec_decode": served.get("spec_decode"),
+        "serve_dispatch_attribution": served.get("serve_dispatch_attribution"),
+        "decode_fused": served.get("decode_fused"),
+        "fleet_serving": served.get("fleet_serving"),
         "host_pipeline": host_pipeline,
         "host_pipeline_error": host_pipeline_err,
         "obs_overhead": obs_overhead,
         "obs_overhead_error": obs_overhead_err,
-        "metrics_overhead": None,
+        "metrics_overhead": served.get("metrics_overhead"),
         "ladder": ladder,
         "chips": n_dev,
         "device": device_kind(device) or device.type,

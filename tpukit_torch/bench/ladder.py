@@ -75,12 +75,14 @@ class Step:
         return state, train_step(state, self.cfg, self.strategy, batch, t)
 
 
-def setup_step(cfg, strategy=None, lr: float = 1e-4, seed: int = 0, device=None,
+def setup_step(cfg, strategy=None, lr=1e-4, seed: int = 0, device=None,
                params: dict | None = None):
     """The state and step of `cfg` under `strategy` (`SingleDevice` by
     default): parameters from `init_params(seed)` (or `params`, a tree of
-    tensors such as `bridge.params_from_numpy` makes), AdamW at `lr`, the
-    strategy's layout. Returns `(step, state)` for `time_windows`; the
+    tensors such as `bridge.params_from_numpy` makes), AdamW at `lr` (a
+    float, or a schedule `count -> rate` such as
+    `train.cosine_decay_schedule`, as tpukit's takes an optax schedule),
+    the strategy's layout. Returns `(step, state)` for `time_windows`; the
     kernels build and load at the first step, in its warm-up."""
     from tpukit_torch import resolve_device
     from tpukit_torch.model import init_params

@@ -330,6 +330,7 @@ def _fit_shape(source, name: str, t: torch.Tensor, want: tuple) -> torch.Tensor:
 
 _PARAMS_PREFIX = ".params"  # the TrainState's params subtree, in jax's key-path form
 _COUNT, _STEP = ".opt_state/[0]/.count", ".step"
+_SCHEDULE_COUNT = ".opt_state/[2]/.count"  # optax's scale_by_schedule, with a schedule
 _MOMENTS = (("mu", "exp_avg"), ("nu", "exp_avg_sq"))  # optax's name, torch AdamW's
 
 
@@ -368,6 +369,8 @@ def _state_entries(state) -> list[tuple[str, str | None, torch.Tensor]]:
     out.append((_COUNT, None, torch.tensor(count, dtype=torch.int32)))
     for i, (field, _) in enumerate(_MOMENTS):
         out += [(_key_path(_moment_prefix(field), n), n, moments[n][i]) for n in order]
+    if state.lr_schedule is not None:
+        out.append((_SCHEDULE_COUNT, None, torch.tensor(count, dtype=torch.int32)))
     out.append((_STEP, None, torch.tensor(int(state.step), dtype=torch.int32)))
     return out
 
@@ -464,7 +467,9 @@ def _consolidated_plan(state, directory, meta, copy: bool):
 
         adam = {"count": full[_COUNT], **{f: tree(_moment_prefix(f)) for f, _ in _MOMENTS}}
         blob = msgpack.packb({"params": tree(_PARAMS_PREFIX),
-                              "opt_state": {"0": adam, "1": {}, "2": {}},
+                              "opt_state": {"0": adam, "1": {},
+                                            "2": ({"count": full[_SCHEDULE_COUNT]}
+                                                  if _SCHEDULE_COUNT in full else {})},
                               "step": full[_STEP]})
         out.mkdir(parents=True, exist_ok=True)
         retry_io(_write_blob, path, blob, label="ckpt_write")

@@ -123,13 +123,15 @@ GENERATION_PROMPTS = ["The big brown cat ", "One day, ", "She said "]
 @dataclasses.dataclass
 class TrainState:
     """Parameters (leaf tensors that require grad), their optimizer, the
-    number of steps taken, and the strategy that set the tree up (None for
-    a plain tree), which checkpoints gather and place leaves through."""
+    number of steps taken, the strategy that set the tree up (None for
+    a plain tree), which checkpoints gather and place leaves through, and
+    the learning-rate schedule, if the rate is not constant."""
 
     params: dict
     optimizer: torch.optim.Optimizer
     step: int = 0
     strategy: Strategy | None = None
+    lr_schedule: Any = None  # count -> learning rate, or None for a constant rate
 
 
 def make_optimizer(params: dict, learning_rate: float) -> torch.optim.AdamW:
@@ -145,14 +147,33 @@ def make_optimizer(params: dict, learning_rate: float) -> torch.optim.AdamW:
                              weight_decay=1e-2, foreach=False if mixed else None)
 
 
-def create_train_state(params: dict, learning_rate: float, strategy: Strategy | None = None,
+def cosine_decay_schedule(init_value: float, decay_steps: int):
+    """optax's `cosine_decay_schedule(init_value, decay_steps)` (alpha 0,
+    exponent 1): `count -> init_value * 0.5 * (1 + cos(pi * min(count,
+    decay_steps) / decay_steps))`, in f32 as optax computes it under jit.
+    optax's first update reads count 0."""
+    if not decay_steps > 0:
+        raise ValueError(f"the cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={decay_steps}")
+
+    def schedule(count: int) -> float:
+        t = np.minimum(np.float32(count), np.float32(decay_steps))
+        decay = np.float32(0.5) * (np.float32(1) + np.cos(np.float32(np.pi) * t
+                                                           / np.float32(decay_steps)))
+        return float(np.float32(init_value) * decay)
+    return schedule
+
+
+def create_train_state(params: dict, learning_rate, strategy: Strategy | None = None,
                        cfg: gpt.GPTConfig | None = None) -> TrainState:
     """The state of `params`; with a strategy, of the tree its `setup`
     makes of them (wrapped, sharded under FSDP, this stage's block under
     the pipeline), after its `prepare_params` when `cfg` is given (tpukit
     `train.py:112`: the pipeline's padded, permuted stack), the optimizer
     built afterwards over that tree: each rank's AdamW covers its own
-    leaves."""
+    leaves. `learning_rate` is a float, or a schedule `count -> rate`
+    (`cosine_decay_schedule`, as optax takes one): `train_step` sets the
+    rate of the update it is about to make, at count `state.step`."""
     for p in leaves(params):
         p.requires_grad_(True)
     if strategy is not None:
@@ -161,8 +182,10 @@ def create_train_state(params: dict, learning_rate: float, strategy: Strategy | 
             for p in leaves(params):
                 p.requires_grad_(True)
         params = strategy.setup(params)
-    return TrainState(params=params, optimizer=make_optimizer(params, learning_rate),
-                      strategy=strategy)
+    schedule = learning_rate if callable(learning_rate) else None
+    rate = schedule(0) if schedule is not None else learning_rate
+    return TrainState(params=params, optimizer=make_optimizer(params, rate),
+                      strategy=strategy, lr_schedule=schedule)
 
 
 def to_device(model_batch: dict, targets: np.ndarray, device) -> tuple[dict, torch.Tensor]:
@@ -210,6 +233,9 @@ def train_step(state: TrainState, cfg: gpt.GPTConfig, strategy: Strategy, batch:
     before = [p.detach().clone() for p in flat] if log_grad_norms else None
     for p, g in zip(flat, leaves(grads)):
         p.grad = g
+    if state.lr_schedule is not None:
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.lr_schedule(state.step)
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
