@@ -48,7 +48,7 @@ not 0:
      dQ), the CE forward and its combine once each and the CE backward's
      four kernels once per chunk of 8192 tokens;
   8. the train step through the kernels equals the step through the plain
-     versions (f32, 2 layers, 4 steps);
+     versions (f32, 2 layers, 2 steps);
   9. recipe 1 end to end at GPT-2-small width on the fixture corpus
      (`--sequence_length 512`, so S = 511 in front of the attention):
      trains, evaluates, samples (one batched decode on the ring, as
@@ -76,7 +76,7 @@ not 0:
      phase 7; the warm-up step runs under the comm audit's recorder (phase
      43);
  12. MoE train step through the kernels == through the plain versions (f32,
-     2 layers, top-2, 4 steps), on the ExpertParallel 1 x 1 path and on the
+     2 layers, top-2, 2 steps), on the ExpertParallel 1 x 1 path and on the
      meshless dropless path;
  13. recipe 8 end to end (`--num_experts 8 --moe_dispatch pallas
      --checkpoint_format sharded`) at GPT-2-small width on the fixture
@@ -292,7 +292,7 @@ not 0:
      and `tools/traceview.py` on its JSONL and its merged snapshot;
  42. serving fleet on the card (`serve.fleet.FleetRouter` over
      `ServeEngine` replicas on this card): (a) phase 4's engine and the
-     first 32 requests of its stream through one engine and a fleet of two
+     first 16 requests of its stream through one engine and a fleet of two
      replicas, in turns, tokens/s of
      each, the paged kernels launching layers x the replicas' summed ticks;
      at f32 with 4 layers (phase 5's) the fleet's greedy tokens equal one
@@ -341,12 +341,29 @@ not 0:
      complete traces; the paged kernels launching layers x decode ticks in
      `decode_fused`'s fused rungs (each run twice: warm and measured), and
      the flash and CE kernels as the induction training's steps need;
+ 46. fleet replicas over a model-parallel grid (`grid_fleet_on_card`,
+     ROADMAP item 19b): `FleetRouter` with 2 replicas x
+     `devices_per_replica` 2 on this card, each replica a world of two
+     gloo ranks (`serve/replica_world.py`; model 2, 6 heads a rank):
+     first the paged kernels against their plain versions at a rank's
+     shape (phase 4's slots and pages, 6 heads, every dtype pair); (a)
+     phase 4's engine (bf16, 12 layers) on 16 requests through the grid
+     fleet, its tokens/s over its router's wall beside phase 42 (a)'s one
+     engine on the same requests (both fleets' worlds start together
+     before anything runs, and that start is printed beside it), each rank
+     of each replica
+     launching each paged kernel layers x its replica's ticks; (b) phase
+     5's f32 4 layers on the first 32 of its requests: the grid fleet's
+     greedy tokens equal phase 5's engine's; after each run every rank
+     process has exited;
 then one JSON line of kernel results (the flash and CE rows with their
 launches under CP, under the quantized wires and in phase 40's telemetry
 step, the grouped rows with
 theirs under EP, f32 and quantized exchanges, and their times at the EP
 shapes, the paged and grouped decode rows with theirs in phases 41 and
-42) and, last, the device JSON line.
+42, the paged row with each grid rank's in phase 46 and its times at a
+grid rank's shape) and, last, the
+device JSON line.
 
 Imports nothing of JAX or of the JAX package. Without CUDA it exits with
 code 2 and prints no result. `--tp-gloo-rank R STORE OUT`,
@@ -1267,14 +1284,17 @@ def train_full_width(dev, strategy=None, order=FULL_ORDER, dropout: float = 0.0,
                 audit=audited)
 
 
+PLAIN_STEPS = 2  # phases 8, 12 and 23: steps through the kernels against the plain versions
+
+
 def kernel_vs_plain_steps(dev, dropout: float = 0.0) -> None:
     """Phase 8 (and 23, with `dropout`): the train step through the kernels
     (CUDA) against the same step through the plain versions (the CPU), f32,
     2 layers at GPT-2-small width, flash attention forced, batch 4 with a
-    padded row, 4 steps from the same parameters on the same batches (and
-    the same dropout keys: the masks are threefry bits, the same on both
-    devices). Losses within rtol 1e-4: f32 on both sides, summation order
-    only, carried through four AdamW steps."""
+    padded row, PLAIN_STEPS steps from the same parameters on the same
+    batches (and the same dropout keys: the masks are threefry bits, the
+    same on both devices). Losses within rtol 1e-4: f32 on both sides,
+    summation order only, carried through the AdamW steps."""
     cpu = torch.device("cpu")
     cfg, cpu_state = build_train(cpu, num_layers=2, compute_dtype=torch.float32,
                                  attention_impl="flash", seed=1, dropout=dropout)
@@ -1282,7 +1302,8 @@ def kernel_vs_plain_steps(dev, dropout: float = 0.0) -> None:
     dev_state = create_train_state(
         unflatten(params, [t.detach().to(dev, copy=True) for t in leaves(params)]), 1e-4)
     rng = np.random.RandomState(1)
-    batches = [synthetic_batch(rng, cfg.vocab_size, 4, SEQ, pad_rows=1) for _ in range(4)]
+    batches = [synthetic_batch(rng, cfg.vocab_size, 4, SEQ, pad_rows=1)
+               for _ in range(PLAIN_STEPS)]
     strategy = SingleDevice()
     reset_counts()
     ours, plain = [], []
@@ -1293,7 +1314,8 @@ def kernel_vs_plain_steps(dev, dropout: float = 0.0) -> None:
     worst = max(abs(a - b) / abs(b) for a, b in zip(ours, plain))
     print(f"dropout {dropout}: kernels {ours} vs plain {plain}: worst relative difference "
           f"{worst:.3e} (bar 1e-4); launches {counts}", flush=True)
-    if counts["flash_forward"] != 2 * 4 or counts["ce_backward_dh_f32"] != 4:
+    if (counts["flash_forward"] != 2 * PLAIN_STEPS
+            or counts["ce_backward_dh_f32"] != PLAIN_STEPS):
         raise AssertionError(f"the CUDA steps did not run the kernels: {counts}")
     if not worst <= 1e-4:
         raise AssertionError(f"kernel and plain train steps disagree: {ours} vs {plain}")
@@ -1830,7 +1852,7 @@ def moe_kernel_vs_plain_steps(dev) -> None:
     """Phase 12: the MoE train step through the kernels (CUDA) against the
     same step through the plain versions (the CPU): f32, 2 layers at
     GPT-2-small width, 8 experts top-2, flash attention forced, batch 2 with
-    a padded row, 4 steps from the same parameters on the same batches; on
+    a padded row, PLAIN_STEPS steps from the same parameters on the same batches; on
     ExpertParallel 1 x 1 with the pallas dispatch and on the meshless
     dropless path. First every gradient leaf of the first batch, router
     and experts included, at the starting parameters: |kernel - plain| /
@@ -1842,8 +1864,8 @@ def moe_kernel_vs_plain_steps(dev) -> None:
     on the gradients, not on the parameters after the steps: AdamW's first
     steps move an element by about +-lr whatever the size of its gradient,
     so one near-zero gradient of another sign would leave 2 lr between the
-    two. Then the losses of the four steps within rtol 1e-4 (f32,
-    summation order, four AdamW steps)."""
+    two. Then the losses of the steps within rtol 1e-4 (f32, summation
+    order, through the AdamW steps)."""
     cpu = torch.device("cpu")
     for label, strategy, kw in (("ExpertParallel 1x1 pallas", ExpertParallel(dispatch="pallas"),
                                  {}),
@@ -1855,7 +1877,8 @@ def moe_kernel_vs_plain_steps(dev) -> None:
         dev_state = create_train_state(
             unflatten(params, [t.detach().to(dev, copy=True) for t in leaves(params)]), 1e-4)
         rng = np.random.RandomState(2)
-        batches = [synthetic_batch(rng, cfg.vocab_size, 2, SEQ, pad_rows=1) for _ in range(4)]
+        batches = [synthetic_batch(rng, cfg.vocab_size, 2, SEQ, pad_rows=1)
+                   for _ in range(PLAIN_STEPS)]
         grads = [strategy.value_and_grad(state.params, cfg, *to_device(*batches[0], d))[1]
                  for state, d in ((dev_state, dev), (cpu_state, cpu))]
         rel = {}
@@ -1877,7 +1900,8 @@ def moe_kernel_vs_plain_steps(dev) -> None:
         worst = max(abs(a - b) / abs(b) for a, b in zip(ours, plain))
         print(f"{label}: kernels {ours} vs plain {plain}: worst relative difference "
               f"{worst:.3e} (bar 1e-4); launches {counts}", flush=True)
-        if counts["moe_forward_up_f32"] != 2 * 4 or counts["moe_backward_dwd_f32"] != 2 * 4:
+        if (counts["moe_forward_up_f32"] != 2 * PLAIN_STEPS
+                or counts["moe_backward_dwd_f32"] != 2 * PLAIN_STEPS):
             raise AssertionError(f"{label}: the CUDA steps did not run the MoE kernels: {counts}")
         if not worst <= 1e-4:
             raise AssertionError(f"{label}: kernel and plain train steps disagree: {ours} vs "
@@ -2268,7 +2292,7 @@ def dropout_training(dev, plain_step: dict) -> dict:
     """Phase 23: phase 7's rung with dropout 0.1, 8 steps (the loss falls on
     a repeated batch, the flash and CE kernels launch as in phase 7), step
     wall beside phase 7's; then phase 8's kernel-vs-plain steps at dropout
-    0.1 (f32, 2 layers, 4 steps, the same keys), within rtol 1e-4."""
+    0.1 (f32, 2 layers, PLAIN_STEPS steps, the same keys), within rtol 1e-4."""
     run = train_full_width(dev, dropout=0.1)
     del run["state"]
     print(f"dropout 0.1: step wall {run['wall']:.4f} s against phase 7's "
@@ -4105,7 +4129,7 @@ def _paged_formula(run: dict, layers: int, what: str) -> int:
     return ticks
 
 
-FLEET_TIMED = 32  # phase 42 (a)'s timed turns: the first half of phase 4's 64 requests
+FLEET_TIMED = 16  # phase 42 (a)'s timed turns: a quarter of phase 4's 64 requests
 
 
 def serving_fleet_on_card(dev, smi: str, greedy: dict) -> dict:
@@ -4333,6 +4357,101 @@ def serving_fleet_on_card(dev, smi: str, greedy: dict) -> dict:
                 proc.kill()
                 proc.communicate()
     shutil.rmtree(work)
+    return out
+
+
+GRID_REQUESTS = 16  # phase 46's bf16 run: one wave of a replica's 16 slots
+GRID_F32 = 32  # phase 46's f32 token check: the first half of phase 5's stream
+
+
+def _running(pid: int) -> bool:
+    """Whether process `pid` runs (a zombie no longer does)."""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except FileNotFoundError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+def _grid_launches(run: dict, layers: int, what: str) -> list:
+    """Phase 46: each rank of each grid replica launched each paged kernel
+    layers x its replica's ticks (its own count, reported as its world
+    closed); every rank process has exited. Returns the scores launches,
+    a list a replica."""
+    got = []
+    for e in run["engines"]:
+        want = paged_want(layers * e.steps)
+        ranks = [{f"paged_{k}": v for k, v in c["paged_attention"].items()}
+                 for c in e.rank_launches or []]
+        if len(ranks) != len(e.devices) or e.steps == 0 or any(r != want for r in ranks):
+            raise AssertionError(f"{what}: replica {e.replica}'s ranks launched {ranks}, "
+                                 f"want {want} each ({layers} x {e.steps} ticks)")
+        got.append([r["paged_scores"] for r in ranks])
+    alive = [p for e in run["engines"] for p in e.pids() if _running(p)]
+    if alive:
+        raise AssertionError(f"{what}: rank processes {alive} outlived the run")
+    return got
+
+
+def grid_fleet_on_card(dev, smi: str, fused32: dict, single_tps: float) -> dict:
+    """Phase 46 (see the module docstring). First the paged kernels against
+    their plain versions at a grid rank's shape (6 of the 12 heads, every
+    dtype pair; the path's is f32 pages, bf16 compute). Both fleets' worlds
+    start together (eight rank processes), before anything is timed or
+    run; each fleet's rank launches are counted from their start.
+    `single_tps` is one engine's tokens/s on the same 16 requests (phase 42
+    (a)'s median)."""
+    cards = [dev] * 4  # two worlds of two gloo ranks a fleet, all on this card
+    two = FleetConfig(replicas=2, devices_per_replica=2, window_steps=8)
+    cfg, params, serve, reqs, eos = build(dev, fused=True)
+    rank_heads = cfg.heads // two.devices_per_replica  # model 2: the grid asserted below
+    rank_shape = check_kernel(dev, {**serving_shape(cfg, serve), "h": rank_heads}, "grid rank")
+    cfg32, params32, serve32, reqs32, _ = build(dev, fused=True, num_layers=4,
+                                                compute_dtype=torch.float32)
+    timed, reqs32 = reqs[:GRID_REQUESTS], reqs32[:GRID_F32]
+    t0 = time.perf_counter()
+    routers = [FleetRouter(p, c, sv, two, eos_id=eos, device=dev, devices=cards)
+               for p, c, sv in ((params, cfg, serve), (params32, cfg32, serve32))]
+    runs = []
+    try:
+        worlds = [list(r._replicas.values()) for r in routers]
+        axes = [w.grid for ws in worlds for w in ws]  # waits for every rank's start
+        start_s = time.perf_counter() - t0
+        if axes != [{"data": 1, "model": 2}] * 4:
+            raise AssertionError(f"grids {axes}")
+        for router, ws, stream, c in zip(routers, worlds, (timed, reqs32), (cfg, cfg32)):
+            comps = router.run(list(stream))
+            torch.cuda.synchronize()
+            run = dict(engines=ws, outs={x.rid: np.asarray(x.ids) for x in comps},
+                       s=router.last_summary)
+            check_outputs(run["outs"], stream, c)
+            if run["s"]["params_placements"] != 2 or run["s"]["duplicate_completions"]:
+                raise AssertionError(f"grid fleet summary {run['s']}")
+            run["launches"] = _grid_launches(run, c.num_layers, "grid fleet")
+            runs.append(run)
+    finally:
+        for router in routers:
+            router.close()
+    grid, grid32 = runs
+    _same_tokens({"grid": grid32["outs"], "phase 5": fused32}, "phase 5",
+                 [r.rid for r in reqs32], "(b) f32 grid fleet")
+    s = grid["s"]
+    out = dict(launches=grid["launches"], launches_f32=grid32["launches"], start_s=start_s,
+               grid_tps=s["generated_tokens"] / s["wall_s"], single_tps=single_tps,
+               at_rank_shape=rank_shape)
+    print(f"  both fleets' worlds (8 gloo ranks on this card) started in {start_s:.1f} s", flush=True)
+    print(f"  (a) bf16 12 layers, {GRID_REQUESTS} requests ({smi}): 2 replicas x model 2 (two "
+          f"gloo ranks each, 6 heads a rank, on this card) {out['grid_tps']:.1f} tokens/s over "
+          f"the router's wall {s['wall_s']:.3f} s; one engine {single_tps:.1f} tokens/s (phase "
+          f"42 (a)'s; ratio {out['grid_tps'] / single_tps:.4f}); replica ticks "
+          f"{[e.steps for e in grid['engines']]}, each rank's paged launches "
+          f"{out['launches']} = {cfg.num_layers} x its replica's ticks; every rank exited",
+          flush=True)
+    print(f"  (b) f32 4 layers, {len(reqs32)} requests: the grid fleet's tokens == phase 5's "
+          f"engine's; replica ticks {[e.steps for e in grid32['engines']]}, each rank's paged "
+          f"launches {out['launches_f32']}", flush=True)
+    del params, params32
+    _free()
     return out
 
 
@@ -4644,6 +4763,14 @@ def main() -> int:
           f"{time.perf_counter() - _START:.1f} s", flush=True)
     served_counts = bench_served["counts"]
 
+    t_g = time.perf_counter()
+    phase("fleet replicas over a model-parallel grid (item 19b): FleetRouter, 2 replicas x "
+          "devices_per_replica 2 on this card, each a world of two gloo ranks (model 2); "
+          "phase 4's engine on 16 requests beside one engine; f32 4 layers == one engine")
+    grid_fleet = grid_fleet_on_card(dev, smi, runs["fused"], fleet["tokens_per_s"]["single"])
+    print(f"phase 46: {time.perf_counter() - t_g:.1f} s ({smi}); chip_smoke so far "
+          f"{time.perf_counter() - _START:.1f} s", flush=True)
+
     def under_bench_serving(key):  # phase 45's launches of `key`, by record
         return {n: c[key] for n, c in served_counts.items() if c.get(key)}
 
@@ -4686,6 +4813,8 @@ def main() -> int:
          "launches_under_serving_telemetry": serving["counts"]["paged_scores"],
          "launches_under_fleet": fleet["paged_bf16"],
          "launches_under_fleet_f32_4_layers": fleet["paged_counts"]["paged_scores"],
+         "launches_under_grid_fleet_by_rank": grid_fleet["launches"],
+         "at_grid_rank_shape": grid_fleet["at_rank_shape"],
          "launches_under_comm_audit": grid["counts"]["paged_scores"],
          "launches_under_bench_serving": under_bench_serving("paged_scores"),
          "at_bench_decode_fused_shape": bench_served["paged"],

@@ -292,3 +292,29 @@ def test_entry_point_refuses_the_cpu_and_the_cache(monkeypatch):
         bench_main.main([])
     with pytest.raises(tpukit_torch.NotPortedError, match="compilation_cache_dir"):
         bench_main.main(["--compilation_cache_dir", ".jax_cache", "--device", "cpu"])
+
+
+def test_entry_point_runs_only_the_named_serving_records(monkeypatch, capsys):
+    """`--serving_records` runs the named serving records alone (in the
+    records' order, no headline or training record) and prints them as one
+    JSON object by key; an unknown key is refused."""
+    ran = []
+
+    def fake(key):
+        def record(cfg, n_dev, device=None):
+            ran.append(key)
+            return {"n_dev": n_dev, "dim": cfg.dim}
+        return record
+
+    monkeypatch.setattr(bench_main, "SERVING_RECORDS", tuple(
+        (key, label, fake(key)) for key, label, _ in bench_main.SERVING_RECORDS))
+    monkeypatch.setattr(bench_main, "run", lambda *a, **kw: pytest.fail("the whole bench ran"))
+    assert bench_main.main(["--device", "cpu", "--serving_records",
+                            "fleet_serving,paged_kv"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    assert json.loads(out[0]) == {"paged_kv": {"n_dev": 1, "dim": 256},
+                                  "fleet_serving": {"n_dev": 1, "dim": 256}}
+    assert ran == ["paged_kv", "fleet_serving"]
+    with pytest.raises(SystemExit):
+        bench_main.main(["--device", "cpu", "--serving_records", "no_such_record"])

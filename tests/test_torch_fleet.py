@@ -47,7 +47,7 @@ from tpukit.serve import ServeConfig as JaxServeConfig
 from tpukit.serve import ServeEngine as JaxServeEngine
 from tpukit.serve import paged as jax_paged
 from tpukit.serve import synthetic_request_stream as jax_stream
-from tpukit_torch import NotPortedError, bridge
+from tpukit_torch import bridge
 from tpukit_torch import chaos as chaos_lib
 from tpukit_torch.model import GPTConfig
 from tpukit_torch.obs import FlightRecorder, MetricRegistry, StepLogger, TraceRecorder, parse_slo
@@ -227,13 +227,25 @@ def test_replicas_on_their_own_devices_match(tok, models):
     assert router.last_summary["params_placements"] == 1
 
 
-def test_grid_per_replica_raises_item_19b(tok):
+def test_grid_per_replica_raises_item_19b(tok, monkeypatch):
+    """Item 19b, a grid a replica, is ported (`tests/test_torch_fleet_grid.py`
+    serves it): `FleetConfig(devices_per_replica=2)` constructs, and the
+    entry point's grid fleet no longer raises `NotPortedError` but tpukit's
+    named error where the device list is too short (one CPU entry without
+    `TPUKIT_CPU_DEVICES`). `--fleet_procs` keeps tpukit's meshless worker
+    on the entry point's device whatever the grid (`main-serve.py:540-562`)."""
     from tpukit_torch.serve import __main__ as serve_main
 
-    with pytest.raises(NotPortedError, match="item 19b"):
-        FleetConfig(replicas=2, devices_per_replica=2)
-    with pytest.raises(NotPortedError, match="item 19b"):
-        serve_main.main(["--device", "cpu", "--replicas", "2", "--devices_per_replica", "4"])
+    monkeypatch.delenv("TPUKIT_CPU_DEVICES", raising=False)
+    assert FleetConfig(replicas=2, devices_per_replica=2).devices_per_replica == 2
+    with pytest.raises(ValueError, match="needs 8 devices, have 1"):
+        serve_main.main(["--device", "cpu", "--replicas", "2", "--devices_per_replica", "4",
+                         "--num_layers", "1", "--dim", "32", "--head_dim", "8", "--heads", "4"])
+    flags = serve_main.parse_flags(["--replicas", "2", "--devices_per_replica", "2",
+                                    "--fleet_procs", "--fleet_dir", "fleet"])
+    for idx in (0, 1):
+        assert serve_main._replica_device(flags, torch.device("cuda", 0), idx) == \
+            torch.device("cuda", 0)
 
 
 # ------------------------------------------------ disaggregated prefill ----
@@ -448,8 +460,11 @@ CONFIG_ERRORS = {
     "max_queue_depth": (dict(replicas=2, max_queue_depth=-1), None),
     "disagg_on_ring": (dict(replicas=2, disagg_prefill=True), dict(serve=_ring())),
     "devices": (dict(replicas=2, devices_per_replica=1), dict(serve=_ring(), devices=1)),
+    "devices_grid": (dict(replicas=2, devices_per_replica=8), dict(serve=_ring(), devices=8)),
     "moe_meshless": (dict(replicas=2, devices_per_replica=1),
                      dict(serve=_ring(), moe=True, devices=2)),
+    "moe_grid": (dict(replicas=2, devices_per_replica=2),
+                 dict(serve=_ring(), moe=True, devices=4)),
 }
 
 

@@ -56,7 +56,8 @@ def _run(args, cwd=ROOT, env=None, timeout=120):
 def test_port_imports_without_jax_or_tpukit():
     mods = _port_modules()
     assert "tpukit_torch.ops.paged_attention" in mods and "tpukit_torch.serve.engine" in mods
-    assert "tpukit_torch.serve.fleet" in mods and "tpukit_torch.serve.ledger" in mods
+    assert {"tpukit_torch.serve.fleet", "tpukit_torch.serve.ledger",
+            "tpukit_torch.serve.replica_world"} <= set(mods)
     assert {"tpukit_torch.analysis", "tpukit_torch.analysis.comm_ir",
             "tpukit_torch.analysis.plan", "tpukit_torch.analysis.rules",
             "tpukit_torch.analysis.__main__", "tpukit_torch.native"} <= set(mods)

@@ -346,16 +346,13 @@ def test_tokenizer_and_stream_match_tpukit(seed, kw):
 
 
 def test_unported_paths_raise_named_errors():
-    """What the port still lacks raises, naming its ROADMAP item: a fleet
-    replica over a model-parallel grid (item 19b), and the compilation
-    cache, which the eager port has no programs for (item 18).
+    """What the port does not carry raises, naming its ROADMAP item: the
+    compilation cache, which the eager port has no programs for (item 18).
     `ServeConfig()` is tpukit's ring default."""
     from tpukit_torch.serve import __main__ as serve_main
 
-    for argv, item in ((["--devices_per_replica", "2"], "item 19b"),
-                       (["--compilation_cache_dir", "x"], "item 18")):
-        with pytest.raises(NotPortedError, match=item):
-            serve_main.main(argv + ["--device", "cpu"])
+    with pytest.raises(NotPortedError, match="item 18"):
+        serve_main.main(["--compilation_cache_dir", "x", "--device", "cpu"])
     with pytest.raises(ValueError, match="divide every bucket"):
         ServeConfig(page_size=8, buckets=(12,))
     assert ServeConfig().page_size == JaxServeConfig().page_size == 0

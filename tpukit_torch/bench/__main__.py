@@ -2,7 +2,7 @@
 (twin of tpukit's `bench.py`).
 
     python -m tpukit_torch.bench [--moe_dispatch xla|pallas] [--device cpu]
-    torchrun --nproc_per_node N -m tpukit_torch.bench
+    torchrun --nproc_per_node N -m tpukit_torch.bench [--serving_records KEY,...]
 
 A plain run is a world of one; under `torchrun` every rank drives one card
 (tpukit reads its N from `len(jax.devices())`). Trains tpukit's bench GPT
@@ -27,7 +27,9 @@ tpukit's serving records use one device whatever the world, and its fleet
 record all of them: in a world of N > 1 they run on rank 0 after the
 training records, while the other ranks leave their cards idle and wait on
 a gloo group (not NCCL, whose watchdog a record of minutes could cross), so
-no record is timed while another rank runs work.
+no record is timed while another rank runs work. `--serving_records`
+(the port's own) runs only the named serving records, as they run there,
+and prints them alone: one JSON object by key.
 
 `decode_fused`'s `amortization_speedup` measures the port's window, which
 reads the lanes' flags on the host after every tick (ROADMAP A11), not
@@ -183,11 +185,13 @@ def moe_probe(cfg, n_dev: int, rng, moe_dispatch: str, device) -> float:
     return 8 * moe_batch * (cfg.max_position_embeddings - 1) / min(times) / n_dev
 
 
-def serving_records(cfg, n_dev: int, device) -> dict:
-    """Every serving record on this rank's card, each a failure landing as
-    `{"error": ...}`, by key."""
+def serving_records(cfg, n_dev: int, device, keys=None) -> dict:
+    """Every serving record (or those of `keys`) on this rank's card, each
+    a failure landing as `{"error": ...}`, by key."""
     out = {}
     for key, label, record in SERVING_RECORDS:
+        if keys is not None and key not in keys:
+            continue
         rec, err = _probe(label, lambda: record(cfg, n_dev, device=device))
         out[key] = rec if err is None else {"error": err}
     return out
@@ -323,7 +327,14 @@ def main(argv=None) -> int:
                     "and pallas side by side)")
     ap.add_argument("--device", default=None,
                     help="cpu, or cuda (one card a rank; the default)")
+    ap.add_argument("--serving_records", default="",
+                    help="comma-separated keys of serving records: only these run, on rank 0, "
+                    "printed as one JSON object by key (no headline or training record)")
     args = ap.parse_args(argv)
+    keys = [k for k in args.serving_records.split(",") if k]
+    unknown = sorted(set(keys) - {key for key, _, _ in SERVING_RECORDS})
+    if unknown:
+        ap.error(f"--serving_records: unknown {unknown}")
     from tpukit_torch import NotPortedError, mesh, resolve_device
     from tpukit_torch.flags import NOT_CARRIED
 
@@ -334,7 +345,11 @@ def main(argv=None) -> int:
     with mesh.scoped_runtime():
         device = mesh.initialize_runtime(device)
         with contextlib.redirect_stdout(sys.stderr):  # stdout holds the one JSON line
-            result = run(device, moe_dispatch=args.moe_dispatch)
+            if keys:
+                result = on_rank_zero(lambda: serving_records(
+                    bench_config(), mesh.world_size(), device, keys))
+            else:
+                result = run(device, moe_dispatch=args.moe_dispatch)
         if mesh.rank() == 0:
             print(json.dumps(result), flush=True)
     return 0

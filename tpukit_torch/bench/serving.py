@@ -501,12 +501,17 @@ def bench_fleet_serving(cfg, n_dev, requests=32, slots=4, max_new=12, params=Non
     shared-system-prompt stream (admit latency, handoffs).
 
     With fewer than 4 cards (`n_dev`, the world) the replicas are meshless,
-    every one on `device`. At 4 cards and up tpukit gives a replica
-    `n_dev // replicas` devices: the port serves one replica a card, so the
-    4-replica rung places replica i on `cuda:i` from this process, and the
-    1- and 2-replica rungs, which need a grid a replica (ROADMAP item 19b),
-    land `NotPortedError` in their rows; the disaggregated half then runs
-    its 2 replicas on a card each, the prefill worker on the next."""
+    every one on `device`. At 4 cards and up each replica takes `n_dev //
+    replicas` devices, tpukit's rule (`bench.py:1052-1056`): a replica of
+    one card is an engine on `cuda:i` in this process, a replica of more a
+    grid over its cards, a world of rank processes of its own
+    (`serve/replica_world.py`); the disaggregated half's 2 replicas take
+    `n_dev // 2` each, and its prefill worker, with no card to spare, runs
+    on `device`. A rung of in-process replicas is timed after a warm-up
+    run of its own router, as tpukit's; a grid rung's worlds are fresh
+    processes in every router, so it has no warm-up run: its clock starts
+    once every world has started (`FleetRouter.ready`; each rank has set up
+    its groups' communicators), and its ranks' first calls fall inside it."""
     from tpukit_torch import resolve_device
     from tpukit_torch.serve import (FleetConfig, FleetRouter, ServeConfig,
                                     synthetic_request_stream)
@@ -520,16 +525,17 @@ def bench_fleet_serving(cfg, n_dev, requests=32, slots=4, max_new=12, params=Non
                         window_steps=10**9)
     meshed = n_dev >= 4
 
-    def run_fleet(n_replicas, fleet_kw=None, serve_cfg=None, reqs=None, dpr=None):
+    def run_fleet(n_replicas, fleet_kw=None, serve_cfg=None, reqs=None):
         fc = FleetConfig(replicas=n_replicas,
-                         devices_per_replica=(dpr if dpr is not None else
-                                              (n_dev // n_replicas) if meshed else 0),
+                         devices_per_replica=(n_dev // n_replicas) if meshed else 0,
                          window_steps=10**9, **(fleet_kw or {}))
         sv = serve_cfg or serve
         stream = reqs or s.stream
-        FleetRouter(host, s.cfg, sv, fc, eos_id=s.eos, device=device).run(
-            list(stream), max_wall_s=MAX_WALL_S)
+        if fc.devices_per_replica <= 1:  # a grid's worlds are new processes each router
+            FleetRouter(host, s.cfg, sv, fc, eos_id=s.eos, device=device).run(
+                list(stream), max_wall_s=MAX_WALL_S)
         router = FleetRouter(host, s.cfg, sv, fc, eos_id=s.eos, device=device)
+        router.ready()  # the worlds' start is set-up, as the warm-up run is
         comps, wall = _timed_run(router, stream)
         gen = sum(c.generated for c in comps)
         return dict(
@@ -564,10 +570,9 @@ def bench_fleet_serving(cfg, n_dev, requests=32, slots=4, max_new=12, params=Non
         shared = synthetic_request_stream(s.tokenizer, requests, seed=0,
                                           max_new_tokens=max_new, buckets=buckets,
                                           lengths=lengths, shared_prefix=page)
-        dpr = 1 if meshed else 0
-        colo, _, _ = run_fleet(2, serve_cfg=paged_cfg, reqs=shared, dpr=dpr)
+        colo, _, _ = run_fleet(2, serve_cfg=paged_cfg, reqs=shared)
         dis, _, dsum = run_fleet(2, fleet_kw=dict(disagg_prefill=True), serve_cfg=paged_cfg,
-                                 reqs=shared, dpr=dpr)
+                                 reqs=shared)
         dp = (dsum or {}).get("disagg_prefill") or {}
         disagg = dict(
             colocated_admit_latency_s=colo["mean_admit_latency_s"],
@@ -580,10 +585,8 @@ def bench_fleet_serving(cfg, n_dev, requests=32, slots=4, max_new=12, params=Non
     except Exception as exc:
         disagg = {"error": repr(exc)}
 
-    where = (f"{n_dev} cards: replica i on cuda:i; the 1- and 2-replica rungs need a "
-             f"model-parallel grid a replica (ROADMAP item 19b), so they hold its "
-             f"NotPortedError and parity has no 1-replica baseline; the disaggregated "
-             f"half runs 2 replicas on a card each" if meshed else
+    where = (f"{n_dev} cards: a replica takes n_dev // replicas of them, a grid over "
+             f"several served by a world of its own, one process a card" if meshed else
              f"{device.type} with {n_dev} card(s) in the world: every replica is a meshless "
              f"engine on {device}, so replicas share one device and the curve measures the "
              f"router's scheduling")
@@ -597,7 +600,7 @@ def bench_fleet_serving(cfg, n_dev, requests=32, slots=4, max_new=12, params=Non
         "disagg_prefill": disagg,
         "caveat": (f"{where}; one router process drives every replica, and the port's "
                    f"quantum reads its flags on the host every tick (ROADMAP A11), so "
-                   f"replicas on one card run one after the other"),
+                   f"in-process replicas on one card run one after the other"),
     }
 
 

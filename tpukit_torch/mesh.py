@@ -18,11 +18,16 @@ comes from, in this order:
 The backend is NCCL for `cuda` and gloo for `cpu`. Rank r binds
 `cuda:{LOCAL_RANK}`. Nothing here falls back to gloo on the CPU when a card
 was asked for: the device comes from `tpukit_torch.resolve_device`.
+
+A fleet replica over a model-parallel grid is a world of its own
+(`initialize_subset_world`): its ranks meet at an explicit address, and
+rank r binds the r-th device of the replica's subset of `device_list`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import os
 
 import torch
@@ -65,6 +70,43 @@ def initialize_runtime(device=None, address: str | None = None,
     else:
         dist.init_process_group(backend_for(dev), store=dist.HashStore(), rank=0,
                                 world_size=1)
+    return dev
+
+
+def device_list(device) -> list[torch.device]:
+    """The devices a fleet carves into replica subsets (the port's
+    `jax.devices()`): every card for `cuda`; for `cpu`, as many CPU entries
+    as `TPUKIT_CPU_DEVICES` says (tpukit's variable, `tpukit/__init__.py:21-30`),
+    one without it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")] * int(os.environ.get("TPUKIT_CPU_DEVICES") or 1)
+
+
+def subset_backend(devices) -> str:
+    """The backend of a world over `devices`, one rank each: NCCL over
+    distinct cards; gloo on the CPU and where a card repeats (NCCL refuses
+    two ranks on one card)."""
+    devices = [torch.device(d) for d in devices]
+    cards = [d for d in devices if d.type == "cuda"]
+    return "nccl" if cards and len(set(cards)) == len(devices) else "gloo"
+
+
+def initialize_subset_world(address: str, devices, rank: int, timeout_s: float) -> torch.device:
+    """Bring up this process's default group as rank `rank` of a world of
+    its own over `devices` (one rank a device, `subset_backend`'s backend),
+    meeting at `address` (e.g. `file://<fresh path>`). The rank binds
+    `devices[rank]`, not `cuda:{LOCAL_RANK}`, and sets it as the current
+    device before anything is built or launched. A collective that waits
+    longer than `timeout_s` raises. Returns the device."""
+    devices = [torch.device(d) for d in devices]
+    dev = devices[rank]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(subset_backend(devices), init_method=address,
+                            world_size=len(devices), rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
     return dev
 
 

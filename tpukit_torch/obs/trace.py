@@ -105,6 +105,14 @@ class TraceRecorder:
         with self._lock:
             self._epoch = t0
 
+    @property
+    def epoch(self) -> float | None:
+        """The perf_counter origin of `now()`, None until one is set. The
+        fleet hands it to a grid replica's first rank, whose events then
+        share this clock (perf_counter is the host's monotonic clock, one
+        across processes)."""
+        return self._epoch
+
     def now(self) -> float:
         """Run-relative seconds (lazily 0-based when no epoch was set —
         tests driving step primitives directly still get a coherent

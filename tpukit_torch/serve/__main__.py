@@ -35,24 +35,27 @@ reads) unless `--no_metrics`. `--slo` is parsed at launch, so a malformed
 clause fails the start. On a grid only its first rank writes.
 
 The fleet (`main-serve.py:500-760`): `--replicas N` routes the stream
-through `serve.fleet.FleetRouter` over N engine replicas in this process,
+through `serve.fleet.FleetRouter` over N replicas: engines in this process
 on this device (`--devices_per_replica 0`) or replica i on `cuda:i`
-(`--devices_per_replica 1`), with disaggregated prefill
-(`--disagg_prefill`), autoscale, the `--fleet_kill` chaos plan, the
-durable ledger (`--fleet_dir`) with heartbeat liveness
+(`--devices_per_replica 1`), or with `--devices_per_replica D` above 1
+each replica on a `(data, model)` grid over its own D devices, a c10d
+world of D rank processes (`serve/replica_world.py`; with `--device cpu`,
+`TPUKIT_CPU_DEVICES` sizes the device list, as tpukit's). With
+disaggregated prefill (`--disagg_prefill`), autoscale, the `--fleet_kill`
+chaos plan, the durable ledger (`--fleet_dir`) with heartbeat liveness
 (`--replica_timeout`), the retry budget, backpressure
 (`--max_queue_depth`) and deadlines (`--deadline_ms`, which the single
 engine honours too). `--fleet_procs` runs each replica as a worker process
 (this entry point again, with `--fleet_worker i`) driven through the
-ledger, where `replica_sigkill` chaos is a real SIGKILL. The checkpoint is
-read once and placed once a device. `kind="fleet"` windows,
-`fleet_event` rows and the `fleet_summary` go to `--metrics_log`
-(`tools/report.py --min_fleet_tps`).
+ledger, where `replica_sigkill` chaos is a real SIGKILL; as tpukit's, a
+worker serves meshless, on `cuda:i` with `--devices_per_replica 1` and on
+this device otherwise. The checkpoint is read once and placed once a
+device (once a subset). `kind="fleet"` windows, `fleet_event` rows and the
+`fleet_summary` go to `--metrics_log` (`tools/report.py --min_fleet_tps`).
 
 Every flag of `main-serve.py` parses with tpukit's default; a value other
 than the default of one the port does not carry raises `NotPortedError`
-naming its ROADMAP.md item (`NOT_CARRIED`, and `--devices_per_replica`
-above 1, item 19b).
+naming its ROADMAP.md item (`NOT_CARRIED`).
 
   python -m tpukit_torch.serve --requests 64                  # ring, greedy
   python -m tpukit_torch.serve --checkpoint latest --page_size 16 --fused_decode
@@ -70,6 +73,11 @@ above 1, item 19b).
   python -m tpukit_torch.serve --replicas 2 --page_size 16 --fused_decode \\
       --fleet_kill replica_kill@8:1 --metrics_log fleet.jsonl
   python -m tpukit_torch.serve --replicas 2 --page_size 16 --disagg_prefill
+  python -m tpukit_torch.serve --replicas 2 --devices_per_replica 4 --page_size 16 \\
+      --fused_decode --fleet_kill replica_kill@40:1 --metrics_log fleet.jsonl
+  TPUKIT_CPU_DEVICES=4 python -m tpukit_torch.serve --device cpu --replicas 2 \\
+      --devices_per_replica 2 --num_layers 2 --dim 64 --head_dim 16 --heads 4 \\
+      --requests 8 --page_size 8 --fused_decode
   python -m tpukit_torch.serve --replicas 2 --fleet_procs --fleet_dir fleet \\
       --replica_timeout 60 --fleet_kill replica_sigkill@6:1 --metrics_log fleet.jsonl
 """
@@ -200,8 +208,9 @@ def add_fleet_flags(ap: argparse.ArgumentParser) -> None:
                     help="fleet mode: route the stream over this many engine replicas "
                     "(0: the single engine)")
     ap.add_argument("--devices_per_replica", type=int, default=0,
-                    help="0: every replica on --device; 1: replica i on cuda:i (above "
-                    "1, a grid a replica, is ROADMAP item 19b)")
+                    help="0: every replica on --device; 1: replica i on cuda:i; D > 1: "
+                    "replica i on a (data, model) grid over its D devices, a world of "
+                    "D processes")
     ap.add_argument("--min_replicas", type=int, default=1,
                     help="autoscale floor (scale-down never goes below)")
     ap.add_argument("--max_replicas", type=int, default=0,
@@ -353,13 +362,6 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     flags = parse_flags(argv)
     _reject_unported(flags)
-    if flags.devices_per_replica > 1:
-        from tpukit_torch.serve.fleet import ITEM_19B
-
-        raise NotPortedError(
-            f"--devices_per_replica {flags.devices_per_replica} is not in the port yet "
-            f"(ROADMAP.md, queue A {ITEM_19B}): the port serves a grid as one process a "
-            f"card over c10d; a fleet replica holds one device")
     from tpukit_torch import mesh as mesh_lib
     from tpukit_torch.obs import parse_slo
 
@@ -519,7 +521,9 @@ def _serve(flags, device, grid_mesh, slo) -> None:
 
 def _replica_device(flags, device, idx: int) -> torch.device:
     """A worker process's device: `cuda:idx` with `--devices_per_replica 1`
-    on the card, else the entry point's."""
+    on the card, else the entry point's (tpukit's worker serves meshless on
+    the default device whatever `--devices_per_replica` says,
+    `main-serve.py:540-562`)."""
     if flags.devices_per_replica == 1 and device.type == "cuda":
         if idx >= torch.cuda.device_count():
             raise ValueError(f"--devices_per_replica 1: replica {idx} needs cuda:{idx}, "
@@ -627,6 +631,8 @@ def _run_fleet(flags, argv, device, slo) -> int:
     if s.get("slo_overall_compliance") is not None:
         print(f"  SLO compliance {100 * s['slo_overall_compliance']:.2f}% (worst target, "
               f"cumulative) for --slo {flags.slo!r}")
+    for c in sorted(completions, key=lambda c: c.rid) if flags.prompt else ():
+        print(f"  [{c.rid}] " + tokenizer.decode(np.asarray(c.ids), skip_special_tokens=True))
     if flags.metrics_log:
         print(f"fleet telemetry -> {flags.metrics_log} (render: python tools/report.py "
               f"{flags.metrics_log})")

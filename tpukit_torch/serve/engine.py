@@ -51,7 +51,10 @@ are accounted as `kind="slo"` rows, and `metrics_dir` gets the registry's
 snapshot. Each of `logger`, `recorder`, `tracer` and `metrics` may be None,
 and none of them changes a token or the schedule. Under a grid only the
 grid's first rank is given them (the entry point's rule): the telemetry
-adds no collective, and the tracer's clock is that rank's own.
+adds no collective, and the tracer's clock is that rank's own. A fleet
+replica over a grid (`serve/replica_world.py`) gives its first rank
+relays that hand every call to the router's planes, on the router's
+clock.
 
 The port's fused `decode_loop_window` reads the lanes' flags on the host
 after every tick, so its `decode` span (the quantum's dispatch wall, which
@@ -68,8 +71,9 @@ and the hooks of tpukit's (`engine.py:1419-1627`): `replica` labels every
 record, trace event and metric series; `stuck_rids` pins requests past EOS
 (chaos); `requeue_live` hands back a killed replica's in-flight requests;
 `release_lane` and `adopt_prefilled` are the two halves of the
-disaggregated prefill's page handoff. A fleet replica leaves the shared
-tracer's flush and the registry's epilogue to its router.
+disaggregated prefill's page handoff; `host_state` is what a grid
+replica's first rank reports to its router. A fleet replica leaves the
+shared tracer's flush and the registry's epilogue to its router.
 """
 
 from __future__ import annotations
@@ -1129,6 +1133,24 @@ class ServeEngine:
         has no page budget and reports 1 << 30."""
         return self.allocator.available_pages if self.serve.paged else (1 << 30)
 
+    def host_state(self, completions_from: int = 0) -> dict:
+        """The host state a grid replica's first rank sends its router with
+        every reply (`serve/replica_world.py`): the counters the router
+        reads, each lane as `(slot, rid, phase, pages, prefill_end,
+        prompt_len, admit_s, key)`, the allocator's stats, the summary of
+        the last `finish`, and the completions from `completions_from` on."""
+        return dict(
+            free_slots=self.free_slots, free_pages=self.free_pages,
+            live_lanes=self.live_lanes, decoding_lanes=self.decoding_lanes,
+            generated_tokens=self.generated_tokens, admitted=self.admitted,
+            steps=self.steps, prefill_dispatches=self.prefill_dispatches,
+            lanes=[(s, l.req.rid, l.phase, list(l.pages), l.prefill_end, l.prompt_len,
+                    l.admit_s, l.key) for s, l in sorted(self._lanes.items())],
+            stats=(dataclasses.replace(self.allocator.stats) if self.serve.paged else None),
+            last_summary=self.last_summary,
+            completions=self.completions[completions_from:],
+        )
+
     def admit(self, reqs: list[Request], now: float) -> list[Request]:
         """Admit as many of `reqs` (in order) as capacity allows; returns the
         un-admitted tail. Ring: up to the free-slot count, in one batched
@@ -1231,7 +1253,7 @@ class ServeEngine:
                         admit_s: float, now: float, key) -> int:
         """The decode replica's half of the handoff (twin of
         `tpukit/serve/engine.py:1572`): arm a lane whose K/V another engine
-        prefilled and `fleet._copy_pages` copied into this engine's pool at
+        prefilled and the fleet's handoff copied into this engine's pool at
         `pages` (allocated or claimed on this allocator; the first `shared`
         are registry claims). Writes the block-table row, the prompt into
         the buffer and the lane's decode state (`decode.adopt_slot`, no

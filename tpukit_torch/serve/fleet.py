@@ -30,19 +30,26 @@
     `Request.deadline_ms`; with `max_queue_depth` the router sheds the
     arrived excess, lowest priority first, then latest.
 
-Devices. The port runs one process per card, so a replica is an engine on
-one device: `devices_per_replica` 0 puts every replica on the router's
-device (the card, or the CPU when asked), 1 puts replica i on `devices[i]`
-(`cuda:i`). Every call into a replica runs under its card
-(`torch.cuda.device`), since the ctypes kernels launch on the current
-device, and a cross-card handoff moves the page block with `.to`. A
-model-parallel grid a replica (`devices_per_replica` > 1, tpukit's subset
-meshes) is ROADMAP item 19b.
+Devices. `devices_per_replica` 0 puts every replica, an engine in the
+router's process, on the router's device (the card, or the CPU when
+asked); 1 puts replica i on `devices[i]` (`cuda:i`). Every call into such a
+replica runs under its card (`torch.cuda.device`), since the ctypes
+kernels launch on the current device, and a cross-card handoff moves the
+page block with `.to`. Above 1, replica i serves on a `(data, model)` grid
+over the subset `devices[i*D:(i+1)*D]`, `pick_serve_grid(D, heads, slots,
+paged)`, as tpukit's subset meshes: the port serves a grid as one process
+a device over c10d, so the replica is a world of D rank processes of its
+own, driven through a `replica_world.GridReplica` (that module's docstring
+has the protocol). The devices default to `mesh.device_list` (every card;
+on the CPU, `TPUKIT_CPU_DEVICES` entries). A subset beyond the replica
+budget hosts the prefill worker as a world of its own; otherwise it runs
+meshless on the router's device.
 
 The router adds no collective and no kernel. It dispatches every
-replica's quantum before it syncs any, as tpukit's; but the port's fused
+replica's quantum before it syncs any, as tpukit's. The port's fused
 window reads its flags on the host after every tick (ROADMAP.md A11), so
-replicas on one card run one after the other.
+in-process replicas on one card run one after the other; grid replicas
+are processes of their own and overlap.
 
 Telemetry: replicas write their `kind="serve"` windows tagged
 `replica=<id>`; the router adds `kind="fleet"` windows, `fleet_event`
@@ -65,7 +72,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpukit_torch import NotPortedError, resolve_device
+from tpukit_torch import mesh as mesh_lib
+from tpukit_torch import resolve_device
 from tpukit_torch import chaos as chaos_lib
 from tpukit_torch import recovery as recovery_lib
 from tpukit_torch import retry as retry_lib
@@ -74,8 +82,7 @@ from tpukit_torch.obs import trace as trace_lib
 from tpukit_torch.serve import ledger as ledger_lib
 from tpukit_torch.serve import paged as paged_lib
 from tpukit_torch.serve.engine import Completion, Request, ServeConfig, ServeEngine, trace_id
-
-ITEM_19B = "item 19b 'Fleet replicas over a model-parallel grid'"
+from tpukit_torch.serve.replica_world import GridReplica, HostParams, adopt_block
 
 
 def pick_serve_grid(n_devices: int, heads: int, slots: int, paged: bool = False,
@@ -116,11 +123,13 @@ def place_replica_params(host_params, device):
     return host_params.to(device)
 
 
-def _on(eng: ServeEngine):
-    """The context of a call into `eng`: its card the current device (where
-    the ctypes kernels launch; their wrappers enter it too), or nothing on
-    the CPU."""
-    return (torch.cuda.device(eng.device) if eng.device.type == "cuda"
+def _on(eng):
+    """The context of a call into `eng`: an in-process engine's card the
+    current device (where the ctypes kernels launch; their wrappers enter
+    it too), or nothing on the CPU and for a grid replica, whose ranks set
+    their own cards."""
+    return (torch.cuda.device(eng.device)
+            if isinstance(eng, ServeEngine) and eng.device.type == "cuda"
             else contextlib.nullcontext())
 
 
@@ -131,7 +140,8 @@ class FleetConfig:
     the fleet adds the topology and the control loops.
 
     `replicas` engines to start; `devices_per_replica` 0 (every replica on
-    the router's device) or 1 (replica i on devices[i]); autoscale between
+    the router's device), 1 (replica i on devices[i]) or D (replica i on a
+    grid over its D devices, a world of its own); autoscale between
     `min_replicas` and `max_replicas` (0: `replicas`) on the window's mean
     slot occupancy against `scale_up_occupancy` / `scale_down_occupancy`
     (0 disables each); a `kind="fleet"` window every `window_steps`
@@ -202,12 +212,6 @@ class FleetConfig:
             raise ValueError(f"request_retries={self.request_retries} must be >= 0")
         if self.max_queue_depth < 0:
             raise ValueError(f"max_queue_depth={self.max_queue_depth} must be >= 0")
-        if self.devices_per_replica > 1:
-            raise NotPortedError(
-                f"devices_per_replica={self.devices_per_replica}: a model-parallel grid "
-                f"per replica is not in the port yet (ROADMAP.md, queue A {ITEM_19B}); "
-                f"the port serves a grid as one process per card over c10d, while the "
-                f"router drives its replicas from one process")
 
     @property
     def max_count(self) -> int:
@@ -220,13 +224,16 @@ class FleetRouter:
 
     `params_host` is ONE host copy of the model parameters; the router
     places it once per device (`place_replica_params`), and replicas on
-    one device share the placement. `serve` is each replica's engine
-    shape, `fleet` the topology and control. `device` is the device of
-    meshless replicas (cuda unless the caller asks for the CPU);
-    `devices` the list `devices_per_replica` 1 carves (default: every
-    card, or the one CPU). `logger`/`recorder` flow into every replica
-    and carry the router's own records; `tracer`, `metrics`, `slo` and
-    `metrics_dir` are the router's, shared with the replicas."""
+    one device share the placement; grid replicas map one shared host copy
+    (`replica_world.HostParams`), and each subset counts one placement.
+    `serve` is each replica's engine shape, `fleet` the topology and
+    control. `device` is the device of meshless replicas (cuda unless the
+    caller asks for the CPU); `devices` the list `devices_per_replica`
+    carves (default: `mesh.device_list`). `logger`/`recorder` flow into
+    every replica and carry the router's own records; `tracer`, `metrics`,
+    `slo` and `metrics_dir` are the router's, shared with the replicas.
+    `close` ends the grid replicas' worlds; `run` closes them when it
+    ends."""
 
     def __init__(self, params_host, cfg, serve: ServeConfig, fleet: FleetConfig,
                  eos_id: int, *, device=None, devices=None, logger=None, recorder=None,
@@ -263,27 +270,27 @@ class FleetRouter:
         self._slo_seen_rids: set = set()
         self._metrics_replicas: set = set()  # every replica id ever built
         self._params_host = params_host
+        self._host_block: HostParams | None = None  # the grid worlds' shared host copy
         self.placements = 0
-        self._placed: dict = {}  # device -> placed params
+        self._placed: dict = {}  # device, or ("subset", idx) -> placed params
 
         dpr = fleet.devices_per_replica
-        if devices is None:
-            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                       if self.device.type == "cuda" else [self.device])
-        devices = [torch.device(d) for d in devices]
+        devices = [torch.device(d) for d in (mesh_lib.device_list(self.device)
+                                             if devices is None else devices)]
+        # replica i's devices: a subset of `dpr`, or the router's device
+        self._subsets = [[self.device]] * fleet.max_count
+        self._worker_devices = [self.device]  # the prefill worker's
         if dpr:
             need = fleet.max_count * dpr
             if need > len(devices):
                 raise ValueError(
                     f"max_replicas={fleet.max_count} x devices_per_replica="
                     f"{dpr} needs {need} devices, have {len(devices)}")
-            self._devices = devices[:need]
-            # a spare device beyond the replica budget hosts the prefill
-            # worker; otherwise it shares the router's device
-            self._worker_device = devices[need] if len(devices) > need else self.device
-        else:
-            self._devices = [self.device] * fleet.max_count
-            self._worker_device = self.device
+            self._subsets = [devices[i * dpr: (i + 1) * dpr] for i in range(fleet.max_count)]
+            # a spare subset beyond the replica budget hosts the prefill
+            # worker; otherwise it runs meshless on the router's device
+            if len(devices) >= need + dpr:
+                self._worker_devices = devices[need: need + dpr]
 
         self.requeued = 0
         self.kills = 0
@@ -314,18 +321,20 @@ class FleetRouter:
         self._window_idx = 0
         self._win = dict(rounds=0, occ=0.0, tok0=0, t0=0.0, req0=0)
 
-        self._replicas: dict[int, ServeEngine] = {}
+        self._replicas: dict[int, ServeEngine | GridReplica] = {}
         self._draining: set[int] = set()
-        for idx in range(fleet.replicas):
-            self._build_replica(idx, log=False)
-
-        self.prefill: ServeEngine | None = None
-        if fleet.disagg_prefill:
-            wcfg = dataclasses.replace(serve, slots=fleet.prefill_slots or serve.slots,
-                                       num_pages=fleet.prefill_pages or serve.num_pages)
-            self.prefill = ServeEngine(
-                self._place_for(self._worker_device), cfg, wcfg, eos_id=self.eos_id,
-                device=self._worker_device, replica="prefill", tracer=self.tracer)
+        self.prefill: ServeEngine | GridReplica | None = None
+        try:
+            for idx in range(fleet.replicas):
+                self._build_replica(idx, log=False)
+            if fleet.disagg_prefill:
+                wcfg = dataclasses.replace(serve, slots=fleet.prefill_slots or serve.slots,
+                                           num_pages=fleet.prefill_pages or serve.num_pages)
+                self.prefill = self._engine("prefill", self._worker_devices, wcfg,
+                                            dict(tracer=self.tracer))
+        except BaseException:
+            self.close()
+            raise
 
         # round -> target ids (None: the highest live). The in-process router
         # fires replica_sigkill as replica_kill (there is no process to
@@ -345,13 +354,32 @@ class FleetRouter:
             self.placements += 1
         return self._placed[key]
 
-    def _build_replica(self, idx: int, log: bool = True) -> ServeEngine:
-        device = self._devices[idx]
-        eng = ServeEngine(
-            self._place_for(device), self.cfg, self.serve, eos_id=self.eos_id,
-            device=device, logger=self.logger, recorder=self.recorder, replica=idx,
-            tracer=self.tracer, metrics=self.metrics,
-        )
+    def _place_for_subset(self, subset_key) -> HostParams:
+        """The shared host copy a grid world maps (written once); each
+        subset counts one placement, as tpukit's `_place_for` counts one
+        device_put a subset mesh."""
+        if self._host_block is None:
+            self._host_block = HostParams(self._params_host)
+        if subset_key not in self._placed:
+            self._placed[subset_key] = self._host_block
+            self.placements += 1
+        return self._host_block
+
+    def _engine(self, replica, devices: list, serve: ServeConfig, planes: dict):
+        """A replica (or the prefill worker): an engine in this process on
+        its one device, or a grid world over its subset."""
+        if len(devices) == 1:
+            return ServeEngine(self._place_for(devices[0]), self.cfg, serve,
+                               eos_id=self.eos_id, device=devices[0], replica=replica,
+                               **planes)
+        grid = pick_serve_grid(len(devices), self.cfg.heads, serve.slots, paged=serve.paged)
+        return GridReplica(replica, devices, self._place_for_subset(("subset", replica)),
+                           self.cfg, serve, self.eos_id, grid, **planes)
+
+    def _build_replica(self, idx: int, log: bool = True) -> ServeEngine | GridReplica:
+        eng = self._engine(idx, self._subsets[idx], self.serve,
+                           dict(logger=self.logger, recorder=self.recorder,
+                                tracer=self.tracer, metrics=self.metrics))
         eng.stuck_rids = self._chaos.stuck
         self._replicas[idx] = eng
         self._metrics_replicas.add(idx)
@@ -364,7 +392,7 @@ class FleetRouter:
     def _free_ids(self) -> list[int]:
         return [i for i in range(self.fleet.max_count) if i not in self._replicas]
 
-    def _live(self) -> list[ServeEngine]:
+    def _live(self) -> list[ServeEngine | GridReplica]:
         """Admission targets: live, non-draining replicas in id order (so
         ties go to the lowest id)."""
         return [e for i, e in sorted(self._replicas.items()) if i not in self._draining]
@@ -470,37 +498,32 @@ class FleetRouter:
             if self._adopt(worker, slot, lane, dst, now):
                 self.handoffs += 1
 
-    def _adopt(self, worker: ServeEngine, slot: int, lane, dst: ServeEngine,
-               now: float) -> bool:
-        """One handoff: claim the destination's registered prefix pages
-        (refcounted, so pool pressure cannot reclaim them under this
-        reader), copy the remaining written pages, arm the decode lane.
-        Returns False, changing nothing, when the destination's pool cannot
-        cover the request's footprint."""
+    def _adopt(self, worker, slot: int, lane, dst, now: float) -> bool:
+        """One handoff: read the worker's written pages, then claim the
+        destination's registered prefix pages, allocate the rest, write the
+        remaining pages and arm the decode lane (`adopt_block`; into a grid
+        replica one command of its world, `GridReplica.adopt_handoff`, on
+        every rank). Returns False, changing nothing, when the destination's
+        pool cannot cover the request's footprint."""
         req, plen = lane.req, lane.prompt_len
         tr = self.tracer
         h0 = tr.now() if tr is not None else 0.0
-        p = self.serve.page_size
-        written = -(-lane.prefill_end // p)  # pages holding computed K/V
-        matched = dst.allocator.lookup_prefix(req.ids, (plen - 1) // p)
-        dst.allocator.claim(matched)
-        limit = min(plen + req.max_new_tokens, self.serve.width)
-        fresh = dst.allocator.alloc(-(-limit // p) - len(matched))
-        if fresh is None:
-            dst.allocator.release(matched)
+        written = -(-lane.prefill_end // self.serve.page_size)  # pages holding K/V
+        block = _read_pages(worker, lane.pages[:written])
+        if isinstance(dst, GridReplica):
+            adopted = dst.adopt_handoff(req, plen, {k: v.cpu() for k, v in block.items()},
+                                        lane.admit_s, now, lane.key)
+        else:
+            with _on(dst):
+                adopted = adopt_block(dst, req, plen, block, lane.admit_s, now, lane.key)
+        if adopted is None:
             return False
-        pages = list(matched) + fresh
-        c0 = tr.now() if tr is not None else 0.0
-        _copy_pages(worker, dst, lane.pages[len(matched):written],
-                    fresh[: written - len(matched)])
-        c1 = tr.now() if tr is not None else 0.0
-        with _on(dst):
-            dst.adopt_prefilled(req, pages, len(matched), lane.admit_s, now, lane.key)
+        copied, claim_s, copy_s = adopted
         worker.release_lane(slot)
         if tr is not None:
             tr.emit("handoff", trace_id(req), rid=req.rid, t0=h0, t1=tr.now(),
-                    claim_s=c0 - h0, copy_s=c1 - c0, pages=written - len(matched),
-                    dst=dst.replica, replica="router")
+                    claim_s=claim_s, copy_s=copy_s, pages=copied, dst=dst.replica,
+                    replica="router")
         return True
 
     # ---- failure + autoscale --------------------------------------------
@@ -582,14 +605,16 @@ class FleetRouter:
 
     def _kill(self, idx: int, rounds: int, now: float, event: str = "replica_kill",
               **extra) -> None:
-        """Drop replica `idx` mid-flight: the engine is discarded, its
-        completed requests keep their tokens (published to the ledger
-        first), and its in-flight requests requeue at the head of the queue
-        within the retry budget."""
+        """Drop replica `idx` mid-flight: the engine is discarded (a grid
+        replica's world ended and reaped once its live requests are taken
+        back), its completed requests keep their tokens (published to the
+        ledger first), and its in-flight requests requeue at the head of
+        the queue within the retry budget."""
         eng = self._replicas.pop(idx)
         self._draining.discard(idx)
         self._ledger_collect(eng)
         victims = eng.requeue_live()
+        _close(eng)
         self._done.extend(eng.completions)
         # the victim's whole generated count (its in-flight partial tokens
         # too) joins the removed tally, so the window counter stays
@@ -673,6 +698,7 @@ class FleetRouter:
             occupancy=s.get("mean_occupancy"), fate=fate)
         del self._replicas[idx]
         self._draining.discard(idx)
+        _close(eng)
 
     # ---- telemetry -------------------------------------------------------
 
@@ -857,6 +883,24 @@ class FleetRouter:
             return self._run_loop(self._pending, max_wall_s)
         finally:
             chaos_lib.install(prev_chaos)
+            self.close()
+
+    def ready(self) -> None:
+        """Wait until every grid world this router holds has started (its
+        ranks' start-up replies); an in-process engine is ready when built.
+        `run` waits for them too, before its clock starts."""
+        for eng in [*self._replicas.values(), self.prefill]:
+            if isinstance(eng, GridReplica):
+                eng.ready()
+
+    def close(self) -> None:
+        """End every grid world this router still holds (its replicas' and
+        the prefill worker's) and release the shared host copy; in-process
+        engines need nothing. `run` calls it when it ends."""
+        for eng in [*self._replicas.values(), self.prefill]:
+            _close(eng)
+        if self._host_block is not None:
+            self._host_block.close()
 
     def _run_loop(self, pending: deque, max_wall_s: float | None) -> list[Completion]:
         for eng in self._replicas.values():
@@ -955,20 +999,21 @@ class FleetRouter:
         return self.prefill is not None and self.prefill.live_lanes > 0
 
 
-def _copy_pages(src: ServeEngine, dst: ServeEngine, src_ids, dst_ids) -> None:
-    """The handoff's page copy, spelled once (twin of
-    `tpukit/serve/fleet.py:1200`): gather the source pool's rows
-    (`paged.extract_pages`), move the block to the destination's device,
-    write it into the destination pool (`paged.insert_pages`). K/V pools and
-    int8 scale sidecars alike."""
-    if not src_ids:
-        return
-    s = torch.tensor(list(src_ids), dtype=torch.long, device=src.device)
-    d = torch.tensor(list(dst_ids), dtype=torch.long, device=dst.device)
-    for key in ("k", "v", "ks", "vs"):
-        if key not in src.cache:
-            continue
-        with _on(src):
-            block = paged_lib.extract_pages(src.cache[key], s)
-        with _on(dst):
-            paged_lib.insert_pages(dst.cache[key], d, block.to(dst.device))
+def _close(eng) -> None:
+    """End a grid replica's world; an in-process engine (or None) needs
+    nothing."""
+    if isinstance(eng, GridReplica):
+        eng.close()
+
+
+def _read_pages(src, ids) -> dict:
+    """The handoff's source half (twin of `tpukit/serve/fleet.py:1200`):
+    the rows of pages `ids` of each of the source's pools (K/V and the int8
+    scale sidecars, `paged.extract_pages`), on its device, or, from a grid
+    worker, every head gathered on the CPU."""
+    if isinstance(src, GridReplica):
+        return src.read_pages(ids)
+    s = torch.tensor(list(ids), dtype=torch.long, device=src.device)
+    with _on(src):
+        return {key: paged_lib.extract_pages(src.cache[key], s)
+                for key in ("k", "v", "ks", "vs") if key in src.cache}
